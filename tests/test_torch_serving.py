@@ -1,0 +1,335 @@
+"""The port's serving path against the JAX package, end to end.
+
+(a) the committed full-width fixture, loaded by both packages, scores 300
+    seeded records (missing values, unseen levels, absent fields) to equal
+    record lists: JAX ``serving_plan().score`` vs the port's
+    ``serving_plan(device="cpu").score``;
+(b) a small model trained here by the JAX package, saved, and loaded by the
+    port, scores equally too;
+(c) a saved model with a stage or type the port lacks refuses to load and
+    names it;
+(d) neither the port nor ``chip_smoke.py`` imports JAX or the JAX package;
+(e) with no card, the device default raises instead of running on the CPU.
+"""
+
+import ast
+import gzip
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from transmogrifai_tpu.workflow.workflow import WorkflowModel as JModel
+from transmogrifai_tpu_torch import WorkflowModel as TModel
+from transmogrifai_tpu_torch.types import FeatureTypeError
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "transmogrifai_tpu_torch")
+FIXTURE = os.path.join(PORT, "fixtures", "serving_wide")
+sys.path.insert(0, os.path.join(REPO, "tools"))
+
+import make_torch_serving_fixture as fixture_tool  # noqa: E402
+
+
+def _records(schema_features, n: int, seed: int):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        r = {}
+        for f in schema_features:
+            if f.get("response"):
+                continue
+            u = rng.random()
+            if u < 0.03:
+                continue                          # field absent
+            if u < 0.12:
+                r[f["name"]] = None
+            elif f["type"] == "Real":
+                r[f["name"]] = float(rng.normal() * 1.3)
+            elif f["type"] == "Binary":
+                r[f["name"]] = bool(rng.random() < 0.3)
+            elif u < 0.18:
+                r[f["name"]] = f"never seen {int(rng.integers(99))}"
+            elif u < 0.2:
+                r[f["name"]] = ""
+            else:
+                r[f["name"]] = str(rng.choice(f["levels"]))
+        out.append(r)
+    return out
+
+
+@pytest.fixture(scope="module")
+def fixture_models():
+    with open(os.path.join(FIXTURE, "schema.json")) as fh:
+        schema = json.load(fh)
+    return JModel.load(FIXTURE), TModel.load(FIXTURE), schema
+
+
+class TestFixtureParity:
+    def test_fixture_is_full_width_with_real_splits(self, fixture_models):
+        _, tm, schema = fixture_models
+        types = [f["type"] for f in schema["features"]]
+        assert (types.count("Real"), types.count("PickList"),
+                types.count("Binary")) == (64, 32, 4)
+        split = [t for t in tm.fitted.values()
+                 if type(t).__name__ == "DecisionTreeNumericBucketizerModel"]
+        assert len(split) == 8 and all(t.should_split for t in split)
+        size = sum(os.path.getsize(os.path.join(FIXTURE, f))
+                   for f in os.listdir(FIXTURE))
+        assert size < 5 * 1024 * 1024
+
+    @pytest.mark.parametrize("n, seed", [(300, 0), (37, 1), (1, 2)])
+    def test_records_equal_jax_serving_plan(self, fixture_models, n, seed):
+        jm, tm, schema = fixture_models
+        recs = _records(schema["features"], n, seed)
+        ref = jm.serving_plan().score(recs)
+        got = tm.serving_plan(device="cpu").score(recs)
+        assert len(got) == n
+        assert got == ref
+
+    def test_prefix_vectors_bitwise_vs_jax_program(self, fixture_models):
+        """The port's prefix output equals the reference's compiled prefix
+        program on the same padded entries (bucket 64 for 37 rows)."""
+        jm, tm, schema = fixture_models
+        recs = _records(schema["features"], 37, 3)
+        jplan = jm.serving_plan()
+        tplan = tm.serving_plan(device="cpu")
+        got = tplan.prefix_outputs(recs)
+        # reproduce the reference's entries through its own encode path
+        entries = []
+        for key in jplan._entry_keys:
+            if key[0] == "lift":
+                entries.append(jplan._entry_lifts[key](recs))
+            else:
+                runner, slot, raw = jplan._entry_encoders[key]
+                from transmogrifai_tpu.serve.plan import _light_column
+
+                gen = next(g for g in jplan._generators if g.raw_name == raw)
+                entries.append(np.asarray(runner.encode_device_input(
+                    slot, _light_column(gen, recs))))
+        from transmogrifai_tpu.serve.plan import _pad_rows
+
+        compiled = jplan._ensure_compiled(64)
+        ref = [np.asarray(o)[:37] for o in compiled(*[_pad_rows(a, 64) for a in entries])]
+        assert len(got) == len(ref) == 1
+        assert got[0].shape == ref[0].shape == (37, 866)
+        assert got[0].tobytes() == ref[0].tobytes()
+
+    def test_columnar_score_matches_jax_score(self, fixture_models):
+        from transmogrifai_tpu.data.dataset import Dataset as JDataset
+        from transmogrifai_tpu.types import feature_type_by_name as jft
+        from transmogrifai_tpu_torch.data.dataset import Dataset as TDataset
+        from transmogrifai_tpu_torch.types import feature_type_by_name as tft
+
+        jm, tm, schema = fixture_models
+        feats = [f for f in schema["features"] if not f.get("response")]
+        recs = _records(feats, 200, 4)
+        values = {f["name"]: [r.get(f["name"]) for r in recs] for f in feats}
+        jds = JDataset.from_features(values, {f["name"]: jft(f["type"]) for f in feats})
+        tds = TDataset.from_features(values, {f["name"]: tft(f["type"]) for f in feats})
+        pred = next(f.name for f in tm.result_features
+                    if f.ftype.__name__ == "Prediction")
+        ref = jm.score(jds)[pred]
+        got = tm.score(tds, device="cpu")[pred]
+        assert got.data.tobytes() == np.asarray(ref.data).tobytes()
+
+    def test_malformed_requests_refused_like_reference(self, fixture_models):
+        jm, tm, schema = fixture_models
+        recs = _records(schema["features"], 5, 5)
+        recs[2]["r0"] = "1.2"                     # numpy would parse it
+        with pytest.raises(TypeError):
+            jm.serving_plan().score(recs)
+        with pytest.raises(FeatureTypeError):
+            tm.serving_plan(device="cpu").score(recs)
+
+    def test_plan_metrics_and_timings(self, fixture_models):
+        _, tm, schema = fixture_models
+        plan = tm.serving_plan(device="cpu")
+        plan.score(_records(schema["features"], 20, 6))
+        m = plan.metrics()
+        assert m["scored_records"] == 20 and m["scored_batches"] == 1
+        assert m["fused_stages"] == 13 and m["host_stages"] == 1
+        assert set(plan.last_timings) == {"encode_ms", "device_ms", "host_ms"}
+
+
+@pytest.fixture(scope="module")
+def tiny_saved(tmp_path_factory):
+    """3 Real (1 auto-bucketized), 2 PickList, 300 rows, trained by JAX."""
+    cols, schema = fixture_tool.make_data(300, n_real=3, n_bucketized=1,
+                                          n_pick=2, n_levels=6, n_binary=0,
+                                          seed=7)
+    model = fixture_tool.train(cols, schema)
+    path = str(tmp_path_factory.mktemp("tiny") / "model")
+    model.save(path)
+    return path, schema
+
+
+class TestTrainedOnTheFly:
+    @pytest.mark.parametrize("seed", [0, 1])
+    def test_records_equal_jax(self, tiny_saved, seed):
+        path, schema = tiny_saved
+        recs = _records(schema, 120, seed)
+        ref = JModel.load(path).serving_plan().score(recs)
+        got = TModel.load(path).serving_plan(device="cpu").score(recs)
+        assert got == ref
+
+    def test_supplied_label_with_none_raises(self, tiny_saved):
+        """The label (RealNN) is a response: absent at serve time it is
+        skipped; supplied but None in some records it must raise."""
+        path, schema = tiny_saved
+        recs = _records(schema, 4, 3)
+        for r in recs:
+            r["label"] = 1.0
+        recs[1]["label"] = None
+        with pytest.raises(Exception):
+            JModel.load(path).serving_plan().score(recs)
+        with pytest.raises(FeatureTypeError):
+            TModel.load(path).serving_plan(device="cpu").score(recs)
+
+
+class TestLifts:
+    """The float32 lift of a raw numeric feature, port against reference."""
+
+    def _gens(self, type_name):
+        from transmogrifai_tpu.features.feature import _NamedExtract as JX
+        from transmogrifai_tpu.features.generator import FeatureGeneratorStage as JG
+        from transmogrifai_tpu.types import feature_type_by_name as jft
+        from transmogrifai_tpu_torch.features.feature import _NamedExtract as TX
+        from transmogrifai_tpu_torch.features.generator import FeatureGeneratorStage as TG
+        from transmogrifai_tpu_torch.types import feature_type_by_name as tft
+
+        return (JG(JX("v"), jft(type_name), "v"),
+                TG(TX("v"), tft(type_name), "v", uid="FeatureGeneratorStage_v"))
+
+    @pytest.mark.parametrize("type_name, values", [
+        ("Real", [1.5, None, -0.1, 3, True, 1e30]),
+        ("Binary", [True, None, False, 1, 0.0]),
+        ("RealNN", [0.25, 7, -3.5]),
+    ])
+    def test_lift_bitwise(self, type_name, values):
+        from transmogrifai_tpu.serve.plan import _lift_builder as jlift
+        from transmogrifai_tpu_torch.serve.plan import _lift_builder as tlift
+
+        jg, tg = self._gens(type_name)
+        recs = [{"v": v} for v in values]
+        ref, got = jlift(jg)(recs), tlift(tg)(recs)
+        assert got.dtype == ref.dtype == np.float32
+        assert got.tobytes() == ref.tobytes()
+
+    def test_realnn_none_raises_non_nullable(self):
+        from transmogrifai_tpu.serve.plan import _lift_builder as jlift
+        from transmogrifai_tpu.types import NonNullableEmptyException as JNN
+        from transmogrifai_tpu_torch.serve.plan import _lift_builder as tlift
+        from transmogrifai_tpu_torch.types import NonNullableEmptyException as TNN
+
+        jg, tg = self._gens("RealNN")
+        recs = [{"v": 1.0}, {"v": None}]
+        with pytest.raises(JNN):
+            jlift(jg)(recs)
+        with pytest.raises(TNN):
+            tlift(tg)(recs)
+
+
+def _rewrite_manifest(src: str, dst: str, edit) -> str:
+    shutil.copytree(src, dst)
+    p = os.path.join(dst, "model.json.gz")
+    with gzip.open(p, "rt") as fh:
+        manifest = json.load(fh)
+    edit(manifest)
+    with gzip.open(p, "wt") as fh:
+        json.dump(manifest, fh)
+    return dst
+
+
+class TestUnportedStages:
+    def test_unported_model_class_is_named(self, tmp_path):
+        def edit(m):
+            sel = next(s for s in m["fitted"].values() if s["class"] == "SelectedModel")
+            sel["attrs"]["model"]["__stage__"]["class"] = "GBTClassifierModel"
+        path = _rewrite_manifest(FIXTURE, str(tmp_path / "m"), edit)
+        with pytest.raises(ValueError, match="GBTClassifierModel"):
+            TModel.load(path)
+
+    def test_unported_transformer_class_is_named(self, tmp_path):
+        def edit(m):
+            comb = next(s for s in m["stages"] if s["class"] == "VectorsCombiner")
+            comb["class"] = "SmartTextVectorizerModel"
+        path = _rewrite_manifest(FIXTURE, str(tmp_path / "m"), edit)
+        with pytest.raises(ValueError, match="SmartTextVectorizerModel"):
+            TModel.load(path)
+
+    def test_unported_feature_type_is_named(self, tmp_path):
+        def edit(m):
+            for f in m["features"]:
+                if f["name"] == "p0":
+                    f["ftype"] = "TextArea"
+        path = _rewrite_manifest(FIXTURE, str(tmp_path / "m"), edit)
+        with pytest.raises(FeatureTypeError, match="TextArea"):
+            TModel.load(path)
+
+
+_NO_JAX_PROBE = r"""
+import sys
+sys.path.insert(0, {repo!r})
+import torch, numpy  # the port's own dependencies
+before = set(sys.modules)
+import transmogrifai_tpu_torch
+from transmogrifai_tpu_torch.perf.kernels import encode, dispatch
+from transmogrifai_tpu_torch.workflow import serde
+serde._register_stages()
+import chip_smoke
+bad = sorted(m for m in set(sys.modules) - before
+             if m.split(".")[0] in ("jax", "jaxlib", "transmogrifai_tpu"))
+print("BAD=" + ",".join(bad))
+"""
+
+
+class TestNoJax:
+    def test_subprocess_import_loads_no_jax(self):
+        out = subprocess.run(
+            [sys.executable, "-c", _NO_JAX_PROBE.format(repo=REPO)],
+            capture_output=True, text=True, cwd=REPO, timeout=120,
+            env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"})
+        assert out.returncode == 0, out.stderr
+        assert "BAD=\n" in out.stdout, out.stdout
+
+    @pytest.mark.parametrize("root", ["transmogrifai_tpu_torch", "chip_smoke.py"])
+    def test_ast_scan_finds_no_jax_import(self, root):
+        path = os.path.join(REPO, root)
+        files = [path] if path.endswith(".py") else [
+            os.path.join(d, f) for d, _, fs in os.walk(path) for f in fs
+            if f.endswith(".py")]
+        assert files
+        bad = []
+        for fn in files:
+            with open(fn) as fh:
+                tree = ast.parse(fh.read(), fn)
+            for node in ast.walk(tree):
+                names = []
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                    names = [node.module or ""]
+                for n in names:
+                    if n.split(".")[0] in ("jax", "jaxlib", "transmogrifai_tpu"):
+                        bad.append(f"{fn}: {n}")
+        assert not bad, bad
+
+
+class TestDeviceDefault:
+    def test_serving_plan_without_card_raises(self, fixture_models, monkeypatch):
+        _, tm, _ = fixture_models
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tm.serving_plan()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tm.score(None)
+
+    def test_explicit_cpu_plan_runs_on_cpu(self, fixture_models):
+        _, tm, _ = fixture_models
+        assert tm.serving_plan(device="cpu").device == torch.device("cpu")
