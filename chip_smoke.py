@@ -1,32 +1,67 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card and check it.
+"""Drive the PyTorch port's serving and training paths on one CUDA card and
+check them.
 
     python3 chip_smoke.py
 
 Phases, one JSON line each:
 
-1. device   — a CUDA card must be present (else exit 1 before any result);
-              its name and power limit as nvidia-smi reports them.
-2. build    — nvcc builds every kernel of the serving path from the sources
-              in this checkout (perf/kernels/csrc/), with ptxas's report.
-3. kernels  — K4 (one-hot of level codes) and K5 (bucketize one-hot) on the
-              card, held bitwise against their plain PyTorch versions on the
-              same card: ragged and full row counts, codes out of range, the
-              fixture's real splits with NaN, +-inf and values on a split,
-              all four track_nulls x track_invalid settings.  Then each is
-              timed (CUDA events around runs of 20 launches, median of 50 runs) at
-              the serving shape beside its plain version, one PyTorch call
-              as a yardstick, and the card's bound for the bytes it moves.
-4. serving  — the committed full-width fixture (trained by the JAX package,
-              saved in its format) loads through the port's load_model and
-              serves 16 batches of 1024 records and one of 37 on the card.
-              The launch counters are zeroed just before and read just after;
-              every kernel of the path must have launched, batches x slots
-              times.  The same records through the plan on the CPU (the plain
-              versions) must give bitwise-equal prefix vectors and equal
-              output records.
-5. summary  — nvidia-smi's line, then one {"kernels": [...]} line, then the
-              last line {"ok": true, "device": {...}}.
+1. device    — a CUDA card must be present (else exit 1 before any result);
+               its name and power limit as nvidia-smi reports them.
+2. build     — nvcc builds every kernel of both paths from the sources in
+               this checkout (perf/kernels/csrc/encode.cu and trees.cu, one
+               nvcc each, started together), with ptxas's report.
+3. kernels   — K4 (one-hot of level codes) and K5 (bucketize one-hot) on the
+               card, held bitwise against their plain PyTorch versions on the
+               same card: ragged and full row counts, codes out of range, the
+               fixture's real splits with NaN, +-inf and values on a split,
+               all four track_nulls x track_invalid settings.  Then each is
+               timed (CUDA events around runs of 20 launches, median of 50 runs) at
+               the serving shape beside its plain version, one PyTorch call
+               as a yardstick, and the card's bound for the bytes it moves.
+4. serving   — the committed full-width fixture (trained by the JAX package,
+               saved in its format) loads through the port's load_model and
+               serves 16 batches of 1024 records and one of 37 on the card.
+               The launch counters are zeroed just before and read just after;
+               every kernel of the path must have launched, batches x slots
+               times.  The same records through the plan on the CPU (the plain
+               versions) must give bitwise-equal prefix vectors and equal
+               output records.
+5. tree_kernels — K1 (level histogram), K2 (split scan) and K3 (routing
+               select) against their plain versions on the card: K1's int8
+               path bitwise (negative node ids, the missing bin, a prime row
+               count), its float path within f32_tolerance and bitwise from
+               one launch to the next; K2 bitwise on integer-valued
+               histograms (a masked feature, K = 1 and 2, empty nodes), and
+               on a GBT level's float histograms within
+               splitscan.float_agreement's tolerance and bitwise from one
+               launch to the next; K3 bitwise (ragged rows, one lane, indices
+               out of range).  Then each is timed at the training path's
+               shapes (the RF-CV deepest level, a GBT level, RF depth-6
+               level 5, routing at 150 and 3 lanes) beside its bound, its
+               plain version and one PyTorch call; K1 and K3 are held
+               against their plain versions there too (int8 and K3 bitwise,
+               float within its tolerance).  The library calls run at a
+               stated smaller row count where the full one does not fit.
+6. training_parity — bench.py's synth data at 16 384 rows x 128 through the
+               port's Workflow.train on the card (RF {50 trees, depth 3|6},
+               GBT {50 rounds, depth 3}, 3 folds, seed 7), the forest's
+               bootstrap draws fed from the JAX package's fixture
+               (fixtures/training_trees, tools/make_torch_training_fixture.py):
+               the same winner, RF CV metrics within 1e-6 and RF trees
+               bitwise, GBT CV metrics within 1e-3 (float histograms sum in
+               another order; the largest deviation is printed).  It is also
+               the warm-up of phase 7.
+7. training  — the same sweep at the full width of bench.py's tree sweep,
+               1 048 576 rows x 128, through FeatureBuilder ->
+               label.transform_with(selector, vector) -> Workflow.train() on
+               the card, with torch's own draws.  The launch counters are
+               zeroed just before and read just after: K1, K2 and K3 must
+               each launch once per grown level, 3 + 6 + 50*3 = 159 times in
+               CV plus the winner's refit levels.  Then model.score of 1024
+               rows on the card, finite.
+8. summary   — nvidia-smi's line, then one {"kernels": [...]} line, then the
+               last line {"ok": true, "device": {...}}.
 
 Any failure raises: the script exits non-zero and prints no last line.
 It imports torch and the port only, never JAX.
@@ -42,12 +77,25 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
+F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 BATCH = 1024
 N_BATCHES = 16
 RAGGED = 37
 RUNS = 50
 PER_RUN = 20
 FIXTURE = os.path.join("transmogrifai_tpu_torch", "fixtures", "serving_wide")
+TRAIN_FIXTURE = os.path.join("transmogrifai_tpu_torch", "fixtures", "training_trees")
+
+# the tree sweep of bench.py: d = 128, 3 folds, RF {50, depth 3|6}, GBT {50, 3}
+D = 128
+FOLDS = 3
+SELECTOR_SEED = 7
+RF_GRIDS = [{"num_trees": 50, "max_depth": d} for d in (3, 6)]
+GBT_GRIDS = [{"num_rounds": 50, "max_depth": 3}]
+FULL_ROWS = 1 << 20
+N_BINS = 32
+#: grown levels of the sweep: RF depth 3 + depth 6 + GBT 50 rounds x depth 3
+CV_LEVELS = 3 + 6 + 50 * 3
 
 
 def emit(obj) -> None:
@@ -87,6 +135,52 @@ def time_ms(fn, runs: int = RUNS, per_run: int = PER_RUN,
         pairs.append((a, b))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) / per_run for a, b in pairs)
+
+
+def time_big_ms(fn, runs: int = 5, warmup: int = 1) -> float:
+    """Device milliseconds of one call of a kernel that runs for a
+    millisecond or more: CUDA events around each call, median of ``runs``."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def time_once(fn):
+    """Device milliseconds of one call of ``fn`` (CUDA events around it),
+    and what it returned."""
+    import torch
+
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b), out
+
+
+def synth(n: int, d: int, seed: int = 0):
+    """bench.py's ``synth``: standard-normal features, a logistic label."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    beta = rng.normal(size=d).astype(np.float32) / np.sqrt(d)
+    y = (rng.random(n) < 1.0 / (1.0 + np.exp(-(x @ beta)))).astype(np.float64)
+    return x, y
 
 
 def make_records(schema: dict, n: int, rng) -> list:
@@ -194,6 +288,466 @@ def phase_kernels(torch, KE, bucketizer_models, dev) -> dict:
     return t
 
 
+def _sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _tree_modules():
+    from transmogrifai_tpu_torch.perf.kernels import histogram as KH
+    from transmogrifai_tpu_torch.perf.kernels import routing as KR
+    from transmogrifai_tpu_torch.perf.kernels import splitscan as KS
+
+    return KH, KS, KR
+
+
+def phase_tree_parity(torch, dev) -> dict:
+    """K1-K3 against their plain versions on ``dev``; returns the largest
+    errors and the number of cases per kernel."""
+    import numpy as np
+
+    KH, KS, KR = _tree_modules()
+    rng = np.random.default_rng(2)
+    out = {"hist_level": {"cases": 0, "max_abs_err": 0.0, "f32_cases": 0,
+                          "f32_max_abs_err": 0.0, "f32_max_err_over_tol": 0.0},
+           "split_scan": {"cases": 0, "max_abs_err": 0.0, "f32_cases": 0,
+                          "f32_index_mismatches": 0, "f32_max_abs_err": 0.0,
+                          "f32_max_err_over_tol": 0.0},
+           "row_select_lanes": {"cases": 0, "max_abs_err": 0.0}}
+
+    def to_dev(*arrays):
+        return [torch.from_numpy(a).to(dev) for a in arrays]
+
+    for L, n, d, nn, n_bins in ((3, 7919, 128, 16, N_BINS), (150, 4099, D, 16, N_BINS),
+                                (1, 5, 3, 1, 2), (4, 65537, 33, 2, N_BINS)):
+        local = rng.integers(-2, nn + 2, (L, n)).astype(np.int32)
+        gh = rng.integers(-9, 10, (L, 2, n)).astype(np.int8)
+        gh[:, :, ::3] = 0
+        binned = rng.integers(0, n_bins + 1, (n, d)).astype(np.int32)
+        binned[::7, 0] = n_bins
+        t = to_dev(local, gh, binned)
+        got = KH.hist_level(*t, nn, n_bins, int_exact=True)
+        ref = KH.hist_level_torch(*t, nn, n_bins, int_exact=True)
+        _sync(torch, dev)
+        check(got.dtype == torch.int32 and torch.equal(got, ref),
+              f"K1 int bitwise L={L} n={n} d={d} nn={nn}")
+        out["hist_level"]["cases"] += 1
+    for L, n, d, nn in ((3, FULL_ROWS, D, 2), (12, 50021, 40, 8)):
+        local = rng.integers(-1, nn, (L, n)).astype(np.int32)
+        gh = rng.normal(size=(L, 2, n)).astype(np.float32)
+        binned = rng.integers(0, N_BINS + 1, (n, d)).astype(np.int32)
+        t = to_dev(local, gh, binned)
+        a = KH.hist_level(*t, nn, N_BINS)
+        b = KH.hist_level(*t, nn, N_BINS)
+        ref = KH.hist_level_torch(*t, nn, N_BINS)
+        tol = KH.f32_tolerance(KH.hist_level_torch(t[0], t[1].abs(), t[2], nn, N_BINS))
+        _sync(torch, dev)
+        check(torch.equal(a, b), f"K1 f32 bitwise run to run L={L} n={n}")
+        err = (a - ref).abs()
+        check(bool((err <= tol).all()), f"K1 f32 within tolerance L={L} n={n}")
+        h = out["hist_level"]
+        h["f32_cases"] += 1
+        h["f32_max_abs_err"] = max(h["f32_max_abs_err"], float(err.max()))
+        h["f32_max_err_over_tol"] = max(h["f32_max_err_over_tol"],
+                                        float((err / tol).max()))
+    for K in (1, 2):
+        for L, nn, d, n_bins in ((150, 32, D, N_BINS), (3, 4, 6, 8), (2, 1, 1, 2)):
+            B = n_bins + 1
+            hg = rng.integers(-20, 20, (L, nn, K, d, B)).astype(np.float32)
+            hh = rng.integers(0, 30, (L, nn, K, d, B)).astype(np.float32)
+            hg[0, 0] = 0.0
+            hh[0, 0] = 0.0
+            G = hg[:, :, :, 0, :].sum(-1)
+            H = hh[:, :, :, 0, :].sum(-1)
+            mask = np.ones((L, d), np.float32)
+            mask[-1, 0] = 0.0
+            t = to_dev(hg, hh, G, H, mask)
+            for params in ((1.0, 0.5, 0.1, 1.0), (0.0, 0.0, 0.0, 1.0)):
+                got = KS.split_scan(*t, n_bins, *params)
+                ref = KS.split_scan_torch(*t, n_bins, *params)
+                _sync(torch, dev)
+                check(all(g.dtype == r.dtype and torch.equal(g, r)
+                          for g, r in zip(got, ref)),
+                      f"K2 bitwise L={L} nn={nn} K={K} d={d} params={params}")
+                out["split_scan"]["cases"] += 1
+    # K2 on float histograms at a GBT level (3 fold lanes, depth 3, level 2:
+    # 4 nodes), built by K1's float path from logistic grad/hess
+    L, nn = FOLDS, 4
+    local, gh, binned = _hist_inputs(torch, dev, L, FULL_ROWS, nn, False, 3)
+    hist = KH.hist_level(local, gh, binned, nn, N_BINS).reshape(
+        L, nn, 2, N_BINS + 1, D).transpose(-1, -2)
+    hg, hh = hist[:, :, :1].contiguous(), hist[:, :, 1:].contiguous()
+    G = hg[:, :, :, 0, :].sum(-1)
+    H = hh[:, :, :, 0, :].sum(-1)
+    mask = torch.ones((L, D), device=dev)
+    mask[-1, 5] = 0.0
+    for params in ((1.0, 0.0, 0.0, 1.0), (1.0, 0.5, 0.1, 1.0)):
+        args = (hg, hh, G, H, mask, N_BINS, *params)
+        got = KS.split_scan(*args)
+        again = KS.split_scan(*args)
+        _sync(torch, dev)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K2 float bitwise run to run params={params}")
+        agree = KS.float_agreement(got, *args)
+        check(agree["ok"], f"K2 float within tolerance at a GBT level "
+                           f"params={params}: {agree}")
+        s2 = out["split_scan"]
+        s2["f32_cases"] += 1
+        s2["f32_index_mismatches"] += agree["index_mismatches"]
+        s2["f32_max_abs_err"] = max(s2["f32_max_abs_err"], agree["max_abs_err"])
+        s2["f32_max_err_over_tol"] = max(s2["f32_max_err_over_tol"],
+                                         agree["max_err_over_tol"])
+    del local, gh, binned, hist, hg, hh, G, H, mask
+    for L, n, d in ((1, 37, 5), (150, 4099, D), (3, 100003, D)):
+        binned = rng.integers(0, N_BINS + 1, (n, d)).astype(np.int32)
+        idx = rng.integers(-3, d + 3, (L, n)).astype(np.int32)
+        b, i = to_dev(binned, idx)
+        got = KR.row_select_lanes(b, i)
+        _sync(torch, dev)
+        check(torch.equal(got, KR.row_select_lanes_torch(b, i)),
+              f"K3 bitwise L={L} n={n} d={d}")
+        out["row_select_lanes"]["cases"] += 1
+    emit({"phase": "tree_kernels_parity", **out})
+    return out
+
+
+def _hist_inputs(torch, dev, L: int, n: int, nn: int, int_exact: bool, seed: int):
+    """Level inputs shaped like the sweep's: half the rows are right
+    children or leaf-stuck (node -1), grad/hess are fold weight x Poisson
+    bootstrap x label (int8) for forests, logistic grad/hess (float) for GBT."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    binned = torch.randint(0, N_BINS + 1, (n, D), generator=g, device=dev,
+                           dtype=torch.int32)
+    node = torch.randint(0, 2 * nn, (L, n), generator=g, device=dev, dtype=torch.int32)
+    local = torch.where(node % 2 == 0, node // 2, torch.full_like(node, -1))
+    fold = torch.randint(0, FOLDS, (n,), generator=g, device=dev)
+    lane_fold = torch.arange(L, device=dev) % FOLDS
+    w = (fold[None, :] != lane_fold[:, None]).to(torch.float32)
+    y = torch.randint(0, 2, (n,), generator=g, device=dev).to(torch.float32)
+    if int_exact:
+        boot = torch.poisson(torch.ones((L, n), device=dev), generator=g)
+        wt = w * boot
+        gh = torch.stack([-wt * y, wt], dim=1).to(torch.int8).contiguous()
+    else:
+        p = torch.rand((L, n), generator=g, device=dev)
+        gh = torch.stack([w * (p - y), w * p * (1 - p)], dim=1).contiguous()
+    return local.contiguous(), gh, binned
+
+
+def _hist_ops(torch, local, gh, nn: int) -> int:
+    """Adds the histogram does on these inputs: 2K channels x d features of
+    every (lane, row) whose node is in range and whose grad/hess is not 0."""
+    live = (local >= 0) & (local < nn) & (gh != 0).any(dim=1)
+    return int(live.sum()) * gh.shape[1] * D
+
+
+def _index_add_library(torch, local, gh, binned, nn: int):
+    """One PyTorch call computing the same histogram: ``index_add_`` of every
+    (lane, channel, row, feature) term at its flat (lane, node, channel, bin,
+    feature) index, in float32.  Returns (call, output)."""
+    L, two_k, n = gh.shape
+    d = binned.shape[1]
+    width = (N_BINS + 1) * d
+    ok = (local >= 0) & (local < nn)
+    m = (torch.arange(L, device=local.device)[:, None] * nn
+         + local.clamp(0, nn - 1).long())[:, None, :] * two_k \
+        + torch.arange(two_k, device=local.device)[None, :, None]
+    col = binned.long() * d + torch.arange(d, device=local.device)
+    idx = (m[..., None] * width + col[None, None]).reshape(-1)
+    src = (gh.to(torch.float32) * ok[:, None, :])[..., None].expand(
+        L, two_k, n, d).reshape(-1).contiguous()
+    out = torch.zeros(L * nn * two_k * width, dtype=torch.float32, device=local.device)
+    return (lambda: out.zero_().index_add_(0, idx, src)), out
+
+
+def phase_tree_timing(torch, dev) -> dict:
+    """K1-K3 timed at the training path's shapes, with bounds, plain and
+    library times."""
+    KH, KS, KR = _tree_modules()
+    t = {}
+
+    def bound(nbytes: int, ops: int) -> dict:
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        o_ms = ops / F32_OPS_PER_S * 1e3
+        return {"bound_ms": max(b_ms, o_ms),
+                "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                "bytes": nbytes, "ops": ops}
+
+    # K1, int8 path: the RF-CV deepest fresh level (depth 6, level 5: 16 left
+    # children) of 3 folds x 50 trees
+    L, nn = FOLDS * 50, 16
+    local, gh, binned = _hist_inputs(torch, dev, L, FULL_ROWS, nn, True, 10)
+    run = lambda lo, g, b: KH.hist_level(lo, g, b, nn, N_BINS, int_exact=True)  # noqa: E731
+    k1 = {"shape": [L, nn, FULL_ROWS, D, N_BINS + 1], "path": "int8",
+          "ms": time_big_ms(lambda: run(local, gh, binned)),
+          **bound(KH.bound_bytes(L, FULL_ROWS, D, nn, 2, N_BINS, True),
+                  _hist_ops(torch, local, gh, nn))}
+    got = run(local, gh, binned)
+    k1["plain_ms"], ref = time_once(lambda: KH.hist_level_torch(
+        local, gh, binned, nn, N_BINS, int_exact=True))
+    check(torch.equal(got, ref), "K1 int8 bitwise at the RF-CV deepest level")
+    del got, ref
+    lib_rows = (1 << 19) // L
+    sl = (local[:, :lib_rows].contiguous(), gh[..., :lib_rows].contiguous(),
+          binned[:lib_rows])
+    call, _ = _index_add_library(torch, *sl, nn)
+    k1.update(library_rows=lib_rows, ms_at_library_rows=time_big_ms(lambda: run(*sl)),
+              library_ms=time_big_ms(call),
+              library="index_add_ of the (lane, channel, row, feature) terms "
+                      "at their flat (lane, node, channel, bin, feature) index, "
+                      "float32 (a composite: the index is built outside the call)")
+    del local, gh, binned, sl, call
+    # K1, float path: a GBT level (3 fold lanes, depth 3, level 2: 2 left children)
+    L, nn = FOLDS, 2
+    local, gh, binned = _hist_inputs(torch, dev, L, FULL_ROWS, nn, False, 11)
+    run = lambda lo, g, b: KH.hist_level(lo, g, b, nn, N_BINS)  # noqa: E731
+    f32 = {"shape": [L, nn, FULL_ROWS, D, N_BINS + 1], "path": "float32",
+           "ms": time_big_ms(lambda: run(local, gh, binned)),
+           **bound(KH.bound_bytes(L, FULL_ROWS, D, nn, 2, N_BINS, False),
+                   _hist_ops(torch, local, gh, nn))}
+    got = run(local, gh, binned)
+    f32["plain_ms"], ref = time_once(lambda: KH.hist_level_torch(
+        local, gh, binned, nn, N_BINS))
+    err = (got - ref).abs()
+    tol = KH.f32_tolerance(KH.hist_level_torch(local, gh.abs(), binned, nn, N_BINS))
+    check(bool((err <= tol).all()), "K1 float within tolerance at a GBT level")
+    f32.update(max_abs_err=float(err.max()), max_err_over_tol=float((err / tol).max()))
+    del got, ref, err, tol
+    lib_rows = (1 << 19) // L
+    sl = (local[:, :lib_rows].contiguous(), gh[..., :lib_rows].contiguous(),
+          binned[:lib_rows])
+    call, _ = _index_add_library(torch, *sl, nn)
+    f32.update(library_rows=lib_rows, ms_at_library_rows=time_big_ms(lambda: run(*sl)),
+               library_ms=time_big_ms(call))
+    k1["f32"] = f32
+    t["hist_level"] = k1
+    del local, gh, binned, sl, call
+
+    # K2: RF depth-6 level 5 (32 nodes) of 150 lanes, integer-valued hists
+    L, nn, K = FOLDS * 50, 32, 1
+    g = torch.Generator(device=dev).manual_seed(12)
+    shape = (L, nn, K, D, N_BINS + 1)
+    hg = torch.randint(-20, 20, shape, generator=g, device=dev).to(torch.float32)
+    hh = torch.randint(0, 30, shape, generator=g, device=dev).to(torch.float32)
+    G = hg[:, :, :, 0, :].sum(-1).contiguous()
+    H = hh[:, :, :, 0, :].sum(-1).contiguous()
+    mask = torch.ones((L, D), device=dev)
+    args = (hg, hh, G, H, mask, N_BINS, 0.0, 0.0, 0.0, 1.0)
+    t["split_scan"] = {
+        "shape": list(shape), "ms": time_big_ms(lambda: KS.split_scan(*args), runs=20),
+        "plain_ms": time_big_ms(lambda: KS.split_scan_torch(*args), runs=5),
+        **bound(KS.bound_bytes(L, nn, K, D, N_BINS), KS.bound_ops(L, nn, K, D, N_BINS)),
+        "library_ms": None, "library": None}
+    del hg, hh, G, H, mask, args
+
+    # K3: routing of 150 lanes and of 3 lanes over the full rows
+    k3 = {}
+    for L in (FOLDS * 50, FOLDS):
+        g = torch.Generator(device=dev).manual_seed(13 + L)
+        binned = torch.randint(0, N_BINS + 1, (FULL_ROWS, D), generator=g,
+                               device=dev, dtype=torch.int32)
+        idx = torch.randint(0, D, (L, FULL_ROWS), generator=g, device=dev,
+                            dtype=torch.int32)
+        flat = (torch.arange(FULL_ROWS, device=dev)[None, :] * D + idx.long())
+        e = {"shape": [L, FULL_ROWS, D],
+             "ms": time_big_ms(lambda: KR.row_select_lanes(binned, idx), runs=10),
+             **bound(KR.bound_bytes(L, FULL_ROWS, D), 0),
+             "library_ms": time_big_ms(lambda: torch.take(binned, flat), runs=10),
+             "library": "torch.take at the flat (row, feature) index (a "
+                        "composite: no out-of-range rule, the index built "
+                        "outside the call)"}
+        got = KR.row_select_lanes(binned, idx)
+        e["plain_ms"], ref = time_once(lambda: KR.row_select_lanes_torch(binned, idx))
+        check(torch.equal(got, ref), f"K3 bitwise at {L} lanes x {FULL_ROWS} rows")
+        k3[L] = e
+        del binned, idx, flat, got, ref
+    t["row_select_lanes"] = {**k3[FOLDS * 50], "lanes3": k3[FOLDS]}
+    emit({"phase": "tree_kernels_timing", **t})
+    torch.cuda.empty_cache()
+    return t
+
+
+def train_selector(torch, x, y, dev):
+    """bench.py's tree sweep through the port's user entry points; returns
+    (WorkflowModel, selector, prediction feature, train seconds)."""
+    import numpy as np
+
+    from transmogrifai_tpu_torch import (
+        BinaryClassificationModelSelector,
+        FeatureBuilder,
+        Workflow,
+    )
+    from transmogrifai_tpu_torch.data.dataset import Column, Dataset
+    from transmogrifai_tpu_torch.models.trees import (
+        GradientBoostedTreesClassifier,
+        RandomForestClassifier,
+    )
+    from transmogrifai_tpu_torch.types import RealNN
+
+    label = FeatureBuilder.RealNN("label").extract_field().as_response()
+    vec = FeatureBuilder.OPVector("features").extract_field().as_predictor()
+    selector = BinaryClassificationModelSelector.with_cross_validation(
+        num_folds=FOLDS, seed=SELECTOR_SEED,
+        models=[(RandomForestClassifier(), RF_GRIDS),
+                (GradientBoostedTreesClassifier(), GBT_GRIDS)])
+    pred = label.transform_with(selector, vec)
+    ds = Dataset({"label": Column(RealNN, y.astype(np.float64),
+                                  np.ones(len(y), dtype=np.bool_)),
+                  "features": Column.vector(x)})
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    model = Workflow().set_input_dataset(ds).set_result_features(label, pred) \
+        .train(device=dev)
+    _sync(torch, dev)
+    return model, selector, pred, time.perf_counter() - t0
+
+
+def _tree_arrays_equal(trees: dict, arrays, prefix: str) -> bool:
+    import numpy as np
+
+    return all(np.asarray(trees[k]).shape == arrays[f"{prefix}_{k}"].shape
+               and np.array_equal(np.asarray(trees[k]), arrays[f"{prefix}_{k}"])
+               for k in ("feat", "thr_bin", "miss_left", "is_leaf", "value"))
+
+
+def phase_training_parity(torch, dev) -> dict:
+    """The 16 384-row sweep against the JAX package's fixture, the forest's
+    draws fed from it."""
+    import numpy as np
+
+    from transmogrifai_tpu_torch.models import trees as TT
+
+    with open(os.path.join(TRAIN_FIXTURE, "summary.json")) as fh:
+        rec = json.load(fh)
+    with np.load(os.path.join(TRAIN_FIXTURE, "arrays.npz")) as npz:
+        arrays = {k: npz[k] for k in npz.files}
+    recipe = rec["recipe"]
+    n = int(recipe["synth_rows"])
+    x, y = synth(n, int(recipe["features"]), int(recipe["data_seed"]))
+    boot = torch.from_numpy(arrays["rf_boot"].astype(np.float32))
+    port_draws = TT.draw_bootstrap
+
+    def fixture_draws(seed, rate, n_trees, rows, device):
+        check((seed, rate, n_trees, rows) == (recipe["rf_boot_seed"], 1.0, 50, n),
+              f"forest draws asked for ({seed}, {rate}, {n_trees}, {rows})")
+        return boot.to(device)
+
+    TT.draw_bootstrap = fixture_draws
+    try:
+        model, selector, _, seconds = train_selector(torch, x, y, dev)
+        fitted = model.fitted[selector.uid]
+        refits = {g["max_depth"]: TT.RandomForestClassifier(**g)._fit_arrays(
+            x, y.astype(np.float32), np.ones(n, np.float32), dev) for g in RF_GRIDS}
+    finally:
+        TT.draw_bootstrap = port_draws
+    summary = fitted.summary
+    check(summary.best_model_name == rec["winner"]["name"]
+          and summary.best_grid == rec["winner"]["grid"],
+          f"winner {summary.best_model_name} {summary.best_grid} == fixture "
+          f"{rec['winner']}")
+    dev_max = {"RandomForestClassifier": 0.0, "GradientBoostedTreesClassifier": 0.0}
+    tol = {"RandomForestClassifier": 1e-6, "GradientBoostedTreesClassifier": 1e-3}
+    check(len(summary.validation_results) == len(rec["validation"]), "evaluations")
+    for ev, ref in zip(summary.validation_results, rec["validation"]):
+        check(ev.model_name == ref["model"] and ev.grid == ref["grid"],
+              f"evaluation order {ev.model_name} {ev.grid}")
+        d = float(np.max(np.abs(np.asarray(ev.metric_values) - np.asarray(ref["values"]))))
+        dev_max[ev.model_name] = max(dev_max[ev.model_name], d)
+        check(d <= tol[ev.model_name],
+              f"{ev.model_name} {ev.grid} CV metrics {ev.metric_values} vs "
+              f"{ref['values']} (|diff| {d} > {tol[ev.model_name]})")
+    for depth, m in refits.items():
+        check(_tree_arrays_equal(m.trees, arrays, f"rf_depth{depth}"),
+              f"RF depth-{depth} refit trees bitwise equal to the fixture")
+    check(np.array_equal(fitted.model.edges, arrays["edges"]), "edges bitwise")
+    win = fitted.model
+    structure = float(np.mean([np.array_equal(np.asarray(win.trees[k]),
+                                              arrays[f"winner_{k}"])
+                               for k in ("feat", "thr_bin", "miss_left", "is_leaf")]))
+    value_dev = float(np.max(np.abs(np.asarray(win.trees["value"], np.float64)
+                                    - arrays["winner_value"])))
+    out = {"rows": n, "seconds": seconds, "winner": summary.best_model_name,
+           "winner_grid": summary.best_grid,
+           "rf_cv_max_abs_dev": dev_max["RandomForestClassifier"],
+           "gbt_cv_max_abs_dev": dev_max["GradientBoostedTreesClassifier"],
+           "rf_refit_trees_bitwise": True,
+           "winner_structure_arrays_equal": structure,
+           "winner_value_max_abs_dev": value_dev,
+           "train_evaluation": summary.train_evaluation,
+           "fixture_train_evaluation": rec["train_evaluation"]}
+    emit({"phase": "training_parity", **out})
+    return out
+
+
+def _reset_all(KE) -> None:
+    KH, KS, KR = _tree_modules()
+    for m in (KE, KH, KS, KR):
+        m.reset_launch_counts()
+
+
+def _all_counts(KE) -> dict:
+    KH, KS, KR = _tree_modules()
+    out = {}
+    for m in (KE, KH, KS, KR):
+        out.update(m.launch_counts())
+    return out
+
+
+def phase_training(torch, KE, dev) -> dict:
+    """bench.py's tree sweep at full width through Workflow.train on the card."""
+    import numpy as np
+
+    from transmogrifai_tpu_torch.data.dataset import Column, Dataset
+
+    t0 = time.perf_counter()
+    x, y = synth(FULL_ROWS, D, 0)
+    data_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _reset_all(KE)
+    model, selector, pred, seconds = train_selector(torch, x, y, dev)
+    launches = _all_counts(KE)
+    fitted = model.fitted[selector.uid]
+    summary = fitted.summary
+    win = fitted.model
+    refit_levels = win.max_depth * (win.n_trees if "GBT" in type(win).__name__ else 1)
+    expected = CV_LEVELS + refit_levels
+    for k in ("hist_level", "split_scan", "row_select_lanes"):
+        check(launches[k] == expected,
+              f"{k} launched {launches[k]} times, expected {CV_LEVELS} + {refit_levels}")
+    check(launches["onehot_codes"] == launches["bucketize_right_encode"] == 0,
+          "the training path launches no serving kernel")
+    pos_rate = float(y.mean())
+    for ev in summary.validation_results:
+        check(all(np.isfinite(v) for v in ev.metric_values), f"finite {ev}")
+        check(ev.mean_metric > pos_rate,
+              f"{ev.model_name} {ev.grid} auPR {ev.mean_metric} above {pos_rate}")
+    n_score = 1024
+    scored = model.score(Dataset({"features": Column.vector(x[:n_score])}),
+                         device=None if dev.type == "cuda" else dev)
+    col = scored[pred.name]
+    check(col.data.shape[0] == n_score and np.isfinite(col.data).all()
+          and np.all((col.prob >= 0) & (col.prob <= 1)),
+          "model.score of 1024 rows on the card is finite")
+    fold_models = (len(RF_GRIDS) + len(GBT_GRIDS)) * FOLDS
+    out = {"rows": FULL_ROWS, "features": D, "fold_models": fold_models,
+           "train_seconds": seconds, "fold_models_per_s": fold_models / seconds,
+           "synth_seconds_host": data_s,
+           "phase_seconds": selector.last_fit_profile,
+           "winner": summary.best_model_name, "winner_grid": summary.best_grid,
+           "cv": [{"model": ev.model_name, "grid": ev.grid,
+                   "values": ev.metric_values, "mean": ev.mean_metric}
+                  for ev in summary.validation_results],
+           "positive_rate": pos_rate,
+           "train_evaluation": summary.train_evaluation,
+           "launches": launches, "expected_tree_launches": expected,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()
+           if dev.type == "cuda" else None,
+           "score_rows": n_score}
+    emit({"phase": "training", **out})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -221,12 +775,16 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    dispatch.build(["encode"])
+    dispatch.build(["encode", "trees"])
     KE._lib()
+    for m in _tree_modules():
+        m._lib()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": dispatch.BUILD_INFO["encode"]["seconds"],
-          "ptxas": [ln for ln in str(dispatch.BUILD_INFO["encode"]["log"]).splitlines()
-                    if "Used" in ln or "spill" in ln]})
+          **{f"{lib}_nvcc_seconds": dispatch.BUILD_INFO[lib]["seconds"]
+             for lib in ("encode", "trees")},
+          "ptxas": {lib: [ln for ln in str(dispatch.BUILD_INFO[lib]["log"]).splitlines()
+                          if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
+                    for lib in ("encode", "trees")}})
 
     # 3. kernels
     model = WorkflowModel.load(FIXTURE)
@@ -299,8 +857,45 @@ def main() -> int:
           "bucketize_slots": bucket_slots,
           "records_equal_cpu": True, "prefix_bitwise_cpu": True})
 
-    # 5. summary
+    # 5. tree kernels
+    tree_err = phase_tree_parity(torch, dev)
+    tree_t = phase_tree_timing(torch, dev)
+
+    # 6. training parity against the JAX package's fixture (also the warm-up)
+    phase_training_parity(torch, dev)
+
+    # 7. training at full width
+    train = phase_training(torch, KE, dev)
+
+    # 8. summary
     kernels = []
+    tree_src = "transmogrifai_tpu_torch/perf/kernels/csrc/trees.cu"
+    for kname, replaces in (("hist_level", "transmogrifai_tpu/perf/kernels/histogram.py:80"),
+                            ("split_scan", "transmogrifai_tpu/perf/kernels/splitscan.py:116"),
+                            ("row_select_lanes",
+                             "transmogrifai_tpu/perf/kernels/routing.py:86")):
+        entry = {"name": kname, "route": "cuda", "source": tree_src,
+                 "replaces": replaces, "launches": train["launches"][kname],
+                 "max_abs_err": tree_err[kname]["max_abs_err"], "parity": "bitwise",
+                 **tree_t[kname]}
+        if kname == "hist_level":
+            h = tree_err[kname]
+            entry["parity"] = "int8 path bitwise"
+            f = entry["f32"]
+            entry["f32"] = {**f, "max_abs_err": max(f["max_abs_err"], h["f32_max_abs_err"]),
+                            "max_err_over_tol": max(f["max_err_over_tol"],
+                                                    h["f32_max_err_over_tol"]),
+                            "parity": "within 1e-5 x |gh| histogram + 1e-6 of "
+                                      "the plain version; bitwise run to run"}
+        if kname == "split_scan":
+            entry["parity"] = "bitwise on integer histograms"
+            entry["f32"] = {k: tree_err[kname][f"f32_{k}"] for k in
+                            ("cases", "index_mismatches", "max_abs_err",
+                             "max_err_over_tol")}
+            entry["f32"]["parity"] = ("float histograms of a GBT level: gain within "
+                                      "1e-4 x (parent score + |gain|) + 1e-6 of the "
+                                      "plain version; bitwise run to run")
+        kernels.append(entry)
     for kname, replaces in (("onehot_codes", "transmogrifai_tpu/perf/kernels/encode.py:76"),
                             ("bucketize_right_encode",
                              "transmogrifai_tpu/perf/kernels/encode.py:105")):

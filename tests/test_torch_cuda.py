@@ -63,3 +63,106 @@ def test_bucketize_kernel_bitwise_and_counted(splits, track_nulls, track_invalid
     assert torch.equal(got, TKE.bucketize_right_encode_torch(
         x, s, track_nulls, track_invalid))
     assert TKE.bucketize_launches == before + 1
+
+
+# -- tree kernels (K1 histogram, K2 split scan, K3 routing) ---------------------
+
+from transmogrifai_tpu_torch.perf.kernels import histogram as TH  # noqa: E402
+from transmogrifai_tpu_torch.perf.kernels import routing as TR  # noqa: E402
+from transmogrifai_tpu_torch.perf.kernels import splitscan as TS  # noqa: E402
+
+
+def _hist_case(L, n, d, nn, n_bins, two_k, int_exact, seed):
+    rng = np.random.default_rng(seed)
+    local = rng.integers(-2, nn + 1, (L, n)).astype(np.int32)
+    if int_exact:
+        gh = rng.integers(-9, 10, (L, two_k, n)).astype(np.int8)
+        gh[:, :, ::5] = 0                      # zero-weight rows
+    else:
+        gh = rng.normal(size=(L, two_k, n)).astype(np.float32)
+    binned = rng.integers(0, n_bins + 1, (n, d)).astype(np.int32)
+    return [torch.from_numpy(a).cuda() for a in (local, gh, binned)]
+
+
+@pytest.mark.parametrize("L, n, d, nn, n_bins, two_k", [
+    (3, 641, 7, 4, 8, 2), (150, 20011, 128, 16, 32, 2), (1, 5, 1, 1, 2, 2),
+    (4, 70001, 33, 2, 32, 4), (2, 3000, 65, 32, 16, 2)])
+def test_hist_int_kernel_bitwise_and_counted(L, n, d, nn, n_bins, two_k):
+    local, gh, binned = _hist_case(L, n, d, nn, n_bins, two_k, True, seed=n)
+    before = TH.launches
+    got = TH.hist_level(local, gh, binned, nn, n_bins, int_exact=True)
+    torch.cuda.synchronize()
+    assert TH.launches == before + 1
+    ref = TH.hist_level_torch(local, gh, binned, nn, n_bins, int_exact=True)
+    assert got.dtype == torch.int32 and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("L, n, d, nn", [(3, 641, 7, 2), (3, 200003, 128, 1),
+                                         (12, 50000, 40, 8)])
+def test_hist_f32_kernel_within_tolerance_and_repeatable(L, n, d, nn):
+    local, gh, binned = _hist_case(L, n, d, nn, 32, 2, False, seed=n)
+    a = TH.hist_level(local, gh, binned, nn, 32)
+    b = TH.hist_level(local, gh, binned, nn, 32)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    ref = TH.hist_level_torch(local, gh, binned, nn, 32)
+    tol = TH.f32_tolerance(TH.hist_level_torch(local, gh.abs(), binned, nn, 32))
+    assert bool(((a - ref).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("K", [1, 2])
+@pytest.mark.parametrize("L, nn, d, n_bins", [(3, 4, 6, 8), (150, 32, 128, 32),
+                                              (2, 1, 1, 2)])
+def test_split_scan_kernel_bitwise_on_integer_hists(K, L, nn, d, n_bins):
+    rng = np.random.default_rng(L * nn + K)
+    B = n_bins + 1
+    hg = rng.integers(-20, 20, (L, nn, K, d, B)).astype(np.float32)
+    hh = rng.integers(0, 30, (L, nn, K, d, B)).astype(np.float32)
+    hg[0, 0] = 0.0
+    hh[0, 0] = 0.0                              # an empty node
+    G = hg[:, :, :, 0, :].sum(-1)
+    H = hh[:, :, :, 0, :].sum(-1)
+    mask = np.ones((L, d), np.float32)
+    mask[-1, 0] = 0.0
+    args = [torch.from_numpy(a).cuda() for a in (hg, hh, G, H, mask)]
+    for params in [(1.0, 0.5, 0.1, 1.0), (0.0, 0.0, 0.0, 1.0)]:
+        before = TS.launches
+        got = TS.split_scan(*args, n_bins, *params)
+        torch.cuda.synchronize()
+        assert TS.launches == before + 1
+        ref = TS.split_scan_torch(*args, n_bins, *params)
+        for g, r in zip(got, ref):
+            assert g.dtype == r.dtype and torch.equal(g, r)
+
+
+@pytest.mark.parametrize("params", [(1.0, 0.0, 0.0, 1.0), (1.0, 0.5, 0.1, 1.0)])
+def test_split_scan_kernel_on_float_hists_within_tolerance(params):
+    L, nn, d, n_bins, n = 3, 4, 128, 32, 200003
+    local, gh, binned = _hist_case(L, n, d, nn, n_bins, 2, False, seed=5)
+    gh[:, 1] = gh[:, 1].abs()                   # hessians are not negative
+    hist = TH.hist_level(local, gh, binned, nn, n_bins).reshape(
+        L, nn, 2, n_bins + 1, d).transpose(-1, -2)
+    hg, hh = hist[:, :, :1].contiguous(), hist[:, :, 1:].contiguous()
+    G = hg[:, :, :, 0, :].sum(-1)
+    H = hh[:, :, :, 0, :].sum(-1)
+    mask = torch.ones((L, d), device="cuda")
+    mask[-1, 3] = 0.0
+    args = (hg, hh, G, H, mask, n_bins, *params)
+    got = TS.split_scan(*args)
+    again = TS.split_scan(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    agree = TS.float_agreement(got, *args)
+    assert agree["ok"], agree
+
+
+@pytest.mark.parametrize("L, n, d", [(1, 37, 5), (150, 4099, 128), (3, 100003, 7)])
+def test_row_select_kernel_bitwise_and_counted(L, n, d):
+    rng = np.random.default_rng(n)
+    binned = torch.from_numpy(rng.integers(0, 33, (n, d)).astype(np.int32)).cuda()
+    idx = torch.from_numpy(rng.integers(-3, d + 3, (L, n)).astype(np.int32)).cuda()
+    before = TR.launches
+    got = TR.row_select_lanes(binned, idx)
+    torch.cuda.synchronize()
+    assert TR.launches == before + 1
+    assert torch.equal(got, TR.row_select_lanes_torch(binned, idx))

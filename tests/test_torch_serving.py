@@ -250,9 +250,9 @@ class TestUnportedStages:
     def test_unported_model_class_is_named(self, tmp_path):
         def edit(m):
             sel = next(s for s in m["fitted"].values() if s["class"] == "SelectedModel")
-            sel["attrs"]["model"]["__stage__"]["class"] = "GBTClassifierModel"
+            sel["attrs"]["model"]["__stage__"]["class"] = "LinearSVCModel"
         path = _rewrite_manifest(FIXTURE, str(tmp_path / "m"), edit)
-        with pytest.raises(ValueError, match="GBTClassifierModel"):
+        with pytest.raises(ValueError, match="LinearSVCModel"):
             TModel.load(path)
 
     def test_unported_transformer_class_is_named(self, tmp_path):
@@ -279,8 +279,11 @@ sys.path.insert(0, {repo!r})
 import torch, numpy  # the port's own dependencies
 before = set(sys.modules)
 import transmogrifai_tpu_torch
-from transmogrifai_tpu_torch.perf.kernels import encode, dispatch
-from transmogrifai_tpu_torch.workflow import serde
+from transmogrifai_tpu_torch.perf.kernels import encode, dispatch, histogram, splitscan, routing
+from transmogrifai_tpu_torch.models import base, selector, trees, tuning
+from transmogrifai_tpu_torch.evaluators import base as ev_base, metrics
+from transmogrifai_tpu_torch.features import builder
+from transmogrifai_tpu_torch.workflow import fit, serde, workflow
 serde._register_stages()
 import chip_smoke
 bad = sorted(m for m in set(sys.modules) - before

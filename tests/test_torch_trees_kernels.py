@@ -1,0 +1,231 @@
+"""The port's tree kernels' plain versions against the JAX package's kernels.
+
+K1 (level histogram), K2 (split scan) and K3 (routing select) of
+``transmogrifai_tpu_torch/perf/kernels`` take their plain PyTorch versions on
+CPU tensors.  Each is held to the reference's XLA formula and to its Pallas
+kernel in interpret mode, on the same seeded inputs:
+
+- K1 int-exact path bitwise (prime row count, negative and out-of-range
+  node ids, the missing bin); float path within 1e-5 of each cell's absolute
+  sum (the GEMM sums in another order);
+- K2 bitwise on integer-valued histograms, K = 1 and 2, a masked feature
+  never chosen, empty nodes; on float histograms within
+  ``splitscan.float_agreement``'s tolerance, which a wrong choice, gain or
+  missing direction fails;
+- K3 bitwise, out-of-range indices giving 0.
+
+On CPU tensors the wrappers must not touch the CUDA build.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from transmogrifai_tpu.perf.kernels import histogram as JH
+from transmogrifai_tpu.perf.kernels import routing as JR
+from transmogrifai_tpu.perf.kernels import splitscan as JS
+from transmogrifai_tpu_torch.perf.kernels import dispatch as TD
+from transmogrifai_tpu_torch.perf.kernels import histogram as TH
+from transmogrifai_tpu_torch.perf.kernels import routing as TR
+from transmogrifai_tpu_torch.perf.kernels import splitscan as TS
+
+
+@pytest.fixture(autouse=True)
+def _no_build(monkeypatch):
+    """CPU tensors take the plain versions: any attempt to build or load
+    the CUDA library fails the test."""
+    def refuse(*a, **k):
+        raise AssertionError("a CPU tensor reached the CUDA kernel library")
+    monkeypatch.setattr(TD, "load", refuse)
+
+
+def _hist_inputs(seed: int, L=3, n=641, d=5, nn=4, n_bins=8, two_k=2,
+                 int_exact=True):
+    rng = np.random.default_rng(seed)
+    local = rng.integers(-2, nn + 2, (L, n)).astype(np.int32)
+    if int_exact:
+        ghT = rng.integers(-9, 10, (L, two_k, n)).astype(np.int8)
+    else:
+        ghT = rng.normal(size=(L, two_k, n)).astype(np.float32)
+    binned = rng.integers(0, n_bins + 1, (n, d)).astype(np.int32)
+    binned[::11, 0] = n_bins                     # the missing bin
+    return local, ghT, binned, nn, n_bins
+
+
+class TestHistogram:
+    @pytest.mark.parametrize("seed, n, nn", [(0, 641, 4), (1, 97, 1),
+                                             (2, 2053, 2), (3, 5, 8)])
+    def test_int_exact_bitwise_vs_xla_and_pallas(self, seed, n, nn):
+        local, ghT, binned, nn, n_bins = _hist_inputs(seed, n=n, nn=nn)
+        got = TH.hist_level(torch.from_numpy(local), torch.from_numpy(ghT),
+                            torch.from_numpy(binned), nn, n_bins, int_exact=True)
+        args = (jnp.asarray(local), jnp.asarray(ghT), jnp.asarray(binned), nn,
+                n_bins)
+        ref_x = np.asarray(JH.hist_level_xla(*args, int_exact=True, chunk=128))
+        ref_p = np.asarray(JH.hist_level_pallas(*args, int_exact=True,
+                                                interpret=True, chunk=128))
+        assert got.dtype == torch.int32
+        assert got.shape == (3 * nn * 2, (n_bins + 1) * 5)
+        np.testing.assert_array_equal(got.numpy(), ref_x)
+        np.testing.assert_array_equal(got.numpy(), ref_p)
+
+    def test_float_path_within_tolerance(self):
+        local, ghT, binned, nn, n_bins = _hist_inputs(4, n=700,
+                                                      int_exact=False)
+        t = [torch.from_numpy(a) for a in (local, ghT, binned)]
+        got = TH.hist_level(*t, nn, n_bins)
+        ref = np.asarray(JH.hist_level_xla(
+            jnp.asarray(local), jnp.asarray(ghT), jnp.asarray(binned), nn,
+            n_bins, chunk=256))
+        abs_hist = TH.hist_level_torch(t[0], t[1].abs(), t[2], nn, n_bins)
+        err = np.abs(got.numpy() - ref)
+        assert np.all(err <= TH.f32_tolerance(abs_hist).numpy())
+        assert got.dtype == torch.float32
+
+    def test_rows_outside_every_node_add_nothing(self):
+        local, ghT, binned, nn, n_bins = _hist_inputs(5)
+        local[:] = -1
+        got = TH.hist_level(torch.from_numpy(local), torch.from_numpy(ghT),
+                            torch.from_numpy(binned), nn, n_bins, int_exact=True)
+        assert int(got.abs().sum()) == 0
+
+    def test_plan_fits_shared_memory(self):
+        for L, nn, two_k, n_bins in [(150, 16, 2, 32), (3, 1, 2, 32),
+                                     (150, 32, 2, 32), (4, 2, 4, 255)]:
+            p = TH.plan(L, 1 << 20, 128, nn, two_k, n_bins, True)
+            assert p["smem"] <= 227 * 1024
+            assert 1 <= p["NT"] <= nn and 1 <= p["G"] <= L
+        with pytest.raises(ValueError, match="shared memory"):
+            TH.plan(4, 1000, 128, 2, 20, 255, True)
+
+    def test_wrong_dtype_raises(self):
+        local, ghT, binned, nn, n_bins = _hist_inputs(6)
+        with pytest.raises(TypeError):
+            TH.hist_level(torch.from_numpy(local), torch.from_numpy(ghT),
+                          torch.from_numpy(binned), nn, n_bins, int_exact=False)
+
+
+def _split_inputs(seed, L=3, nn=4, K=1, d=6, n_bins=8, empty_node=True):
+    rng = np.random.default_rng(seed)
+    B = n_bins + 1
+    hg = rng.integers(-20, 20, (L, nn, K, d, B)).astype(np.float32)
+    hh = rng.integers(0, 30, (L, nn, K, d, B)).astype(np.float32)
+    if empty_node:
+        hg[0, 1] = 0.0
+        hh[0, 1] = 0.0
+    G = hg[:, :, :, 0, :].sum(-1)
+    H = hh[:, :, :, 0, :].sum(-1)
+    mask = np.ones((L, d), np.float32)
+    mask[0, 2] = 0.0
+    return hg, hh, G, H, mask, n_bins
+
+
+def _float_split_inputs(seed, L=3, nn=4, d=16, n_bins=32, n=3000):
+    """A GBT level's float histograms: logistic grad/hess of n rows binned
+    into (L, nn, 1, d, n_bins+1), the node totals from feature 0."""
+    rng = np.random.default_rng(seed)
+    p = rng.random((L, n)).astype(np.float32)
+    y = (rng.random(n) < 0.5).astype(np.float32)
+    g, h = p - y, p * (1 - p)
+    node = rng.integers(0, nn, (L, n))
+    codes = rng.integers(0, n_bins + 1, (n, d))
+    B = n_bins + 1
+    hg = np.zeros((L, nn, 1, d, B), np.float32)
+    hh = np.zeros((L, nn, 1, d, B), np.float32)
+    for lane in range(L):
+        for f in range(d):
+            np.add.at(hg[lane, :, 0, f], (node[lane], codes[:, f]), g[lane])
+            np.add.at(hh[lane, :, 0, f], (node[lane], codes[:, f]), h[lane])
+    G = hg[:, :, :, 0, :].sum(-1)
+    H = hh[:, :, :, 0, :].sum(-1)
+    mask = np.ones((L, d), np.float32)
+    mask[-1, 3] = 0.0
+    return hg, hh, G, H, mask, n_bins
+
+
+class TestSplitScan:
+    @pytest.mark.parametrize("K", [1, 2])
+    @pytest.mark.parametrize("params", [(1.0, 0.5, 0.1, 1.0), (0.0, 0.0, 0.0, 1.0),
+                                        (2.0, 1.5, 0.0, 0.0)])
+    def test_bitwise_on_integer_hists(self, K, params):
+        hg, hh, G, H, mask, n_bins = _split_inputs(7 + K, K=K)
+        got = TS.split_scan(*[torch.from_numpy(a) for a in (hg, hh, G, H, mask)],
+                            n_bins, *params)
+        jargs = [jnp.asarray(a) for a in (hg, hh, G, H, mask)]
+        jp = [jnp.float32(v) for v in params]
+        ref_x = JS.split_scan_xla(*jargs, n_bins, *jp)
+        ref_p = JS.split_scan_pallas(*jargs, n_bins, *jp, interpret=True)
+        for g, rx, rp in zip(got, ref_x, ref_p):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(rx))
+            np.testing.assert_array_equal(g.numpy(), np.asarray(rp))
+        assert got[0].dtype == torch.int32 and got[2].dtype == torch.bool
+
+    def test_masked_feature_never_selected(self):
+        hg, hh, G, H, mask, n_bins = _split_inputs(11)
+        best, _, _ = TS.split_scan(
+            *[torch.from_numpy(a) for a in (hg, hh, G, H, mask)], n_bins,
+            1.0, 0.0, 0.0, 1.0)
+        assert not np.any(best.numpy()[0] // (n_bins - 1) == 2)
+
+    @pytest.mark.parametrize("impl", ["xla", "pallas"])
+    @pytest.mark.parametrize("params", [(1.0, 0.0, 0.0, 1.0), (1.0, 0.5, 0.1, 1.0)])
+    def test_float_hists_agree_with_reference(self, impl, params):
+        hg, hh, G, H, mask, n_bins = _float_split_inputs(23)
+        t = [torch.from_numpy(a) for a in (hg, hh, G, H, mask)]
+        jargs = [jnp.asarray(a) for a in (hg, hh, G, H, mask)]
+        jp = [jnp.float32(v) for v in params]
+        ref = (JS.split_scan_xla(*jargs, n_bins, *jp) if impl == "xla" else
+               JS.split_scan_pallas(*jargs, n_bins, *jp, interpret=True))
+        ref = tuple(torch.from_numpy(np.array(r)) for r in ref)
+        agree = TS.float_agreement(ref, *t, n_bins, *params)
+        assert agree["ok"], agree
+        assert agree["max_err_over_tol"] < 0.1
+
+    @pytest.mark.parametrize("fault", ["next_bin", "gain_scaled", "missing_flipped",
+                                       "masked_feature"])
+    def test_float_agreement_rejects_a_wrong_result(self, fault):
+        hg, hh, G, H, mask, n_bins = _float_split_inputs(29)
+        t = [torch.from_numpy(a) for a in (hg, hh, G, H, mask)]
+        params = (1.0, 0.0, 0.0, 1.0)
+        best, gain, bml = TS.split_scan_torch(*t, n_bins, *params)
+        assert TS.float_agreement((best, gain, bml), *t, n_bins, *params)["ok"]
+        if fault == "next_bin":
+            best = (best + 1) % (hg.shape[3] * (n_bins - 1))
+        elif fault == "gain_scaled":
+            gain = gain * 1.01
+        elif fault == "missing_flipped":
+            bml = ~bml
+        else:
+            t[4][:, 0] = 0.0      # feature 0 masked, yet chosen
+            best = torch.zeros_like(best)
+        assert not TS.float_agreement((best, gain, bml), *t, n_bins, *params)["ok"]
+
+    def test_soft_threshold_matches(self):
+        g = np.array([-3.0, -0.5, 0.0, 0.25, 2.0, np.nan], np.float32)
+        ref = np.asarray(JS.soft_threshold(jnp.asarray(g), jnp.float32(0.5)))
+        got = TS.soft_threshold(torch.from_numpy(g), 0.5).numpy()
+        np.testing.assert_array_equal(got, ref)
+
+
+class TestRouting:
+    @pytest.mark.parametrize("L, n, d", [(3, 641, 7), (1, 37, 1), (5, 9000, 4)])
+    def test_bitwise_vs_xla_and_pallas(self, L, n, d):
+        rng = np.random.default_rng(L * n)
+        binned = rng.integers(0, 33, (n, d)).astype(np.int32)
+        idx = rng.integers(-2, d + 3, (L, n)).astype(np.int32)
+        got = TR.row_select_lanes(torch.from_numpy(binned), torch.from_numpy(idx))
+        ref_x = np.asarray(JR.row_select_lanes_xla(jnp.asarray(binned),
+                                                   jnp.asarray(idx)))
+        ref_p = np.asarray(JR.row_select_lanes_pallas(
+            jnp.asarray(binned), jnp.asarray(idx), interpret=True, block=256))
+        np.testing.assert_array_equal(got.numpy(), ref_x)
+        np.testing.assert_array_equal(got.numpy(), ref_p)
+        outside = (idx < 0) | (idx >= d)
+        assert np.all(got.numpy()[outside] == 0)
+
+
+def test_reference_runs_on_cpu():
+    assert jax.default_backend() == "cpu"

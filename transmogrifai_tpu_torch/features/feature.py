@@ -2,18 +2,28 @@
 
 A ``Feature`` knows its ``origin_stage`` and that stage's input features
 (``parents``); the scoring plan walks this DAG back from the result features
-to the raw ones.  The port only rebuilds DAGs from saved models, so the
-builder-side wiring helpers of the reference stay behind.
+to the raw ones.  DAGs are rebuilt from saved models or wired by hand:
+``FeatureBuilder`` makes raw features and ``feature.transform_with(stage,
+*others)`` applies a stage.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import TYPE_CHECKING, Dict, List, Optional, Tuple, Type
 
 from ..types import FeatureType
 
 if TYPE_CHECKING:  # pragma: no cover
     from ..stages.base import PipelineStage
+
+
+_uid_counter = itertools.count()
+
+
+def feature_uid() -> str:
+    """A fresh unique feature id."""
+    return f"Feature_{next(_uid_counter):012x}"
 
 
 class Feature:
@@ -48,6 +58,11 @@ class Feature:
     @property
     def is_raw(self) -> bool:
         return len(self.parents) == 0
+
+    def transform_with(self, stage: "PipelineStage", *others: "Feature") -> "Feature":
+        """Apply ``stage`` to this feature (and co-inputs); its output feature."""
+        stage.set_input(self, *others)
+        return stage.get_output()
 
     def raw_features(self) -> List["Feature"]:
         """All raw ancestors (deduplicated, stable depth-first order)."""

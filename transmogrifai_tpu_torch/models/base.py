@@ -1,27 +1,127 @@
-"""Model stage base, scoring only (counterpart of ``transmogrifai_tpu/models/base.py``).
+"""Model stage bases: (label RealNN, features OPVector) -> Prediction.
 
-A fitted model maps (label RealNN, features OPVector) to a Prediction.  The
-head runs on the host in float64 numpy, as in the reference: its input is the
-device prefix's float32 vector brought back to the host.
+Counterpart of ``transmogrifai_tpu/models/base.py``.  A fitted model's
+``predict_column`` scores on the host in float64 numpy (the serving head), or
+on a device for large batches where the model has a device path.  Estimators
+fit on the device their ``fit`` was given; families that implement
+``_cv_sweep_device`` run a whole (grid x fold) sweep there and hand back the
+per-fold metrics as device tensors, so the validator can launch every family
+before it reads any result.
 """
 
 from __future__ import annotations
 
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
 from ..data.dataset import Column, Dataset
-from ..stages.base import Transformer
+from ..stages.base import Estimator, Transformer
+from ..types import OPVector, Prediction, RealNN
 from .prediction import PredictionColumn
+
+#: (stamp of a host block, device) -> (block, device tensor): the selector's
+#: families and its refit share one copy of the feature block per device
+_PLACED: Dict[tuple, tuple] = {}
+_PLACED_MAX = 2
+
+
+def _stamp(x: np.ndarray) -> tuple:
+    step = max(1, x.shape[0] // 64)
+    return (id(x), x.shape, str(x.dtype), hash(x[::step].tobytes()))
+
+
+def place_rows(x32: np.ndarray, device) -> torch.Tensor:
+    """``x32`` on ``device``, copied once per (block, device) and reused."""
+    key = (_stamp(x32), str(torch.device(device)))
+    hit = _PLACED.get(key)
+    if hit is not None and hit[0] is x32:
+        return hit[1]
+    t = torch.from_numpy(np.ascontiguousarray(x32)).to(device)
+    _PLACED[key] = (x32, t)
+    while len(_PLACED) > _PLACED_MAX:
+        _PLACED.pop(next(iter(_PLACED)))
+    return t
+
+
+def gather_scores(pending) -> np.ndarray:
+    """Host copy of a pending sweep result: a list of per-grid (k,) device
+    tensors (this is where the host waits for the sweep)."""
+    return np.stack([p.detach().cpu().numpy().astype(np.float64)
+                     for p in pending])
 
 
 class PredictionModelBase(Transformer):
     """Fitted model transformer: scores the feature vector; the label input
     may be absent."""
 
-    def predict_column(self, vec: Column) -> PredictionColumn:
+    input_types = (RealNN, OPVector)
+    output_type = Prediction
+    allow_label_as_input = True
+    #: ``transform`` takes the device large batches may score on
+    scores_on_device = True
+
+    def _is_label_slot(self, feature, features) -> bool:
+        return feature is features[0]
+
+    def predict_column(self, vec: Column, device=None) -> PredictionColumn:
         raise NotImplementedError
 
-    def transform(self, dataset: Dataset) -> Dataset:
+    def eval_payload_device(self, x32: np.ndarray, device):
+        """(score, prediction) 1-D float32 tensors on ``device`` for the
+        selector's train evaluation, or None when the model has no device
+        scoring path."""
+        return None
+
+    def transform(self, dataset: Dataset, device=None) -> Dataset:
         vec = dataset[self.inputs[1].name]
-        return dataset.with_column(self.output_name, self.predict_column(vec))
+        return dataset.with_column(self.output_name,
+                                   self.predict_column(vec, device))
 
     def transform_columns(self, cols, dataset):
         return self.predict_column(cols[-1])
+
+
+class PredictionEstimatorBase(Estimator):
+    input_types = (RealNN, OPVector)
+    output_type = Prediction
+    allow_label_as_input = True
+
+    def _is_label_slot(self, feature, features) -> bool:
+        return feature is features[0]
+
+    def fit_columns(self, cols, dataset, device):
+        label, vec = cols
+        x = np.asarray(vec.data, np.float32)
+        y = np.asarray(label.data, np.float32)
+        w = np.asarray(dataset["__sample_weight__"].data, np.float32) \
+            if "__sample_weight__" in dataset else np.ones_like(y)
+        return self._fit_arrays(x, y, w, device)
+
+    def _fit_arrays(self, x: np.ndarray, y: np.ndarray, w: np.ndarray,
+                    device) -> PredictionModelBase:
+        raise NotImplementedError
+
+    # --- sweep protocol ------------------------------------------------------
+    def _cv_sweep_device(self, x, y, train_w, val_w,
+                         grids: List[Dict[str, Any]], metric_fn, device):
+        """Launch this family's whole (grid x fold) sweep without waiting;
+        returns a list of per-grid (k,) metric tensors, or None when the
+        family has no sweep."""
+        return None
+
+    def cv_sweep(self, x, y, train_w, val_w, grids, metric_fn,
+                 device) -> np.ndarray:
+        """Metric per (grid, fold), blocking."""
+        return self.cv_sweep_async(x, y, train_w, val_w, grids, metric_fn,
+                                   device)()
+
+    def cv_sweep_async(self, x, y, train_w, val_w, grids, metric_fn, device):
+        """Launch the sweep and return a zero-argument gather -> (g, k)."""
+        pending = self._cv_sweep_device(x, y, train_w, val_w, grids,
+                                        metric_fn, device)
+        if pending is None:
+            raise NotImplementedError(
+                f"{type(self).__name__} has no CV sweep in transmogrifai_tpu_torch")
+        return lambda: gather_scores(pending)

@@ -16,7 +16,7 @@ class LogisticRegressionModel(PredictionModelBase):
         self.coef = np.asarray(coef, dtype=np.float64)
         self.intercept = float(intercept)
 
-    def predict_column(self, vec: Column) -> PredictionColumn:
+    def predict_column(self, vec: Column, device=None) -> PredictionColumn:
         z = vec.data.astype(np.float64) @ self.coef + self.intercept
         p1 = 1.0 / (1.0 + np.exp(-z))
         prob = np.column_stack([1.0 - p1, p1])

@@ -37,6 +37,17 @@ class PredictionColumn(Column):
     def classification(cls, raw: np.ndarray, prob: np.ndarray) -> "PredictionColumn":
         return cls(np.argmax(prob, axis=1).astype(np.float64), raw, prob)
 
+    @property
+    def score(self) -> np.ndarray:
+        """Positive-class probability for binary problems, else the raw
+        margin of a two-column model without probabilities, else the
+        prediction."""
+        if self.prob is not None and self.prob.shape[1] == 2:
+            return self.prob[:, 1]
+        if self.prob is None and self.raw is not None and self.raw.shape[1] == 2:
+            return self.raw[:, 1]
+        return self.pred
+
     def present(self) -> np.ndarray:
         return np.ones(len(self), dtype=np.bool_)
 

@@ -4,7 +4,8 @@ Counterpart of ``transmogrifai_tpu/perf/kernels/dispatch.py``.  The reference
 chose at trace time between Pallas kernels and XLA formulas; the port has no
 such switch.  A tensor on the CPU takes a kernel's plain PyTorch version (the
 tests run there), a tensor on a CUDA device always takes the kernel, and a
-kernel that does not build or launch raises — nothing falls back.
+kernel that does not build or launch raises :class:`KernelError` — nothing
+falls back.
 
 Kernels are CUDA C++ for ``sm_90a`` under ``csrc/``, compiled with ``nvcc``
 into a shared library with a plain C interface and loaded with ``ctypes``.
@@ -36,8 +37,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: kernel library name -> loaded ctypes handle
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+#: (library, function) pairs whose ctypes signature is set
+_BOUND: set = set()
 #: library name -> {"seconds": build seconds (0 when cached), "log": ptxas/nvcc output}
 BUILD_INFO: Dict[str, Dict[str, object]] = {}
+
+
+class KernelError(RuntimeError):
+    """A kernel that did not build, load or launch, or a fault the device
+    reported while one ran.  Callers that leave a failed model out of a
+    sweep let this propagate: it is never a property of the model."""
+
+
+def is_kernel_fault(exc: BaseException) -> bool:
+    """Whether ``exc`` is a kernel's or the device's failure (as opposed to
+    a model's): a :class:`KernelError`, or the error torch raises when the
+    device reports a fault (an illegal address, a launch failure)."""
+    return isinstance(exc, (KernelError, torch.AcceleratorError))
 
 
 def resolve_device(device=None) -> torch.device:
@@ -69,7 +85,7 @@ def nvcc_path() -> str:
         return cand
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+        raise KernelError("nvcc not found (set CUDA_HOME); the CUDA kernels "
                            "are built on the machine that has the card")
     return found
 
@@ -113,29 +129,37 @@ def build(names: Iterable[str]) -> Dict[str, str]:
             continue
         os.replace(tmp, todo[n])  # atomic: concurrent builders agree on the file
     if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        raise KernelError("CUDA kernel build failed:\n" + "\n".join(failed))
     return paths
 
 
 def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
     """Build (if needed) and load kernel library ``name``; ``signatures`` maps
     each exported C function to its ctypes argument types (every function
-    returns the ``cudaError_t`` of its launch as an int)."""
+    returns the ``cudaError_t`` of its launch as an int).  Several modules
+    may bind functions of one library, each with its own signatures."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(build([name])[name])
-            for fn, argtypes in signatures.items():
-                f = getattr(lib, fn)
-                f.argtypes = list(argtypes)
-                f.restype = ctypes.c_int
+            path = build([name])[name]
+            try:
+                lib = ctypes.CDLL(path)
+            except OSError as e:
+                raise KernelError(f"cannot load kernel library {path}: {e}") from e
             _LIBS[name] = lib
+        for fn, argtypes in signatures.items():
+            if (name, fn) in _BOUND:
+                continue
+            f = getattr(lib, fn)
+            f.argtypes = list(argtypes)
+            f.restype = ctypes.c_int
+            _BOUND.add((name, fn))
         return lib
 
 
 def check_launch(err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA kernel launch failed (cudaError_t {err})")
+        raise KernelError(f"{what}: CUDA kernel launch failed (cudaError_t {err})")
 
 
 def stream_handle(device: torch.device) -> int:

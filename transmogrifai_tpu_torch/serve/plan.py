@@ -11,7 +11,8 @@ parts, each timed (``last_timings``, ``metrics()``):
    port's CUDA kernels, on padded operands moved to ``device`` once per batch;
    the outputs the host still needs come back as numpy;
 3. **host remainder** — every other stage (the model head, float64 numpy)
-   through its columnar ``transform``.
+   through its columnar ``transform``; a tree head scores batches above 512
+   rows on the plan's device.
 
 Batches pad to power-of-two row buckets (as the reference, whose jit cache
 needed them): the kernels see a handful of shapes, and a batch's padded rows
@@ -327,7 +328,7 @@ class CompiledScoringPlan:
         cols = dict(host_cols)
         for f, arr in zip(self._out_features, outs):
             cols[f.name] = self._materialize(f, arr)
-        ds = run_host_stages(Dataset(cols), self._remainder)
+        ds = run_host_stages(Dataset(cols), self._remainder, device=self.device)
         self.last_timings["host_ms"] = (time.perf_counter() - t0) * 1e3
         self.last_timings["encode_ms"] = t_encode * 1e3
         for k in ("encode_ms", "device_ms", "host_ms"):
@@ -379,7 +380,7 @@ class CompiledScoringPlan:
             cols[f.name] = self._materialize(
                 f, np.concatenate([o[i] for o in outs]))
         t0 = time.perf_counter()
-        ds = run_host_stages(Dataset(cols), self._remainder)
+        ds = run_host_stages(Dataset(cols), self._remainder, device=self.device)
         self.last_timings.update(encode_ms=t_encode * 1e3,
                                  host_ms=(time.perf_counter() - t0) * 1e3)
         return ds

@@ -19,13 +19,22 @@ arrive as float32 with NaN for missing.
 
 Stages are rebuilt from saved models through ``STAGE_REGISTRY``, keyed by the
 reference class names; the port registers only what it implements.
+
+Stages are also wired by hand: ``feature.transform_with(stage, *others)``
+sets the stage's inputs (checked against ``input_types``) and creates its
+output feature.  An estimator's ``fit(dataset, device=None)`` fits on the
+CUDA card unless ``device`` names another device, and returns its model
+bound to the estimator's uid, inputs and output feature.
 """
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Any, Dict, List, Optional, Tuple
+import copy as _copy
+import itertools
+from typing import TYPE_CHECKING, Any, Dict, List, Optional, Sequence, Tuple, Type
 
-from ..features.feature import Feature
+from ..features.feature import Feature, feature_uid
+from ..types import FeatureType, OPVector
 
 if TYPE_CHECKING:  # pragma: no cover
     from ..data.dataset import Column, Dataset
@@ -55,6 +64,12 @@ class Param:
 #: reference class name -> port class, filled by ``__init_subclass__``
 STAGE_REGISTRY: Dict[str, type] = {}
 
+_uid_counter = itertools.count()
+
+
+def stage_uid(cls_name: str) -> str:
+    return f"{cls_name}_{next(_uid_counter):012x}"
+
 
 class PipelineStage:
     """Base of all stages."""
@@ -63,12 +78,18 @@ class PipelineStage:
         super().__init_subclass__(**kwargs)
         STAGE_REGISTRY[cls.__name__] = cls
 
+    #: expected input feature types, one per input
+    input_types: Tuple[Type[FeatureType], ...] = ()
+    output_type: Type[FeatureType] = OPVector
+    #: whether a response feature may feed this stage as a non-label input
+    allow_label_as_input: bool = False
+
     def __init__(self, operation_name: Optional[str] = None, uid: str = "",
                  **params):
         self._param_values: Dict[str, Any] = {}
         self.operation_name = operation_name or (
             type(self).__name__[0].lower() + type(self).__name__[1:])
-        self.uid = uid or f"{type(self).__name__}_{id(self):012x}"
+        self.uid = uid or stage_uid(type(self).__name__)
         self._input_features: Tuple[Feature, ...] = ()
         self._output_feature: Optional[Feature] = None
         cls_params = self._class_params()
@@ -86,13 +107,64 @@ class PipelineStage:
                     out[k] = v
         return out
 
+    def set_params(self, **kwargs) -> "PipelineStage":
+        cls_params = self._class_params()
+        for k, v in kwargs.items():
+            if k not in cls_params:
+                raise TypeError(f"{type(self).__name__} has no param {k!r}")
+            setattr(self, k, v)
+        return self
+
+    def copy(self) -> "PipelineStage":
+        """Same params, uid and wiring; an independent param dict (the
+        per-grid copies of a sweep)."""
+        clone = _copy.copy(self)
+        clone._param_values = dict(self._param_values)
+        return clone
+
+    # --- input wiring -------------------------------------------------------
+    def set_input(self, *features: Feature) -> "PipelineStage":
+        self._check_input_schema(features)
+        self._input_features = tuple(features)
+        self._output_feature = None
+        return self
+
+    def _check_input_schema(self, features: Sequence[Feature]) -> None:
+        if len(features) != len(self.input_types):
+            raise ValueError(f"{type(self).__name__} expects "
+                             f"{len(self.input_types)} inputs, got {len(features)}")
+        for expected, f in zip(self.input_types, features):
+            if not issubclass(f.ftype, expected):
+                raise TypeError(f"Feature {f.name!r} has type {f.ftype.__name__}, "
+                                f"expected {expected.__name__}")
+        if not self.allow_label_as_input:
+            for f in features:
+                if f.is_response and not self._is_label_slot(f, features):
+                    raise ValueError(
+                        f"{type(self).__name__} received response feature "
+                        f"{f.name!r} as input; response features may only "
+                        "feed label-aware stages")
+
+    def _is_label_slot(self, feature: Feature, features: Sequence[Feature]) -> bool:
+        return False
+
     @property
     def inputs(self) -> Tuple[Feature, ...]:
         return self._input_features
 
+    def make_output_name(self) -> str:
+        base = "-".join(f.name for f in self._input_features) or "raw"
+        return f"{base}_{self.operation_name}_{self.uid.rsplit('_', 1)[-1]}"
+
     def get_output(self) -> Feature:
         if self._output_feature is None:
-            raise ValueError(f"{type(self).__name__} {self.uid} has no output feature")
+            if not self._input_features:
+                raise ValueError(f"{type(self).__name__} {self.uid} has no "
+                                 "output feature (set_input first)")
+            self._output_feature = Feature(
+                name=self.make_output_name(), ftype=self.output_type,
+                is_response=False, origin_stage=self,
+                parents=self._input_features, uid=feature_uid())
         return self._output_feature
 
     @property
@@ -126,9 +198,29 @@ class Transformer(PipelineStage):
 
 
 class Estimator(PipelineStage):
-    """A stage that must observe data before it can transform.  The port does
-    not fit; a saved model's estimator nodes load as :class:`EstimatorStub`
-    and score through the fitted model saved under the same uid."""
+    """A stage that must observe data before it can transform.  A saved
+    model's estimator nodes load as :class:`EstimatorStub` and score through
+    the fitted model saved under the same uid."""
+
+    def fit_columns(self, cols: List["Column"], dataset: "Dataset", device):
+        raise NotImplementedError
+
+    def fit(self, dataset: "Dataset", device=None) -> Transformer:
+        """Fit on ``device`` (the CUDA card unless the caller names another;
+        with no card and no device this raises)."""
+        from ..perf.kernels.dispatch import resolve_device
+
+        dev = resolve_device(device)
+        cols = [dataset[f.name] for f in self.inputs]
+        return self._bind_model(self.fit_columns(cols, dataset, dev))
+
+    def _bind_model(self, model: Transformer) -> Transformer:
+        """The model shares uid, inputs and output feature with its estimator."""
+        model.uid = self.uid
+        model.operation_name = self.operation_name
+        model._input_features = self._input_features
+        model._output_feature = self.get_output()
+        return model
 
 
 class EstimatorStub(Estimator):

@@ -64,9 +64,15 @@ def partition_scoring_stages(runners: Sequence[Any]):
     return partition_device_prefix(runners, _serving_entry_ok)
 
 
-def run_host_stages(dataset: Dataset, runners: Sequence[Any]) -> Dataset:
-    """The host remainder: each runner's columnar ``transform`` in order."""
+def run_host_stages(dataset: Dataset, runners: Sequence[Any],
+                    device=None) -> Dataset:
+    """The host remainder: each runner's columnar ``transform`` in order.
+    A runner that ``scores_on_device`` (a fitted model) is told ``device``,
+    where it may score large batches."""
     out = dataset
     for runner in runners:
-        out = runner.transform(out)
+        if getattr(runner, "scores_on_device", False):
+            out = runner.transform(out, device=device)
+        else:
+            out = runner.transform(out)
     return out

@@ -38,7 +38,7 @@ FORMAT_VERSION = 1
 def _register_stages() -> None:
     """Import every module that defines a ported stage class."""
     from ..checkers import sanity  # noqa: F401
-    from ..models import logistic, selector  # noqa: F401
+    from ..models import logistic, selector, trees  # noqa: F401
     from ..ops import bucketizers, combiner, numeric, onehot, scalers  # noqa: F401
 
 
