@@ -37,12 +37,15 @@ Phases, one JSON line each:
                splitscan.float_agreement's tolerance and bitwise from one
                launch to the next; K3 bitwise (ragged rows, one lane, indices
                out of range).  Then each is timed at the training path's
-               shapes (the RF-CV deepest level, a GBT level, RF depth-6
-               level 5, routing at 150 and 3 lanes) beside its bound, its
-               plain version and one PyTorch call; K1 and K3 are held
-               against their plain versions there too (int8 and K3 bitwise,
-               float within its tolerance).  The library calls run at a
-               stated smaller row count where the full one does not fit.
+               shapes beside its bound, its plain version and one PyTorch
+               call: K1 at every grown level of the sweep (int8 at 150 lanes
+               x 1, 1, 2, 4, 8, 16 nodes and the refit's 50 lanes x 16;
+               float at 3 lanes x 1, 1, 2), with its design's own byte floor;
+               K2 at RF depth-6 level 5; K3 at 150 and 3 lanes.  K1 and K3
+               are held against their plain versions there too (int8 and K3
+               bitwise, float within its tolerance and bitwise run to run).
+               The library calls run at a stated smaller row count where the
+               full one does not fit.
 6. training_parity — bench.py's synth data at 16 384 rows x 128 through the
                port's Workflow.train on the card (RF {50 trees, depth 3|6},
                GBT {50 rounds, depth 3}, 3 folds, seed 7), the forest's
@@ -96,6 +99,10 @@ FULL_ROWS = 1 << 20
 N_BINS = 32
 #: grown levels of the sweep: RF depth 3 + depth 6 + GBT 50 rounds x depth 3
 CV_LEVELS = 3 + 6 + 50 * 3
+#: nodes of K1's histogram at each grown level (the root, then the left
+#: children of the level above): RF depth 6, GBT depth 3
+RF_LEVEL_NODES = (1, 1, 2, 4, 8, 16)
+GBT_LEVEL_NODES = (1, 1, 2)
 
 
 def emit(obj) -> None:
@@ -411,15 +418,19 @@ def phase_tree_parity(torch, dev) -> dict:
     return out
 
 
-def _hist_inputs(torch, dev, L: int, n: int, nn: int, int_exact: bool, seed: int):
+def _hist_inputs(torch, dev, L: int, n: int, nn: int, int_exact: bool, seed: int,
+                 root: bool = False):
     """Level inputs shaped like the sweep's: half the rows are right
-    children or leaf-stuck (node -1), grad/hess are fold weight x Poisson
-    bootstrap x label (int8) for forests, logistic grad/hess (float) for GBT."""
+    children or leaf-stuck (node -1) — at the ``root`` every row is in node
+    0 — grad/hess are fold weight x Poisson bootstrap x label (int8) for
+    forests, logistic grad/hess (float) for GBT."""
     g = torch.Generator(device=dev).manual_seed(seed)
     binned = torch.randint(0, N_BINS + 1, (n, D), generator=g, device=dev,
                            dtype=torch.int32)
     node = torch.randint(0, 2 * nn, (L, n), generator=g, device=dev, dtype=torch.int32)
     local = torch.where(node % 2 == 0, node // 2, torch.full_like(node, -1))
+    if root:
+        local = torch.zeros_like(local)
     fold = torch.randint(0, FOLDS, (n,), generator=g, device=dev)
     lane_fold = torch.arange(L, device=dev) % FOLDS
     w = (fold[None, :] != lane_fold[:, None]).to(torch.float32)
@@ -460,6 +471,66 @@ def _index_add_library(torch, local, gh, binned, nn: int):
     return (lambda: out.zero_().index_add_(0, idx, src)), out
 
 
+def _k1_design_bytes(torch, p: dict, local, gh, d: int, nn: int, int_exact: bool) -> int:
+    """Bytes the kernel's design must move on these inputs: every CTA scans
+    its lanes' node ids and grad/hess over its rows; the int8 kernel fetches
+    the codes of each row live in some lane of a CTA (its node in the CTA's
+    tile, a grad/hess not 0), the float kernel the codes of every row of its
+    slice; the histograms are written once (the float partials written and
+    read again)."""
+    L, two_k, n = gh.shape
+    scan = p["node_tiles"] * p["feat_tiles"] * L * n * (4 + two_k * gh.element_size())
+    out_b = L * nn * two_k * (N_BINS + 1) * d * 4
+    if not int_exact:
+        codes = p["lane_groups"] * p["node_tiles"] * n * d * 4
+        partials = 2 * out_b * p["slices"] if p["slices"] > 1 else 0
+        return scan + codes + partials + out_b
+    live = (local >= 0) & (local < nn) & (gh != 0).any(dim=1)
+    tile = torch.where(live, local // p["NT"], torch.full_like(local, -1))
+    fetched = 0
+    for lg in range(p["lane_groups"]):
+        tl = tile[lg * p["G"]:(lg + 1) * p["G"]]
+        for nt in range(p["node_tiles"]):
+            fetched += int((tl == nt).any(dim=0).sum())
+    return scan + fetched * d * 4 + out_b * (2 if p["slices"] > 1 else 1)
+
+
+def _k1_level(torch, KH, bound, local, gh, binned, nn: int, root: bool,
+              int_exact: bool) -> dict:
+    """K1 at one level: its time, bound, design floor and plain version's
+    time; held bitwise (int8) or within f32_tolerance and bitwise run to run
+    (float) against the plain version."""
+    L, two_k, n = gh.shape
+    run = lambda: KH.hist_level(local, gh, binned, nn, N_BINS,  # noqa: E731
+                                int_exact=int_exact)
+    p = KH.plan(L, n, D, nn, two_k, N_BINS, int_exact)
+    e = {"path": "int8" if int_exact else "float32", "root": root,
+         "shape": [L, nn, n, D, N_BINS + 1], "ms": time_big_ms(run),
+         **bound(KH.bound_bytes(L, n, D, nn, two_k, N_BINS, int_exact),
+                 _hist_ops(torch, local, gh, nn)),
+         "plan": {k: p[k] for k in ("G", "NT", "FT", "threads", "R", "slices",
+                                    "merge", "smem")}}
+    design = _k1_design_bytes(torch, p, local, gh, D, nn, int_exact)
+    e.update(design_bytes=design, design_floor_ms=design / HBM_BYTES_PER_S * 1e3)
+    got = run()
+    e["plain_ms"], ref = time_once(lambda: KH.hist_level_torch(
+        local, gh, binned, nn, N_BINS, int_exact=int_exact))
+    what = f"K1 {e['path']} at L={L} nn={nn} root={root}"
+    if int_exact:
+        check(torch.equal(got, ref), f"{what}: bitwise equal to the plain version")
+        e["max_abs_err"] = 0.0
+    else:
+        again = run()
+        check(torch.equal(got, again), f"{what}: bitwise run to run")
+        err = (got - ref).abs()
+        tol = KH.f32_tolerance(KH.hist_level_torch(local, gh.abs(), binned, nn, N_BINS))
+        check(bool((err <= tol).all()), f"{what}: within f32_tolerance")
+        e.update(max_abs_err=float(err.max()), max_err_over_tol=float((err / tol).max()))
+        del again, err, tol
+    del got, ref
+    return e
+
+
 def phase_tree_timing(torch, dev) -> dict:
     """K1-K3 timed at the training path's shapes, with bounds, plain and
     library times."""
@@ -473,55 +544,40 @@ def phase_tree_timing(torch, dev) -> dict:
                 "bound_by": "bytes" if b_ms >= o_ms else "operations",
                 "bytes": nbytes, "ops": ops}
 
-    # K1, int8 path: the RF-CV deepest fresh level (depth 6, level 5: 16 left
-    # children) of 3 folds x 50 trees
-    L, nn = FOLDS * 50, 16
-    local, gh, binned = _hist_inputs(torch, dev, L, FULL_ROWS, nn, True, 10)
-    run = lambda lo, g, b: KH.hist_level(lo, g, b, nn, N_BINS, int_exact=True)  # noqa: E731
-    k1 = {"shape": [L, nn, FULL_ROWS, D, N_BINS + 1], "path": "int8",
-          "ms": time_big_ms(lambda: run(local, gh, binned)),
-          **bound(KH.bound_bytes(L, FULL_ROWS, D, nn, 2, N_BINS, True),
-                  _hist_ops(torch, local, gh, nn))}
-    got = run(local, gh, binned)
-    k1["plain_ms"], ref = time_once(lambda: KH.hist_level_torch(
-        local, gh, binned, nn, N_BINS, int_exact=True))
-    check(torch.equal(got, ref), "K1 int8 bitwise at the RF-CV deepest level")
-    del got, ref
-    lib_rows = (1 << 19) // L
-    sl = (local[:, :lib_rows].contiguous(), gh[..., :lib_rows].contiguous(),
-          binned[:lib_rows])
-    call, _ = _index_add_library(torch, *sl, nn)
-    k1.update(library_rows=lib_rows, ms_at_library_rows=time_big_ms(lambda: run(*sl)),
-              library_ms=time_big_ms(call),
-              library="index_add_ of the (lane, channel, row, feature) terms "
-                      "at their flat (lane, node, channel, bin, feature) index, "
-                      "float32 (a composite: the index is built outside the call)")
-    del local, gh, binned, sl, call
-    # K1, float path: a GBT level (3 fold lanes, depth 3, level 2: 2 left children)
-    L, nn = FOLDS, 2
-    local, gh, binned = _hist_inputs(torch, dev, L, FULL_ROWS, nn, False, 11)
-    run = lambda lo, g, b: KH.hist_level(lo, g, b, nn, N_BINS)  # noqa: E731
-    f32 = {"shape": [L, nn, FULL_ROWS, D, N_BINS + 1], "path": "float32",
-           "ms": time_big_ms(lambda: run(local, gh, binned)),
-           **bound(KH.bound_bytes(L, FULL_ROWS, D, nn, 2, N_BINS, False),
-                   _hist_ops(torch, local, gh, nn))}
-    got = run(local, gh, binned)
-    f32["plain_ms"], ref = time_once(lambda: KH.hist_level_torch(
-        local, gh, binned, nn, N_BINS))
-    err = (got - ref).abs()
-    tol = KH.f32_tolerance(KH.hist_level_torch(local, gh.abs(), binned, nn, N_BINS))
-    check(bool((err <= tol).all()), "K1 float within tolerance at a GBT level")
-    f32.update(max_abs_err=float(err.max()), max_err_over_tol=float((err / tol).max()))
-    del got, ref, err, tol
-    lib_rows = (1 << 19) // L
-    sl = (local[:, :lib_rows].contiguous(), gh[..., :lib_rows].contiguous(),
-          binned[:lib_rows])
-    call, _ = _index_add_library(torch, *sl, nn)
-    f32.update(library_rows=lib_rows, ms_at_library_rows=time_big_ms(lambda: run(*sl)),
-               library_ms=time_big_ms(call))
-    k1["f32"] = f32
-    t["hist_level"] = k1
-    del local, gh, binned, sl, call
+    # K1 at every grown level of the sweep: the int8 path at 150 lanes (RF
+    # CV, depth 6: the root, then 1, 2, 4, 8, 16 left children; depth 3's
+    # levels are its first three) and 50 lanes (the refit's deepest level);
+    # the float path at 3 lanes (GBT, depth 3: 1, 1, 2)
+    levels = ([(FOLDS * 50, nn, i == 0, True) for i, nn in enumerate(RF_LEVEL_NODES)]
+              + [(50, RF_LEVEL_NODES[-1], False, True)]
+              + [(FOLDS, nn, i == 0, False) for i, nn in enumerate(GBT_LEVEL_NODES)])
+    rows = []
+    for i, (L, nn, root, int_exact) in enumerate(levels):
+        local, gh, binned = _hist_inputs(torch, dev, L, FULL_ROWS, nn, int_exact,
+                                         10 + i, root=root)
+        e = _k1_level(torch, KH, bound, local, gh, binned, nn, root, int_exact)
+        rows.append(e)
+        # the library call at the deepest RF-CV level and the deepest GBT level
+        if (L, nn, int_exact) in ((FOLDS * 50, RF_LEVEL_NODES[-1], True),
+                                  (FOLDS, GBT_LEVEL_NODES[-1], False)):
+            lib_rows = (1 << 19) // L
+            sl = (local[:, :lib_rows].contiguous(), gh[..., :lib_rows].contiguous(),
+                  binned[:lib_rows])
+            call, _ = _index_add_library(torch, *sl, nn)
+            e.update(library_rows=lib_rows, ms_at_library_rows=time_big_ms(
+                lambda: KH.hist_level(*sl, nn, N_BINS, int_exact=int_exact)),
+                library_ms=time_big_ms(call),
+                library="index_add_ of the (lane, channel, row, feature) terms "
+                        "at their flat (lane, node, channel, bin, feature) index, "
+                        "float32 (a composite: the index is built outside the call)")
+            del sl, call
+        del local, gh, binned
+        torch.cuda.empty_cache()
+    deepest = next(e for e in rows if e["path"] == "int8"
+                   and e["shape"][:2] == [FOLDS * 50, RF_LEVEL_NODES[-1]])
+    gbt = next(e for e in rows if e["path"] == "float32"
+               and e["shape"][:2] == [FOLDS, GBT_LEVEL_NODES[-1]] and not e["root"])
+    t["hist_level"] = {**deepest, "f32": gbt, "levels": rows}
 
     # K2: RF depth-6 level 5 (32 nodes) of 150 lanes, integer-valued hists
     L, nn, K = FOLDS * 50, 32, 1
@@ -881,10 +937,13 @@ def main() -> int:
         if kname == "hist_level":
             h = tree_err[kname]
             entry["parity"] = "int8 path bitwise"
-            f = entry["f32"]
-            entry["f32"] = {**f, "max_abs_err": max(f["max_abs_err"], h["f32_max_abs_err"]),
-                            "max_err_over_tol": max(f["max_err_over_tol"],
-                                                    h["f32_max_err_over_tol"]),
+            f_levels = [e for e in entry["levels"] if e["path"] == "float32"]
+            entry["f32"] = {**entry["f32"],
+                            "max_abs_err": max([h["f32_max_abs_err"]]
+                                               + [e["max_abs_err"] for e in f_levels]),
+                            "max_err_over_tol": max([h["f32_max_err_over_tol"]]
+                                                    + [e["max_err_over_tol"]
+                                                       for e in f_levels]),
                             "parity": "within 1e-5 x |gh| histogram + 1e-6 of "
                                       "the plain version; bitwise run to run"}
         if kname == "split_scan":

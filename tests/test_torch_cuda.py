@@ -84,9 +84,15 @@ def _hist_case(L, n, d, nn, n_bins, two_k, int_exact, seed):
     return [torch.from_numpy(a).cuda() for a in (local, gh, binned)]
 
 
+# several node tiles (nn 16, 32), several row slices merged with global
+# atomics (few lanes and nodes), several lanes per CTA (nn 1), n_bins 256,
+# two_k 4, feature tiles that leave threads idle (d 33, 65, 200), row counts
+# that are no multiple of any block (primes)
 @pytest.mark.parametrize("L, n, d, nn, n_bins, two_k", [
     (3, 641, 7, 4, 8, 2), (150, 20011, 128, 16, 32, 2), (1, 5, 1, 1, 2, 2),
-    (4, 70001, 33, 2, 32, 4), (2, 3000, 65, 32, 16, 2)])
+    (4, 70001, 33, 2, 32, 4), (2, 3000, 65, 32, 16, 2),
+    (3, 100003, 128, 16, 32, 2), (12, 65537, 128, 1, 32, 2),
+    (2, 30011, 128, 4, 256, 2), (5, 40009, 200, 3, 255, 2)])
 def test_hist_int_kernel_bitwise_and_counted(L, n, d, nn, n_bins, two_k):
     local, gh, binned = _hist_case(L, n, d, nn, n_bins, two_k, True, seed=n)
     before = TH.launches
@@ -97,16 +103,21 @@ def test_hist_int_kernel_bitwise_and_counted(L, n, d, nn, n_bins, two_k):
     assert got.dtype == torch.int32 and torch.equal(got, ref)
 
 
-@pytest.mark.parametrize("L, n, d, nn", [(3, 641, 7, 2), (3, 200003, 128, 1),
-                                         (12, 50000, 40, 8)])
-def test_hist_f32_kernel_within_tolerance_and_repeatable(L, n, d, nn):
-    local, gh, binned = _hist_case(L, n, d, nn, 32, 2, False, seed=n)
-    a = TH.hist_level(local, gh, binned, nn, 32)
-    b = TH.hist_level(local, gh, binned, nn, 32)
+# the GBT levels (3 lanes x 1-2 nodes: every lane and node in one CTA, many
+# slices summed in order), a tiled many-lane level (150 lanes x 16 nodes),
+# ragged d (no 16-byte code copies), two_k 4 and n_bins 255
+@pytest.mark.parametrize("L, n, d, nn, n_bins, two_k", [
+    (3, 641, 7, 2, 32, 2), (3, 200003, 128, 1, 32, 2), (12, 50000, 40, 8, 32, 2),
+    (3, 262147, 128, 2, 32, 2), (150, 20011, 128, 16, 32, 2),
+    (3, 30011, 33, 2, 32, 2), (2, 20011, 64, 2, 255, 4)])
+def test_hist_f32_kernel_within_tolerance_and_repeatable(L, n, d, nn, n_bins, two_k):
+    local, gh, binned = _hist_case(L, n, d, nn, n_bins, two_k, False, seed=n)
+    a = TH.hist_level(local, gh, binned, nn, n_bins)
+    b = TH.hist_level(local, gh, binned, nn, n_bins)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
-    ref = TH.hist_level_torch(local, gh, binned, nn, 32)
-    tol = TH.f32_tolerance(TH.hist_level_torch(local, gh.abs(), binned, nn, 32))
+    ref = TH.hist_level_torch(local, gh, binned, nn, n_bins)
+    tol = TH.f32_tolerance(TH.hist_level_torch(local, gh.abs(), binned, nn, n_bins))
     assert bool(((a - ref).abs() <= tol).all())
 
 

@@ -95,17 +95,88 @@ class TestHistogram:
     def test_plan_fits_shared_memory(self):
         for L, nn, two_k, n_bins in [(150, 16, 2, 32), (3, 1, 2, 32),
                                      (150, 32, 2, 32), (4, 2, 4, 255)]:
-            p = TH.plan(L, 1 << 20, 128, nn, two_k, n_bins, True)
-            assert p["smem"] <= 227 * 1024
-            assert 1 <= p["NT"] <= nn and 1 <= p["G"] <= L
-        with pytest.raises(ValueError, match="shared memory"):
-            TH.plan(4, 1000, 128, 2, 20, 255, True)
+            for int_exact in (True, False):
+                p = TH.plan(L, 1 << 20, 128, nn, two_k, n_bins, int_exact)
+                assert p["smem"] <= 227 * 1024
+                assert 1 <= p["NT"] <= nn and 1 <= p["G"] <= L
+                assert 32 <= p["FT"] <= 128 and p["threads"] <= 1024
+        for int_exact in (True, False):
+            with pytest.raises(ValueError, match="shared memory"):
+                TH.plan(4, 1000, 128, 2, 20, 255, int_exact)
 
     def test_wrong_dtype_raises(self):
         local, ghT, binned, nn, n_bins = _hist_inputs(6)
         with pytest.raises(TypeError):
             TH.hist_level(torch.from_numpy(local), torch.from_numpy(ghT),
                           torch.from_numpy(binned), nn, n_bins, int_exact=False)
+
+
+#: (L, n, d, nn, two_k, n_bins): the RF-CV levels (150 lanes, nn 1..16), the
+#: refit's deepest level (50 lanes), the GBT levels (3 lanes), the library
+#: comparison's rows, n_bins 256, two_k 4, nn 32, L 1, n 0, ragged d
+_PLAN_SHAPES = [(150, 1 << 20, 128, nn, 2, 32) for nn in (1, 2, 4, 8, 16)] + [
+    (50, 1 << 20, 128, 16, 2, 32), (3, 1 << 20, 128, 1, 2, 32),
+    (3, 1 << 20, 128, 2, 2, 32), (150, 3495, 128, 16, 2, 32),
+    (3, 174762, 128, 2, 2, 32), (2, 30011, 128, 4, 2, 256),
+    (4, 70001, 33, 2, 4, 32), (4, 1 << 20, 128, 2, 4, 255),
+    (2, 3000, 65, 32, 2, 16), (1, 5, 1, 1, 2, 2), (1, 0, 3, 1, 2, 2),
+    (7, 100003, 200, 3, 2, 255)]
+
+
+def _covered_once(total: int, tile: int, tiles: int) -> bool:
+    """Tiles [k*tile, (k+1)*tile) clipped to total, k < tiles: every index
+    in exactly one, none empty."""
+    count = np.zeros(total, np.int64)
+    for k in range(tiles):
+        if total and k * tile >= total:
+            return False
+        count[k * tile:(k + 1) * tile] += 1
+    return bool(np.all(count == 1))
+
+
+class TestHistogramPlan:
+    @pytest.mark.parametrize("int_exact", [True, False])
+    @pytest.mark.parametrize("L, n, d, nn, two_k, n_bins", _PLAN_SHAPES)
+    def test_tiles_cover_each_cell_and_row_once(self, L, n, d, nn, two_k,
+                                                n_bins, int_exact):
+        p = TH.plan(L, n, d, nn, two_k, n_bins, int_exact)
+        B = n_bins + 1
+        assert _covered_once(L, p["G"], p["lane_groups"])
+        assert _covered_once(nn, p["NT"], p["node_tiles"])
+        assert _covered_once(d, p["FT"], p["feat_tiles"])
+        assert _covered_once(n, p["rows_per_slice"], p["slices"])
+        # the shared memory the kernels lay out, within one CTA's 227 KB
+        assert p["smem"] <= 227 * 1024
+        assert p["threads"] % 32 == 0 and 32 <= p["threads"] <= 1024
+        assert p["FT"] % 32 == 0 and p["FT"] <= 128
+        if int_exact:
+            stage = p["threads"] // 32 * p["G"] * 32 * (1 + two_k)
+            assert p["smem"] == p["G"] * p["NT"] * two_k * B * p["FT"] * 4 + stage
+        else:
+            assert p["threads"] == p["G"] * p["NT"] * p["FT"]
+            assert p["threads"] <= TH.F32_MAX_THREADS
+            assert p["smem"] == 4 * (p["G"] * p["NT"] * two_k * B * p["FT"]
+                                     + 2 * p["R"] * (p["FT"] + p["G"] * (1 + two_k)))
+        # direct store exactly where one slice covers every row
+        assert (p["merge"] == "direct") == (p["slices"] == 1)
+        if p["slices"] > 1:
+            assert p["merge"] == ("atomic" if int_exact else "partials")
+
+    def test_gbt_level_holds_every_lane_and_node(self):
+        # each row's codes read once per level and feature tile
+        for nn in (1, 2):
+            p = TH.plan(3, 1 << 20, 128, nn, 2, 32, False)
+            assert (p["lane_groups"], p["node_tiles"]) == (1, 1)
+            assert p["slices"] > 1 and p["merge"] == "partials"
+
+    def test_rf_deepest_level_fetches_codes_once_per_live_row(self):
+        # one lane per CTA, all 128 features, nodes in few tiles, no slices
+        p = TH.plan(150, 1 << 20, 128, 16, 2, 32, True)
+        assert p["G"] == 1 and p["FT"] == 128 and p["feat_tiles"] == 1
+        assert p["node_tiles"] <= 4 and p["merge"] == "direct"
+
+    def test_int_path_refuses_rows_that_could_overflow(self):
+        assert TH.INT_MAX_ROWS * 127 < 2 ** 31 <= (TH.INT_MAX_ROWS + 1) * 127
 
 
 def _split_inputs(seed, L=3, nn=4, K=1, d=6, n_bins=8, empty_node=True):

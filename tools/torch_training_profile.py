@@ -10,7 +10,8 @@ per part:
 - host-clock seconds (each part ends in a synchronise);
 - device-busy seconds (the union of the kernels' and copies' intervals) and
   the device idle share of the part (1 - busy / wall);
-- the device time of the port's three tree kernels and of everything else.
+- the device time of the port's three tree kernels (K1, K2, K3, by the
+  kernels of each) and of everything else.
 
     python3 tools/torch_training_profile.py [--rows 1048576] [--out p.json]
 
@@ -26,8 +27,11 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TREE_KERNELS = ("hist_level_kernel", "sum_slices_kernel", "split_scan_kernel",
-                "row_select_lanes_kernel")
+#: device kernel name -> the port's kernel it belongs to (K1's float path
+#: counts its slice-sum kernel with it)
+TREE_KERNELS = {"hist_int8_kernel": "hist_level", "hist_f32_kernel": "hist_level",
+                "sum_slices_kernel": "hist_level", "split_scan_kernel": "split_scan",
+                "row_select_lanes_kernel": "row_select_lanes"}
 
 
 def _busy(events) -> float:
@@ -95,7 +99,8 @@ def main(argv=None) -> int:
             busy = _busy([(e.time_range.start, e.time_range.end) for e in dev_events])
             by_kernel = {}
             for e in dev_events:
-                key = next((k for k in TREE_KERNELS if k in e.name), "other")
+                key = next((v for k, v in TREE_KERNELS.items() if k in e.name),
+                           "other")
                 d = by_kernel.setdefault(key, [0.0, 0])
                 d[0] += (e.time_range.end - e.time_range.start) / 1e6
                 d[1] += 1

@@ -19,11 +19,13 @@ A row whose ``local`` is negative (or >= nn), or whose code is outside
   operands, and returns int32; the float path multiplies in float32.
 - ``launches`` — the launch counter.
 
-Two paths, as in the reference: ``int_exact`` (``ghT`` int8, int32 out —
-exact under any order) and float32 (``ghT`` float32, float32 out).  The
-kernel's float sums run in a fixed order, so two launches on the same inputs
-give the same bits; against the plain version they agree to rounding (see
-:func:`f32_tolerance`).
+Two paths, as in the reference, each its own kernel over the tiling that
+:func:`plan` chooses by shape: ``int_exact`` (``ghT`` int8, int32 out —
+exact under any order, so many warps add into one accumulator set with
+shared-memory atomics) and float32 (``ghT`` float32, float32 out: each
+thread owns its accumulator column and adds rows in order, so two launches
+on the same inputs give the same bits; against the plain version they agree
+to rounding, see :func:`f32_tolerance`).
 """
 
 from __future__ import annotations
@@ -41,17 +43,29 @@ PLAIN_CHUNK = 2048
 
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "tmog_hist_level": (_VP, _VP, _VP, _VP, _VP) + (_INT,) * 11 + (_VP,),
+    "tmog_hist_level": (_VP, _VP, _VP, _VP, _VP) + (_INT,) * 14 + (_VP,),
 }
 
-#: shared memory a histogram CTA aims for (several CTAs per SM), and the most
-#: one may take (the H100's 227 KB, less the stage buffers)
-_SMEM_TARGET = 64 * 1024
-_SMEM_MAX = 200 * 1024
-#: CTAs a launch aims for (8 per SM); row slices are added until it has them
-_TARGET_CTAS = 132 * 8
-#: fewest rows a slice keeps, and the most bytes the float partials may take
-_MIN_SLICE_ROWS = 4096
+#: the H100: SMs, shared memory per SM and the most one CTA may take, threads
+_SMS = 132
+_SM_SMEM = 228 * 1024
+_CTA_SMEM_MAX = 227 * 1024
+_MAX_THREADS = 1024
+#: int8 path: warps sharing one accumulator set, the shared memory it aims
+#: for (one CTA per SM), the most lanes a CTA stages, fewest rows per slice
+_INT_WARPS = 32
+_INT_SMEM = 220 * 1024
+_INT_MAX_LANES = 8
+_INT_MIN_SLICE_ROWS = 8192
+#: int32 sums of |grad/hess| <= 127 stay below 2**31 up to this many rows
+INT_MAX_ROWS = (2 ** 31 - 1) // 127
+#: float path: the most threads of a CTA (the kernel's launch bound), the
+#: shared memory that lets two CTAs share an SM (tried first), staged rows per
+#: block, fewest rows per slice, and the most bytes the slice partials may take
+F32_MAX_THREADS = 512
+_F32_SMEM = 112 * 1024
+_F32_STAGE_ROWS = (32, 16)
+_F32_MIN_SLICE_ROWS = 2048
 _MAX_PARTIAL_BYTES = 512 * 1024 * 1024
 
 
@@ -118,33 +132,128 @@ def _check(t: torch.Tensor, name: str, dtype, ndim: int) -> None:
         raise ValueError(f"{name} lies on unsupported device {t.device}")
 
 
+def _feature_tiles(d: int) -> list:
+    """Feature tiles a CTA may take, widest first: all of d (rounded up to
+    32, at most 128), then 64 and 32."""
+    first = min(128, -(-d // 32) * 32)
+    return [first] + [ft for ft in (64, 32) if ft < first]
+
+
+def _balanced(total: int, most: int) -> int:
+    """The even tile size of ``total`` items in tiles of at most ``most``."""
+    return -(-total // -(-total // most))
+
+
+def _too_big(two_k: int, B: int) -> ValueError:
+    return ValueError(
+        f"histogram of {two_k} channels x {B} bins does not fit one CTA's "
+        f"shared memory ({two_k * B * 32 * 4} bytes per 32 features)")
+
+
+def _int8_tiles(L: int, d: int, nn: int, two_k: int, B: int) -> dict:
+    """int8 path: the widest feature tile of which one (lane, node) fits,
+    then as many nodes as fit, then lanes (a row's codes are fetched once
+    for all lanes of a CTA in which it is live)."""
+    warps = _INT_WARPS
+    stage = lambda G: warps * G * 32 * (1 + two_k)  # noqa: E731
+    for FT in _feature_tiles(d):
+        unit = two_k * B * FT * 4
+        units = (_INT_SMEM - stage(1)) // unit
+        if units >= 1:
+            break
+    else:
+        raise _too_big(two_k, B)
+    NT = _balanced(nn, units)
+    G = max(1, min(L, units // NT, _INT_MAX_LANES))
+    while G > 1 and G * NT * unit + stage(G) > _INT_SMEM:
+        G -= 1
+    G = _balanced(L, G)
+    return {"G": G, "NT": NT, "FT": FT, "threads": 32 * warps, "R": 32}
+
+
+def _f32_smem(G: int, NT: int, FT: int, R: int, two_k: int, B: int) -> int:
+    return 4 * (G * NT * two_k * B * FT + 2 * (R * FT + G * R + G * two_k * R))
+
+
+def _f32_tiles(L: int, d: int, nn: int, two_k: int, B: int) -> dict:
+    """float path: every lane and node of the level in one CTA where they
+    fit (each row's codes then read once per feature tile), with the most
+    staged rows (a block's syncs and ballots then serve more rows), then the
+    widest feature tile; else tiles of 32 features, as many nodes as fit,
+    then lanes.  A thread owns one (lane, node, feature) column.  A CTA small
+    enough that two share an SM is tried first."""
+    for budget in (_F32_SMEM, _CTA_SMEM_MAX):
+        for R in _F32_STAGE_ROWS:
+            for FT in _feature_tiles(d):
+                if L * nn * FT > F32_MAX_THREADS:
+                    continue
+                if _f32_smem(L, nn, FT, R, two_k, B) <= budget:
+                    return {"G": L, "NT": nn, "FT": FT, "threads": L * nn * FT,
+                            "R": R}
+        R = _F32_STAGE_ROWS[-1]
+        fits = lambda G, NT: (G * NT * 32 <= F32_MAX_THREADS  # noqa: E731
+                              and _f32_smem(G, NT, 32, R, two_k, B) <= budget)
+        if not fits(1, 1):
+            continue
+        NT = nn
+        while not fits(1, NT):
+            NT -= 1
+        NT = _balanced(nn, NT)
+        G = L
+        while not fits(G, NT):
+            G -= 1
+        G = _balanced(L, G)
+        R = next(r for r in _F32_STAGE_ROWS
+                 if _f32_smem(G, NT, 32, r, two_k, B) <= budget)
+        return {"G": G, "NT": NT, "FT": 32, "threads": G * NT * 32, "R": R}
+    raise _too_big(two_k, B)
+
+
 def plan(L: int, n: int, d: int, nn: int, two_k: int, n_bins: int,
          int_exact: bool) -> dict:
-    """Launch shape of the kernel: lanes per CTA ``G``, nodes per CTA ``NT``,
-    warps per CTA (32 features each) and row slices ``S``.  One accumulator
-    unit is (one lane, one node, 32 features): 2K x (n_bins+1) x 32 words.
-    A CTA holds every node of the level if it can (each of its rows is then
-    read once per lane group), then as many feature warps, then lanes."""
+    """Launch shape of the kernel.  A CTA holds the accumulators of ``G``
+    lanes x ``NT`` nodes x ``FT`` features with ``threads`` threads and walks
+    one of ``slices`` row slices of ``rows_per_slice`` rows; the float
+    kernel stages ``R`` rows per block.  Row slices are added until the
+    launch fills the card (two waves of the int8 kernel, one of the float
+    kernel).  ``merge``: ``direct`` where one slice covers every row (each
+    CTA stores its own cells), else ``atomic`` (int8: global atomicAdd after
+    a memset) or ``partials`` (float: per-slice partials summed in slice
+    order)."""
     B = n_bins + 1
-    unit = two_k * B * 32 * 4
-    stage = lambda g: g * 128 * 4 * (1 + two_k)  # noqa: E731
-    if unit + stage(1) > _SMEM_MAX:
-        raise ValueError(
-            f"histogram of {two_k} channels x {B} bins does not fit one CTA's "
-            f"shared memory ({unit} bytes per 32 features)")
-    units = max(1, _SMEM_TARGET // unit)
-    NT = min(nn, units)
-    warps = max(1, min(-(-d // 32), units // NT, 4))
-    G = max(1, min(L, units // (NT * warps), 8))
-    base = -(-L // G) * -(-nn // NT) * -(-d // (32 * warps))
-    slices = max(1, min(-(-_TARGET_CTAS // base), -(-n // _MIN_SLICE_ROWS)))
-    if not int_exact and slices > 1:
-        per_slice = L * nn * two_k * B * d * 4
+    tiles = (_int8_tiles if int_exact else _f32_tiles)(L, d, nn, two_k, B)
+    return finish_plan(tiles, L, n, d, nn, two_k, n_bins, int_exact)
+
+
+def finish_plan(tiles: dict, L: int, n: int, d: int, nn: int, two_k: int,
+                n_bins: int, int_exact: bool) -> dict:
+    """:func:`plan`'s dict from a CTA's tiles (``G``, ``NT``, ``FT``,
+    ``threads``, ``R``): its shared memory, tile counts and row slices."""
+    B = n_bins + 1
+    p = dict(tiles)
+    if int_exact:
+        p["smem"] = (p["G"] * p["NT"] * two_k * B * p["FT"] * 4
+                     + p["threads"] // 32 * p["G"] * 32 * (1 + two_k))
+        waves, min_rows = 2, _INT_MIN_SLICE_ROWS
+    else:
+        p["smem"] = _f32_smem(p["G"], p["NT"], p["FT"], p["R"], two_k, B)
+        waves, min_rows = 1, _F32_MIN_SLICE_ROWS
+    lane_groups = -(-L // p["G"])
+    node_tiles = -(-nn // p["NT"])
+    feat_tiles = -(-d // p["FT"])
+    base = lane_groups * node_tiles * feat_tiles
+    per_sm = max(1, min(_SM_SMEM // (p["smem"] + 1024),
+                        2 * _MAX_THREADS // p["threads"]))
+    slices = max(1, min(-(-_SMS * per_sm * waves // base), -(-n // min_rows)))
+    if not int_exact:
+        per_slice = L * nn * two_k * out_width(n_bins, d) * 4
         slices = max(1, min(slices, _MAX_PARTIAL_BYTES // per_slice))
     rows = -(-n // slices) if n else 1
-    slices = max(1, -(-n // rows)) if n else 1
-    return {"G": G, "NT": NT, "warps": warps, "slices": slices,
-            "smem": G * NT * warps * unit + stage(G)}
+    slices = -(-n // rows) if n else 1
+    merge = "direct" if slices == 1 else ("atomic" if int_exact else "partials")
+    return {**p, "slices": slices, "rows_per_slice": rows,
+            "lane_groups": lane_groups, "node_tiles": node_tiles,
+            "feat_tiles": feat_tiles, "merge": merge}
 
 
 def hist_level(local: torch.Tensor, ghT: torch.Tensor, binned: torch.Tensor,
@@ -153,7 +262,6 @@ def hist_level(local: torch.Tensor, ghT: torch.Tensor, binned: torch.Tensor,
     on CPU tensors.  local (L, n) int32; ghT (L, 2K, n) int8 when
     ``int_exact`` else float32; binned (n, d) int32 in [0, n_bins].
     Returns (L*nn*2K, (n_bins+1)*d), int32 or float32."""
-    global launches
     _check(local, "local", torch.int32, 2)
     _check(ghT, "ghT", torch.int8 if int_exact else torch.float32, 3)
     _check(binned, "binned", torch.int32, 2)
@@ -166,24 +274,39 @@ def hist_level(local: torch.Tensor, ghT: torch.Tensor, binned: torch.Tensor,
                          f"{tuple(ghT.shape)}, binned {tuple(binned.shape)}")
     if nn < 1 or n_bins < 2:
         raise ValueError(f"need nn >= 1 and n_bins >= 2, got {nn}, {n_bins}")
+    if int_exact and n > INT_MAX_ROWS:
+        raise ValueError(f"the int8 path sums at most {INT_MAX_ROWS} rows in "
+                         f"int32, got {n}")
     if not (local.device == ghT.device == binned.device):
         raise ValueError("local, ghT and binned must lie on one device")
     if local.device.type == "cpu":
         return hist_level_torch(local, ghT, binned, nn, n_bins,
                                 int_exact=int_exact)
+    return launch(local, ghT, binned, nn, n_bins, int_exact,
+                  plan(L, n, d, nn, two_k, n_bins, int_exact))
+
+
+def launch(local: torch.Tensor, ghT: torch.Tensor, binned: torch.Tensor,
+           nn: int, n_bins: int, int_exact: bool, p: dict) -> torch.Tensor:
+    """One launch of the kernel on checked CUDA tensors with launch shape
+    ``p`` (:func:`plan`'s dict; ``tools/torch_hist_plans.py`` times others)."""
+    global launches
+    L, n = local.shape
+    two_k = ghT.shape[1]
+    d = binned.shape[1]
     acc_t = torch.int32 if int_exact else torch.float32
     M = L * nn * two_k
     out = torch.empty((M, out_width(n_bins, d)), dtype=acc_t, device=local.device)
-    p = plan(L, n, d, nn, two_k, n_bins, int_exact)
     partial = None
-    if not int_exact and p["slices"] > 1:
+    if p["merge"] == "partials":
         partial = torch.empty((p["slices"], M, out_width(n_bins, d)),
                               dtype=torch.float32, device=local.device)
     err = _lib().tmog_hist_level(
         local.data_ptr(), ghT.data_ptr(), binned.data_ptr(), out.data_ptr(),
         partial.data_ptr() if partial is not None else None,
         L, n, d, nn, two_k, n_bins, int(bool(int_exact)), p["G"], p["NT"],
-        p["warps"], p["slices"], dispatch.stream_handle(local.device))
+        p["FT"], p["threads"], p["R"], p["slices"], p["rows_per_slice"],
+        dispatch.stream_handle(local.device))
     dispatch.check_launch(err, "hist_level")
     launches += 1
     return out
