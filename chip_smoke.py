@@ -35,17 +35,21 @@ Phases, one JSON line each:
                histograms (a masked feature, K = 1 and 2, empty nodes), and
                on a GBT level's float histograms within
                splitscan.float_agreement's tolerance and bitwise from one
-               launch to the next; K3 bitwise (ragged rows, one lane, indices
-               out of range).  Then each is timed at the training path's
-               shapes beside its bound, its plain version and one PyTorch
-               call: K1 at every grown level of the sweep (int8 at 150 lanes
-               x 1, 1, 2, 4, 8, 16 nodes and the refit's 50 lanes x 16;
-               float at 3 lanes x 1, 1, 2), with its design's own byte floor;
-               K2 at RF depth-6 level 5; K3 at 150 and 3 lanes.  K1 and K3
-               are held against their plain versions there too (int8 and K3
-               bitwise, float within its tolerance and bitwise run to run).
-               The library calls run at a stated smaller row count where the
-               full one does not fit.
+               launch to the next; K3 bitwise on both of its paths (ragged
+               rows, one lane, indices out of range, 866 features, the full
+               width of each path).  Then each is timed at the training
+               path's shapes beside its bound, its design's own byte floor,
+               its plan, its plain version and one PyTorch call: K1 at every
+               grown level of the sweep (int8 at 150 lanes x 1, 1, 2, 4, 8,
+               16 nodes and the refit's 50 lanes x 16; float at 3 lanes x 1,
+               1, 2); K2 at RF depth-6 level 5 and at a GBT level (3 lanes x 4
+               nodes, float histograms built by K1); K3 at 150, 50 and 3
+               lanes.  K1 and K3 are held against their plain versions there
+               too (int8 and K3 bitwise, float within its tolerance and
+               bitwise run to run).  K2 and K3 are timed on the device alone
+               (time_device_ms): their launches are shorter than the host's
+               overhead a call.  The library calls run at a stated smaller
+               row count where the full one does not fit.
 6. training_parity — bench.py's synth data at 16 384 rows x 128 through the
                port's Workflow.train on the card (RF {50 trees, depth 3|6},
                GBT {50 rounds, depth 3}, 3 folds, seed 7), the forest's
@@ -61,8 +65,10 @@ Phases, one JSON line each:
                the card, with torch's own draws.  The launch counters are
                zeroed just before and read just after: K1, K2 and K3 must
                each launch once per grown level, 3 + 6 + 50*3 = 159 times in
-               CV plus the winner's refit levels.  Then model.score of 1024
-               rows on the card, finite.
+               CV plus the winner's refit levels, K3 by both of its paths.
+               A sha256 digest of the CV metric matrix and the winner's tree
+               arrays is printed (equal digests: the same fit).  Then
+               model.score of 1024 rows on the card, finite.
 8. summary   — nvidia-smi's line, then one {"kernels": [...]} line, then the
                last line {"ok": true, "device": {...}}.
 
@@ -86,6 +92,9 @@ N_BATCHES = 16
 RAGGED = 37
 RUNS = 50
 PER_RUN = 20
+#: cycles of the sleep kernel that holds the stream while the host enqueues
+#: a run of time_device_ms (~3 ms on an H100)
+SLEEP_CYCLES = 5_000_000
 FIXTURE = os.path.join("transmogrifai_tpu_torch", "fixtures", "serving_wide")
 TRAIN_FIXTURE = os.path.join("transmogrifai_tpu_torch", "fixtures", "training_trees")
 
@@ -162,6 +171,29 @@ def time_big_ms(fn, runs: int = 5, warmup: int = 1) -> float:
         pairs.append((a, b))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def time_device_ms(fn, runs: int = 21, per_run: int = 10) -> float:
+    """Device milliseconds per call of a kernel whose launch is shorter than
+    the host's overhead a call: a sleep kernel holds the stream while the
+    host enqueues ``per_run`` calls between two CUDA events, so the events
+    time the calls back to back on the device; median over ``runs`` runs."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(runs):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(per_run):
+            fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) / per_run for a, b in pairs)
 
 
 def time_once(fn):
@@ -405,7 +437,9 @@ def phase_tree_parity(torch, dev) -> dict:
         s2["f32_max_err_over_tol"] = max(s2["f32_max_err_over_tol"],
                                          agree["max_err_over_tol"])
     del local, gh, binned, hist, hg, hh, G, H, mask
-    for L, n, d in ((1, 37, 5), (150, 4099, D), (3, 100003, D)):
+    paths = out["row_select_lanes"]["paths"] = {}
+    for L, n, d in ((1, 37, 5), (150, 4099, D), (3, 100003, D), (7, 4099, 866),
+                    (FOLDS * 50, FULL_ROWS, D), (FOLDS, FULL_ROWS, D)):
         binned = rng.integers(0, N_BINS + 1, (n, d)).astype(np.int32)
         idx = rng.integers(-3, d + 3, (L, n)).astype(np.int32)
         b, i = to_dev(binned, idx)
@@ -414,6 +448,10 @@ def phase_tree_parity(torch, dev) -> dict:
         check(torch.equal(got, KR.row_select_lanes_torch(b, i)),
               f"K3 bitwise L={L} n={n} d={d}")
         out["row_select_lanes"]["cases"] += 1
+        path = KR.plan(L, n, d).path
+        paths[path] = paths.get(path, 0) + 1
+        del binned, idx, b, i, got
+    check(set(paths) == {"tile", "direct"}, f"K3 parity covers both paths: {paths}")
     emit({"phase": "tree_kernels_parity", **out})
     return out
 
@@ -579,36 +617,103 @@ def phase_tree_timing(torch, dev) -> dict:
                and e["shape"][:2] == [FOLDS, GBT_LEVEL_NODES[-1]] and not e["root"])
     t["hist_level"] = {**deepest, "f32": gbt, "levels": rows}
 
-    # K2: RF depth-6 level 5 (32 nodes) of 150 lanes, integer-valued hists
-    L, nn, K = FOLDS * 50, 32, 1
-    g = torch.Generator(device=dev).manual_seed(12)
-    shape = (L, nn, K, D, N_BINS + 1)
-    hg = torch.randint(-20, 20, shape, generator=g, device=dev).to(torch.float32)
-    hh = torch.randint(0, 30, shape, generator=g, device=dev).to(torch.float32)
+    t["split_scan"] = k2_timings(torch, KS, KH, dev, bound)
+    t["row_select_lanes"] = k3_timings(torch, KR, dev, bound)
+    emit({"phase": "tree_kernels_timing", **t})
+    torch.cuda.empty_cache()
+    return t
+
+
+def _scan_inputs(torch, KH, dev, gbt: bool, seed: int, missing: bool = False):
+    """K2's inputs at a sweep level: the RF-CV deepest level's integer
+    histograms (150 lanes x 32 nodes, seeded) or a GBT level's float ones
+    (3 lanes x 4 nodes), built by K1 from logistic grad/hess.  Without
+    ``missing`` the missing-value bin is empty, as in the sweep (bench.py's
+    synth data has no missing values)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if not gbt:
+        shape = (FOLDS * 50, 32, 1, D, N_BINS + 1)
+        hg = torch.randint(-20, 20, shape, generator=g, device=dev).to(torch.float32)
+        hh = torch.randint(0, 30, shape, generator=g, device=dev).to(torch.float32)
+        params = (0.0, 0.0, 0.0, 1.0)
+    else:
+        L, nn = FOLDS, 4
+        local, gh, binned = _hist_inputs(torch, dev, L, FULL_ROWS, nn, False, seed)
+        hist = KH.hist_level(local, gh, binned, nn, N_BINS).reshape(
+            L, nn, 2, N_BINS + 1, D).transpose(-1, -2)
+        hg, hh = hist[:, :, :1].contiguous(), hist[:, :, 1:].contiguous()
+        params = (1.0, 0.0, 0.0, 1.0)
+    if not missing:
+        hg[..., N_BINS] = 0.0
+        hh[..., N_BINS] = 0.0
     G = hg[:, :, :, 0, :].sum(-1).contiguous()
     H = hh[:, :, :, 0, :].sum(-1).contiguous()
-    mask = torch.ones((L, D), device=dev)
-    args = (hg, hh, G, H, mask, N_BINS, 0.0, 0.0, 0.0, 1.0)
-    t["split_scan"] = {
-        "shape": list(shape), "ms": time_big_ms(lambda: KS.split_scan(*args), runs=20),
-        "plain_ms": time_big_ms(lambda: KS.split_scan_torch(*args), runs=5),
-        **bound(KS.bound_bytes(L, nn, K, D, N_BINS), KS.bound_ops(L, nn, K, D, N_BINS)),
-        "library_ms": None, "library": None}
-    del hg, hh, G, H, mask, args
+    mask = torch.ones((hg.shape[0], D), device=dev)
+    return (hg, hh, G, H, mask, N_BINS, *params)
 
-    # K3: routing of 150 lanes and of 3 lanes over the full rows
+
+def k2_timings(torch, KS, KH, dev, bound) -> dict:
+    """K2 at the RF-CV deepest level (integer histograms: held bitwise to
+    the plain version) and at a GBT level (float: within float_agreement and
+    bitwise run to run), each with its bound, design floor and plan; the
+    missing-value bin empty as in the sweep, and filled (``*_missing``)."""
+    out = {}
+    for name, gbt, seed, missing in (
+            ("rf_deepest", False, 12, False), ("gbt_level", True, 14, False),
+            ("rf_deepest_missing", False, 12, True),
+            ("gbt_level_missing", True, 14, True)):
+        args = _scan_inputs(torch, KH, dev, gbt, seed, missing)
+        L, nn, K, d, B = args[0].shape
+        p = KS.plan(L, nn, K, d, N_BINS)
+        run = lambda: KS.split_scan(*args)  # noqa: E731
+        got, again = run(), run()
+        _sync(torch, dev)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K2 bitwise run to run at {name}")
+        e = {"shape": [L, nn, K, d, B], "float_hists": gbt, "missing_bin": missing,
+             "ms": time_device_ms(run),
+             **bound(KS.bound_bytes(L, nn, K, d, N_BINS),
+                     KS.bound_ops(L, nn, K, d, N_BINS)),
+             "plan": p._asdict(), "library_ms": None, "library": None}
+        # the staged design copies each histogram word once: its byte floor
+        # is the bound's
+        e.update(design_bytes=e["bytes"],
+                 design_floor_ms=e["bytes"] / HBM_BYTES_PER_S * 1e3)
+        e["plain_ms"], ref = time_once(lambda: KS.split_scan_torch(*args))
+        if gbt:
+            agree = KS.float_agreement(got, *args)
+            check(agree["ok"], f"K2 float within tolerance at {name}: {agree}")
+            e["agreement"] = agree
+        else:
+            check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                  f"K2 bitwise to the plain version at {name}")
+        out[name] = e
+        del args, got, again, ref
+        torch.cuda.empty_cache()
+    return {**out.pop("rf_deepest"), **out}
+
+
+def k3_timings(torch, KR, dev, bound) -> dict:
+    """K3 over the full rows at 150 lanes (RF CV), 50 (the forest refit) and
+    3 (GBT CV), each held bitwise to its plain version, with its bound,
+    design floor, plan and the library call."""
     k3 = {}
-    for L in (FOLDS * 50, FOLDS):
+    for L in (FOLDS * 50, 50, FOLDS):
         g = torch.Generator(device=dev).manual_seed(13 + L)
         binned = torch.randint(0, N_BINS + 1, (FULL_ROWS, D), generator=g,
                                device=dev, dtype=torch.int32)
         idx = torch.randint(0, D, (L, FULL_ROWS), generator=g, device=dev,
                             dtype=torch.int32)
         flat = (torch.arange(FULL_ROWS, device=dev)[None, :] * D + idx.long())
+        p = KR.plan(L, FULL_ROWS, D)
+        design = KR.design_bytes(p, L, FULL_ROWS, D)
         e = {"shape": [L, FULL_ROWS, D],
-             "ms": time_big_ms(lambda: KR.row_select_lanes(binned, idx), runs=10),
+             "ms": time_device_ms(lambda: KR.row_select_lanes(binned, idx)),
              **bound(KR.bound_bytes(L, FULL_ROWS, D), 0),
-             "library_ms": time_big_ms(lambda: torch.take(binned, flat), runs=10),
+             "design_bytes": design,
+             "design_floor_ms": design / HBM_BYTES_PER_S * 1e3,
+             "plan": p._asdict(),
+             "library_ms": time_device_ms(lambda: torch.take(binned, flat)),
              "library": "torch.take at the flat (row, feature) index (a "
                         "composite: no out-of-range rule, the index built "
                         "outside the call)"}
@@ -617,10 +722,27 @@ def phase_tree_timing(torch, dev) -> dict:
         check(torch.equal(got, ref), f"K3 bitwise at {L} lanes x {FULL_ROWS} rows")
         k3[L] = e
         del binned, idx, flat, got, ref
-    t["row_select_lanes"] = {**k3[FOLDS * 50], "lanes3": k3[FOLDS]}
-    emit({"phase": "tree_kernels_timing", **t})
-    torch.cuda.empty_cache()
-    return t
+        torch.cuda.empty_cache()
+    return {**k3[FOLDS * 50], "lanes50": k3[50], "lanes3": k3[FOLDS]}
+
+
+def fit_digest(summary, win) -> str:
+    """sha256 of the CV metric matrix (model, grid, fold values) and the
+    winner's tree arrays: two fits with equal digests chose alike."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for ev in summary.validation_results:
+        h.update(f"{ev.model_name}|{json.dumps(ev.grid, sort_keys=True)}".encode())
+        h.update(np.asarray(ev.metric_values, np.float64).tobytes())
+    h.update(type(win).__name__.encode())
+    for k in sorted(win.trees):
+        a = np.ascontiguousarray(win.trees[k])
+        h.update(f"{k}:{a.dtype}:{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
 
 
 def train_selector(torch, x, y, dev):
@@ -771,6 +893,10 @@ def phase_training(torch, KE, dev) -> dict:
     for k in ("hist_level", "split_scan", "row_select_lanes"):
         check(launches[k] == expected,
               f"{k} launched {launches[k]} times, expected {CV_LEVELS} + {refit_levels}")
+    # K3: the forests' 150 lanes take the tile path, GBT's 3 the direct one
+    check(launches["row_select_lanes.tile"] >= 3 + 6
+          and launches["row_select_lanes.direct"] >= 50 * 3,
+          f"K3 launched by both paths: {launches}")
     check(launches["onehot_codes"] == launches["bucketize_right_encode"] == 0,
           "the training path launches no serving kernel")
     pos_rate = float(y.mean())
@@ -797,6 +923,7 @@ def phase_training(torch, KE, dev) -> dict:
            "positive_rate": pos_rate,
            "train_evaluation": summary.train_evaluation,
            "launches": launches, "expected_tree_launches": expected,
+           "fit_digest": fit_digest(summary, win),
            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()
            if dev.type == "cuda" else None,
            "score_rows": n_score}
@@ -954,6 +1081,9 @@ def main() -> int:
             entry["f32"]["parity"] = ("float histograms of a GBT level: gain within "
                                       "1e-4 x (parent score + |gain|) + 1e-6 of the "
                                       "plain version; bitwise run to run")
+        if kname == "row_select_lanes":
+            entry["launches_by_path"] = {k: train["launches"][f"row_select_lanes.{k}"]
+                                         for k in ("tile", "direct")}
         kernels.append(entry)
     for kname, replaces in (("onehot_codes", "transmogrifai_tpu/perf/kernels/encode.py:76"),
                             ("bucketize_right_encode",

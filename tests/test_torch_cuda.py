@@ -177,3 +177,162 @@ def test_row_select_kernel_bitwise_and_counted(L, n, d):
     torch.cuda.synchronize()
     assert TR.launches == before + 1
     assert torch.equal(got, TR.row_select_lanes_torch(binned, idx))
+
+
+def _route_plan(path, L, n, d):
+    """The plan of ``path`` at this shape, whichever routing.plan picks."""
+    p = TR.plan(L, n, d)
+    if p.path == path:
+        return p
+    if path == "direct":
+        return TR.RoutePlan("direct", TR.THREADS, 0, TR.THREADS,
+                            -(-n // TR.THREADS), 0)
+    stride = d | 1
+    rows = 64 if 64 * stride * 4 <= 200 * 1024 else 32
+    return TR.RoutePlan("tile", rows, stride, TR.THREADS, -(-n // rows),
+                        rows * stride * 4)
+
+
+# both paths on the same inputs: ragged rows (no multiple of 32, 64 or 256),
+# d 5 / 128 / 866, negative and out-of-range idx, and every row of a lane
+# selecting one feature (the shared-memory bank-conflict case of the tile path)
+@pytest.mark.parametrize("path", ["tile", "direct"])
+@pytest.mark.parametrize("L, n, d", [(150, 4099, 128), (3, 100003, 128),
+                                     (50, 65, 5), (7, 1001, 866), (1, 37, 128)])
+@pytest.mark.parametrize("one_feature", [False, True])
+def test_row_select_paths_bitwise(path, L, n, d, one_feature):
+    rng = np.random.default_rng(L * n + d)
+    binned = rng.integers(0, 33, (n, d)).astype(np.int32)
+    if one_feature:
+        idx = np.repeat((np.arange(L) * 7 % d)[:, None], n, axis=1).astype(np.int32)
+    else:
+        idx = rng.integers(-3, d + 3, (L, n)).astype(np.int32)
+        idx[:, :3] = [-1, d, -(2 ** 31)]
+    b, i = (torch.from_numpy(a).cuda() for a in (binned, idx))
+    p = _route_plan(path, L, n, d)
+    before = TR.launches
+    got = TR.launch(b, i, p)
+    torch.cuda.synchronize()
+    assert TR.launches == before + 1
+    assert torch.equal(got, TR.row_select_lanes_torch(b, i))
+
+
+def _scan_case(L, nn, K, d, n_bins, seed, special=False, miss="filled"):
+    """Integer-valued histograms with an empty node, a masked feature, a
+    fully masked lane, exact ties (feature 1 a copy of feature 0, node 1 of
+    node 0) and, where ``special``, NaN and +-inf cells.  ``miss``: the
+    missing-value bin "filled", "empty" (+0 or -0 in every feature) or
+    empty in every other feature ("half": warps with both kinds)."""
+    rng = np.random.default_rng(seed)
+    B = n_bins + 1
+    hg = rng.integers(-20, 20, (L, nn, K, d, B)).astype(np.float32)
+    hh = rng.integers(0, 30, (L, nn, K, d, B)).astype(np.float32)
+    hg[0, 0] = 0.0
+    hh[0, 0] = 0.0
+    if d > 1:
+        hg[..., 1, :] = hg[..., 0, :]
+        hh[..., 1, :] = hh[..., 0, :]
+    if nn > 2:
+        hg[:, 2] = hg[:, 1]
+        hh[:, 2] = hh[:, 1]
+    if miss != "filled":
+        step = 2 if miss == "half" else 1
+        hg[..., ::step, n_bins] = 0.0
+        hh[..., ::step, n_bins] = 0.0
+        hg[..., ::3 * step, n_bins] = -0.0
+    G = hg[:, :, :, 0, :].sum(-1)
+    H = hh[:, :, :, 0, :].sum(-1)
+    if special:
+        for v in (np.nan, np.inf, -np.inf):
+            at = tuple(rng.integers(0, s, 40) for s in hg.shape)
+            hg[at] = v
+            hh[tuple(np.roll(a, 1) for a in at)] = v
+    mask = np.ones((L, d), np.float32)
+    mask[-1, 0] = 0.0
+    if L > 2:
+        mask[1] = 0.0
+    return [torch.from_numpy(a).cuda() for a in (hg, hh, G, H, mask)]
+
+
+def _same(a, b):
+    """Equal, NaN where the other is NaN."""
+    if a.dtype.is_floating_point:
+        return torch.equal(a.isnan(), b.isnan()) and torch.equal(
+            a.nan_to_num(0.0), b.nan_to_num(0.0))
+    return torch.equal(a, b)
+
+
+# K 1 and 2, B odd (33) and even (34), d wider than a CTA's feature tile
+# (1100: feature tiles in turn), NaN and +-inf, ties, a fully masked lane,
+# the missing-value bin filled or empty (+-0: the kernel's shortcut)
+@pytest.mark.parametrize("K", [1, 2])
+@pytest.mark.parametrize("n_bins", [32, 33])
+@pytest.mark.parametrize("L, nn, d", [(3, 4, 128), (2, 3, 1100), (4, 2, 6)])
+@pytest.mark.parametrize("special", [False, True])
+@pytest.mark.parametrize("miss", ["filled", "empty"])
+def test_split_scan_cases_bitwise(K, n_bins, L, nn, d, special, miss):
+    args = _scan_case(L, nn, K, d, n_bins, seed=L * d + K + n_bins, special=special,
+                      miss=miss)
+    for params in [(1.0, 0.5, 0.1, 1.0), (0.0, 0.0, 0.0, 1.0)]:
+        before = TS.launches
+        got = TS.split_scan(*args, n_bins, *params)
+        torch.cuda.synchronize()
+        assert TS.launches == before + 1
+        ref = TS.split_scan_torch(*args, n_bins, *params)
+        for g, r in zip(got, ref):
+            assert g.dtype == r.dtype and _same(g, r)
+
+
+def _scan_variants(p, K):
+    """plan() and the same launch with the histograms read where they lie,
+    and with 1-4 threads sharing each feature's candidates."""
+    P, FT = p.blocks_per_cta, p.feats
+    out = [p, p._replace(staged=False, stride=0,
+                         smem=TS._scan_smem(False, P, FT, K, 0, p.groups))]
+    for S in (1, 2, 3, 4):
+        if P * FT * S <= TS.SCAN_MAX_THREADS:
+            out.append(p._replace(groups=S, threads=P * FT * S,
+                                  smem=TS._scan_smem(p.staged, P, FT, K, p.stride, S)))
+    return out
+
+
+# every launch shape gives the same bits: staged or not, 1-4 threads a
+# feature; K = 4 with 256 bins does not fit shared memory (the plan reads the
+# histograms where they lie); K = 3 keeps its running sums in shared memory;
+# alpha 0 (the threshold left out) and not
+@pytest.mark.parametrize("L, nn, K, d, n_bins", [(3, 4, 1, 128, 32), (2, 3, 2, 1100, 33),
+                                                  (2, 2, 4, 16, 255), (2, 2, 3, 40, 32),
+                                                  (150, 32, 1, 128, 32)])
+@pytest.mark.parametrize("params", [(1.0, 0.5, 0.1, 1.0), (0.0, 0.0, 0.0, 1.0)])
+@pytest.mark.parametrize("miss", ["filled", "empty", "half"])
+def test_split_scan_launch_shapes_bitwise(L, nn, K, d, n_bins, params, miss):
+    args = _scan_case(L, nn, K, d, n_bins, seed=K * d, special=True, miss=miss)
+    ref = TS.split_scan_torch(*args, n_bins, *params)
+    for q in _scan_variants(TS.plan(L, nn, K, d, n_bins), K):
+        got = TS.launch(*args, n_bins, *params, q)
+        torch.cuda.synchronize()
+        assert all(g.dtype == r.dtype and _same(g, r) for g, r in zip(got, ref)), q
+
+
+@pytest.mark.parametrize("L, nn, d", [(3, 4, 128), (2, 3, 1100)])
+def test_split_scan_float_hists_repeatable(L, nn, d):
+    n_bins, n = 32, 50021
+    local, gh, binned = _hist_case(L, n, d, nn, n_bins, 2, False, seed=d)
+    gh[:, 1] = gh[:, 1].abs()
+    hist = TH.hist_level(local, gh, binned, nn, n_bins).reshape(
+        L, nn, 2, n_bins + 1, d).transpose(-1, -2)
+    hg, hh = hist[:, :, :1].contiguous(), hist[:, :, 1:].contiguous()
+    G = hg[:, :, :, 0, :].sum(-1)
+    H = hh[:, :, :, 0, :].sum(-1)
+    mask = torch.ones((L, d), device="cuda")
+    args = (hg, hh, G, H, mask, n_bins, 1.0, 0.0, 0.0, 1.0)
+    got = TS.split_scan(*args)
+    again = TS.split_scan(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert TS.float_agreement(got, *args)["ok"]
+    # the same bits from every launch shape: one chain of adds per left sum
+    for q in _scan_variants(TS.plan(L, nn, 1, d, n_bins), 1):
+        other = TS.launch(*args, q)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, other)), q

@@ -14,6 +14,10 @@ kernel in interpret mode, on the same seeded inputs:
   missing direction fails;
 - K3 bitwise, out-of-range indices giving 0.
 
+The launch plans are pure Python and checked here too: K3's path by shape,
+its tiles covering every (lane, row) once within the shared-memory budget;
+K2's CTA packing covering every (lane, node) and feature once.
+
 On CPU tensors the wrappers must not touch the CUDA build.
 """
 
@@ -296,6 +300,104 @@ class TestRouting:
         np.testing.assert_array_equal(got.numpy(), ref_p)
         outside = (idx < 0) | (idx >= d)
         assert np.all(got.numpy()[outside] == 0)
+
+
+class TestRoutingPlan:
+    @pytest.mark.parametrize("L, n, d, path", [
+        (150, 1 << 20, 128, "tile"), (50, 1 << 20, 128, "tile"),
+        (3, 1 << 20, 128, "direct"), (1, 4099, 128, "direct"),
+        (1, 1 << 20, 128, "direct"), (150, 4099, 4096, "direct"),
+        (150, 1 << 20, 866, "direct")])
+    def test_path_by_shape(self, L, n, d, path):
+        assert TR.plan(L, n, d).path == path
+
+    def test_tile_design_bytes_equal_the_bound_at_150_lanes(self):
+        p = TR.plan(150, 1 << 20, 128)
+        assert TR.design_bytes(p, 150, 1 << 20, 128) == TR.bound_bytes(150, 1 << 20, 128)
+        q = TR.plan(3, 1 << 20, 128)
+        assert TR.design_bytes(q, 3, 1 << 20, 128) == 3 * (1 << 20) * 40
+
+    @pytest.mark.parametrize("L, n, d", [
+        (150, 4099, 128), (50, 4096, 128), (3, 100003, 128), (1, 37, 5),
+        (150, 1000, 866), (40, 65, 700), (2, 1, 1), (20, 300, 0)])
+    def test_tiles_cover_each_lane_and_row_once(self, L, n, d):
+        p = TR.plan(L, n, d)
+        count = np.zeros((L, n), np.int64)
+        if p.path == "tile":
+            # thread t of CTA c: row c*rows + t % rows of lanes t // rows,
+            # t // rows + P, ... (P = threads // rows lanes at a time)
+            assert p.threads % p.rows == 0 and p.rows >= 32
+            assert p.stride >= d and p.stride % 2 == 1
+            assert p.smem == p.rows * p.stride * 4 <= TR.TILE_SMEM
+            P = p.threads // p.rows
+            for c in range(p.ctas):
+                rows = c * p.rows + np.arange(p.rows)
+                rows = rows[rows < n]
+                for q in range(P):
+                    count[np.ix_(np.arange(q, L, P), rows)] += 1
+        else:
+            # thread i of the grid: row i, every lane
+            assert p.smem == 0 and p.rows == p.threads
+            rows = np.arange(p.ctas * p.threads)
+            count[:, rows[rows < n]] += 1
+        assert np.all(count == 1)
+
+    def test_wide_rows_take_the_direct_path_for_lack_of_shared_memory(self):
+        # 32 rows of 867 words exceed the budget: no tile, whatever L
+        assert 32 * (866 | 1) * 4 > TR.TILE_SMEM
+        assert TR.plan(10_000, 1 << 20, 866).path == "direct"
+
+
+class TestScanPlan:
+    @pytest.mark.parametrize("d", [1, 6, 128, 1100])
+    @pytest.mark.parametrize("n_bins", [32, 33, 255])
+    @pytest.mark.parametrize("K", [1, 2, 4])
+    @pytest.mark.parametrize("L, nn", [(3, 5), (150, 32), (1, 1)])
+    def test_packing_covers_each_block_and_feature_once(self, L, nn, K, d, n_bins):
+        p = TS.plan(L, nn, K, d, n_bins)
+        B = n_bins + 1
+        P, FT, S = p.blocks_per_cta, p.feats, p.groups
+        assert p.threads == P * FT * S <= TS.SCAN_MAX_THREADS and FT % 32 == 0
+        if L * nn * FT >= TS.SCAN_MIN_THREADS and p.threads < TS.SCAN_MIN_THREADS:
+            # fewer threads only where another block's staging would not fit
+            assert TS._scan_smem(p.staged, P + 1, FT, K, p.stride, S) > TS.SCAN_SMEM
+        blocks = np.zeros(L * nn, np.int64)
+        for c in range(p.ctas):
+            ln = c * P + np.arange(P)
+            blocks[ln[ln < L * nn]] += 1
+        assert np.all(blocks == 1)
+        feats = np.zeros(d, np.int64)
+        for t in range(p.feat_tiles):
+            f = t * FT + np.arange(FT)
+            feats[f[f < d]] += 1
+        assert np.all(feats == 1)
+        # the S threads of a feature split its candidates, each taking one
+        cands = np.zeros(n_bins - 1, np.int64)
+        for g in range(S):
+            cands[g * (n_bins - 1) // S:(g + 1) * (n_bins - 1) // S] += 1
+        assert np.all(cands == 1)
+        assert S == 1 or (n_bins - 1) // S >= 8
+        assert p.smem <= TS.SCAN_SMEM_MAX
+        if p.staged:
+            # odd stride: one bin of 32 features' rows falls in 32 banks
+            assert p.stride >= B and p.stride % 2 == 1
+            assert p.smem == 4 * (P * 2 * K * (FT * p.stride + 4)
+                                  + (2 * K * p.threads if K > 2 else 0))
+
+    @pytest.mark.parametrize("L, nn, groups", [(150, 32, 1), (50, 16, 1), (3, 4, 3),
+                                               (3, 1, 3)])
+    def test_training_levels_stage_one_block_of_all_features(self, L, nn, groups):
+        # the sweep's levels: 128 features x 33 bins staged; a thread a
+        # feature where the grid fills the card, three on GBT's few blocks
+        p = TS.plan(L, nn, 1, 128, 32)
+        assert p.staged and p.stride == 33 and p.feats == 128
+        assert p.groups == groups and p.threads == 128 * groups
+        assert p.ctas == L * nn and p.feat_tiles == 1
+        assert p.smem <= TS.SCAN_SMEM
+
+    def test_histograms_too_wide_to_stage_are_read_where_they_lie(self):
+        p = TS.plan(2, 2, 4, 16, 255)
+        assert not p.staged and p.smem == 4 * 2 * 4 * p.threads
 
 
 def test_reference_runs_on_cpu():

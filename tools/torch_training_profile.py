@@ -31,7 +31,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: counts its slice-sum kernel with it)
 TREE_KERNELS = {"hist_int8_kernel": "hist_level", "hist_f32_kernel": "hist_level",
                 "sum_slices_kernel": "hist_level", "split_scan_kernel": "split_scan",
-                "row_select_lanes_kernel": "row_select_lanes"}
+                "row_select_tile_kernel": "row_select_lanes",
+                "row_select_direct_kernel": "row_select_lanes"}
 
 
 def _busy(events) -> float:

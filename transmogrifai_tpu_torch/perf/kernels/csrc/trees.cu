@@ -43,15 +43,36 @@
 // four rows at once (a cell two of them hit is merged in registers in row
 // order); the channel loop is unrolled where there are two (one class).
 //
-// K2 is one CTA per (lane, node): every thread scores candidates
-// f*(n_bins-1)+b with the XGBoost gain, the CTA takes the argmax with the
-// lowest index winning ties (as argmax does).  Its arithmetic uses the
-// round-to-nearest intrinsics, which nvcc never contracts into FMA, in the
-// reference's order of operations, so on integer-valued histograms it is
-// bitwise equal to split_scan_xla.
+// K2 (split_scan_kernel<TK, STAGED>) gives one thread each (lane, node,
+// feature).  The thread walks the bins in order, keeps the running left sums
+// per class, and scores candidate f*(n_bins-1)+b with the XGBoost gain as it
+// passes bin b: O(B) adds a feature, where scoring each candidate from
+// scratch took O(B^2).  The running sum after bin b is the same chain of
+// adds as the from-scratch one, and the arithmetic uses the round-to-nearest
+// intrinsics (never contracted into FMA) in the reference's order, so the
+// results are bitwise those of the reference's formula on integer-valued
+// histograms and do not depend on the launch shape.  A CTA holds one or more
+// (lane, node) blocks (splitscan.py::plan); each block's histograms are
+// staged in shared memory with asynchronous copies, a feature tile at a time,
+// at an odd row stride so the threads' reads of one bin hit 32 banks.  Each
+// thread keeps its best candidate; warp shuffles and one step in shared
+// memory reduce them by the argmax rule (NaN first, then larger, then the
+// lower index), a total order, so the reduction's shape cannot change the
+// winner.  The scan is bound by its instructions (four IEEE divisions a
+// candidate), not by the histograms' bytes, so two shortcuts that keep every
+// bit are taken where the inputs allow: alpha == 0 drops the soft threshold,
+// and a feature whose missing bin is empty (no missing values) scores its
+// missing-left direction as the missing-right one, which it equals.  On the
+// GBT levels' few blocks, several threads share a feature's candidates.
 //
-// K3 is one thread per (lane, row): out = binned[i, idx] or 0 when idx lies
-// outside [0, d) — the reference's compare-reduce semantics.
+// K3 (row_select_tile_kernel, row_select_direct_kernel) computes out[l, i] =
+// binned[i, idx[l, i]], or 0 when idx lies outside [0, d) — the reference's
+// compare-reduce semantics — by one of two kernels that routing.py::plan
+// picks by the bytes each moves.  The tile kernel (many lanes: each row's
+// codes serve them all) stages R rows of codes in shared memory once and
+// serves every lane from them, so the table is read once, not once per lane.
+// The direct kernel (few lanes) gives each row one thread that gathers its
+// lanes' codes with their loads in flight together.
 //
 // Plain C interface (loaded with ctypes): pointers and the stream as void*,
 // sizes as int; each entry point launches on the caller's stream, does not
@@ -440,10 +461,14 @@ __device__ __forceinline__ float soft_threshold(float g, float alpha) {
   return __fmul_rn(sg, mx);
 }
 
-// st(g)^2 / (h + lambda + eps), evaluated left to right as the reference does
+// st(g)^2 / (h + lambda + eps), evaluated left to right as the reference does.
+// A0 (alpha == 0): st(g)^2 is g*g bit for bit (st(-0) = +0 squares alike,
+// and a NaN result is the canonical NaN either way), so the threshold's
+// compares and selects are left out.
+template <bool A0>
 __device__ __forceinline__ float gain_part(float g, float h, float lam,
                                            float alpha) {
-  const float s = soft_threshold(g, alpha);
+  const float s = A0 ? g : soft_threshold(g, alpha);
   return __fdiv_rn(__fmul_rn(s, s), __fadd_rn(__fadd_rn(h, lam), 1e-12f));
 }
 
@@ -467,118 +492,416 @@ struct Cand {
   int idx;
 };
 
-// gain_mr / gain_ml of candidate (f, b) of one (lane, node):
-// _gain_terms (splitscan.py:47) with left sums gl/hl (missing right) and
-// gl+g_miss/hl+h_miss (missing left), summed over the K classes
-__device__ void score_candidate(const float* __restrict__ hg,
-                                const float* __restrict__ hh,
-                                const float* __restrict__ Gt,
-                                const float* __restrict__ Ht, int K, int d,
-                                int B, int n_bins, int f, int b, float lam,
-                                float alpha, float gamma, float mcw,
-                                float* mr_out, float* ml_out) {
-  float raw_r = 0.0f, raw_l = 0.0f;
-  float hl_r = 0.0f, hr_r = 0.0f, hl_l = 0.0f, hr_l = 0.0f;
-  for (int k = 0; k < K; ++k) {
-    const float* pg = hg + ((long long)k * d + f) * B;
-    const float* ph = hh + ((long long)k * d + f) * B;
-    // cumsum over bins 0..b, in bin order
-    float gl = pg[0], hl = ph[0];
-    for (int j = 1; j <= b; ++j) {
-      gl = __fadd_rn(gl, pg[j]);
-      hl = __fadd_rn(hl, ph[j]);
-    }
-    const float G = Gt[k], H = Ht[k];
-    const float gm = pg[n_bins], hm = ph[n_bins];
-    const float gl2 = __fadd_rn(gl, gm), hl2 = __fadd_rn(hl, hm);
-    const float gr = __fsub_rn(G, gl), hr = __fsub_rn(H, hl);
-    const float gr2 = __fsub_rn(G, gl2), hr2 = __fsub_rn(H, hl2);
-    const float tot = gain_part(G, H, lam, alpha);
-    const float tr = __fsub_rn(__fadd_rn(gain_part(gl, hl, lam, alpha),
-                                         gain_part(gr, hr, lam, alpha)), tot);
-    const float tl = __fsub_rn(__fadd_rn(gain_part(gl2, hl2, lam, alpha),
-                                         gain_part(gr2, hr2, lam, alpha)), tot);
-    if (k == 0) {
-      raw_r = tr; raw_l = tl; hl_r = hl; hr_r = hr; hl_l = hl2; hr_l = hr2;
-    } else {
-      raw_r = __fadd_rn(raw_r, tr); raw_l = __fadd_rn(raw_l, tl);
-      hl_r = __fadd_rn(hl_r, hl); hr_r = __fadd_rn(hr_r, hr);
-      hl_l = __fadd_rn(hl_l, hl2); hr_l = __fadd_rn(hr_l, hr2);
-    }
-  }
-  const float kf = (float)K;
-  const bool ok_r = __fdiv_rn(hl_r, kf) >= mcw && __fdiv_rn(hr_r, kf) >= mcw;
-  const bool ok_l = __fdiv_rn(hl_l, kf) >= mcw && __fdiv_rn(hr_l, kf) >= mcw;
-  *mr_out = ok_r ? __fsub_rn(__fmul_rn(0.5f, raw_r), gamma) : -INFINITY;
-  *ml_out = ok_l ? __fsub_rn(__fmul_rn(0.5f, raw_l), gamma) : -INFINITY;
+// most threads of a split-scan CTA (splitscan.py SCAN_MAX_THREADS)
+constexpr int kScanMaxThreads = 512;
+
+__device__ __forceinline__ Cand shfl_down_cand(const Cand& c, int off) {
+  Cand o;
+  o.gain = __shfl_down_sync(0xffffffffu, c.gain, off);
+  o.ml = __shfl_down_sync(0xffffffffu, c.ml, off);
+  o.mr = __shfl_down_sync(0xffffffffu, c.mr, off);
+  o.idx = __shfl_down_sync(0xffffffffu, c.idx, off);
+  return o;
 }
 
-__global__ void split_scan_kernel(const float* __restrict__ hist_g,
-                                  const float* __restrict__ hist_h,
-                                  const float* __restrict__ G,
-                                  const float* __restrict__ H,
-                                  const float* __restrict__ mask, int nn,
-                                  int K, int d, int n_bins, float lam,
-                                  float alpha, float gamma, float mcw,
-                                  int* __restrict__ best_out,
-                                  float* __restrict__ gain_out,
-                                  unsigned char* __restrict__ bml_out) {
-  __shared__ Cand s_best[kThreads];
-  const int ln = blockIdx.x;           // lane * nn + node
-  const int l = ln / nn;
+// One class's part of a candidate: _gain_terms (splitscan.py:47) with left
+// sums gl/hl (missing right) and gl+gm/hl+hm (missing left), in the
+// reference's order; tot = gain_part(G, H).
+struct ClassTerms {
+  float tr, tl, hr, hl2, hr2;
+};
+
+template <bool V>
+struct BoolTag {
+  static constexpr bool value = V;
+};
+
+// NO_MISS: the feature's missing bin is +-0 in every class.  Then gl+gm and
+// G-(gl+gm) differ from gl and G-gl at most in the sign of a zero, which
+// neither the square nor h+lambda+eps keeps, so the missing-left terms are
+// the missing-right ones bit for bit and are not computed again.
+template <bool A0, bool NO_MISS>
+__device__ __forceinline__ ClassTerms class_terms(float gl, float hl, float G,
+                                                  float H, float tot, float gm,
+                                                  float hm, float lam,
+                                                  float alpha) {
+  const float gr = __fsub_rn(G, gl), hr = __fsub_rn(H, hl);
+  ClassTerms t;
+  t.tr = __fsub_rn(__fadd_rn(gain_part<A0>(gl, hl, lam, alpha),
+                             gain_part<A0>(gr, hr, lam, alpha)), tot);
+  t.hr = hr;
+  if (NO_MISS) {
+    t.tl = t.tr;
+    t.hl2 = hl;
+    t.hr2 = hr;
+    return t;
+  }
+  const float gl2 = __fadd_rn(gl, gm), hl2 = __fadd_rn(hl, hm);
+  const float gr2 = __fsub_rn(G, gl2), hr2 = __fsub_rn(H, hl2);
+  t.tl = __fsub_rn(__fadd_rn(gain_part<A0>(gl2, hl2, lam, alpha),
+                             gain_part<A0>(gr2, hr2, lam, alpha)), tot);
+  t.hl2 = hl2;
+  t.hr2 = hr2;
+  return t;
+}
+
+// The candidate's two directions from its class sums (summed over the K
+// classes in class order), missing-right mr and missing-left ml; then the
+// thread's best so far, by the argmax rule.  K == 1 skips the division of the
+// class-mean hessian: x / 1 is x exactly.
+template <int TK>
+__device__ __forceinline__ void take_candidate(
+    Cand& best, int i, bool on, float raw_r, float raw_l, float hl_r,
+    float hr_r, float hl_l, float hr_l, float kf, float gamma, float mcw) {
+  bool ok_r, ok_l;
+  if (TK == 1) {
+    ok_r = hl_r >= mcw && hr_r >= mcw;
+    ok_l = hl_l >= mcw && hr_l >= mcw;
+  } else {
+    ok_r = __fdiv_rn(hl_r, kf) >= mcw && __fdiv_rn(hr_r, kf) >= mcw;
+    ok_l = __fdiv_rn(hl_l, kf) >= mcw && __fdiv_rn(hr_l, kf) >= mcw;
+  }
+  const float mr = ok_r ? __fsub_rn(__fmul_rn(0.5f, raw_r), gamma) : -INFINITY;
+  const float ml = ok_l ? __fsub_rn(__fmul_rn(0.5f, raw_l), gamma) : -INFINITY;
+  float g = max_nan(mr, ml);
+  if (!on) g = -INFINITY;
+  if (better(g, i, best.gain, best.idx)) best = Cand{g, ml, mr, i};
+}
+
+// Copy cnt floats from src to shared dst with the nt threads numbered t:
+// 16-byte asynchronous copies where the two addresses agree modulo 16 (the
+// caller places dst so that they do), 4-byte ones for the head and the tail.
+__device__ __forceinline__ void stage_run(float* dst, const float* src, int cnt,
+                                          int t, int nt) {
+  int lo = 0, hi = 0;                    // [lo, hi): the 16-byte body
+  if ((((uintptr_t)dst ^ (uintptr_t)src) & 15) == 0) {
+    lo = min(cnt, (int)(((16 - ((uintptr_t)src & 15)) & 15) >> 2));
+    hi = lo + ((cnt - lo) & ~3);
+    for (int v = lo + 4 * t; v < hi; v += 4 * nt) cp_async16(dst + v, src + v);
+  }
+  for (int e = t; e < lo; e += nt) cp_async4(dst + e, src + e);
+  for (int e = hi + t; e < cnt; e += nt) cp_async4(dst + e, src + e);
+}
+
+// Copy `rows` rows of B floats (contiguous at src) to shared rows of stride
+// Bs = B + 1 with the nt threads numbered t: element e = r * B + j is
+// followed from one copy to the next without a division.
+__device__ __forceinline__ void stage_rows_padded(float* dst, const float* src,
+                                                  int rows, int B, int Bs,
+                                                  int t, int nt) {
+  const int total = rows * B;
+  int r = t / B, j = t - (t / B) * B;
+  const int dr = nt / B, dj = nt - (nt / B) * B;
+  for (int e = t; e < total; e += nt) {
+    cp_async4(dst + r * Bs + j, src + e);
+    r += dr;
+    j += dj;
+    if (j >= B) {
+      j -= B;
+      ++r;
+    }
+  }
+}
+
+// TK: the classes when fixed at compile time (1, 2), else 0 and K at run
+// time, with the running sums in shared memory.  STAGED: the feature tile's
+// histograms are copied to shared memory first (else read where they lie,
+// for histograms too wide for shared memory).  A0: alpha == 0.  A CTA holds
+// P = blockDim.x / (FT*S) (lane, node) blocks of FT*S threads; thread ft + s*FT
+// of block p scores candidates [s*(n_bins-1)/S, (s+1)*(n_bins-1)/S) of
+// features ft, ft + FT, ... of lane*nn+node = blockIdx.x*P + p.  S threads
+// share a feature on a grid too small to fill the card, where one thread's
+// serial walk over a feature's candidates would set the launch's time: each
+// first adds the bins up to its first candidate in order, so every left sum
+// is still the one chain of adds from bin 0.
+template <int TK, bool STAGED, bool A0>
+__global__ void __launch_bounds__(kScanMaxThreads)
+split_scan_kernel(const float* __restrict__ hist_g,
+                  const float* __restrict__ hist_h,
+                  const float* __restrict__ G, const float* __restrict__ H,
+                  const float* __restrict__ mask, int blocks, int nn, int K_rt,
+                  int d, int n_bins, int FT, int S, int Bs, float lam, float alpha,
+                  float gamma, float mcw, int* __restrict__ best_out,
+                  float* __restrict__ gain_out,
+                  unsigned char* __restrict__ bml_out) {
+  extern __shared__ __align__(16) float s_dyn[];
+  __shared__ Cand s_warp[kScanMaxThreads / 32];
+  const int K = TK ? TK : K_rt;
   const int B = n_bins + 1;
   const int per_f = n_bins - 1;
-  const int F = d * per_f;
-  const long long off = (long long)ln * K * d * B;
-  const float* hg = hist_g + off;
-  const float* hh = hist_h + off;
-  const float* Gt = G + (long long)ln * K;
-  const float* Ht = H + (long long)ln * K;
+  const int per_block = FT * S;
+  const int p = threadIdx.x / per_block;
+  const int tb = threadIdx.x - p * per_block;
+  const int ft = tb % FT;
+  const int grp = tb / FT;
+  const int b0 = grp * per_f / S, b1 = (grp + 1) * per_f / S;
+  const int P = blockDim.x / per_block;
+  const int ln = blockIdx.x * P + p;
+  const bool live = ln < blocks;
+  const int lnc = live ? ln : 0;
+  const int l = lnc / nn;
+  // [2K][FT rows of Bs] of this block, each (channel, class) run with 4
+  // words of slack so its copy can start 16-byte aligned with its source
+  const int seg = FT * Bs + 4;
+  float* s_blk = s_dyn + (size_t)p * 2 * K * seg;
+  float* s_run = s_dyn + (STAGED ? (size_t)P * 2 * K * seg : 0)
+                 + threadIdx.x;                     // [2K][threads]
+  const long long off = (long long)lnc * K * d * B;
+  const float* Gt = G + (long long)lnc * K;
+  const float* Ht = H + (long long)lnc * K;
+  const float kf = (float)K;
+
+  // run c (c < K: grad of class c, else hess of class c - K) of feature tile
+  // f0, in device memory, and where this thread's feature row of it lies
+  auto src_of = [&](int c, int f0) {
+    return (c < K ? hist_g : hist_h) + off + ((long long)(c % K) * d + f0) * B;
+  };
+  auto row_of = [&](int c, int f0) -> const float* {
+    const float* src = src_of(c, f0);
+    if (!STAGED) return src + (long long)ft * B;
+    const int shift = Bs == B ? (int)(((uintptr_t)src >> 2) & 3) : 0;
+    return s_blk + c * seg + shift + ft * Bs;
+  };
+
+  constexpr int KR = TK ? TK : 1;
+  float Gk[KR], Hk[KR], tot[KR];
+  if (TK) {
+#pragma unroll
+    for (int k = 0; k < KR; ++k) {
+      Gk[k] = __ldg(Gt + k);
+      Hk[k] = __ldg(Ht + k);
+      tot[k] = gain_part<A0>(Gk[k], Hk[k], lam, alpha);
+    }
+  }
+
   Cand best{-INFINITY, -INFINITY, -INFINITY, 0x7fffffff};
-  for (int i = threadIdx.x; i < F; i += blockDim.x) {
-    const int f = i / per_f, b = i - f * per_f;
-    float mr, ml;
-    score_candidate(hg, hh, Gt, Ht, K, d, B, n_bins, f, b, lam, alpha, gamma,
-                    mcw, &mr, &ml);
-    float g = max_nan(mr, ml);
-    if (!(mask[(long long)l * d + f] > 0.0f)) g = -INFINITY;
-    if (better(g, i, best.gain, best.idx)) best = Cand{g, ml, mr, i};
+  for (int f0 = 0; f0 < d; f0 += FT) {
+    const int fcnt = min(FT, d - f0);
+    if (STAGED) {
+      __syncthreads();                   // the last tile's rows are read
+      if (live) {
+        for (int c = 0; c < 2 * K; ++c) {
+          const float* src = src_of(c, f0);
+          float* dst = s_blk + c * seg;
+          if (Bs == B)
+            stage_run(dst + (((uintptr_t)src >> 2) & 3), src, fcnt * B, tb,
+                      per_block);
+          else
+            stage_rows_padded(dst, src, fcnt, B, Bs, tb, per_block);
+        }
+      }
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    const int f = f0 + ft;
+    const bool act = live && ft < fcnt;
+    // an empty missing bin in every class, decided for the whole warp so
+    // that its threads take one branch
+    bool no_miss = true;
+    if (TK && act) {
+#pragma unroll
+      for (int k = 0; k < KR; ++k)
+        no_miss = no_miss && row_of(k, f0)[n_bins] == 0.0f
+                  && row_of(K + k, f0)[n_bins] == 0.0f;
+    }
+    if (TK) no_miss = __all_sync(0xffffffffu, no_miss);
+    if (!act) continue;
+    const bool on = mask[(long long)l * d + f] > 0.0f;
+    if (TK) {
+      const float* rg[KR];
+      const float* rh[KR];
+      float gl[KR], hl[KR], gm[KR], hm[KR];
+#pragma unroll
+      for (int k = 0; k < KR; ++k) {
+        rg[k] = row_of(k, f0);
+        rh[k] = row_of(K + k, f0);
+        gl[k] = rg[k][0];
+        hl[k] = rh[k][0];
+        for (int j = 1; j <= b0; ++j) {  // bins up to the first candidate
+          gl[k] = __fadd_rn(gl[k], rg[k][j]);
+          hl[k] = __fadd_rn(hl[k], rh[k][j]);
+        }
+        gm[k] = rg[k][n_bins];
+        hm[k] = rh[k][n_bins];
+      }
+      auto scan = [&](auto no_miss_tag) {
+        constexpr bool NM = decltype(no_miss_tag)::value;
+        for (int b = b0; b < b1; ++b) {
+          float raw_r = 0.0f, raw_l = 0.0f, hl_r = 0.0f, hr_r = 0.0f;
+          float hl_l = 0.0f, hr_l = 0.0f;
+#pragma unroll
+          for (int k = 0; k < KR; ++k) {
+            if (b > b0) {                // the left sums of bins 0..b, in order
+              gl[k] = __fadd_rn(gl[k], rg[k][b]);
+              hl[k] = __fadd_rn(hl[k], rh[k][b]);
+            }
+            const ClassTerms t = class_terms<A0, NM>(
+                gl[k], hl[k], Gk[k], Hk[k], tot[k], gm[k], hm[k], lam, alpha);
+            if (k == 0) {
+              raw_r = t.tr; raw_l = t.tl; hl_r = hl[k]; hr_r = t.hr;
+              hl_l = t.hl2; hr_l = t.hr2;
+            } else {
+              raw_r = __fadd_rn(raw_r, t.tr); raw_l = __fadd_rn(raw_l, t.tl);
+              hl_r = __fadd_rn(hl_r, hl[k]); hr_r = __fadd_rn(hr_r, t.hr);
+              hl_l = __fadd_rn(hl_l, t.hl2); hr_l = __fadd_rn(hr_l, t.hr2);
+            }
+          }
+          take_candidate<TK>(best, f * per_f + b, on, raw_r, raw_l, hl_r,
+                             hr_r, hl_l, hr_l, kf, gamma, mcw);
+        }
+      };
+      if (no_miss)
+        scan(BoolTag<true>{});
+      else
+        scan(BoolTag<false>{});
+    } else {
+      const int stride = blockDim.x;
+      for (int k = 0; k < K; ++k) {
+        const float* rg = row_of(k, f0);
+        const float* rh = row_of(K + k, f0);
+        float gl = rg[0], hl = rh[0];
+        for (int j = 1; j <= b0; ++j) {
+          gl = __fadd_rn(gl, rg[j]);
+          hl = __fadd_rn(hl, rh[j]);
+        }
+        s_run[(2 * k) * stride] = gl;
+        s_run[(2 * k + 1) * stride] = hl;
+      }
+      for (int b = b0; b < b1; ++b) {
+        float raw_r = 0.0f, raw_l = 0.0f, hl_r = 0.0f, hr_r = 0.0f;
+        float hl_l = 0.0f, hr_l = 0.0f;
+        for (int k = 0; k < K; ++k) {
+          const float* rg = row_of(k, f0);
+          const float* rh = row_of(K + k, f0);
+          float gl = s_run[(2 * k) * stride], hl = s_run[(2 * k + 1) * stride];
+          if (b > b0) {
+            gl = __fadd_rn(gl, rg[b]);
+            hl = __fadd_rn(hl, rh[b]);
+            s_run[(2 * k) * stride] = gl;
+            s_run[(2 * k + 1) * stride] = hl;
+          }
+          const float Gv = __ldg(Gt + k), Hv = __ldg(Ht + k);
+          const ClassTerms t = class_terms<A0, false>(gl, hl, Gv, Hv,
+                                               gain_part<A0>(Gv, Hv, lam, alpha),
+                                               rg[n_bins], rh[n_bins], lam, alpha);
+          if (k == 0) {
+            raw_r = t.tr; raw_l = t.tl; hl_r = hl; hr_r = t.hr;
+            hl_l = t.hl2; hr_l = t.hr2;
+          } else {
+            raw_r = __fadd_rn(raw_r, t.tr); raw_l = __fadd_rn(raw_l, t.tl);
+            hl_r = __fadd_rn(hl_r, hl); hr_r = __fadd_rn(hr_r, t.hr);
+            hl_l = __fadd_rn(hl_l, t.hl2); hr_l = __fadd_rn(hr_l, t.hr2);
+          }
+        }
+        take_candidate<0>(best, f * per_f + b, on, raw_r, raw_l, hl_r, hr_r,
+                          hl_l, hr_l, kf, gamma, mcw);
+      }
+    }
   }
-  s_best[threadIdx.x] = best;
+
+  // the block's best: within each warp by shuffles, then across its warps
+  for (int o = 16; o > 0; o >>= 1) {
+    const Cand c = shfl_down_cand(best, o);
+    if (better(c.gain, c.idx, best.gain, best.idx)) best = c;
+  }
+  if ((threadIdx.x & 31) == 0) s_warp[threadIdx.x >> 5] = best;
   __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) {
-      const Cand o = s_best[threadIdx.x + s];
-      const Cand m = s_best[threadIdx.x];
-      if (better(o.gain, o.idx, m.gain, m.idx)) s_best[threadIdx.x] = o;
-    }
-    __syncthreads();
+  if (!live || tb != 0) return;
+  const int w0 = threadIdx.x >> 5;
+  Cand b = s_warp[w0];
+  for (int w = 1; w < per_block / 32; ++w) {
+    const Cand c = s_warp[w0 + w];
+    if (better(c.gain, c.idx, b.gain, b.idx)) b = c;
   }
-  if (threadIdx.x == 0) {
-    Cand b = s_best[0];
-    if (b.idx == 0x7fffffff) {  // F == 0 cannot happen (n_bins >= 2)
-      b.idx = 0;
-    }
-    best_out[ln] = b.idx;
-    gain_out[ln] = b.gain;
-    bml_out[ln] = (b.ml >= b.mr) ? 1 : 0;
-  }
+  if (b.idx == 0x7fffffff) b.idx = 0;    // d == 0: no candidate
+  best_out[ln] = b.idx;
+  gain_out[ln] = b.gain;
+  bml_out[ln] = (b.ml >= b.mr) ? 1 : 0;
 }
 
 // ---------------------------------------------------------------------------
 // K3: routing select
 // ---------------------------------------------------------------------------
 
-__global__ void row_select_lanes_kernel(const int* __restrict__ binned,
-                                        const int* __restrict__ idx,
-                                        int* __restrict__ out, long long total,
-                                        int n, int d) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       t < total; t += stride) {
-    const long long i = t % n;
-    const int j = __ldg(idx + t);
-    out[t] = (j >= 0 && j < d) ? __ldg(binned + i * d + j) : 0;
+// lanes whose idx loads a thread keeps in flight: tile kernel, direct kernel
+constexpr int kTileLanes = 8;
+constexpr int kDirectLanes = 4;
+
+// The tile path (routing.py::plan's "tile").  A CTA stages rows [r0, r0+R)
+// of the codes in shared memory once — 4-byte asynchronous copies, a warp
+// per row, so each copy instruction reads 128 contiguous bytes — and then
+// serves every lane from them: thread t takes row t % R of lanes t / R,
+// t / R + P, ... (P = blockDim.x / R lanes at a time), reads idx and writes
+// out coalesced, with the idx loads of kTileLanes lanes in flight before
+// their lookups.  The staged rows lie at an odd stride (d, or d + 1 where d
+// is even), a padding rather than a column swizzle: when the 32 rows of a
+// warp select one feature — at the root every row of a lane selects its
+// node's feature — their words then fall in 32 distinct banks, where a
+// stride of d = 128 would put all 32 in one bank; and a row's words stay
+// contiguous, so the copies stay coalesced.
+__global__ void __launch_bounds__(256)
+row_select_tile_kernel(const int* __restrict__ binned,
+                       const int* __restrict__ idx, int* __restrict__ out,
+                       int n, int d, int L, int R, int stride) {
+  extern __shared__ __align__(16) int s_codes[];   // [R][stride]
+  const int r0 = blockIdx.x * R;
+  const int rows = min(R, n - r0);
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5;
+  const int* src = binned + (long long)r0 * d;
+  for (int r = warp; r < rows; r += warps)
+    for (int c = threadIdx.x & 31; c < d; c += 32)
+      cp_async4(s_codes + r * stride + c, src + r * d + c);
+  cp_async_wait_all();
+  __syncthreads();
+  const int r = threadIdx.x % R;
+  const int q = threadIdx.x / R;
+  const int P = blockDim.x / R;
+  if (r >= rows) return;
+  const int* row = s_codes + r * stride;
+  const long long step = (long long)P * n;
+  const int* pi = idx + (long long)q * n + r0 + r;
+  int* po = out + (long long)q * n + r0 + r;
+  for (int l = q; l < L; l += P * kTileLanes) {
+    int j[kTileLanes];
+#pragma unroll
+    for (int u = 0; u < kTileLanes; ++u)
+      j[u] = l + u * P < L ? __ldcs(pi + u * step) : -1;
+#pragma unroll
+    for (int u = 0; u < kTileLanes; ++u)
+      if (l + u * P < L)
+        __stcs(po + u * step, (unsigned)j[u] < (unsigned)d ? row[j[u]] : 0);
+    pi += kTileLanes * step;
+    po += kTileLanes * step;
+  }
+}
+
+// The direct path (few lanes): one thread per row gathers its lanes' codes,
+// the idx loads and then the gathers of kDirectLanes lanes in flight at once.
+// Offsets are a 32-bit row index and 64-bit pointer steps: no 64-bit
+// division or modulo.
+__global__ void __launch_bounds__(256)
+row_select_direct_kernel(const int* __restrict__ binned,
+                         const int* __restrict__ idx, int* __restrict__ out,
+                         int n, int d, int L) {
+  const unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (unsigned)n) return;
+  const int* row = binned + (long long)i * d;
+  const long long step = n;
+  const int* pi = idx + i;
+  int* po = out + i;
+  for (int l = 0; l < L; l += kDirectLanes) {
+    int j[kDirectLanes], v[kDirectLanes];
+#pragma unroll
+    for (int u = 0; u < kDirectLanes; ++u)
+      j[u] = l + u < L ? __ldcs(pi + u * step) : -1;
+#pragma unroll
+    for (int u = 0; u < kDirectLanes; ++u)
+      v[u] = (unsigned)j[u] < (unsigned)d ? __ldg(row + j[u]) : 0;
+#pragma unroll
+    for (int u = 0; u < kDirectLanes; ++u)
+      if (l + u < L) __stcs(po + u * step, v[u]);
+    pi += kDirectLanes * step;
+    po += kDirectLanes * step;
   }
 }
 
@@ -644,6 +967,17 @@ int launch_hist_f32(const void* local, const void* gh, const void* binned,
   return (int)cudaGetLastError();
 }
 
+using ScanKernel = decltype(&split_scan_kernel<0, true, false>);
+
+// K2's instantiation for K classes: one, two, or any (running sums in shared
+// memory)
+template <bool STAGED, bool A0>
+ScanKernel scan_kernel(int K) {
+  return K == 1 ? split_scan_kernel<1, STAGED, A0>
+       : K == 2 ? split_scan_kernel<2, STAGED, A0>
+                : split_scan_kernel<0, STAGED, A0>;
+}
+
 }  // namespace
 
 extern "C" int tmog_hist_level(const void* local, const void* gh,
@@ -673,22 +1007,52 @@ extern "C" int tmog_split_scan(const void* hist_g, const void* hist_h,
                                int L, int nn, int K, int d, int n_bins,
                                float reg_lambda, float alpha, float gamma,
                                float min_child_weight, void* best, void* gain,
-                               void* bml, void* stream) {
+                               void* bml, int staged, int feats_per_block,
+                               int threads_per_feat, int blocks_per_cta,
+                               int row_stride, void* stream) {
   if (L <= 0 || nn <= 0) return 0;
-  split_scan_kernel<<<(unsigned)(L * nn), kThreads, 0, (cudaStream_t)stream>>>(
+  const int FT = feats_per_block, S = threads_per_feat, P = blocks_per_cta;
+  const int blocks = L * nn;
+  const int threads = FT * S * P;
+  const size_t smem =
+      ((staged ? (size_t)P * 2 * K * ((size_t)FT * row_stride + 4) : 0)
+       + (K > 2 ? (size_t)2 * K * threads : 0)) * sizeof(float);
+  const bool a0 = alpha == 0.0f;
+  const ScanKernel kernel =
+      staged ? (a0 ? scan_kernel<true, true>(K) : scan_kernel<true, false>(K))
+             : (a0 ? scan_kernel<false, true>(K) : scan_kernel<false, false>(K));
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(unsigned)((blocks + P - 1) / P), threads, smem,
+           (cudaStream_t)stream>>>(
       (const float*)hist_g, (const float*)hist_h, (const float*)G,
-      (const float*)H, (const float*)mask, nn, K, d, n_bins, reg_lambda, alpha,
-      gamma, min_child_weight, (int*)best, (float*)gain, (unsigned char*)bml);
+      (const float*)H, (const float*)mask, blocks, nn, K, d, n_bins, FT, S,
+      row_stride, reg_lambda, alpha, gamma, min_child_weight, (int*)best,
+      (float*)gain, (unsigned char*)bml);
   return (int)cudaGetLastError();
 }
 
 extern "C" int tmog_row_select_lanes(const void* binned, const void* idx,
-                                     void* out, int n, int d, int L,
-                                     void* stream) {
-  const long long total = (long long)L * n;
-  if (total <= 0) return 0;
-  row_select_lanes_kernel<<<blocks_for(total), kThreads, 0,
-                            (cudaStream_t)stream>>>(
-      (const int*)binned, (const int*)idx, (int*)out, total, n, d);
+                                     void* out, int n, int d, int L, int tile,
+                                     int rows_per_cta, int row_stride,
+                                     int threads, void* stream) {
+  if ((long long)L * n <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (tile) {
+    const int R = rows_per_cta;
+    const size_t smem = (size_t)R * row_stride * sizeof(int);
+    cudaError_t e = cudaFuncSetAttribute(
+        row_select_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    row_select_tile_kernel<<<(unsigned)((n + (long long)R - 1) / R), threads,
+                             smem, s>>>((const int*)binned, (const int*)idx,
+                                        (int*)out, n, d, L, R, row_stride);
+  } else {
+    row_select_direct_kernel<<<(unsigned)((n + (long long)threads - 1) / threads),
+                               threads, 0, s>>>(
+        (const int*)binned, (const int*)idx, (int*)out, n, d, L);
+  }
   return (int)cudaGetLastError();
 }

@@ -8,8 +8,11 @@ grad/hess, the second-order gain of every (feature, bin) candidate with L2
 sides, masked features at -inf, and the argmax (first maximum).
 
 - :func:`split_scan` — the wrapper: launches ``tmog_split_scan`` of
-  ``csrc/trees.cu`` on CUDA tensors (one CTA per (lane, node)); a CPU tensor
-  takes the plain version.
+  ``csrc/trees.cu`` on CUDA tensors (one thread per (lane, node, feature),
+  walking the bins in order); a CPU tensor takes the plain version.
+- :func:`plan` — the launch: how many (lane, node) blocks a CTA holds, the
+  features each block's threads take at a time, and the shared-memory
+  stride of the staged histograms.
 - :func:`split_scan_torch` — the plain version: ``split_scan_xla``'s formula
   (:func:`split_gains_torch` gives its gain of every candidate).
 - ``launches`` — the launch counter.
@@ -24,7 +27,7 @@ bit for bit.  On float histograms (GBT) their prefix sums round differently;
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -34,8 +37,40 @@ launches = 0
 
 _VP, _INT, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "tmog_split_scan": (_VP,) * 5 + (_INT,) * 5 + (_F,) * 4 + (_VP,) * 4,
+    "tmog_split_scan": (_VP,) * 5 + (_INT,) * 5 + (_F,) * 4 + (_VP,) * 3
+    + (_INT,) * 5 + (_VP,),
 }
+
+#: the most threads of a CTA (the kernel's launch bound), the fewest it aims
+#: for, the most features a block's threads take at a time
+SCAN_MAX_THREADS = 512
+SCAN_MIN_THREADS = 128
+SCAN_MAX_FEATS = 256
+#: shared memory a CTA's staged histograms may take: two CTAs to an SM, else
+#: one; beyond that the kernel reads the histograms where they lie
+SCAN_SMEM = 100 * 1024
+SCAN_SMEM_MAX = 200 * 1024
+#: the card's SMs; candidates a thread scores at the fewest
+_SMS = 132
+_MIN_CANDIDATES = 8
+
+
+class ScanPlan(NamedTuple):
+    """One launch of the scan: CTAs of ``blocks_per_cta`` (lane, node)
+    blocks of ``feats`` x ``groups`` threads (``threads`` in all): ``groups``
+    threads share each feature of a tile of ``feats``, each scoring its
+    share of the candidates, ``feat_tiles`` tiles in turn.  Where
+    ``staged``, a tile's histograms are copied to shared memory first, each
+    (channel, class) run at a row stride of ``stride`` words (odd)."""
+    staged: bool
+    feats: int
+    groups: int
+    blocks_per_cta: int
+    threads: int
+    stride: int
+    smem: int
+    ctas: int
+    feat_tiles: int
 
 _EPS = 1e-12
 
@@ -159,6 +194,54 @@ def _check(t: torch.Tensor, name: str, shape: tuple) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _scan_smem(staged: bool, P: int, FT: int, K: int, stride: int,
+               S: int = 1) -> int:
+    """Bytes of the kernel's dynamic shared memory: the staged runs (each
+    with 4 words of alignment slack) and, where K > 2, the running sums."""
+    run = 2 * K * P * FT * S if K > 2 else 0
+    return 4 * ((P * 2 * K * (FT * stride + 4) if staged else 0) + run)
+
+
+def plan(L: int, nn: int, K: int, d: int, n_bins: int) -> ScanPlan:
+    """A block's threads take all of d (rounded up to 32), at most
+    ``SCAN_MAX_FEATS``, else tiles of it in turn; the widest tile whose
+    staged histograms fit ``SCAN_SMEM`` (else ``SCAN_SMEM_MAX``), else the
+    histograms are read where they lie.  A CTA holds enough blocks to have
+    ``SCAN_MIN_THREADS`` threads, where there are as many blocks.  Where
+    the grid has fewer CTAs than the card has SMs (GBT's levels), each
+    thread's serial walk over its candidates sets the launch's time, so up
+    to four threads share a feature's candidates (each scoring at least
+    ``_MIN_CANDIDATES``, at most ``SCAN_MAX_THREADS`` a CTA)."""
+    B = n_bins + 1
+    stride = B | 1                       # odd: one bin of 32 features, 32 banks
+    first = min(SCAN_MAX_FEATS, -(-max(d, 1) // 32) * 32)
+    tiles = [first] + [ft for ft in (128, 64, 32) if ft < first]
+    blocks = L * nn
+
+    def make(staged: bool, FT: int, budget: int) -> ScanPlan:
+        P = max(1, min(SCAN_MIN_THREADS // FT, blocks))
+        while P > 1 and _scan_smem(staged, P, FT, K, stride) > budget:
+            P -= 1
+        ctas = -(-blocks // P)
+        S = 1 if ctas >= _SMS else max(1, min(
+            4, SCAN_MAX_THREADS // (P * FT), (n_bins - 1) // _MIN_CANDIDATES))
+        while S > 1 and _scan_smem(staged, P, FT, K, stride, S) > budget:
+            S -= 1
+        return ScanPlan(staged, FT, S, P, P * FT * S, stride if staged else 0,
+                        _scan_smem(staged, P, FT, K, stride, S), ctas,
+                        -(-d // FT))
+
+    for budget in (SCAN_SMEM, SCAN_SMEM_MAX):
+        for FT in tiles:
+            if _scan_smem(True, 1, FT, K, stride) <= budget:
+                return make(True, FT, budget)
+    p = make(False, first, SCAN_SMEM_MAX)
+    if p.smem > SCAN_SMEM_MAX:
+        raise ValueError(f"split scan of {K} classes does not fit one CTA's "
+                         f"shared memory ({p.smem} bytes)")
+    return p
+
+
 def split_scan(hist_g, hist_h, G, H, level_mask, n_bins: int,
                reg_lambda, alpha, gamma, min_child_weight
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -187,14 +270,30 @@ def split_scan(hist_g, hist_h, G, H, level_mask, n_bins: int,
                                 reg_lambda, alpha, gamma, min_child_weight)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    return launch(hist_g, hist_h, G, H, level_mask, n_bins, reg_lambda, alpha,
+                  gamma, min_child_weight, plan(L, nn, K, d, n_bins))
+
+
+def launch(hist_g, hist_h, G, H, level_mask, n_bins: int, reg_lambda, alpha,
+           gamma, min_child_weight, p: ScanPlan
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch of the kernel on checked CUDA tensors by plan ``p`` (the
+    card tests run a plan that reads the histograms where they lie)."""
+    global launches
+    L, nn, K, d, B = hist_g.shape
+    if p.threads != p.feats * p.groups * p.blocks_per_cta or p.feats % 32 \
+            or p.threads > SCAN_MAX_THREADS or (p.staged and p.stride < B):
+        raise ValueError(f"scan plan {p} does not fit {tuple(hist_g.shape)}")
+    dev = hist_g.device
     best = torch.empty((L, nn), dtype=torch.int32, device=dev)
     gain = torch.empty((L, nn), dtype=torch.float32, device=dev)
     bml = torch.empty((L, nn), dtype=torch.bool, device=dev)
     err = _lib().tmog_split_scan(
         hist_g.data_ptr(), hist_h.data_ptr(), G.data_ptr(), H.data_ptr(),
-        level_mask.data_ptr(), L, nn, K, d, n_bins, float(reg_lambda),
+        level_mask.data_ptr(), L, nn, K, d, int(n_bins), float(reg_lambda),
         float(alpha), float(gamma), float(min_child_weight), best.data_ptr(),
-        gain.data_ptr(), bml.data_ptr(), dispatch.stream_handle(dev))
+        gain.data_ptr(), bml.data_ptr(), int(p.staged), p.feats, p.groups,
+        p.blocks_per_cta, p.stride, dispatch.stream_handle(dev))
     dispatch.check_launch(err, "split_scan")
     launches += 1
     return best, gain, bml
