@@ -11,22 +11,31 @@ Phases, one JSON line each:
 2. build     — nvcc builds every kernel of both paths from the sources in
                this checkout (perf/kernels/csrc/encode.cu and trees.cu, one
                nvcc each, started together), with ptxas's report.
-3. kernels   — K4 (one-hot of level codes) and K5 (bucketize one-hot) on the
-               card, held bitwise against their plain PyTorch versions on the
-               same card: ragged and full row counts, codes out of range, the
-               fixture's real splits with NaN, +-inf and values on a split,
-               all four track_nulls x track_invalid settings.  Then each is
-               timed (CUDA events around runs of 20 launches, median of 50 runs) at
-               the serving shape beside its plain version, one PyTorch call
-               as a yardstick, and the card's bound for the bytes it moves.
+3. kernels   — the encode kernel (csrc/encode.cu: K4's one-hot slots and
+               K5's bucketize slots, a whole slot table per launch) on the
+               card, held bitwise against its plain PyTorch version on the
+               same card: as the one-slot wrappers (ragged and full row
+               counts, codes out of range, the fixture's real splits with
+               NaN, +-inf and values on a split, all four track_nulls x
+               track_invalid settings), on random tables of every edge case
+               written into strided and misaligned destinations, and on the
+               serving fixture's whole 40-slot table at 1024, 37 and a prime
+               row count.  Then the one-slot wrappers at a slot's serving
+               shape and the fused table at the whole batch's are timed:
+               host-inclusive (CUDA events around runs of 20 launches,
+               median of 50 runs) and on the device alone (time_device_ms),
+               beside the plain version, one PyTorch call as a yardstick
+               (one slot) and the card's bound for the bytes moved.
 4. serving   — the committed full-width fixture (trained by the JAX package,
                saved in its format) loads through the port's load_model and
                serves 16 batches of 1024 records and one of 37 on the card.
-               The launch counters are zeroed just before and read just after;
-               every kernel of the path must have launched, batches x slots
-               times.  The same records through the plan on the CPU (the plain
-               versions) must give bitwise-equal prefix vectors and equal
-               output records.
+               The launch counters are zeroed just before and read just after:
+               the encode kernel must have launched once per batch with the
+               table's 40 slots each (no one-slot launch), and the operands
+               must have reached the card in 2 copies a batch (one per
+               dtype).  The same records through the plan on the CPU (the
+               plain versions) must give bitwise-equal prefix vectors and
+               equal output records.
 5. tree_kernels — K1 (level histogram), K2 (split scan) and K3 (routing
                select) against their plain versions on the card: K1's int8
                path bitwise (negative node ids, the missing bin, a prime row
@@ -323,8 +332,61 @@ def phase_kernels(torch, KE, bucketizer_models, dev) -> dict:
         v["bound_ms"] = v["bytes"] / HBM_BYTES_PER_S * 1e3
         v["max_abs_err"] = err[k]
         v["parity_cases"] = checked[k]
+    for k, v in t.items():  # each one-slot wrapper on the device alone
+        v["device_ms"] = time_device_ms(
+            (lambda: KE.onehot_codes(codes, width)) if k == "onehot_codes" else
+            (lambda: KE.bucketize_right_encode(x, s, m.track_nulls, m.track_invalid)))
     emit({"phase": "kernels", **{k: v for k, v in t.items()}})
     return t
+
+
+def phase_fused(torch, KE, table, dev) -> dict:
+    """The encode kernel over whole slot tables: bitwise against its plain
+    version on edge-case tables (strided and misaligned destinations, a
+    table of two chunks) and on the fixture's table; then timed at the
+    serving batch."""
+    from torch_encode_cases import fixture_inputs, slot_case
+
+    cases = 0
+    for n, n_slots, pad, offset in ((1, 12, 0, 0), (37, 40, 4, 1), (1024, 70, 3, 0),
+                                    (997, 70, 4, 2)):
+        specs, ins = slot_case(n, 100 + n, dev, n_slots)
+        tab = KE.plan_slots(specs)
+        w = tab.width
+        buf = torch.full((n, offset + w + pad), 7.0, device=dev)
+        before = KE.encode_slots_launches
+        KE.encode_slots(ins, tab, buf[:, offset:offset + w])
+        torch.cuda.synchronize()
+        check(KE.encode_slots_launches == before + len(tab.chunks),
+              f"one launch per chunk ({len(tab.chunks)})")
+        check(torch.equal(buf[:, offset:offset + w], KE.encode_slots_torch(ins, tab))
+              and bool((buf[:, :offset] == 7.0).all())
+              and bool((buf[:, offset + w:] == 7.0).all()),
+              f"fused kernel bitwise on an edge-case table n={n} slots={n_slots} "
+              f"offset={offset} pad={pad}")
+        cases += 1
+    width = table.width
+    for n in (BATCH, RAGGED, 997):
+        ins = fixture_inputs(table, n, n, dev)
+        buf = torch.empty((n, -(-width // 4) * 4), device=dev)[:, :width]
+        KE.encode_slots(ins, table, buf)
+        torch.cuda.synchronize()
+        check(torch.equal(buf, KE.encode_slots_torch(ins, table)),
+              f"fused kernel bitwise on the fixture's table at n={n}")
+        cases += 1
+    ins = fixture_inputs(table, BATCH, 5, dev)
+    buf = torch.empty((BATCH, -(-width // 4) * 4), device=dev)[:, :width]
+    run = lambda: KE.encode_slots(ins, table, buf)  # noqa: E731
+    nbytes = (sum(x.numel() * x.element_size() for x in ins)
+              + table.splits.nbytes + BATCH * width * 4)
+    out = {"slots": len(table), "columns": width, "rows": BATCH,
+           "device_ms": time_device_ms(run), "ms": time_ms(run),
+           "plain_ms": time_ms(lambda: KE.encode_slots_torch(ins, table, buf),
+                               runs=11, per_run=5),
+           "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "parity_cases": cases, "max_abs_err": 0.0}
+    emit({"phase": "fused_encode", **out})
+    return out
 
 
 def _sync(torch, dev) -> None:
@@ -897,7 +959,8 @@ def phase_training(torch, KE, dev) -> dict:
     check(launches["row_select_lanes.tile"] >= 3 + 6
           and launches["row_select_lanes.direct"] >= 50 * 3,
           f"K3 launched by both paths: {launches}")
-    check(launches["onehot_codes"] == launches["bucketize_right_encode"] == 0,
+    check(launches["onehot_codes"] == launches["bucketize_right_encode"]
+          == launches["encode_slots"] == 0,
           "the training path launches no serving kernel")
     pos_rate = float(y.mean())
     for ev in summary.validation_results:
@@ -939,6 +1002,7 @@ def main() -> int:
         return 1
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
+    sys.path.insert(1, os.path.join(here, "tests"))  # torch_encode_cases
     os.chdir(here)
     import numpy as np
 
@@ -977,16 +1041,19 @@ def main() -> int:
                if isinstance(t, DecisionTreeNumericBucketizerModel) and t.should_split]
     check(len(buckets) > 0, "fixture has a bucketizer with real splits")
     timings = phase_kernels(torch, KE, buckets, dev)
-
-    # 4. serving
     plan = model.serving_plan()
     check(plan.device.type == "cuda", "serving_plan() defaults to the card")
+    fused = phase_fused(torch, KE, plan._encode_table, dev)
+
+    # 4. serving
     cpu_plan = model.serving_plan(device="cpu")
     onehot_slots = sum(len(r.vocabs) for r in plan._prefix
                        if isinstance(r, OneHotVectorizerModel))
     bucket_slots = sum(1 for r in plan._prefix
                        if isinstance(r, DecisionTreeNumericBucketizerModel)
                        and r.should_split)
+    check(len(plan._encode_table) == onehot_slots + bucket_slots,
+          "the plan's slot table holds every one-hot and bucketize slot")
     rng = np.random.default_rng(1)
     batches = [make_records(schema, BATCH, rng) for _ in range(N_BATCHES)]
     batches.append(make_records(schema, RAGGED, rng))
@@ -994,6 +1061,7 @@ def main() -> int:
     torch.cuda.synchronize()
 
     KE.reset_launch_counts()
+    copies0 = plan.metrics()["h2d_copies"]
     rows, parts = [], []
     t0 = time.perf_counter()
     for b in batches[:N_BATCHES]:
@@ -1003,13 +1071,19 @@ def main() -> int:
     rows.append(plan.score(batches[-1]))
     parts.append(dict(plan.last_timings))
     launches = KE.launch_counts()
+    copies = plan.metrics()["h2d_copies"] - copies0
 
     n_batches = len(batches)
-    check(launches["onehot_codes"] == n_batches * onehot_slots > 0,
-          f"K4 launches {launches['onehot_codes']} == {n_batches} x {onehot_slots}")
-    check(launches["bucketize_right_encode"] == n_batches * bucket_slots > 0,
-          f"K5 launches {launches['bucketize_right_encode']} == "
-          f"{n_batches} x {bucket_slots}")
+    check(launches["encode_slots"] == n_batches,
+          f"encode launches {launches['encode_slots']} == one per batch ({n_batches})")
+    check(launches["encode_slots.slots"] == n_batches * (onehot_slots + bucket_slots)
+          and onehot_slots > 0 and bucket_slots > 0,
+          f"slots encoded {launches['encode_slots.slots']} == {n_batches} x "
+          f"({onehot_slots} + {bucket_slots})")
+    check(launches["onehot_codes"] == launches["bucketize_right_encode"] == 0,
+          f"no one-slot launch on the serving path: {launches}")
+    check(copies == 2 * n_batches,
+          f"host->device copies {copies} == 2 per batch ({n_batches} batches)")
 
     pred_name = next(f.name for f in model.result_features
                      if f.ftype.__name__ == "Prediction")
@@ -1036,7 +1110,8 @@ def main() -> int:
           "host_head_ms_median": med("host_ms"),
           "device_prefix_ms": [p["device_ms"] for p in parts],
           "vector_width": int(cpu_vec[0].shape[1]),
-          "launches": launches, "onehot_slots": onehot_slots,
+          "launches": launches, "h2d_copies_per_batch": copies / n_batches,
+          "onehot_slots": onehot_slots,
           "bucketize_slots": bucket_slots,
           "records_equal_cpu": True, "prefix_bitwise_cpu": True})
 
@@ -1092,11 +1167,19 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "transmogrifai_tpu_torch/perf/kernels/csrc/encode.cu",
-            "replaces": replaces, "launches": launches[kname],
-            "max_abs_err": t["max_abs_err"], "parity": "bitwise",
-            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": "bytes", "library_ms": t["library_ms"],
-            "library": t["library"], "shape": t["shape"]})
+            "replaces": replaces, "launches": launches["encode_slots"],
+            "slots_per_launch": onehot_slots if kname == "onehot_codes" else bucket_slots,
+            "max_abs_err": max(t["max_abs_err"], fused["max_abs_err"]),
+            "parity": "bitwise",
+            "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": "bytes",
+            "library_ms": t["library_ms"], "library": t["library"],
+            "shape": t["shape"],
+            "timing": "ms/device_ms/plain_ms/bound_ms/library_ms: one slot "
+                      "(one-slot table) at the serving shape; fused_*: the "
+                      "serving batch's whole table in one launch",
+            **{f"fused_{k}": fused[k] for k in ("ms", "device_ms", "plain_ms",
+                                                 "bound_ms", "slots", "columns")}})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -7,11 +7,17 @@ there without the suite's conftest (which imports JAX):
     python -m pytest --noconftest -p no:cacheprovider -q -m cuda tests/test_torch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from transmogrifai_tpu_torch.perf.kernels import encode as TKE
+from torch_encode_cases import fixture_inputs, slot_case
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURE = os.path.join(REPO, "transmogrifai_tpu_torch", "fixtures", "serving_wide")
 
 pytestmark = pytest.mark.cuda
 
@@ -39,7 +45,7 @@ def _values(n: int, splits: np.ndarray, seed: int) -> np.ndarray:
 
 
 @pytest.mark.parametrize("n", [1, 37, 1024, 5000])
-@pytest.mark.parametrize("width", [1, 22])
+@pytest.mark.parametrize("width", [1, 22, 300])
 def test_onehot_kernel_bitwise_and_counted(n, width):
     c = torch.from_numpy(_codes(n, width, seed=n)).cuda()
     before = TKE.onehot_launches
@@ -63,6 +69,113 @@ def test_bucketize_kernel_bitwise_and_counted(splits, track_nulls, track_invalid
     assert torch.equal(got, TKE.bucketize_right_encode_torch(
         x, s, track_nulls, track_invalid))
     assert TKE.bucketize_launches == before + 1
+
+
+# -- the fused encode kernel: every slot of a table in one launch --------------
+
+@pytest.mark.parametrize("n", [1, 37, 1024, 1009])
+@pytest.mark.parametrize("n_slots", [12, 40])
+def test_encode_slots_kernel_bitwise_one_launch(n, n_slots):
+    specs, inputs = slot_case(n, n, "cuda", n_slots)
+    table = TKE.plan_slots(specs)
+    before = TKE.encode_slots_launches
+    got = TKE.encode_slots(inputs, table)
+    torch.cuda.synchronize()
+    assert TKE.encode_slots_launches == before + 1
+    assert torch.equal(got, TKE.encode_slots_torch(inputs, table))
+
+
+@pytest.mark.parametrize("n_slots", [64, 70, 129])
+def test_encode_slots_chunks_counted_per_launch(n_slots):
+    specs, inputs = slot_case(300, 7, "cuda", n_slots)
+    table = TKE.plan_slots(specs)
+    before = TKE.encode_slots_launches
+    got = TKE.encode_slots(inputs, table)
+    torch.cuda.synchronize()
+    assert TKE.encode_slots_launches == before + len(table.chunks)
+    assert len(table.chunks) == -(-n_slots // TKE.MAX_SLOTS)
+    assert torch.equal(got, TKE.encode_slots_torch(inputs, table))
+
+
+@pytest.mark.parametrize("pad, offset", [(0, 0), (4, 0), (3, 0), (4, 1), (8, 2)],
+                         ids=["dense", "aligned_stride", "odd_stride",
+                              "misaligned_base", "offset_2"])
+def test_encode_slots_into_strided_destination(pad, offset):
+    """An output that is a view into a wider buffer: every column of the
+    view is written, nothing around it; misaligned bases and odd strides
+    take the scalar stores."""
+    specs, inputs = slot_case(129, 11, "cuda", 70)
+    table = TKE.plan_slots(specs)
+    w = table.width
+    buf = torch.full((129, offset + w + pad), 7.0, device="cuda")
+    TKE.encode_slots(inputs, table, buf[:, offset:offset + w])
+    torch.cuda.synchronize()
+    assert torch.equal(buf[:, offset:offset + w], TKE.encode_slots_torch(inputs, table))
+    assert bool((buf[:, :offset] == 7.0).all())
+    assert bool((buf[:, offset + w:] == 7.0).all())
+
+
+def test_encode_slots_fixture_table_bitwise():
+    """The serving fixture's whole table (32 one-hot and 8 bucketize slots)
+    at 1024, 37 and a prime row count, into the plan's padded buffer."""
+    from transmogrifai_tpu_torch import WorkflowModel
+
+    table = WorkflowModel.load(FIXTURE).serving_plan(device="cpu")._encode_table
+    assert len(table) == 40 and table.width == 730
+    for n in (1024, 37, 997):
+        inputs = fixture_inputs(table, n, n, "cuda")
+        buf = torch.empty((n, 732), device="cuda")[:, :730]
+        before = TKE.encode_slots_launches
+        TKE.encode_slots(inputs, table, buf)
+        torch.cuda.synchronize()
+        assert TKE.encode_slots_launches == before + 1
+        assert torch.equal(buf, TKE.encode_slots_torch(inputs, table))
+
+
+def _records(schema: dict, n: int, rng) -> list:
+    """Requests from the fixture's schema with missing values, unseen levels
+    and absent fields."""
+    out = []
+    for _ in range(n):
+        r = {}
+        for f in schema["features"]:
+            u = rng.random()
+            if f.get("response") or u < 0.02:
+                continue
+            if u < 0.1:
+                r[f["name"]] = None
+            elif f["type"] == "Real":
+                r[f["name"]] = float(rng.normal())
+            elif f["type"] == "Binary":
+                r[f["name"]] = bool(rng.random() < 0.3)
+            else:
+                r[f["name"]] = (f"unseen{int(rng.integers(1000))}" if u < 0.15
+                                else str(rng.choice(f["levels"])))
+        out.append(r)
+    return out
+
+
+def test_serving_plan_encodes_a_batch_in_one_launch():
+    """The card plan: one encode launch and one copy per operand dtype a
+    batch, records equal to the CPU plan's."""
+    import json
+
+    from transmogrifai_tpu_torch import WorkflowModel
+
+    with open(os.path.join(FIXTURE, "schema.json")) as fh:
+        schema = json.load(fh)
+    model = WorkflowModel.load(FIXTURE)
+    plan, cpu_plan = model.serving_plan(), model.serving_plan(device="cpu")
+    rng = np.random.default_rng(3)
+    for n in (1024, 37):
+        recs = _records(schema, n, rng)
+        TKE.reset_launch_counts()
+        copies = plan.metrics()["h2d_copies"]
+        got = plan.score(recs)
+        assert TKE.launch_counts() == {"onehot_codes": 0, "bucketize_right_encode": 0,
+                                       "encode_slots": 1, "encode_slots.slots": 40}
+        assert plan.metrics()["h2d_copies"] == copies + 2
+        assert got == cpu_plan.score(recs)
 
 
 # -- tree kernels (K1 histogram, K2 split scan, K3 routing) ---------------------

@@ -9,7 +9,9 @@
 (c) a saved model with a stage or type the port lacks refuses to load and
     names it;
 (d) neither the port nor ``chip_smoke.py`` imports JAX or the JAX package;
-(e) with no card, the device default raises instead of running on the CPU.
+(e) with no card, the device default raises instead of running on the CPU;
+(f) the plan encodes every one-hot and bucketize slot of a batch with one
+    slot table, from operands packed into one staging buffer per dtype.
 """
 
 import ast
@@ -157,6 +159,68 @@ class TestFixtureParity:
         assert set(plan.last_timings) == {"encode_ms", "device_ms", "host_ms"}
 
 
+class TestEncodeGroup:
+    """The prefix's one-hot and bucketize stages as one slot table."""
+
+    def test_one_table_for_every_encode_stage(self, fixture_models):
+        _, tm, schema = fixture_models
+        plan = tm.serving_plan(device="cpu")
+        table = plan._encode_table
+        kinds = [s.kind for s in table.specs]
+        assert (kinds.count("onehot"), kinds.count("bucketize")) == (32, 8)
+        assert table.width == 730 and table.chunks == [(0, 40)]
+        assert [type(r).__name__ for r, _, _ in plan._wiring] == [
+            "BinaryVectorizer", "NumericVectorizerModel", "VectorsCombiner",
+            "SanityCheckerModel"]
+        plan.score(_records(schema["features"], 20, 8))
+        st = plan._staging[32]
+        assert sorted((str(host.dtype), host.shape) for _, host, _, _ in st.buffers) \
+            == [("float32", (68, 32)), ("int32", (32, 32))]
+        assert plan.metrics()["h2d_copies"] == 0          # the CPU copies nothing
+
+    def test_blocks_equal_each_stage_own_device_transform(self, fixture_models):
+        _, tm, schema = fixture_models
+        plan = tm.serving_plan(device="cpu")
+        recs = _records(schema["features"], 37, 9)
+        entries = plan._encode_records(recs)[1]
+        ops_in = plan._stage(entries, 37, 64)
+        env = {}
+        plan._encode(ops_in, 64, env)
+        grouped = {uid for uid, _, _ in plan._encode_blocks}
+        assert len(grouped) == 9
+        for runner in plan._prefix:
+            uid = runner.get_output().uid
+            if uid not in grouped:
+                continue
+            srcs = [plan._slot_sources[(runner.uid, k)] for k in
+                    (runner.device_input_slots or range(len(runner.inputs)))]
+            own = runner.device_transform(*[ops_in[i] for _, i in srcs])
+            assert own.shape == env[uid].shape
+            assert own.numpy().tobytes() == env[uid].contiguous().numpy().tobytes()
+
+    @pytest.mark.parametrize("sizes", [(37, 20, 64), (1024, 3, 1024)])
+    def test_staging_reuse_across_batches_equal_jax(self, fixture_models, sizes):
+        """Batches of one bucket refill the same staging buffers: smaller
+        batches after larger ones must not see stale rows."""
+        jm, tm, schema = fixture_models
+        plan, jplan = tm.serving_plan(device="cpu"), jm.serving_plan()
+        for i, n in enumerate(sizes):
+            recs = _records(schema["features"], n, 20 + i)
+            assert plan.score(recs) == jplan.score(recs)
+
+    def test_unsplit_bucketizer_stays_a_torch_op(self):
+        from transmogrifai_tpu_torch.ops.bucketizers import DecisionTreeNumericBucketizerModel
+
+        x = torch.tensor([0.5, float("nan"), -2.0])
+        for tn in (True, False):
+            m = DecisionTreeNumericBucketizerModel(False, [], track_nulls=tn)
+            assert m.device_slot_specs() is None
+            out = m.device_transform(x)
+            assert out.shape == (3, int(tn))
+            if tn:
+                assert out[:, 0].tolist() == [0.0, 1.0, 0.0]
+
+
 @pytest.fixture(scope="module")
 def tiny_saved(tmp_path_factory):
     """3 Real (1 auto-bucketized), 2 PickList, 300 rows, trained by JAX."""
@@ -301,7 +365,8 @@ class TestNoJax:
         assert out.returncode == 0, out.stderr
         assert "BAD=\n" in out.stdout, out.stdout
 
-    @pytest.mark.parametrize("root", ["transmogrifai_tpu_torch", "chip_smoke.py"])
+    @pytest.mark.parametrize("root", ["transmogrifai_tpu_torch", "chip_smoke.py",
+                                      os.path.join("tests", "torch_encode_cases.py")])
     def test_ast_scan_finds_no_jax_import(self, root):
         path = os.path.join(REPO, root)
         files = [path] if path.endswith(".py") else [

@@ -4,14 +4,16 @@
 A fitted ``DecisionTreeNumericBucketizerModel`` one-hot encodes a value into
 the right-inclusive intervals ``(s[i], s[i+1]]`` of its tree's splits, with
 optional invalid and null columns.  When the tree found no split
-(``should_split`` false) only the null indicator remains.  The device half
-runs the K5 kernel (``perf/kernels/encode.py``); the fit stays in the
-reference until the training slice.
+(``should_split`` false) only the null indicator remains.  With splits the
+device half is a bucketize slot of the encode kernel
+(``perf/kernels/encode.py``, K5's slots); without, it stays a torch op (the
+reference computes that branch outside its Pallas kernel too).  The fit
+stays in the reference until the training slice.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -20,7 +22,6 @@ from ..data.dataset import Column
 from ..perf.kernels import encode as KE
 from ..stages.base import Transformer
 from ..utils.vector_metadata import NULL_INDICATOR, VectorColumnMetadata, VectorMetadata
-from ._consts import device_const
 
 
 def bucketize_right(v: np.ndarray, present: np.ndarray, splits: np.ndarray,
@@ -44,18 +45,6 @@ def bucketize_right(v: np.ndarray, present: np.ndarray, splits: np.ndarray,
     return block
 
 
-def device_bucketize_right(x: torch.Tensor, splits: torch.Tensor,
-                           track_nulls: bool, track_invalid: bool) -> torch.Tensor:
-    """Right-inclusive bucketize one-hot of ``x`` (float32, NaN = missing)
-    over ``splits``.  No splits is the shouldSplit=false branch: the null
-    indicator alone (or a zero-width block)."""
-    if int(splits.shape[0]) == 0:
-        if not track_nulls:
-            return torch.zeros((x.shape[0], 0), dtype=torch.float32, device=x.device)
-        return torch.isnan(x).to(torch.float32)[:, None]
-    return KE.bucketize_right_encode(x, splits, track_nulls, track_invalid)
-
-
 class DecisionTreeNumericBucketizerModel(Transformer):
 
     def __init__(self, should_split: bool, splits: Sequence[float],
@@ -69,10 +58,18 @@ class DecisionTreeNumericBucketizerModel(Transformer):
     #: scoring only reads the value slot — the label is absent at serve time
     device_input_slots = (1,)
 
+    def device_slot_specs(self) -> Optional[Tuple[KE.SlotSpec, ...]]:
+        if not self.should_split:
+            return None
+        return (KE.bucketize_slot(self.splits, self.track_nulls, self.track_invalid),)
+
     def device_transform(self, x: torch.Tensor) -> torch.Tensor:
-        splits = self.splits if self.should_split else []
-        s = device_const(self, "splits", splits, np.float32, x.device)
-        return device_bucketize_right(x, s, self.track_nulls, self.track_invalid)
+        if not self.should_split:  # the null indicator alone, or no column
+            if not self.track_nulls:
+                return torch.zeros((x.shape[0], 0), dtype=torch.float32,
+                                   device=x.device)
+            return torch.isnan(x).to(torch.float32)[:, None]
+        return KE.encode_slots([x], KE.slot_table(self.device_slot_specs()))
 
     def transform(self, dataset):
         col = dataset[self.inputs[1].name]

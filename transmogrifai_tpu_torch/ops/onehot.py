@@ -3,13 +3,14 @@ scoring half of ``OneHotVectorizerModel``).
 
 String work stays on the host: each slot's raw values encode to int32 level
 codes (vocab index, ``k`` = OTHER, ``k+1`` = null, or -1 when nulls are
-untracked).  The device half turns each slot's codes into its one-hot block
-with the K4 kernel (``perf/kernels/encode.py``) and concatenates the blocks.
+untracked).  The device half writes every slot's one-hot block into one
+(n, sum of widths) output with one launch of the encode kernel
+(``perf/kernels/encode.py``, K4's slots).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -84,11 +85,13 @@ class OneHotVectorizerModel(Transformer):
         memos = self.__dict__.setdefault("_code_memos", {})
         return memos.setdefault(slot, {})
 
+    def device_slot_specs(self) -> Tuple[KE.SlotSpec, ...]:
+        return tuple(KE.onehot_slot(self.slot_width(slot))
+                     for slot in range(len(self.vocabs)))
+
     def device_transform(self, *codes: torch.Tensor) -> torch.Tensor:
-        """One K4 launch per input slot, blocks concatenated in slot order."""
-        blocks = [KE.onehot_codes(c, self.slot_width(slot))
-                  for slot, c in enumerate(codes)]
-        return blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=1)
+        """Every slot's block, in slot order, from one encode launch."""
+        return KE.encode_slots(codes, KE.slot_table(self.device_slot_specs()))
 
     def _meta(self) -> VectorMetadata:
         cols: List[VectorColumnMetadata] = []

@@ -6,10 +6,13 @@ parts, each timed (``last_timings``, ``metrics()``):
 1. **host encode** — field extraction; float32 lifts of raw numeric features
    (NaN for missing, one lift shared by every stage that reads the feature);
    stage-owned encodings such as the one-hot level codes;
-2. **device prefix** — the stages partitioned into the prefix
+2. **device prefix** — the batch's operands, padded, are packed into one
+   pinned host buffer per dtype and reach ``device`` in one copy each; every
+   prefix stage whose device half is the encode kernel and whose inputs are
+   all operands (the one-hot and bucketize slots) is encoded by one launch
+   of it (``perf/kernels/encode.py::encode_slots``); the other prefix stages
    (``workflow/plan.py``) run in topological order as torch ops and the
-   port's CUDA kernels, on padded operands moved to ``device`` once per batch;
-   the outputs the host still needs come back as numpy;
+   port's CUDA kernels; the outputs the host still needs come back as numpy;
 3. **host remainder** — every other stage (the model head, float64 numpy)
    through its columnar ``transform``; a tree head scores batches above 512
    rows on the plan's device.
@@ -34,6 +37,7 @@ import torch
 from ..data.dataset import Column, Dataset
 from ..features.feature import Feature, _NamedExtract
 from ..features.generator import FeatureGeneratorStage
+from ..perf.kernels import encode as KE
 from ..perf.kernels.dispatch import resolve_device
 from ..types import ColumnKind, NonNullableEmptyException
 from ..workflow.dag import compute_dag
@@ -70,12 +74,52 @@ def _bucket_for(n: int, min_bucket: int, max_bucket: int) -> int:
     return min(b, max_bucket)
 
 
-def _pad_rows(arr: np.ndarray, bucket: int) -> np.ndarray:
-    n = arr.shape[0]
-    if n == bucket:
-        return arr
-    pad = np.zeros((bucket - n,) + arr.shape[1:], dtype=arr.dtype)
-    return np.concatenate([arr, pad], axis=0)
+class _Staging:
+    """The prefix's operands for one row bucket: one packed host buffer and
+    one device buffer per entry dtype (on the card the host buffer is
+    pinned, so its copy is one asynchronous DMA).  ``operands[i]`` is entry
+    i's contiguous row of its device buffer."""
+
+    def __init__(self, dtypes: Tuple[np.dtype, ...], bucket: int,
+                 device: torch.device):
+        groups: Dict[np.dtype, List[int]] = {}
+        for i, dt in enumerate(dtypes):
+            groups.setdefault(dt, []).append(i)
+        on_card = device.type == "cuda"
+        self.dtypes = dtypes
+        self.buffers: List[tuple] = []
+        self.operands: List[torch.Tensor] = [None] * len(dtypes)
+        for dt, idx in groups.items():
+            host = torch.from_numpy(np.zeros((len(idx), bucket), dt))
+            if on_card:
+                host = host.pin_memory()
+            dev = host.to(device) if on_card else host
+            self.buffers.append((idx, host.numpy(), host, dev))
+            for r, i in enumerate(idx):
+                self.operands[i] = dev[r]
+        self.device = device
+        self.copied = torch.cuda.Event() if on_card else None
+
+    def load(self, entries: List[np.ndarray], n: int) -> int:
+        """Fill the buffers with a batch's entries (rows past ``n`` zeroed)
+        and start their copies to the device; returns the copies issued."""
+        if self.copied is not None:
+            # a pinned buffer is refilled only once the previous batch's copy
+            # out of it has finished (the batch's device->host copy of the
+            # outputs synchronises anyway; this covers a prefix the host
+            # reads nothing from)
+            self.copied.synchronize()
+        copies = 0
+        for idx, host_np, host, dev in self.buffers:
+            for r, i in enumerate(idx):
+                host_np[r, :n] = entries[i]
+            host_np[:, n:] = 0
+            if dev is not host:
+                dev.copy_(host, non_blocking=True)
+                copies += 1
+        if self.copied is not None:
+            self.copied.record(torch.cuda.current_stream(self.device))
+        return copies
 
 
 def _extract(gen: FeatureGeneratorStage, records) -> list:
@@ -166,8 +210,12 @@ class CompiledScoringPlan:
         self._generators = self._collect_generators()
         self._build_entries()
         self._build_wiring()
+        self._build_encode_group()
+        #: row bucket -> its staging buffers (built at the bucket's first batch)
+        self._staging: Dict[int, _Staging] = {}
         self._counters = {"scored_records": 0, "scored_batches": 0,
-                          "encode_ms": 0.0, "device_ms": 0.0, "host_ms": 0.0}
+                          "encode_ms": 0.0, "device_ms": 0.0, "host_ms": 0.0,
+                          "h2d_copies": 0}
         #: per-part milliseconds of the last batch: host encode, device
         #: prefix (H2D copies + kernels; CUDA events on the card), host remainder
         self.last_timings: Dict[str, float] = {}
@@ -253,6 +301,57 @@ class CompiledScoringPlan:
                 self._encoder_light[raw_name] = next(
                     g for g in self._generators if g.raw_name == raw_name)
 
+    def _build_encode_group(self) -> None:
+        """Take out of the wiring every stage that describes encode slots and
+        reads operands only: one slot table encodes them all into one
+        buffer, each stage's output a block of its columns."""
+        specs: List[KE.SlotSpec] = []
+        self._encode_inputs: List[int] = []
+        self._encode_blocks: List[Tuple[str, int, int]] = []
+        rest = []
+        for runner, srcs, out_uid in self._wiring:
+            slot_specs = runner.device_slot_specs()
+            if slot_specs is None or any(tag != "entry" for tag, _ in srcs):
+                rest.append((runner, srcs, out_uid))
+                continue
+            col = sum(s.width for s in specs)
+            specs.extend(slot_specs)
+            self._encode_inputs.extend(key for _, key in srcs)
+            self._encode_blocks.append(
+                (out_uid, col, sum(s.width for s in slot_specs)))
+        self._wiring = rest
+        self._encode_table = KE.plan_slots(specs) if specs else None
+
+    def _encode(self, ops_in: List[torch.Tensor], bucket: int,
+                env: Dict[str, torch.Tensor]) -> None:
+        """The grouped stages' outputs, by one encode_slots call: a buffer
+        whose row stride is rounded up to 4 floats (so the kernel's rows
+        start 16-byte aligned), each stage's block a view of it."""
+        table = self._encode_table
+        if table is None:
+            return
+        width = table.width
+        buf = torch.empty((bucket, -(-width // 4) * 4), dtype=torch.float32,
+                          device=self.device)[:, :width]
+        KE.encode_slots([ops_in[i] for i in self._encode_inputs], table, buf)
+        for uid, col, w in self._encode_blocks:
+            env[uid] = buf[:, col:col + w]
+
+    def _stage(self, entries: List[np.ndarray], n: int,
+               bucket: int) -> List[torch.Tensor]:
+        """The batch's entries as device operands, through the bucket's
+        staging buffers (one copy per dtype)."""
+        for e in entries:
+            if e.ndim != 1 or e.shape[0] != n:
+                raise ValueError(f"a prefix operand must be 1-D with {n} rows, "
+                                 f"got shape {e.shape}")
+        dtypes = tuple(e.dtype for e in entries)
+        st = self._staging.get(bucket)
+        if st is None or st.dtypes != dtypes:
+            st = self._staging[bucket] = _Staging(dtypes, bucket, self.device)
+        self._counters["h2d_copies"] += st.load(entries, n)
+        return st.operands
+
     # -- the three parts -----------------------------------------------------
     def _encode_records(self, records) -> Tuple[Dict[str, Column], List[np.ndarray]]:
         host_cols = extract_columns(records, self._host_raw,
@@ -299,9 +398,9 @@ class CompiledScoringPlan:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-        ops_in = [torch.from_numpy(_pad_rows(a, bucket)).to(self.device)
-                  for a in entries]
+        ops_in = self._stage(entries, n, bucket)
         env: Dict[str, torch.Tensor] = {}
+        self._encode(ops_in, bucket, env)
         for runner, srcs, out_uid in self._wiring:
             ops = [env[key] if tag == "env" else ops_in[key] for tag, key in srcs]
             env[out_uid] = runner.device_transform(*ops)

@@ -10,7 +10,11 @@ exposes the device protocol the serving plan (``serve/plan.py``) drives:
   host-kind input (text levels) the stage encodes itself into an int32
   operand, one value per row;
 - ``device_transform(*tensors) -> tensor``: the device half of
-  ``transform_columns``, on torch tensors that all lie on one device.
+  ``transform_columns``, on torch tensors that all lie on one device;
+- ``device_slot_specs()``: for a stage whose device half is the encode
+  kernel (``perf/kernels/encode.py``), one slot per device input, so the
+  serving plan can encode it together with every other such stage in one
+  launch (``None``: the stage runs its own ``device_transform``).
 
 The contract is the reference's: row-local (row ``i`` of the output depends
 only on row ``i`` of the inputs, so padded rows never reach real ones) and a
@@ -187,6 +191,9 @@ class Transformer(PipelineStage):
     def encode_device_input(self, slot: int, col: "Column"):
         raise NotImplementedError(
             f"{type(self).__name__} declares no device encoding for slot {slot}")
+
+    def device_slot_specs(self) -> Optional[tuple]:
+        return None
 
     def transform_columns(self, cols: List["Column"], dataset: "Dataset") -> "Column":
         raise NotImplementedError
