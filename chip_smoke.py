@@ -78,8 +78,37 @@ Phases, one JSON line each:
                A sha256 digest of the CV metric matrix and the winner's tree
                arrays is printed (equal digests: the same fit).  Then
                model.score of 1024 rows on the card, finite.
-8. summary   — nvidia-smi's line, then one {"kernels": [...]} line, then the
+8. linear_parity — bench.py's synth data at 16 384 rows x 128 with TF32
+               off: the port's LogisticRegression and LinearSVC sweeps on the
+               card (bench.py's grids, the folds of CrossValidator(3, seed
+               7)) within 1e-4 of the JAX package's record per (grid, fold)
+               (fixtures/training_linear, tools/make_torch_linear_fixture.py);
+               each grid point's refit coefficients and intercept (IRLS
+               rtol 1e-4 / atol 1e-5, FISTA and SVC atol 1e-4); and the
+               default selector (no models=) through Workflow.train, the
+               forest's draws fed from fixtures/training_trees: the
+               reference's winner, every CV metric within its family's
+               tolerance.  It is also the warm-up of phase 9.
+9. training_default — bench.py's full 4-family sweep (LogisticRegression 6
+               grids, RandomForest 2, GBT 1, LinearSVC 2; 33 fold-models) at
+               1 048 576 rows x 128 through Workflow.train with the default
+               selector on the card, the counters zeroed just before and
+               read just after: K1-K3 launch 159 times plus the refit levels
+               only if a tree won; every CV metric finite and above the
+               positive rate.
+               Train seconds, fold-models/s, per-family seconds, the winner
+               and the peak device memory are printed.  Then model.save ->
+               WorkflowModel.load -> score 1024 rows on the card, equal to the
+               in-memory model's scores, and evaluate on the training rows
+               equal to the train metrics the selector recorded (1e-6).
+10. summary  — nvidia-smi's line, then one {"kernels": [...]} line, then the
                last line {"ok": true, "device": {...}}.
+
+Phase 3 also holds K5 past shared memory (a 5000-split slot, its own launch
+reading the splits from global memory) bitwise against its plain version
+and times it; phase 5 holds K1's int8 path just above 2**31 // 127 rows
+(0/1 weights) bitwise against its plain version and times it, and times
+K1's library call at the float level's own 1 048 576 rows.
 
 Any failure raises: the script exits non-zero and prints no last line.
 It imports torch and the port only, never JAX.
@@ -106,6 +135,7 @@ PER_RUN = 20
 SLEEP_CYCLES = 5_000_000
 FIXTURE = os.path.join("transmogrifai_tpu_torch", "fixtures", "serving_wide")
 TRAIN_FIXTURE = os.path.join("transmogrifai_tpu_torch", "fixtures", "training_trees")
+LINEAR_FIXTURE = os.path.join("transmogrifai_tpu_torch", "fixtures", "training_linear")
 
 # the tree sweep of bench.py: d = 128, 3 folds, RF {50, depth 3|6}, GBT {50, 3}
 D = 128
@@ -121,6 +151,18 @@ CV_LEVELS = 3 + 6 + 50 * 3
 #: children of the level above): RF depth 6, GBT depth 3
 RF_LEVEL_NODES = (1, 1, 2, 4, 8, 16)
 GBT_LEVEL_NODES = (1, 1, 2)
+#: bench.py's 4-family sweep: LR 6 grids + RF 2 + GBT 1 + SVC 2, x 3 folds
+DEFAULT_FOLD_MODELS = (6 + 2 + 1 + 2) * FOLDS
+#: a bucketize slot past what one launch stages in shared memory (4096)
+BIG_SPLITS = 5000
+#: one row past the int8 histogram's old fixed limit, (2**31 - 1) // 127
+BIG_ROWS = (2 ** 31 - 1) // 127 + 1
+#: rows of K1's library call at the int8 RF-CV level: one index_add_ at the
+#: full 1 048 576 rows would need a 40 G-element index (322 GB)
+INT8_LIBRARY_ROWS = 1 << 16
+#: CV metric tolerance of each family against the reference's record
+FAMILY_TOL = {"LogisticRegression": 1e-4, "LinearSVC": 1e-4,
+              "RandomForestClassifier": 1e-6, "GradientBoostedTreesClassifier": 1e-3}
 
 
 def emit(obj) -> None:
@@ -336,8 +378,54 @@ def phase_kernels(torch, KE, bucketizer_models, dev) -> dict:
         v["device_ms"] = time_device_ms(
             (lambda: KE.onehot_codes(codes, width)) if k == "onehot_codes" else
             (lambda: KE.bucketize_right_encode(x, s, m.track_nulls, m.track_invalid)))
+    t["bucketize_right_encode"]["splits5000"] = k5_big_splits(torch, KE, dev)
     emit({"phase": "kernels", **{k: v for k, v in t.items()}})
     return t
+
+
+def k5_big_splits(torch, KE, dev) -> dict:
+    """K5 with BIG_SPLITS splits (past shared memory: a launch of its own
+    that searches the splits in global memory), bitwise against its plain
+    version at ragged row counts and all four flag settings, then timed at
+    the serving batch beside its bound, plain version and library call."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    splits = np.sort(rng.normal(size=BIG_SPLITS)).astype(np.float32)
+    splits[0], splits[-1] = -np.inf, np.inf
+    s = torch.from_numpy(splits).to(dev)
+    cases = 0
+    for n in (BATCH, RAGGED, 3001):
+        x = (rng.normal(size=n) * 1.5).astype(np.float32)
+        x[::7] = np.nan
+        x[1], x[2] = np.inf, -np.inf
+        x[3:3 + min(n - 3, 500)] = splits[1:1 + min(n - 3, 500)]   # on a split
+        xt = torch.from_numpy(x).to(dev)
+        for tn in (True, False):
+            for ti in (True, False):
+                before = KE.bucketize_launches
+                got = KE.bucketize_right_encode(xt, s, tn, ti)
+                ref = KE.bucketize_right_encode_torch(xt, s, tn, ti)
+                torch.cuda.synchronize()
+                check(KE.bucketize_launches == before + 1
+                      and got.shape == ref.shape and torch.equal(got, ref),
+                      f"K5 at {BIG_SPLITS} splits bitwise, n={n} tn={tn} ti={ti}")
+                cases += 1
+    x = torch.from_numpy(rng.normal(size=BATCH).astype(np.float32)).to(dev)
+    nb = BIG_SPLITS - 1
+    width = KE.bucket_width(BIG_SPLITS, True, True)
+    nbytes = BATCH * 4 + BIG_SPLITS * 4 + BATCH * width * 4
+    F = torch.nn.functional
+    run = lambda: KE.bucketize_right_encode(x, s, True, True)  # noqa: E731
+    return {"splits": BIG_SPLITS, "shape": [BATCH, width], "parity_cases": cases,
+            "max_abs_err": 0.0, "ms": time_ms(run), "device_ms": time_device_ms(run),
+            "plain_ms": time_ms(lambda: KE.bucketize_right_encode_torch(
+                x, s, True, True), runs=11, per_run=5),
+            "library_ms": time_ms(lambda: F.one_hot(
+                (torch.bucketize(x, s) - 1).clamp(0, nb - 1), nb).float()),
+            "library": "composite: torch.bucketize + one_hot (buckets only)",
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
 
 
 def phase_fused(torch, KE, table, dev) -> dict:
@@ -545,11 +633,11 @@ def _hist_inputs(torch, dev, L: int, n: int, nn: int, int_exact: bool, seed: int
     return local.contiguous(), gh, binned
 
 
-def _hist_ops(torch, local, gh, nn: int) -> int:
+def _hist_ops(torch, local, gh, nn: int, d: int = D) -> int:
     """Adds the histogram does on these inputs: 2K channels x d features of
     every (lane, row) whose node is in range and whose grad/hess is not 0."""
     live = (local >= 0) & (local < nn) & (gh != 0).any(dim=1)
-    return int(live.sum()) * gh.shape[1] * D
+    return int(live.sum()) * gh.shape[1] * d
 
 
 def _index_add_library(torch, local, gh, binned, nn: int):
@@ -657,10 +745,12 @@ def phase_tree_timing(torch, dev) -> dict:
                                          10 + i, root=root)
         e = _k1_level(torch, KH, bound, local, gh, binned, nn, root, int_exact)
         rows.append(e)
-        # the library call at the deepest RF-CV level and the deepest GBT level
+        # the library call at the deepest RF-CV level (at INT8_LIBRARY_ROWS:
+        # the full rows' index does not fit the card) and at the deepest GBT
+        # level (at its full rows)
         if (L, nn, int_exact) in ((FOLDS * 50, RF_LEVEL_NODES[-1], True),
                                   (FOLDS, GBT_LEVEL_NODES[-1], False)):
-            lib_rows = (1 << 19) // L
+            lib_rows = INT8_LIBRARY_ROWS if int_exact else FULL_ROWS
             sl = (local[:, :lib_rows].contiguous(), gh[..., :lib_rows].contiguous(),
                   binned[:lib_rows])
             call, _ = _index_add_library(torch, *sl, nn)
@@ -677,13 +767,43 @@ def phase_tree_timing(torch, dev) -> dict:
                    and e["shape"][:2] == [FOLDS * 50, RF_LEVEL_NODES[-1]])
     gbt = next(e for e in rows if e["path"] == "float32"
                and e["shape"][:2] == [FOLDS, GBT_LEVEL_NODES[-1]] and not e["root"])
-    t["hist_level"] = {**deepest, "f32": gbt, "levels": rows}
+    t["hist_level"] = {**deepest, "f32": gbt, "levels": rows,
+                       "int8_past_16_9m_rows": k1_big_rows(torch, KH, dev, bound)}
 
     t["split_scan"] = k2_timings(torch, KS, KH, dev, bound)
     t["row_select_lanes"] = k3_timings(torch, KR, dev, bound)
     emit({"phase": "tree_kernels_timing", **t})
     torch.cuda.empty_cache()
     return t
+
+
+def k1_big_rows(torch, KH, dev, bound) -> dict:
+    """K1's int8 path at BIG_ROWS (+ 1001) rows, one lane of 0/1 fold
+    weights: the wrapper bounds the int32 sums from the data instead of
+    refusing; bitwise against the plain version, then timed."""
+    n, d, nn = BIG_ROWS + 1001, 8, 2
+    g = torch.Generator(device=dev).manual_seed(21)
+    binned = torch.randint(0, N_BINS + 1, (n, d), generator=g, device=dev,
+                           dtype=torch.int32)
+    local = torch.randint(-1, nn, (1, n), generator=g, device=dev, dtype=torch.int32)
+    w = torch.randint(0, 2, (n,), generator=g, device=dev, dtype=torch.int8)
+    gh = torch.stack([-w, w])[None].contiguous()
+    run = lambda: KH.hist_level(local, gh, binned, nn, N_BINS, int_exact=True)  # noqa: E731
+    before = KH.launches
+    got = run()
+    _sync(torch, dev)
+    check(KH.launches == before + 1, "K1 int8 past 16.9M rows launched once")
+    plain_ms, ref = time_once(lambda: KH.hist_level_torch(local, gh, binned, nn,
+                                                          N_BINS, int_exact=True))
+    check(torch.equal(got, ref), f"K1 int8 bitwise at {n} rows")
+    out = {"path": "int8", "shape": [1, nn, n, d, N_BINS + 1],
+           "abs_sum_bound": KH.int_abs_sum_bound(gh), "ms": time_big_ms(run),
+           "plain_ms": plain_ms, "max_abs_err": 0.0, "library_ms": None,
+           **bound(KH.bound_bytes(1, n, d, nn, 2, N_BINS, True),
+                   _hist_ops(torch, local, gh, nn, d))}
+    del binned, local, w, gh, got, ref
+    torch.cuda.empty_cache()
+    return out
 
 
 def _scan_inputs(torch, KH, dev, gbt: bool, seed: int, missing: bool = False):
@@ -807,8 +927,10 @@ def fit_digest(summary, win) -> str:
     return h.hexdigest()
 
 
-def train_selector(torch, x, y, dev):
-    """bench.py's tree sweep through the port's user entry points; returns
+def train_selector(torch, x, y, dev, default: bool = False):
+    """bench.py's sweep through the port's user entry points -- its tree
+    families, or with ``default`` the default selector (no ``models=``:
+    LogisticRegression, RandomForest, GBT, LinearSVC); returns
     (WorkflowModel, selector, prediction feature, train seconds)."""
     import numpy as np
 
@@ -826,10 +948,14 @@ def train_selector(torch, x, y, dev):
 
     label = FeatureBuilder.RealNN("label").extract_field().as_response()
     vec = FeatureBuilder.OPVector("features").extract_field().as_predictor()
-    selector = BinaryClassificationModelSelector.with_cross_validation(
-        num_folds=FOLDS, seed=SELECTOR_SEED,
-        models=[(RandomForestClassifier(), RF_GRIDS),
-                (GradientBoostedTreesClassifier(), GBT_GRIDS)])
+    if default:
+        selector = BinaryClassificationModelSelector.with_cross_validation(
+            num_folds=FOLDS, seed=SELECTOR_SEED)
+    else:
+        selector = BinaryClassificationModelSelector.with_cross_validation(
+            num_folds=FOLDS, seed=SELECTOR_SEED,
+            models=[(RandomForestClassifier(), RF_GRIDS),
+                    (GradientBoostedTreesClassifier(), GBT_GRIDS)])
     pred = label.transform_with(selector, vec)
     ds = Dataset({"label": Column(RealNN, y.astype(np.float64),
                                   np.ones(len(y), dtype=np.bool_)),
@@ -840,6 +966,38 @@ def train_selector(torch, x, y, dev):
         .train(device=dev)
     _sync(torch, dev)
     return model, selector, pred, time.perf_counter() - t0
+
+
+class FixtureDraws:
+    """Within the block, the forest's bootstrap draws come from the JAX
+    package's record (fixtures/training_trees: seed 42 + 1, 50 trees, its
+    rows), fed through the port's one seam, ``trees.draw_bootstrap``."""
+
+    def __init__(self, torch):
+        import numpy as np
+
+        from transmogrifai_tpu_torch.models import trees as TT
+
+        with open(os.path.join(TRAIN_FIXTURE, "summary.json")) as fh:
+            self.recipe = json.load(fh)["recipe"]
+        with np.load(os.path.join(TRAIN_FIXTURE, "arrays.npz")) as npz:
+            self.boot = torch.from_numpy(npz["rf_boot"].astype(np.float32))
+        self.TT = TT
+
+    def draw(self, seed, rate, n_trees, rows, device):
+        r = self.recipe
+        check((seed, rate, n_trees, rows) == (r["rf_boot_seed"], 1.0, 50,
+                                              r["synth_rows"]),
+              f"forest draws asked for ({seed}, {rate}, {n_trees}, {rows})")
+        return self.boot.to(device)
+
+    def __enter__(self):
+        self.port_draws = self.TT.draw_bootstrap
+        self.TT.draw_bootstrap = self.draw
+        return self
+
+    def __exit__(self, *exc):
+        self.TT.draw_bootstrap = self.port_draws
 
 
 def _tree_arrays_equal(trees: dict, arrays, prefix: str) -> bool:
@@ -864,22 +1022,11 @@ def phase_training_parity(torch, dev) -> dict:
     recipe = rec["recipe"]
     n = int(recipe["synth_rows"])
     x, y = synth(n, int(recipe["features"]), int(recipe["data_seed"]))
-    boot = torch.from_numpy(arrays["rf_boot"].astype(np.float32))
-    port_draws = TT.draw_bootstrap
-
-    def fixture_draws(seed, rate, n_trees, rows, device):
-        check((seed, rate, n_trees, rows) == (recipe["rf_boot_seed"], 1.0, 50, n),
-              f"forest draws asked for ({seed}, {rate}, {n_trees}, {rows})")
-        return boot.to(device)
-
-    TT.draw_bootstrap = fixture_draws
-    try:
+    with FixtureDraws(torch):
         model, selector, _, seconds = train_selector(torch, x, y, dev)
         fitted = model.fitted[selector.uid]
         refits = {g["max_depth"]: TT.RandomForestClassifier(**g)._fit_arrays(
             x, y.astype(np.float32), np.ones(n, np.float32), dev) for g in RF_GRIDS}
-    finally:
-        TT.draw_bootstrap = port_draws
     summary = fitted.summary
     check(summary.best_model_name == rec["winner"]["name"]
           and summary.best_grid == rec["winner"]["grid"],
@@ -991,6 +1138,163 @@ def phase_training(torch, KE, dev) -> dict:
            if dev.type == "cuda" else None,
            "score_rows": n_score}
     emit({"phase": "training", **out})
+    return out
+
+
+def phase_linear_parity(torch, dev) -> dict:
+    """The linear families at 16 384 rows against the JAX package's record
+    (TF32 off): the sweeps per (grid, fold), each grid point's refit, and
+    the default selector's winner and CV table."""
+    import numpy as np
+
+    from transmogrifai_tpu_torch import LinearSVC, LogisticRegression
+    from transmogrifai_tpu_torch.evaluators.base import BinaryClassificationEvaluator
+    from transmogrifai_tpu_torch.models.tuning import CrossValidator
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(LINEAR_FIXTURE, "summary.json")) as fh:
+        rec = json.load(fh)
+    with np.load(os.path.join(LINEAR_FIXTURE, "arrays.npz")) as npz:
+        arrays = {k: npz[k] for k in npz.files}
+    recipe = rec["recipe"]
+    n = int(recipe["synth_rows"])
+    x, y = synth(n, int(recipe["features"]), int(recipe["data_seed"]))
+    y32 = y.astype(np.float32)
+    ones = np.ones(n, np.float32)
+    ev = BinaryClassificationEvaluator(recipe["metric"])
+    tw, vw = CrossValidator(ev, num_folds=int(recipe["folds"]),
+                            seed=int(recipe["selector_seed"])).fold_weights(y32, ones)
+    t0 = time.perf_counter()
+    cv = {"lr": LogisticRegression().cv_sweep(x, y32, tw, vw, recipe["lr_grids"],
+                                              ev.metric_fn(), dev),
+          "svc": LinearSVC().cv_sweep(x, y32, tw, vw, recipe["svc_grids"],
+                                      ev.metric_fn(), dev)}
+    sweep_s = time.perf_counter() - t0
+    out = {"rows": n, "sweep_seconds": sweep_s}
+    for fam in ("lr", "svc"):
+        d = float(np.max(np.abs(cv[fam] - np.asarray(rec[f"{fam}_cv"]))))
+        check(d <= 1e-4, f"{fam} CV metrics within 1e-4 of the reference (|diff| {d})")
+        out[f"{fam}_cv_max_abs_dev"] = d
+    for fam, cls in (("lr", LogisticRegression), ("svc", LinearSVC)):
+        coef_dev = icpt_dev = 0.0
+        for i, g in enumerate(recipe[f"{fam}_grids"]):
+            m = cls(**g)._fit_arrays(x, y32, ones, dev)
+            want_c, want_b = arrays[f"{fam}_coef"][i], arrays[f"{fam}_intercept"][i]
+            irls = fam == "lr" and g.get("elastic_net", 0.0) <= 0.0
+            rtol, atol = (1e-4, 1e-5) if irls else (0.0, 1e-4)
+            ok = np.allclose(m.coef, want_c, rtol=rtol, atol=atol) and \
+                np.allclose(m.intercept, want_b, rtol=rtol, atol=atol)
+            check(ok, f"{fam} {g} refit coefficients and intercept within "
+                      f"rtol {rtol} atol {atol} of the reference")
+            coef_dev = max(coef_dev, float(np.max(np.abs(m.coef - want_c))))
+            icpt_dev = max(icpt_dev, abs(m.intercept - float(want_b)))
+        out[f"{fam}_refit_coef_max_abs_dev"] = coef_dev
+        out[f"{fam}_refit_intercept_max_abs_dev"] = icpt_dev
+    with FixtureDraws(torch):
+        model, selector, _, seconds = train_selector(torch, x, y, dev, default=True)
+    summary = model.fitted[selector.uid].summary
+    check((summary.best_model_name, summary.best_grid)
+          == (rec["winner"]["name"], rec["winner"]["grid"]),
+          f"default selector's winner {summary.best_model_name} {summary.best_grid} "
+          f"== the reference's {rec['winner']}")
+    check(len(summary.validation_results) == len(rec["validation"]), "evaluations")
+    dev_max = {k: 0.0 for k in FAMILY_TOL}
+    for e, ref in zip(summary.validation_results, rec["validation"]):
+        check((e.model_name, e.grid) == (ref["model"], ref["grid"]),
+              f"evaluation order {e.model_name} {e.grid}")
+        d = float(np.max(np.abs(np.asarray(e.metric_values) - np.asarray(ref["values"]))))
+        dev_max[e.model_name] = max(dev_max[e.model_name], d)
+        check(d <= FAMILY_TOL[e.model_name],
+              f"{e.model_name} {e.grid} CV metrics {e.metric_values} vs "
+              f"{ref['values']} (|diff| {d})")
+    out.update(default_seconds=seconds, winner=summary.best_model_name,
+               winner_grid=summary.best_grid, default_cv_max_abs_dev=dev_max,
+               train_evaluation=summary.train_evaluation,
+               fixture_train_evaluation=rec["train_evaluation"],
+               tf32=bool(torch.backends.cuda.matmul.allow_tf32))
+    emit({"phase": "linear_parity", **out})
+    return out
+
+
+def phase_training_default(torch, KE, dev) -> dict:
+    """bench.py's 4-family sweep at full width with the default selector,
+    then save -> load -> score and evaluate of the model it chose."""
+    import tempfile
+
+    import numpy as np
+
+    from transmogrifai_tpu_torch import Evaluators, WorkflowModel
+    from transmogrifai_tpu_torch.data.dataset import Column, Dataset
+    from transmogrifai_tpu_torch.types import RealNN
+
+    t0 = time.perf_counter()
+    x, y = synth(FULL_ROWS, D, 0)
+    data_s = time.perf_counter() - t0
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    _reset_all(KE)
+    model, selector, pred, seconds = train_selector(torch, x, y, dev, default=True)
+    launches = _all_counts(KE)
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    fitted = model.fitted[selector.uid]
+    summary = fitted.summary
+    win = fitted.model
+    refit_levels = 0
+    if hasattr(win, "trees"):
+        refit_levels = win.max_depth * (win.n_trees if "GBT" in type(win).__name__ else 1)
+    expected = CV_LEVELS + refit_levels
+    for k in ("hist_level", "split_scan", "row_select_lanes"):
+        check(launches[k] == expected,
+              f"{k} launched {launches[k]} times, expected {CV_LEVELS} + {refit_levels}")
+    check(launches["encode_slots"] == 0, "the training path launches no serving kernel")
+    cv_values = [v for e in summary.validation_results for v in e.metric_values]
+    check(len(summary.validation_results) == 11
+          and len(cv_values) == DEFAULT_FOLD_MODELS, "33 fold-models")
+    pos_rate = float(y.mean())
+    for e in summary.validation_results:
+        check(all(np.isfinite(v) and v > pos_rate for v in e.metric_values),
+              f"{e.model_name} {e.grid} CV auPR {e.metric_values} finite and "
+              f"above the positive rate {pos_rate}")
+    # save -> load -> score on the card, equal to the in-memory model
+    n_score = 1024
+    feats = Dataset({"features": Column.vector(x[:n_score])})
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        model.save(tmp)
+        loaded = WorkflowModel.load(tmp)
+        save_load_s = time.perf_counter() - t1
+        got = loaded.score(feats, device=dev)[pred.name]
+    mem = model.score(feats, device=dev)[pred.name]
+    check(got.data.shape[0] == n_score and np.isfinite(got.data).all()
+          and got.data.tobytes() == mem.data.tobytes(),
+          "the loaded model scores 1024 rows on the card equal to the in-memory model")
+    full = Dataset({"label": Column(RealNN, y.astype(np.float64),
+                                    np.ones(len(y), dtype=np.bool_)),
+                    "features": Column.vector(x)})
+    t1 = time.perf_counter()
+    metrics = loaded.evaluate(Evaluators.binary_classification(), full, device=dev)
+    eval_s = time.perf_counter() - t1
+    eval_dev = max(abs(metrics[k] - v) for k, v in summary.train_evaluation.items())
+    check(eval_dev <= 1e-6, f"evaluate {metrics} == the recorded train metrics "
+                            f"{summary.train_evaluation} (|diff| {eval_dev})")
+    out = {"rows": FULL_ROWS, "features": D, "fold_models": len(cv_values),
+           "train_seconds": seconds, "fold_models_per_s": len(cv_values) / seconds,
+           "synth_seconds_host": data_s,
+           "phase_seconds": selector.last_fit_profile,
+           "winner": summary.best_model_name, "winner_grid": summary.best_grid,
+           "winner_model": type(win).__name__,
+           "cv": [{"model": e.model_name, "grid": e.grid,
+                   "values": e.metric_values, "mean": e.mean_metric}
+                  for e in summary.validation_results],
+           "positive_rate": pos_rate,
+           "train_evaluation": summary.train_evaluation,
+           "evaluate_max_abs_dev": eval_dev, "evaluate_seconds": eval_s,
+           "save_load_seconds": save_load_s,
+           "launches": launches, "expected_tree_launches": expected,
+           "max_memory_allocated_bytes": peak, "score_rows": n_score}
+    emit({"phase": "training_default", **out})
     return out
 
 
@@ -1125,7 +1429,14 @@ def main() -> int:
     # 7. training at full width
     train = phase_training(torch, KE, dev)
 
-    # 8. summary
+    # 8. the linear families against the JAX package's record (the warm-up
+    # of phase 9)
+    phase_linear_parity(torch, dev)
+
+    # 9. bench.py's 4-family sweep at full width, then save, load and evaluate
+    tdef = phase_training_default(torch, KE, dev)
+
+    # 10. summary
     kernels = []
     tree_src = "transmogrifai_tpu_torch/perf/kernels/csrc/trees.cu"
     for kname, replaces in (("hist_level", "transmogrifai_tpu/perf/kernels/histogram.py:80"),
@@ -1134,6 +1445,7 @@ def main() -> int:
                              "transmogrifai_tpu/perf/kernels/routing.py:86")):
         entry = {"name": kname, "route": "cuda", "source": tree_src,
                  "replaces": replaces, "launches": train["launches"][kname],
+                 "launches_training_default": tdef["launches"][kname],
                  "max_abs_err": tree_err[kname]["max_abs_err"], "parity": "bitwise",
                  **tree_t[kname]}
         if kname == "hist_level":
@@ -1178,6 +1490,7 @@ def main() -> int:
             "timing": "ms/device_ms/plain_ms/bound_ms/library_ms: one slot "
                       "(one-slot table) at the serving shape; fused_*: the "
                       "serving batch's whole table in one launch",
+            **({"splits5000": t["splits5000"]} if "splits5000" in t else {}),
             **{f"fused_{k}": fused[k] for k in ("ms", "device_ms", "plain_ms",
                                                  "bound_ms", "slots", "columns")}})
     print(smi, flush=True)

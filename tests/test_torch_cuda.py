@@ -449,3 +449,88 @@ def test_split_scan_float_hists_repeatable(L, nn, d):
         other = TS.launch(*args, q)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(got, other)), q
+
+
+# -- a bucketize slot past shared memory: its own launch, splits read from
+# global memory by a binary search
+
+@pytest.mark.parametrize("n_splits", [4097, 5000, 12288])
+@pytest.mark.parametrize("track_nulls, track_invalid", [(True, True), (False, False)])
+def test_bucketize_kernel_past_shared_memory_bitwise(n_splits, track_nulls, track_invalid):
+    s_np = np.sort(np.random.default_rng(n_splits).normal(size=n_splits)).astype(np.float32)
+    s_np[0], s_np[-1] = -np.inf, np.inf
+    x = torch.from_numpy(_values(3001, s_np[:40], seed=n_splits)).cuda()
+    x[40:80] = torch.from_numpy(s_np[1000:1040]).cuda()       # on a split
+    s = torch.from_numpy(s_np).cuda()
+    before = TKE.bucketize_launches
+    got = TKE.bucketize_right_encode(x, s, track_nulls, track_invalid)
+    torch.cuda.synchronize()
+    assert TKE.bucketize_launches == before + 1
+    assert torch.equal(got, TKE.bucketize_right_encode_torch(x, s, track_nulls,
+                                                             track_invalid))
+
+
+@pytest.mark.parametrize("where", [0, 3, 6])
+def test_encode_slots_with_a_5000_split_slot_bitwise(where):
+    """The oversized slot launches alone; the others keep shared memory."""
+    specs, inputs = slot_case(1024, 7, "cuda", 6)
+    big = np.sort(np.random.default_rng(1).normal(size=5000)).astype(np.float32)
+    specs.insert(where, TKE.bucketize_slot(big, True, True))
+    inputs.insert(where, torch.from_numpy(_values(1024, big[:30], seed=2)).cuda())
+    table = TKE.plan_slots(specs)
+    assert (where, where + 1) in table.chunks
+    before = TKE.encode_slots_launches
+    got = TKE.encode_slots(inputs, table)
+    torch.cuda.synchronize()
+    assert TKE.encode_slots_launches == before + len(table.chunks)
+    assert torch.equal(got, TKE.encode_slots_torch(inputs, table))
+
+
+# -- K1 int8 past 2**31 // 127 rows: the guard follows the data
+
+def test_hist_int_kernel_past_16_9m_rows_bitwise():
+    n = (2 ** 31 - 1) // 127 + 1001
+    g = torch.Generator(device="cuda").manual_seed(0)
+    binned = torch.randint(0, 33, (n, 3), generator=g, device="cuda", dtype=torch.int32)
+    local = torch.randint(-1, 2, (1, n), generator=g, device="cuda", dtype=torch.int32)
+    w = torch.randint(0, 2, (n,), generator=g, device="cuda", dtype=torch.int8)
+    gh = torch.stack([-w, w])[None].contiguous()
+    before = TH.launches
+    got = TH.hist_level(local, gh, binned, 2, 32, int_exact=True)
+    torch.cuda.synchronize()
+    assert TH.launches == before + 1
+    assert torch.equal(got, TH.hist_level_torch(local, gh, binned, 2, 32, int_exact=True))
+
+
+# -- the linear fits on the card against the port on the CPU (TF32 off)
+
+def _linear_data(n=4096, d=16, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    y = (rng.random(n) < 1 / (1 + np.exp(-(x @ rng.normal(size=d)) / np.sqrt(d)))) \
+        .astype(np.float32)
+    fold = rng.permutation(n) % 3
+    tw = np.stack([(fold != f).astype(np.float32) for f in range(3)])
+    return x, y, tw, 1.0 - tw
+
+
+@pytest.mark.parametrize("fam", ["lr", "svc"])
+def test_linear_sweeps_on_the_card_equal_the_cpu(fam):
+    from transmogrifai_tpu_torch.evaluators.metrics import au_pr
+    from transmogrifai_tpu_torch.models.logistic import LogisticRegression
+    from transmogrifai_tpu_torch.models.svm import LinearSVC
+
+    x, y, tw, vw = _linear_data()
+    if fam == "lr":
+        est, grids = LogisticRegression(), [{"reg_param": r, "elastic_net": e}
+                                            for r in (0.001, 0.1) for e in (0.0, 0.5)]
+    else:
+        est, grids = LinearSVC(), [{"reg_param": r} for r in (0.01, 0.1)]
+    card = est.cv_sweep(x, y, tw, vw, grids, au_pr, torch.device("cuda"))
+    cpu = est.cv_sweep(x, y, tw, vw, grids, au_pr, torch.device("cpu"))
+    np.testing.assert_allclose(card, cpu, rtol=0, atol=1e-4)
+    for g in grids:
+        a = est.copy().set_params(**g)._fit_arrays(x, y, tw[0], torch.device("cuda"))
+        b = est.copy().set_params(**g)._fit_arrays(x, y, tw[0], torch.device("cpu"))
+        np.testing.assert_allclose(a.coef, b.coef, rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(a.intercept, b.intercept, rtol=1e-4, atol=1e-4)

@@ -271,13 +271,53 @@ class TestSlotPlanner:
         [TKE.SlotSpec("bucketize", width=0, splits=())],
         [TKE.SlotSpec("bucketize", width=9, splits=(0.0, 1.0))],
         [TKE.SlotSpec("histogram", width=3)],
-        [TKE.bucketize_slot(np.arange(TKE.MAX_SPLITS + 1), False, False)],
         [TKE.onehot_slot(TKE.MAX_OUTPUT_WIDTH + 1)],
     ], ids=["empty", "width0", "width_neg", "one_split", "no_splits",
-            "width_mismatch", "unknown_kind", "too_many_splits", "too_wide"])
+            "width_mismatch", "unknown_kind", "too_wide"])
     def test_planner_refuses(self, specs):
         with pytest.raises(ValueError):
             TKE.plan_slots(specs)
+
+    @pytest.mark.parametrize("where", ["alone", "first", "middle", "last"])
+    def test_oversized_bucketize_slot_is_a_launch_of_its_own(self, where):
+        """A slot with more splits than shared memory holds is planned, as a
+        chunk of one slot (its launch reads the splits from global memory);
+        the slots around it keep their shared-memory chunks."""
+        big = TKE.bucketize_slot(np.linspace(-3, 3, 5000), True, True)
+        small = [TKE.onehot_slot(4), TKE.bucketize_slot([0.0, 1.0, 2.0], True, False)]
+        specs = {"alone": [big], "first": [big] + small, "middle": small[:1] + [big]
+                 + small[1:], "last": small + [big]}[where]
+        t = TKE.plan_slots(specs)
+        k = specs.index(big)
+        assert (k, k + 1) in t.chunks
+        assert t.chunks[0][0] == 0 and t.chunks[-1][1] == len(specs)
+        assert all(t.chunks[i][1] == t.chunks[i + 1][0] for i in range(len(t.chunks) - 1))
+        assert len(t.chunks) == 1 + (k > 0) + (k < len(specs) - 1)
+        launch = t._launches[t.chunks.index((k, k + 1))]
+        assert launch[1] == 1 and launch[3:] == (t.split_off[k], 5000)
+        assert t.rows[k, 3] == 0 and t.rows[k, 4] == 5000
+        assert t.width == sum(s.width for s in specs)
+
+    @pytest.mark.parametrize("n", [37, 1203])
+    def test_planner_accepts_5000_splits_and_encodes_the_plain_result(self, n):
+        """A 5000-split slot (no limit in the reference) encodes, beside
+        other slots, to the reference's XLA formula bit for bit."""
+        splits = np.sort(np.random.default_rng(5).normal(size=5000)).astype(np.float32)
+        splits[0], splits[-1] = -np.inf, np.inf
+        x = _values(n, splits, seed=n + 9)
+        codes = _codes(n, 5, seed=n)
+        t = TKE.plan_slots([TKE.onehot_slot(5), TKE.bucketize_slot(splits, True, True)])
+        out = TKE.encode_slots([torch.from_numpy(codes), torch.from_numpy(x)], t).numpy()
+        with KD.force_kernel_mode("xla"):
+            ref = np.asarray(device_bucketize_right(jnp.asarray(x), jnp.asarray(splits),
+                                                    True, True))
+        assert out.shape == (n, 5 + 4999 + 2)
+        np.testing.assert_array_equal(out[:, 5:], ref)
+        np.testing.assert_array_equal(out[:, :5], np.asarray(
+            jax.nn.one_hot(jnp.asarray(codes), 5, dtype=jnp.float32)))
+        one = TKE.bucketize_right_encode(torch.from_numpy(x), torch.from_numpy(splits),
+                                         True, True)
+        np.testing.assert_array_equal(one.numpy(), ref)
 
     @pytest.mark.parametrize("kind", ["onehot", "bucketize"])
     def test_slot_table_is_planned_once_per_tuple_of_slots(self, kind):

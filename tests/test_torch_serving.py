@@ -11,7 +11,12 @@
 (d) neither the port nor ``chip_smoke.py`` imports JAX or the JAX package;
 (e) with no card, the device default raises instead of running on the CPU;
 (f) the plan encodes every one-hot and bucketize slot of a batch with one
-    slot table, from operands packed into one staging buffer per dtype.
+    slot table, from operands packed into one staging buffer per dtype;
+(g) a JAX-saved bucketizer of 5000 splits (past what one launch stages in
+    shared memory) serves through the port's plan with records equal to
+    the JAX plan's;
+(h) ``serving_plan`` and ``score`` take the reference's parameters in its
+    order, ``device`` by keyword only.
 """
 
 import ast
@@ -314,9 +319,9 @@ class TestUnportedStages:
     def test_unported_model_class_is_named(self, tmp_path):
         def edit(m):
             sel = next(s for s in m["fitted"].values() if s["class"] == "SelectedModel")
-            sel["attrs"]["model"]["__stage__"]["class"] = "LinearSVCModel"
+            sel["attrs"]["model"]["__stage__"]["class"] = "NaiveBayesModel"
         path = _rewrite_manifest(FIXTURE, str(tmp_path / "m"), edit)
-        with pytest.raises(ValueError, match="LinearSVCModel"):
+        with pytest.raises(ValueError, match="NaiveBayesModel"):
             TModel.load(path)
 
     def test_unported_transformer_class_is_named(self, tmp_path):
@@ -344,7 +349,7 @@ import torch, numpy  # the port's own dependencies
 before = set(sys.modules)
 import transmogrifai_tpu_torch
 from transmogrifai_tpu_torch.perf.kernels import encode, dispatch, histogram, splitscan, routing
-from transmogrifai_tpu_torch.models import base, selector, trees, tuning
+from transmogrifai_tpu_torch.models import base, logistic, selector, svm, trees, tuning
 from transmogrifai_tpu_torch.evaluators import base as ev_base, metrics
 from transmogrifai_tpu_torch.features import builder
 from transmogrifai_tpu_torch.workflow import fit, serde, workflow
@@ -373,6 +378,9 @@ class TestNoJax:
             os.path.join(d, f) for d, _, fs in os.walk(path) for f in fs
             if f.endswith(".py")]
         assert files
+        if root == "transmogrifai_tpu_torch":
+            assert os.path.join(path, "models", "svm.py") in files
+            assert os.path.join(path, "models", "logistic.py") in files
         bad = []
         for fn in files:
             with open(fn) as fh:
@@ -387,6 +395,97 @@ class TestNoJax:
                     if n.split(".")[0] in ("jax", "jaxlib", "transmogrifai_tpu"):
                         bad.append(f"{fn}: {n}")
         assert not bad, bad
+
+
+@pytest.fixture(scope="module")
+def saved_5000_splits(tmp_path_factory):
+    """A JAX-trained x -> DecisionTreeNumericBucketizer model whose fitted
+    splits are replaced by 5000 sorted splits (+-inf at the ends) before the
+    JAX package saves it."""
+    from transmogrifai_tpu.data.dataset import Column as JCol
+    from transmogrifai_tpu.data.dataset import Dataset as JDs
+    from transmogrifai_tpu.features.builder import FeatureBuilder as JFB
+    from transmogrifai_tpu.ops.bucketizers import DecisionTreeNumericBucketizer
+    from transmogrifai_tpu.types import Real as JReal
+    from transmogrifai_tpu.types import RealNN as JRealNN
+    from transmogrifai_tpu.workflow.workflow import Workflow as JWorkflow
+
+    rng = np.random.default_rng(0)
+    xv = rng.normal(size=400)
+    label = JFB.RealNN("label").extract_field().as_response()
+    x = JFB.Real("x").extract_field().as_predictor()
+    est = DecisionTreeNumericBucketizer(track_invalid=True)
+    vec = label.transform_with(est, x)
+    ds = JDs({"label": JCol.from_values(JRealNN, (xv > 0).astype(float).tolist()),
+              "x": JCol.from_values(JReal, xv.tolist())})
+    model = JWorkflow().set_input_dataset(ds).set_result_features(vec).train()
+    splits = np.sort(rng.normal(size=4998))
+    model.fitted[est.uid].splits = [-np.inf, *splits.tolist(), np.inf]
+    path = str(tmp_path_factory.mktemp("splits5000") / "model")
+    model.save(path)
+    recs = [{"x": float(v)} for v in rng.normal(size=60)]
+    recs += [{"x": float(splits[7])}, {"x": None}, {"x": float("nan")},
+             {"x": float("inf")}, {}]
+    return path, recs
+
+
+class TestOversizedBucketizer:
+    def test_5000_splits_serve_equal_to_jax(self, saved_5000_splits):
+        path, recs = saved_5000_splits
+        ref = JModel.load(path).serving_plan().score(recs)
+        plan = TModel.load(path).serving_plan(device="cpu")
+        (k,) = [i for i, s in enumerate(plan._encode_table.specs)
+                if len(s.splits) == 5000]
+        assert (k, k + 1) in plan._encode_table.chunks      # a launch of its own
+        got = plan.score(recs)
+        assert len(got[0]) == 1 and len(next(iter(got[0].values()))) == 4999 + 2
+        assert got == ref
+
+
+class TestEntryPointSignatures:
+    def test_serving_plan_takes_the_reference_order(self, fixture_models):
+        _, tm, _ = fixture_models
+        plan = tm.serving_plan(16, 512, True, device="cpu")
+        assert (plan.min_bucket, plan.max_bucket) == (16, 512)
+        assert plan.device == torch.device("cpu")
+        with pytest.raises(NotImplementedError, match="hbm_budget"):
+            tm.serving_plan(8, 1024, True, 1e9, device="cpu")
+        with pytest.raises(TypeError):
+            tm.serving_plan("cpu")
+
+    def test_score_takes_the_reference_order(self, fixture_models):
+        from transmogrifai_tpu_torch.data.dataset import Column as TCol
+        from transmogrifai_tpu_torch.data.dataset import Dataset as TDs
+        from transmogrifai_tpu_torch.types import Real as TReal
+
+        _, tm, schema = fixture_models
+        reals = [f["name"] for f in schema["features"] if f["type"] == "Real"]
+        others = [f for f in schema["features"]
+                  if f["type"] != "Real" and not f.get("response")]
+        rng = np.random.default_rng(3)
+        cols = {r: TCol.from_values(TReal, rng.normal(size=5).tolist()) for r in reals}
+        from transmogrifai_tpu_torch.types import feature_type_by_name
+
+        for f in others:
+            cols[f["name"]] = TCol.from_values(feature_type_by_name(f["type"]),
+                                               [None] * 5)
+        ds = TDs(cols)
+        short = tm.score(ds, device="cpu")
+        full = tm.score(ds, True, device="cpu")
+        assert set(short.names) < set(full.names)
+        with pytest.raises(NotImplementedError, match="dataset=None"):
+            tm.score(device="cpu")
+        with pytest.raises(TypeError):
+            tm.score(ds, False, "cpu")
+
+    def test_signatures_equal_the_reference(self):
+        import inspect
+
+        for name in ("serving_plan", "score"):
+            ref = list(inspect.signature(getattr(JModel, name)).parameters)
+            got = inspect.signature(getattr(TModel, name)).parameters
+            assert [p for p in got if p != "device"] == ref
+            assert got["device"].kind is inspect.Parameter.KEYWORD_ONLY
 
 
 class TestDeviceDefault:

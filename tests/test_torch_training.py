@@ -15,8 +15,10 @@ The same seeded data (n=400, d=6, NaNs in one feature) and the same wiring —
 - a tree winner the JAX package trained and saved loads in the port and
   scores equal to the JAX ``model.score``: bitwise at <=512 rows (both take
   the host path), within 1e-6 above it (both take their device path);
-- ``default_models()`` raises and names the families not yet ported, and
-  every training entry point raises without a card when no device is named;
+- ``default_models()`` gives the reference's families and grids, in its
+  order; ``Workflow.train`` takes the reference's parameters in its order
+  (``device`` by keyword only, unported options raise by name), and every
+  training entry point raises without a card when no device is named;
 - a family whose sweep fails is left out of selection, but a kernel that
   does not build or launch raises out of the fit.
 """
@@ -184,12 +186,39 @@ class TestSavedTreeWinner:
 
 
 class TestEntryPoints:
-    def test_default_models_raise_and_name_unported(self):
-        with pytest.raises(NotImplementedError,
-                           match="LogisticRegression and LinearSVC"):
-            TSel.default_models()
-        with pytest.raises(NotImplementedError):
-            TSel.with_cross_validation()
+    def test_default_models_equal_the_reference(self):
+        ref = [(type(e).__name__, g) for e, g in JSel.default_models()]
+        got = [(type(e).__name__, g) for e, g in TSel.default_models()]
+        assert got == ref
+        assert [n for n, _ in got] == ["LogisticRegression", "RandomForestClassifier",
+                                       "GradientBoostedTreesClassifier", "LinearSVC"]
+        for (je, _), (te, _) in zip(JSel.default_models(), TSel.default_models()):
+            assert te.get_params() == {k: v for k, v in je.get_params().items()
+                                       if k in te.get_params()}
+        sel = TSel.with_cross_validation()
+        assert [(type(e).__name__, g) for e, g in sel.models] == ref
+
+    def test_train_takes_the_reference_positional_order(self):
+        """``train(0.2)`` asks for a 20 % test split, which is not ported:
+        it raises, it does not train on every row with seed 0.2."""
+        import inspect
+
+        label, _, _, pred = _port_wiring(("rf",))
+        wf = TWorkflow().set_input_dataset(_port_ds(*_data(n=60))) \
+            .set_result_features(label, pred)
+        with pytest.raises(NotImplementedError, match="test_fraction"):
+            wf.train(0.2)
+        with pytest.raises(NotImplementedError, match="hbm_budget"):
+            wf.train(0.0, 42, None, False, 1e9, device="cpu")
+        with pytest.raises(TypeError):
+            wf.train(0.0, 42, None, False, None, None, None, None, "cpu")
+        ref = list(inspect.signature(JWorkflow.train).parameters)
+        got = inspect.signature(TWorkflow.train).parameters
+        assert [p for p in got if p != "device"] == ref
+        assert got["device"].kind is inspect.Parameter.KEYWORD_ONLY
+        model = wf.train(0.0, 7, device="cpu")
+        assert model.fitted[pred.origin_stage.uid].summary.best_model_name \
+            == "RandomForestClassifier"
 
     def test_no_card_raises_for_every_entry_point(self, monkeypatch):
         x, y = _data(n=50)
@@ -210,7 +239,8 @@ class TestEntryPoints:
         wf = TWorkflow().set_input_dataset(_port_ds(*_data(n=50))) \
             .set_result_features(label, pred)
         for kw in ({"strict": True}, {"resume": "/nonexistent"},
-                   {"host_budget": 1}, {"telemetry": "x"}, {"test_fraction": 0.1}):
+                   {"host_budget": 1}, {"telemetry": "x"}, {"test_fraction": 0.1},
+                   {"checkpointer": object()}, {"hbm_budget": 1e9}):
             with pytest.raises(NotImplementedError):
                 wf.train(device="cpu", **kw)
         with pytest.raises(NotImplementedError, match="raw feature filter"):

@@ -179,8 +179,49 @@ class TestHistogramPlan:
         assert p["G"] == 1 and p["FT"] == 128 and p["feat_tiles"] == 1
         assert p["node_tiles"] <= 4 and p["merge"] == "direct"
 
-    def test_int_path_refuses_rows_that_could_overflow(self):
-        assert TH.INT_MAX_ROWS * 127 < 2 ** 31 <= (TH.INT_MAX_ROWS + 1) * 127
+    def test_int_path_refuses_rows_that_could_overflow(self, monkeypatch):
+        """No bound is needed while any int8 values fit int32 sums; past
+        that the wrapper raises only when the data's (or the caller's)
+        bound on a (lane, channel) sum of |gh| passes int32."""
+        assert TH.INT_SAFE_ROWS * 128 <= TH.INT32_MAX < (TH.INT_SAFE_ROWS + 1) * 128
+        local, ghT, binned, nn, n_bins = (torch.from_numpy(a) if isinstance(a, np.ndarray)
+                                          else a for a in _hist_inputs(3, n=64))
+        monkeypatch.setattr(TH, "INT_SAFE_ROWS", 8)
+        with pytest.raises(ValueError, match="int32"):
+            TH.hist_level(local, ghT, binned, nn, n_bins, int_exact=True,
+                          abs_sum_bound=TH.INT32_MAX + 1)
+        ok = TH.hist_level(local, ghT, binned, nn, n_bins, int_exact=True,
+                           abs_sum_bound=TH.INT32_MAX)
+        assert torch.equal(ok, TH.hist_level(local, ghT, binned, nn, n_bins,
+                                             int_exact=True))
+
+    def test_abs_sum_bound_is_the_largest_lane_channel_sum(self, monkeypatch):
+        rng = np.random.default_rng(4)
+        gh = rng.integers(-128, 128, (5, 2, 1001)).astype(np.int8)
+        gh[2, 1, :400] = -128                      # |-128| does not wrap
+        want = int(np.abs(gh.astype(np.int64)).sum(axis=2).max())
+        monkeypatch.setattr(TH, "_ABS_SUM_CHUNK", 64)   # several row chunks
+        assert TH.int_abs_sum_bound(torch.from_numpy(gh)) == want
+
+    @pytest.mark.parametrize("case", ["fold_weights_01", "all_127"])
+    def test_int_path_past_16_9m_rows_follows_the_data(self, case):
+        """One row more than 2**31 // 127: 0/1 weights are summed (the
+        forest's case), all-127 grad/hess would overflow int32 and raise."""
+        n = (2 ** 31 - 1) // 127 + 1
+        g = torch.Generator().manual_seed(0)
+        binned = torch.randint(0, 3, (n, 1), generator=g, dtype=torch.int32)
+        local = torch.zeros((1, n), dtype=torch.int32)
+        if case == "all_127":
+            gh = torch.full((1, 2, n), 127, dtype=torch.int8)
+            with pytest.raises(ValueError, match="int32"):
+                TH.hist_level(local, gh, binned, 1, 2, int_exact=True)
+            return
+        w = torch.randint(0, 2, (n,), generator=g, dtype=torch.int8)
+        gh = torch.stack([-w, w])[None].contiguous()
+        out = TH.hist_level(local, gh, binned, 1, 2, int_exact=True)
+        want = torch.bincount(binned[:, 0].long(), weights=w.double(),
+                              minlength=3).to(torch.int32)
+        assert torch.equal(out, torch.stack([-want, want]))
 
 
 def _split_inputs(seed, L=3, nn=4, K=1, d=6, n_bins=8, empty_node=True):

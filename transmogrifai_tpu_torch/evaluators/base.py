@@ -9,6 +9,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..data.dataset import Dataset
 from ..models.prediction import PredictionColumn
 from . import metrics as M
 
@@ -30,6 +31,16 @@ class Evaluator:
     def evaluate_arrays(self, y: np.ndarray, pred: PredictionColumn,
                         w: Optional[np.ndarray] = None) -> Dict[str, float]:
         raise NotImplementedError
+
+    def evaluate(self, ds: Dataset, label_name: str, pred_name: str,
+                 w: Optional[np.ndarray] = None) -> Dict[str, float]:
+        """Metrics of the prediction column ``pred_name`` against the label
+        column ``label_name`` of a scored dataset."""
+        y = ds[label_name].data.astype(np.float64)
+        pred = ds[pred_name]
+        if not isinstance(pred, PredictionColumn):
+            raise TypeError(f"column {pred_name!r} is not a prediction column")
+        return self.evaluate_arrays(y, pred, w)
 
 
 class BinaryClassificationEvaluator(Evaluator):

@@ -6,11 +6,13 @@ on a device for large batches where the model has a device path.  Estimators
 fit on the device their ``fit`` was given; families that implement
 ``_cv_sweep_device`` run a whole (grid x fold) sweep there and hand back the
 per-fold metrics as device tensors, so the validator can launch every family
-before it reads any result.
+before it reads any result.  A family (or a grid) without one takes the
+generic sweep, one fit per (grid, fold), as in the reference.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List
 
 import numpy as np
@@ -50,6 +52,43 @@ def gather_scores(pending) -> np.ndarray:
     tensors (this is where the host waits for the sweep)."""
     return np.stack([p.detach().cpu().numpy().astype(np.float64)
                      for p in pending])
+
+
+@contextlib.contextmanager
+def full_f32():
+    """float32 matrix products in full precision (TF32 off) inside the
+    block: the linear fits are held to the reference's float32 CPU path."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _link(z: torch.Tensor, link: str) -> torch.Tensor:
+    return torch.sigmoid(z) if link == "sigmoid" else z
+
+
+def eval_linear_sweep(xd: torch.Tensor, yd: torch.Tensor, betas: torch.Tensor,
+                      vw: torch.Tensor, metric_fn, link: str = "identity"):
+    """Metric per (grid, fold) of a linear family's sweep: margins of every
+    (grid, fold) beta in one product, mapped by ``link`` ("sigmoid" for
+    logistic probabilities, "identity" for margins), each scored with its
+    fold's validation weights.  betas (g, k, d); vw (k, n).  Returns a list
+    of per-grid (k,) tensors."""
+    g, k, d1 = betas.shape
+    scores = _link(xd @ betas.reshape(g * k, d1).T, link)
+    return [torch.stack([metric_fn(scores[:, gi * k + f].contiguous(), yd, vw[f])
+                         for f in range(k)]) for gi in range(g)]
+
+
+def linear_eval_payload(xd: torch.Tensor, coef: np.ndarray, intercept: float,
+                        link: str):
+    """(score, prediction) float32 tensors of a linear head over ``xd``."""
+    z = xd @ torch.from_numpy(np.asarray(coef, np.float32)).to(xd.device) \
+        + float(np.float32(intercept))
+    return _link(z, link), (z > 0).to(torch.float32)
 
 
 class PredictionModelBase(Transformer):
@@ -118,10 +157,34 @@ class PredictionEstimatorBase(Estimator):
                                    device)()
 
     def cv_sweep_async(self, x, y, train_w, val_w, grids, metric_fn, device):
-        """Launch the sweep and return a zero-argument gather -> (g, k)."""
+        """Launch the sweep and return a zero-argument gather -> (g, k); a
+        family without a device sweep computes the generic one now (its
+        gather only returns it)."""
         pending = self._cv_sweep_device(x, y, train_w, val_w, grids,
                                         metric_fn, device)
-        if pending is None:
-            raise NotImplementedError(
-                f"{type(self).__name__} has no CV sweep in transmogrifai_tpu_torch")
-        return lambda: gather_scores(pending)
+        if pending is not None:
+            return lambda: gather_scores(pending)
+        scores = self._cv_sweep_generic(x, y, train_w, val_w, grids,
+                                        metric_fn, device)
+        return lambda: scores
+
+    def _cv_sweep_generic(self, x, y, train_w, val_w,
+                          grids: List[Dict[str, Any]], metric_fn,
+                          device) -> np.ndarray:
+        """One fit per (grid, fold) on the fold's train weights, scored on
+        every row and evaluated with the fold's validation weights."""
+        k = train_w.shape[0]
+        out = np.zeros((len(grids), k))
+        yd = torch.from_numpy(np.asarray(y, np.float32)).to(device)
+        vec = Column.vector(np.asarray(x, np.float32))
+        for gi, grid in enumerate(grids):
+            est = self.copy().set_params(**grid)
+            for f in range(k):
+                col = est._fit_arrays(x, y, train_w[f], device) \
+                    .predict_column(vec, device)
+                payload = col.prob if col.prob is not None \
+                    and col.prob.shape[1] > 2 else col.score
+                out[gi, f] = float(metric_fn(
+                    torch.from_numpy(np.asarray(payload, np.float32)).to(device),
+                    yd, torch.from_numpy(np.asarray(val_w[f], np.float32)).to(device)))
+        return out

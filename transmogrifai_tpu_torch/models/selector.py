@@ -4,8 +4,8 @@
 ``fit`` runs the reference's four steps on one device: data prep (the
 splitter's weights), validation of every (family, grid) over the folds,
 refit of the winner on all training rows, and the winner's train metrics.
-Only the tree families are ported so far: ``default_models()`` raises and
-names the families that are not, so callers pass ``models=``.
+``default_models()`` is the reference's binary set and grids:
+LogisticRegression, RandomForest, GBT and LinearSVC.
 """
 
 from __future__ import annotations
@@ -180,21 +180,25 @@ class SelectedModel(PredictionModelBase):
         return self.model.eval_payload_device(x32, device)
 
 
-#: the reference's default binary families that the port does not fit yet
-UNPORTED_DEFAULT_FAMILIES = ("LogisticRegression", "LinearSVC")
-
-
 class BinaryClassificationModelSelector:
     """Binary selector factories with the reference's defaults (3 folds,
     auPR, a DataBalancer splitter, binary train metrics)."""
 
     @staticmethod
-    def default_models():
-        raise NotImplementedError(
-            "the default binary model set needs "
-            f"{' and '.join(UNPORTED_DEFAULT_FAMILIES)}, which are not ported "
-            "to transmogrifai_tpu_torch yet; pass models=[(RandomForestClassifier(), "
-            "grid), (GradientBoostedTreesClassifier(), grid)]")
+    def default_models() -> List[Tuple[PredictionEstimatorBase, List[Dict[str, Any]]]]:
+        """The reference's default families and grids, in its order."""
+        from .logistic import LogisticRegression
+        from .svm import LinearSVC
+        from .trees import GradientBoostedTreesClassifier, RandomForestClassifier
+
+        return [
+            (LogisticRegression(), [{"reg_param": r, "elastic_net": e}
+                                    for r in (0.001, 0.01, 0.1) for e in (0.0, 0.5)]),
+            (RandomForestClassifier(), [{"num_trees": 50, "max_depth": d}
+                                        for d in (3, 6)]),
+            (GradientBoostedTreesClassifier(), [{"num_rounds": 50, "max_depth": 3}]),
+            (LinearSVC(), [{"reg_param": r} for r in (0.01, 0.1)]),
+        ]
 
     @staticmethod
     def with_cross_validation(num_folds: int = 3, validation_metric: str = "auPR",

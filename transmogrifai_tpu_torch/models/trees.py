@@ -189,7 +189,9 @@ def _grow_trees(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     binned (n, d) int32 codes in [0, n_bins] shared by the lanes; grad/hess
     (L, n, K); feat_mask (L, d) 1/0.  ``int_exact`` runs the histograms on
     int8 grad/hess with int32 sums — exact when grad/hess are integers in
-    [-127, 127], the forest-CV case with 0/1 fold weights (callers check).
+    [-127, 127], the forest-CV case with 0/1 fold weights (callers check),
+    and the sums stay within int32 (bounded from the data past
+    ``histogram.INT_SAFE_ROWS`` rows).
     Returns (Tree with a leading L axis, node (L, n)): each row's final leaf.
     """
     L, n, K = grad.shape
@@ -213,10 +215,16 @@ def _grow_trees(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         else ghT.to(torch.float32).contiguous()
     feat_mask = feat_mask.to(torch.float32).contiguous()
 
+    # past INT_SAFE_ROWS rows the int8 sums are bounded from the data, once
+    # for every level (one reduction)
+    abs_bound = _khist.int_abs_sum_bound(ghT) \
+        if int_exact and n > _khist.INT_SAFE_ROWS else None
+
     def level_hist(local: torch.Tensor, nn: int) -> torch.Tensor:
         """(L, nn, 2K, d, B) histograms; rows with negative local add 0."""
         hist = _khist.hist_level(local.contiguous(), ghT, binned, nn, n_bins,
-                                 int_exact=int_exact).to(torch.float32)
+                                 int_exact=int_exact,
+                                 abs_sum_bound=abs_bound).to(torch.float32)
         return hist.reshape(L, nn, 2 * K, B, d).transpose(-1, -2)
 
     def leaf_all(G, H):

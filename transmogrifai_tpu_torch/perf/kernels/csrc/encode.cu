@@ -31,7 +31,13 @@
 //
 // Design: the slot table travels by value as a __grid_constant__ kernel
 // parameter (within the classic 4 KB limit: kMaxSlots entries; a longer
-// table launches in chunks), so a batch needs no copy of it.  The slots of a
+// table launches in chunks), so a batch needs no copy of it.  A launch
+// stages its splits in shared memory when they number kMaxSplits or fewer,
+// and counts each value's splits below it by a compare-count there.  A
+// bucketize slot with more splits (a tree bucketizer of many bins) is
+// planned into a launch of its own (encode.py::SlotTable), which reads its
+// splits from global memory by a binary search over them: a few dependent
+// loads a value, from L2 once the first rows have touched them.  The slots of a
 // launch write adjacent columns of one output, and the work is cut into
 // items of kTileRows rows by kWin columns of that span, so a 1024-row batch
 // of the fixture's 730 columns is 32 x 6 items and fills the card.  A CTA
@@ -64,7 +70,8 @@ constexpr int kTileRows = 32;      // a row is a lane of the staging loops: i & 
 constexpr int kWin = 128;          // columns of a work item
 constexpr int kTileBytes = kTileRows * kWin * 4;  // 16 KB of the 48 KB a CTA takes
 constexpr int kMaxSlots = 64;      // encode.py::MAX_SLOTS
-constexpr int kMaxSplits = 4096;   // encode.py::MAX_SPLITS (16 KB of shared memory)
+// splits a launch stages in shared memory (16 KB); more take the global path
+constexpr int kMaxSplits = 4096;   // encode.py::MAX_SPLITS
 constexpr int kFields = 5;         // int64 fields of a table row
 // a few CTAs per SM over the 132 SMs; larger row counts loop over tiles
 constexpr long long kMaxBlocks = 132LL * 8;
@@ -95,19 +102,46 @@ static_assert(sizeof(SlotTable) <= 4096, "the slot table must fit 4 KB of parame
 static_assert(kTileBytes + kMaxSplits * 4 + kMaxSlots * sizeof(Slot) <= 48 * 1024,
               "tile, splits and table fit the shared memory a CTA takes without opting in");
 
+// count(s[j] < v0) over S splits: a compare-count over a shared-memory copy,
+// or a binary search (lower bound) over sorted splits in global memory --
+// equal on sorted splits, ties and +-inf included
+template <bool kGlobal>
+__device__ __forceinline__ int count_below(const float* s, int S, float v0) {
+  if constexpr (kGlobal) {
+    int lo = 0, hi = S;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (__ldg(s + mid) < v0) lo = mid + 1; else hi = mid;
+    }
+    return lo;
+  } else {
+    int lt = 0;
+    for (int j = 0; j < S; ++j) lt += (s[j] < v0) ? 1 : 0;
+    return lt;
+  }
+}
+
+template <bool kGlobal>
+__device__ __forceinline__ float split_at(const float* s, int j) {
+  if constexpr (kGlobal) return __ldg(s + j); else return s[j];
+}
+
+template <bool kGlobal>
 __device__ __forceinline__ int bucket_hot(float xv, const float* s, int S, int kind) {
   const bool present = !isnan(xv);
   const bool finite = present && isfinite(xv);
   const float v0 = !present ? 0.0f : (finite ? xv : (xv > 0.0f ? FLT_MAX : -FLT_MAX));
-  int lt = 0;
-  for (int j = 0; j < S; ++j) lt += (s[j] < v0) ? 1 : 0;
+  const int lt = count_below<kGlobal>(s, S, v0);
   const int nb = S - 1;
   const int ti = (kind & kTrackInvalid) ? 1 : 0;
-  if (finite && xv > s[0] && xv <= s[S - 1]) return min(max(lt - 1, 0), nb - 1);
+  if (finite && xv > split_at<kGlobal>(s, 0) && xv <= split_at<kGlobal>(s, S - 1))
+    return min(max(lt - 1, 0), nb - 1);
   if (present) return ti ? nb : -1;
   return (kind & kTrackNulls) ? nb + ti : -1;
 }
 
+// kGlobal: the launch's splits stay in global memory (more than kMaxSplits)
+template <bool kGlobal>
 __global__ void __launch_bounds__(kThreads)
 encode_slots_kernel(const __grid_constant__ SlotTable t,
                     const float* __restrict__ splits) {
@@ -125,7 +159,8 @@ encode_slots_kernel(const __grid_constant__ SlotTable t,
     for (int j = threadIdx.x; j < n_slots * (int)(sizeof(Slot) / 4); j += blockDim.x)
       dst[j] = src[j];
   }
-  for (int j = threadIdx.x; j < t.n_splits; j += blockDim.x) s_splits[j] = splits[j];
+  if (!kGlobal)
+    for (int j = threadIdx.x; j < t.n_splits; j += blockDim.x) s_splits[j] = splits[j];
   const long long n_tiles = (t.n_rows + kTileRows - 1) / kTileRows;
   for (long long item = blockIdx.x; item < n_tiles * n_win; item += gridDim.x) {
     const long long tile = item / n_win;
@@ -156,7 +191,9 @@ encode_slots_kernel(const __grid_constant__ SlotTable t,
       const Slot& sl = s_slot[k];
       const int v = __ldg((const int*)sl.in + row0 + r);
       const int h = (sl.kind & kBucketize)
-          ? bucket_hot(__int_as_float(v), s_splits + sl.split_off, sl.n_splits, sl.kind)
+          ? bucket_hot<kGlobal>(__int_as_float(v),
+                                (kGlobal ? splits : s_splits) + sl.split_off,
+                                sl.n_splits, sl.kind)
           : ((v >= 0 && v < sl.width) ? v : -1);
       const int c = sl.col + h - lo;
       if (h >= 0 && c >= 0 && c < wl) s_tile[r * kWin + c] = 1.0f;
@@ -185,8 +222,7 @@ extern "C" int tmog_encode_slots(const long long* ins, const long long* rows,
                                  long long stride, const void* splits, int n_splits,
                                  void* stream) {
   if (n_rows <= 0 || n_slots <= 0) return 0;
-  if (n_slots > kMaxSlots || n_splits < 0 || n_splits > kMaxSplits)
-    return (int)cudaErrorInvalidValue;
+  if (n_slots > kMaxSlots || n_splits < 0) return (int)cudaErrorInvalidValue;
   SlotTable t = {};
   t.out = (float*)out;
   t.stride = stride;
@@ -209,8 +245,13 @@ extern "C" int tmog_encode_slots(const long long* ins, const long long* rows,
   const long long n_win = (t.col_end - t.col0 + kWin - 1) / kWin;
   const long long items = (n_rows + kTileRows - 1) / kTileRows * n_win;
   const unsigned grid = (unsigned)(items < kMaxBlocks ? items : kMaxBlocks);
-  const size_t smem = (size_t)kTileBytes + (size_t)n_splits * sizeof(float);
-  encode_slots_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      t, (const float*)splits);
+  if (n_splits > kMaxSplits) {
+    encode_slots_kernel<true><<<grid, kThreads, kTileBytes, (cudaStream_t)stream>>>(
+        t, (const float*)splits);
+  } else {
+    const size_t smem = (size_t)kTileBytes + (size_t)n_splits * sizeof(float);
+    encode_slots_kernel<false><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+        t, (const float*)splits);
+  }
   return (int)cudaGetLastError();
 }

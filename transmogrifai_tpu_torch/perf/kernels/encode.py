@@ -7,8 +7,10 @@ kernels become one CUDA kernel (``csrc/encode.cu``).  The pieces here:
 - the planner (:func:`plan_slots` -> :class:`SlotTable`), pure Python: each
   slot's kind, width and column offset in the table's one output, the
   splits packed into one buffer, and the chunks of at most
-  :data:`MAX_SLOTS` slots one launch takes; :func:`slot_table` caches the
-  plan of a tuple of slots;
+  :data:`MAX_SLOTS` slots one launch takes, whose splits fit in shared
+  memory (:data:`MAX_SPLITS`); a bucketize slot with more splits than that
+  is a chunk of its own, whose launch reads them from global memory;
+  :func:`slot_table` caches the plan of a tuple of slots;
 - the wrapper (:func:`encode_slots`): checks device, dtype, shape,
   contiguity and alignment, launches the kernel once per chunk on the current
   stream without synchronising, and counts each launch in
@@ -45,7 +47,8 @@ slots_encoded = 0
 #: slots a launch takes: the table travels as a kernel parameter of <= 4 KB
 #: (encode.cu: kMaxSlots); a longer table launches in chunks
 MAX_SLOTS = 64
-#: splits a launch stages in shared memory (encode.cu: kMaxSplits)
+#: splits a launch stages in shared memory (encode.cu: kMaxSplits); a slot
+#: with more is launched alone and reads its splits from global memory
 MAX_SPLITS = 4096
 #: columns of an output (keeps the kernel's column indices in int32)
 MAX_OUTPUT_WIDTH = 1 << 24
@@ -147,10 +150,15 @@ class SlotTable:
         lo = 0
         for k, s in enumerate(self.specs):
             n_split = self.split_off[k] + len(s.splits) - self.split_off[lo]
-            if k > lo and (k - lo == MAX_SLOTS or n_split > MAX_SPLITS):
+            if k > lo and (k - lo == MAX_SLOTS or n_split > MAX_SPLITS
+                           or len(s.splits) > MAX_SPLITS):
                 self.chunks.append((lo, k))
                 lo = k
-        self.chunks.append((lo, len(self.specs)))
+            if len(s.splits) > MAX_SPLITS:      # alone: its splits stay global
+                self.chunks.append((lo, k + 1))
+                lo = k + 1
+        if lo < len(self.specs):
+            self.chunks.append((lo, len(self.specs)))
         self.rows = np.zeros((len(self.specs), _FIELDS), np.int64)
         bounds = self.split_off + [len(packed)]
         #: per chunk: (first slot, slots, its rows' address, its splits' first
@@ -183,7 +191,8 @@ class SlotTable:
 
 def plan_slots(specs: Sequence[SlotSpec]) -> SlotTable:
     """Plan a slot table; refuses an empty table, a width <= 0, a bucketize
-    slot with fewer than 2 splits and an unknown kind."""
+    slot with fewer than 2 splits and an unknown kind.  A bucketize slot
+    takes any count of splits past that."""
     specs = list(specs)
     if not specs:
         raise ValueError("a slot table needs at least one slot")
@@ -191,8 +200,8 @@ def plan_slots(specs: Sequence[SlotSpec]) -> SlotTable:
         if s.kind not in (ONEHOT, BUCKETIZE):
             raise ValueError(f"slot {k}: unknown kind {s.kind!r}")
         if s.kind == BUCKETIZE:
-            if not 2 <= len(s.splits) <= MAX_SPLITS:
-                raise ValueError(f"slot {k}: a bucketize slot needs 2..{MAX_SPLITS} "
+            if len(s.splits) < 2:
+                raise ValueError(f"slot {k}: a bucketize slot needs at least 2 "
                                  f"splits, got {len(s.splits)}")
             if s.width != bucket_width(len(s.splits), s.track_nulls, s.track_invalid):
                 raise ValueError(f"slot {k}: width {s.width} does not match its "
@@ -377,8 +386,8 @@ def bucketize_right_encode(x: torch.Tensor, splits: torch.Tensor,
     if splits.device != x.device:
         raise ValueError(f"splits on {splits.device}, x on {x.device}")
     n_splits = int(splits.shape[0])
-    if not 2 <= n_splits <= MAX_SPLITS:
-        raise ValueError(f"need 2..{MAX_SPLITS} splits, got {n_splits}")
+    if n_splits < 2:
+        raise ValueError(f"need at least 2 splits, got {n_splits}")
     if x.device.type == "cpu":
         return bucketize_right_encode_torch(x, splits, track_nulls, track_invalid)
     table = _one_slot(BUCKETIZE, 0, n_splits, bool(track_nulls), bool(track_invalid))

@@ -31,6 +31,7 @@ to rounding, see :func:`f32_tolerance`).
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -57,8 +58,13 @@ _INT_WARPS = 32
 _INT_SMEM = 220 * 1024
 _INT_MAX_LANES = 8
 _INT_MIN_SLICE_ROWS = 8192
-#: int32 sums of |grad/hess| <= 127 stay below 2**31 up to this many rows
-INT_MAX_ROWS = (2 ** 31 - 1) // 127
+#: the int8 path's int32 accumulators hold sums up to this
+INT32_MAX = 2 ** 31 - 1
+#: rows whose int8 sums stay within int32 whatever the values (|v| <= 128);
+#: past it the wrapper bounds the sums from the data (:func:`int_abs_sum_bound`)
+INT_SAFE_ROWS = INT32_MAX // 128
+#: lane-channel-rows an int64 reduction of :func:`int_abs_sum_bound` takes at once
+_ABS_SUM_CHUNK = 1 << 26
 #: float path: the most threads of a CTA (the kernel's launch bound), the
 #: shared memory that lets two CTAs share an SM (tried first), staged rows per
 #: block, fewest rows per slice, and the most bytes the slice partials may take
@@ -256,12 +262,33 @@ def finish_plan(tiles: dict, L: int, n: int, d: int, nn: int, two_k: int,
             "feat_tiles": feat_tiles, "merge": merge}
 
 
+def int_abs_sum_bound(ghT: torch.Tensor) -> int:
+    """The largest sum of |ghT| over the rows of one (lane, channel), by one
+    int64 reduction (row chunks).  Every cell of the int8 path's histogram
+    sums a subset of one such sum's terms, so its int32 accumulators do not
+    overflow when this is at most ``INT32_MAX``.  Waits for the device."""
+    L, two_k, n = ghT.shape
+    step = max(1, _ABS_SUM_CHUNK // max(1, L * two_k))
+    acc = torch.zeros((L, two_k), dtype=torch.int64, device=ghT.device)
+    for lo in range(0, n, step):
+        acc += ghT[:, :, lo:lo + step].to(torch.int32).abs().sum(dim=2, dtype=torch.int64)
+    return int(acc.max()) if acc.numel() else 0
+
+
 def hist_level(local: torch.Tensor, ghT: torch.Tensor, binned: torch.Tensor,
-               nn: int, n_bins: int, *, int_exact: bool = False) -> torch.Tensor:
+               nn: int, n_bins: int, *, int_exact: bool = False,
+               abs_sum_bound: Optional[int] = None) -> torch.Tensor:
     """Level histograms: the CUDA kernel on CUDA tensors, the plain version
     on CPU tensors.  local (L, n) int32; ghT (L, 2K, n) int8 when
     ``int_exact`` else float32; binned (n, d) int32 in [0, n_bins].
-    Returns (L*nn*2K, (n_bins+1)*d), int32 or float32."""
+    Returns (L*nn*2K, (n_bins+1)*d), int32 or float32.
+
+    The int8 path sums in int32.  Up to ``INT_SAFE_ROWS`` rows no sum can
+    overflow; past that the sums are bounded by ``abs_sum_bound`` (the
+    caller's bound on any (lane, channel)'s sum of |ghT|, e.g.
+    :func:`int_abs_sum_bound` computed once for a grower's levels) or, when
+    it is None, by :func:`int_abs_sum_bound` of ``ghT``; a bound past
+    ``INT32_MAX`` raises."""
     _check(local, "local", torch.int32, 2)
     _check(ghT, "ghT", torch.int8 if int_exact else torch.float32, 3)
     _check(binned, "binned", torch.int32, 2)
@@ -274,9 +301,12 @@ def hist_level(local: torch.Tensor, ghT: torch.Tensor, binned: torch.Tensor,
                          f"{tuple(ghT.shape)}, binned {tuple(binned.shape)}")
     if nn < 1 or n_bins < 2:
         raise ValueError(f"need nn >= 1 and n_bins >= 2, got {nn}, {n_bins}")
-    if int_exact and n > INT_MAX_ROWS:
-        raise ValueError(f"the int8 path sums at most {INT_MAX_ROWS} rows in "
-                         f"int32, got {n}")
+    if int_exact and n > INT_SAFE_ROWS:
+        bound = int_abs_sum_bound(ghT) if abs_sum_bound is None else int(abs_sum_bound)
+        if bound > INT32_MAX:
+            raise ValueError(f"the int8 path sums in int32: a (lane, channel) "
+                             f"sums |grad/hess| up to {bound} over {n} rows, "
+                             f"past {INT32_MAX}")
     if not (local.device == ghT.device == binned.device):
         raise ValueError("local, ghT and binned must lie on one device")
     if local.device.type == "cpu":

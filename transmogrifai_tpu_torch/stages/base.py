@@ -111,6 +111,10 @@ class PipelineStage:
                     out[k] = v
         return out
 
+    def get_params(self) -> Dict[str, Any]:
+        """Every param's value, defaults resolved (what a saved model records)."""
+        return {name: getattr(self, name) for name in self._class_params()}
+
     def set_params(self, **kwargs) -> "PipelineStage":
         cls_params = self._class_params()
         for k, v in kwargs.items():

@@ -7,13 +7,17 @@ Training::
 
 Scoring a fitted or loaded model::
 
-    model = WorkflowModel.load(path)         # a reference-saved model directory
+    model = WorkflowModel.load(path)         # a saved model directory
     plan = model.serving_plan()              # on the CUDA card
     rows = plan.score(records)               # [{result name: value}, ...]
     scored = model.score(dataset)            # columnar, returns a Dataset
+    metrics = model.evaluate(Evaluators.binary_classification(), dataset)
+    model.save(path)                         # the JAX package loads it too
 
-Every entry point runs on the CUDA card unless ``device`` names another
-device (the tests pass ``device="cpu"``); with no card it raises.
+Every entry point takes the reference's parameters in the reference's order,
+and ``device`` by keyword only: it runs on the CUDA card unless ``device``
+names another device (the tests pass ``device="cpu"``); with no card it
+raises.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence
 
 from ..data.dataset import Dataset
+from ..evaluators.base import Evaluator
 from ..features.feature import Feature
 from .dag import compute_dag
 
@@ -66,27 +71,27 @@ class Workflow:
             raise KeyError(f"Input dataset is missing raw feature columns: {missing}")
         return ds
 
-    def train(self, seed: int = 42, device=None, test_fraction: float = 0.0,
-              strict: bool = False, host_budget=None, telemetry=None,
-              resume=None, checkpointer=None) -> "WorkflowModel":
+    def train(self, test_fraction: float = 0.0, seed: int = 42,
+              checkpointer=None, strict: bool = False,
+              hbm_budget: Optional[float] = None,
+              host_budget: Optional[float] = None, telemetry=None,
+              resume: Optional[str] = None, *, device=None) -> "WorkflowModel":
         """Fit the DAG on ``device`` (the CUDA card unless the caller names
-        another).  ``seed`` is accepted for the reference's signature; the
-        stages' own seeds drive their draws.  The reference's test split,
-        strict validation, host budget, telemetry, resume and checkpointing
-        are not ported and raise when asked for."""
+        another).  The parameters are the reference's, in its order;
+        ``seed`` is accepted as there (the stages' own seeds drive their
+        draws).  The reference's test split, checkpointing, strict
+        validation, device-memory budget, host budget, telemetry and resume
+        are not ported: each raises ``NotImplementedError`` by name when
+        asked for."""
         from ..perf.kernels.dispatch import resolve_device
         from .fit import fit_dag
 
-        asked = {"test_fraction": test_fraction > 0.0, "strict": strict,
-                 "host_budget": host_budget is not None,
-                 "telemetry": telemetry is not None,
-                 "resume": resume is not None,
-                 "checkpointer": checkpointer is not None}
-        unported = [k for k, v in asked.items() if v]
-        if unported:
-            raise NotImplementedError(
-                f"Workflow.train option(s) {unported} are not ported to "
-                "transmogrifai_tpu_torch yet")
+        _refuse_unported("Workflow.train", {
+            "test_fraction": test_fraction > 0.0,
+            "checkpointer": checkpointer is not None, "strict": bool(strict),
+            "hbm_budget": hbm_budget is not None,
+            "host_budget": host_budget is not None,
+            "telemetry": telemetry is not None, "resume": resume is not None})
         if not self.result_features:
             raise ValueError("set_result_features before train()")
         dev = resolve_device(device)
@@ -95,27 +100,94 @@ class Workflow:
         return WorkflowModel(result_features=self.result_features, fitted=fitted)
 
 
+def _refuse_unported(entry: str, asked: Dict[str, bool]) -> None:
+    """Raise ``NotImplementedError`` naming every parameter of ``entry``
+    given a value the port does not implement."""
+    unported = [k for k, v in asked.items() if v]
+    if unported:
+        raise NotImplementedError(
+            f"{entry}: {', '.join(unported)} not ported to "
+            "transmogrifai_tpu_torch yet")
+
+
 class WorkflowModel:
     def __init__(self, result_features: Sequence[Feature], fitted: Dict):
         self.result_features: List[Feature] = list(result_features)
         self.fitted = dict(fitted)
 
-    def serving_plan(self, device=None, min_bucket: int = 8,
-                     max_bucket: int = 1024):
+    def serving_plan(self, min_bucket: int = 8, max_bucket: int = 1024,
+                     strict: bool = True, hbm_budget: Optional[float] = None,
+                     *, device=None):
         """Bind this model to ``device`` for batch scoring
-        (:class:`~..serve.plan.CompiledScoringPlan`)."""
+        (:class:`~..serve.plan.CompiledScoringPlan`).  Whatever ``strict``
+        says, the plan checks only that every estimator is fitted (TM501):
+        the reference's servability validator is not ported, nor is its
+        device-memory admission gate, ``hbm_budget``."""
         from ..serve.plan import CompiledScoringPlan
 
+        _refuse_unported("WorkflowModel.serving_plan",
+                         {"hbm_budget": hbm_budget is not None})
         return CompiledScoringPlan(self, device=device, min_bucket=min_bucket,
                                    max_bucket=max_bucket)
 
-    def score(self, dataset: Dataset, device=None) -> Dataset:
+    def score(self, dataset: Optional[Dataset] = None,
+              keep_intermediate: bool = False, *, device=None) -> Dataset:
         """Score a dataset of raw columns: its raw columns plus the result
-        features."""
-        out = self.serving_plan(device=device).transform(dataset)
+        features, or every stage's output with ``keep_intermediate``.  The
+        reference's reader (``dataset=None``) is not ported."""
+        from ..perf.kernels.dispatch import resolve_device
+
+        dev = resolve_device(device)
+        _refuse_unported("WorkflowModel.score", {"dataset=None": dataset is None})
+        out = self.serving_plan(device=dev).transform(dataset)
+        if keep_intermediate:
+            return out
         keep = [f.name for f in self.result_features if f.name in out]
         raw_names = [c for c in dataset.names if c in out.names]
         return out.select(list(dict.fromkeys(raw_names + keep)))
+
+    @staticmethod
+    def _check_eval_args(evaluator, dataset):
+        """Forgive swapped (dataset, evaluator) order; fail fast on bad types."""
+        if isinstance(evaluator, Dataset) and isinstance(dataset, Evaluator):
+            evaluator, dataset = dataset, evaluator
+        if not isinstance(evaluator, Evaluator):
+            raise TypeError(
+                f"expected an Evaluator (e.g. Evaluators.binary_classification()), "
+                f"got {type(evaluator).__name__}: call evaluate(evaluator, dataset)")
+        return evaluator, dataset
+
+    def evaluate(self, evaluator: Evaluator, dataset: Optional[Dataset] = None,
+                 *, device=None) -> Dict[str, float]:
+        """Score ``dataset`` and evaluate the prediction against its label."""
+        return self.score_and_evaluate(evaluator, dataset, device=device)[1]
+
+    def score_and_evaluate(self, evaluator: Evaluator,
+                           dataset: Optional[Dataset] = None, *, device=None):
+        """(the scored result features, the metrics) of one scoring pass."""
+        evaluator, dataset = self._check_eval_args(evaluator, dataset)
+        label, pred = self._label_and_pred()
+        scored = self.score(dataset, keep_intermediate=True, device=device)
+        metrics = evaluator.evaluate(scored, label.name, pred.name)
+        keep = [f.name for f in self.result_features if f.name in scored]
+        return scored.select(keep), metrics
+
+    def _label_and_pred(self):
+        label = next((f for f in self.result_features if f.is_response), None)
+        pred = next((f for f in self.result_features
+                     if f.ftype.__name__ == "Prediction"), None)
+        if label is None or pred is None:
+            raise ValueError(
+                "evaluate() needs a response feature and a Prediction result feature")
+        return label, pred
+
+    def save(self, path: str) -> None:
+        """Write the model in the reference's format (``model.json.gz`` +
+        ``arrays.npz``, FORMAT_VERSION 1): this package and the JAX package
+        both load it."""
+        from .serde import save_model
+
+        save_model(self, path)
 
     @staticmethod
     def load(path: str) -> "WorkflowModel":
