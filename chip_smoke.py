@@ -101,7 +101,27 @@ Phases, one JSON line each:
                WorkflowModel.load -> score 1024 rows on the card, equal to the
                in-memory model's scores, and evaluate on the training rows
                equal to the train metrics the selector recorded (1e-6).
-10. summary  — nvidia-smi's line, then one {"kernels": [...]} line, then the
+10. training_raw — the serving_wide pipeline from raw typed columns
+               (tests/torch_wide_data.py's copy of the fixture maker's data:
+               64 Real with 10 % missing, 8 of them auto-bucketized, 32
+               PickList x 30 levels, 4 Binary; transmogrify -> sanity_check
+               -> a 2-fold CV LogisticRegression selector) through
+               Workflow.train on the card.  (a) At the committed fixture's
+               20 000 rows (seed 0): fills, vocabularies, splits and kept
+               indices equal to fixtures/serving_wide, the winner and grid
+               equal, LR CV metrics within 1e-4 and coefficients within rtol
+               1e-4 / atol 1e-5 of it, one encode launch of 40 slots over
+               the whole table, and 1024 requests scored within 1e-5 of the
+               fixture.  (b) The training flush's encode launch bitwise
+               against its plain version on the card, and the flush's
+               866-wide vector bitwise against the plain path on the CPU.
+               (c) At RAW_ROWS (262 144): Workflow.train's seconds by part
+               (host stage fits; each flush: host encode, host->device
+               copies, device, encode launch, device->host copies; the
+               SanityChecker; the selector), peak device memory, encode
+               launches and copies, and the flush's encode launch bitwise
+               and timed beside its bound.
+11. summary  — nvidia-smi's line, then one {"kernels": [...]} line, then the
                last line {"ok": true, "device": {...}}.
 
 Phase 3 also holds K5 past shared memory (a 5000-split slot, its own launch
@@ -160,6 +180,10 @@ BIG_ROWS = (2 ** 31 - 1) // 127 + 1
 #: rows of K1's library call at the int8 RF-CV level: one index_add_ at the
 #: full 1 048 576 rows would need a 40 G-element index (322 GB)
 INT8_LIBRARY_ROWS = 1 << 16
+#: the committed serving_wide fixture's rows (tools/make_torch_serving_fixture.py)
+FIXTURE_ROWS = 20000
+#: rows of the raw-column training run timed by phase 10
+RAW_ROWS = 1 << 18
 #: CV metric tolerance of each family against the reference's record
 FAMILY_TOL = {"LogisticRegression": 1e-4, "LinearSVC": 1e-4,
               "RandomForestClassifier": 1e-6, "GradientBoostedTreesClassifier": 1e-3}
@@ -1298,6 +1322,208 @@ def phase_training_default(torch, KE, dev) -> dict:
     return out
 
 
+def _train_raw(torch, n: int, dev, seed: int = 0):
+    """The serving_wide pipeline trained from raw columns through the port's
+    entry points: ``make_data`` (tests/torch_wide_data.py) -> typed columns
+    -> transmogrify -> sanity_check -> a 2-fold CV LogisticRegression
+    selector -> Workflow.train on ``dev``.  Returns (model, workflow,
+    pipeline handles, dataset, host seconds of the data, train seconds)."""
+    import transmogrifai_tpu_torch as T
+    from torch_wide_data import FIXTURE_SHAPE, make_data, wide_pipeline
+    from transmogrifai_tpu_torch.types import feature_type_by_name
+
+    t0 = time.perf_counter()
+    cols, schema = make_data(n, seed=seed, **FIXTURE_SHAPE)
+    t1 = time.perf_counter()
+    ftypes = {s["name"]: feature_type_by_name(s["type"]) for s in schema}
+    ds = T.Dataset.from_features(cols, ftypes)
+    t2 = time.perf_counter()
+    del cols
+    label, sel, chk, pred = wide_pipeline(T, ftypes, schema)
+    wf = T.Workflow().set_input_dataset(ds).set_result_features(label, pred)
+    _sync(torch, dev)
+    t3 = time.perf_counter()
+    model = wf.train(device=dev)
+    _sync(torch, dev)
+    seconds = time.perf_counter() - t3
+    handles = {"label": label, "sel": sel, "chk": chk, "pred": pred}
+    return model, wf, handles, ds, {"make_data_s": t1 - t0,
+                                    "from_features_s": t2 - t1}, seconds
+
+
+def _fitted_by(model, cls: str) -> dict:
+    """Fitted stages of class ``cls`` keyed by their inputs' names."""
+    return {tuple(f.name for f in t.inputs): t for t in model.fitted.values()
+            if type(t).__name__ == cls}
+
+
+def _flush_operands(model, handles, ds, dev):
+    """The training flush the checker waits for, rebuilt from the fitted
+    model: its plan over ``ds`` on ``dev`` and the encode group's operands
+    placed there."""
+    from transmogrifai_tpu_torch.workflow.dag import compute_dag
+    from transmogrifai_tpu_torch.workflow.plan import ColumnarTransformPlan
+
+    vec = handles["chk"].inputs[1]
+    runners = [model.fitted.get(s.uid, s) for layer in compute_dag([vec])
+               for s in layer]
+    plan = ColumnarTransformPlan(runners, frozenset(ds.names), dev)
+    ops, _ = plan._place(plan._host_entries(ds), ds.n_rows)
+    return plan, [ops[i] for i in plan._encode_inputs]
+
+
+def phase_training_raw(torch, KE, dev) -> dict:
+    """The wide pipeline trained from raw columns on the card: (a) at the
+    committed fixture's 20 000 rows against that fixture; (b) the training
+    flush's encode launch bitwise against its plain version, and timed at
+    RAW_ROWS; (c) Workflow.train at RAW_ROWS by part."""
+    import numpy as np
+
+    from transmogrifai_tpu_torch import WorkflowModel
+
+    # (a) parity with the fixture the JAX package trained
+    fixture = WorkflowModel.load(FIXTURE)
+    KE.reset_launch_counts()
+    model, wf, h, ds, _, seconds_a = _train_raw(torch, FIXTURE_ROWS, dev)
+    launches_a = KE.launch_counts()
+    for cls, attr in (("NumericVectorizerModel", "fills"),
+                      ("OneHotVectorizerModel", "vocabs"),
+                      ("DecisionTreeNumericBucketizerModel", "splits"),
+                      ("SanityCheckerModel", "kept_indices")):
+        got, want = _fitted_by(model, cls), _fitted_by(fixture, cls)
+        check(len(got) == len(want) >= 1, f"{cls}: {len(got)} fitted, fixture {len(want)}")
+        # keyed by input names; the checker's input is named by stage uids
+        check(got.keys() == want.keys() or cls == "SanityCheckerModel",
+              f"{cls} inputs {sorted(got)} == the fixture's")
+        for (k, a), b in zip(sorted(got.items()), [want[k] for k in sorted(want)]):
+            x, y = getattr(a, attr), getattr(b, attr)
+            check(np.array_equal(x, y) if attr == "fills" else x == y,
+                  f"{cls} {k[:2]} {attr} equal to the fixture")
+    [want_sel] = [t for t in fixture.fitted.values()
+                  if type(getattr(t, "summary", None)).__name__ == "ModelSelectorSummary"]
+    got_sel = model.fitted[h["sel"].uid]
+    gs, ws = got_sel.summary, want_sel.summary
+    check((gs.best_model_name, gs.best_grid) == (ws.best_model_name, ws.best_grid),
+          f"winner {gs.best_model_name} {gs.best_grid} == fixture "
+          f"{ws.best_model_name} {ws.best_grid}")
+    check([e.grid for e in gs.validation_results] == [e.grid for e in ws.validation_results],
+          "the grid equal to the fixture's")
+    cv_dev = max(float(np.max(np.abs(np.asarray(a.metric_values) - np.asarray(b.metric_values))))
+                 for a, b in zip(gs.validation_results, ws.validation_results))
+    check(cv_dev <= 1e-4, f"LR CV metrics within 1e-4 of the fixture ({cv_dev})")
+    coef, want_coef = np.asarray(got_sel.model.coef), np.asarray(want_sel.model.coef)
+    coef_dev = float(np.max(np.abs(coef - want_coef)))
+    check(np.allclose(coef, want_coef, rtol=1e-4, atol=1e-5)
+          and np.isclose(got_sel.model.intercept, want_sel.model.intercept,
+                         rtol=1e-4, atol=1e-5),
+          f"LR coefficients within rtol 1e-4 / atol 1e-5 of the fixture ({coef_dev})")
+    check(launches_a["encode_slots"] == 1 and launches_a["encode_slots.slots"] == 40
+          and launches_a["onehot_codes"] == launches_a["bucketize_right_encode"] == 0,
+          f"one encode launch of 40 slots over the whole table: {launches_a}")
+    with open(os.path.join(FIXTURE, "schema.json")) as fh:
+        schema = json.load(fh)
+    recs = make_records(schema, BATCH, np.random.default_rng(3))
+    pred_name = h["pred"].name
+    fx_pred = next(f.name for f in fixture.result_features
+                   if f.ftype.__name__ == "Prediction")
+    got_p = [r[pred_name]["probability_1"] for r in model.serving_plan(device=dev).score(recs)]
+    want_p = [r[fx_pred]["probability_1"] for r in fixture.serving_plan(device=dev).score(recs)]
+    score_dev = float(np.max(np.abs(np.asarray(got_p) - np.asarray(want_p))))
+    check(score_dev <= 1e-5, f"1024 requests scored within 1e-5 of the fixture ({score_dev})")
+
+    # (b) the flush's encode launch at 20 000 rows, bitwise; the whole
+    # flush on the card bitwise against the plain path on the CPU
+    plan, ins = _flush_operands(model, h, ds, dev)
+    table = plan._encode_table
+    got = KE.encode_slots(ins, table)
+    ref = KE.encode_slots_torch(ins, table)
+    torch.cuda.synchronize()
+    check(torch.equal(got, ref), f"the flush's encode launch bitwise at {FIXTURE_ROWS} rows")
+    vec = h["chk"].inputs[1]
+    from transmogrifai_tpu_torch.workflow.fit import transform_dag
+
+    card_vec = transform_dag(ds, [vec], model.fitted, dev)[vec.name].data
+    cpu_vec = transform_dag(ds, [vec], model.fitted, torch.device("cpu"))[vec.name].data
+    check(card_vec.shape == (FIXTURE_ROWS, 866) and card_vec.tobytes() == cpu_vec.tobytes(),
+          "the training vector on the card bitwise the plain path's")
+    del plan, ins, got, ref, ds, card_vec, cpu_vec
+
+    # (c) Workflow.train at RAW_ROWS by part
+    torch.cuda.reset_peak_memory_stats()
+    KE.reset_launch_counts()
+    model, wf, h, ds, data_s, seconds = _train_raw(torch, RAW_ROWS, dev)
+    launches = KE.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(launches["encode_slots"] >= 1 and launches["onehot_codes"] == 0
+          and launches["bucketize_right_encode"] == 0,
+          f"the training path launches the encode kernel: {launches}")
+    prof = wf.last_train_profile
+    fits = [r for r in prof if r["kind"] == "fit"]
+    flushes = [r for r in prof if r["kind"] == "flush"]
+    enc_flushes = [r for r in flushes if r.get("encode_slots")]
+    check(len(enc_flushes) == 1 and enc_flushes[0]["rows"] == RAW_ROWS
+          and enc_flushes[0]["encode_slots"] == 40
+          and launches["encode_slots"] == 1,
+          f"one flush encodes all 40 slots of {RAW_ROWS} rows in one launch: {flushes}")
+    summary = model.fitted[h["sel"].uid].summary
+    for e in summary.validation_results:
+        check(all(np.isfinite(v) for v in e.metric_values), f"finite CV {e}")
+    by_stage = {}
+    for r in fits:
+        by_stage[r["stage"]] = by_stage.get(r["stage"], 0.0) + r["seconds"]
+    stage_fits = sum(v for k, v in by_stage.items()
+                     if k not in ("SanityChecker", "ModelSelector"))
+
+    # the flush's encode launch at RAW_ROWS: bitwise, then timed
+    plan, ins = _flush_operands(model, h, ds, dev)
+    table = plan._encode_table
+    width = table.width
+    buf = torch.empty((RAW_ROWS, -(-width // 4) * 4), device=dev)[:, :width]
+    KE.encode_slots(ins, table, buf)
+    torch.cuda.synchronize()
+    check(torch.equal(buf, KE.encode_slots_torch(ins, table)),
+          f"the flush's encode launch bitwise at {RAW_ROWS} rows")
+    nbytes = (sum(x.numel() * x.element_size() for x in ins) + table.splits.nbytes
+              + RAW_ROWS * width * 4)
+    enc = {"rows": RAW_ROWS, "slots": len(table), "columns": width,
+           "chunks": len(table.chunks),
+           "ms": time_big_ms(lambda: KE.encode_slots(ins, table, buf), runs=21, warmup=3),
+           "plain_ms": time_big_ms(lambda: KE.encode_slots_torch(ins, table, buf), runs=5),
+           "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "library_ms": None,
+           "in_flush_ms": enc_flushes[0]["encode_ms"], "max_abs_err": 0.0}
+    del plan, ins, buf
+    out = {"rows": RAW_ROWS, "train_seconds": seconds,
+           "data_host_seconds": data_s,
+           "parts_seconds": {
+               "stage_fits_host": stage_fits,
+               "flushes": [{k: r.get(k) for k in (
+                   "seconds", "stages", "encode_slots", "host_encode_s", "h2d_s",
+                   "device_s", "encode_ms", "d2h_s", "columns_s", "host_stages_s",
+                   "h2d_copies", "d2h_copies", "h2d_bytes", "d2h_bytes")}
+                   for r in flushes],
+               "sanity_checker": by_stage.get("SanityChecker"),
+               "sanity_checker_parts": h["chk"].last_fit_profile,
+               "selector": by_stage.get("ModelSelector"),
+               "selector_parts": h["sel"].last_fit_profile},
+           "fit_seconds_by_stage": by_stage,
+           "launches": launches,
+           "h2d_copies": sum(r.get("h2d_copies", 0) for r in flushes),
+           "d2h_copies": sum(r.get("d2h_copies", 0) for r in flushes),
+           "max_memory_allocated_bytes": peak,
+           "winner": summary.best_model_name, "winner_grid": summary.best_grid,
+           "cv": [{"grid": e.grid, "values": e.metric_values}
+                  for e in summary.validation_results],
+           "kept": len(model.fitted[h["chk"].uid].kept_indices),
+           "encode_at_rows": enc,
+           "parity_20000": {"train_seconds": seconds_a, "cv_max_abs_dev": cv_dev,
+                            "coef_max_abs_dev": coef_dev,
+                            "score_max_abs_dev": score_dev,
+                            "launches": launches_a}}
+    emit({"phase": "training_raw", **out})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1436,7 +1662,10 @@ def main() -> int:
     # 9. bench.py's 4-family sweep at full width, then save, load and evaluate
     tdef = phase_training_default(torch, KE, dev)
 
-    # 10. summary
+    # 10. the wide pipeline trained from raw columns
+    raw = phase_training_raw(torch, KE, dev)
+
+    # 11. summary
     kernels = []
     tree_src = "transmogrifai_tpu_torch/perf/kernels/csrc/trees.cu"
     for kname, replaces in (("hist_level", "transmogrifai_tpu/perf/kernels/histogram.py:80"),
@@ -1491,6 +1720,8 @@ def main() -> int:
                       "(one-slot table) at the serving shape; fused_*: the "
                       "serving batch's whole table in one launch",
             **({"splits5000": t["splits5000"]} if "splits5000" in t else {}),
+            "launches_training_raw": raw["launches"]["encode_slots"],
+            "training_raw": raw["encode_at_rows"],
             **{f"fused_{k}": fused[k] for k in ("ms", "device_ms", "plain_ms",
                                                  "bound_ms", "slots", "columns")}})
     print(smi, flush=True)

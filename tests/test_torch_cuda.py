@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card,
+and the wide pipeline's training from raw columns (its whole-table transform
+plan and the SanityChecker) on the card against the CPU.
 
 Marked ``cuda``: each test skips where there is no card.  The machine with
 the card has no JAX, so this file imports torch and the port only; run it
@@ -534,3 +536,91 @@ def test_linear_sweeps_on_the_card_equal_the_cpu(fam):
         b = est.copy().set_params(**g)._fit_arrays(x, y, tw[0], torch.device("cpu"))
         np.testing.assert_allclose(a.coef, b.coef, rtol=1e-4, atol=1e-4)
         np.testing.assert_allclose(a.intercept, b.intercept, rtol=1e-4, atol=1e-4)
+
+
+# -- the wide pipeline from raw columns: the training plan and the checker -----
+
+RAW_CUT = dict(n_real=6, n_bucketized=3, n_pick=4, n_levels=30, n_binary=2)
+
+
+def _raw(n: int, device: str):
+    """The wide pipeline at a cut, trained on ``device``; (model, checker,
+    selector, dataset, vector feature)."""
+    import transmogrifai_tpu_torch as T
+    from torch_wide_data import make_data, wide_pipeline
+    from transmogrifai_tpu_torch.types import feature_type_by_name
+
+    cols, schema = make_data(n, **RAW_CUT)
+    ftypes = {s["name"]: feature_type_by_name(s["type"]) for s in schema}
+    label, sel, chk, pred = wide_pipeline(T, ftypes, schema)
+    ds = T.Dataset.from_features(cols, ftypes)
+    model = T.Workflow().set_input_dataset(ds).set_result_features(label, pred) \
+        .train(device=device)
+    return model, chk, sel, ds, chk.inputs[1]
+
+
+@pytest.mark.parametrize("n", [3000, 20011])
+def test_training_plan_vector_on_the_card_equals_the_plain_path(n):
+    from transmogrifai_tpu_torch.workflow.fit import transform_dag
+
+    model, _, _, ds, vec = _raw(n, "cpu")
+    TKE.reset_launch_counts()
+    card = transform_dag(ds, [vec], model.fitted, torch.device("cuda"))[vec.name]
+    counts = TKE.launch_counts()
+    cpu = transform_dag(ds, [vec], model.fitted, torch.device("cpu"))[vec.name]
+    assert card.data.shape == cpu.data.shape
+    assert card.data.tobytes() == cpu.data.tobytes()
+    assert card.meta.to_dict() == cpu.meta.to_dict()
+    assert counts["encode_slots"] == 1 and counts["onehot_codes"] == 0
+
+
+@pytest.mark.parametrize("params", [{}, {"correlation_type": "spearman"},
+                                    {"min_correlation": 0.02}])
+def test_sanity_checker_on_the_card_equals_the_cpu(params):
+    from transmogrifai_tpu_torch import Dataset, FeatureBuilder
+    from transmogrifai_tpu_torch.checkers.sanity import SanityChecker
+    from transmogrifai_tpu_torch.workflow.fit import transform_dag
+
+    model, _, _, ds, vec = _raw(3000, "cpu")
+    col = transform_dag(ds, [vec], model.fitted, torch.device("cpu"))[vec.name]
+    fits = []
+    for dev in ("cuda", "cpu"):
+        label = FeatureBuilder.RealNN("label").extract_field().as_response()
+        v = FeatureBuilder.OPVector("v").extract_field().as_predictor()
+        chk = SanityChecker(**params)
+        label.transform_with(chk, v)
+        fits.append(chk.fit(Dataset({"label": ds["label"], "v": col}), device=dev))
+    card, cpu = (f.summary for f in fits)
+    assert fits[0].kept_indices == fits[1].kept_indices
+    assert card.dropped == cpu.dropped
+    for a, b in zip(cpu.stats, card.stats):
+        for k in ("mean", "variance", "min", "max", "corr_label", "cramers_v",
+                  "max_rule_confidence", "support"):
+            x, y = getattr(a, k), getattr(b, k)
+            if x is None:
+                assert y is None
+            else:
+                np.testing.assert_allclose(y, x, rtol=0, atol=1e-5, err_msg=f"{a.name} {k}")
+    np.testing.assert_allclose(card.correlations_feature, cpu.correlations_feature,
+                               rtol=0, atol=1e-5)
+
+
+def test_training_from_raw_columns_on_the_card_equals_the_cpu():
+    TKE.reset_launch_counts()
+    cm, cchk, csel, _, _ = _raw(3000, "cuda")
+    assert TKE.launch_counts()["encode_slots"] == 1
+    pm, pchk, psel, _, _ = _raw(3000, "cpu")
+
+    def states(m):
+        return sorted((type(t).__name__, [f.name for f in t.inputs],
+                       repr(getattr(t, "fills", None)), getattr(t, "vocabs", None),
+                       getattr(t, "splits", None))
+                      for t in m.fitted.values() if not hasattr(t, "summary"))
+
+    assert states(cm) == states(pm)
+    assert cm.fitted[cchk.uid].kept_indices == pm.fitted[pchk.uid].kept_indices
+    a, b = cm.fitted[csel.uid], pm.fitted[psel.uid]
+    assert a.summary.best_grid == b.summary.best_grid
+    for x, y in zip(a.summary.validation_results, b.summary.validation_results):
+        np.testing.assert_allclose(x.metric_values, y.metric_values, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(a.model.coef, b.model.coef, rtol=1e-4, atol=1e-5)

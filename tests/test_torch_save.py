@@ -10,7 +10,11 @@ A model the port trains is saved by the port (FORMAT_VERSION 1:
 - ``evaluate`` on the saved model gives the JAX package's ``evaluate`` on the
   same model and rows, and ``score_and_evaluate`` the same pair;
 - a model the JAX package saved, loaded and saved again by the port, still
-  loads in both and serves equal records.
+  loads in both and serves equal records;
+- the wide pipeline the port trains from raw columns saves its
+  ``SanityCheckerSummary`` (and ``ColumnStats``) under the reference's names:
+  the JAX package restores them and scores the model as the port does, and
+  the port restores the committed fixture's summary as its own dataclasses.
 """
 
 import gzip
@@ -186,3 +190,74 @@ def test_jax_saved_model_resaved_by_the_port_loads_in_both(tmp_path):
     ref = JModel.load(FIXTURE).serving_plan().score(recs)
     assert JModel.load(path).serving_plan().score(recs) == ref
     assert TModel.load(path).serving_plan(device="cpu").score(recs) == ref
+
+
+class TestRawPipeline:
+    """The wide pipeline trained by the port from raw columns, through
+    ``sanity_check``: its ``SanityCheckerSummary`` saves under the
+    reference's dataclass names, and either package restores it."""
+
+    @pytest.fixture(scope="class")
+    def raw_saved(self, tmp_path_factory):
+        import sys
+
+        sys.path.insert(0, os.path.join(REPO, "tests"))
+        import transmogrifai_tpu_torch as T
+        from torch_wide_data import make_data, wide_pipeline
+        from transmogrifai_tpu_torch.types import feature_type_by_name
+
+        cols, schema = make_data(1500, seed=2, n_real=5, n_bucketized=2, n_pick=3,
+                                 n_levels=30, n_binary=2)
+        ftypes = {s["name"]: feature_type_by_name(s["type"]) for s in schema}
+        label, _, chk, pred = wide_pipeline(T, ftypes, schema)
+        model = T.Workflow().set_input_dataset(T.Dataset.from_features(cols, ftypes)) \
+            .set_result_features(label, pred).train(device="cpu")
+        path = str(tmp_path_factory.mktemp("raw") / "model")
+        model.save(path)
+        return model, path, chk.uid, pred.name, cols, schema
+
+    def test_jax_restores_the_summary(self, raw_saved):
+        from transmogrifai_tpu.checkers.sanity import ColumnStats as JStats
+        from transmogrifai_tpu.checkers.sanity import SanityCheckerSummary as JSan
+
+        model, path, uid, _, _, _ = raw_saved
+        want = model.fitted[uid].summary
+        got = JModel.load(path).fitted[uid]
+        assert isinstance(got.summary, JSan)
+        assert all(isinstance(s, JStats) for s in got.summary.stats)
+        assert got.kept_indices == model.fitted[uid].kept_indices
+        assert got.summary.kept_indices == want.kept_indices
+        assert got.summary.dropped == want.dropped
+        assert len(got.summary.stats) == len(want.stats)
+        for a, b in zip(got.summary.stats, want.stats):
+            for k, v in vars(b).items():
+                w = getattr(a, k)
+                assert w == v or (w != w and v != v), (b.name, k)   # NaN == NaN
+        np.testing.assert_array_equal(got.summary.correlations_feature,
+                                      want.correlations_feature)
+
+    def test_both_packages_score_equal(self, raw_saved):
+        import transmogrifai_tpu as J
+        from transmogrifai_tpu.types import feature_type_by_name as jft
+        from transmogrifai_tpu_torch.types import feature_type_by_name as tft
+
+        model, path, _, pred, cols, schema = raw_saved
+        tds = TDs.from_features(cols, {s["name"]: tft(s["type"]) for s in schema})
+        jds = J.Dataset.from_features(cols, {s["name"]: jft(s["type"]) for s in schema})
+        mem = model.score(tds, device="cpu")[pred]
+        port = TModel.load(path).score(tds, device="cpu")[pred]
+        ref = JModel.load(path).score(jds)[pred]
+        assert port.prob.tobytes() == mem.prob.tobytes()
+        np.testing.assert_array_equal(np.asarray(ref.pred), port.pred)
+        np.testing.assert_allclose(np.asarray(ref.prob), port.prob, rtol=0, atol=1e-6)
+
+    def test_port_restores_the_fixture_summary(self):
+        from transmogrifai_tpu_torch.checkers.sanity import ColumnStats, SanityCheckerSummary
+
+        [chk] = [t for t in TModel.load(FIXTURE).fitted.values()
+                 if type(t).__name__ == "SanityCheckerModel"]
+        assert isinstance(chk.summary, SanityCheckerSummary)
+        assert all(isinstance(s, ColumnStats) for s in chk.summary.stats)
+        assert chk.summary.kept_indices == chk.kept_indices
+        assert chk.summary.correlations_feature.shape == (866, 866)
+        assert chk.summary.to_dict()["sampleSize"] == 20000

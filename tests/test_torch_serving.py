@@ -371,7 +371,8 @@ class TestNoJax:
         assert "BAD=\n" in out.stdout, out.stdout
 
     @pytest.mark.parametrize("root", ["transmogrifai_tpu_torch", "chip_smoke.py",
-                                      os.path.join("tests", "torch_encode_cases.py")])
+                                      os.path.join("tests", "torch_encode_cases.py"),
+                                      os.path.join("tests", "torch_wide_data.py")])
     def test_ast_scan_finds_no_jax_import(self, root):
         path = os.path.join(REPO, root)
         files = [path] if path.endswith(".py") else [
@@ -381,6 +382,9 @@ class TestNoJax:
         if root == "transmogrifai_tpu_torch":
             assert os.path.join(path, "models", "svm.py") in files
             assert os.path.join(path, "models", "logistic.py") in files
+            for mod in (("checkers", "sanity.py"), ("ops", "transmogrifier.py"),
+                        ("dsl.py",), ("utils", "stats.py"), ("workflow", "plan.py")):
+                assert os.path.join(path, *mod) in files
         bad = []
         for fn in files:
             with open(fn) as fh:

@@ -1,5 +1,6 @@
 """Compare the split scan (K2) and the routing select (K3) of two checkouts of
-the port on one CUDA card, in turns, and check that both fit alike.
+the port on one CUDA card, in turns, and check that both fit alike and
+equally fast.
 
     python3 tools/torch_tree_ab.py --base DIR [--out ab.json]
 
@@ -14,7 +15,10 @@ tree's kernels into the tree's own ``build/torch_kernels/``.  Each run:
   empty (as in the sweep) and filled (chip_smoke's inputs, the device alone:
   chip_smoke.time_device_ms), and hashes each output;
 - fits bench.py's tree sweep at full width twice through Workflow.train and
-  reports the second fit's seconds, launches and chip_smoke.fit_digest.
+  reports the second fit's seconds, launches and chip_smoke.fit_digest;
+- fits bench.py's 4-family sweep (the default selector: chip_smoke's
+  ``training_default``) twice the same way and reports the second fit's
+  seconds and its families' seconds.
 
 Prints one JSON line: each time per run and per tree, whether every output
 hash and every fit digest agrees across the four runs (B bitwise equal to
@@ -99,17 +103,23 @@ def worker(root: str) -> dict:
 
     x, y = C.synth(C.FULL_ROWS, C.D, 0)
     mods = (KH, KS, KR)
-    for _ in range(2):                          # warm-up, then the measured fit
-        for m in mods:
-            m.reset_launch_counts()
-        model, selector, _, seconds = C.train_selector(torch, x, y, dev)
-        launches = {}
-        for m in mods:
-            launches.update(m.launch_counts())
-        fitted = model.fitted[selector.uid]
-        out["fit"] = {"train_s": seconds, "launches": launches,
-                      "winner": fitted.summary.best_model_name,
-                      "digest": C.fit_digest(fitted.summary, fitted.model)}
+    for key, default in (("fit", False), ("fit_default", True)):
+        for _ in range(2):                      # warm-up, then the measured fit
+            for m in mods:
+                m.reset_launch_counts()
+            model, selector, _, seconds = C.train_selector(torch, x, y, dev,
+                                                           default=default)
+            launches = {}
+            for m in mods:
+                launches.update(m.launch_counts())
+            fitted = model.fitted[selector.uid]
+            out[key] = {"train_s": seconds, "launches": launches,
+                        "winner": fitted.summary.best_model_name,
+                        "phase_seconds": selector.last_fit_profile,
+                        "digest": C.fit_digest(fitted.summary, fitted.model)
+                        if hasattr(fitted.model, "trees") else None}
+            del model, selector, fitted
+            torch.cuda.empty_cache()
     return out
 
 
@@ -153,12 +163,15 @@ def main(argv=None) -> int:
             "B_faster_in_every_pair": max(v["B"]) < min(v["A"])}
         for k, v in times.items()}
     train = {t: [r["fit"]["train_s"] for r in runs if r["tree"] == t] for t in "AB"}
+    train_default = {t: [r["fit_default"]["train_s"] for r in runs if r["tree"] == t]
+                     for t in "AB"}
     line = {
         "nvidia_smi": _smoke().gpu_line(), "device": torch.cuda.get_device_name(0),
         "order": [r["tree"] for r in runs], "kernels": summary,
         "outputs_equal": {k: len({r["hash"][k] for r in runs}) == 1 for k in keys},
         "fit_digests_equal": len({r["fit"]["digest"] for r in runs}) == 1,
-        "train_s": train,
+        "train_s": train, "train_default_s": train_default,
+        "default_winners_equal": len({r["fit_default"]["winner"] for r in runs}) == 1,
         "runs": runs}
     text = json.dumps(line)
     print(text)

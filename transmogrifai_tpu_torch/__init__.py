@@ -1,32 +1,49 @@
 """transmogrifai_tpu_torch — the PyTorch/CUDA port of transmogrifai_tpu.
 
 The JAX package beside it is the reference.  This package imports torch and
-numpy, never JAX and nothing of ``transmogrifai_tpu``.  It trains binary
-model selection over the reference's default families (LogisticRegression,
-RandomForest, GBT, LinearSVC) or the ones a caller names:
-``label.transform_with(BinaryClassificationModelSelector.with_cross_validation(),
-vector)`` and ``Workflow().set_input_dataset(ds).set_result_features(label,
-pred).train()``, on the CUDA card unless ``device`` says otherwise.  It saves
-(``model.save(path)``) and loads (``WorkflowModel.load(path)``) models in the
-reference's format, either package's, scores them (``model.score``,
-``model.evaluate``) and serves them: ``model.serving_plan()`` and
-``plan.score(records)``.  The serving prefix's one-hot and
-bucketize kernels (``perf/kernels/csrc/encode.cu``) and the trees' histogram,
-split-scan and routing kernels (``perf/kernels/csrc/trees.cu``) are
-hand-written CUDA.
+numpy, never JAX and nothing of ``transmogrifai_tpu``.  It trains from raw
+typed columns as the reference does: ``transmogrify(features)`` vectorizes
+them (numeric fills and null indicators, categorical pivots, label-aware
+bucketizers), ``label.sanity_check(vector)`` drops low-signal and leaky
+slots, and ``label.transform_with(BinaryClassificationModelSelector
+.with_cross_validation(), checked)`` selects among the reference's default
+families (LogisticRegression, RandomForest, GBT, LinearSVC) or the ones a
+caller names; ``Workflow().set_input_dataset(ds).set_result_features(label,
+pred).train()`` fits it all on the CUDA card unless ``device`` says
+otherwise, each run of fitted stages between two fits transformed over the
+whole table on the card.  It saves (``model.save(path)``) and loads
+(``WorkflowModel.load(path)``) models in the reference's format, either
+package's, scores them (``model.score``, ``model.evaluate``) and serves
+them: ``model.serving_plan()`` and ``plan.score(records)``.  The encode
+kernel of the one-hot and bucketize stages (``perf/kernels/csrc/encode.cu``)
+and the trees' histogram, split-scan and routing kernels
+(``perf/kernels/csrc/trees.cu``) are hand-written CUDA.
 """
 
 __version__ = "0.1.0"
 
+from . import dsl  # noqa: F401  (attaches the feature DSL methods)
+from .checkers.sanity import SanityChecker  # noqa: F401
+from .data.dataset import Dataset  # noqa: F401
 from .evaluators.base import Evaluators  # noqa: F401
 from .features.builder import FeatureBuilder  # noqa: F401
 from .models.logistic import LogisticRegression  # noqa: F401
 from .models.selector import BinaryClassificationModelSelector  # noqa: F401
 from .models.svm import LinearSVC  # noqa: F401
+from .ops.bucketizers import DecisionTreeNumericBucketizer  # noqa: F401
+from .ops.combiner import VectorsCombiner  # noqa: F401
+from .ops.numeric import BinaryVectorizer, NumericVectorizer, RealNNVectorizer  # noqa: F401
+from .ops.onehot import OneHotVectorizer  # noqa: F401
+from .ops.scalers import FillMissingWithMean, StandardScaler  # noqa: F401
+from .ops.transmogrifier import transmogrify  # noqa: F401
 from .serve.plan import CompiledScoringPlan  # noqa: F401
 from .workflow.serde import load_model, save_model  # noqa: F401
 from .workflow.workflow import Workflow, WorkflowModel  # noqa: F401
 
-__all__ = ["BinaryClassificationModelSelector", "CompiledScoringPlan",
-           "Evaluators", "FeatureBuilder", "LinearSVC", "LogisticRegression",
-           "Workflow", "WorkflowModel", "load_model", "save_model"]
+__all__ = ["BinaryClassificationModelSelector", "BinaryVectorizer",
+           "CompiledScoringPlan", "Dataset", "DecisionTreeNumericBucketizer",
+           "Evaluators", "FeatureBuilder", "FillMissingWithMean", "LinearSVC",
+           "LogisticRegression", "NumericVectorizer", "OneHotVectorizer",
+           "RealNNVectorizer", "SanityChecker", "StandardScaler",
+           "VectorsCombiner", "Workflow", "WorkflowModel", "load_model",
+           "save_model", "transmogrify"]

@@ -3,8 +3,9 @@
 A ``Dataset`` is an ordered mapping of name -> ``Column``.  Numeric columns
 are dense numpy arrays plus validity masks; text columns are object arrays;
 OPVector columns are (n, d) float32 blocks with attached ``VectorMetadata``.
-Device tensors never live here: the serving plan moves the operands it needs
-to the device and brings its outputs back as numpy.
+Device tensors never live here: the transform plans (``workflow/plan.py``,
+``serve/plan.py``) move the operands they need to the device and bring their
+outputs back as numpy.
 """
 
 from __future__ import annotations
@@ -79,6 +80,12 @@ class Column:
 
     def __len__(self) -> int:
         return int(self.data.shape[0])
+
+    def take(self, indices: np.ndarray) -> "Column":
+        """The rows at ``indices`` (positions), type and metadata kept."""
+        indices = np.asarray(indices)
+        mask = self.mask[indices] if self.mask is not None else None
+        return Column(self.ftype, self.data[indices], mask, self.meta)
 
     @property
     def kind(self) -> ColumnKind:
@@ -171,6 +178,11 @@ class Dataset:
     def with_column(self, name: str, col: Column) -> "Dataset":
         new = dict(self._columns)
         new[name] = col
+        return Dataset(new)
+
+    def with_columns(self, cols: Mapping[str, Column]) -> "Dataset":
+        new = dict(self._columns)
+        new.update(cols)
         return Dataset(new)
 
     def select(self, names: Iterable[str]) -> "Dataset":

@@ -1,14 +1,15 @@
-"""Decision-tree numeric bucketizer, scoring half (counterpart of
+"""Decision-tree numeric bucketizer (counterpart of
 ``transmogrifai_tpu/ops/bucketizers.py``).
 
-A fitted ``DecisionTreeNumericBucketizerModel`` one-hot encodes a value into
+The fit (:func:`find_tree_splits`) grows a single-feature classification
+tree over quantile bins of the value, on the host in float64 numpy exactly
+as the reference does, so the splits come out equal.  A fitted ``DecisionTreeNumericBucketizerModel`` one-hot encodes a value into
 the right-inclusive intervals ``(s[i], s[i+1]]`` of its tree's splits, with
 optional invalid and null columns.  When the tree found no split
 (``should_split`` false) only the null indicator remains.  With splits the
 device half is a bucketize slot of the encode kernel
 (``perf/kernels/encode.py``, K5's slots); without, it stays a torch op (the
-reference computes that branch outside its Pallas kernel too).  The fit
-stays in the reference until the training slice.
+reference computes that branch outside its Pallas kernel too).
 """
 
 from __future__ import annotations
@@ -20,8 +21,89 @@ import torch
 
 from ..data.dataset import Column
 from ..perf.kernels import encode as KE
-from ..stages.base import Transformer
+from ..stages.base import BinaryEstimator, Param, Transformer
+from ..types import OPNumeric, OPVector, RealNN
 from ..utils.vector_metadata import NULL_INDICATOR, VectorColumnMetadata, VectorMetadata
+
+IMPURITIES = ("gini", "entropy")
+
+
+def _impurity(counts: np.ndarray, kind: str) -> np.ndarray:
+    """Impurity of class-count vectors along the last axis."""
+    n = counts.sum(axis=-1, keepdims=True)
+    p = counts / np.maximum(n, 1.0)
+    if kind == "entropy":
+        logp = np.log2(p, where=p > 0, out=np.zeros_like(p))
+        return -(p * logp).sum(axis=-1)
+    return 1.0 - (p * p).sum(axis=-1)
+
+
+def find_tree_splits(
+    values: np.ndarray,
+    labels: np.ndarray,
+    impurity: str = "gini",
+    max_depth: int = 5,
+    max_bins: int = 32,
+    min_instances_per_node: int = 1,
+    min_info_gain: float = 0.01,
+) -> List[float]:
+    """Split thresholds of a single-feature decision tree (predicate ``v <= t``),
+    from class-count histograms over quantile bins (the reference's
+    DecisionTreeNumericBucketizer fit, step for step)."""
+    v = np.asarray(values, dtype=np.float64)
+    y = np.asarray(labels)
+    keep = ~np.isnan(v) & ~np.isnan(y.astype(np.float64))
+    v, y = v[keep], y[keep]
+    if v.size == 0:
+        return []
+    classes, y_idx = np.unique(y, return_inverse=True)
+    if classes.size <= 1:
+        return []
+    uniq = np.unique(v)
+    if uniq.size <= 1:
+        return []
+    if uniq.size > max_bins:
+        cand = np.unique(np.quantile(v, np.linspace(0.0, 1.0, max_bins + 1)[1:-1]))
+        cand = cand[cand < uniq[-1]]  # a threshold at the max splits nothing
+    else:
+        cand = uniq[:-1]
+    if cand.size == 0:
+        return []
+
+    # class counts per candidate interval: interval i holds rows with
+    # cand[i-1] < v <= cand[i] (last interval: v > cand[-1])
+    idx = np.searchsorted(cand, v, side="left")
+    counts = np.zeros((cand.size + 1, classes.size), dtype=np.float64)
+    np.add.at(counts, (idx, y_idx), 1.0)
+    csum = counts.cumsum(axis=0)
+
+    thresholds: List[float] = []
+    # node = inclusive interval-index range [lo, hi]; depth-first recursion
+    stack: List[Tuple[int, int, int]] = [(0, cand.size, 0)]
+    while stack:
+        lo, hi, depth = stack.pop()
+        if depth >= max_depth or lo >= hi:
+            continue
+        base = csum[lo - 1] if lo > 0 else np.zeros(classes.size)
+        node_counts = csum[hi] - base
+        n_node = node_counts.sum()
+        if n_node < 2 * min_instances_per_node:
+            continue
+        left = csum[lo:hi] - base  # split at cand[i], i in [lo, hi)
+        right = node_counts - left
+        nl, nr = left.sum(axis=-1), right.sum(axis=-1)
+        parent_imp = _impurity(node_counts, impurity)
+        child_imp = (nl * _impurity(left, impurity) + nr * _impurity(right, impurity)) / n_node
+        gain = parent_imp - child_imp
+        gain[(nl < min_instances_per_node) | (nr < min_instances_per_node)] = -np.inf
+        best = int(np.argmax(gain))
+        if gain[best] < min_info_gain or not np.isfinite(gain[best]):
+            continue
+        split_i = lo + best
+        thresholds.append(float(cand[split_i]))
+        stack.append((lo, split_i, depth + 1))
+        stack.append((split_i + 1, hi, depth + 1))
+    return sorted(thresholds)
 
 
 def bucketize_right(v: np.ndarray, present: np.ndarray, splits: np.ndarray,
@@ -45,7 +127,45 @@ def bucketize_right(v: np.ndarray, present: np.ndarray, splits: np.ndarray,
     return block
 
 
+class DecisionTreeNumericBucketizer(BinaryEstimator):
+    """Smart numeric bucketizer driven by a label-aware single-feature tree:
+    (label RealNN, value) -> the value's one-hot over the tree's intervals."""
+
+    input_types = (RealNN, OPNumeric)
+    output_type = OPVector
+    allow_label_as_input = True
+
+    impurity = Param(default="gini", validator=lambda v: v in IMPURITIES)
+    max_depth = Param(default=5)
+    max_bins = Param(default=32)
+    min_instances_per_node = Param(default=1)
+    min_info_gain = Param(default=0.01)
+    track_nulls = Param(default=True)
+    track_invalid = Param(default=False)
+
+    def _is_label_slot(self, feature, features) -> bool:
+        return feature is features[0]
+
+    def fit_columns(self, cols, dataset, device):
+        y = cols[0].values_f64()
+        v = cols[1].values_f64()
+        splits = find_tree_splits(
+            v, y, impurity=self.impurity, max_depth=self.max_depth,
+            max_bins=self.max_bins, min_instances_per_node=self.min_instances_per_node,
+            min_info_gain=self.min_info_gain,
+        )
+        should_split = len(splits) >= 1
+        final = [-np.inf, *splits, np.inf] if should_split else []
+        return DecisionTreeNumericBucketizerModel(
+            should_split=should_split, splits=final,
+            track_nulls=self.track_nulls, track_invalid=self.track_invalid,
+        )
+
+
 class DecisionTreeNumericBucketizerModel(Transformer):
+    input_types = (RealNN, OPNumeric)
+    output_type = OPVector
+    allow_label_as_input = True
 
     def __init__(self, should_split: bool, splits: Sequence[float],
                  track_nulls: bool = True, track_invalid: bool = False, **kw):
@@ -54,6 +174,9 @@ class DecisionTreeNumericBucketizerModel(Transformer):
         self.splits = list(splits)
         self.track_nulls = track_nulls
         self.track_invalid = track_invalid
+
+    def _is_label_slot(self, feature, features) -> bool:
+        return feature is features[0]
 
     #: scoring only reads the value slot — the label is absent at serve time
     device_input_slots = (1,)

@@ -7,11 +7,14 @@ import numpy as np
 import torch
 
 from ..data.dataset import Column
-from ..stages.base import Transformer
+from ..stages.base import SequenceTransformer
+from ..types import OPVector
 from ..utils.vector_metadata import VectorColumnMetadata, VectorMetadata
 
 
-class VectorsCombiner(Transformer):
+class VectorsCombiner(SequenceTransformer):
+    sequence_input_type = OPVector
+    output_type = OPVector
 
     def device_transform(self, *blocks: torch.Tensor) -> torch.Tensor:
         """Column concat; the blocks must share one dtype, as the reference's

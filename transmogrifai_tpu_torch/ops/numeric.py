@@ -1,9 +1,13 @@
 """Numeric vectorizers: imputation + null tracking (counterpart of
-``transmogrifai_tpu/ops/numeric.py``, scoring halves only).
+``transmogrifai_tpu/ops/numeric.py``).
 
 A group of same-typed numeric features becomes one (n, N) block, or (n, 2N)
-with a null indicator after each value slot.  The device halves take the
-canonical float32-with-NaN lift of each input and run as plain torch ops.
+with a null indicator after each value slot.  ``NumericVectorizer`` fits the
+fills on the host in float64 numpy, as the reference does (mean, mode or a
+constant), so fitted states come out bitwise equal.  The device halves take
+the canonical float32-with-NaN lift of each input and run as plain torch
+ops; the fills enter them rounded to float32, as the reference's program
+bakes them.
 """
 
 from __future__ import annotations
@@ -14,7 +18,8 @@ import numpy as np
 import torch
 
 from ..data.dataset import Column
-from ..stages.base import Param, Transformer
+from ..stages.base import Param, SequenceEstimator, SequenceTransformer, Transformer
+from ..types import Binary, OPNumeric, OPVector, RealNN
 from ..utils.vector_metadata import NULL_INDICATOR, VectorColumnMetadata, VectorMetadata
 from ._consts import device_const
 
@@ -53,8 +58,44 @@ def _device_interleave(values: torch.Tensor, isnan: torch.Tensor) -> torch.Tenso
     return torch.stack([values, isnan.to(values.dtype)], dim=2).reshape(n, 2 * N)
 
 
+class NumericVectorizer(SequenceEstimator):
+    """Impute (mean/mode/constant) + optional null indicators for nullable numerics."""
+
+    sequence_input_type = OPNumeric
+    output_type = OPVector
+
+    fill_strategy = Param(default="mean", doc="mean | mode | constant",
+                          validator=lambda v: v in ("mean", "mode", "constant"))
+    fill_constant = Param(default=0.0)
+    track_nulls = Param(default=True)
+
+    def fit_columns(self, cols, dataset, device):
+        x = _stack_f64(cols)
+        if self.fill_strategy == "constant":
+            fills = np.full(x.shape[1], float(self.fill_constant))
+        elif self.fill_strategy == "mode":
+            fills = np.array([_col_mode(x[:, j]) for j in range(x.shape[1])])
+        else:
+            with np.errstate(invalid="ignore"):
+                fills = np.nan_to_num(np.nanmean(x, axis=0), nan=0.0)
+        return NumericVectorizerModel(fills=fills, track_nulls=self.track_nulls)
+
+
+def _col_mode(v: np.ndarray) -> float:
+    """The most frequent present value (the smallest among ties), 0 when
+    every value is missing."""
+    v = v[~np.isnan(v)]
+    if v.size == 0:
+        return 0.0
+    vals, counts = np.unique(v, return_counts=True)
+    return float(vals[np.argmax(counts)])
+
+
 class NumericVectorizerModel(Transformer):
     """Fill missing values with the fitted fills, plus optional null indicators."""
+
+    sequence_input_type = OPNumeric
+    output_type = OPVector
 
     def __init__(self, fills: np.ndarray, track_nulls: bool = True, **kw):
         super().__init__(**kw)
@@ -78,8 +119,11 @@ class NumericVectorizerModel(Transformer):
         return _emit(filled, nan.astype(np.float32) if self.track_nulls else None, meta)
 
 
-class RealNNVectorizer(Transformer):
+class RealNNVectorizer(SequenceTransformer):
     """Non-nullable reals: direct passthrough into the vector."""
+
+    sequence_input_type = RealNN
+    output_type = OPVector
 
     def device_transform(self, *xs: torch.Tensor) -> torch.Tensor:
         return torch.stack(xs, dim=1)
@@ -89,8 +133,11 @@ class RealNNVectorizer(Transformer):
         return _emit(x, None, _numeric_meta(self, track_nulls=False))
 
 
-class BinaryVectorizer(Transformer):
+class BinaryVectorizer(SequenceTransformer):
     """Booleans -> {0,1} + null indicator (missing treated as 0)."""
+
+    sequence_input_type = Binary
+    output_type = OPVector
 
     track_nulls = Param(default=True)
 

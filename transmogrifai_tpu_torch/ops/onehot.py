@@ -1,23 +1,27 @@
-"""One-hot pivot of categorical text (counterpart of ``transmogrifai_tpu/ops/onehot.py``,
-scoring half of ``OneHotVectorizerModel``).
+"""One-hot pivot of categorical text (counterpart of ``transmogrifai_tpu/ops/onehot.py``:
+``OneHotVectorizer`` and its model).
 
-String work stays on the host: each slot's raw values encode to int32 level
-codes (vocab index, ``k`` = OTHER, ``k+1`` = null, or -1 when nulls are
-untracked).  The device half writes every slot's one-hot block into one
-(n, sum of widths) output with one launch of the encode kernel
-(``perf/kernels/encode.py``, K4's slots).
+String work stays on the host.  The fit keeps each feature's top-K levels by
+count (ties by value) that reach the minimum support, with the reference's
+``Counter`` and sort, so the vocabularies come out equal.  Each slot's raw
+values encode to int32 level codes (vocab index, ``k`` = OTHER, ``k+1`` =
+null, or -1 when nulls are untracked).  The device half writes every slot's
+one-hot block into one (n, sum of widths) output with one launch of the
+encode kernel (``perf/kernels/encode.py``, K4's slots).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from collections import Counter
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..data.dataset import Column
 from ..perf.kernels import encode as KE
-from ..stages.base import Transformer
+from ..stages.base import Param, SequenceEstimator, Transformer
+from ..types import OPVector, Text
 from ..utils.vector_metadata import (
     NULL_INDICATOR,
     OTHER_INDICATOR,
@@ -25,6 +29,8 @@ from ..utils.vector_metadata import (
     VectorMetadata,
 )
 
+TOP_K_DEFAULT = 20          # the reference Transmogrifier's TopK
+MIN_SUPPORT_DEFAULT = 10    # and its MinSupport
 #: per-slot bound on the serving code memo (high-cardinality junk values must
 #: not grow an unbounded cache inside a long-lived scoring process)
 _CODE_MEMO_MAX = 65536
@@ -35,7 +41,56 @@ def clean_text_value(v: str) -> str:
     return "".join(ch for ch in v.strip() if ch.isalnum() or ch == " ")
 
 
+class _OneHotFitMixin:
+    def _fit_vocab(self, value_lists: Sequence[Sequence[str]]) -> List[List[str]]:
+        """Per input feature: ordered kept levels (top-K by count, min support)."""
+        vocabs = []
+        for values in value_lists:
+            counts = Counter(values)
+            kept = [
+                v for v, c in counts.most_common()
+                if c >= self.min_support
+            ]
+            # stable order: count desc, then value asc (deterministic across runs)
+            kept = sorted(kept, key=lambda v: (-counts[v], v))[: self.top_k]
+            vocabs.append(kept)
+        return vocabs
+
+
+class OneHotVectorizer(_OneHotFitMixin, SequenceEstimator):
+    """Single-select categorical (PickList/ComboBox/location text) pivot."""
+
+    sequence_input_type = Text
+    output_type = OPVector
+
+    top_k = Param(default=TOP_K_DEFAULT)
+    min_support = Param(default=MIN_SUPPORT_DEFAULT)
+    clean_text = Param(default=True)
+    track_nulls = Param(default=True)
+
+    def _levels_of(self, col: Column) -> List[str]:
+        out = []
+        cleaned: Dict[str, str] = {}  # each distinct raw value cleaned once
+        for v in col.data:
+            if v is None or v == "":
+                continue
+            if self.clean_text:
+                c = cleaned.get(v)
+                if c is None:
+                    c = cleaned[v] = clean_text_value(v)
+                v = c
+            out.append(v)
+        return out
+
+    def fit_columns(self, cols, dataset, device):
+        vocabs = self._fit_vocab([self._levels_of(c) for c in cols])
+        return OneHotVectorizerModel(
+            vocabs=vocabs, clean_text=self.clean_text, track_nulls=self.track_nulls)
+
+
 class OneHotVectorizerModel(Transformer):
+    sequence_input_type = Text
+    output_type = OPVector
 
     def __init__(self, vocabs: List[List[str]], clean_text: bool = True,
                  track_nulls: bool = True, **kw):
@@ -67,18 +122,23 @@ class OneHotVectorizerModel(Transformer):
                 if c != -2:
                     continue
                 raw = v = col.data[i]
-                if v is not None and type(v) is not str:  # noqa: E721
-                    v = self.inputs[slot].ftype._convert(v)
-                if v is None or v == "":
-                    c = null_code
-                else:
-                    c = index.get(clean_text_value(v) if self.clean_text else v, k)
+                try:  # a value met earlier in this column
+                    c = memo.get(raw, -2)
+                except TypeError:
+                    pass
+                if c == -2:
+                    if v is not None and type(v) is not str:  # noqa: E721
+                        v = self.inputs[slot].ftype._convert(v)
+                    if v is None or v == "":
+                        c = null_code
+                    else:
+                        c = index.get(clean_text_value(v) if self.clean_text else v, k)
+                    if len(memo) < _CODE_MEMO_MAX:
+                        try:
+                            memo[raw] = c
+                        except TypeError:
+                            pass
                 codes[i] = c
-                if len(memo) < _CODE_MEMO_MAX:
-                    try:
-                        memo[raw] = c
-                    except TypeError:
-                        pass
         return np.asarray(codes, dtype=np.int32)
 
     def _code_memo(self, slot: int) -> Dict:

@@ -1,7 +1,8 @@
-"""Mean fill and z-normalization (counterpart of ``transmogrifai_tpu/ops/scalers.py``,
-scoring halves of ``FillMissingWithMeanModel`` and ``StandardScalerModel``).
+"""Mean fill and z-normalization (counterpart of ``transmogrifai_tpu/ops/scalers.py``:
+``FillMissingWithMean``, ``StandardScaler`` and their models).
 
-The fitted constants are Python floats.  The reference's jnp code rounds them
+The fits are host float64 numpy, as in the reference.  The fitted constants
+are Python floats.  The reference's jnp code rounds them
 to float32 before the arithmetic (JAX's weak typing), so the device halves
 here hand torch float32 tensors, never Python scalars.
 """
@@ -12,13 +13,31 @@ import numpy as np
 import torch
 
 from ..data.dataset import Column
-from ..stages.base import Transformer
-from ..types import RealNN
+from ..stages.base import Param, UnaryEstimator, UnaryTransformer
+from ..types import OPNumeric, RealNN
 from ._consts import device_const
 
 
-class FillMissingWithMeanModel(Transformer):
+class FillMissingWithMean(UnaryEstimator):
+    """Real -> RealNN with train-mean imputation."""
+
+    input_types = (OPNumeric,)
+    output_type = RealNN
+
+    default_value = Param(default=0.0, doc="fill when the training column is all-empty")
+
+    def fit_columns(self, cols, dataset, device):
+        v = cols[0].values_f64()
+        ok = ~np.isnan(v)
+        mean = float(v[ok].mean()) if ok.any() else float(self.default_value)
+        return FillMissingWithMeanModel(mean=mean)
+
+
+class FillMissingWithMeanModel(UnaryTransformer):
     """Real -> RealNN with the training mean in place of missing values."""
+
+    input_types = (OPNumeric,)
+    output_type = RealNN
 
     def __init__(self, mean: float, **kw):
         super().__init__(**kw)
@@ -34,8 +53,29 @@ class FillMissingWithMeanModel(Transformer):
         return Column(RealNN, filled, np.ones(len(filled), dtype=np.bool_))
 
 
-class StandardScalerModel(Transformer):
+class StandardScaler(UnaryEstimator):
+    """z-normalization (reference OpScalarStandardScaler)."""
+
+    input_types = (RealNN,)
+    output_type = RealNN
+
+    with_mean = Param(default=True)
+    with_std = Param(default=True)
+
+    def fit_columns(self, cols, dataset, device):
+        v = cols[0].data.astype(np.float64)
+        mean = float(v.mean()) if self.with_mean else 0.0
+        std = float(v.std())
+        if not self.with_std or std < 1e-12:
+            std = 1.0
+        return StandardScalerModel(mean=mean, std=std)
+
+
+class StandardScalerModel(UnaryTransformer):
     """z-normalization ``(x - mean) / std`` in float32."""
+
+    input_types = (RealNN,)
+    output_type = RealNN
 
     def __init__(self, mean: float, std: float, **kw):
         super().__init__(**kw)

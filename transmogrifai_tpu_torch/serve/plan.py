@@ -6,12 +6,13 @@ parts, each timed (``last_timings``, ``metrics()``):
 1. **host encode** — field extraction; float32 lifts of raw numeric features
    (NaN for missing, one lift shared by every stage that reads the feature);
    stage-owned encodings such as the one-hot level codes;
-2. **device prefix** — the batch's operands, padded, are packed into one
-   pinned host buffer per dtype and reach ``device`` in one copy each; every
-   prefix stage whose device half is the encode kernel and whose inputs are
-   all operands (the one-hot and bucketize slots) is encoded by one launch
-   of it (``perf/kernels/encode.py::encode_slots``); the other prefix stages
-   (``workflow/plan.py``) run in topological order as torch ops and the
+2. **device prefix** — the machinery shared with the training-time plan
+   (``workflow/plan.py::DevicePrefix``): the batch's operands, padded, are
+   packed into one pinned host buffer per dtype and reach ``device`` in one
+   copy each; every prefix stage whose device half is the encode kernel and
+   whose inputs are all operands (the one-hot and bucketize slots) is
+   encoded by one launch of it (``perf/kernels/encode.py::encode_slots``);
+   the other prefix stages run in topological order as torch ops and the
    port's CUDA kernels; the outputs the host still needs come back as numpy;
 3. **host remainder** — every other stage (the model head, float64 numpy)
    through its columnar ``transform``; a tree head scores batches above 512
@@ -37,15 +38,14 @@ import torch
 from ..data.dataset import Column, Dataset
 from ..features.feature import Feature, _NamedExtract
 from ..features.generator import FeatureGeneratorStage
-from ..perf.kernels import encode as KE
 from ..perf.kernels.dispatch import resolve_device
 from ..types import ColumnKind, NonNullableEmptyException
 from ..workflow.dag import compute_dag
 from ..workflow.plan import (
-    DEVICE_LIFT_KINDS,
-    device_slots,
-    partition_scoring_stages,
+    DevicePrefix,
+    Staging,
     run_host_stages,
+    serving_entry_ok,
 )
 
 
@@ -72,54 +72,6 @@ def resolve_scoring_stages(result_features: Sequence[Feature],
 def _bucket_for(n: int, min_bucket: int, max_bucket: int) -> int:
     b = max(int(min_bucket), 1 << max(0, (int(n) - 1)).bit_length())
     return min(b, max_bucket)
-
-
-class _Staging:
-    """The prefix's operands for one row bucket: one packed host buffer and
-    one device buffer per entry dtype (on the card the host buffer is
-    pinned, so its copy is one asynchronous DMA).  ``operands[i]`` is entry
-    i's contiguous row of its device buffer."""
-
-    def __init__(self, dtypes: Tuple[np.dtype, ...], bucket: int,
-                 device: torch.device):
-        groups: Dict[np.dtype, List[int]] = {}
-        for i, dt in enumerate(dtypes):
-            groups.setdefault(dt, []).append(i)
-        on_card = device.type == "cuda"
-        self.dtypes = dtypes
-        self.buffers: List[tuple] = []
-        self.operands: List[torch.Tensor] = [None] * len(dtypes)
-        for dt, idx in groups.items():
-            host = torch.from_numpy(np.zeros((len(idx), bucket), dt))
-            if on_card:
-                host = host.pin_memory()
-            dev = host.to(device) if on_card else host
-            self.buffers.append((idx, host.numpy(), host, dev))
-            for r, i in enumerate(idx):
-                self.operands[i] = dev[r]
-        self.device = device
-        self.copied = torch.cuda.Event() if on_card else None
-
-    def load(self, entries: List[np.ndarray], n: int) -> int:
-        """Fill the buffers with a batch's entries (rows past ``n`` zeroed)
-        and start their copies to the device; returns the copies issued."""
-        if self.copied is not None:
-            # a pinned buffer is refilled only once the previous batch's copy
-            # out of it has finished (the batch's device->host copy of the
-            # outputs synchronises anyway; this covers a prefix the host
-            # reads nothing from)
-            self.copied.synchronize()
-        copies = 0
-        for idx, host_np, host, dev in self.buffers:
-            for r, i in enumerate(idx):
-                host_np[r, :n] = entries[i]
-            host_np[:, n:] = 0
-            if dev is not host:
-                dev.copy_(host, non_blocking=True)
-                copies += 1
-        if self.copied is not None:
-            self.copied.record(torch.cuda.current_stream(self.device))
-        return copies
 
 
 def _extract(gen: FeatureGeneratorStage, records) -> list:
@@ -189,7 +141,7 @@ def _plain(v: Any):
     return v
 
 
-class CompiledScoringPlan:
+class CompiledScoringPlan(DevicePrefix):
     """Fitted workflow model bound to a device for batch scoring.
 
     ``plan.score(records)`` returns one ``{result feature name: value}`` dict
@@ -200,19 +152,15 @@ class CompiledScoringPlan:
                  max_bucket: int = 1024):
         if max_bucket < min_bucket or min_bucket < 1:
             raise ValueError(f"bad bucket range [{min_bucket}, {max_bucket}]")
-        self.device = resolve_device(device)
         self.min_bucket = 1 << (int(min_bucket) - 1).bit_length()
         self.max_bucket = 1 << (int(max_bucket) - 1).bit_length()
         self.result_features: List[Feature] = list(model.result_features)
-        self._runners = resolve_scoring_stages(self.result_features, model.fitted)
-        self._prefix, self._remainder, self._device_uids = \
-            partition_scoring_stages(self._runners)
+        super().__init__(resolve_scoring_stages(self.result_features, model.fitted),
+                         serving_entry_ok, resolve_device(device))
         self._generators = self._collect_generators()
-        self._build_entries()
-        self._build_wiring()
-        self._build_encode_group()
+        self._build_sources()
         #: row bucket -> its staging buffers (built at the bucket's first batch)
-        self._staging: Dict[int, _Staging] = {}
+        self._staging: Dict[int, Staging] = {}
         self._counters = {"scored_records": 0, "scored_batches": 0,
                           "encode_ms": 0.0, "device_ms": 0.0, "host_ms": 0.0,
                           "h2d_copies": 0}
@@ -236,44 +184,11 @@ class CompiledScoringPlan:
                     seen.setdefault(st.uid, st)
         return list(seen.values())
 
-    def _build_entries(self) -> None:
-        """Entry operands of the prefix: ``("lift", feature_uid)``, the
-        float32 lift of a raw numeric feature shared by every consumer, or
-        ``("enc", stage_uid, slot)``, a stage's own encoding of its input."""
-        by_uid = {g.get_output().uid: g for g in self._generators}
-        entry_keys: List[tuple] = []
-        entry_index: Dict[tuple, int] = {}
-        self._entry_lifts: Dict[tuple, Tuple[Callable, str]] = {}
-        self._entry_encoders: Dict[tuple, Tuple[Any, int, str]] = {}
-        self._slot_sources: Dict[Tuple[str, int], tuple] = {}
-        for runner in self._prefix:
-            for slot in device_slots(runner):
-                f = runner.inputs[slot]
-                if f.uid in self._device_uids:
-                    self._slot_sources[(runner.uid, slot)] = ("env", f.uid)
-                    continue
-                gen = by_uid[f.uid]
-                if f.ftype.kind in DEVICE_LIFT_KINDS \
-                        and not runner.device_lifts_input(slot):
-                    key = ("lift", f.uid)
-                    if key not in entry_index:  # one lift per raw feature
-                        entry_index[key] = len(entry_keys)
-                        entry_keys.append(key)
-                        self._entry_lifts[key] = (_lift_builder(gen), gen.raw_name)
-                else:
-                    key = ("enc", runner.uid, slot)
-                    entry_index[key] = len(entry_keys)
-                    entry_keys.append(key)
-                    self._entry_encoders[key] = (runner, slot, gen.raw_name)
-                self._slot_sources[(runner.uid, slot)] = ("entry", entry_index[key])
-        self._entry_keys = entry_keys
-
-    def _build_wiring(self) -> None:
-        self._wiring: List[Tuple[Any, List[tuple], str]] = []
-        for runner in self._prefix:
-            srcs = [self._slot_sources[(runner.uid, slot)]
-                    for slot in device_slots(runner)]
-            self._wiring.append((runner, srcs, runner.get_output().uid))
+    def _build_sources(self) -> None:
+        """Where each entry comes from in a batch of records, and which
+        prefix outputs and raw columns the host remainder needs."""
+        self._lift_builders: Dict[tuple, Callable] = {
+            key: _lift_builder(f.origin_stage) for key, f in self._entry_lifts.items()}
         needed: Dict[str, Feature] = {}
         for runner in self._remainder:
             for f in runner.inputs:
@@ -296,46 +211,10 @@ class CompiledScoringPlan:
         self._host_raw = list(host_needed.items())
         # encoder inputs the host needs for nothing else skip typed conversion
         self._encoder_light: Dict[str, FeatureGeneratorStage] = {}
-        for runner, slot, raw_name in self._entry_encoders.values():
-            if raw_name not in host_needed:
-                self._encoder_light[raw_name] = next(
-                    g for g in self._generators if g.raw_name == raw_name)
-
-    def _build_encode_group(self) -> None:
-        """Take out of the wiring every stage that describes encode slots and
-        reads operands only: one slot table encodes them all into one
-        buffer, each stage's output a block of its columns."""
-        specs: List[KE.SlotSpec] = []
-        self._encode_inputs: List[int] = []
-        self._encode_blocks: List[Tuple[str, int, int]] = []
-        rest = []
-        for runner, srcs, out_uid in self._wiring:
-            slot_specs = runner.device_slot_specs()
-            if slot_specs is None or any(tag != "entry" for tag, _ in srcs):
-                rest.append((runner, srcs, out_uid))
-                continue
-            col = sum(s.width for s in specs)
-            specs.extend(slot_specs)
-            self._encode_inputs.extend(key for _, key in srcs)
-            self._encode_blocks.append(
-                (out_uid, col, sum(s.width for s in slot_specs)))
-        self._wiring = rest
-        self._encode_table = KE.plan_slots(specs) if specs else None
-
-    def _encode(self, ops_in: List[torch.Tensor], bucket: int,
-                env: Dict[str, torch.Tensor]) -> None:
-        """The grouped stages' outputs, by one encode_slots call: a buffer
-        whose row stride is rounded up to 4 floats (so the kernel's rows
-        start 16-byte aligned), each stage's block a view of it."""
-        table = self._encode_table
-        if table is None:
-            return
-        width = table.width
-        buf = torch.empty((bucket, -(-width // 4) * 4), dtype=torch.float32,
-                          device=self.device)[:, :width]
-        KE.encode_slots([ops_in[i] for i in self._encode_inputs], table, buf)
-        for uid, col, w in self._encode_blocks:
-            env[uid] = buf[:, col:col + w]
+        for _runner, _slot, f in self._entry_encoders.values():
+            gen = f.origin_stage
+            if gen.raw_name not in host_needed:
+                self._encoder_light[gen.raw_name] = gen
 
     def _stage(self, entries: List[np.ndarray], n: int,
                bucket: int) -> List[torch.Tensor]:
@@ -348,7 +227,7 @@ class CompiledScoringPlan:
         dtypes = tuple(e.dtype for e in entries)
         st = self._staging.get(bucket)
         if st is None or st.dtypes != dtypes:
-            st = self._staging[bucket] = _Staging(dtypes, bucket, self.device)
+            st = self._staging[bucket] = Staging(dtypes, bucket, self.device)
         self._counters["h2d_copies"] += st.load(entries, n)
         return st.operands
 
@@ -363,26 +242,15 @@ class CompiledScoringPlan:
         entries = []
         for key in self._entry_keys:
             if key[0] == "lift":
-                entries.append(self._entry_lifts[key][0](records))
+                entries.append(self._lift_builders[key](records))
             else:
-                runner, slot, raw_name = self._entry_encoders[key]
+                runner, slot, f = self._entry_encoders[key]
+                raw_name = f.origin_stage.raw_name
                 col = enc_cols.get(raw_name)
                 if col is None:
                     raise ValueError(f"raw feature {raw_name!r} is required by "
                                      f"{runner.uid} but absent from the records")
                 entries.append(np.asarray(runner.encode_device_input(slot, col)))
-        return host_cols, entries
-
-    def _encode_dataset(self, ds: Dataset) -> Tuple[Dict[str, Column], List[np.ndarray]]:
-        host_cols = {name: ds[name] for name, _ in self._host_raw if name in ds}
-        entries = []
-        for key in self._entry_keys:
-            if key[0] == "lift":
-                entries.append(ds[self._entry_lifts[key][1]].values_f64()
-                               .astype(np.float32))
-            else:
-                runner, slot, raw_name = self._entry_encoders[key]
-                entries.append(np.asarray(runner.encode_device_input(slot, ds[raw_name])))
         return host_cols, entries
 
     def _run_prefix(self, entries: List[np.ndarray], n: int) -> List[np.ndarray]:
@@ -401,9 +269,7 @@ class CompiledScoringPlan:
         ops_in = self._stage(entries, n, bucket)
         env: Dict[str, torch.Tensor] = {}
         self._encode(ops_in, bucket, env)
-        for runner, srcs, out_uid in self._wiring:
-            ops = [env[key] if tag == "env" else ops_in[key] for tag, key in srcs]
-            env[out_uid] = runner.device_transform(*ops)
+        self._run_wiring(ops_in, env)
         if on_card:
             end.record()
         outs = [env[u][:n].cpu().numpy() for u in self._out_uids]
@@ -459,30 +325,6 @@ class CompiledScoringPlan:
         host_cols, entries = self._encode_records(records)
         ds = self._run(host_cols, entries, n, time.perf_counter() - t0)
         return self._rows_from(ds, n)
-
-    def transform(self, dataset: Dataset) -> Dataset:
-        """Columnar scoring of a dataset of raw columns: the prefix runs over
-        ``max_bucket``-row slices, the host remainder once over all rows (as
-        the reference's whole-table transform does); returns ``dataset``
-        with every stage's output column added."""
-        n = dataset.n_rows
-        t0 = time.perf_counter()
-        host_cols, entries = self._encode_dataset(dataset)
-        t_encode = time.perf_counter() - t0
-        outs: List[List[np.ndarray]] = []
-        for lo in range(0, n, self.max_bucket):
-            hi = min(n, lo + self.max_bucket)
-            outs.append(self._run_prefix([e[lo:hi] for e in entries], hi - lo))
-        cols = {k: dataset[k] for k in dataset.names}
-        cols.update(host_cols)
-        for i, f in enumerate(self._out_features):
-            cols[f.name] = self._materialize(
-                f, np.concatenate([o[i] for o in outs]))
-        t0 = time.perf_counter()
-        ds = run_host_stages(Dataset(cols), self._remainder, device=self.device)
-        self.last_timings.update(encode_ms=t_encode * 1e3,
-                                 host_ms=(time.perf_counter() - t0) * 1e3)
-        return ds
 
     def _rows_from(self, ds: Dataset, n: int) -> List[Dict[str, Any]]:
         from ..models.prediction import PredictionColumn

@@ -25,8 +25,9 @@ Stages are rebuilt from saved models through ``STAGE_REGISTRY``, keyed by the
 reference class names; the port registers only what it implements.
 
 Stages are also wired by hand: ``feature.transform_with(stage, *others)``
-sets the stage's inputs (checked against ``input_types``) and creates its
-output feature.  An estimator's ``fit(dataset, device=None)`` fits on the
+sets the stage's inputs (checked against ``input_types``, and for the
+sequence stages against ``sequence_input_type``) and creates its output
+feature.  An estimator's ``fit(dataset, device=None)`` fits on the
 CUDA card unless ``device`` names another device, and returns its model
 bound to the estimator's uid, inputs and output feature.
 """
@@ -35,7 +36,17 @@ from __future__ import annotations
 
 import copy as _copy
 import itertools
-from typing import TYPE_CHECKING, Any, Dict, List, Optional, Sequence, Tuple, Type
+from typing import (
+    TYPE_CHECKING,
+    Any,
+    Callable,
+    Dict,
+    List,
+    Optional,
+    Sequence,
+    Tuple,
+    Type,
+)
 
 from ..features.feature import Feature, feature_uid
 from ..types import FeatureType, OPVector
@@ -45,13 +56,17 @@ if TYPE_CHECKING:  # pragma: no cover
 
 
 class Param:
-    """Stage parameter with a default; values resolve instance > default."""
+    """Stage parameter with a default and an optional validator; values
+    resolve instance > default."""
 
-    __slots__ = ("name", "default")
+    __slots__ = ("name", "default", "doc", "validator")
 
-    def __init__(self, default: Any = None):
+    def __init__(self, default: Any = None, doc: str = "",
+                 validator: Optional[Callable[[Any], bool]] = None):
         self.name: str = ""
         self.default = default
+        self.doc = doc
+        self.validator = validator
 
     def __set_name__(self, owner, name):
         self.name = name
@@ -62,6 +77,8 @@ class Param:
         return obj._param_values.get(self.name, self.default)
 
     def __set__(self, obj, value):
+        if self.validator is not None and not self.validator(value):
+            raise ValueError(f"Invalid value for param {self.name!r}: {value!r}")
         obj._param_values[self.name] = value
 
 
@@ -82,8 +99,12 @@ class PipelineStage:
         super().__init_subclass__(**kwargs)
         STAGE_REGISTRY[cls.__name__] = cls
 
-    #: expected input feature types, one per input
+    #: expected input feature types, one per input (fixed-arity stages)
     input_types: Tuple[Type[FeatureType], ...] = ()
+    #: for sequence stages: the one repeated input type (variable arity)
+    sequence_input_type: Optional[Type[FeatureType]] = None
+    #: the fewest sequence inputs
+    min_sequence_inputs: int = 1
     output_type: Type[FeatureType] = OPVector
     #: whether a response feature may feed this stage as a non-label input
     allow_label_as_input: bool = False
@@ -138,13 +159,23 @@ class PipelineStage:
         return self
 
     def _check_input_schema(self, features: Sequence[Feature]) -> None:
-        if len(features) != len(self.input_types):
-            raise ValueError(f"{type(self).__name__} expects "
-                             f"{len(self.input_types)} inputs, got {len(features)}")
-        for expected, f in zip(self.input_types, features):
-            if not issubclass(f.ftype, expected):
+        if self.sequence_input_type is not None:
+            fixed = len(self.input_types)
+            if len(features) < fixed + self.min_sequence_inputs:
+                raise ValueError(
+                    f"{type(self).__name__} expects at least "
+                    f"{fixed + self.min_sequence_inputs} inputs, got {len(features)}")
+            expected = list(self.input_types) + [self.sequence_input_type] * (
+                len(features) - fixed)
+        else:
+            if len(features) != len(self.input_types):
+                raise ValueError(f"{type(self).__name__} expects "
+                                 f"{len(self.input_types)} inputs, got {len(features)}")
+            expected = list(self.input_types)
+        for want, f in zip(expected, features):
+            if not issubclass(f.ftype, want):
                 raise TypeError(f"Feature {f.name!r} has type {f.ftype.__name__}, "
-                                f"expected {expected.__name__}")
+                                f"expected {want.__name__}")
         if not self.allow_label_as_input:
             for f in features:
                 if f.is_response and not self._is_label_slot(f, features):
@@ -232,6 +263,26 @@ class Estimator(PipelineStage):
         model._input_features = self._input_features
         model._output_feature = self.get_output()
         return model
+
+
+class UnaryTransformer(Transformer):
+    """1 input -> 1 output."""
+
+
+class SequenceTransformer(Transformer):
+    """N inputs of ``sequence_input_type`` -> 1 output."""
+
+
+class UnaryEstimator(Estimator):
+    """1 input -> a fitted model."""
+
+
+class BinaryEstimator(Estimator):
+    """2 inputs (a label and a feature) -> a fitted model."""
+
+
+class SequenceEstimator(Estimator):
+    """N inputs of ``sequence_input_type`` -> a fitted model."""
 
 
 class EstimatorStub(Estimator):

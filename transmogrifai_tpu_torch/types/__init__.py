@@ -1,5 +1,8 @@
-"""Feature types of the serving slice: Real, RealNN, Binary, PickList,
-OPVector and Prediction (plus their abstract bases)."""
+"""Feature types of the ported slices: the numerics (Real, RealNN, Integral,
+Binary, ...), the categorical text types (PickList, ComboBox and the
+location texts), OPVector and Prediction (plus their abstract bases).  Dates,
+free text, collections other than OPVector, geolocations and the typed maps
+are not ported: transmogrify has no vectorizer for them yet."""
 
 from .base import (  # noqa: F401
     ColumnKind,
@@ -10,5 +13,22 @@ from .base import (  # noqa: F401
 )
 from .collections import OPCollection, OPVector  # noqa: F401
 from .maps import OPMap, Prediction  # noqa: F401
-from .numerics import Binary, OPNumeric, Real, RealNN  # noqa: F401
-from .text import PickList, Text  # noqa: F401
+from .numerics import (  # noqa: F401
+    Binary,
+    Currency,
+    Integral,
+    OPNumeric,
+    Percent,
+    Real,
+    RealNN,
+)
+from .text import (  # noqa: F401
+    City,
+    ComboBox,
+    Country,
+    PickList,
+    PostalCode,
+    State,
+    Street,
+    Text,
+)

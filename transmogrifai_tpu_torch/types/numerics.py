@@ -47,6 +47,34 @@ class RealNN(NonNullable, Real):
 
 
 @register
+class Currency(Real):
+    __slots__ = ()
+
+
+@register
+class Percent(Real):
+    __slots__ = ()
+
+
+@register
+class Integral(OPNumeric):
+    """Optional long."""
+
+    __slots__ = ()
+    kind = ColumnKind.INT
+
+    @classmethod
+    def _convert(cls, value: Any) -> Optional[int]:
+        if value is None:
+            return None
+        if isinstance(value, bool):
+            return int(value)
+        if isinstance(value, numbers.Integral):
+            return int(value)
+        raise FeatureTypeError(f"{cls.__name__} expects an integer, got {value!r}")
+
+
+@register
 class Binary(Categorical, OPNumeric):
     """Optional boolean."""
 

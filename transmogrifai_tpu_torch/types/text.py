@@ -27,3 +27,33 @@ class PickList(Categorical, Text):
     """Single-select categorical string."""
 
     __slots__ = ()
+
+
+@register
+class ComboBox(Text):
+    __slots__ = ()
+
+
+@register
+class Country(Text):
+    __slots__ = ()
+
+
+@register
+class State(Text):
+    __slots__ = ()
+
+
+@register
+class City(Text):
+    __slots__ = ()
+
+
+@register
+class PostalCode(Text):
+    __slots__ = ()
+
+
+@register
+class Street(Text):
+    __slots__ = ()

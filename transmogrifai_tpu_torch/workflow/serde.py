@@ -14,6 +14,8 @@ Loading:
 - transformer and fitted-model states rebuild through the port's
   ``STAGE_REGISTRY``, keyed by the reference class names, with their params
   and attributes restored as saved (arrays stay numpy);
+- the selector's and the sanity checker's summaries restore as the port's
+  dataclasses (``ModelSelectorSummary``, ``SanityCheckerSummary``, ...);
 - estimator nodes were saved as stubs (uid + wiring) and load as
   :class:`~..stages.base.EstimatorStub`; scoring resolves them to the fitted
   model saved under the same uid;
@@ -88,14 +90,17 @@ class _Decoder:
 
 
 def _restore_dataclass(name: str, data):
-    """The selector's summary and its parts restore as the port's
-    dataclasses (the reference's fields); other summaries (the sanity
-    checker's) as plain data."""
+    """The selector's and the sanity checker's summaries and their parts
+    restore as the port's dataclasses (the reference's names and fields);
+    any other summary as plain data."""
+    from ..checkers.sanity import ColumnStats, SanityCheckerSummary
     from ..models.selector import ModelSelectorSummary
     from ..models.tuning import ModelEvaluation, PrepSummary
 
     cls = {"ModelSelectorSummary": ModelSelectorSummary,
-           "ModelEvaluation": ModelEvaluation, "PrepSummary": PrepSummary}.get(name)
+           "ModelEvaluation": ModelEvaluation, "PrepSummary": PrepSummary,
+           "SanityCheckerSummary": SanityCheckerSummary,
+           "ColumnStats": ColumnStats}.get(name)
     if cls is None or not isinstance(data, dict):
         return data
     names = {f.name for f in dataclasses.fields(cls) if f.init}
@@ -202,7 +207,7 @@ def load_model(path: str):
 #: attributes every stage has that the manifest records elsewhere, and
 #: runtime-only caches
 _SKIP_ATTRS = {"_param_values", "_input_features", "_output_feature",
-               "operation_name", "uid", "_code_memos"}
+               "operation_name", "uid", "_code_memos", "_device_consts"}
 
 
 class _Encoder:

@@ -1,7 +1,11 @@
 """Workflow and WorkflowModel (counterpart of ``transmogrifai_tpu/workflow/workflow.py``).
 
-Training::
+Training from raw typed columns::
 
+    vec = transmogrify([*predictors, *[r.auto_bucketize(label) for r in reals]])
+    pred = label.transform_with(
+        BinaryClassificationModelSelector.with_cross_validation(),
+        label.sanity_check(vec))
     wf = Workflow().set_input_dataset(ds).set_result_features(label, pred)
     model = wf.train()                       # fits on the CUDA card
 
@@ -36,6 +40,9 @@ class Workflow:
     def __init__(self):
         self.result_features: List[Feature] = []
         self._input_dataset: Optional[Dataset] = None
+        #: records of the last ``train()``: one per estimator fit and one per
+        #: transform flush (``workflow/fit.py::fit_stage_list``)
+        self.last_train_profile: List[dict] = []
 
     def set_result_features(self, *features: Feature) -> "Workflow":
         self.result_features = list(features)
@@ -96,7 +103,9 @@ class Workflow:
             raise ValueError("set_result_features before train()")
         dev = resolve_device(device)
         raw = self.generate_raw_data()
-        _, fitted = fit_dag(raw, self.result_features, device=dev)
+        profile: List[dict] = []
+        _, fitted = fit_dag(raw, self.result_features, device=dev, profile=profile)
+        self.last_train_profile = profile
         return WorkflowModel(result_features=self.result_features, fitted=fitted)
 
 
@@ -132,14 +141,16 @@ class WorkflowModel:
 
     def score(self, dataset: Optional[Dataset] = None,
               keep_intermediate: bool = False, *, device=None) -> Dataset:
-        """Score a dataset of raw columns: its raw columns plus the result
-        features, or every stage's output with ``keep_intermediate``.  The
-        reference's reader (``dataset=None``) is not ported."""
+        """Score a dataset of raw columns through one whole-table transform
+        plan (``workflow/fit.py::transform_dag``): its raw columns plus the
+        result features, or every stage's output with ``keep_intermediate``.
+        The reference's reader (``dataset=None``) is not ported."""
         from ..perf.kernels.dispatch import resolve_device
+        from .fit import transform_dag
 
         dev = resolve_device(device)
         _refuse_unported("WorkflowModel.score", {"dataset=None": dataset is None})
-        out = self.serving_plan(device=dev).transform(dataset)
+        out = transform_dag(dataset, self.result_features, self.fitted, dev)
         if keep_intermediate:
             return out
         keep = [f.name for f in self.result_features if f.name in out]
