@@ -121,7 +121,40 @@ Phases, one JSON line each:
                SanityChecker; the selector), peak device memory, encode
                launches and copies, and the flush's encode launch bitwise
                and timed beside its bound.
-11. summary  — nvidia-smi's line, then one {"kernels": [...]} line, then the
+11. selection_parity — the default regression and multiclass selectors
+               (RegressionModelSelector: LinearRegression, RandomForest, GBT,
+               GLM gaussian; MultiClassificationModelSelector: multinomial LR,
+               RandomForest, DecisionTree, NaiveBayes behind a DataCutter) at
+               4096 rows x 16 on the card, TF32 off, against the JAX
+               package's record (fixtures/training_selection,
+               tools/make_torch_selection_fixture.py): regression, 3 classes
+               and 30 classes (K1 tiles its channels), the forests' draws fed
+               from the record.  Every CV metric within its family's
+               tolerance (SELECTION_TOL), the reference's winner (or one that
+               ties it within the tolerance), the data prep equal, the
+               winner's train metrics close.  It is also the warm-up of
+               phases 12-14.
+12. wide_label_kernels — K1 at 200 grad/hess channels (100 classes),
+               65 536 rows x 128: int8 at 150 lanes x 16 nodes bitwise and
+               float at 3 lanes x 4 nodes within f32_tolerance, both
+               channel-tiled; forest regression's float K1 at 150 lanes x 16
+               nodes over 1 048 576 rows; K2 at K = 100 (unstaged) on that
+               float level's histograms (float_agreement) and on integer
+               ones at 150 lanes x 2 nodes (bitwise).  Each timed beside its
+               bound, its plain version and index_add_ (K1, fewer rows).
+13. training_regression — RegressionModelSelector.with_cross_validation()
+               (33 fold-models) at bench.py's 1 048 576 x 128 with a real
+               label (numpy seed 0) through Workflow.train on the card, the
+               counters zeroed just before and read just after: K1-K3 once
+               per grown level (159 in CV, plus a tree winner's refit).
+               Seconds, fold-models/s, seconds per family, the winner, the
+               launches and the peak device memory are printed.
+14. training_multiclass — MultiClassificationModelSelector
+               .with_cross_validation() (24 fold-models) at 1 048 576 x 128
+               with 10 classes, the same way (18 levels in CV); then at
+               65 536 x 128 with 100 classes through the DataCutter, where K1
+               must launch channel-tiled and K2 unstaged.
+15. summary  — nvidia-smi's line, then one {"kernels": [...]} line, then the
                last line {"ok": true, "device": {...}}.
 
 Phase 3 also holds K5 past shared memory (a 5000-split slot, its own launch
@@ -156,6 +189,8 @@ SLEEP_CYCLES = 5_000_000
 FIXTURE = os.path.join("transmogrifai_tpu_torch", "fixtures", "serving_wide")
 TRAIN_FIXTURE = os.path.join("transmogrifai_tpu_torch", "fixtures", "training_trees")
 LINEAR_FIXTURE = os.path.join("transmogrifai_tpu_torch", "fixtures", "training_linear")
+SELECTION_FIXTURE = os.path.join("transmogrifai_tpu_torch", "fixtures",
+                                 "training_selection")
 
 # the tree sweep of bench.py: d = 128, 3 folds, RF {50, depth 3|6}, GBT {50, 3}
 D = 128
@@ -187,6 +222,40 @@ RAW_ROWS = 1 << 18
 #: CV metric tolerance of each family against the reference's record
 FAMILY_TOL = {"LogisticRegression": 1e-4, "LinearSVC": 1e-4,
               "RandomForestClassifier": 1e-6, "GradientBoostedTreesClassifier": 1e-3}
+#: (rtol, atol) of each regression and multiclass family's CV metrics
+#: against the reference's record (fixtures/training_selection): the linear
+#: families' float32 sums run in another order; the trees' float histograms
+#: too, so a near-tie split may go the other way in one tree (regression
+#: metrics in the label's units: 2e-3 of their value).  The multiclass
+#: forests' int8 histograms are exact, but the reference's compiled split
+#: scan sums the classes' gain terms in an order of its own (its fused
+#: program differs in the last bit from its own eager run): at 30 classes 3
+#: of the 50-tree depth-6 forest's 3150 splits go the other way at near-ties
+#: on the CPU, moving a fold's error by up to 1.5e-3 (2 of 1365 rows); their
+#: error rates hold to 3e-3
+SELECTION_TOL = {"LinearRegression": (0, 1e-5), "GeneralizedLinearRegression": (0, 1e-4),
+                 "RandomForestRegressor": (2e-3, 0),
+                 "GradientBoostedTreesRegressor": (2e-3, 0),
+                 "MultinomialLogisticRegression": (0, 1e-4),
+                 "RandomForestClassifier": (0, 3e-3), "DecisionTreeClassifier": (0, 3e-3),
+                 "NaiveBayes": (0, 1e-5)}
+#: the default regression selector: LinearRegression 6 grids + RF 2 + GBT 1 +
+#: GLM 2, and the multiclass one: multinomial LR 3 + RF 2 + DT 2 + NB 1; x 3 folds
+REGRESSION_FOLD_MODELS = (6 + 2 + 1 + 2) * FOLDS
+MULTICLASS_FOLD_MODELS = (3 + 2 + 2 + 1) * FOLDS
+#: grown levels of the default tree families' CV: RF depth 3 + depth 6 (+ GBT
+#: 50 x depth 3 for regression, DT depth 3 + depth 6 for multiclass)
+REGRESSION_CV_LEVELS = 3 + 6 + 50 * 3
+MULTICLASS_CV_LEVELS = 3 + 6 + 3 + 6
+#: classes of the full-width multiclass run, and of the wide-label run at
+#: WIDE_ROWS rows (200 grad/hess channels: K1 tiles them, K2 reads its
+#: histograms where they lie)
+MC_CLASSES = 10
+WIDE_CLASSES = 100
+WIDE_ROWS = 1 << 16
+#: rows of K1's library call at 200 channels (a (lane, channel, row,
+#: feature) index of the full rows would not fit the card)
+WIDE_LIBRARY_ROWS = {True: 256, False: 4096}
 
 
 def emit(obj) -> None:
@@ -295,6 +364,44 @@ def synth(n: int, d: int, seed: int = 0):
     beta = rng.normal(size=d).astype(np.float32) / np.sqrt(d)
     y = (rng.random(n) < 1.0 / (1.0 + np.exp(-(x @ beta)))).astype(np.float64)
     return x, y
+
+
+def regression_label(x, seed: int = 0):
+    """A real label for bench.py's x: y = x[:, :8] @ w + 0.5 sin(x[:, 8]) +
+    N(0, 0.5^2), w and the noise from numpy ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=8)
+    return (x[:, :8] @ w + 0.5 * np.sin(x[:, 8])
+            + rng.normal(size=len(x)) * 0.5).astype(np.float64)
+
+
+def multiclass_label(x, classes: int, seed: int = 0):
+    """y = argmax(x[:, :16] @ W + Gumbel) over ``classes``, from numpy ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=(16, classes))
+    return np.argmax(x[:, :16] @ w + rng.gumbel(size=(len(x), classes)),
+                     axis=1).astype(np.float64)
+
+
+def selection_data(n: int, d: int, classes, seed: int = 0):
+    """tools/make_torch_selection_fixture.py's data: x standard normal from
+    numpy ``seed`` and the label from the same generator (regression where
+    ``classes`` is None)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    if classes is None:
+        w = rng.normal(size=8)
+        y = x[:, :8] @ w + 0.5 * np.sin(x[:, 8]) + rng.normal(size=n) * 0.5
+    else:
+        w = rng.normal(size=(16, classes))
+        y = np.argmax(x[:, :16] @ w + rng.gumbel(size=(n, classes)), axis=1)
+    return x, y.astype(np.float64)
 
 
 def make_records(schema: dict, n: int, rng) -> list:
@@ -691,19 +798,22 @@ def _k1_design_bytes(torch, p: dict, local, gh, d: int, nn: int, int_exact: bool
     slice; the histograms are written once (the float partials written and
     read again)."""
     L, two_k, n = gh.shape
-    scan = p["node_tiles"] * p["feat_tiles"] * L * n * (4 + two_k * gh.element_size())
+    ct = p["chan_tiles"]
+    scan = p["node_tiles"] * p["feat_tiles"] * L * n * (
+        4 * ct + two_k * gh.element_size())
     out_b = L * nn * two_k * (N_BINS + 1) * d * 4
     if not int_exact:
-        codes = p["lane_groups"] * p["node_tiles"] * n * d * 4
+        codes = p["lane_groups"] * ct * p["node_tiles"] * n * d * 4
         partials = 2 * out_b * p["slices"] if p["slices"] > 1 else 0
         return scan + codes + partials + out_b
-    live = (local >= 0) & (local < nn) & (gh != 0).any(dim=1)
-    tile = torch.where(live, local // p["NT"], torch.full_like(local, -1))
     fetched = 0
-    for lg in range(p["lane_groups"]):
-        tl = tile[lg * p["G"]:(lg + 1) * p["G"]]
-        for nt in range(p["node_tiles"]):
-            fetched += int((tl == nt).any(dim=0).sum())
+    for c0 in range(0, two_k, p["CT"]):
+        live = (local >= 0) & (local < nn) & (gh[:, c0:c0 + p["CT"]] != 0).any(dim=1)
+        tile = torch.where(live, local // p["NT"], torch.full_like(local, -1))
+        for lg in range(p["lane_groups"]):
+            tl = tile[lg * p["G"]:(lg + 1) * p["G"]]
+            for nt in range(p["node_tiles"]):
+                fetched += int((tl == nt).any(dim=0).sum())
     return scan + fetched * d * 4 + out_b * (2 if p["slices"] > 1 else 1)
 
 
@@ -720,8 +830,8 @@ def _k1_level(torch, KH, bound, local, gh, binned, nn: int, root: bool,
          "shape": [L, nn, n, D, N_BINS + 1], "ms": time_big_ms(run),
          **bound(KH.bound_bytes(L, n, D, nn, two_k, N_BINS, int_exact),
                  _hist_ops(torch, local, gh, nn)),
-         "plan": {k: p[k] for k in ("G", "NT", "FT", "threads", "R", "slices",
-                                    "merge", "smem")}}
+         "plan": {k: p[k] for k in ("G", "CT", "NT", "FT", "threads", "R", "slices",
+                                    "chan_tiles", "merge", "smem")}}
     design = _k1_design_bytes(torch, p, local, gh, D, nn, int_exact)
     e.update(design_bytes=design, design_floor_ms=design / HBM_BYTES_PER_S * 1e3)
     got = run()
@@ -743,18 +853,21 @@ def _k1_level(torch, KH, bound, local, gh, binned, nn: int, root: bool,
     return e
 
 
+def bound(nbytes: int, ops: int) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the float32 rate, the larger."""
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = ops / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
 def phase_tree_timing(torch, dev) -> dict:
     """K1-K3 timed at the training path's shapes, with bounds, plain and
     library times."""
     KH, KS, KR = _tree_modules()
     t = {}
-
-    def bound(nbytes: int, ops: int) -> dict:
-        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        o_ms = ops / F32_OPS_PER_S * 1e3
-        return {"bound_ms": max(b_ms, o_ms),
-                "bound_by": "bytes" if b_ms >= o_ms else "operations",
-                "bytes": nbytes, "ops": ops}
 
     # K1 at every grown level of the sweep: the int8 path at 150 lanes (RF
     # CV, depth 6: the root, then 1, 2, 4, 8, 16 left children; depth 3's
@@ -994,24 +1107,25 @@ def train_selector(torch, x, y, dev, default: bool = False):
 
 class FixtureDraws:
     """Within the block, the forest's bootstrap draws come from the JAX
-    package's record (fixtures/training_trees: seed 42 + 1, 50 trees, its
-    rows), fed through the port's one seam, ``trees.draw_bootstrap``."""
+    package's record (``fixture``: fixtures/training_trees or
+    training_selection, seed 42 + 1, 50 trees, its rows), fed through the
+    port's one seam, ``trees.draw_bootstrap``."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, fixture: str = TRAIN_FIXTURE):
         import numpy as np
 
         from transmogrifai_tpu_torch.models import trees as TT
 
-        with open(os.path.join(TRAIN_FIXTURE, "summary.json")) as fh:
-            self.recipe = json.load(fh)["recipe"]
-        with np.load(os.path.join(TRAIN_FIXTURE, "arrays.npz")) as npz:
+        with open(os.path.join(fixture, "summary.json")) as fh:
+            recipe = json.load(fh)["recipe"]
+        self.expect = (recipe["rf_boot_seed"], 1.0, 50,
+                       recipe.get("synth_rows", recipe.get("rows")))
+        with np.load(os.path.join(fixture, "arrays.npz")) as npz:
             self.boot = torch.from_numpy(npz["rf_boot"].astype(np.float32))
         self.TT = TT
 
     def draw(self, seed, rate, n_trees, rows, device):
-        r = self.recipe
-        check((seed, rate, n_trees, rows) == (r["rf_boot_seed"], 1.0, 50,
-                                              r["synth_rows"]),
+        check((seed, rate, n_trees, rows) == self.expect,
               f"forest draws asked for ({seed}, {rate}, {n_trees}, {rows})")
         return self.boot.to(device)
 
@@ -1524,6 +1638,319 @@ def phase_training_raw(torch, KE, dev) -> dict:
     return out
 
 
+# -- regression and multiclass selection ------------------------------------------
+
+def train_problem(torch, x, y, dev, selector):
+    """The port's user entry points with ``selector``: FeatureBuilder ->
+    label.transform_with(selector, vector) -> Workflow.train on ``dev``.
+    Returns (WorkflowModel, prediction feature, train seconds)."""
+    import numpy as np
+
+    from transmogrifai_tpu_torch import FeatureBuilder, Workflow
+    from transmogrifai_tpu_torch.data.dataset import Column, Dataset
+    from transmogrifai_tpu_torch.types import RealNN
+
+    label = FeatureBuilder.RealNN("label").extract_field().as_response()
+    vec = FeatureBuilder.OPVector("features").extract_field().as_predictor()
+    pred = label.transform_with(selector, vec)
+    ds = Dataset({"label": Column(RealNN, y.astype(np.float64),
+                                  np.ones(len(y), dtype=np.bool_)),
+                  "features": Column.vector(x)})
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    model = Workflow().set_input_dataset(ds).set_result_features(label, pred) \
+        .train(device=dev)
+    _sync(torch, dev)
+    return model, pred, time.perf_counter() - t0
+
+
+def _selector(classes, **kw):
+    from transmogrifai_tpu_torch.models.selector import (
+        MultiClassificationModelSelector,
+        RegressionModelSelector,
+    )
+
+    cls = RegressionModelSelector if classes is None \
+        else MultiClassificationModelSelector
+    return cls.with_cross_validation(**kw)
+
+
+def _refit_levels(win) -> int:
+    """Grown levels of the winner's refit: none for a linear family."""
+    if not hasattr(win, "trees"):
+        return 0
+    return win.max_depth * (win.n_trees if "GBT" in type(win).__name__ else 1)
+
+
+def phase_selection_parity(torch, KE, dev) -> dict:
+    """The default regression and multiclass selectors at 4096 rows x 16
+    against the JAX package's record (fixtures/training_selection), the
+    forests' draws fed from it, TF32 off: every (family, grid) CV metric
+    within its family's tolerance, the reference's winner (or, where the
+    reference's two best tie within that tolerance, one of them), the data
+    prep equal and the winner's train metrics close.  The 30-class run
+    tiles K1's channels."""
+    import numpy as np
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(SELECTION_FIXTURE, "summary.json")) as fh:
+        rec = json.load(fh)
+    recipe = rec["recipe"]
+    out = {}
+    for name, run in rec["runs"].items():
+        classes = run["classes"]
+        x, y = selection_data(recipe["rows"], recipe["features"], classes,
+                              recipe["data_seed"])
+        selector = _selector(classes, num_folds=recipe["folds"],
+                             seed=recipe["selector_seed"])
+        _reset_all(KE)
+        with FixtureDraws(torch, SELECTION_FIXTURE):
+            model, _, seconds = train_problem(torch, x, y, dev, selector)
+        launches = _all_counts(KE)
+        summary = model.fitted[selector.uid].summary
+        check([(e.model_name, e.grid) for e in summary.validation_results]
+              == [(r["model"], r["grid"]) for r in run["validation"]],
+              f"{name}: the reference's families and grids in its order")
+        dev_max, ref_mean = {}, {}
+        for e, r in zip(summary.validation_results, run["validation"]):
+            rtol, atol = SELECTION_TOL[e.model_name]
+            got, want = np.asarray(e.metric_values), np.asarray(r["values"])
+            check(bool(np.all(np.abs(got - want) <= atol + rtol * np.abs(want))),
+                  f"{name} {e.model_name} {e.grid} CV {got.tolist()} vs "
+                  f"{want.tolist()} (rtol {rtol}, atol {atol})")
+            dev_max[e.model_name] = max(dev_max.get(e.model_name, 0.0),
+                                        float(np.max(np.abs(got - want))))
+            ref_mean[(e.model_name, json.dumps(e.grid, sort_keys=True))] = float(want.mean())
+        win = (summary.best_model_name, json.dumps(summary.best_grid, sort_keys=True))
+        ref_win = (run["winner"]["name"], json.dumps(run["winner"]["grid"], sort_keys=True))
+        rtol, atol = SELECTION_TOL[win[0]]
+        gap = abs(ref_mean[win] - ref_mean[ref_win])
+        check(win == ref_win or gap <= atol + rtol * abs(ref_mean[ref_win]),
+              f"{name}: winner {win} is the reference's {ref_win} or ties it "
+              f"within the tolerance (gap {gap})")
+        check((summary.data_prep.kind, summary.data_prep.details)
+              == (run["data_prep"]["kind"], run["data_prep"]["details"]),
+              f"{name}: data prep {summary.data_prep} == the reference's")
+        train_dev = None
+        if win == ref_win:
+            train_dev = max(abs(summary.train_evaluation[k] - v)
+                            for k, v in run["train_evaluation"].items())
+            check(train_dev <= (1e-4 if classes is None else 1e-3),
+                  f"{name}: train metrics {summary.train_evaluation} vs "
+                  f"{run['train_evaluation']}")
+        if classes is not None and 2 * classes > 44:
+            check(launches["hist_level.chan_tiled"] > 0,
+                  f"{name}: K1 tiled the channels of {classes} classes")
+        out[name] = {"seconds": seconds, "winner": summary.best_model_name,
+                     "winner_grid": summary.best_grid, "winner_equal": win == ref_win,
+                     "winner_gap": gap, "cv_max_abs_dev": dev_max,
+                     "train_max_abs_dev": train_dev,
+                     "launches": {k: v for k, v in launches.items() if v}}
+    emit({"phase": "selection_parity", "rows": recipe["rows"],
+          "features": recipe["features"], **out})
+    return out
+
+
+def _wide_hist_inputs(torch, dev, L: int, n: int, nn: int, classes: int,
+                      int_exact: bool, seed: int):
+    """A level of a ``classes``-class fit: half the rows are right children
+    or leaf-stuck (node -1); grad/hess are fold weight x Poisson bootstrap x
+    one-hot label (int8) for forests, softmax grad/hess (float) for GBT."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    binned = torch.randint(0, N_BINS + 1, (n, D), generator=g, device=dev,
+                           dtype=torch.int32)
+    node = torch.randint(0, 2 * nn, (L, n), generator=g, device=dev, dtype=torch.int32)
+    local = torch.where(node % 2 == 0, node // 2, torch.full_like(node, -1))
+    fold = torch.randint(0, FOLDS, (n,), generator=g, device=dev)
+    w = (fold[None, :] != (torch.arange(L, device=dev) % FOLDS)[:, None]).float()
+    y = torch.randint(0, classes, (n,), generator=g, device=dev)
+    onehot = torch.nn.functional.one_hot(y, classes).T.float()       # (C, n)
+    if int_exact:
+        wt = w * torch.poisson(torch.ones((L, n), device=dev), generator=g)
+        gh = torch.cat([-wt[:, None] * onehot[None],
+                        wt[:, None].expand(L, classes, n)], dim=1)
+        gh = gh.to(torch.int8).contiguous()
+    else:
+        p = torch.softmax(torch.randn((L, classes, n), generator=g, device=dev), dim=1)
+        gh = torch.cat([w[:, None] * (p - onehot[None]),
+                        w[:, None] * p * (1 - p)], dim=1).contiguous()
+    return local.contiguous(), gh, binned
+
+
+def phase_wide_label_kernels(torch, dev) -> dict:
+    """K1 with 200 channels (100 classes) at WIDE_ROWS rows x 128: the int8
+    path at 150 lanes x 16 nodes held bitwise, the float path at 3 lanes x 4
+    nodes within f32_tolerance, both channel-tiled; forest regression's float
+    K1 at 150 lanes x 16 nodes over 1 048 576 rows; K2 at K = 100 (unstaged)
+    on the float level's histograms (float_agreement) and on integer-valued
+    ones at 150 lanes x 2 nodes (bitwise).  Each timed beside its bound, its
+    plain version and, for K1, index_add_ at a stated smaller row count."""
+    KH, KS, _ = _tree_modules()
+    out = {}
+    for key, (L, nn, int_exact, seed) in (("int8", (FOLDS * 50, 16, True, 41)),
+                                          ("f32", (FOLDS, 4, False, 42))):
+        local, gh, binned = _wide_hist_inputs(torch, dev, L, WIDE_ROWS, nn,
+                                              WIDE_CLASSES, int_exact, seed)
+        p = KH.plan(L, WIDE_ROWS, D, nn, 2 * WIDE_CLASSES, N_BINS, int_exact)
+        check(p["chan_tiles"] > 1, f"K1 {key} at 200 channels tiles them: {p}")
+        e = _k1_level(torch, KH, bound, local, gh, binned, nn, False, int_exact)
+        lib_rows = WIDE_LIBRARY_ROWS[int_exact]
+        sl = (local[:, :lib_rows].contiguous(), gh[..., :lib_rows].contiguous(),
+              binned[:lib_rows])
+        call, _ = _index_add_library(torch, *sl, nn)
+        e.update(library_rows=lib_rows, ms_at_library_rows=time_big_ms(
+            lambda: KH.hist_level(*sl, nn, N_BINS, int_exact=int_exact)),
+            library_ms=time_big_ms(call),
+            library="index_add_ of the (lane, channel, row, feature) terms at "
+                    "their flat index, float32 (a composite)")
+        if not int_exact:
+            hist = KH.hist_level(local, gh, binned, nn, N_BINS).reshape(
+                L, nn, 2 * WIDE_CLASSES, N_BINS + 1, D).transpose(-1, -2)
+        out[key] = e
+        del sl, call, local, gh, binned
+        torch.cuda.empty_cache()
+    local, gh, binned = _hist_inputs(torch, dev, FOLDS * 50, FULL_ROWS, 16, False, 43)
+    out["forest_regression_f32"] = _k1_level(torch, KH, bound, local, gh, binned, 16,
+                                             False, False)
+    del local, gh, binned
+    torch.cuda.empty_cache()
+
+    K = WIDE_CLASSES
+    hg, hh = hist[:, :, :K].contiguous(), hist[:, :, K:].contiguous()
+    del hist
+    g = torch.Generator(device=dev).manual_seed(44)
+    shape = (FOLDS * 50, 2, K, D, N_BINS + 1)
+    ig = torch.randint(-20, 20, shape, generator=g, device=dev).float()
+    ih = torch.randint(0, 30, shape, generator=g, device=dev).float()
+    k2 = {}
+    for key, (a, b, params) in (("gbt_level", (hg, hh, (1.0, 0.0, 0.0, 1.0))),
+                                ("rf_level", (ig, ih, (0.0, 0.0, 0.0, 1.0)))):
+        G = a[:, :, :, 0, :].sum(-1).contiguous()
+        H = b[:, :, :, 0, :].sum(-1).contiguous()
+        args = (a, b, G, H, torch.ones((a.shape[0], D), device=dev), N_BINS, *params)
+        L, nn = a.shape[:2]
+        p = KS.plan(L, nn, K, D, N_BINS)
+        check(not p.staged, f"K2 at K = {K} reads its histograms where they lie")
+        run = lambda: KS.split_scan(*args)  # noqa: E731
+        got, again = run(), run()
+        _sync(torch, dev)
+        check(all(torch.equal(u, v) for u, v in zip(got, again)),
+              f"K2 at K = {K} bitwise run to run ({key})")
+        e = {"shape": [L, nn, K, D, N_BINS + 1], "ms": time_device_ms(run),
+             **bound(KS.bound_bytes(L, nn, K, D, N_BINS),
+                     KS.bound_ops(L, nn, K, D, N_BINS)),
+             "plan": p._asdict(), "library_ms": None, "library": None}
+        e["plain_ms"], ref = time_once(lambda: KS.split_scan_torch(*args))
+        if key == "gbt_level":
+            agree = KS.float_agreement(got, *args)
+            check(agree["ok"], f"K2 at K = {K} within tolerance: {agree}")
+            e["agreement"] = agree
+            e["max_abs_err"] = agree["max_abs_err"]
+        else:
+            check(all(torch.equal(u, v) for u, v in zip(got, ref)),
+                  f"K2 at K = {K} bitwise to the plain version")
+            e["max_abs_err"] = 0.0
+        k2[key] = e
+        del args, got, again, ref
+    out["split_scan_k100"] = k2
+    del hg, hh, ig, ih
+    torch.cuda.empty_cache()
+    emit({"phase": "wide_label_kernels", **out})
+    return out
+
+
+def _train_full(torch, KE, dev, x, y, classes, expected_cv_levels: int,
+                fold_models: int) -> dict:
+    """The default selector of ``classes`` (None: regression) over (x, y)
+    through Workflow.train on the card, the counters zeroed just before and
+    read just after: K1-K3 launch once per grown level (CV, then the
+    winner's refit); every CV metric finite; model.score of 1024 rows finite."""
+    import numpy as np
+
+    from transmogrifai_tpu_torch.data.dataset import Column, Dataset
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all(KE)
+    selector = _selector(classes, num_folds=FOLDS, seed=SELECTOR_SEED)
+    model, pred, seconds = train_problem(torch, x, y, dev, selector)
+    launches = _all_counts(KE)
+    peak = torch.cuda.max_memory_allocated()
+    fitted = model.fitted[selector.uid]
+    summary = fitted.summary
+    expected = expected_cv_levels + _refit_levels(fitted.model)
+    for k in ("hist_level", "split_scan", "row_select_lanes"):
+        check(launches[k] == expected,
+              f"{k} launched {launches[k]} times, expected {expected}")
+    check(launches["encode_slots"] == 0, "the training path launches no serving kernel")
+    values = [v for e in summary.validation_results for v in e.metric_values]
+    check(len(values) == fold_models and all(np.isfinite(values)),
+          f"{fold_models} finite fold-model metrics: {len(values)}")
+    scored = model.score(Dataset({"features": Column.vector(x[:1024])}),
+                         device=None if dev.type == "cuda" else dev)[pred.name]
+    check(scored.data.shape[0] == 1024 and np.isfinite(scored.data).all(),
+          "model.score of 1024 rows on the card is finite")
+    profile = selector.last_fit_profile
+    return {"rows": len(y), "features": int(x.shape[1]), "classes": classes,
+            "fold_models": fold_models, "train_seconds": seconds,
+            "fold_models_per_s": fold_models / seconds,
+            "phase_seconds": profile,
+            "family_seconds": {k[3:]: v for k, v in profile.items()
+                               if k.startswith("cv.")},
+            "winner": summary.best_model_name, "winner_grid": summary.best_grid,
+            "winner_model": type(fitted.model).__name__,
+            "cv": [{"model": e.model_name, "grid": e.grid, "mean": e.mean_metric}
+                   for e in summary.validation_results],
+            "train_evaluation": {k: v for k, v in summary.train_evaluation.items()
+                                 if k != "confusion"},
+            "data_prep": vars(summary.data_prep),
+            "launches": launches, "expected_tree_launches": expected,
+            "max_memory_allocated_bytes": peak}
+
+
+def phase_training_regression(torch, KE, dev) -> dict:
+    """RegressionModelSelector.with_cross_validation() (its default families:
+    33 fold-models) at bench.py's 1 048 576 x 128 with a real label from
+    numpy seed 0."""
+    x, _ = synth(FULL_ROWS, D, 0)
+    y = regression_label(x, 0)
+    out = _train_full(torch, KE, dev, x, y, None, REGRESSION_CV_LEVELS,
+                      REGRESSION_FOLD_MODELS)
+    out["label_std"] = float(y.std())
+    check(out["winner"] and min(e["mean"] for e in out["cv"]) < out["label_std"],
+          "the winner's CV rmse is below the label's spread")
+    emit({"phase": "training_regression", **out})
+    return out
+
+
+def phase_training_multiclass(torch, KE, dev) -> dict:
+    """MultiClassificationModelSelector.with_cross_validation() (its default
+    families behind a DataCutter: 24 fold-models) at 1 048 576 x 128 with
+    MC_CLASSES classes; then once at WIDE_ROWS x 128 with WIDE_CLASSES
+    classes, where K1 tiles the channels and K2 reads unstaged."""
+    x, _ = synth(FULL_ROWS, D, 0)
+    y = multiclass_label(x, MC_CLASSES, 0)
+    out = _train_full(torch, KE, dev, x, y, MC_CLASSES, MULTICLASS_CV_LEVELS,
+                      MULTICLASS_FOLD_MODELS)
+    check(out["data_prep"]["details"]["labelsKept"] == list(map(float, range(MC_CLASSES))),
+          "the DataCutter keeps every class")
+    check(min(e["mean"] for e in out["cv"]) < 1.0 - 1.0 / MC_CLASSES,
+          "the winner's CV error is below chance")
+    del x, y
+    x, _ = synth(WIDE_ROWS, D, 1)
+    y = multiclass_label(x, WIDE_CLASSES, 1)
+    wide = _train_full(torch, KE, dev, x, y, WIDE_CLASSES, MULTICLASS_CV_LEVELS,
+                       MULTICLASS_FOLD_MODELS)
+    check(wide["launches"]["hist_level.chan_tiled"] > 0
+          and wide["launches"]["split_scan.unstaged"] > 0,
+          f"100 classes: K1 tiled its channels and K2 read unstaged: {wide['launches']}")
+    check(len(wide["data_prep"]["details"]["labelsKept"]) == WIDE_CLASSES,
+          "the DataCutter keeps 100 classes")
+    out["wide"] = wide
+    emit({"phase": "training_multiclass", **out})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1665,7 +2092,17 @@ def main() -> int:
     # 10. the wide pipeline trained from raw columns
     raw = phase_training_raw(torch, KE, dev)
 
-    # 11. summary
+    # 11. regression and multiclass selection against the JAX package's record
+    phase_selection_parity(torch, KE, dev)
+
+    # 12. K1 and K2 at 100 classes; forest regression's float K1
+    wide = phase_wide_label_kernels(torch, dev)
+
+    # 13-14. the default regression and multiclass selectors at full width
+    treg = phase_training_regression(torch, KE, dev)
+    tmc = phase_training_multiclass(torch, KE, dev)
+
+    # 15. summary
     kernels = []
     tree_src = "transmogrifai_tpu_torch/perf/kernels/csrc/trees.cu"
     for kname, replaces in (("hist_level", "transmogrifai_tpu/perf/kernels/histogram.py:80"),
@@ -1675,6 +2112,9 @@ def main() -> int:
         entry = {"name": kname, "route": "cuda", "source": tree_src,
                  "replaces": replaces, "launches": train["launches"][kname],
                  "launches_training_default": tdef["launches"][kname],
+                 "launches_training_regression": treg["launches"][kname],
+                 "launches_training_multiclass": tmc["launches"][kname],
+                 "launches_training_multiclass_100": tmc["wide"]["launches"][kname],
                  "max_abs_err": tree_err[kname]["max_abs_err"], "parity": "bitwise",
                  **tree_t[kname]}
         if kname == "hist_level":
@@ -1689,6 +2129,10 @@ def main() -> int:
                                                        for e in f_levels]),
                             "parity": "within 1e-5 x |gh| histogram + 1e-6 of "
                                       "the plain version; bitwise run to run"}
+            entry["channel_tiled"] = {"int8_200": wide["int8"], "f32_200": wide["f32"],
+                                      "launches_training_multiclass_100":
+                                      tmc["wide"]["launches"]["hist_level.chan_tiled"]}
+            entry["forest_regression_f32"] = wide["forest_regression_f32"]
         if kname == "split_scan":
             entry["parity"] = "bitwise on integer histograms"
             entry["f32"] = {k: tree_err[kname][f"f32_{k}"] for k in
@@ -1697,6 +2141,10 @@ def main() -> int:
             entry["f32"]["parity"] = ("float histograms of a GBT level: gain within "
                                       "1e-4 x (parent score + |gain|) + 1e-6 of the "
                                       "plain version; bitwise run to run")
+            entry["unstaged_k100"] = {
+                **wide["split_scan_k100"],
+                "launches_training_multiclass_100":
+                tmc["wide"]["launches"]["split_scan.unstaged"]}
         if kname == "row_select_lanes":
             entry["launches_by_path"] = {k: train["launches"][f"row_select_lanes.{k}"]
                                          for k in ("tile", "direct")}

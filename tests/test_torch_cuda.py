@@ -453,6 +453,65 @@ def test_split_scan_float_hists_repeatable(L, nn, d):
         assert all(torch.equal(a, b) for a, b in zip(got, other)), q
 
 
+
+# -- channel tiles: past the channels one CTA holds (44 on the int8 path, 54
+# on the float one at 33 bins) the histogram tiles them; a tile may hold
+# fewer than CT, and another plan of the same level gives the same bits
+
+@pytest.mark.parametrize("L, n, d, nn, n_bins, two_k", [
+    (3, 20011, 128, 4, 32, 44), (150, 4099, 128, 16, 32, 200),
+    (2, 30011, 40, 2, 32, 134), (1, 65537, 128, 1, 32, 60)])
+def test_hist_int_kernel_channel_tiles_bitwise(L, n, d, nn, n_bins, two_k):
+    local, gh, binned = _hist_case(L, n, d, nn, n_bins, two_k, True, seed=n + two_k)
+    p = TH.plan(L, n, d, nn, two_k, n_bins, True)
+    assert p["chan_tiles"] > 1
+    before = TH.launches
+    got = TH.hist_level(local, gh, binned, nn, n_bins, int_exact=True)
+    torch.cuda.synchronize()
+    assert TH.launches == before + 1
+    ref = TH.hist_level_torch(local, gh, binned, nn, n_bins, int_exact=True)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("L, n, d, nn, n_bins, two_k", [
+    (3, 20011, 128, 4, 32, 200), (150, 4099, 128, 16, 32, 60),
+    (1, 65537, 33, 1, 32, 134), (3, 30011, 128, 2, 32, 54)])
+def test_hist_f32_kernel_channel_tiles_within_tolerance(L, n, d, nn, n_bins, two_k):
+    local, gh, binned = _hist_case(L, n, d, nn, n_bins, two_k, False, seed=n + two_k)
+    p = TH.plan(L, n, d, nn, two_k, n_bins, False)
+    assert p["chan_tiles"] > 1
+    a = TH.hist_level(local, gh, binned, nn, n_bins)
+    b = TH.hist_level(local, gh, binned, nn, n_bins)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    ref = TH.hist_level_torch(local, gh, binned, nn, n_bins)
+    tol = TH.f32_tolerance(TH.hist_level_torch(local, gh.abs(), binned, nn, n_bins))
+    assert bool(((a - ref).abs() <= tol).all())
+    # each cell adds its slice's rows in order whatever the channel tiles:
+    # a plan with fewer channels a CTA and the same row slices gives the
+    # same bits
+    q = TH.finish_plan({**{k: p[k] for k in ("G", "NT", "FT", "threads", "R")},
+                        "CT": max(1, p["CT"] // 2)}, L, n, d, nn, two_k, n_bins, False)
+    q.update({k: p[k] for k in ("slices", "rows_per_slice", "merge")})
+    c = TH.launch(local, gh, binned, nn, n_bins, False, q)
+    torch.cuda.synchronize()
+    assert torch.equal(a, c)
+
+
+# K2 at K >= 24: the plan reads the histograms where they lie (unstaged)
+@pytest.mark.parametrize("K, L, nn, d", [(24, 3, 4, 128), (100, 3, 4, 128),
+                                        (30, 150, 16, 16)])
+@pytest.mark.parametrize("miss", ["filled", "empty"])
+def test_split_scan_unstaged_many_classes_bitwise(K, L, nn, d, miss):
+    n_bins = 32
+    assert not TS.plan(L, nn, K, d, n_bins).staged
+    args = _scan_case(L, nn, K, d, n_bins, seed=K + L, special=False, miss=miss)
+    for params in [(1.0, 0.5, 0.1, 1.0), (0.0, 0.0, 0.0, 1.0)]:
+        got = TS.split_scan(*args, n_bins, *params)
+        torch.cuda.synchronize()
+        ref = TS.split_scan_torch(*args, n_bins, *params)
+        assert all(g.dtype == r.dtype and _same(g, r) for g, r in zip(got, ref))
+
 # -- a bucketize slot past shared memory: its own launch, splits read from
 # global memory by a binary search
 

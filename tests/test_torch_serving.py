@@ -319,9 +319,9 @@ class TestUnportedStages:
     def test_unported_model_class_is_named(self, tmp_path):
         def edit(m):
             sel = next(s for s in m["fitted"].values() if s["class"] == "SelectedModel")
-            sel["attrs"]["model"]["__stage__"]["class"] = "NaiveBayesModel"
+            sel["attrs"]["model"]["__stage__"]["class"] = "MLPClassifierModel"
         path = _rewrite_manifest(FIXTURE, str(tmp_path / "m"), edit)
-        with pytest.raises(ValueError, match="NaiveBayesModel"):
+        with pytest.raises(ValueError, match="MLPClassifierModel"):
             TModel.load(path)
 
     def test_unported_transformer_class_is_named(self, tmp_path):

@@ -199,15 +199,19 @@ class TestEntryPoints:
         assert [(type(e).__name__, g) for e, g in sel.models] == ref
 
     def test_train_takes_the_reference_positional_order(self):
-        """``train(0.2)`` asks for a 20 % test split, which is not ported:
-        it raises, it does not train on every row with seed 0.2."""
+        """``train(0.2, 7)`` asks for a 20 % test split drawn from seed 7: it
+        trains on the rest and evaluates the held-out rows, it does not train
+        on every row with seed 0.2; the third positional is the checkpointer,
+        not ported."""
         import inspect
 
         label, _, _, pred = _port_wiring(("rf",))
         wf = TWorkflow().set_input_dataset(_port_ds(*_data(n=60))) \
             .set_result_features(label, pred)
-        with pytest.raises(NotImplementedError, match="test_fraction"):
-            wf.train(0.2)
+        held = wf.train(0.2, 7, device="cpu")
+        assert set(held.selector_model().summary.holdout_evaluation) >= {"auPR", "auROC"}
+        with pytest.raises(NotImplementedError, match="checkpointer"):
+            wf.train(0.2, 7, object(), device="cpu")
         with pytest.raises(NotImplementedError, match="hbm_budget"):
             wf.train(0.0, 42, None, False, 1e9, device="cpu")
         with pytest.raises(TypeError):
@@ -239,7 +243,7 @@ class TestEntryPoints:
         wf = TWorkflow().set_input_dataset(_port_ds(*_data(n=50))) \
             .set_result_features(label, pred)
         for kw in ({"strict": True}, {"resume": "/nonexistent"},
-                   {"host_budget": 1}, {"telemetry": "x"}, {"test_fraction": 0.1},
+                   {"host_budget": 1}, {"telemetry": "x"},
                    {"checkpointer": object()}, {"hbm_budget": 1e9}):
             with pytest.raises(NotImplementedError):
                 wf.train(device="cpu", **kw)

@@ -105,8 +105,12 @@ class TestHistogram:
                 assert 1 <= p["NT"] <= nn and 1 <= p["G"] <= L
                 assert 32 <= p["FT"] <= 128 and p["threads"] <= 1024
         for int_exact in (True, False):
+            # 20 channels x 256 bins do not fit one CTA: the channels tile
+            p = TH.plan(4, 1000, 128, 2, 20, 255, int_exact)
+            assert p["smem"] <= 227 * 1024 and p["chan_tiles"] > 1
+            # one channel of 2001 bins fits no CTA
             with pytest.raises(ValueError, match="shared memory"):
-                TH.plan(4, 1000, 128, 2, 20, 255, int_exact)
+                TH.plan(4, 1000, 128, 2, 2, 2000, int_exact)
 
     def test_wrong_dtype_raises(self):
         local, ghT, binned, nn, n_bins = _hist_inputs(6)
@@ -138,6 +142,55 @@ def _covered_once(total: int, tile: int, tiles: int) -> bool:
     return bool(np.all(count == 1))
 
 
+def _one_cta_tiles(L, d, nn, two_k, B, int_exact):
+    """The tiles of a CTA that holds every channel, as the plan chose them
+    before channels were tiled, or None where no such CTA fits."""
+    def ft_tiles():
+        first = min(128, -(-d // 32) * 32)
+        return [first] + [ft for ft in (64, 32) if ft < first]
+
+    def balanced(total, most):
+        return -(-total // -(-total // most))
+
+    if int_exact:
+        stage = lambda G: 32 * G * 32 * (1 + two_k)  # noqa: E731
+        for FT in ft_tiles():
+            unit = two_k * B * FT * 4
+            units = (220 * 1024 - stage(1)) // unit
+            if units >= 1:
+                break
+        else:
+            return None
+        NT = balanced(nn, units)
+        G = max(1, min(L, units // NT, 8))
+        while G > 1 and G * NT * unit + stage(G) > 220 * 1024:
+            G -= 1
+        return {"G": balanced(L, G), "NT": NT, "FT": FT, "threads": 1024, "R": 32}
+
+    def smem(G, NT, FT, R):
+        return 4 * (G * NT * two_k * B * FT + 2 * (R * FT + G * R + G * two_k * R))
+
+    for budget in (112 * 1024, 227 * 1024):
+        for R in (32, 16):
+            for FT in ft_tiles():
+                if L * nn * FT <= 512 and smem(L, nn, FT, R) <= budget:
+                    return {"G": L, "NT": nn, "FT": FT, "threads": L * nn * FT, "R": R}
+        fits = lambda G, NT: G * NT * 32 <= 512 and smem(G, NT, 32, 16) <= budget  # noqa: E731
+        if not fits(1, 1):
+            continue
+        NT = nn
+        while not fits(1, NT):
+            NT -= 1
+        NT = balanced(nn, NT)
+        G = L
+        while not fits(G, NT):
+            G -= 1
+        G = balanced(L, G)
+        R = next(r for r in (32, 16) if smem(G, NT, 32, r) <= budget)
+        return {"G": G, "NT": NT, "FT": 32, "threads": G * NT * 32, "R": R}
+    return None
+
+
 class TestHistogramPlan:
     @pytest.mark.parametrize("int_exact", [True, False])
     @pytest.mark.parametrize("L, n, d, nn, two_k, n_bins", _PLAN_SHAPES)
@@ -165,6 +218,40 @@ class TestHistogramPlan:
         assert (p["merge"] == "direct") == (p["slices"] == 1)
         if p["slices"] > 1:
             assert p["merge"] == ("atomic" if int_exact else "partials")
+
+    @pytest.mark.parametrize("int_exact", [True, False])
+    @pytest.mark.parametrize("L", [1, 3, 150])
+    @pytest.mark.parametrize("nn", [1, 16])
+    def test_every_channel_count_to_200_plans(self, L, nn, int_exact):
+        """2K = 2..200 channels (1..100 classes) at 33 bins: every plan fits
+        one CTA's shared memory and tiles each channel exactly once; where
+        one CTA held every channel before channel tiles existed, the plan is
+        that one (one channel tile)."""
+        n, d, n_bins = 65536, 128, 32
+        B = n_bins + 1
+        for two_k in range(2, 202, 2):
+            p = TH.plan(L, n, d, nn, two_k, n_bins, int_exact)
+            assert p["smem"] <= TH._CTA_SMEM_MAX
+            assert _covered_once(two_k, p["CT"], p["chan_tiles"]), two_k
+            assert _covered_once(L, p["G"], p["lane_groups"])
+            assert _covered_once(nn, p["NT"], p["node_tiles"])
+            if int_exact:
+                assert p["smem"] == (p["G"] * p["NT"] * p["CT"] * B * p["FT"] * 4
+                                     + p["threads"] // 32 * p["G"] * 32 * (1 + p["CT"]))
+            else:
+                assert p["threads"] == p["G"] * p["NT"] * p["FT"] <= TH.F32_MAX_THREADS
+                assert p["smem"] == 4 * (p["G"] * p["NT"] * p["CT"] * B * p["FT"]
+                                         + 2 * p["R"] * (p["FT"] + p["G"] * (1 + p["CT"])))
+            single = _one_cta_tiles(L, d, nn, two_k, B, int_exact)
+            if single is not None:
+                assert p["chan_tiles"] == 1 and p == TH.finish_plan(
+                    single, L, n, d, nn, two_k, n_bins, int_exact), two_k
+        # the widths that do not fit one CTA: 22 classes on the int8 path,
+        # 27 on the float one
+        first = 44 if int_exact else 54
+        assert _one_cta_tiles(L, d, nn, first - 2, B, int_exact) is not None
+        assert _one_cta_tiles(L, d, nn, first, B, int_exact) is None
+        assert TH.plan(L, n, d, nn, first, n_bins, int_exact)["chan_tiles"] > 1
 
     def test_gbt_level_holds_every_lane_and_node(self):
         # each row's codes read once per level and feature tile

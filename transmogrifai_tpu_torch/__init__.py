@@ -8,10 +8,15 @@ bucketizers), ``label.sanity_check(vector)`` drops low-signal and leaky
 slots, and ``label.transform_with(BinaryClassificationModelSelector
 .with_cross_validation(), checked)`` selects among the reference's default
 families (LogisticRegression, RandomForest, GBT, LinearSVC) or the ones a
-caller names; ``Workflow().set_input_dataset(ds).set_result_features(label,
+caller names; ``RegressionModelSelector`` (LinearRegression, RandomForest,
+GBT, GLM) and ``MultiClassificationModelSelector`` (multinomial
+LogisticRegression, RandomForest, DecisionTree, NaiveBayes) select for the
+other two problem types, by k-fold CV or ``with_train_validation_split``;
+``Workflow().set_input_dataset(ds).set_result_features(label,
 pred).train()`` fits it all on the CUDA card unless ``device`` says
-otherwise, each run of fitted stages between two fits transformed over the
-whole table on the card.  It saves (``model.save(path)``) and loads
+otherwise (``train(test_fraction=)`` holds rows out and evaluates them),
+each run of fitted stages between two fits transformed over the whole table
+on the card.  It saves (``model.save(path)``) and loads
 (``WorkflowModel.load(path)``) models in the reference's format, either
 package's, scores them (``model.score``, ``model.evaluate``) and serves
 them: ``model.serving_plan()`` and ``plan.score(records)``.  The encode
@@ -27,8 +32,16 @@ from .checkers.sanity import SanityChecker  # noqa: F401
 from .data.dataset import Dataset  # noqa: F401
 from .evaluators.base import Evaluators  # noqa: F401
 from .features.builder import FeatureBuilder  # noqa: F401
+from .models.glm import GeneralizedLinearRegression  # noqa: F401
+from .models.linear import LinearRegression  # noqa: F401
 from .models.logistic import LogisticRegression  # noqa: F401
-from .models.selector import BinaryClassificationModelSelector  # noqa: F401
+from .models.naive_bayes import NaiveBayes  # noqa: F401
+from .models.selector import (  # noqa: F401
+    BinaryClassificationModelSelector,
+    MultiClassificationModelSelector,
+    RegressionModelSelector,
+)
+from .models.softmax import MultinomialLogisticRegression  # noqa: F401
 from .models.svm import LinearSVC  # noqa: F401
 from .ops.bucketizers import DecisionTreeNumericBucketizer  # noqa: F401
 from .ops.combiner import VectorsCombiner  # noqa: F401
@@ -42,8 +55,10 @@ from .workflow.workflow import Workflow, WorkflowModel  # noqa: F401
 
 __all__ = ["BinaryClassificationModelSelector", "BinaryVectorizer",
            "CompiledScoringPlan", "Dataset", "DecisionTreeNumericBucketizer",
-           "Evaluators", "FeatureBuilder", "FillMissingWithMean", "LinearSVC",
-           "LogisticRegression", "NumericVectorizer", "OneHotVectorizer",
-           "RealNNVectorizer", "SanityChecker", "StandardScaler",
-           "VectorsCombiner", "Workflow", "WorkflowModel", "load_model",
-           "save_model", "transmogrify"]
+           "Evaluators", "FeatureBuilder", "FillMissingWithMean",
+           "GeneralizedLinearRegression", "LinearRegression", "LinearSVC",
+           "LogisticRegression", "MultiClassificationModelSelector",
+           "MultinomialLogisticRegression", "NaiveBayes", "NumericVectorizer",
+           "OneHotVectorizer", "RealNNVectorizer", "RegressionModelSelector",
+           "SanityChecker", "StandardScaler", "VectorsCombiner", "Workflow",
+           "WorkflowModel", "load_model", "save_model", "transmogrify"]

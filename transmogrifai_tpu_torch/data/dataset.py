@@ -188,6 +188,20 @@ class Dataset:
     def select(self, names: Iterable[str]) -> "Dataset":
         return Dataset({n: self[n] for n in names})
 
+    def take(self, indices: np.ndarray) -> "Dataset":
+        """The rows at ``indices`` (positions) of every column."""
+        idx = np.asarray(indices)
+        return Dataset({n: c.take(idx) for n, c in self._columns.items()})
+
+    def split(self, test_fraction: float, seed: int = 42):
+        """(train, test): a numpy permutation from ``seed``, its first
+        round(n * test_fraction) rows the test part -- the reference's
+        draw, so both packages split alike."""
+        n = self.n_rows
+        perm = np.random.default_rng(seed).permutation(n)
+        n_test = int(round(n * test_fraction))
+        return self.take(perm[n_test:]), self.take(perm[:n_test])
+
     def __repr__(self) -> str:
         cols = ", ".join(f"{n}:{c.ftype.__name__}" for n, c in self._columns.items())
         return f"Dataset(n={self.n_rows}, [{cols}])"

@@ -1,5 +1,6 @@
 """Metric functions on torch tensors (counterpart of
-``transmogrifai_tpu/evaluators/metrics.py``).
+``transmogrifai_tpu/evaluators/metrics.py``): binary, regression and
+multiclass.
 
 Every function takes (scores, labels, weights) tensors on one device;
 weight-0 rows are inert.  AuROC / AuPR follow Spark's
@@ -72,10 +73,83 @@ def log_loss(scores, y, w) -> torch.Tensor:
     return window_sum(w * ll) / torch.clamp_min(window_sum(w), EPS)
 
 
+def threshold_curves(scores, y, w, num_thresholds: int = 100):
+    """(thresholds, precision, recall, fpr) at ``num_thresholds`` evenly
+    spaced rank positions of the falling scores.  Tied scores collapse: the
+    counts at a threshold are those of the last row with that score (the
+    reference's ``searchsorted``), so every point is one a threshold gives."""
+    order = torch.sort(-scores, stable=True).indices
+    ss, ys, ws = scores[order], y[order], w[order]
+    tp = torch.cumsum(ws * ys, dim=0)
+    fp = torch.cumsum(ws * (1.0 - ys), dim=0)
+    pos = torch.clamp_min(tp[-1], EPS)
+    neg = torch.clamp_min(fp[-1], EPS)
+    n = scores.shape[0]
+    idx = torch.clamp((torch.arange(num_thresholds, device=scores.device) * n)
+                      // num_thresholds, 0, n - 1)
+    th = ss[idx]
+    last = torch.searchsorted(-ss, -th, right=True) - 1
+    return (th, tp[last] / torch.clamp_min(tp[last] + fp[last], EPS),
+            tp[last] / pos, fp[last] / neg)
+
+
+# --- regression --------------------------------------------------------------
+
+def _wmean(v, w):
+    return window_sum(w * v) / torch.clamp_min(window_sum(w), EPS)
+
+
+def mse(pred, y, w):
+    return _wmean((pred - y) ** 2, w)
+
+
+def rmse(pred, y, w):
+    return torch.sqrt(mse(pred, y, w))
+
+
+def mae(pred, y, w):
+    return _wmean((pred - y).abs(), w)
+
+
+def r2(pred, y, w):
+    sw = torch.clamp_min(window_sum(w), EPS)
+    ybar = window_sum(w * y) / sw
+    ss_res = window_sum(w * (y - pred) ** 2)
+    ss_tot = torch.clamp_min(window_sum(w * (y - ybar) ** 2), EPS)
+    return 1.0 - ss_res / ss_tot
+
+
+def smape(pred, y, w):
+    denom = torch.clamp_min(pred.abs() + y.abs(), EPS)
+    return 2.0 * window_sum(w * (pred - y).abs() / denom) \
+        / torch.clamp_min(window_sum(w), EPS)
+
+
+# --- multiclass --------------------------------------------------------------
+
+def multiclass_error(prob, y, w):
+    """Weighted error of the argmax class; prob (n, C), or a 1-D positive
+    class score where a model took its binary path (only two classes
+    seen), read at 0.5.  y (n,) integer-valued labels."""
+    if prob.dim() == 1:
+        pred = (prob > 0.5).to(y.dtype)
+    else:
+        pred = torch.argmax(prob, dim=1).to(y.dtype)
+    wrong = (pred != y).to(torch.float32)
+    return window_sum(w * wrong) / torch.clamp_min(window_sum(w), EPS)
+
+
 METRICS_BINARY = {
     "auPR": au_pr,
     "auROC": au_roc,
     "logLoss": log_loss,
+}
+METRICS_REGRESSION = {
+    "rmse": rmse,
+    "mse": mse,
+    "mae": mae,
+    "r2": r2,
+    "smape": smape,
 }
 #: metrics where larger is better
 LARGER_IS_BETTER = {"auPR", "auROC", "r2", "f1", "precision", "recall"}
@@ -91,3 +165,12 @@ def binary_summary(scores, preds, y, w) -> torch.Tensor:
     prec, rec, f1, err = precision_recall_f1(preds, y, w)
     return torch.stack([au_roc(scores, y, w), au_pr(scores, y, w),
                         prec, rec, f1, err, tp, fp, tn, fn])
+
+
+REGRESSION_SUMMARY_KEYS = ("rmse", "mse", "mae", "r2", "smape")
+
+
+def regression_summary(pred, y, w) -> torch.Tensor:
+    """rmse, mse, mae, r2 and smape as one (5,) tensor (one host copy)."""
+    return torch.stack([rmse(pred, y, w), mse(pred, y, w), mae(pred, y, w),
+                        r2(pred, y, w), smape(pred, y, w)])

@@ -47,6 +47,15 @@ def place_rows(x32: np.ndarray, device) -> torch.Tensor:
     return t
 
 
+def sweep_tensors(x, y, train_w, val_w, device):
+    """(x, y, train_w, val_w) of a CV sweep as float32 tensors on ``device``,
+    the feature block through the shared placement."""
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+
+    return place_rows(np.asarray(x, np.float32), device), t(y), t(train_w), t(val_w)
+
+
 def gather_scores(pending) -> np.ndarray:
     """Host copy of a pending sweep result: a list of per-grid (k,) device
     tensors (this is where the host waits for the sweep)."""
@@ -66,6 +75,14 @@ def full_f32():
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+def softmax_probs(raw: np.ndarray) -> np.ndarray:
+    """Row softmax of host logits or log-likelihoods, shifted by the row
+    maximum (the multiclass heads' probabilities)."""
+    m = raw.max(axis=1, keepdims=True)
+    e = np.exp(raw - m)
+    return e / e.sum(axis=1, keepdims=True)
+
+
 def _link(z: torch.Tensor, link: str) -> torch.Tensor:
     return torch.sigmoid(z) if link == "sigmoid" else z
 
@@ -80,6 +97,19 @@ def eval_linear_sweep(xd: torch.Tensor, yd: torch.Tensor, betas: torch.Tensor,
     g, k, d1 = betas.shape
     scores = _link(xd @ betas.reshape(g * k, d1).T, link)
     return [torch.stack([metric_fn(scores[:, gi * k + f].contiguous(), yd, vw[f])
+                         for f in range(k)]) for gi in range(g)]
+
+
+def eval_softmax_sweep(xd: torch.Tensor, yd: torch.Tensor, bs: torch.Tensor,
+                       vw: torch.Tensor, metric_fn):
+    """Metric per (grid, fold) of a multiclass linear sweep: the logits of
+    every (grid, fold) weight matrix in one product, a softmax per fit, each
+    (n, C) probability matrix scored with its fold's validation weights.
+    bs (g, k, d, C); vw (k, n).  Returns a list of per-grid (k,) tensors."""
+    g, k, d1, c = bs.shape
+    logits = xd @ bs.permute(2, 0, 1, 3).reshape(d1, g * k * c)
+    probs = torch.softmax(logits.reshape(-1, g * k, c), dim=-1)
+    return [torch.stack([metric_fn(probs[:, gi * k + f], yd, vw[f])
                          for f in range(k)]) for gi in range(g)]
 
 

@@ -1,8 +1,10 @@
 """Prediction column — dense storage for model outputs (counterpart of
 ``transmogrifai_tpu/models/prediction.py``).
 
-Predictions stay as arrays: pred (n,), raw (n, k), prob (n, k);
-``to_values`` builds the reference's ``Prediction`` map per row.
+Predictions stay as arrays: pred (n,), raw (n, k), prob (n, k) -- a
+regression column has ``pred`` only, a K-class column K raw and K
+probability columns; ``to_values`` builds the reference's ``Prediction`` map
+per row.
 """
 
 from __future__ import annotations
@@ -36,6 +38,10 @@ class PredictionColumn(Column):
     @classmethod
     def classification(cls, raw: np.ndarray, prob: np.ndarray) -> "PredictionColumn":
         return cls(np.argmax(prob, axis=1).astype(np.float64), raw, prob)
+
+    @classmethod
+    def regression(cls, pred: np.ndarray) -> "PredictionColumn":
+        return cls(pred)
 
     @property
     def score(self) -> np.ndarray:

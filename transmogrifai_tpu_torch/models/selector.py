@@ -2,10 +2,15 @@
 (counterpart of ``transmogrifai_tpu/models/selector.py``).
 
 ``fit`` runs the reference's four steps on one device: data prep (the
-splitter's weights), validation of every (family, grid) over the folds,
-refit of the winner on all training rows, and the winner's train metrics.
-``default_models()`` is the reference's binary set and grids:
-LogisticRegression, RandomForest, GBT and LinearSVC.
+splitter's weights), validation of every (family, grid) over the folds or
+one train/validation split, refit of the winner on all training rows, and
+the winner's train (and reserved holdout) metrics.  Each problem type has
+the reference's factory with its default families and grids:
+``BinaryClassificationModelSelector`` (LogisticRegression, RandomForest,
+GBT, LinearSVC; a DataBalancer), ``MultiClassificationModelSelector``
+(multinomial LogisticRegression, RandomForest, DecisionTree, NaiveBayes; a
+DataCutter) and ``RegressionModelSelector`` (LinearRegression,
+RandomForest, GBT, GLM gaussian; a DataSplitter).
 """
 
 from __future__ import annotations
@@ -18,15 +23,23 @@ import numpy as np
 import torch
 
 from ..data.dataset import Column
-from ..evaluators.base import BinaryClassificationEvaluator, Evaluator, Evaluators
+from ..evaluators.base import (
+    BinaryClassificationEvaluator,
+    Evaluator,
+    Evaluators,
+    MultiClassificationEvaluator,
+    RegressionEvaluator,
+)
 from .base import PredictionEstimatorBase, PredictionModelBase
 from .prediction import PredictionColumn
 from .tuning import (
     CrossValidator,
     DataBalancer,
+    DataCutter,
     DataSplitter,
     ModelEvaluation,
     PrepSummary,
+    TrainValidationSplit,
     ValidationResult,
 )
 
@@ -126,7 +139,9 @@ class ModelSelector(PredictionEstimatorBase):
         pred_cache: List[PredictionColumn] = []
 
         def evaluate(ev, w: Optional[np.ndarray]) -> Dict[str, float]:
-            if payload is not None and hasattr(ev, "evaluate_device"):
+            # threshold curves read host rows
+            if payload is not None and hasattr(ev, "evaluate_device") \
+                    and getattr(ev, "num_thresholds", 0) == 0:
                 wv = wd if w is None else torch.from_numpy(
                     np.asarray(w, np.float32)).to(device)
                 return ev.evaluate_device(payload[0], payload[1], yd, wv)
@@ -213,3 +228,85 @@ class BinaryClassificationModelSelector:
                                      stratify=stratify),
             splitter=splitter if splitter is not None else DataBalancer(),
             train_evaluators=[Evaluators.binary_classification()])
+
+    @staticmethod
+    def with_train_validation_split(train_ratio: float = 0.75,
+                                    validation_metric: str = "auPR",
+                                    seed: int = 42,
+                                    splitter: Optional[DataSplitter] = None,
+                                    models: Optional[Sequence] = None) -> ModelSelector:
+        ev = BinaryClassificationEvaluator(validation_metric)
+        return ModelSelector(
+            models=models or BinaryClassificationModelSelector.default_models(),
+            validator=TrainValidationSplit(ev, train_ratio=train_ratio, seed=seed),
+            splitter=splitter if splitter is not None else DataBalancer(),
+            train_evaluators=[Evaluators.binary_classification()])
+
+
+class MultiClassificationModelSelector:
+    """Multiclass selector factories with the reference's defaults (3
+    folds, error, a DataCutter splitter, multiclass train metrics)."""
+
+    @staticmethod
+    def default_models() -> List[Tuple[PredictionEstimatorBase, List[Dict[str, Any]]]]:
+        """The reference's default families and grids, in its order."""
+        from .naive_bayes import NaiveBayes
+        from .softmax import MultinomialLogisticRegression
+        from .trees import DecisionTreeClassifier, RandomForestClassifier
+
+        return [
+            (MultinomialLogisticRegression(), [{"reg_param": r}
+                                               for r in (0.001, 0.01, 0.1)]),
+            (RandomForestClassifier(), [{"num_trees": 50, "max_depth": d}
+                                        for d in (3, 6)]),
+            (DecisionTreeClassifier(), [{"max_depth": d} for d in (3, 6)]),
+            (NaiveBayes(), [{"smoothing": 1.0}]),
+        ]
+
+    @staticmethod
+    def with_cross_validation(num_folds: int = 3, validation_metric: str = "error",
+                              seed: int = 42,
+                              splitter: Optional[DataSplitter] = None,
+                              models: Optional[Sequence] = None,
+                              stratify: bool = False) -> ModelSelector:
+        ev = MultiClassificationEvaluator(validation_metric)
+        return ModelSelector(
+            models=models or MultiClassificationModelSelector.default_models(),
+            validator=CrossValidator(ev, num_folds=num_folds, seed=seed,
+                                     stratify=stratify),
+            splitter=splitter if splitter is not None else DataCutter(),
+            train_evaluators=[Evaluators.multi_classification()])
+
+
+class RegressionModelSelector:
+    """Regression selector factories with the reference's defaults (3 folds,
+    rmse, a DataSplitter, regression train metrics)."""
+
+    @staticmethod
+    def default_models() -> List[Tuple[PredictionEstimatorBase, List[Dict[str, Any]]]]:
+        """The reference's default families and grids, in its order."""
+        from .glm import GeneralizedLinearRegression
+        from .linear import LinearRegression
+        from .trees import GradientBoostedTreesRegressor, RandomForestRegressor
+
+        return [
+            (LinearRegression(), [{"reg_param": r, "elastic_net": e}
+                                  for r in (0.001, 0.01, 0.1) for e in (0.0, 0.5)]),
+            (RandomForestRegressor(), [{"num_trees": 50, "max_depth": d}
+                                       for d in (3, 6)]),
+            (GradientBoostedTreesRegressor(), [{"num_rounds": 50, "max_depth": 3}]),
+            (GeneralizedLinearRegression(), [{"family": "gaussian", "reg_param": r}
+                                             for r in (0.0, 0.01)]),
+        ]
+
+    @staticmethod
+    def with_cross_validation(num_folds: int = 3, validation_metric: str = "rmse",
+                              seed: int = 42,
+                              splitter: Optional[DataSplitter] = None,
+                              models: Optional[Sequence] = None) -> ModelSelector:
+        ev = RegressionEvaluator(validation_metric)
+        return ModelSelector(
+            models=models or RegressionModelSelector.default_models(),
+            validator=CrossValidator(ev, num_folds=num_folds, seed=seed),
+            splitter=splitter if splitter is not None else DataSplitter(),
+            train_evaluators=[Evaluators.regression()])

@@ -250,9 +250,9 @@ def _grow_trees(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
             left_local = torch.where(is_left, local // 2,
                                      torch.full_like(local, -1))
             left = level_hist(left_local, n_nodes // 2)
-            right = prev_hist - left
-            hist = torch.stack([left, right], dim=2).reshape(
+            hist = torch.stack([left, prev_hist - left], dim=2).reshape(
                 L, n_nodes, 2 * K, d, B)
+            del left, prev_hist
         prev_hist = hist
         hist_g = hist[:, :, :K].contiguous()
         hist_h = hist[:, :, K:].contiguous()
@@ -281,17 +281,19 @@ def _grow_trees(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         value[:, sl] = node_val
 
         if depth == max_depth - 1:
-            # the children's totals are the chosen split's left/right sums
-            gl = torch.cumsum(hist_g[..., :n_bins], dim=-1)[..., :-1]
-            hl = torch.cumsum(hist_h[..., :n_bins], dim=-1)[..., :-1]
-            g_miss = hist_g[..., n_bins]
-            h_miss = hist_h[..., n_bins]
-            bidx = best.long()[:, :, None, None].expand(L, n_nodes, K, 1)
-            gl_best = torch.gather(gl.reshape(L, n_nodes, K, -1), -1, bidx)[..., 0]
-            hl_best = torch.gather(hl.reshape(L, n_nodes, K, -1), -1, bidx)[..., 0]
-            fidx = bf.long()[:, :, None, None].expand(L, n_nodes, K, 1)
-            gm_best = torch.gather(g_miss, -1, fidx)[..., 0]
-            hm_best = torch.gather(h_miss, -1, fidx)[..., 0]
+            # the children's totals are the chosen split's left/right sums:
+            # the chosen feature's bins, summed in order up to the chosen bin
+            # (the same chain of adds as the cumsum over every feature)
+            fidx = bf.long()[:, :, None, None, None].expand(L, n_nodes, K, 1, B)
+            hg_f = torch.gather(hist_g, 3, fidx)[:, :, :, 0]   # (L, nodes, K, B)
+            hh_f = torch.gather(hist_h, 3, fidx)[:, :, :, 0]
+            bidx = bb.long()[:, :, None, None].expand(L, n_nodes, K, 1)
+            gl_best = torch.gather(torch.cumsum(hg_f[..., :n_bins], dim=-1), -1,
+                                   bidx)[..., 0]
+            hl_best = torch.gather(torch.cumsum(hh_f[..., :n_bins], dim=-1), -1,
+                                   bidx)[..., 0]
+            gm_best = hg_f[..., n_bins]
+            hm_best = hh_f[..., n_bins]
             zero = torch.zeros_like(gm_best)
             G_l = gl_best + torch.where(bml[..., None], gm_best, zero)
             H_l = hl_best + torch.where(bml[..., None], hm_best, zero)
@@ -301,6 +303,7 @@ def _grow_trees(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
             csl = slice(first + n_nodes, first + 3 * n_nodes)
             value[:, csl] = child_vals
             is_leaf[:, csl] = True
+        del hist_g, hist_h
 
         # route rows: rows at leaf nodes stay put
         nf = _lookup_l(feat, node)
@@ -830,3 +833,25 @@ class DecisionTreeClassifier(RandomForestClassifier):
 
     def _boot(self, n: int, device) -> torch.Tensor:
         return torch.ones((self.num_trees, n), dtype=torch.float32, device=device)
+
+
+class DecisionTreeRegressor(RandomForestRegressor):
+    """OpDecisionTreeRegressor capability: a 1-tree forest on all rows and
+    features."""
+
+    def __init__(self, **kw):
+        kw.setdefault("num_trees", 1)
+        kw.setdefault("feature_subset", "all")
+        kw.setdefault("subsample", 1.0)
+        super().__init__(**kw)
+
+    def _boot(self, n: int, device) -> torch.Tensor:
+        return torch.ones((self.num_trees, n), dtype=torch.float32, device=device)
+
+
+class XGBoostClassifier(GradientBoostedTreesClassifier):
+    """OpXGBoostClassifier's name for the GBT classifier."""
+
+
+class XGBoostRegressor(GradientBoostedTreesRegressor):
+    """OpXGBoostRegressor's name for the GBT regressor."""

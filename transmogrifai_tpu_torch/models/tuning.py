@@ -1,5 +1,6 @@
-"""Data preparation and cross-validation (counterpart of
-``transmogrifai_tpu/models/tuning.py``).
+"""Data preparation (the holdout splitter, the binary balancer, the
+multiclass label cutter) and validation (k-fold CV and one train/validation
+split); counterpart of ``transmogrifai_tpu/models/tuning.py``.
 
 Fold membership and class rebalancing are sample weights over one fixed row
 block, as in the reference: the numpy draws are the reference's, so both
@@ -91,6 +92,36 @@ class DataBalancer(DataSplitter):
         else:
             w[y == 1.0] = big_w
         summary.details["downSampleFraction"] = big_w
+        return (w * base).astype(np.float32), summary
+
+
+class DataCutter(DataSplitter):
+    """Multiclass label pruning: labels rarer than ``min_label_fraction`` of
+    the training rows get weight 0, and past ``max_label_categories`` only
+    the most frequent are kept (``labelsKept`` / ``labelsDropped``)."""
+
+    def __init__(self, min_label_fraction: float = 0.0, max_label_categories: int = 100,
+                 seed: int = 42, reserve_test_fraction: float = 0.0):
+        super().__init__(reserve_test_fraction, seed)
+        self.min_label_fraction = min_label_fraction
+        self.max_label_categories = max_label_categories
+
+    def prepare(self, y: np.ndarray) -> Tuple[np.ndarray, PrepSummary]:
+        base, holdout_details = self._holdout_weights(y)
+        train_y = y[base > 0.0]
+        labels, counts = np.unique(train_y, return_counts=True)
+        fracs = counts / max(len(train_y), 1)
+        keep = fracs >= self.min_label_fraction
+        if keep.sum() > self.max_label_categories:
+            order = np.argsort(-counts)
+            keep = np.zeros_like(keep)
+            keep[order[: self.max_label_categories]] = True
+        kept_labels = set(labels[keep].tolist())
+        w = np.array([1.0 if v in kept_labels else 0.0 for v in y], dtype=np.float32)
+        summary = PrepSummary("DataCutter", {
+            "labelsKept": sorted(kept_labels),
+            "labelsDropped": sorted(set(labels.tolist()) - kept_labels),
+            **holdout_details})
         return (w * base).astype(np.float32), summary
 
 
@@ -222,3 +253,20 @@ class CrossValidator:
         if not evaluations:
             raise ValueError("no models to validate")
         return max(range(len(evaluations)), key=key)
+
+
+class TrainValidationSplit(CrossValidator):
+    """One split: each row validates with probability 1 - ``train_ratio``
+    (a numpy draw from ``seed``, the reference's)."""
+
+    def __init__(self, evaluator: Evaluator, train_ratio: float = 0.75, seed: int = 42,
+                 stratify: bool = False):
+        super().__init__(evaluator, num_folds=1, seed=seed, stratify=stratify)
+        self.train_ratio = train_ratio
+
+    def fold_weights(self, y, base_w):
+        rng = np.random.default_rng(self.seed)
+        in_val = rng.random(len(y)) >= self.train_ratio
+        train_w = np.where(in_val, 0.0, base_w)[None, :].astype(np.float32)
+        val_w = np.where(in_val, base_w, 0.0)[None, :].astype(np.float32)
+        return train_w, val_w

@@ -43,6 +43,13 @@
 // four rows at once (a cell two of them hit is merged in registers in row
 // order); the channel loop is unrolled where there are two (one class).
 //
+// Both kernels tile the grad/hess channels where one CTA cannot hold all of a
+// (lane, node)'s (at 33 bins, 22 classes and more on the int8 path, 27 on the
+// float one): a CTA then accumulates channels [c0, c0+CT) of its tile and
+// reads its rows' node ids, grad/hess and codes once per channel tile.  A
+// level whose channels fit one CTA keeps one channel tile (CT = 2K), and so
+// the launch and the bits it had without the axis.
+//
 // K2 (split_scan_kernel<TK, STAGED>) gives one thread each (lane, node,
 // feature).  The thread walks the bins in order, keeps the running left sums
 // per class, and scores candidate f*(n_bins-1)+b with the XGBoost gain as it
@@ -108,25 +115,31 @@ unsigned blocks_for(long long work) {
 // K1: level histogram
 // ---------------------------------------------------------------------------
 
-// The CTA's tile: lanes [l0, l0+g_cnt), nodes [n0, n0+nt_cnt), features
-// [f0, f0+FT), rows [r0, r1).  blockIdx runs over lane groups fastest, so the
-// CTAs resident together walk the same rows and share their codes in L2.
+// The CTA's tile: lanes [l0, l0+g_cnt), grad/hess channels [c0, c0+ct_cnt),
+// nodes [n0, n0+nt_cnt), features [f0, f0+FT), rows [r0, r1).  blockIdx runs
+// over lane groups fastest, then channel tiles, so the CTAs resident together
+// walk the same rows and share their codes in L2.  A level whose channels fit
+// one CTA has one channel tile (CT = 2K).
 struct Tile {
-  int l0, g_cnt, n0, nt_cnt, f0, r0, r1, slice;
+  int l0, g_cnt, c0, ct_cnt, n0, nt_cnt, f0, r0, r1, slice;
 };
 
-__device__ __forceinline__ Tile tile_of(int L, int n, int nn, int G, int NT,
-                                        int FT, int lane_groups,
+__device__ __forceinline__ Tile tile_of(int L, int n, int nn, int two_k,
+                                        int G, int CT, int NT, int FT,
+                                        int lane_groups, int chan_tiles,
                                         int node_tiles, int feat_tiles,
                                         int rows_per_slice) {
   long long bid = blockIdx.x;
   Tile t;
   const int lg = (int)(bid % lane_groups); bid /= lane_groups;
+  const int ct = (int)(bid % chan_tiles); bid /= chan_tiles;
   const int nt = (int)(bid % node_tiles); bid /= node_tiles;
   const int ft = (int)(bid % feat_tiles); bid /= feat_tiles;
   t.slice = (int)bid;
   t.l0 = lg * G;
   t.g_cnt = min(G, L - t.l0);
+  t.c0 = ct * CT;
+  t.ct_cnt = min(CT, two_k - t.c0);
   t.n0 = nt * NT;
   t.nt_cnt = min(NT, nn - t.n0);
   t.f0 = ft * FT;
@@ -140,24 +153,25 @@ __global__ void __launch_bounds__(kHistMaxThreads, 1)
 hist_int8_kernel(const int* __restrict__ local, const int8_t* __restrict__ gh,
                  const int* __restrict__ binned, int* __restrict__ out,
                  int atomic_merge, int L, int n, int d, int nn, int two_k,
-                 int B, int G, int NT, int FT, int lane_groups, int node_tiles,
-                 int feat_tiles, int rows_per_slice) {
+                 int B, int G, int CT, int NT, int FT, int lane_groups,
+                 int chan_tiles, int node_tiles, int feat_tiles,
+                 int rows_per_slice) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Tile t = tile_of(L, n, nn, G, NT, FT, lane_groups, node_tiles,
-                         feat_tiles, rows_per_slice);
+  const Tile t = tile_of(L, n, nn, two_k, G, CT, NT, FT, lane_groups,
+                         chan_tiles, node_tiles, feat_tiles, rows_per_slice);
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int FW = FT >> 5;                        // features per thread, <= 4
-  const int unit = two_k * B * FT;               // words of one (lane, node)
+  const int unit = CT * B * FT;                  // words of one (lane, node)
   const int acc_elems = G * NT * unit;
-  int* acc = reinterpret_cast<int*>(smem_raw);   // [G][NT][2K][B][FT]
+  int* acc = reinterpret_cast<int*>(smem_raw);   // [G][NT][CT][B][FT]
   // each warp's row stage: node in the tile (kDead: adds nothing) and the
-  // grad/hess channels of its 32 rows, per lane of the group
+  // tile's grad/hess channels of its 32 rows, per lane of the group
   unsigned char* my_node = reinterpret_cast<unsigned char*>(acc + acc_elems)
                            + warp * G * 32;     // [G][32]
   int8_t* my_gh = reinterpret_cast<int8_t*>(
       reinterpret_cast<unsigned char*>(acc + acc_elems) + warps * G * 32)
-      + warp * G * two_k * 32;                   // [G][2K][32]
+      + warp * G * CT * 32;                      // [G][CT][32]
 
   for (int i = threadIdx.x; i < acc_elems; i += blockDim.x) acc[i] = 0;
   __syncthreads();
@@ -171,9 +185,9 @@ hist_int8_kernel(const int* __restrict__ local, const int8_t* __restrict__ gh,
       bool any = false;
       if (r < t.r1) {
         nd = __ldg(local + l * n + r) - t.n0;
-        for (int c = 0; c < two_k; ++c) {
-          const int8_t v = __ldg(gh + (l * two_k + c) * n + r);
-          my_gh[(g * two_k + c) * 32 + lane] = v;
+        for (int c = 0; c < t.ct_cnt; ++c) {
+          const int8_t v = __ldg(gh + (l * two_k + t.c0 + c) * n + r);
+          my_gh[(g * CT + c) * 32 + lane] = v;
           any |= v != 0;
         }
       }
@@ -209,8 +223,8 @@ hist_int8_kernel(const int* __restrict__ local, const int8_t* __restrict__ gh,
           const int nd = my_node[g * 32 + row[u]];
           if (nd == kDead) continue;
           int* a = acc + (g * NT + nd) * unit + lane;
-          for (int c = 0; c < two_k; ++c) {
-            const int v = my_gh[(g * two_k + c) * 32 + row[u]];
+          for (int c = 0; c < t.ct_cnt; ++c) {
+            const int v = my_gh[(g * CT + c) * 32 + row[u]];
             if (v == 0) continue;
             int* ac = a + c * B * FT;
 #pragma unroll
@@ -230,12 +244,13 @@ hist_int8_kernel(const int* __restrict__ local, const int8_t* __restrict__ gh,
     const int fl = i % FT;
     int rest = i / FT;
     const int b = rest % B; rest /= B;
-    const int c = rest % two_k; rest /= two_k;
+    const int c = rest % CT; rest /= CT;
     const int nd = rest % NT;
     const int g = rest / NT;
     const int f = t.f0 + fl;
-    if (g >= t.g_cnt || nd >= t.nt_cnt || f >= d) continue;
-    const long long m = ((long long)(t.l0 + g) * nn + t.n0 + nd) * two_k + c;
+    if (g >= t.g_cnt || c >= t.ct_cnt || nd >= t.nt_cnt || f >= d) continue;
+    const long long m = ((long long)(t.l0 + g) * nn + t.n0 + nd) * two_k
+                        + t.c0 + c;
     int* o = out + m * width + (long long)b * d + f;
     const int v = acc[i];
     if (atomic_merge) {
@@ -272,13 +287,14 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Stage R rows from rt of the float kernel's tile into one buffer: the codes
-// of the tile's features [rows][FT], the node ids [G][rows] and grad/hess
-// [G][2K][rows].  Every thread of the CTA issues its share of the copies.
+// of the tile's features [rows][FT], the node ids [G][rows] and the tile's
+// grad/hess channels [G][CT][rows].  Every thread of the CTA issues its share
+// of the copies.
 __device__ __forceinline__ void stage_rows(
     const int* __restrict__ local, const float* __restrict__ gh,
     const int* __restrict__ binned, const Tile& t, int rt, int rows, int n,
-    int d, int two_k, int FT, int R, int vec4, int* s_codes, int* s_local,
-    float* s_gh) {
+    int d, int two_k, int CT, int FT, int R, int vec4, int* s_codes,
+    int* s_local, float* s_gh) {
   const int seg = min(FT, d - t.f0);             // features the tile holds
   if (vec4) {
     const int q = seg >> 2;
@@ -297,31 +313,33 @@ __device__ __forceinline__ void stage_rows(
     const int g = e / rows, rr = e - g * rows;
     cp_async4(s_local + g * R + rr, local + (long long)(t.l0 + g) * n + rt + rr);
   }
-  for (int e = threadIdx.x; e < t.g_cnt * two_k * rows; e += blockDim.x) {
+  for (int e = threadIdx.x; e < t.g_cnt * t.ct_cnt * rows; e += blockDim.x) {
     const int gc = e / rows, rr = e - gc * rows;
-    cp_async4(s_gh + gc * R + rr,
-              gh + ((long long)t.l0 * two_k + gc) * n + rt + rr);
+    const int g = gc / t.ct_cnt, c = gc - g * t.ct_cnt;
+    cp_async4(s_gh + (g * CT + c) * R + rr,
+              gh + ((long long)(t.l0 + g) * two_k + t.c0 + c) * n + rt + rr);
   }
 }
 
-// TK: the grad/hess channels when fixed at compile time (2: one class), else
-// 0 and two_k at run time
+// TK: the channels of every channel tile when fixed at compile time (2: one
+// class, one tile), else 0 and each tile's own count at run time
 template <int TK>
 __global__ void __launch_bounds__(kF32MaxThreads, 1)
 hist_f32_kernel(const int* __restrict__ local, const float* __restrict__ gh,
                 const int* __restrict__ binned, float* __restrict__ dst,
-                int partial, int L, int n, int d, int nn, int two_k_rt, int B,
-                int G, int NT, int FT, int R, int lane_groups, int node_tiles,
-                int feat_tiles, int rows_per_slice, int vec4) {
+                int partial, int L, int n, int d, int nn, int two_k, int B,
+                int G, int CT, int NT, int FT, int R, int lane_groups,
+                int chan_tiles, int node_tiles, int feat_tiles,
+                int rows_per_slice, int vec4) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int two_k = TK ? TK : two_k_rt;
-  const Tile t = tile_of(L, n, nn, G, NT, FT, lane_groups, node_tiles,
-                         feat_tiles, rows_per_slice);
-  const int acc_elems = G * NT * two_k * B * FT;
-  float* acc = reinterpret_cast<float*>(smem_raw);           // [G*NT][2K][B][FT]
+  const Tile t = tile_of(L, n, nn, two_k, G, CT, NT, FT, lane_groups,
+                         chan_tiles, node_tiles, feat_tiles, rows_per_slice);
+  const int tk = TK ? TK : t.ct_cnt;             // channels this CTA adds
+  const int acc_elems = G * NT * CT * B * FT;
+  float* acc = reinterpret_cast<float*>(smem_raw);           // [G*NT][CT][B][FT]
   int* s_codes = reinterpret_cast<int*>(acc + acc_elems);     // [2][R][FT]
   int* s_local = s_codes + 2 * R * FT;                        // [2][G][R]
-  float* s_gh = reinterpret_cast<float*>(s_local + 2 * G * R);  // [2][G][2K][R]
+  float* s_gh = reinterpret_cast<float*>(s_local + 2 * G * R);  // [2][G][CT][R]
 
   for (int i = threadIdx.x; i < acc_elems; i += blockDim.x) acc[i] = 0.0f;
   __syncthreads();
@@ -336,20 +354,20 @@ hist_f32_kernel(const int* __restrict__ local, const float* __restrict__ gh,
   const bool unit_live = g < t.g_cnt && nd < t.nt_cnt;    // warp-uniform
   const bool f_ok = t.f0 + fl < d;
   const int node = t.n0 + nd;
-  float* a = acc + u * two_k * B * FT + fl;
+  float* a = acc + u * CT * B * FT + fl;
 
   const int nblocks = (t.r1 - t.r0 + R - 1) / R;
   if (nblocks > 0)
     stage_rows(local, gh, binned, t, t.r0, min(R, t.r1 - t.r0), n, d, two_k,
-               FT, R, vec4, s_codes, s_local, s_gh);
+               CT, FT, R, vec4, s_codes, s_local, s_gh);
   cp_async_commit();
   for (int blk = 0; blk < nblocks; ++blk) {
     if (blk + 1 < nblocks) {
       const int nx = (blk + 1) & 1;
       const int rt = t.r0 + (blk + 1) * R;
-      stage_rows(local, gh, binned, t, rt, min(R, t.r1 - rt), n, d, two_k, FT,
-                 R, vec4, s_codes + nx * R * FT, s_local + nx * G * R,
-                 s_gh + nx * G * two_k * R);
+      stage_rows(local, gh, binned, t, rt, min(R, t.r1 - rt), n, d, two_k, CT,
+                 FT, R, vec4, s_codes + nx * R * FT, s_local + nx * G * R,
+                 s_gh + nx * G * CT * R);
     }
     cp_async_commit();
     cp_async_wait_one();
@@ -359,7 +377,7 @@ hist_f32_kernel(const int* __restrict__ local, const float* __restrict__ gh,
     if (unit_live) {
       const int* sc = s_codes + st * R * FT + fl;
       const int* sl = s_local + st * G * R + g * R;
-      const float* sg = s_gh + st * G * two_k * R + g * two_k * R;
+      const float* sg = s_gh + st * G * CT * R + g * CT * R;
       const int lane = threadIdx.x & 31;
       // the block's rows in this warp's node with a grad/hess not 0 (R <=
       // 32), ascending.  Adding +-0.0 to a cell leaves its bits as they are
@@ -369,7 +387,7 @@ hist_f32_kernel(const int* __restrict__ local, const float* __restrict__ gh,
       if (live) {
         bool any = false;
 #pragma unroll
-        for (int c = 0; c < two_k; ++c) any |= sg[c * R + lane] != 0.0f;
+        for (int c = 0; c < tk; ++c) any |= sg[c * R + lane] != 0.0f;
         live = any;
       }
       unsigned mask = __ballot_sync(0xffffffffu, live);
@@ -399,7 +417,7 @@ hist_f32_kernel(const int* __restrict__ local, const float* __restrict__ gh,
 #pragma unroll
           for (int j = 0; j < q; ++j) same[q][j] = code[j] == code[q];
 #pragma unroll
-        for (int c = 0; c < two_k; ++c) {
+        for (int c = 0; c < tk; ++c) {
           float* p = a + c * B * FT;
           // every slot's grad/hess is loaded (rr lies in the block) and then
           // selected, so no load waits behind a branch
@@ -430,8 +448,9 @@ hist_f32_kernel(const int* __restrict__ local, const float* __restrict__ gh,
   const long long width = (long long)B * d;
   const long long total = (long long)L * nn * two_k * width;
   float* o = dst + (partial ? (long long)t.slice * total : 0)
-             + ((long long)(t.l0 + g) * nn + node) * two_k * width + t.f0 + fl;
-  for (int c = 0; c < two_k; ++c)
+             + (((long long)(t.l0 + g) * nn + node) * two_k + t.c0) * width
+             + t.f0 + fl;
+  for (int c = 0; c < tk; ++c)
     for (int b = 0; b < B; ++b)
       o[c * width + (long long)b * d] = a[(c * B + b) * FT];
 }
@@ -905,22 +924,24 @@ row_select_direct_kernel(const int* __restrict__ binned,
   }
 }
 
-// One K1 launch: the tiling comes from histogram.py::plan (G lanes x NT nodes
-// x FT features per CTA, `threads` threads, R staged rows for the float
-// kernel, `slices` row slices of rows_per_slice rows).
+// One K1 launch: the tiling comes from histogram.py::plan (G lanes x CT
+// channels x NT nodes x FT features per CTA, `threads` threads, R staged rows
+// for the float kernel, `slices` row slices of rows_per_slice rows).
 struct HistPlan {
-  int G, NT, FT, threads, R, slices, rows_per_slice;
+  int G, CT, NT, FT, threads, R, slices, rows_per_slice;
 };
 
 int launch_hist_int8(const void* local, const void* gh, const void* binned,
                      void* out, int L, int n, int d, int nn, int two_k, int B,
                      const HistPlan& p, cudaStream_t stream) {
   const int lane_groups = (L + p.G - 1) / p.G;
+  const int chan_tiles = (two_k + p.CT - 1) / p.CT;
   const int node_tiles = (nn + p.NT - 1) / p.NT;
   const int feat_tiles = (d + p.FT - 1) / p.FT;
-  const long long grid = (long long)lane_groups * node_tiles * feat_tiles * p.slices;
-  const size_t smem = (size_t)p.G * p.NT * two_k * B * p.FT * sizeof(int)
-      + (size_t)(p.threads / 32) * p.G * 32 * (1 + two_k);
+  const long long grid = (long long)lane_groups * chan_tiles * node_tiles
+                         * feat_tiles * p.slices;
+  const size_t smem = (size_t)p.G * p.NT * p.CT * B * p.FT * sizeof(int)
+      + (size_t)(p.threads / 32) * p.G * 32 * (1 + p.CT);
   const int atomic_merge = p.slices > 1;
   cudaError_t e;
   if (atomic_merge) {
@@ -932,8 +953,8 @@ int launch_hist_int8(const void* local, const void* gh, const void* binned,
   if (e != cudaSuccess) return (int)e;
   hist_int8_kernel<<<(unsigned)grid, p.threads, smem, stream>>>(
       (const int*)local, (const int8_t*)gh, (const int*)binned, (int*)out,
-      atomic_merge, L, n, d, nn, two_k, B, p.G, p.NT, p.FT, lane_groups,
-      node_tiles, feat_tiles, p.rows_per_slice);
+      atomic_merge, L, n, d, nn, two_k, B, p.G, p.CT, p.NT, p.FT, lane_groups,
+      chan_tiles, node_tiles, feat_tiles, p.rows_per_slice);
   return (int)cudaGetLastError();
 }
 
@@ -941,25 +962,28 @@ int launch_hist_f32(const void* local, const void* gh, const void* binned,
                     void* out, void* partial, int L, int n, int d, int nn,
                     int two_k, int B, const HistPlan& p, cudaStream_t stream) {
   const int lane_groups = (L + p.G - 1) / p.G;
+  const int chan_tiles = (two_k + p.CT - 1) / p.CT;
   const int node_tiles = (nn + p.NT - 1) / p.NT;
   const int feat_tiles = (d + p.FT - 1) / p.FT;
-  const long long grid = (long long)lane_groups * node_tiles * feat_tiles * p.slices;
-  const size_t smem = ((size_t)p.G * p.NT * two_k * B * p.FT
+  const long long grid = (long long)lane_groups * chan_tiles * node_tiles
+                         * feat_tiles * p.slices;
+  const size_t smem = ((size_t)p.G * p.NT * p.CT * B * p.FT
                        + 2 * ((size_t)p.R * p.FT + (size_t)p.G * p.R
-                              + (size_t)p.G * two_k * p.R)) * 4;
+                              + (size_t)p.G * p.CT * p.R)) * 4;
   const long long total = (long long)L * nn * two_k * B * d;
   const int use_partial = p.slices > 1;
   // 16-byte copies of the codes where every row's run starts 16-byte aligned
   const int vec4 = (d % 4 == 0) && ((uintptr_t)binned % 16 == 0);
-  auto kernel = two_k == 2 ? hist_f32_kernel<2> : hist_f32_kernel<0>;
+  // two channels in every tile (CT = 2, 2K even) take the unrolled loop
+  auto kernel = p.CT == 2 ? hist_f32_kernel<2> : hist_f32_kernel<0>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   kernel<<<(unsigned)grid, p.threads, smem, stream>>>(
       (const int*)local, (const float*)gh, (const int*)binned,
       (float*)(use_partial ? partial : out), use_partial, L, n, d, nn, two_k,
-      B, p.G, p.NT, p.FT, p.R, lane_groups, node_tiles, feat_tiles,
-      p.rows_per_slice, vec4);
+      B, p.G, p.CT, p.NT, p.FT, p.R, lane_groups, chan_tiles, node_tiles,
+      feat_tiles, p.rows_per_slice, vec4);
   e = cudaGetLastError();
   if (e != cudaSuccess || !use_partial) return (int)e;
   sum_slices_kernel<<<blocks_for(total), kThreads, 0, stream>>>(
@@ -984,9 +1008,9 @@ extern "C" int tmog_hist_level(const void* local, const void* gh,
                                const void* binned, void* out, void* partial,
                                int L, int n, int d, int nn, int two_k,
                                int n_bins, int int_exact, int lanes_per_cta,
-                               int nodes_per_cta, int feats_per_cta,
-                               int threads, int stage_rows, int slices,
-                               int rows_per_slice, void* stream) {
+                               int chans_per_cta, int nodes_per_cta,
+                               int feats_per_cta, int threads, int stage_rows,
+                               int slices, int rows_per_slice, void* stream) {
   if ((long long)L * nn * two_k * d <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   const int B = n_bins + 1;
@@ -994,8 +1018,8 @@ extern "C" int tmog_hist_level(const void* local, const void* gh,
     const long long total = (long long)L * nn * two_k * B * d;
     return (int)cudaMemsetAsync(out, 0, total * 4, s);
   }
-  const HistPlan p{lanes_per_cta, nodes_per_cta, feats_per_cta, threads,
-                   stage_rows, slices, rows_per_slice};
+  const HistPlan p{lanes_per_cta, chans_per_cta, nodes_per_cta, feats_per_cta,
+                   threads, stage_rows, slices, rows_per_slice};
   if (int_exact)
     return launch_hist_int8(local, gh, binned, out, L, n, d, nn, two_k, B, p, s);
   return launch_hist_f32(local, gh, binned, out, partial, L, n, d, nn, two_k,

@@ -17,7 +17,8 @@ A row whose ``local`` is negative (or >= nn), or whose code is outside
   (``hist_level_xla``) row chunk by row chunk.  The int-exact path multiplies
   in float64 (torch has no int8 GEMM), which is exact for these integer
   operands, and returns int32; the float path multiplies in float32.
-- ``launches`` — the launch counter.
+- ``launches`` — the launch counter (``chan_tiled_launches``: of them, the
+  launches that tiled the channels).
 
 Two paths, as in the reference, each its own kernel over the tiling that
 :func:`plan` chooses by shape: ``int_exact`` (``ghT`` int8, int32 out —
@@ -38,13 +39,15 @@ import torch
 from . import dispatch
 
 launches = 0
+#: of them, launches whose plan tiles the channels (more than one channel tile)
+chan_tiled_launches = 0
 
 #: rows per chunk of the plain version's one-hot GEMM (bounds its temporaries)
 PLAIN_CHUNK = 2048
 
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "tmog_hist_level": (_VP, _VP, _VP, _VP, _VP) + (_INT,) * 14 + (_VP,),
+    "tmog_hist_level": (_VP, _VP, _VP, _VP, _VP) + (_INT,) * 15 + (_VP,),
 }
 
 #: the H100: SMs, shared memory per SM and the most one CTA may take, threads
@@ -76,12 +79,12 @@ _MAX_PARTIAL_BYTES = 512 * 1024 * 1024
 
 
 def reset_launch_counts() -> None:
-    global launches
-    launches = 0
+    global launches, chan_tiled_launches
+    launches = chan_tiled_launches = 0
 
 
 def launch_counts() -> dict:
-    return {"hist_level": launches}
+    return {"hist_level": launches, "hist_level.chan_tiled": chan_tiled_launches}
 
 
 def _lib():
@@ -152,33 +155,48 @@ def _balanced(total: int, most: int) -> int:
 
 def _too_big(two_k: int, B: int) -> ValueError:
     return ValueError(
-        f"histogram of {two_k} channels x {B} bins does not fit one CTA's "
-        f"shared memory ({two_k * B * 32 * 4} bytes per 32 features)")
+        f"histogram of one channel of {two_k} x {B} bins does not fit one "
+        f"CTA's shared memory ({B * 32 * 4} bytes per 32 features)")
 
 
 def _int8_tiles(L: int, d: int, nn: int, two_k: int, B: int) -> dict:
-    """int8 path: the widest feature tile of which one (lane, node) fits,
-    then as many nodes as fit, then lanes (a row's codes are fetched once
-    for all lanes of a CTA in which it is live)."""
+    """int8 path: the widest feature tile of which one (lane, node) with
+    all its channels fits, then as many nodes as fit, then lanes (a row's
+    codes are fetched once for all lanes of a CTA in which it is live).
+    Where no feature tile holds all channels, the widest feature tile that
+    holds one channel holds as many as fit (``CT``, even tiles), one (lane,
+    node) a CTA."""
     warps = _INT_WARPS
-    stage = lambda G: warps * G * 32 * (1 + two_k)  # noqa: E731
+    stage = lambda G, CT: warps * G * 32 * (1 + CT)  # noqa: E731
     for FT in _feature_tiles(d):
-        unit = two_k * B * FT * 4
-        units = (_INT_SMEM - stage(1)) // unit
+        CT = two_k
+        unit = CT * B * FT * 4
+        units = (_INT_SMEM - stage(1, CT)) // unit
         if units >= 1:
             break
     else:
-        raise _too_big(two_k, B)
+        for FT in _feature_tiles(d):
+            most = (_INT_SMEM - stage(1, 0)) // (B * FT * 4 + stage(1, 1) - stage(1, 0))
+            if most >= 1:
+                break
+        else:
+            raise _too_big(two_k, B)
+        CT = _balanced(two_k, most)
+        unit = CT * B * FT * 4
+        units = (_INT_SMEM - stage(1, CT)) // unit
     NT = _balanced(nn, units)
     G = max(1, min(L, units // NT, _INT_MAX_LANES))
-    while G > 1 and G * NT * unit + stage(G) > _INT_SMEM:
+    while G > 1 and G * NT * unit + stage(G, CT) > _INT_SMEM:
         G -= 1
     G = _balanced(L, G)
-    return {"G": G, "NT": NT, "FT": FT, "threads": 32 * warps, "R": 32}
+    return {"G": G, "CT": CT, "NT": NT, "FT": FT, "threads": 32 * warps, "R": 32}
 
 
-def _f32_smem(G: int, NT: int, FT: int, R: int, two_k: int, B: int) -> int:
-    return 4 * (G * NT * two_k * B * FT + 2 * (R * FT + G * R + G * two_k * R))
+def _f32_smem(G: int, NT: int, FT: int, R: int, CT: int, B: int) -> int:
+    """Bytes of the float kernel's shared memory: accumulators of G lanes x
+    NT nodes x CT channels x B bins x FT features, and two stages of R rows
+    (codes, node ids, the CT channels' grad/hess)."""
+    return 4 * (G * NT * CT * B * FT + 2 * (R * FT + G * R + G * CT * R))
 
 
 def _f32_tiles(L: int, d: int, nn: int, two_k: int, B: int) -> dict:
@@ -194,8 +212,8 @@ def _f32_tiles(L: int, d: int, nn: int, two_k: int, B: int) -> dict:
                 if L * nn * FT > F32_MAX_THREADS:
                     continue
                 if _f32_smem(L, nn, FT, R, two_k, B) <= budget:
-                    return {"G": L, "NT": nn, "FT": FT, "threads": L * nn * FT,
-                            "R": R}
+                    return {"G": L, "CT": two_k, "NT": nn, "FT": FT,
+                            "threads": L * nn * FT, "R": R}
         R = _F32_STAGE_ROWS[-1]
         fits = lambda G, NT: (G * NT * 32 <= F32_MAX_THREADS  # noqa: E731
                               and _f32_smem(G, NT, 32, R, two_k, B) <= budget)
@@ -211,16 +229,46 @@ def _f32_tiles(L: int, d: int, nn: int, two_k: int, B: int) -> dict:
         G = _balanced(L, G)
         R = next(r for r in _F32_STAGE_ROWS
                  if _f32_smem(G, NT, 32, r, two_k, B) <= budget)
-        return {"G": G, "NT": NT, "FT": 32, "threads": G * NT * 32, "R": R}
-    raise _too_big(two_k, B)
+        return {"G": G, "CT": two_k, "NT": NT, "FT": 32, "threads": G * NT * 32,
+                "R": R}
+    return _f32_chan_tiles(L, nn, two_k, B)
+
+
+def _f32_chan_tiles(L: int, nn: int, two_k: int, B: int) -> dict:
+    """float path where one CTA cannot hold every channel of a (lane, node):
+    tiles of 32 features, the level's nodes and then lanes up to
+    ``F32_MAX_THREADS`` threads, and as many channels as then fit a CTA's
+    shared memory (even tiles); fewer lanes, then nodes, where not one
+    channel fits."""
+    FT, R = 32, _F32_STAGE_ROWS[-1]
+    NT = _balanced(nn, min(nn, F32_MAX_THREADS // FT))
+    G = _balanced(L, min(L, F32_MAX_THREADS // (FT * NT)))
+
+    def most(G: int, NT: int) -> int:
+        fixed = _f32_smem(G, NT, FT, R, 0, B)
+        per = _f32_smem(G, NT, FT, R, 1, B) - fixed
+        return (_CTA_SMEM_MAX - fixed) // per
+
+    while most(G, NT) < 1 and (G > 1 or NT > 1):
+        if G > 1:
+            G = _balanced(L, G - 1)
+        else:
+            NT = _balanced(nn, NT - 1)
+    if most(G, NT) < 1:
+        raise _too_big(two_k, B)
+    CT = _balanced(two_k, most(G, NT))
+    return {"G": G, "CT": CT, "NT": NT, "FT": FT, "threads": G * NT * FT, "R": R}
 
 
 def plan(L: int, n: int, d: int, nn: int, two_k: int, n_bins: int,
          int_exact: bool) -> dict:
     """Launch shape of the kernel.  A CTA holds the accumulators of ``G``
-    lanes x ``NT`` nodes x ``FT`` features with ``threads`` threads and walks
-    one of ``slices`` row slices of ``rows_per_slice`` rows; the float
-    kernel stages ``R`` rows per block.  Row slices are added until the
+    lanes x ``CT`` grad/hess channels x ``NT`` nodes x ``FT`` features with
+    ``threads`` threads and walks one of ``slices`` row slices of
+    ``rows_per_slice`` rows; the float kernel stages ``R`` rows per block.
+    The widest tiling that fits is chosen first, so a level whose channels
+    fit one CTA has one channel tile (``CT`` = 2K); past that the channels
+    are tiled (``chan_tiles``), each tile reading its rows again.  Row slices are added until the
     launch fills the card (two waves of the int8 kernel, one of the float
     kernel).  ``merge``: ``direct`` where one slice covers every row (each
     CTA stores its own cells), else ``atomic`` (int8: global atomicAdd after
@@ -234,20 +282,23 @@ def plan(L: int, n: int, d: int, nn: int, two_k: int, n_bins: int,
 def finish_plan(tiles: dict, L: int, n: int, d: int, nn: int, two_k: int,
                 n_bins: int, int_exact: bool) -> dict:
     """:func:`plan`'s dict from a CTA's tiles (``G``, ``NT``, ``FT``,
-    ``threads``, ``R``): its shared memory, tile counts and row slices."""
+    ``threads``, ``R`` and ``CT``, 2K where absent): its shared memory, tile
+    counts and row slices."""
     B = n_bins + 1
     p = dict(tiles)
+    p.setdefault("CT", two_k)
     if int_exact:
-        p["smem"] = (p["G"] * p["NT"] * two_k * B * p["FT"] * 4
-                     + p["threads"] // 32 * p["G"] * 32 * (1 + two_k))
+        p["smem"] = (p["G"] * p["NT"] * p["CT"] * B * p["FT"] * 4
+                     + p["threads"] // 32 * p["G"] * 32 * (1 + p["CT"]))
         waves, min_rows = 2, _INT_MIN_SLICE_ROWS
     else:
-        p["smem"] = _f32_smem(p["G"], p["NT"], p["FT"], p["R"], two_k, B)
+        p["smem"] = _f32_smem(p["G"], p["NT"], p["FT"], p["R"], p["CT"], B)
         waves, min_rows = 1, _F32_MIN_SLICE_ROWS
     lane_groups = -(-L // p["G"])
+    chan_tiles = -(-two_k // p["CT"])
     node_tiles = -(-nn // p["NT"])
     feat_tiles = -(-d // p["FT"])
-    base = lane_groups * node_tiles * feat_tiles
+    base = lane_groups * chan_tiles * node_tiles * feat_tiles
     per_sm = max(1, min(_SM_SMEM // (p["smem"] + 1024),
                         2 * _MAX_THREADS // p["threads"]))
     slices = max(1, min(-(-_SMS * per_sm * waves // base), -(-n // min_rows)))
@@ -258,8 +309,8 @@ def finish_plan(tiles: dict, L: int, n: int, d: int, nn: int, two_k: int,
     slices = -(-n // rows) if n else 1
     merge = "direct" if slices == 1 else ("atomic" if int_exact else "partials")
     return {**p, "slices": slices, "rows_per_slice": rows,
-            "lane_groups": lane_groups, "node_tiles": node_tiles,
-            "feat_tiles": feat_tiles, "merge": merge}
+            "lane_groups": lane_groups, "chan_tiles": chan_tiles,
+            "node_tiles": node_tiles, "feat_tiles": feat_tiles, "merge": merge}
 
 
 def int_abs_sum_bound(ghT: torch.Tensor) -> int:
@@ -320,7 +371,7 @@ def launch(local: torch.Tensor, ghT: torch.Tensor, binned: torch.Tensor,
            nn: int, n_bins: int, int_exact: bool, p: dict) -> torch.Tensor:
     """One launch of the kernel on checked CUDA tensors with launch shape
     ``p`` (:func:`plan`'s dict; ``tools/torch_hist_plans.py`` times others)."""
-    global launches
+    global launches, chan_tiled_launches
     L, n = local.shape
     two_k = ghT.shape[1]
     d = binned.shape[1]
@@ -334,11 +385,13 @@ def launch(local: torch.Tensor, ghT: torch.Tensor, binned: torch.Tensor,
     err = _lib().tmog_hist_level(
         local.data_ptr(), ghT.data_ptr(), binned.data_ptr(), out.data_ptr(),
         partial.data_ptr() if partial is not None else None,
-        L, n, d, nn, two_k, n_bins, int(bool(int_exact)), p["G"], p["NT"],
-        p["FT"], p["threads"], p["R"], p["slices"], p["rows_per_slice"],
+        L, n, d, nn, two_k, n_bins, int(bool(int_exact)), p["G"],
+        p["CT"], p["NT"], p["FT"], p["threads"], p["R"], p["slices"],
+        p["rows_per_slice"],
         dispatch.stream_handle(local.device))
     dispatch.check_launch(err, "hist_level")
     launches += 1
+    chan_tiled_launches += p["chan_tiles"] > 1
     return out
 
 

@@ -15,7 +15,8 @@ sides, masked features at -inf, and the argmax (first maximum).
   stride of the staged histograms.
 - :func:`split_scan_torch` — the plain version: ``split_scan_xla``'s formula
   (:func:`split_gains_torch` gives its gain of every candidate).
-- ``launches`` — the launch counter.
+- ``launches`` — the launch counter (``unstaged_launches``: of them, the
+  launches that read the histograms where they lie).
 
 On integer-valued histograms (the int-exact path) every operand of the gain
 is an integer-valued float32, and the kernel's arithmetic follows the
@@ -34,6 +35,8 @@ import torch
 from . import dispatch
 
 launches = 0
+#: of them, launches that read the histograms where they lie (not staged)
+unstaged_launches = 0
 
 _VP, _INT, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -76,12 +79,12 @@ _EPS = 1e-12
 
 
 def reset_launch_counts() -> None:
-    global launches
-    launches = 0
+    global launches, unstaged_launches
+    launches = unstaged_launches = 0
 
 
 def launch_counts() -> dict:
-    return {"split_scan": launches}
+    return {"split_scan": launches, "split_scan.unstaged": unstaged_launches}
 
 
 def _lib():
@@ -98,17 +101,29 @@ def _sq(t: torch.Tensor) -> torch.Tensor:
     return t * t
 
 
+def _in_class_order(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over the class axis one class after another, as the kernel does
+    (and XLA's reduction up to 32 classes; ``torch.sum`` takes another
+    order on the CPU, which moves near-tie splits)."""
+    t = t.movedim(dim, 0)
+    acc = t[0]
+    for k in range(1, t.shape[0]):
+        acc = acc + t[k]
+    return acc
+
+
 def _gain_terms(gl, hl, Gt, Ht, reg_lambda, alpha, gamma, min_child_weight,
                 class_axis: int) -> torch.Tensor:
     """Gain of every (feature, bin) candidate given left sums ``gl``/``hl``
     (``splitscan.py::_gain_terms`` of the reference)."""
     gr, hr = Gt - gl, Ht - hl
-    ok = (hl.mean(class_axis) >= min_child_weight) \
-        & (hr.mean(class_axis) >= min_child_weight)
+    K = gl.shape[class_axis]
+    ok = (_in_class_order(hl, class_axis) / K >= min_child_weight) \
+        & (_in_class_order(hr, class_axis) / K >= min_child_weight)
     raw = (_sq(soft_threshold(gl, alpha)) / (hl + reg_lambda + _EPS)
            + _sq(soft_threshold(gr, alpha)) / (hr + reg_lambda + _EPS)
            - _sq(soft_threshold(Gt, alpha)) / (Ht + reg_lambda + _EPS))
-    raw = raw.sum(dim=class_axis)
+    raw = _in_class_order(raw, class_axis)
     return torch.where(ok, 0.5 * raw - gamma,
                        torch.full_like(raw, float("-inf")))
 
@@ -279,7 +294,7 @@ def launch(hist_g, hist_h, G, H, level_mask, n_bins: int, reg_lambda, alpha,
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One launch of the kernel on checked CUDA tensors by plan ``p`` (the
     card tests run a plan that reads the histograms where they lie)."""
-    global launches
+    global launches, unstaged_launches
     L, nn, K, d, B = hist_g.shape
     if p.threads != p.feats * p.groups * p.blocks_per_cta or p.feats % 32 \
             or p.threads > SCAN_MAX_THREADS or (p.staged and p.stride < B):
@@ -296,6 +311,7 @@ def launch(hist_g, hist_h, G, H, level_mask, n_bins: int, reg_lambda, alpha,
         p.blocks_per_cta, p.stride, dispatch.stream_handle(dev))
     dispatch.check_launch(err, "split_scan")
     launches += 1
+    unstaged_launches += not p.staged
     return best, gain, bml
 
 

@@ -51,7 +51,16 @@ FORMAT_VERSION = 1
 def _register_stages() -> None:
     """Import every module that defines a ported stage class."""
     from ..checkers import sanity  # noqa: F401
-    from ..models import logistic, selector, svm, trees  # noqa: F401
+    from ..models import (  # noqa: F401
+        glm,
+        linear,
+        logistic,
+        naive_bayes,
+        selector,
+        softmax,
+        svm,
+        trees,
+    )
     from ..ops import bucketizers, combiner, numeric, onehot, scalers  # noqa: F401
 
 

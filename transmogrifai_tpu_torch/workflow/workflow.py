@@ -84,9 +84,11 @@ class Workflow:
               host_budget: Optional[float] = None, telemetry=None,
               resume: Optional[str] = None, *, device=None) -> "WorkflowModel":
         """Fit the DAG on ``device`` (the CUDA card unless the caller names
-        another).  The parameters are the reference's, in its order;
-        ``seed`` is accepted as there (the stages' own seeds drive their
-        draws).  The reference's test split, checkpointing, strict
+        another).  The parameters are the reference's, in its order.  With
+        ``test_fraction`` > 0 the input splits first (``Dataset.split`` by
+        ``seed``, the reference's draw): the DAG fits on the train part and
+        the model selector's summary gets the metrics of the held-out part
+        (``holdout_evaluation``).  The reference's checkpointing, strict
         validation, device-memory budget, host budget, telemetry and resume
         are not ported: each raises ``NotImplementedError`` by name when
         asked for."""
@@ -94,7 +96,6 @@ class Workflow:
         from .fit import fit_dag
 
         _refuse_unported("Workflow.train", {
-            "test_fraction": test_fraction > 0.0,
             "checkpointer": checkpointer is not None, "strict": bool(strict),
             "hbm_budget": hbm_budget is not None,
             "host_budget": host_budget is not None,
@@ -103,10 +104,16 @@ class Workflow:
             raise ValueError("set_result_features before train()")
         dev = resolve_device(device)
         raw = self.generate_raw_data()
+        test_ds = None
+        if test_fraction > 0.0:
+            raw, test_ds = raw.split(test_fraction, seed=seed)
         profile: List[dict] = []
         _, fitted = fit_dag(raw, self.result_features, device=dev, profile=profile)
         self.last_train_profile = profile
-        return WorkflowModel(result_features=self.result_features, fitted=fitted)
+        model = WorkflowModel(result_features=self.result_features, fitted=fitted)
+        if test_ds is not None and test_ds.n_rows > 0:
+            model._evaluate_holdout(test_ds, dev)
+        return model
 
 
 def _refuse_unported(entry: str, asked: Dict[str, bool]) -> None:
@@ -182,6 +189,42 @@ class WorkflowModel:
         metrics = evaluator.evaluate(scored, label.name, pred.name)
         keep = [f.name for f in self.result_features if f.name in scored]
         return scored.select(keep), metrics
+
+    def selector_model(self):
+        """The fitted model selector's stage, or None."""
+        from ..models.selector import SelectedModel
+
+        return next((t for t in self.fitted.values() if isinstance(t, SelectedModel)),
+                    None)
+
+    def _evaluate_holdout(self, test_ds: Dataset, device) -> None:
+        """The selector summary's ``holdout_evaluation``: the held-out rows
+        scored and evaluated by the problem's evaluator (binary for two
+        class probabilities, multiclass for more, else regression)."""
+        from ..evaluators.base import (
+            BinaryClassificationEvaluator,
+            MultiClassificationEvaluator,
+            RegressionEvaluator,
+        )
+        from .fit import transform_dag
+
+        try:
+            label, pred = self._label_and_pred()
+        except ValueError:
+            return
+        selected = self.selector_model()
+        if selected is None:
+            return
+        scored = transform_dag(test_ds, self.result_features, self.fitted, device)
+        prob = getattr(scored[pred.name], "prob", None)
+        n_classes = None if prob is None else prob.shape[1]
+        if n_classes == 2:
+            ev = BinaryClassificationEvaluator()
+        elif n_classes is not None and n_classes > 2:
+            ev = MultiClassificationEvaluator()
+        else:
+            ev = RegressionEvaluator()
+        selected.summary.holdout_evaluation = ev.evaluate(scored, label.name, pred.name)
 
     def _label_and_pred(self):
         label = next((f for f in self.result_features if f.is_response), None)
