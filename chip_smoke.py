@@ -36,6 +36,30 @@ Phases, one JSON line each:
                dtype).  The same records through the plan on the CPU (the
                plain versions) must give bitwise-equal prefix vectors and
                equal output records.
+4b. serving_server — the same model behind ScoringServer(model,
+               max_batch=1024, max_wait_ms=2) on the card (warm, resilience
+               on, pipeline depth 2): 8 client threads submit phase 4's
+               16 384 records one request each, each thread keeping at most
+               256 outstanding.  Every record must equal the CPU plan's
+               record for the batch it was served in (the float64 head's
+               last bit can depend on a row's place in its batch); the
+               encode kernel must launch once per flushed batch with 2
+               host->device copies each, with the counters zeroed just
+               before; no staging or landing buffer is allocated after
+               warm(); every resilience counter and the host path stay at 0
+               and the breaker closed.  Records/s, latency p50/p95/p99, the
+               mean batch, the pipeline's overlap and stalls and the plan's
+               median encode/device/host ms are printed; then the same at
+               pipeline depth 0 (lockstep); then a paced load (2 threads, a
+               request every 1 ms each) and its latency; then, with the
+               FaultHarness: a transient device fault retried, a poison
+               record quarantined alone (survivors equal to the CPU plan's
+               through the same isolation), a KernelError failing its whole
+               batch with nothing quarantined, retried or served by the
+               host, an out-of-memory error on every attempt failing its
+               batch after the retries and splits (the card plan has no
+               host path), and a reloaded copy of the model staged (equal
+               fingerprint), promoted and rolled back, records unchanged.
 5. tree_kernels — K1 (level histogram), K2 (split scan) and K3 (routing
                select) against their plain versions on the card: K1's int8
                path bitwise (negative node ids, the missing bin, a prime row
@@ -141,7 +165,9 @@ Phases, one JSON line each:
                nodes over 1 048 576 rows; K2 at K = 100 (unstaged) on that
                float level's histograms (float_agreement) and on integer
                ones at 150 lanes x 2 nodes (bitwise).  Each timed beside its
-               bound, its plain version and index_add_ (K1, fewer rows).
+               bound, its plain version and index_add_ (K1, fewer rows; the
+               forest regression level's at 65 536 rows, beside the kernel's
+               time at that count).
 13. training_regression — RegressionModelSelector.with_cross_validation()
                (33 fold-models) at bench.py's 1 048 576 x 128 with a real
                label (numpy seed 0) through Workflow.train on the card, the
@@ -605,6 +631,311 @@ def phase_fused(torch, KE, table, dev) -> dict:
            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
            "bound_by": "bytes", "parity_cases": cases, "max_abs_err": 0.0}
     emit({"phase": "fused_encode", **out})
+    return out
+
+
+#: the serving_server phase: 8 client threads, each keeping at most
+#: CLIENT_WINDOW requests outstanding (2 batches' worth in all, under the
+#: server's default max_queue of 4096); the paced load: 2 threads, one
+#: request every PACED_MS each, PACED_PER_CLIENT requests each
+CLIENTS = 8
+CLIENT_WINDOW = 256
+PACED_PER_CLIENT = 1000
+PACED_MS = 1.0
+#: a batch size the fault scenarios submit whole (flush on size only)
+FAULT_BATCH = 256
+SIZE_ONLY_MS = 60_000
+RESILIENCE_ZERO = ("quarantined", "retries", "bucket_splits", "device_failures",
+                   "fallback_batches")
+
+
+def _capture_batches(plan) -> list:
+    """Record every batch the plan begins (the records, in order): the
+    fixture's head is a float64 product whose last bit can depend on a row's
+    place in its batch, so a served record is held to the CPU plan's record
+    for the same batch."""
+    seen = []
+    begin = plan.begin_score
+
+    def recording(records):
+        seen.append(list(records))
+        return begin(records)
+    plan.begin_score = recording
+    return seen
+
+
+def _expected(cpu_plan, batches) -> dict:
+    """id(record) -> the CPU plan's record, each batch scored as served."""
+    out = {}
+    for b in batches:
+        for r, row in zip(b, cpu_plan.score(b)):
+            out[id(r)] = row
+    return out
+
+
+def _drive_clients(server, records, clients: int, window: int):
+    """``clients`` threads submit their share of ``records`` one request at
+    a time, each keeping at most ``window`` outstanding; returns the
+    (record, future) pairs and the wall seconds to the last result."""
+    import threading
+    from collections import deque
+
+    shares = [records[k::clients] for k in range(clients)]
+    pairs = [[] for _ in range(clients)]
+    errors = []
+
+    def client(k):
+        try:
+            out = deque()
+            for r in shares[k]:
+                if len(out) >= window:
+                    out.popleft().result(timeout=120)
+                f = server.submit(r)
+                pairs[k].append((r, f))
+                out.append(f)
+            for f in out:
+                f.result(timeout=120)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    wall = time.perf_counter() - t0
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"client threads finished cleanly: {errors[:3]}")
+    return [p for ps in pairs for p in ps], wall
+
+
+def _paced(server, records, per_client: int, every_ms: float):
+    """Two threads, one request every ``every_ms`` each."""
+    import threading
+
+    futs, lock = [], threading.Lock()
+
+    def client(k):
+        for i in range(per_client):
+            f = server.submit(records[(2 * i + k) % len(records)])
+            with lock:
+                futs.append(f)
+            time.sleep(every_ms / 1e3)
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    for f in futs:
+        f.result(timeout=120)
+
+
+def _serve_run(torch, KE, model, records, cpu_plan, depth):
+    """One saturating run of the server at pipeline depth ``depth``: every
+    record equal to the CPU plan's, one encode launch and 2 host->device
+    copies per flushed batch, no allocation, nothing degraded."""
+    from transmogrifai_tpu_torch.serve import ScoringServer
+
+    server = ScoringServer(model, max_batch=BATCH, max_wait_ms=2,
+                           pipeline_depth=depth)
+    try:
+        plan = server.plan
+        check(plan.device.type == "cuda" and server.batcher.pipeline_depth
+              == (2 if depth is None else depth), "server on the card at its depth")
+        check(plan.metrics()["buckets_compiled"] == plan.bucket_ladder(),
+              "warm built every bucket")
+        batches = _capture_batches(plan)
+        torch.cuda.synchronize()
+        m0 = plan.metrics()
+        KE.reset_launch_counts()
+        pairs, wall = _drive_clients(server, records, CLIENTS, CLIENT_WINDOW)
+        launches = KE.launch_counts()
+        m1 = plan.metrics()
+        bat = server.batcher.metrics()
+        res = server.resilience.metrics()
+    finally:
+        server.close()
+    n_batches = bat["batches"]
+    check(bat["completed"] == len(records) and bat["failed"] == 0
+          and bat["rejected"] == 0, f"every request completed: {bat}")
+    check(len(batches) == n_batches, f"{len(batches)} batches begun == {n_batches} flushed")
+    check(launches["encode_slots"] == n_batches
+          and launches["encode_slots.slots"] == n_batches * len(plan._encode_table)
+          and launches["onehot_codes"] == launches["bucketize_right_encode"] == 0,
+          f"one encode launch per flushed batch ({n_batches}): {launches}")
+    copies = m1["h2d_copies"] - m0["h2d_copies"]
+    check(copies == 2 * n_batches, f"host->device copies {copies} == 2 x {n_batches}")
+    check(m1["compile_count"] == m0["compile_count"],
+          "serving allocated no staging or landing buffers after warm()")
+    check(all(res[k] == 0 for k in RESILIENCE_ZERO) and res["breaker"]["state"] == "closed"
+          and m1["host_scored_records"] == 0, f"nothing degraded on clean traffic: {res}")
+    want = _expected(cpu_plan, batches)
+    check(all(f.result() == want[id(r)] for r, f in pairs),
+          "every served record == the CPU plan's record for its batch")
+    timings = list(plan.batch_timings)[-n_batches:]
+
+    def med(key):
+        return statistics.median(t[key] for t in timings)
+
+    return {"pipeline_depth": server.batcher.pipeline_depth,
+            "records": len(records), "records_per_s": len(records) / wall,
+            "seconds": wall, "batches": n_batches,
+            "mean_batch": len(records) / n_batches,
+            "latency_p50_ms": bat["latency_p50_ms"],
+            "latency_p95_ms": bat["latency_p95_ms"],
+            "latency_p99_ms": bat["latency_p99_ms"],
+            "overlap_fraction": bat["pipeline"]["overlap_fraction"],
+            "stalls": bat["pipeline"]["stalls"],
+            "encode_ms_median": med("encode_ms"), "device_ms_median": med("device_ms"),
+            "host_ms_median": med("host_ms"),
+            "launches": launches["encode_slots"], "h2d_copies_per_batch": copies / n_batches,
+            "records_equal_cpu": True}
+
+
+def _fault_scenarios(model, records, cpu_plan) -> dict:
+    """FaultHarness on the card: a transient device fault retried, a poison
+    record quarantined alone, a kernel fault failing its whole batch, an
+    out-of-memory error failing its batch rather than moving it to the CPU,
+    then a blue/green swap to a reloaded copy and back."""
+    import torch
+
+    from transmogrifai_tpu_torch import WorkflowModel
+    from transmogrifai_tpu_torch.perf.kernels.dispatch import KernelError
+    from transmogrifai_tpu_torch.serve import (FaultHarness, PoisonRecordError,
+                                               ResilientScorer, ScoringServer,
+                                               TransientScoringError)
+
+    batch = records[:FAULT_BATCH]
+    clean = cpu_plan.score(batch)
+    out = {}
+    server = ScoringServer(model, max_batch=FAULT_BATCH, max_wait_ms=SIZE_ONLY_MS,
+                           resilience={"seed": 0, "backoff_base_s": 1e-3})
+
+    def submit(recs):
+        futs = [server.submit(r) for r in recs]
+        return [f.exception(timeout=120) or f.result(timeout=120) for f in futs]
+
+    def res():
+        return server.resilience.metrics()
+
+    try:
+        # a transient device fault: retried, the records unchanged
+        with FaultHarness().script("device", [TransientScoringError("injected")]):
+            got = submit(batch)
+        check(got == clean and res()["retries"] == 1 and res()["quarantined"] == 0,
+              f"transient fault retried, records unchanged: {res()}")
+        out["transient"] = {"retries": res()["retries"], "records_equal_cpu": True}
+
+        # a poison record: only its future fails; the survivors equal the CPU
+        # plan's records through the same isolation
+        marked = list(batch)
+        marked[77] = dict(marked[77], __poison__=1)
+
+        def poisoned(ctx):
+            return any("__poison__" in r for r in ctx["records"])
+
+        def harness():
+            return FaultHarness().fail_when("encode", poisoned,
+                                            lambda: ValueError("injected poison"))
+        with harness():
+            got = submit(marked)
+        with harness():
+            want = ResilientScorer(cpu_plan, seed=0).score_isolated(marked)
+        check(isinstance(got[77], PoisonRecordError)
+              and all(isinstance(g, dict) for i, g in enumerate(got) if i != 77),
+              "only the poison record's future failed")
+        check([g for i, g in enumerate(got) if i != 77]
+              == [w for i, w in enumerate(want) if i != 77],
+              "survivors == the CPU plan's through the same isolation")
+        check(res()["quarantined"] == 1 and res()["fallback_batches"] == 0,
+              f"one record quarantined: {res()}")
+        out["poison"] = {"quarantined": res()["quarantined"],
+                         "bisect_batches": res()["bisect_batches"],
+                         "survivors_equal_cpu": True}
+
+        # a kernel fault: the whole batch fails with it, nothing hidden
+        before = res()
+        with FaultHarness().script("device", [KernelError("injected launch failure")]):
+            got = submit(batch)
+        after = res()
+        check(all(isinstance(g, KernelError) for g in got),
+              "every future of the batch failed with the KernelError")
+        check(after["quarantined"] == before["quarantined"]
+              and after["fallback_batches"] == 0 and after["retries"] == before["retries"]
+              and after["breaker"]["state"] == "closed"
+              and server.plan.metrics()["host_scored_records"] == 0,
+              f"a kernel fault is not quarantined, retried or served by the host: {after}")
+        check(submit(batch) == clean, "the next batch served by the card")
+        out["kernel_fault"] = {"failed": len(got), "quarantined_delta": 0,
+                               "fallback_batches": after["fallback_batches"]}
+
+        # an out-of-memory error on every attempt: retried, split, then the
+        # batch fails with it; the card plan has no host path to hide it
+        before = res()
+        with FaultHarness().fail_when("device", lambda ctx: True,
+                                      lambda: torch.OutOfMemoryError("injected")):
+            got = submit(batch)
+        after = res()
+        check(all(isinstance(g, torch.OutOfMemoryError) for g in got),
+              "every future of the batch failed with the out-of-memory error")
+        check(after["device_failures"] == before["device_failures"] + 1
+              and after["retries"] > before["retries"]
+              and after["fallback_batches"] == 0 and after["fallback_records"] == 0
+              and server.plan.metrics()["host_scored_records"] == 0,
+              f"an out-of-memory batch fails on the card, never on the CPU: {after}")
+        check(submit(batch) == clean, "the next batch served by the card")
+        out["out_of_memory"] = {"failed": len(got), "fallback_batches": 0,
+                                "retries": after["retries"] - before["retries"],
+                                "bucket_splits": after["bucket_splits"]
+                                - before["bucket_splits"]}
+
+        # blue/green: a reloaded copy of the model
+        fp = server.plan.fingerprint
+        check(server.stage_candidate(WorkflowModel.load(FIXTURE)) == fp,
+              "the reloaded candidate's fingerprint equals the active plan's (TM508 silent)")
+        check(submit(batch) == clean, "records unchanged while shadowing")
+        shadow = server.shadow_report()
+        check(shadow["mirrored_records"] == FAULT_BATCH and shadow["max_abs_delta"] == 0.0,
+              f"the candidate mirrored the batch with no delta: {shadow}")
+        swap = server.promote()
+        check(swap["shared_prefix"] and submit(batch) == clean,
+              "promoted: records unchanged")
+        back = server.rollback()
+        check(back["to_version"] == 1 and submit(batch) == clean,
+              "rolled back: records unchanged")
+        out["swap"] = {"shared_prefix": swap["shared_prefix"],
+                       "shadow_max_abs_delta": shadow["max_abs_delta"],
+                       "rolled_back_to": back["to_version"]}
+    finally:
+        server.close()
+    return out
+
+
+def phase_serving_server(torch, KE, model, batches, cpu_plan) -> dict:
+    """Phase 4b: the ScoringServer on the card, records one request each."""
+    from transmogrifai_tpu_torch.serve import ScoringServer
+
+    records = [r for b in batches[:N_BATCHES] for r in b]
+    t0 = time.perf_counter()
+    pipelined = _serve_run(torch, KE, model, records, cpu_plan, None)
+    lockstep = _serve_run(torch, KE, model, records, cpu_plan, 0)
+    server = ScoringServer(model, max_batch=BATCH, max_wait_ms=2)
+    try:
+        _paced(server, records, PACED_PER_CLIENT, PACED_MS)
+        bat = server.batcher.metrics()
+    finally:
+        server.close()
+    check(bat["completed"] == 2 * PACED_PER_CLIENT and bat["failed"] == 0,
+          "paced requests completed")
+    paced = {"clients": 2, "every_ms": PACED_MS, "records": bat["completed"],
+             "batches": bat["batches"], "mean_batch": bat["completed"] / bat["batches"],
+             **{k: bat[k] for k in ("latency_p50_ms", "latency_p95_ms", "latency_p99_ms")}}
+    faults = _fault_scenarios(model, records, cpu_plan)
+    out = {"pipelined": pipelined, "lockstep": lockstep, "paced": paced,
+           "faults": faults, "seconds": time.perf_counter() - t0}
+    emit({"phase": "serving_server", **out})
     return out
 
 
@@ -1811,9 +2142,18 @@ def phase_wide_label_kernels(torch, dev) -> dict:
         del sl, call, local, gh, binned
         torch.cuda.empty_cache()
     local, gh, binned = _hist_inputs(torch, dev, FOLDS * 50, FULL_ROWS, 16, False, 43)
-    out["forest_regression_f32"] = _k1_level(torch, KH, bound, local, gh, binned, 16,
-                                             False, False)
-    del local, gh, binned
+    e = _k1_level(torch, KH, bound, local, gh, binned, 16, False, False)
+    # its library call at INT8_LIBRARY_ROWS, as the int8 level's: the full
+    # rows' index would not fit the card
+    sl = (local[:, :INT8_LIBRARY_ROWS].contiguous(),
+          gh[..., :INT8_LIBRARY_ROWS].contiguous(), binned[:INT8_LIBRARY_ROWS])
+    call, _ = _index_add_library(torch, *sl, 16)
+    e.update(library_rows=INT8_LIBRARY_ROWS, ms_at_library_rows=time_big_ms(
+        lambda: KH.hist_level(*sl, 16, N_BINS)), library_ms=time_big_ms(call),
+        library="index_add_ of the (lane, channel, row, feature) terms at their "
+                "flat index, float32 (a composite)")
+    out["forest_regression_f32"] = e
+    del local, gh, binned, sl, call
     torch.cuda.empty_cache()
 
     K = WIDE_CLASSES
@@ -2072,6 +2412,9 @@ def main() -> int:
           "bucketize_slots": bucket_slots,
           "records_equal_cpu": True, "prefix_bitwise_cpu": True})
 
+    # 4b. the scoring server: records one request each
+    server = phase_serving_server(torch, KE, model, batches, cpu_plan)
+
     # 5. tree kernels
     tree_err = phase_tree_parity(torch, dev)
     tree_t = phase_tree_timing(torch, dev)
@@ -2168,6 +2511,8 @@ def main() -> int:
                       "(one-slot table) at the serving shape; fused_*: the "
                       "serving batch's whole table in one launch",
             **({"splits5000": t["splits5000"]} if "splits5000" in t else {}),
+            "launches_serving_server": server["pipelined"]["launches"],
+            "launches_serving_server_lockstep": server["lockstep"]["launches"],
             "launches_training_raw": raw["launches"]["encode_slots"],
             "training_raw": raw["encode_at_rows"],
             **{f"fused_{k}": fused[k] for k in ("ms", "device_ms", "plain_ms",

@@ -180,6 +180,36 @@ def test_serving_plan_encodes_a_batch_in_one_launch():
         assert got == cpu_plan.score(recs)
 
 
+def test_server_on_the_card_fails_an_oom_batch_not_to_the_cpu():
+    """An out-of-memory error at "device" that survives the retries and
+    splits fails every request of its batch; nothing is served by the host
+    path, and the card plan has none."""
+    import json
+
+    from transmogrifai_tpu_torch import WorkflowModel
+    from transmogrifai_tpu_torch.serve import FaultHarness, ScoringServer
+
+    with open(os.path.join(FIXTURE, "schema.json")) as fh:
+        schema = json.load(fh)
+    recs = _records(schema, 16, np.random.default_rng(5))
+    model = WorkflowModel.load(FIXTURE)
+    oom = FaultHarness().fail_when("device", lambda ctx: True,
+                                   lambda: torch.OutOfMemoryError("injected"))
+    with ScoringServer(model, max_batch=16, max_wait_ms=60_000, warm=False,
+                       resilience={"seed": 0, "backoff_base_s": 1e-3}) as server:
+        with oom:
+            errs = [f.exception(timeout=60) for f in [server.submit(r) for r in recs]]
+        rows = [f.result(timeout=60) for f in [server.submit(r) for r in recs]]
+        res, plan = server.resilience.metrics(), server.plan.metrics()
+        with pytest.raises(RuntimeError, match="no host path"):
+            server.plan.score_host(recs)
+    assert all(isinstance(e, torch.OutOfMemoryError) for e in errs)
+    assert (res["device_failures"], res["fallback_batches"], res["fallback_records"]) \
+        == (1, 0, 0)
+    assert plan["host_scored_records"] == 0
+    assert rows == model.serving_plan(device="cpu").score(recs)
+
+
 # -- tree kernels (K1 histogram, K2 split scan, K3 routing) ---------------------
 
 from transmogrifai_tpu_torch.perf.kernels import histogram as TH  # noqa: E402

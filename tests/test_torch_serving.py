@@ -353,6 +353,9 @@ from transmogrifai_tpu_torch.models import base, logistic, selector, svm, trees,
 from transmogrifai_tpu_torch.evaluators import base as ev_base, metrics
 from transmogrifai_tpu_torch.features import builder
 from transmogrifai_tpu_torch.workflow import fit, serde, workflow
+from transmogrifai_tpu_torch.serve import batcher, faults, pipeline, plan, resilience, server, swap, validator
+from transmogrifai_tpu_torch.obs import metrics as obs_metrics, overlap
+from transmogrifai_tpu_torch.checkers import diagnostics
 serde._register_stages()
 import chip_smoke
 bad = sorted(m for m in set(sys.modules) - before
@@ -383,7 +386,11 @@ class TestNoJax:
             assert os.path.join(path, "models", "svm.py") in files
             assert os.path.join(path, "models", "logistic.py") in files
             for mod in (("checkers", "sanity.py"), ("ops", "transmogrifier.py"),
-                        ("dsl.py",), ("utils", "stats.py"), ("workflow", "plan.py")):
+                        ("dsl.py",), ("utils", "stats.py"), ("workflow", "plan.py"),
+                        ("checkers", "diagnostics.py"), ("obs", "metrics.py"),
+                        ("obs", "overlap.py"), *(("serve", f"{m}.py") for m in (
+                            "batcher", "faults", "pipeline", "plan", "resilience",
+                            "server", "swap", "validator"))):
                 assert os.path.join(path, *mod) in files
         bad = []
         for fn in files:

@@ -19,10 +19,12 @@ each run of fitted stages between two fits transformed over the whole table
 on the card.  It saves (``model.save(path)``) and loads
 (``WorkflowModel.load(path)``) models in the reference's format, either
 package's, scores them (``model.score``, ``model.evaluate``) and serves
-them: ``model.serving_plan()`` and ``plan.score(records)``.  The encode
-kernel of the one-hot and bucketize stages (``perf/kernels/csrc/encode.cu``)
-and the trees' histogram, split-scan and routing kernels
-(``perf/kernels/csrc/trees.cu``) are hand-written CUDA.
+them: ``model.serving_plan()`` and ``plan.score(records)`` for batches,
+``model.serve()`` (a :class:`ScoringServer`: micro-batching, pipelined
+flushes, fault isolation, blue/green swap) for records one at a time.  The
+encode kernel of the one-hot and bucketize stages
+(``perf/kernels/csrc/encode.cu``) and the trees' histogram, split-scan and
+routing kernels (``perf/kernels/csrc/trees.cu``) are hand-written CUDA.
 """
 
 __version__ = "0.1.0"
@@ -50,6 +52,7 @@ from .ops.onehot import OneHotVectorizer  # noqa: F401
 from .ops.scalers import FillMissingWithMean, StandardScaler  # noqa: F401
 from .ops.transmogrifier import transmogrify  # noqa: F401
 from .serve.plan import CompiledScoringPlan  # noqa: F401
+from .serve.server import ScoringServer  # noqa: F401
 from .workflow.serde import load_model, save_model  # noqa: F401
 from .workflow.workflow import Workflow, WorkflowModel  # noqa: F401
 
@@ -60,5 +63,5 @@ __all__ = ["BinaryClassificationModelSelector", "BinaryVectorizer",
            "LogisticRegression", "MultiClassificationModelSelector",
            "MultinomialLogisticRegression", "NaiveBayes", "NumericVectorizer",
            "OneHotVectorizer", "RealNNVectorizer", "RegressionModelSelector",
-           "SanityChecker", "StandardScaler", "VectorsCombiner", "Workflow",
-           "WorkflowModel", "load_model", "save_model", "transmogrify"]
+           "SanityChecker", "ScoringServer", "StandardScaler", "VectorsCombiner",
+           "Workflow", "WorkflowModel", "load_model", "save_model", "transmogrify"]

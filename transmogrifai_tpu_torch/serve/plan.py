@@ -1,7 +1,8 @@
 """CompiledScoringPlan — a fitted model bound for online scoring on the card.
 
-Counterpart of ``transmogrifai_tpu/serve/plan.py``.  A plan works in three
-parts, each timed (``last_timings``, ``metrics()``):
+Counterpart of ``transmogrifai_tpu/serve/plan.py``.  A plan scores a batch
+of records in three parts, each timed (``last_timings``, ``batch_timings``,
+``metrics()``):
 
 1. **host encode** — field extraction; float32 lifts of raw numeric features
    (NaN for missing, one lift shared by every stage that reads the feature);
@@ -13,10 +14,37 @@ parts, each timed (``last_timings``, ``metrics()``):
    whose inputs are all operands (the one-hot and bucketize slots) is
    encoded by one launch of it (``perf/kernels/encode.py::encode_slots``);
    the other prefix stages run in topological order as torch ops and the
-   port's CUDA kernels; the outputs the host still needs come back as numpy;
+   port's CUDA kernels; the outputs the host still needs are copied back,
+   without blocking, into pinned host buffers;
 3. **host remainder** — every other stage (the model head, float64 numpy)
    through its columnar ``transform``; a tree head scores batches above 512
    rows on the plan's device.
+
+``score(records) == begin_score(records)()``: :meth:`begin_score` runs the
+host encode and starts the device work (on the card it returns as soon as
+the copies and launches are queued), and the closure it returns waits for
+that batch's copies back — one CUDA event — then runs the host remainder.
+The pipelined batcher (``serve/batcher.py``) encodes batch N+1 while batch
+N's device work and host remainder finish; lockstep serving calls the two
+halves back to back, so both run the same code.
+
+Buffers shared between batches in flight:
+
+- every batch's device work goes on one stream, the plan's (the device's
+  current stream when the plan was built), whatever stream the calling
+  thread has set: so batch N+1's copy into a bucket's staging buffers is
+  ordered after batch N's kernels that read them, and ``Staging.load``
+  waits for batch N's copy out of the pinned host buffer before refilling
+  it;
+- each bucket has a ring of landing buffers for the copies back (pinned on
+  the card), one set per batch in flight, a set handed back only once its
+  batch is finalized.  A plan alone scores in lockstep and holds one set;
+  the server reserves its pipeline depth + 1 (``reserve_inflight``).  A
+  batch that finds every set in use gets a new one (counted in
+  ``compile_count``);
+- a lock orders the staging refill and the launches of concurrent callers
+  (the batcher's flusher, its finalizer's retries, direct ``score``
+  callers); another guards the counters and the free sets.
 
 Batches pad to power-of-two row buckets (as the reference, whose jit cache
 needed them): the kernels see a handful of shapes, and a batch's padded rows
@@ -29,12 +57,18 @@ PyTorch version — the tests' path, and the reference the card is held to.
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
+import json
+import threading
 import time
-from typing import Any, Callable, Dict, List, Mapping, Sequence, Tuple
+from collections import deque
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..checkers.diagnostics import DiagnosticReport, OpCheckError, make_diagnostic
 from ..data.dataset import Column, Dataset
 from ..features.feature import Feature, _NamedExtract
 from ..features.generator import FeatureGeneratorStage
@@ -47,6 +81,33 @@ from ..workflow.plan import (
     run_host_stages,
     serving_entry_ok,
 )
+from ..workflow.serde import _Encoder, encode_stage
+from ..workflow.workflow import _refuse_unported
+from .faults import fault_point
+
+#: precision names the plan serves (the reference's f32 aliases); its
+#: reduced classes are refused by name
+_F32_NAMES = frozenset({"f32", "float32", "fp32"})
+_REDUCED_NAMES = frozenset({"bf16", "bfloat16", "int8", "i8"})
+
+
+def _normalize_precision(precision) -> str:
+    if precision is None:
+        return "f32"
+    key = str(precision).strip().lower()
+    if key in _F32_NAMES:
+        return "f32"
+    if key in _REDUCED_NAMES:
+        _refuse_unported("CompiledScoringPlan", {f"precision={precision!r}": True})
+    raise ValueError(f"unknown precision {precision!r}; expected one of "
+                     "('f32', 'bf16', 'int8')")
+
+
+def _unfitted(result_features: Sequence[Feature], fitted: Mapping[str, Any]) -> List[str]:
+    from ..stages.base import Estimator
+
+    return [stage.uid for layer in compute_dag(result_features) for stage in layer
+            if isinstance(stage, Estimator) and fitted.get(stage.uid) is None]
 
 
 def resolve_scoring_stages(result_features: Sequence[Feature],
@@ -141,35 +202,164 @@ def _plain(v: Any):
     return v
 
 
+class _OutSlot:
+    """Landing buffers of one batch in flight: a host tensor per prefix
+    output the host needs, ``bucket`` rows each (pinned on the card)."""
+
+    __slots__ = ("host",)
+
+    def __init__(self, specs: List[Tuple[tuple, torch.dtype]], bucket: int,
+                 pin: bool):
+        self.host = [torch.empty((bucket, *shape), dtype=dt, pin_memory=pin)
+                     for shape, dt in specs]
+
+
+class _Inflight:
+    """A begun batch's device half: its landing slot, and on the card the
+    events that time the prefix and mark its copies back done."""
+
+    __slots__ = ("bucket", "slot", "n", "start", "end", "done", "t0", "t1")
+
+    def __init__(self, bucket: int, slot: _OutSlot, n: int, start, end,
+                 t0: float, t1: float):
+        self.bucket, self.slot, self.n = bucket, slot, n
+        self.start, self.end, self.done = start, end, None
+        self.t0, self.t1 = t0, t1
+
+    def wait(self) -> List[np.ndarray]:
+        """Block until the copies back have landed (on the card: the batch's
+        one event); the prefix outputs as host arrays over the slot."""
+        if self.done is not None:
+            self.done.synchronize()
+        return [h[:self.n].numpy() for h in self.slot.host]
+
+    def device_ms(self) -> float:
+        if self.start is not None:
+            return self.start.elapsed_time(self.end)
+        return (self.t1 - self.t0) * 1e3
+
+
 class CompiledScoringPlan(DevicePrefix):
     """Fitted workflow model bound to a device for batch scoring.
 
     ``plan.score(records)`` returns one ``{result feature name: value}`` dict
-    per record, the reference plan's output contract.
+    per record, the reference plan's output contract.  The parameters are the
+    reference's, in its order, and ``device`` by keyword only.  ``strict``
+    refuses a model with an unfitted estimator by :class:`OpCheckError`
+    (TM501; without it, a ``ValueError``); the reference's other
+    servability checks are not ported.  Its device-memory admission gate
+    (``hbm_budget``) and reduced precision classes raise
+    ``NotImplementedError`` by name.
     """
 
-    def __init__(self, model, device=None, min_bucket: int = 8,
-                 max_bucket: int = 1024):
+    def __init__(self, model, min_bucket: int = 8, max_bucket: int = 1024,
+                 strict: bool = True, hbm_budget: Optional[float] = None,
+                 precision: Optional[str] = None, *, device=None):
         if max_bucket < min_bucket or min_bucket < 1:
             raise ValueError(f"bad bucket range [{min_bucket}, {max_bucket}]")
+        _refuse_unported("CompiledScoringPlan", {"hbm_budget": hbm_budget is not None})
+        self._precision = _normalize_precision(precision)
         self.min_bucket = 1 << (int(min_bucket) - 1).bit_length()
         self.max_bucket = 1 << (int(max_bucket) - 1).bit_length()
         self.result_features: List[Feature] = list(model.result_features)
+        if strict:
+            unfitted = _unfitted(self.result_features, model.fitted)
+            if unfitted:
+                report = DiagnosticReport()
+                report.extend(make_diagnostic(
+                    "TM501", "estimator has no fitted model; cannot compile a "
+                    "scoring plan", stage_uid=uid) for uid in unfitted)
+                raise OpCheckError(report)
         super().__init__(resolve_scoring_stages(self.result_features, model.fitted),
                          serving_entry_ok, resolve_device(device))
         self._generators = self._collect_generators()
         self._build_sources()
-        #: row bucket -> its staging buffers (built at the bucket's first batch)
+        on_card = self.device.type == "cuda"
+        #: every batch's device work goes on this stream
+        self._stream = torch.cuda.current_stream(self.device) if on_card else None
+        #: orders the staging refill and the launches of concurrent callers
+        self._dispatch_lock = threading.Lock()
+        #: guards the counters, the timings and the free landing sets
+        self._lock = threading.Lock()
+        #: row bucket -> its staging buffers
         self._staging: Dict[int, Staging] = {}
+        #: row bucket -> landing sets not in flight
+        self._free: Dict[int, List[_OutSlot]] = {}
+        #: landing sets a bucket's ring is built with (``reserve_inflight``)
+        self._ring_size = 1
+        #: row bucket -> landing sets built; the sets' (shape, dtype) specs
+        self._sets: Dict[int, int] = {}
+        self._slot_specs: Optional[List[Tuple[tuple, torch.dtype]]] = None
+        self._entry_dtypes: Optional[List[np.dtype]] = None
+        #: staging and landing-set allocations (the port's counterpart of
+        #: the reference's bucket compiles); after ``warm()`` serving adds none
+        self.compile_count = 0
         self._counters = {"scored_records": 0, "scored_batches": 0,
-                          "encode_ms": 0.0, "device_ms": 0.0, "host_ms": 0.0,
-                          "h2d_copies": 0}
-        #: per-part milliseconds of the last batch: host encode, device
-        #: prefix (H2D copies + kernels; CUDA events on the card), host remainder
+                          "bucket_batches": {}, "host_scored_records": 0,
+                          "padding_rows": 0, "encode_ms": 0.0, "device_ms": 0.0,
+                          "host_ms": 0.0, "h2d_copies": 0}
+        #: per-part milliseconds of the last finalized batch: host encode,
+        #: device prefix (H2D copies + kernels; CUDA events on the card),
+        #: host remainder
         self.last_timings: Dict[str, float] = {}
+        #: the same, with rows and bucket, of the most recent batches
+        self.batch_timings: "deque[Dict[str, float]]" = deque(maxlen=4096)
+        self._content_fingerprint = self._prefix_fingerprint(environment=False)
+        self._fingerprint = self._prefix_fingerprint(environment=True)
+
+    # -- introspection -------------------------------------------------------
+    @property
+    def fingerprint(self) -> str:
+        """Hash of the prefix stages' fitted state, the prefix's wiring and
+        the device type: equal fingerprints run the same prefix."""
+        return self._fingerprint
+
+    @property
+    def content_fingerprint(self) -> str:
+        """:attr:`fingerprint` without the device type."""
+        return self._content_fingerprint
+
+    @property
+    def precision(self) -> str:
+        return self._precision
+
+    @property
+    def device_stage_uids(self) -> List[str]:
+        return [s.uid for s in self._prefix]
+
+    @property
+    def host_stage_uids(self) -> List[str]:
+        return [s.uid for s in self._remainder]
+
+    def bucket_ladder(self) -> List[int]:
+        """Every power-of-two bucket in [min_bucket, max_bucket]."""
+        out, b = [], self.min_bucket
+        while b <= self.max_bucket:
+            out.append(b)
+            b *= 2
+        return out
+
+    def warm_buckets(self) -> List[int]:
+        """Buckets whose staging buffers are built."""
+        with self._lock:
+            return sorted(self._staging)
 
     def metrics(self) -> Dict[str, Any]:
-        out = dict(self._counters)
+        """Counters, under the reference's keys where the port has them:
+        ``scored_records`` / ``scored_batches`` (finalized batches),
+        ``bucket_batches`` (batches per row bucket), ``host_scored_records``
+        (records ``score_host`` served), ``compile_count`` (staging and
+        landing-set allocations; the port compiles nothing at serving time),
+        ``buckets_compiled`` (buckets with staging), ``fused_stages`` /
+        ``host_stages``.  The port's own: ``encode_ms`` / ``device_ms`` /
+        ``host_ms`` (summed per-part times), ``padding_rows`` (rows padded
+        up to the bucket), ``h2d_copies`` (host-to-device copies) and
+        ``device``."""
+        with self._lock:
+            out = {k: (dict(v) if isinstance(v, dict) else v)
+                   for k, v in self._counters.items()}
+            out.update(compile_count=self.compile_count,
+                       buckets_compiled=sorted(self._staging))
         out.update(device=str(self.device), fused_stages=len(self._prefix),
                    host_stages=len(self._remainder))
         return out
@@ -216,10 +406,35 @@ class CompiledScoringPlan(DevicePrefix):
             if gen.raw_name not in host_needed:
                 self._encoder_light[gen.raw_name] = gen
 
+    def _prefix_fingerprint(self, environment: bool) -> str:
+        """sha256 of the prefix stages' fitted state (encoded as the port's
+        ``workflow/serde.py`` saves it, so a reloaded copy of a model hashes
+        equal) and the prefix's wiring; ``environment`` adds the device
+        type."""
+        enc = _Encoder()
+        payload = {"stages": [encode_stage(s, enc, full=True) for s in self._prefix],
+                   "extra": {"entries": [list(k) for k in self._entry_keys],
+                             "outs": self._out_uids}}
+        if environment:
+            payload["device"] = self.device.type
+        h = hashlib.sha256(json.dumps(payload, sort_keys=True, default=repr).encode())
+        for key in sorted(enc.arrays):
+            arr = np.ascontiguousarray(enc.arrays[key])
+            h.update(f"{key}:{arr.shape}:{arr.dtype}".encode())
+            h.update(arr.tobytes())
+        return h.hexdigest()
+
+    # -- the device half -------------------------------------------------------
+    def _on_stream(self):
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
+
     def _stage(self, entries: List[np.ndarray], n: int,
                bucket: int) -> List[torch.Tensor]:
         """The batch's entries as device operands, through the bucket's
-        staging buffers (one copy per dtype)."""
+        staging buffers (one copy per dtype).  Caller holds the dispatch
+        lock."""
         for e in entries:
             if e.ndim != 1 or e.shape[0] != n:
                 raise ValueError(f"a prefix operand must be 1-D with {n} rows, "
@@ -227,14 +442,123 @@ class CompiledScoringPlan(DevicePrefix):
         dtypes = tuple(e.dtype for e in entries)
         st = self._staging.get(bucket)
         if st is None or st.dtypes != dtypes:
-            st = self._staging[bucket] = Staging(dtypes, bucket, self.device)
-        self._counters["h2d_copies"] += st.load(entries, n)
+            st = Staging(dtypes, bucket, self.device)
+            with self._lock:
+                self._staging[bucket] = st
+                self.compile_count += 1
+        copies = st.load(entries, n)
+        with self._lock:
+            self._counters["h2d_copies"] += copies
         return st.operands
 
-    # -- the three parts -----------------------------------------------------
+    def reserve_inflight(self, batches: int) -> "CompiledScoringPlan":
+        """Landing sets per bucket: how many batches may be begun and not
+        yet finalized without an allocation.  A plan alone scores in
+        lockstep (1); the server reserves its pipeline depth + 1 (the
+        ring's batches and the one its flusher is beginning).  Rings
+        already built grow to it."""
+        with self._lock:
+            self._ring_size = max(1, int(batches))
+            for bucket, have in self._sets.items():
+                if have < self._ring_size:
+                    self._free[bucket].extend(
+                        self._new_slots(bucket, self._ring_size - have))
+        return self
+
+    def _new_slots(self, bucket: int, count: int) -> List[_OutSlot]:
+        """``count`` landing sets of ``bucket``; caller holds the lock."""
+        pin = self.device.type == "cuda"
+        self._sets[bucket] = self._sets.get(bucket, 0) + count
+        self.compile_count += 1
+        return [_OutSlot(self._slot_specs, bucket, pin) for _ in range(count)]
+
+    def _take_slot(self, bucket: int, env: Dict[str, torch.Tensor]) -> _OutSlot:
+        """A free landing set of ``bucket``; the bucket's first batch builds
+        its ring, a batch that finds every set in flight builds one more."""
+        with self._lock:
+            free = self._free.get(bucket)
+            if free:
+                return free.pop()
+            if self._slot_specs is None:
+                self._slot_specs = [(tuple(env[u].shape[1:]), env[u].dtype)
+                                    for u in self._out_uids]
+            made = self._new_slots(bucket, self._ring_size if free is None else 1)
+            self._free[bucket] = made[1:]
+            return made[0]
+
+    def _release(self, handle: _Inflight) -> None:
+        with self._lock:
+            self._free[handle.bucket].append(handle.slot)
+
+    def _dispatch(self, entries: List[np.ndarray], n: int) -> _Inflight:
+        """Stage the batch, launch its prefix and start its copies back into
+        a landing set, without waiting for any of it on the card."""
+        bucket = _bucket_for(n, self.min_bucket, self.max_bucket)
+        on_card = self.device.type == "cuda"
+        start = end = None
+        with self._dispatch_lock, self._on_stream():
+            t0 = time.perf_counter()
+            if on_card:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            ops_in = self._stage(entries, n, bucket)
+            env: Dict[str, torch.Tensor] = {}
+            self._encode(ops_in, bucket, env)
+            self._run_wiring(ops_in, env)
+            if on_card:
+                end.record()
+            t1 = time.perf_counter()
+            slot = self._take_slot(bucket, env)
+            handle = _Inflight(bucket, slot, n, start, end, t0, t1)
+            try:
+                for host, u in zip(slot.host, self._out_uids):
+                    host[:n].copy_(env[u][:n], non_blocking=on_card)
+                if on_card:
+                    handle.done = torch.cuda.Event()
+                    handle.done.record()
+            except BaseException:
+                self._release(handle)
+                raise
+        return handle
+
+    def _warm_entries(self, rows: int) -> List[np.ndarray]:
+        """Zero operands of the entries' dtypes (each encoder's dtype from
+        its encoding of an empty column)."""
+        if self._entry_dtypes is None:
+            dtypes = []
+            for key in self._entry_keys:
+                if key[0] == "lift":
+                    dtypes.append(np.dtype(np.float32))
+                else:
+                    runner, slot, f = self._entry_encoders[key]
+                    empty = Column(f.ftype, np.array([], dtype=object))
+                    dtypes.append(np.asarray(runner.encode_device_input(slot, empty)).dtype)
+            self._entry_dtypes = dtypes
+        return [np.zeros(rows, dt) for dt in self._entry_dtypes]
+
+    def warm(self, buckets: Optional[Sequence[int]] = None) -> "CompiledScoringPlan":
+        """Build the staging buffers and the landing ring of ``buckets``
+        (default: every power of two in [min_bucket, max_bucket]) and run one
+        padded batch of zeros through each, so served batches allocate no
+        pinned memory."""
+        if not self._prefix:
+            return self
+        for b in (self.bucket_ladder() if buckets is None else buckets):
+            b = _bucket_for(b, self.min_bucket, self.max_bucket)
+            handle = self._dispatch(self._warm_entries(b), b)
+            try:
+                handle.wait()
+            finally:
+                self._release(handle)
+        return self
+
+    # -- the host halves -------------------------------------------------------
     def _encode_records(self, records) -> Tuple[Dict[str, Column], List[np.ndarray]]:
         host_cols = extract_columns(records, self._host_raw,
                                     allow_missing_response=True)
+        if not self._prefix:
+            return host_cols, []
         enc_cols = dict(host_cols)
         for raw_name, gen in self._encoder_light.items():
             enc_cols[raw_name] = Column(gen.ftype, np.array(_extract(gen, records),
@@ -253,30 +577,6 @@ class CompiledScoringPlan(DevicePrefix):
                 entries.append(np.asarray(runner.encode_device_input(slot, col)))
         return host_cols, entries
 
-    def _run_prefix(self, entries: List[np.ndarray], n: int) -> List[np.ndarray]:
-        """Pad, move to the device, run the prefix, bring its needed outputs
-        back (the copy back is the batch's one synchronisation)."""
-        if not self._prefix:
-            self.last_timings["device_ms"] = 0.0
-            return []
-        bucket = _bucket_for(n, self.min_bucket, self.max_bucket)
-        on_card = self.device.type == "cuda"
-        t0 = time.perf_counter()
-        if on_card:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-        ops_in = self._stage(entries, n, bucket)
-        env: Dict[str, torch.Tensor] = {}
-        self._encode(ops_in, bucket, env)
-        self._run_wiring(ops_in, env)
-        if on_card:
-            end.record()
-        outs = [env[u][:n].cpu().numpy() for u in self._out_uids]
-        self.last_timings["device_ms"] = start.elapsed_time(end) if on_card \
-            else (time.perf_counter() - t0) * 1e3
-        return outs
-
     @staticmethod
     def _materialize(f: Feature, arr: np.ndarray) -> Column:
         if f.ftype.kind is ColumnKind.VECTOR:
@@ -286,22 +586,6 @@ class CompiledScoringPlan(DevicePrefix):
                           np.ones(arr.shape[0], dtype=np.bool_))
         return Column(f.ftype, arr)
 
-    def _run(self, host_cols: Dict[str, Column], entries: List[np.ndarray],
-             n: int, t_encode: float) -> Dataset:
-        outs = self._run_prefix(entries, n)
-        t0 = time.perf_counter()
-        cols = dict(host_cols)
-        for f, arr in zip(self._out_features, outs):
-            cols[f.name] = self._materialize(f, arr)
-        ds = run_host_stages(Dataset(cols), self._remainder, device=self.device)
-        self.last_timings["host_ms"] = (time.perf_counter() - t0) * 1e3
-        self.last_timings["encode_ms"] = t_encode * 1e3
-        for k in ("encode_ms", "device_ms", "host_ms"):
-            self._counters[k] += self.last_timings[k]
-        self._counters["scored_records"] += n
-        self._counters["scored_batches"] += 1
-        return ds
-
     # -- scoring -------------------------------------------------------------
     def prefix_outputs(self, records: Sequence[Mapping[str, Any]]) -> List[np.ndarray]:
         """The device prefix's outputs for one batch (at most ``max_bucket``
@@ -309,22 +593,103 @@ class CompiledScoringPlan(DevicePrefix):
         from the device — what ``score`` feeds the host remainder."""
         if not 0 < len(records) <= self.max_bucket:
             raise ValueError(f"prefix_outputs takes 1..{self.max_bucket} records")
-        return self._run_prefix(self._encode_records(records)[1], len(records))
+        if not self._prefix:
+            return []
+        handle = self._dispatch(self._encode_records(records)[1], len(records))
+        try:
+            return [a.copy() for a in handle.wait()]
+        finally:
+            self._release(handle)
 
     def score(self, records: Sequence[Mapping[str, Any]]) -> List[Dict[str, Any]]:
-        """Batch scoring: host encode, device prefix, host remainder."""
+        """Batch scoring: host encode, device prefix, host remainder —
+        ``begin_score(records)()``."""
+        return self.begin_score(records)()
+
+    def begin_score(self, records: Sequence[Mapping[str, Any]]
+                    ) -> Callable[[], List[Dict[str, Any]]]:
+        """Run the host encode and start the batch's device work now; return
+        the closure that finishes it: waits for the batch's copies back,
+        runs the host remainder, counts the batch and returns its rows.  The
+        closure must be called (it hands the batch's landing set back).
+        Batches above ``max_bucket`` records run whole in the closure."""
+        n = len(records)
+        if n == 0:
+            return lambda: []
+        if n > self.max_bucket:
+            def _finalize_split() -> List[Dict[str, Any]]:
+                out: List[Dict[str, Any]] = []
+                for i in range(0, n, self.max_bucket):
+                    out.extend(self.score(records[i:i + self.max_bucket]))
+                return out
+            return _finalize_split
+
+        t0 = time.perf_counter()
+        fault_point("encode", records=records)
+        host_cols, entries = self._encode_records(records)
+        encode_ms = (time.perf_counter() - t0) * 1e3
+        handle = None
+        if self._prefix:
+            bucket = _bucket_for(n, self.min_bucket, self.max_bucket)
+            fault_point("device", records=records, bucket=bucket)
+            handle = self._dispatch(entries, n)
+
+        def _finalize() -> List[Dict[str, Any]]:
+            try:
+                cols = dict(host_cols)
+                device_ms = 0.0
+                if handle is not None:
+                    for f, arr in zip(self._out_features, handle.wait()):
+                        cols[f.name] = self._materialize(f, arr)
+                    device_ms = handle.device_ms()
+                t1 = time.perf_counter()
+                fault_point("host", records=records)
+                ds = run_host_stages(Dataset(cols), self._remainder, device=self.device)
+                out = self._rows_from(ds, n)
+                host_ms = (time.perf_counter() - t1) * 1e3
+            finally:
+                if handle is not None:
+                    self._release(handle)
+            timings = {"encode_ms": encode_ms, "device_ms": device_ms,
+                       "host_ms": host_ms}
+            with self._lock:
+                c = self._counters
+                for k, v in timings.items():
+                    c[k] += v
+                c["scored_records"] += n
+                c["scored_batches"] += 1
+                if handle is not None:
+                    bb = c["bucket_batches"]
+                    bb[handle.bucket] = bb.get(handle.bucket, 0) + 1
+                    c["padding_rows"] += handle.bucket - n
+                self.last_timings = timings
+                self.batch_timings.append(
+                    {**timings, "rows": n,
+                     "bucket": handle.bucket if handle is not None else 0})
+            return out
+        return _finalize
+
+    def score_host(self, records: Sequence[Mapping[str, Any]]
+                   ) -> List[Dict[str, Any]]:
+        """Every stage, the device prefix's too, through its host columnar
+        ``transform`` on the CPU — the degraded path the circuit breaker
+        (``serve/resilience.py``) serves from while the device path is
+        failing.  Counted in ``host_scored_records``.  Only a plan on the
+        CPU has it: a plan on the card never moves its work to the CPU."""
+        if self.device.type == "cuda":
+            raise RuntimeError("score_host runs on the CPU; a plan on the card "
+                               "has no host path (build it with device='cpu')")
         n = len(records)
         if n == 0:
             return []
-        if n > self.max_bucket:
-            out: List[Dict[str, Any]] = []
-            for i in range(0, n, self.max_bucket):
-                out.extend(self.score(records[i:i + self.max_bucket]))
-            return out
-        t0 = time.perf_counter()
-        host_cols, entries = self._encode_records(records)
-        ds = self._run(host_cols, entries, n, time.perf_counter() - t0)
-        return self._rows_from(ds, n)
+        ds = Dataset(extract_columns(
+            records, [(g.raw_name, g) for g in self._generators],
+            allow_missing_response=True))
+        ds = run_host_stages(ds, self._runners, device=torch.device("cpu"))
+        out = self._rows_from(ds, n)
+        with self._lock:
+            self._counters["host_scored_records"] += n
+        return out
 
     def _rows_from(self, ds: Dataset, n: int) -> List[Dict[str, Any]]:
         from ..models.prediction import PredictionColumn

@@ -14,6 +14,8 @@ Scoring a fitted or loaded model::
     model = WorkflowModel.load(path)         # a saved model directory
     plan = model.serving_plan()              # on the CUDA card
     rows = plan.score(records)               # [{result name: value}, ...]
+    with model.serve(max_batch=256) as server:   # records one at a time
+        row = server.submit(record).result()
     scored = model.score(dataset)            # columnar, returns a Dataset
     metrics = model.evaluate(Evaluators.binary_classification(), dataset)
     model.save(path)                         # the JAX package loads it too
@@ -135,16 +137,25 @@ class WorkflowModel:
                      strict: bool = True, hbm_budget: Optional[float] = None,
                      *, device=None):
         """Bind this model to ``device`` for batch scoring
-        (:class:`~..serve.plan.CompiledScoringPlan`).  Whatever ``strict``
-        says, the plan checks only that every estimator is fitted (TM501):
-        the reference's servability validator is not ported, nor is its
-        device-memory admission gate, ``hbm_budget``."""
+        (:class:`~..serve.plan.CompiledScoringPlan`).  ``strict`` checks
+        only that every estimator is fitted (TM501): the reference's other
+        servability checks are not ported, nor is its device-memory
+        admission gate, ``hbm_budget``."""
         from ..serve.plan import CompiledScoringPlan
 
         _refuse_unported("WorkflowModel.serving_plan",
                          {"hbm_budget": hbm_budget is not None})
-        return CompiledScoringPlan(self, device=device, min_bucket=min_bucket,
-                                   max_bucket=max_bucket)
+        return CompiledScoringPlan(self, min_bucket, max_bucket, strict,
+                                   device=device)
+
+    def serve(self, **kwargs):
+        """In-process scoring server over this model
+        (:class:`~..serve.server.ScoringServer`, the keyword arguments its
+        own, ``device`` among them): the plan behind a micro-batcher.  Close
+        it (or use it as a context manager) to drain its queue."""
+        from ..serve.server import ScoringServer
+
+        return ScoringServer(self, **kwargs)
 
     def score(self, dataset: Optional[Dataset] = None,
               keep_intermediate: bool = False, *, device=None) -> Dataset:
