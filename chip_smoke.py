@@ -180,7 +180,34 @@ Phases, one JSON line each:
                with 10 classes, the same way (18 levels in CV); then at
                65 536 x 128 with 100 classes through the DataCutter, where K1
                must launch channel-tiled and K2 unstaged.
-15. summary  — nvidia-smi's line, then one {"kernels": [...]} line, then the
+15. families — transmogrify's text, date, list, multi-pick and
+               geolocation families (tests/torch_families_data.py: English
+               and German free text, a categorical text, an email, 2 pick
+               lists, a multi-pick list, a date and a date-time, a date
+               list, a text list, a geolocation, 8 Real, 2 Integral, a
+               Binary; SanityChecker(correlation_exclusion="hashed_text") and
+               a 3-fold CV LogisticRegression selector).  (a) g++ builds the
+               native hashing library here (the phase fails if it does not)
+               and its blocks equal its Python path's on a Unicode sample.
+               (b) At the record's 4096 rows: fitted states equal the JAX
+               package's record (fixtures/training_families,
+               tools/make_torch_families_fixture.py), the training vector's
+               sha256 equal, LR within 1e-4, the pick lists' 2 slots in one
+               encode launch, and the JAX-saved model's records on the card
+               equal to the CPU plan's and within 1e-12 of the JAX plan's.
+               (c) Workflow.train at FAMILY_ROWS (262 144) with the counters
+               zeroed just before: seconds by part (stage fits, the SmartText
+               fit, the hashing transforms, the flushes, the SanityChecker,
+               the selector), the vector width, peak device memory, the
+               encode launch (2 slots) bitwise and timed beside its bound,
+               and no hashing call on the Python path.  (d) model.save ->
+               WorkflowModel.load -> serving_plan() on the card over 16
+               batches of 1024 records: one encode launch a batch, records
+               equal to the CPU plan's, records/s and the median host encode,
+               device and host-remainder ms.  (e) model.serve() answers 2048
+               one-record requests, each equal to the plan's record for its
+               batch.
+16. summary  — nvidia-smi's line, then one {"kernels": [...]} line, then the
                last line {"ok": true, "device": {...}}.
 
 Phase 3 also holds K5 past shared memory (a 5000-split slot, its own launch
@@ -245,6 +272,11 @@ INT8_LIBRARY_ROWS = 1 << 16
 FIXTURE_ROWS = 20000
 #: rows of the raw-column training run timed by phase 10
 RAW_ROWS = 1 << 18
+#: the families record (tools/make_torch_families_fixture.py) and the rows of
+#: the families train timed by phase 15
+FAMILIES_FIXTURE = os.path.join("transmogrifai_tpu_torch", "fixtures",
+                                "training_families")
+FAMILY_ROWS = 1 << 18
 #: CV metric tolerance of each family against the reference's record
 FAMILY_TOL = {"LogisticRegression": 1e-4, "LinearSVC": 1e-4,
               "RandomForestClassifier": 1e-6, "GradientBoostedTreesClassifier": 1e-3}
@@ -1969,6 +2001,257 @@ def phase_training_raw(torch, KE, dev) -> dict:
     return out
 
 
+# -- the families: text, dates, lists, multi-pick lists, geolocations -------------
+
+def _families_train(torch, n: int, dev):
+    """The families pipeline (tests/torch_families_data.py) trained from raw
+    columns on ``dev`` through the port's entry points.  Returns (model,
+    workflow, pipeline handles, dataset, columns, host seconds of the data,
+    train seconds)."""
+    import transmogrifai_tpu_torch as T
+    from torch_families_data import families_pipeline, make_families
+    from transmogrifai_tpu_torch.types import feature_type_by_name
+
+    t0 = time.perf_counter()
+    cols, schema = make_families(n, seed=0)
+    t1 = time.perf_counter()
+    ftypes = {s["name"]: feature_type_by_name(s["type"]) for s in schema}
+    ds = T.Dataset.from_features(cols, ftypes)
+    t2 = time.perf_counter()
+    label, sel, chk, pred = families_pipeline(T, ftypes, schema)
+    wf = T.Workflow().set_input_dataset(ds).set_result_features(label, pred)
+    _sync(torch, dev)
+    t3 = time.perf_counter()
+    model = wf.train(device=dev)
+    _sync(torch, dev)
+    seconds = time.perf_counter() - t3
+    handles = {"label": label, "sel": sel, "chk": chk, "pred": pred}
+    return model, wf, handles, ds, cols, {"make_families_s": t1 - t0,
+                                          "from_features_s": t2 - t1}, seconds
+
+
+def _no_python_hashing(native, what: str) -> dict:
+    counts = native.path_counts()
+    check(not [k for k in counts if k.endswith(".python")],
+          f"{what}: every hashing call took the native library: {counts}")
+    return counts
+
+
+def phase_families(torch, KE, dev) -> dict:
+    """transmogrify's text, date, list, multi-pick and geolocation families
+    on the card: (a) the native hashing library builds here and equals its
+    Python path; (b) the 4096-row train against the JAX package's record
+    (fixtures/training_families); (c) Workflow.train at FAMILY_ROWS by part;
+    (d) save -> load -> serving_plan() over 16 batches of 1024 records, equal
+    to the CPU plan's; (e) model.serve() answering 2048 one-record requests."""
+    import numpy as np
+
+    from torch_families_data import fitted_states, make_records, vector_digest
+    from transmogrifai_tpu_torch import WorkflowModel, native
+    from transmogrifai_tpu_torch.workflow.fit import transform_dag
+
+    # (a) the g++ build, and its blocks against the Python path's
+    t0 = time.perf_counter()
+    check(native.warmup(), f"the native hashing library built: {native.BUILD_ERROR}")
+    build = {"seconds": time.perf_counter() - t0, **native.BUILD_INFO}
+    sample = ["Café crème, naïve résumé", "東京の美味しいラーメン屋さん 2024", "plain ascii text 42",
+              "Straße über Ärger", "", None, "x" * 5000 + " tail", "Ελληνικά и русский"] * 300
+    docs = [t.split() if t else None for t in sample]
+    native.reset_path_counts()
+    nat = (native.tokenize_hash_count(sample, 512), native.hash_count_block(docs, 512))
+    _no_python_hashing(native, "the Unicode sample")
+    saved = native._LIB
+    try:
+        native._LIB = None
+        py = (native.tokenize_hash_count(sample, 512), native.hash_count_block(docs, 512))
+    finally:
+        native._LIB = saved
+    check(nat[0][0].tobytes() == py[0][0].tobytes() and nat[0][1].tobytes() == py[0][1].tobytes()
+          and nat[1].tobytes() == py[1].tobytes(),
+          "native hashing blocks bitwise the Python path's on a Unicode sample")
+
+    # (b) parity at the record's size
+    with open(os.path.join(FAMILIES_FIXTURE, "states.json")) as fh:
+        states = json.load(fh)
+    with open(os.path.join(FAMILIES_FIXTURE, "records.json")) as fh:
+        recorded = json.load(fh)
+    native.reset_path_counts()
+    KE.reset_launch_counts()
+    model, wf, h, ds, _, _, seconds_b = _families_train(torch, states["rows"], dev)
+    launches_b = KE.launch_counts()
+    _no_python_hashing(native, "the 4096-row train")
+    check(json.loads(json.dumps(fitted_states(model))) == states["fitted"],
+          "fitted states (SmartText decisions, vocabularies, fills, kept indices) "
+          "== the JAX record")
+    vec = h["chk"].inputs[1]
+    got_vec = transform_dag(ds, [vec], model.fitted, dev)[vec.name].data
+    check(vector_digest(got_vec) == states["vector"],
+          f"the training vector on the card bitwise the JAX record's {states['vector']}")
+    summary = model.fitted[h["sel"].uid].summary
+    cv_dev = max(abs(a - b) for e, c in zip(summary.validation_results, states["cv"])
+                 for a, b in zip(e.metric_values, c["values"]))
+    check(cv_dev <= 1e-4, f"LR CV metrics within 1e-4 of the JAX record ({cv_dev})")
+    win = model.fitted[h["sel"].uid].model
+    coef_dev = float(np.max(np.abs(np.asarray(win.coef) - np.asarray(states["winner"]["coef"]))))
+    check(summary.best_grid == states["winner"]["grid"]
+          and np.allclose(win.coef, states["winner"]["coef"], rtol=1e-4, atol=1e-5),
+          f"the winner and its coefficients within rtol 1e-4 / atol 1e-5 ({coef_dev})")
+    check(launches_b["encode_slots"] == 1 and launches_b["encode_slots.slots"] == 2,
+          f"the pick lists' 2 slots in one encode launch: {launches_b}")
+    fixture = WorkflowModel.load(FAMILIES_FIXTURE)
+    fplan, fcpu = fixture.serving_plan(), fixture.serving_plan(device="cpu")
+    pname = recorded["prediction"]
+    rec_dev = 0.0
+    for b in recorded["batches"]:
+        got = fplan.score(b["records"])
+        check(got == fcpu.score(b["records"]), "the JAX-saved model: card records == CPU plan's")
+        rec_dev = max([rec_dev] + [abs(g[pname]["probability_1"] - w[pname]["probability_1"])
+                                   for g, w in zip(got, b["scored"])])
+    check(rec_dev <= 1e-12, f"the JAX-saved model's records within 1e-12 of the JAX "
+                            f"plan's ({rec_dev})")
+    del model, wf, h, ds, got_vec, fixture, fplan, fcpu
+
+    # (c) Workflow.train at FAMILY_ROWS by part
+    torch.cuda.reset_peak_memory_stats()
+    KE.reset_launch_counts()
+    native.reset_path_counts()
+    model, wf, h, ds, cols, data_s, seconds = _families_train(torch, FAMILY_ROWS, dev)
+    launches = KE.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    paths = _no_python_hashing(native, f"the {FAMILY_ROWS}-row train")
+    check(launches["encode_slots"] == 1 and launches["encode_slots.slots"] == 2
+          and launches["onehot_codes"] == launches["bucketize_right_encode"] == 0,
+          f"the training path launches the encode kernel once with 2 slots: {launches}")
+    prof = wf.last_train_profile
+    fits = [r for r in prof if r["kind"] == "fit"]
+    flushes = [r for r in prof if r["kind"] == "flush"]
+    by_stage: dict = {}
+    for r in fits:
+        by_stage[r["stage"]] = by_stage.get(r["stage"], 0.0) + r["seconds"]
+    host_by_stage: dict = {}
+    for r in flushes:
+        for k, v in (r.get("host_stage_seconds") or {}).items():
+            host_by_stage[k] = host_by_stage.get(k, 0.0) + v
+    hashing = sum(host_by_stage.get(k, 0.0) for k in ("SmartTextVectorizerModel",
+                                                        "TextListHashingVectorizer"))
+    summary = model.fitted[h["sel"].uid].summary
+    for e in summary.validation_results:
+        check(all(np.isfinite(v) for v in e.metric_values), f"finite CV {e}")
+    # the flush's encode launch at FAMILY_ROWS, bitwise, then timed
+    plan, ins = _flush_operands(model, h, ds, dev)
+    table = plan._encode_table
+    enc_w = table.width
+    buf = torch.empty((FAMILY_ROWS, -(-enc_w // 4) * 4), device=dev)[:, :enc_w]
+    KE.encode_slots(ins, table, buf)
+    torch.cuda.synchronize()
+    check(torch.equal(buf, KE.encode_slots_torch(ins, table)),
+          f"the families flush's encode launch bitwise at {FAMILY_ROWS} rows")
+    nbytes = (sum(x.numel() * x.element_size() for x in ins) + table.splits.nbytes
+              + FAMILY_ROWS * enc_w * 4)
+    enc = {"rows": FAMILY_ROWS, "slots": len(table), "columns": enc_w,
+           "ms": time_big_ms(lambda: KE.encode_slots(ins, table, buf), runs=21, warmup=3),
+           "plain_ms": time_big_ms(lambda: KE.encode_slots_torch(ins, table, buf), runs=5),
+           "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "library_ms": time_big_ms(lambda: torch.cat(
+               [torch.nn.functional.one_hot(x.long(), sp.width).float()
+                for x, sp in zip(ins, table.specs)], 1), runs=5),
+           "library": "torch.nn.functional.one_hot(codes, width).float() per slot, "
+                      "then torch.cat (this run's codes all lie in range)",
+           "max_abs_err": 0.0}
+    del plan, ins, buf
+    vec_width = int(transform_dag(ds.take(np.arange(8)), [h["chk"].inputs[1]], model.fitted,
+                                  dev)[h["chk"].inputs[1].name].data.shape[1])
+
+    # (d) save -> load -> the serving plan on the card, 16 batches of 1024
+    path = os.path.join("build", "families_model")
+    model.save(path)
+    loaded = WorkflowModel.load(path)
+    splan, scpu = loaded.serving_plan(), loaded.serving_plan(device="cpu")
+    batches = [make_records(cols, range(i * BATCH, (i + 1) * BATCH)) for i in range(N_BATCHES)]
+    check(splan.score(batches[0]) == model.serving_plan().score(batches[0]),
+          "the loaded model serves the records the trained one does")
+    torch.cuda.synchronize()
+    KE.reset_launch_counts()
+    native.reset_path_counts()
+    rows, parts = [], []
+    t0 = time.perf_counter()
+    for b in batches:
+        rows.append(splan.score(b))
+        parts.append(dict(splan.last_timings))
+    wall = time.perf_counter() - t0
+    launches_serving = KE.launch_counts()
+    serve_paths = native.path_counts()
+    check(launches_serving["encode_slots"] == N_BATCHES
+          and launches_serving["encode_slots.slots"] == 2 * N_BATCHES,
+          f"one encode launch of 2 slots per batch: {launches_serving}")
+    for b, got in zip(batches, rows):
+        check(got == scpu.score(b), "card records == CPU plan records")
+    host_classes = sorted({type(r).__name__ for r in splan._remainder})
+    check({"VectorsCombiner", "SanityCheckerModel", "SmartTextVectorizerModel"}
+          <= set(host_classes), f"the combiner, checker and SmartText on the host: "
+                                f"{host_classes}")
+
+    def med(key):
+        return statistics.median(p[key] for p in parts)
+
+    # (e) model.serve(): 2048 one-record requests
+    records = [r for b in batches[:2] for r in b]
+    server = loaded.serve()
+    try:
+        seen = _capture_batches(server.plan)
+        KE.reset_launch_counts()
+        pairs, swall = _drive_clients(server, records, CLIENTS, CLIENT_WINDOW)
+        launches_server = KE.launch_counts()
+        bat = server.batcher.metrics()
+    finally:
+        server.close()
+    check(bat["completed"] == len(records) and bat["failed"] == 0,
+          f"every request completed: {bat}")
+    want = _expected(scpu, seen)
+    check(all(f.result() == want[id(r)] for r, f in pairs),
+          "every served record == the plan's record for its batch")
+    check(launches_server["encode_slots"] == bat["batches"],
+          f"one encode launch per flushed batch: {launches_server} {bat['batches']}")
+    out = {"rows": FAMILY_ROWS, "train_seconds": seconds, "data_host_seconds": data_s,
+           "native_build": build, "hash_paths": paths, "vector_width": vec_width,
+           "parts_seconds": {
+               "stage_fits_host": sum(v for k, v in by_stage.items() if k not in (
+                   "SanityChecker", "ModelSelector", "SmartTextVectorizer")),
+               "smart_text_fit": by_stage.get("SmartTextVectorizer"),
+               "hash_transforms": hashing,
+               "flushes": sum(r["seconds"] for r in flushes),
+               "flush_parts": [{k: r.get(k) for k in (
+                   "seconds", "stages", "encode_slots", "host_encode_s", "h2d_s",
+                   "device_s", "encode_ms", "d2h_s", "columns_s", "host_stages_s",
+                   "host_stage_seconds", "h2d_bytes", "d2h_bytes")} for r in flushes],
+               "sanity_checker": by_stage.get("SanityChecker"),
+               "selector": by_stage.get("ModelSelector")},
+           "fit_seconds_by_stage": by_stage,
+           "launches": launches, "max_memory_allocated_bytes": peak,
+           "kept": len(model.fitted[h["chk"].uid].kept_indices),
+           "winner": summary.best_model_name, "winner_grid": summary.best_grid,
+           "cv": [{"grid": e.grid, "values": e.metric_values}
+                  for e in summary.validation_results],
+           "encode_at_rows": enc,
+           "serving": {"batches": N_BATCHES, "batch": BATCH,
+                       "records_per_s": N_BATCHES * BATCH / wall,
+                       "encode_ms_median": med("encode_ms"),
+                       "device_ms_median": med("device_ms"),
+                       "host_ms_median": med("host_ms"),
+                       "launches": launches_serving, "hash_paths": serve_paths,
+                       "host_stages": host_classes, "records_equal_cpu": True},
+           "server": {"records": len(records), "records_per_s": len(records) / swall,
+                      "batches": bat["batches"], "latency_p50_ms": bat["latency_p50_ms"],
+                      "latency_p99_ms": bat["latency_p99_ms"],
+                      "launches": launches_server["encode_slots"],
+                      "records_equal_plan": True},
+           "parity_4096": {"train_seconds": seconds_b, "cv_max_abs_dev": cv_dev,
+                           "coef_max_abs_dev": coef_dev, "record_max_abs_dev": rec_dev,
+                           "launches": launches_b}}
+    emit({"phase": "families", **out})
+    return out
+
+
 # -- regression and multiclass selection ------------------------------------------
 
 def train_problem(torch, x, y, dev, selector):
@@ -2445,7 +2728,10 @@ def main() -> int:
     treg = phase_training_regression(torch, KE, dev)
     tmc = phase_training_multiclass(torch, KE, dev)
 
-    # 15. summary
+    # 15. the text, date, list, multi-pick and geolocation families
+    fam = phase_families(torch, KE, dev)
+
+    # 16. summary
     kernels = []
     tree_src = "transmogrifai_tpu_torch/perf/kernels/csrc/trees.cu"
     for kname, replaces in (("hist_level", "transmogrifai_tpu/perf/kernels/histogram.py:80"),
@@ -2515,6 +2801,11 @@ def main() -> int:
             "launches_serving_server_lockstep": server["lockstep"]["launches"],
             "launches_training_raw": raw["launches"]["encode_slots"],
             "training_raw": raw["encode_at_rows"],
+            **({"launches_training_families": fam["launches"]["encode_slots"],
+                "launches_serving_families": fam["serving"]["launches"]["encode_slots"],
+                "launches_serving_server_families": fam["server"]["launches"],
+                "training_families": fam["encode_at_rows"]}
+               if kname == "onehot_codes" else {}),
             **{f"fused_{k}": fused[k] for k in ("ms", "device_ms", "plain_ms",
                                                  "bound_ms", "slots", "columns")}})
     print(smi, flush=True)

@@ -713,3 +713,100 @@ def test_training_from_raw_columns_on_the_card_equals_the_cpu():
     for x, y in zip(a.summary.validation_results, b.summary.validation_results):
         np.testing.assert_allclose(x.metric_values, y.metric_values, rtol=0, atol=1e-4)
     np.testing.assert_allclose(a.model.coef, b.model.coef, rtol=1e-4, atol=1e-5)
+
+
+# -- the families: text, dates, lists, multi-pick lists, geolocations ------------
+
+FAMILIES = os.path.join(REPO, "transmogrifai_tpu_torch", "fixtures", "training_families")
+
+
+def _families(n: int, device: str):
+    """The families pipeline trained on ``device``: (model, selector,
+    checker, dataset, profile)."""
+    import transmogrifai_tpu_torch as T
+    from torch_families_data import families_pipeline, make_families
+    from transmogrifai_tpu_torch.types import feature_type_by_name
+
+    cols, schema = make_families(n, seed=0)
+    ftypes = {s["name"]: feature_type_by_name(s["type"]) for s in schema}
+    label, sel, chk, pred = families_pipeline(T, ftypes, schema)
+    ds = T.Dataset.from_features(cols, ftypes)
+    wf = T.Workflow().set_input_dataset(ds).set_result_features(label, pred)
+    return wf.train(device=device), sel, chk, ds, wf.last_train_profile
+
+
+def test_families_native_library_builds_and_takes_every_hash():
+    from torch_families_data import make_families
+    from transmogrifai_tpu_torch import native
+
+    assert native.warmup(), native.BUILD_ERROR
+    cols, _ = make_families(3000, seed=1)
+    native.reset_path_counts()
+    block, _ = native.tokenize_hash_count(cols["review"], 512)
+    lists = native.hash_count_block(cols["keywords"], 512)
+    counts = native.path_counts()
+    assert counts["tokenize_hash_count.native"] == 1
+    assert counts["hash_count_block.native"] >= 1
+    assert not [k for k in counts if k.endswith(".python")], counts
+    saved = native._LIB
+    try:  # the Python path on the same inputs gives the same bits
+        native._LIB = None
+        assert native.tokenize_hash_count(cols["review"], 512)[0].tobytes() == block.tobytes()
+        assert native.hash_count_block(cols["keywords"], 512).tobytes() == lists.tobytes()
+    finally:
+        native._LIB = saved
+
+
+def test_families_training_on_the_card_equals_the_record():
+    """At the record's 4096 rows: fitted states and the training vector
+    equal the JAX package's record; the pick lists' two slots in one encode
+    launch; LR within 1e-4 of the CPU train (the card's float32 sums run in
+    another order)."""
+    import json
+
+    from torch_families_data import fitted_states, vector_digest
+    from transmogrifai_tpu_torch import native
+    from transmogrifai_tpu_torch.workflow.fit import transform_dag
+
+    with open(os.path.join(FAMILIES, "states.json")) as fh:
+        states = json.load(fh)
+    native.reset_path_counts()
+    TKE.reset_launch_counts()
+    cm, csel, cchk, ds, prof = _families(states["rows"], "cuda")
+    launches = TKE.launch_counts()
+    assert launches["encode_slots"] == 1 and launches["encode_slots.slots"] == 2
+    assert not [k for k in native.path_counts() if k.endswith(".python")]
+    assert json.loads(json.dumps(fitted_states(cm))) == states["fitted"]
+    vec = cchk.inputs[1]
+    card = transform_dag(ds, [vec], cm.fitted, torch.device("cuda"))[vec.name]
+    assert vector_digest(card.data) == states["vector"]
+    pm, psel, _, _, _ = _families(states["rows"], "cpu")
+    a, b = cm.fitted[csel.uid], pm.fitted[psel.uid]
+    assert a.summary.best_grid == b.summary.best_grid
+    for x, y in zip(a.summary.validation_results, b.summary.validation_results):
+        np.testing.assert_allclose(x.metric_values, y.metric_values, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(a.model.coef, b.model.coef, rtol=1e-4, atol=1e-5)
+
+
+def test_families_serving_plan_on_the_card_equals_the_cpu():
+    """The JAX package's saved model on the card: one encode launch (2
+    slots) per batch; records equal to the CPU plan's and, within 1e-12,
+    to the JAX serving plan's record (another machine's float64 head)."""
+    import json
+
+    from transmogrifai_tpu_torch import WorkflowModel
+
+    with open(os.path.join(FAMILIES, "records.json")) as fh:
+        rec = json.load(fh)
+    model = WorkflowModel.load(FAMILIES)
+    plan, cpu_plan = model.serving_plan(), model.serving_plan(device="cpu")
+    for b in rec["batches"]:
+        TKE.reset_launch_counts()
+        got = plan.score(b["records"])
+        assert TKE.launch_counts()["encode_slots"] == 1
+        assert TKE.launch_counts()["encode_slots.slots"] == 2
+        assert got == cpu_plan.score(b["records"])
+        name = rec["prediction"]
+        dev = max(abs(g[name]["probability_1"] - w[name]["probability_1"])
+                  for g, w in zip(got, b["scored"]))
+        assert dev <= 1e-12, dev

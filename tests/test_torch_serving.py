@@ -279,6 +279,7 @@ class TestLifts:
         ("Real", [1.5, None, -0.1, 3, True, 1e30]),
         ("Binary", [True, None, False, 1, 0.0]),
         ("RealNN", [0.25, 7, -3.5]),
+        ("Geolocation", [[10.5, -20.25, 3], None, [], [0, 0, 1], (-89.9, 179.5, 7.0)]),
     ])
     def test_lift_bitwise(self, type_name, values):
         from transmogrifai_tpu.serve.plan import _lift_builder as jlift
@@ -327,18 +328,18 @@ class TestUnportedStages:
     def test_unported_transformer_class_is_named(self, tmp_path):
         def edit(m):
             comb = next(s for s in m["stages"] if s["class"] == "VectorsCombiner")
-            comb["class"] = "SmartTextVectorizerModel"
+            comb["class"] = "SmartTextMapVectorizerModel"
         path = _rewrite_manifest(FIXTURE, str(tmp_path / "m"), edit)
-        with pytest.raises(ValueError, match="SmartTextVectorizerModel"):
+        with pytest.raises(ValueError, match="SmartTextMapVectorizerModel"):
             TModel.load(path)
 
     def test_unported_feature_type_is_named(self, tmp_path):
         def edit(m):
             for f in m["features"]:
                 if f["name"] == "p0":
-                    f["ftype"] = "TextArea"
+                    f["ftype"] = "TextAreaMap"
         path = _rewrite_manifest(FIXTURE, str(tmp_path / "m"), edit)
-        with pytest.raises(FeatureTypeError, match="TextArea"):
+        with pytest.raises(FeatureTypeError, match="TextAreaMap"):
             TModel.load(path)
 
 
@@ -356,6 +357,9 @@ from transmogrifai_tpu_torch.workflow import fit, serde, workflow
 from transmogrifai_tpu_torch.serve import batcher, faults, pipeline, plan, resilience, server, swap, validator
 from transmogrifai_tpu_torch.obs import metrics as obs_metrics, overlap
 from transmogrifai_tpu_torch.checkers import diagnostics
+from transmogrifai_tpu_torch.ops import dates, geo, text_lists, text_smart
+from transmogrifai_tpu_torch.utils import hashing, lang, text
+from transmogrifai_tpu_torch import native
 serde._register_stages()
 import chip_smoke
 bad = sorted(m for m in set(sys.modules) - before
@@ -375,7 +379,8 @@ class TestNoJax:
 
     @pytest.mark.parametrize("root", ["transmogrifai_tpu_torch", "chip_smoke.py",
                                       os.path.join("tests", "torch_encode_cases.py"),
-                                      os.path.join("tests", "torch_wide_data.py")])
+                                      os.path.join("tests", "torch_wide_data.py"),
+                                      os.path.join("tests", "torch_families_data.py")])
     def test_ast_scan_finds_no_jax_import(self, root):
         path = os.path.join(REPO, root)
         files = [path] if path.endswith(".py") else [
@@ -388,7 +393,11 @@ class TestNoJax:
             for mod in (("checkers", "sanity.py"), ("ops", "transmogrifier.py"),
                         ("dsl.py",), ("utils", "stats.py"), ("workflow", "plan.py"),
                         ("checkers", "diagnostics.py"), ("obs", "metrics.py"),
-                        ("obs", "overlap.py"), *(("serve", f"{m}.py") for m in (
+                        ("obs", "overlap.py"), ("native", "__init__.py"),
+                        ("ops", "text_smart.py"), ("ops", "text_lists.py"),
+                        ("ops", "dates.py"), ("ops", "geo.py"), ("utils", "lang.py"),
+                        ("utils", "text.py"), ("utils", "hashing.py"),
+                        *(("serve", f"{m}.py") for m in (
                             "batcher", "faults", "pipeline", "plan", "resilience",
                             "server", "swap", "validator"))):
                 assert os.path.join(path, *mod) in files

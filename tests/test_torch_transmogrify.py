@@ -17,8 +17,8 @@ encode kernels in interpret mode, as its own tests run them) and the port's
 
 The port's pre-selector stages, trained on the fixture's own 20 000 rows at
 full width, equal the committed fixture the JAX package trained.  A flush encodes every
-one-hot and bucketize slot in one call, a failure in it raises, and every
-``transmogrify`` family the port lacks raises by name.
+one-hot and bucketize slot in one call, a failure in it raises, and the
+``map`` family, which the port lacks, raises by name.
 """
 
 import importlib.util
@@ -256,17 +256,12 @@ class TestTransmogrify:
 
     @pytest.mark.parametrize("family", sorted(UNPORTED_FAMILIES))
     def test_unported_family_raises_by_name(self, family):
-        from transmogrifai_tpu_torch.types import Integral, OPMap, Text
+        # only the typed maps are left: a subclass of the port's OPMap under
+        # the reference's type name stands for one
+        assert family == "map"
+        from transmogrifai_tpu_torch.types import OPMap
 
-        # the port has the base types only: a subclass under the reference's
-        # type name stands for each family's type
-        base, name = {"date": (Integral, "Date"), "smart_text": (Text, "TextArea"),
-                      "multipicklist": (FeatureType, "MultiPickList"),
-                      "geolocation": (FeatureType, "Geolocation"),
-                      "date_list": (FeatureType, "DateList"),
-                      "text_list": (FeatureType, "TextList"),
-                      "map": (OPMap, "RealMap")}[family]
-        ftype = type(name, (base,), {"__slots__": ()})
+        ftype = type("RealMap", (OPMap,), {"__slots__": ()})
         f = T.FeatureBuilder.of("x", ftype).extract_field().as_predictor()
         r = T.FeatureBuilder.Real("r").extract_field().as_predictor()
         with pytest.raises(NotImplementedError,
@@ -274,11 +269,8 @@ class TestTransmogrify:
             T.transmogrify([r, f])
 
     def test_text_and_an_unknown_type(self):
-        from transmogrifai_tpu_torch.types import Text
-
-        t = T.FeatureBuilder.of("t", Text).extract_field().as_predictor()
-        with pytest.raises(NotImplementedError, match="SmartTextVectorizer"):
-            T.transmogrify([t])
+        # free text vectorizes now (tests/test_torch_families.py); a type
+        # outside every family still raises
         odd = type("Odd", (FeatureType,), {"__slots__": ()})
         f = T.FeatureBuilder.of("o", odd).extract_field().as_predictor()
         with pytest.raises(NotImplementedError, match="no default vectorizer for Odd"):

@@ -4,7 +4,9 @@ The JAX package beside it is the reference.  This package imports torch and
 numpy, never JAX and nothing of ``transmogrifai_tpu``.  It trains from raw
 typed columns as the reference does: ``transmogrify(features)`` vectorizes
 them (numeric fills and null indicators, categorical pivots, label-aware
-bucketizers), ``label.sanity_check(vector)`` drops low-signal and leaky
+bucketizers; free text pivoted or murmur3-hashed, dates on the unit circle,
+date lists, text lists, multi-pick lists and geolocations; not the typed
+maps), ``label.sanity_check(vector)`` drops low-signal and leaky
 slots, and ``label.transform_with(BinaryClassificationModelSelector
 .with_cross_validation(), checked)`` selects among the reference's default
 families (LogisticRegression, RandomForest, GBT, LinearSVC) or the ones a

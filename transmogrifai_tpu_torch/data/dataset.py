@@ -1,8 +1,9 @@
 """Columnar dataset on the host (counterpart of ``transmogrifai_tpu/data/dataset.py``).
 
 A ``Dataset`` is an ordered mapping of name -> ``Column``.  Numeric columns
-are dense numpy arrays plus validity masks; text columns are object arrays;
-OPVector columns are (n, d) float32 blocks with attached ``VectorMetadata``.
+are dense numpy arrays plus validity masks; text, list and set columns are
+object arrays; a geolocation column is an (n, 3) float64 block of [lat, lon,
+accuracy] plus a validity mask (zeros where missing); OPVector columns are (n, d) float32 blocks with attached ``VectorMetadata``.
 Device tensors never live here: the transform plans (``workflow/plan.py``,
 ``serve/plan.py``) move the operands they need to the device and bring their
 outputs back as numpy.
@@ -55,6 +56,13 @@ class Column:
             data = np.zeros(n, dtype=_NUMERIC_DTYPES[kind])
             for i, v in enumerate(conv):
                 if v is not None:
+                    data[i] = v
+            return cls(ftype, data, mask, meta)
+        if kind is ColumnKind.GEO:
+            mask = np.array([len(v) == 3 for v in conv], dtype=np.bool_)
+            data = np.zeros((n, 3), dtype=np.float64)
+            for i, v in enumerate(conv):
+                if len(v) == 3:
                     data[i] = v
             return cls(ftype, data, mask, meta)
         if kind is ColumnKind.VECTOR:
@@ -116,12 +124,16 @@ class Column:
         return np.array([not _is_empty_obj(v) for v in self.data], dtype=np.bool_)
 
     def to_values(self) -> List[Any]:
-        """Raw python values (None where missing)."""
+        """Raw python values (None where missing; [] for a missing
+        geolocation, and lists and sets as stored)."""
         if self.is_numeric:
             py = self.data.tolist()
             if self.mask is None:
                 return py
             return [v if m else None for v, m in zip(py, self.mask)]
+        if self.kind is ColumnKind.GEO:
+            return [list(row) if m else []
+                    for row, m in zip(self.data.tolist(), self.present())]
         if self.kind is ColumnKind.VECTOR:
             return [np.asarray(row) for row in self.data]
         return list(self.data)

@@ -1,5 +1,6 @@
-"""One-hot pivot of categorical text (counterpart of ``transmogrifai_tpu/ops/onehot.py``:
-``OneHotVectorizer`` and its model).
+"""One-hot pivots of categorical text and multi-pick lists (counterpart of
+``transmogrifai_tpu/ops/onehot.py``: ``OneHotVectorizer``,
+``MultiPickListVectorizer`` and their models).
 
 String work stays on the host.  The fit keeps each feature's top-K levels by
 count (ties by value) that reach the minimum support, with the reference's
@@ -7,7 +8,9 @@ count (ties by value) that reach the minimum support, with the reference's
 values encode to int32 level codes (vocab index, ``k`` = OTHER, ``k+1`` =
 null, or -1 when nulls are untracked).  The device half writes every slot's
 one-hot block into one (n, sum of widths) output with one launch of the
-encode kernel (``perf/kernels/encode.py``, K4's slots).
+encode kernel (``perf/kernels/encode.py``, K4's slots).  A multi-pick row
+lights several levels, which no single level code can say, so the
+multi-pick model stays on the host, as in the reference.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 from ..data.dataset import Column
 from ..perf.kernels import encode as KE
 from ..stages.base import Param, SequenceEstimator, Transformer
-from ..types import OPVector, Text
+from ..types import OPSet, OPVector, Text
 from ..utils.vector_metadata import (
     NULL_INDICATOR,
     OTHER_INDICATOR,
@@ -181,5 +184,62 @@ class OneHotVectorizerModel(Transformer):
                     continue
                 j = index.get(clean_text_value(v) if self.clean_text else v)
                 block[i, k if j is None else j] = 1.0
+            blocks.append(block)
+        return Column.vector(np.hstack(blocks), self._meta())
+
+
+class MultiPickListVectorizer(_OneHotFitMixin, SequenceEstimator):
+    """Multi-select categorical: each set member lights its level column."""
+
+    sequence_input_type = OPSet
+    output_type = OPVector
+
+    top_k = Param(default=TOP_K_DEFAULT)
+    min_support = Param(default=MIN_SUPPORT_DEFAULT)
+    clean_text = Param(default=True)
+    track_nulls = Param(default=True)
+
+    def fit_columns(self, cols, dataset, device):
+        value_lists = []
+        for c in cols:
+            vals = []
+            for s in c.data:
+                for v in s or ():
+                    vals.append(clean_text_value(v) if self.clean_text else v)
+            value_lists.append(vals)
+        return MultiPickListVectorizerModel(
+            vocabs=self._fit_vocab(value_lists), clean_text=self.clean_text,
+            track_nulls=self.track_nulls)
+
+
+class MultiPickListVectorizerModel(OneHotVectorizerModel):
+    """Host only: a row's members light several columns of its block."""
+
+    sequence_input_type = OPSet
+    output_type = OPVector
+
+    device_transform = None
+
+    def device_lifts_input(self, slot: int) -> bool:
+        return False
+
+    def device_slot_specs(self):
+        return None
+
+    def transform_columns(self, cols, dataset):
+        n = len(cols[0])
+        blocks = []
+        for col, vocab in zip(cols, self.vocabs):
+            k = len(vocab)
+            block = np.zeros((n, k + 1 + (1 if self.track_nulls else 0)), dtype=np.float32)
+            index = {v: i for i, v in enumerate(vocab)}
+            for i, members in enumerate(col.data):
+                if not members:
+                    if self.track_nulls:
+                        block[i, k + 1] = 1.0
+                    continue
+                for v in members:
+                    j = index.get(clean_text_value(v) if self.clean_text else v)
+                    block[i, k if j is None else j] = 1.0
             blocks.append(block)
         return Column.vector(np.hstack(blocks), self._meta())

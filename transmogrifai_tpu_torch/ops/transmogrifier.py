@@ -5,10 +5,9 @@
 family's default vectorizer, and combines everything into a single OPVector
 feature with a ``VectorsCombiner``.  Families are visited in sorted order, as
 in the reference, so the combined vector's columns come in the reference's
-order.  The port has the vectorizers of the ``realnn``, ``real``,
-``integral``, ``binary``, ``categorical_text`` and ``vector`` families; any
-other family raises ``NotImplementedError`` naming the family and the
-reference vectorizer it waits for.
+order.  Every family but ``map`` has its vectorizer in the port; a map
+feature raises ``NotImplementedError`` naming the family and the reference
+function it waits for.
 """
 
 from __future__ import annotations
@@ -16,59 +15,92 @@ from __future__ import annotations
 from typing import Dict, List, Sequence, Type
 
 from ..features.feature import Feature
-from ..types import FeatureType
+from ..types import (
+    ID,
+    URL,
+    Base64,
+    Binary,
+    City,
+    ComboBox,
+    Country,
+    Date,
+    DateList,
+    Email,
+    FeatureType,
+    Geolocation,
+    Integral,
+    MultiPickList,
+    OPMap,
+    OPVector,
+    Phone,
+    PickList,
+    PostalCode,
+    Real,
+    RealNN,
+    State,
+    Street,
+    Text,
+    TextArea,
+    TextList,
+)
 from .combiner import VectorsCombiner
+from .dates import DateListVectorizer, DateToUnitCircleVectorizer
+from .geo import GeolocationVectorizer
 from .numeric import BinaryVectorizer, NumericVectorizer, RealNNVectorizer
-from .onehot import OneHotVectorizer
+from .onehot import MultiPickListVectorizer, OneHotVectorizer
+from .text_lists import TextListHashingVectorizer
+from .text_smart import SmartTextVectorizer
 
 # categorical text subtypes pivot directly (reference: pivot-by-default types)
-_CATEGORICAL_TEXT = ("PickList", "ComboBox", "Country", "State", "City",
-                     "PostalCode", "Street")
-# free-form text subtypes go through the reference's smart text vectorizer
-_SMART_TEXT = ("TextArea", "Email", "URL", "Phone", "ID", "Base64")
+_CATEGORICAL_TEXT = (PickList, ComboBox, Country, State, City, PostalCode, Street)
+# free-form text subtypes go through the smart categorical-vs-text decision
+_SMART_TEXT = (TextArea, Email, URL, Phone, ID, Base64)
 
 #: the reference's default vectorizer of each family the port does not have
-UNPORTED_FAMILIES = {
-    "date": "DateToUnitCircleVectorizer",
-    "smart_text": "SmartTextVectorizer",
-    "multipicklist": "MultiPickListVectorizer",
-    "geolocation": "GeolocationVectorizer",
-    "date_list": "DateListVectorizer",
-    "text_list": "TextListHashingVectorizer",
-    "map": "transmogrify_maps",
+UNPORTED_FAMILIES = {"map": "transmogrify_maps"}
+
+#: family -> the stage that vectorizes it
+_VECTORIZERS = {
+    "realnn": RealNNVectorizer,
+    "real": lambda: NumericVectorizer(fill_strategy="mean"),
+    "integral": lambda: NumericVectorizer(fill_strategy="mode"),
+    "binary": BinaryVectorizer,
+    "date": DateToUnitCircleVectorizer,
+    "categorical_text": OneHotVectorizer,
+    "smart_text": SmartTextVectorizer,
+    "multipicklist": MultiPickListVectorizer,
+    "geolocation": GeolocationVectorizer,
+    "date_list": DateListVectorizer,
+    "text_list": TextListHashingVectorizer,
 }
 
 
 def _family(ftype: Type[FeatureType]) -> str:
-    """The reference's family of ``ftype``, decided by the reference type
-    names along its class hierarchy (the port lacks most of the types of
-    the families it does not vectorize)."""
-    names = {k.__name__ for k in ftype.__mro__}
-    if "RealNN" in names:
+    if issubclass(ftype, RealNN):
         return "realnn"
-    if "Binary" in names:
+    if issubclass(ftype, Binary):
         return "binary"
-    if "Date" in names:
+    if issubclass(ftype, Date):
         return "date"
-    if "Integral" in names:
+    if issubclass(ftype, Integral):
         return "integral"
-    if "Real" in names:
+    if issubclass(ftype, Real):
         return "real"
-    if names.intersection(_CATEGORICAL_TEXT):
+    if issubclass(ftype, _CATEGORICAL_TEXT):
         return "categorical_text"
-    if names.intersection(_SMART_TEXT) or ftype.__name__ == "Text":
+    if issubclass(ftype, _SMART_TEXT) or ftype is Text:
         return "smart_text"
-    if "MultiPickList" in names:
+    if issubclass(ftype, MultiPickList):
         return "multipicklist"
-    if "Geolocation" in names:
+    if issubclass(ftype, Geolocation):
         return "geolocation"
-    if "DateList" in names:
+    if issubclass(ftype, DateList):
         return "date_list"
-    if "TextList" in names:
+    if issubclass(ftype, TextList):
         return "text_list"
-    if "OPVector" in names:
+    if issubclass(ftype, OPVector):
         return "vector"
-    if "OPMap" in names:
+    if issubclass(ftype, OPMap):
         return "map"
     raise NotImplementedError(
         f"Transmogrifier has no default vectorizer for {ftype.__name__} yet")
@@ -94,17 +126,7 @@ def transmogrify(features: Sequence[Feature], label: Feature | None = None,
         if family == "vector":
             vectors.extend(feats)
             continue
-        if family == "realnn":
-            stage = RealNNVectorizer()
-        elif family == "real":
-            stage = NumericVectorizer(fill_strategy="mean")
-        elif family == "integral":
-            stage = NumericVectorizer(fill_strategy="mode")
-        elif family == "binary":
-            stage = BinaryVectorizer()
-        else:  # categorical_text
-            stage = OneHotVectorizer()
-        vectors.append(feats[0].transform_with(stage, *feats[1:]))
+        vectors.append(feats[0].transform_with(_VECTORIZERS[family](), *feats[1:]))
 
     if len(vectors) == 1:
         return vectors[0]

@@ -146,12 +146,23 @@ def _extract(gen: FeatureGeneratorStage, records) -> list:
 
 
 def _lift_builder(gen: FeatureGeneratorStage) -> Callable:
-    """records -> float32 operand of a raw numeric feature, with the same
-    conversions and non-nullable checks as building its typed column."""
+    """records -> float32 operand of a raw numeric or geolocation feature,
+    with the same conversions and non-nullable checks as building its typed
+    column (a geolocation: (n, 3), zeros where missing)."""
     ftype = gen.ftype
     conv = ftype._convert
     nullable = ftype.is_nullable
     name = gen.raw_name
+
+    if ftype.kind is ColumnKind.GEO:
+        def build_geo(records):
+            out = np.zeros((len(records), 3), dtype=np.float32)
+            for i, v in enumerate(_extract(gen, records)):
+                v = conv(v)
+                if v is not None and len(v) == 3:
+                    out[i] = v
+            return out
+        return build_geo
 
     def build(records):
         vals = _extract(gen, records)

@@ -5,9 +5,10 @@ cheap value wrapper (``Real(1.0)``) and a column schema: ``kind`` says how a
 column of the type is stored (numeric arrays + validity masks, host object
 arrays, or an (n, d) float32 vector block).
 
-Only the types the ported slices reach are ported (see ``types/__init__``);
-``feature_type_by_name`` refuses every other name, so a saved model using one
-fails at load time instead of scoring with a half-built DAG.
+Only the types the ported slices reach are ported (see ``types/__init__``):
+every type but the typed maps.  ``feature_type_by_name`` refuses every other
+name, so a saved model using one fails at load time instead of scoring with
+a half-built DAG.
 """
 
 from __future__ import annotations
@@ -23,7 +24,11 @@ class ColumnKind(enum.Enum):
     INT = "int"              # np.int64 values + bool mask
     BOOL = "bool"            # np.bool_ values + bool mask
     TEXT = "text"            # object array of str | None
+    TEXT_LIST = "text_list"  # object array of list[str]
+    INT_LIST = "int_list"    # object array of list[int]
+    TEXT_SET = "text_set"    # object array of set[str]
     MAP = "map"              # object array of dict[str, value]
+    GEO = "geo"              # (n, 3) float64 [lat, lon, accuracy] + mask
     VECTOR = "vector"        # (n, d) float32 block, never null
 
 
@@ -42,7 +47,12 @@ class FeatureType:
 
     kind: ClassVar[ColumnKind]
     is_nullable: ClassVar[bool] = True
+    # mixin markers (the reference's Categorical / SingleResponse /
+    # MultiResponse / Location)
     is_categorical: ClassVar[bool] = False
+    is_single_response: ClassVar[bool] = False
+    is_multi_response: ClassVar[bool] = False
+    is_location: ClassVar[bool] = False
 
     def __init__(self, value: Any = None):
         v = self._convert(value)
@@ -69,6 +79,18 @@ class NonNullable:
 
 class Categorical:
     is_categorical = True
+
+
+class SingleResponse(Categorical):
+    is_single_response = True
+
+
+class MultiResponse(Categorical):
+    is_multi_response = True
+
+
+class Location:
+    is_location = True
 
 
 _REGISTRY: Dict[str, Type[FeatureType]] = {}

@@ -6,11 +6,11 @@ import numbers
 from typing import Any, Optional
 
 from .base import (
-    Categorical,
     ColumnKind,
     FeatureType,
     FeatureTypeError,
     NonNullable,
+    SingleResponse,
     register,
 )
 
@@ -75,7 +75,19 @@ class Integral(OPNumeric):
 
 
 @register
-class Binary(Categorical, OPNumeric):
+class Date(Integral):
+    """Epoch-millis date."""
+
+    __slots__ = ()
+
+
+@register
+class DateTime(Date):
+    __slots__ = ()
+
+
+@register
+class Binary(SingleResponse, OPNumeric):
     """Optional boolean."""
 
     __slots__ = ()

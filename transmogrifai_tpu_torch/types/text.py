@@ -4,11 +4,19 @@ from __future__ import annotations
 
 from typing import Any, Optional
 
-from .base import Categorical, ColumnKind, FeatureType, FeatureTypeError, register
+from .base import (
+    Categorical,
+    ColumnKind,
+    FeatureType,
+    FeatureTypeError,
+    Location,
+    register,
+)
 
 
+@register
 class Text(FeatureType):
-    """Optional string (base of the categorical text types)."""
+    """Optional string."""
 
     __slots__ = ()
     kind = ColumnKind.TEXT
@@ -20,6 +28,36 @@ class Text(FeatureType):
         if isinstance(value, str):
             return value
         raise FeatureTypeError(f"{cls.__name__} expects a string, got {value!r}")
+
+
+@register
+class TextArea(Text):
+    __slots__ = ()
+
+
+@register
+class Email(Text):
+    __slots__ = ()
+
+
+@register
+class URL(Text):
+    __slots__ = ()
+
+
+@register
+class Phone(Text):
+    __slots__ = ()
+
+
+@register
+class ID(Text):
+    __slots__ = ()
+
+
+@register
+class Base64(Text):
+    __slots__ = ()
 
 
 @register
@@ -35,25 +73,25 @@ class ComboBox(Text):
 
 
 @register
-class Country(Text):
+class Country(Location, Text):
     __slots__ = ()
 
 
 @register
-class State(Text):
+class State(Location, Text):
     __slots__ = ()
 
 
 @register
-class City(Text):
+class City(Location, Text):
     __slots__ = ()
 
 
 @register
-class PostalCode(Text):
+class PostalCode(Location, Text):
     __slots__ = ()
 
 
 @register
-class Street(Text):
+class Street(Location, Text):
     __slots__ = ()

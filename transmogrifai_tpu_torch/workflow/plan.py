@@ -45,9 +45,11 @@ from ..perf.kernels.dispatch import resolve_device
 from ..types import ColumnKind
 
 #: kinds with a canonical device lift everywhere: float32 rows, NaN where
-#: missing.  VECTOR is absent on purpose: a serving plan's output width must
-#: not depend on the batch.
-DEVICE_LIFT_KINDS = frozenset({ColumnKind.FLOAT, ColumnKind.INT, ColumnKind.BOOL})
+#: missing (a geolocation: its (n, 3) block, zeros where missing).  VECTOR
+#: is absent on purpose: a serving plan's output width must not depend on
+#: the batch.
+DEVICE_LIFT_KINDS = frozenset(
+    {ColumnKind.FLOAT, ColumnKind.INT, ColumnKind.BOOL, ColumnKind.GEO})
 
 #: the dataset path also lifts materialized OPVector columns (their float32
 #: block): each run sees the concrete table
@@ -93,16 +95,21 @@ def serving_entry_ok(runner, slot, f) -> bool:
 
 
 def run_host_stages(dataset: Dataset, runners: Sequence[Any],
-                    device=None) -> Dataset:
+                    device=None, seconds: Optional[Dict[str, float]] = None) -> Dataset:
     """The host remainder: each runner's columnar ``transform`` in order.
     A runner that ``scores_on_device`` (a fitted model) is told ``device``,
-    where it may score large batches."""
+    where it may score large batches.  With ``seconds`` (a dict), adds each
+    runner's seconds under its class name."""
     out = dataset
     for runner in runners:
+        t0 = time.perf_counter()
         if getattr(runner, "scores_on_device", False):
             out = runner.transform(out, device=device)
         else:
             out = runner.transform(out)
+        if seconds is not None:
+            name = type(runner).__name__
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
     return out
 
 
@@ -257,8 +264,9 @@ class DevicePrefix:
 
 def _lift_column(col: Column) -> np.ndarray:
     """Canonical device operand of a materialized column: float32 rows, NaN
-    where missing; a vector column ships its block."""
-    if col.kind is ColumnKind.VECTOR:
+    where missing; a vector or geolocation column ships its block (missing
+    points are zeros there already)."""
+    if col.kind in (ColumnKind.VECTOR, ColumnKind.GEO):
         return np.asarray(col.data, np.float32)
     return col.values_f64().astype(np.float32)
 
@@ -412,15 +420,18 @@ def fused_transform(dataset: Dataset, runners: Sequence[Any], device=None,
     :class:`ColumnarTransformPlan` over the whole table, then the host
     remainder.  A failure to plan or to launch raises; nothing falls back to
     the per-stage path.  With ``profile`` (a list), appends the flush's
-    timings as one ``{"kind": "flush", ...}`` record."""
+    timings as one ``{"kind": "flush", ...}`` record (``host_stage_seconds``:
+    the host remainder's seconds by stage class)."""
     t0 = time.perf_counter()
     plan = ColumnarTransformPlan(runners, frozenset(dataset.names),
                                  resolve_device(device))
     out = plan.apply_prefix(dataset)
     t1 = time.perf_counter()
-    out = run_host_stages(out, plan.remainder, device=device)
+    host: Optional[Dict[str, float]] = {} if profile is not None else None
+    out = run_host_stages(out, plan.remainder, device=device, seconds=host)
     if profile is not None:
         profile.append({"kind": "flush", "seconds": time.perf_counter() - t0,
                         "host_stages_s": time.perf_counter() - t1,
-                        "host_stages": len(plan.remainder), **plan.last_timings})
+                        "host_stages": len(plan.remainder),
+                        "host_stage_seconds": host, **plan.last_timings})
     return out

@@ -61,7 +61,17 @@ def _register_stages() -> None:
         svm,
         trees,
     )
-    from ..ops import bucketizers, combiner, numeric, onehot, scalers  # noqa: F401
+    from ..ops import (  # noqa: F401
+        bucketizers,
+        combiner,
+        dates,
+        geo,
+        numeric,
+        onehot,
+        scalers,
+        text_lists,
+        text_smart,
+    )
 
 
 class _Decoder:
