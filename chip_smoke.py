@@ -207,12 +207,47 @@ Phases, one JSON line each:
                device and host-remainder ms.  (e) model.serve() answers 2048
                one-record requests, each equal to the plan's record for its
                batch.
-16. summary  — nvidia-smi's line, then one {"kernels": [...]} line, then the
+16. examples — the reference's example apps through the port's entry points
+               on the card (tests/torch_examples_data.py: their data as
+               numpy records, read through CustomReader; no pandas), held to
+               the JAX package's record (fixtures/examples,
+               tools/make_torch_examples_fixture.py): Titanic
+               (Workflow.set_reader -> train -> summary_pretty -> evaluate),
+               Iris and Boston (App().main train with a --model-location
+               under build/examples, then score and evaluate runs through
+               WorkflowRunner) and the dataprep readers (aggregate,
+               conditional, custom).  Each winner and grid equal to the
+               record's (or tying it within 1e-4 in both: Boston's ridge and
+               gaussian GLM at reg 0.01 are one model), the linear and tree
+               rows within their tolerance
+               (torch_examples_data.EXAMPLE_TOL; the forests' printed beside
+               the record), Titanic's metrics within 1e-4 and its cv_auPR in
+               0.67-0.90, the apps' scores beside the record's (Iris's
+               classes equal wherever the record's top two probabilities are
+               0.1 apart, Boston's predictions within 1e-3 of their value),
+               and K1-K3 (and K4 for Titanic) launched during each train,
+               the counters zeroed just before.  Whether the card's Python imports pandas is
+               printed.
+17. dsl      — phase 10's table at DSL_ROWS (262 144) plus the DSL's
+               features (tests/torch_wide_data.py::dsl_pipeline: 8
+               NumericBucketizers, 8 arithmetic features, to_occur and
+               exists on 4 pick lists, a PercentileCalibrator, an alias and a
+               map_to) through transmogrify -> sanity_check -> the LR
+               selector -> Workflow.train on the card, the counters zeroed
+               just before: one flush encodes all 48 slots (8 left-closed)
+               in one launch, bitwise and timed beside its bound; then the
+               serving plan over 16 batches of 1024 records, one launch of 48
+               slots a batch, records equal to the CPU plan's.  Train
+               seconds, records/s and the encode ms are printed beside phase
+               10's.
+18. summary  — nvidia-smi's line, then one {"kernels": [...]} line, then the
                last line {"ok": true, "device": {...}}.
 
 Phase 3 also holds K5 past shared memory (a 5000-split slot, its own launch
 reading the splits from global memory) bitwise against its plain version
-and times it; phase 5 holds K1's int8 path just above 2**31 // 127 rows
+and times it, and the left-closed slot (NumericBucketizer's) bitwise at
+1024 rows x 1 slot in every flag setting, at DSL_ROWS x 8 slots and past
+4096 splits, timed beside its bound, plain version and library composite; phase 5 holds K1's int8 path just above 2**31 // 127 rows
 (0/1 weights) bitwise against its plain version and times it, and times
 K1's library call at the float level's own 1 048 576 rows.
 
@@ -277,6 +312,17 @@ RAW_ROWS = 1 << 18
 FAMILIES_FIXTURE = os.path.join("transmogrifai_tpu_torch", "fixtures",
                                 "training_families")
 FAMILY_ROWS = 1 << 18
+#: the JAX package's record of the reference's example apps
+#: (tools/make_torch_examples_fixture.py) and where the apps save their models
+EXAMPLES_RECORD = os.path.join("transmogrifai_tpu_torch", "fixtures", "examples",
+                               "record.json")
+EXAMPLES_DIR = os.path.join("build", "examples")
+#: rows of the dsl phase (phase 10's table plus the DSL's features) and the
+#: slots its flush and each served batch encode: 32 one-hot + 8 tree
+#: bucketize (right-closed) + 8 NumericBucketizer (left-closed)
+DSL_ROWS = 1 << 18
+DSL_SLOTS = 48
+DSL_LEFT_SLOTS = 8
 #: CV metric tolerance of each family against the reference's record
 FAMILY_TOL = {"LogisticRegression": 1e-4, "LinearSVC": 1e-4,
               "RandomForestClassifier": 1e-6, "GradientBoostedTreesClassifier": 1e-3}
@@ -568,8 +614,106 @@ def phase_kernels(torch, KE, bucketizer_models, dev) -> dict:
             (lambda: KE.onehot_codes(codes, width)) if k == "onehot_codes" else
             (lambda: KE.bucketize_right_encode(x, s, m.track_nulls, m.track_invalid)))
     t["bucketize_right_encode"]["splits5000"] = k5_big_splits(torch, KE, dev)
+    t["bucketize_left_encode"] = k_left_closed(torch, KE, dev)
     emit({"phase": "kernels", **{k: v for k, v in t.items()}})
     return t
+
+
+def _left_library(torch, ins, table):
+    """One torch.bucketize + one_hot composite per left-closed slot (buckets
+    only, no invalid/null columns): the library yardstick."""
+    F = torch.nn.functional
+    outs = []
+    for k, x in enumerate(ins):
+        s = table.splits_on(x.device)[table.split_off[k]:table.split_off[k]
+                                      + len(table.specs[k].splits)]
+        nb = int(s.shape[0]) - 1
+        outs.append(F.one_hot((torch.bucketize(torch.nan_to_num(x), s, right=True) - 1)
+                              .clamp(0, nb - 1), nb).float())
+    return outs
+
+
+def k_left_closed(torch, KE, dev) -> dict:
+    """The left-closed bucketize slot (NumericBucketizer's) against its plain
+    version, bitwise: one slot at the serving batch over every flag setting
+    and split shape, 8 slots at DSL_ROWS rows, and past 4096 splits (its own
+    launch, splits in global memory); then timed at 1 x 1024 and 8 x
+    DSL_ROWS beside its bound, its plain version and the library
+    composite."""
+    from torch_encode_cases import left_slot_case
+
+    cases = 0
+    for seed in range(12):                   # 12 one-slot tables: 3 split shapes x 4 flags
+        specs, ins = left_slot_case(BATCH, seed, dev, 1)
+        specs = [specs[0]._replace(track_nulls=bool(seed & 1),
+                                   track_invalid=bool(seed & 2),
+                                   width=KE.bucket_width(len(specs[0].splits),
+                                                         bool(seed & 1), bool(seed & 2)))]
+        tab = KE.plan_slots(specs)
+        before = KE.left_closed_launches
+        got = KE.encode_slots(ins, tab)
+        torch.cuda.synchronize()
+        check(KE.left_closed_launches == before + 1
+              and torch.equal(got, KE.encode_slots_torch(ins, tab)),
+              f"left-closed slot bitwise at {BATCH} rows, case {seed}")
+        cases += 1
+    specs8, ins8 = left_slot_case(DSL_ROWS, 99, dev, DSL_LEFT_SLOTS)
+    tab8 = KE.plan_slots(specs8)
+    w8 = tab8.width
+    buf8 = torch.empty((DSL_ROWS, -(-w8 // 4) * 4), device=dev)[:, :w8]
+    KE.encode_slots(ins8, tab8, buf8)
+    torch.cuda.synchronize()
+    check(torch.equal(buf8, KE.encode_slots_torch(ins8, tab8)),
+          f"{DSL_LEFT_SLOTS} left-closed slots bitwise at {DSL_ROWS} rows")
+    cases += 1
+    for n in (BATCH, RAGGED, 3001):
+        for tn, ti in ((True, True), (False, False), (True, False), (False, True)):
+            specs, ins = left_slot_case(n, n, dev, 1, n_splits=BIG_SPLITS)
+            specs = [specs[0]._replace(track_nulls=tn, track_invalid=ti,
+                                       width=KE.bucket_width(BIG_SPLITS, tn, ti))]
+            tab = KE.plan_slots(specs)
+            got = KE.encode_slots(ins, tab)
+            torch.cuda.synchronize()
+            check(torch.equal(got, KE.encode_slots_torch(ins, tab)),
+                  f"left-closed slot past shared memory bitwise, n={n} tn={tn} ti={ti}")
+            cases += 1
+    specs1, ins1 = left_slot_case(BATCH, 3, dev, 1)
+    tab1 = KE.plan_slots(specs1)
+    w1 = tab1.width
+    buf1 = torch.empty((BATCH, -(-w1 // 4) * 4), device=dev)[:, :w1]
+
+    def nbytes(ins, tab, n):
+        return sum(x.numel() * 4 for x in ins) + tab.splits.nbytes + n * tab.width * 4
+
+    one = lambda: KE.encode_slots(ins1, tab1, buf1)  # noqa: E731
+    eight = lambda: KE.encode_slots(ins8, tab8, buf8)  # noqa: E731
+    big_specs, big_ins = left_slot_case(BATCH, 5, dev, 1, n_splits=BIG_SPLITS)
+    big_tab = KE.plan_slots(big_specs)
+    big = lambda: KE.encode_slots(big_ins, big_tab)  # noqa: E731
+    b1, b8, bb = nbytes(ins1, tab1, BATCH), nbytes(ins8, tab8, DSL_ROWS), \
+        nbytes(big_ins, big_tab, BATCH)
+    return {
+        "parity_cases": cases, "max_abs_err": 0.0, "bound_by": "bytes",
+        "shape": [BATCH, w1], "ms": time_ms(one), "device_ms": time_device_ms(one),
+        "plain_ms": time_ms(lambda: KE.encode_slots_torch(ins1, tab1, buf1)),
+        "library_ms": time_ms(lambda: _left_library(torch, ins1, tab1)),
+        "library": "composite: torch.bucketize(right=True) + one_hot per slot "
+                   "(buckets only, no invalid/null columns)",
+        "bytes": b1, "bound_ms": b1 / HBM_BYTES_PER_S * 1e3,
+        "slots8": {"rows": DSL_ROWS, "slots": DSL_LEFT_SLOTS, "columns": w8,
+                   "ms": time_big_ms(eight, runs=21, warmup=3),
+                   "plain_ms": time_big_ms(
+                       lambda: KE.encode_slots_torch(ins8, tab8, buf8), runs=5),
+                   "library_ms": time_big_ms(lambda: _left_library(torch, ins8, tab8),
+                                             runs=5),
+                   "bytes": b8, "bound_ms": b8 / HBM_BYTES_PER_S * 1e3},
+        "splits5000": {"splits": BIG_SPLITS, "shape": [BATCH, big_tab.width],
+                       "ms": time_ms(big), "device_ms": time_device_ms(big),
+                       "plain_ms": time_ms(lambda: KE.encode_slots_torch(big_ins, big_tab),
+                                           runs=11, per_run=5),
+                       "library_ms": time_ms(lambda: _left_library(torch, big_ins,
+                                                                   big_tab)),
+                       "bytes": bb, "bound_ms": bb / HBM_BYTES_PER_S * 1e3}}
 
 
 def k5_big_splits(torch, KE, dev) -> dict:
@@ -2574,6 +2718,254 @@ def phase_training_multiclass(torch, KE, dev) -> dict:
     return out
 
 
+# -- the reference's example apps, and the DSL's features at full width ------------
+
+def _example_counts(KE) -> dict:
+    c = _all_counts(KE)
+    return {k: c[k] for k in ("hist_level", "split_scan", "row_select_lanes",
+                              "encode_slots", "encode_slots.slots")}
+
+
+def _check_example_kernels(name: str, launches: dict, one_hot: bool) -> None:
+    need = ["hist_level", "split_scan", "row_select_lanes"] + (["encode_slots"] if one_hot
+                                                              else [])
+    check(all(launches[k] >= 1 for k in need),
+          f"{name} trained through every kernel its selector uses ({need}): {launches}")
+
+
+def phase_examples(torch, KE, dev) -> dict:
+    """The reference's example apps through the port's entry points on the
+    card, their data from tests/torch_examples_data.py (numpy only), held to
+    the JAX package's record (fixtures/examples): Titanic (Workflow.set_reader
+    -> train -> summary_pretty -> evaluate), Iris and Boston (App().main
+    train, then score and evaluate runs through WorkflowRunner, the model
+    saved under build/examples), and the dataprep readers."""
+    import numpy as np
+
+    import torch_examples_data as E
+    import transmogrifai_tpu_torch as T
+    from transmogrifai_tpu_torch.perf.kernels.dispatch import resolve_device
+
+    with open(EXAMPLES_RECORD) as fh:
+        record = json.load(fh)
+    try:
+        import pandas
+        pandas_info = {"importable": True, "version": pandas.__version__}
+    except Exception as e:  # the card's machine may lack it; the phase does not need it
+        pandas_info = {"importable": False, "error": repr(e)}
+    check(resolve_device(None).type == "cuda", "entry points default to the card")
+    out = {"pandas": pandas_info}
+
+    # Titanic
+    reader = E.records_reader(E.titanic_records())
+    wf, _, _ = E.titanic_workflow(reader)
+    _reset_all(KE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = wf.train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _example_counts(KE)
+    pretty = model.summary_pretty()
+    metrics = E.titanic_metrics(model, reader)
+    summary, want = model.summary().to_dict(), record["titanic"]
+    check(E.winner_or_tie(summary, want["summary"]),
+          f"Titanic winner {summary['bestModelName']} {summary['bestGrid']} == the "
+          "record's or ties it")
+    rows = E.cv_beside_record(summary, want["summary"])
+    check(0.67 <= metrics["cv_auPR"] <= 0.90, f"Titanic cv_auPR {metrics['cv_auPR']}")
+    dev_metrics = {k: abs(metrics[k] - want["metrics"][k]) for k in ("auPR", "auROC", "cv_auPR")}
+    check(max(dev_metrics.values()) <= 1e-4, f"Titanic metrics within 1e-4: {dev_metrics}")
+    _check_example_kernels("Titanic", launches, one_hot=True)
+    out["titanic"] = {"train_seconds": seconds, "launches": launches,
+                      "winner": summary["bestModelName"], "grid": summary["bestGrid"],
+                      "metrics": metrics, "record_metrics": want["metrics"],
+                      "metric_deviation": dev_metrics, "cv": rows,
+                      "summary_pretty_head": pretty.splitlines()[:4]}
+
+    # Iris and Boston: App().main train, score, evaluate
+    os.makedirs(EXAMPLES_DIR, exist_ok=True)
+    for name, app, ev in (("iris", E.OpIris, T.Evaluators.multi_classification),
+                          ("boston", E.OpBoston, T.Evaluators.regression)):
+        loc = os.path.join(EXAMPLES_DIR, name)
+        want = record[name]
+        _reset_all(KE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train = app().main(["--run-type", "train", "--model-location", loc])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _example_counts(KE)
+        got = train.metrics
+        check(E.winner_or_tie(got, want["train"]),
+              f"{name} winner {got['bestModelName']} {got['bestGrid']} == the record's "
+              f"{want['train']['bestModelName']} {want['train']['bestGrid']} or ties it")
+        rows = E.cv_beside_record(got, want["train"])
+        _check_example_kernels(name, launches, one_hot=False)
+        score = app(ev()).main(["--run-type", "score", "--model-location", loc])
+        evaluate = app(ev()).main(["--run-type", "evaluate", "--model-location", loc])
+        check(score.metrics == evaluate.metrics and score.metrics,
+              f"{name}: the score run's metrics equal the evaluate run's")
+        pred = next(n for n in score.scores.names if "modelSelector" in n)
+        col = score.scores[pred]
+        check(np.isfinite(col.data).all(), f"{name} scores finite")
+        if col.prob is not None:
+            # the winner's refit on the card sums in another order than the
+            # JAX fit on the CPU: its probabilities are printed beside the
+            # record, and its classes held to the record's wherever the
+            # record's top two are 0.1 apart
+            wprob = np.asarray(want["scores"]["prob"])
+            score_dev = float(np.max(np.abs(col.prob - wprob)))
+            top2 = np.sort(wprob, axis=1)[:, -2:]
+            clear = (top2[:, 1] - top2[:, 0]) > 0.1
+            check(np.array_equal(col.pred[clear], np.asarray(want["scores"]["pred"])[clear]),
+                  f"{name} classes equal to the record's on {int(clear.sum())} clear rows")
+        else:
+            w = np.asarray(want["scores"]["pred"])
+            score_dev = float(np.max(np.abs(col.pred - w) / np.abs(w)))
+            check(score_dev <= 1e-3, f"{name} predictions within 1e-3 of their value "
+                                     f"({score_dev})")
+        out[name] = {"train_seconds": seconds, "launches": launches,
+                     "winner": got["bestModelName"], "grid": got["bestGrid"],
+                     "record_winner": want["train"]["bestModelName"],
+                     "record_grid": want["train"]["bestGrid"],
+                     "train_evaluation": got["trainEvaluation"],
+                     "record_train_evaluation": want["train"]["trainEvaluation"],
+                     "score_metrics": score.metrics, "score_max_deviation": score_dev,
+                     "cv": rows}
+
+    # dataprep: the aggregate and conditional readers over a custom reader
+    got = E.dataprep()
+    check(got == record["dataprep"], f"dataprep {got} == the record's {record['dataprep']}")
+    out["dataprep"] = got
+    emit({"phase": "examples", **out})
+    return out
+
+
+def _dsl_train(torch, n: int, dev):
+    """phase 10's table (tests/torch_wide_data.py, seed 0) plus the RealNN
+    ``score`` column, through dsl_pipeline on ``dev``.  Returns (model,
+    workflow, handles, dataset, columns, data seconds, train seconds)."""
+    import transmogrifai_tpu_torch as T
+    from torch_wide_data import FIXTURE_SHAPE, dsl_pipeline, make_data, score_column
+    from transmogrifai_tpu_torch.types import feature_type_by_name
+
+    t0 = time.perf_counter()
+    cols, schema = make_data(n, seed=0, **FIXTURE_SHAPE)
+    cols["score"] = score_column(n)
+    ftypes = {s["name"]: feature_type_by_name(s["type"]) for s in schema}
+    ftypes["score"] = T.types.RealNN
+    ds = T.Dataset.from_features(cols, ftypes)
+    data_s = time.perf_counter() - t0
+    label, sel, chk, pred = dsl_pipeline(T, ftypes, schema)
+    wf = T.Workflow().set_input_dataset(ds).set_result_features(label, pred)
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    model = wf.train(device=dev)
+    _sync(torch, dev)
+    handles = {"label": label, "sel": sel, "chk": chk, "pred": pred}
+    return model, wf, handles, ds, cols, data_s, time.perf_counter() - t0
+
+
+def phase_dsl(torch, KE, dev, raw: dict) -> dict:
+    """The wide pipeline with the DSL's features at DSL_ROWS through
+    Workflow.train on the card (the counters zeroed just before): one flush
+    encodes all DSL_SLOTS slots, the 8 left-closed among them, in one
+    launch, bitwise its plain version and timed beside its bound; then the
+    serving plan over 16 batches of 1024 records, one launch of DSL_SLOTS
+    slots a batch, records equal to the CPU plan's."""
+    import numpy as np
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all(KE)
+    model, wf, h, ds, cols, data_s, seconds = _dsl_train(torch, DSL_ROWS, dev)
+    launches = _all_counts(KE)
+    left = (KE.left_closed_launches, KE.left_closed_slots)
+    peak = torch.cuda.max_memory_allocated()
+    flushes = [r for r in wf.last_train_profile if r["kind"] == "flush"]
+    enc = [r for r in flushes if r.get("encode_slots")]
+    check(len(enc) == 1 and enc[0]["encode_slots"] == DSL_SLOTS
+          and launches["encode_slots"] == 1 and launches["encode_slots.slots"] == DSL_SLOTS
+          and left == (1, DSL_LEFT_SLOTS)
+          and launches["onehot_codes"] == launches["bucketize_right_encode"] == 0,
+          f"one flush encodes {DSL_SLOTS} slots ({DSL_LEFT_SLOTS} left-closed) in one "
+          f"launch: {launches} left {left} flushes {flushes}")
+    summary = model.fitted[h["sel"].uid].summary
+    for e in summary.validation_results:
+        check(all(np.isfinite(v) for v in e.metric_values), f"finite CV {e}")
+
+    # the flush's encode launch at DSL_ROWS: bitwise, then timed
+    plan, ins = _flush_operands(model, h, ds, dev)
+    table = plan._encode_table
+    width = table.width
+    buf = torch.empty((DSL_ROWS, -(-width // 4) * 4), device=dev)[:, :width]
+    KE.encode_slots(ins, table, buf)
+    torch.cuda.synchronize()
+    check(torch.equal(buf, KE.encode_slots_torch(ins, table)),
+          f"the dsl flush's encode launch bitwise at {DSL_ROWS} rows")
+    nbytes = (sum(x.numel() * x.element_size() for x in ins) + table.splits.nbytes
+              + DSL_ROWS * width * 4)
+    encode = {"rows": DSL_ROWS, "slots": len(table), "left_closed_slots": table.n_left,
+              "columns": width,
+              "ms": time_big_ms(lambda: KE.encode_slots(ins, table, buf), runs=21, warmup=3),
+              "plain_ms": time_big_ms(lambda: KE.encode_slots_torch(ins, table, buf), runs=5),
+              "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+              "bound_by": "bytes", "in_flush_ms": enc[0]["encode_ms"], "max_abs_err": 0.0}
+    del plan, ins, buf
+
+    # serving: 16 batches of 1024 records, each one launch of every slot
+    names = [k for k in cols if k != "label"]
+    batches = [[{k: cols[k][i] for k in names} for i in range(b * BATCH, (b + 1) * BATCH)]
+               for b in range(N_BATCHES)]
+    splan = model.serving_plan()
+    cpu_plan = model.serving_plan(device="cpu")
+    check(len(splan._encode_table) == DSL_SLOTS and splan._encode_table.n_left == DSL_LEFT_SLOTS,
+          f"the serving plan's table holds {DSL_SLOTS} slots, {DSL_LEFT_SLOTS} left-closed")
+    splan.score(batches[0])
+    torch.cuda.synchronize()
+    _reset_all(KE)
+    served, parts = [], []
+    t0 = time.perf_counter()
+    for b in batches:
+        served.append(splan.score(b))
+        parts.append(dict(splan.last_timings))
+    wall = time.perf_counter() - t0
+    slaunches = _all_counts(KE)
+    sleft = (KE.left_closed_launches, KE.left_closed_slots)
+    check(slaunches["encode_slots"] == N_BATCHES
+          and slaunches["encode_slots.slots"] == N_BATCHES * DSL_SLOTS
+          and sleft == (N_BATCHES, N_BATCHES * DSL_LEFT_SLOTS),
+          f"one encode launch of {DSL_SLOTS} slots per served batch: {slaunches} {sleft}")
+    for b, got in zip(batches, served):
+        check(got == cpu_plan.score(b), "served dsl records == the CPU plan's")
+
+    def med(key):
+        return statistics.median(p[key] for p in parts)
+
+    out = {"rows": DSL_ROWS, "train_seconds": seconds, "data_host_seconds": data_s,
+           "phase10_train_seconds": raw["train_seconds"],
+           "flushes": [{k: r.get(k) for k in (
+               "seconds", "stages", "encode_slots", "host_stages", "host_stage_seconds",
+               "host_encode_s", "h2d_s", "device_s", "encode_ms", "d2h_s")}
+               for r in flushes],
+           "launches": launches, "left_closed": {"launches": left[0], "slots": left[1]},
+           "max_memory_allocated_bytes": peak,
+           "winner": summary.best_model_name, "winner_grid": summary.best_grid,
+           "cv": [{"grid": e.grid, "values": e.metric_values}
+                  for e in summary.validation_results],
+           "encode_at_rows": encode, "phase10_encode_at_rows": raw["encode_at_rows"],
+           "serving": {"batches": N_BATCHES, "batch": BATCH,
+                       "records_per_s": N_BATCHES * BATCH / wall,
+                       "encode_ms_median": med("encode_ms"),
+                       "device_prefix_ms_median": med("device_ms"),
+                       "host_head_ms_median": med("host_ms"),
+                       "launches": slaunches,
+                       "left_closed": {"launches": sleft[0], "slots": sleft[1]},
+                       "records_equal_cpu": True}}
+    emit({"phase": "dsl", **out})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2582,7 +2974,7 @@ def main() -> int:
         return 1
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
-    sys.path.insert(1, os.path.join(here, "tests"))  # torch_encode_cases
+    sys.path.insert(1, os.path.join(here, "tests"))  # torch_encode_cases, data
     os.chdir(here)
     import numpy as np
 
@@ -2731,7 +3123,13 @@ def main() -> int:
     # 15. the text, date, list, multi-pick and geolocation families
     fam = phase_families(torch, KE, dev)
 
-    # 16. summary
+    # 16. the reference's example apps
+    ex = phase_examples(torch, KE, dev)
+
+    # 17. the DSL's features over phase 10's table at full width
+    dsl = phase_dsl(torch, KE, dev, raw)
+
+    # 18. summary
     kernels = []
     tree_src = "transmogrifai_tpu_torch/perf/kernels/csrc/trees.cu"
     for kname, replaces in (("hist_level", "transmogrifai_tpu/perf/kernels/histogram.py:80"),
@@ -2806,8 +3204,35 @@ def main() -> int:
                 "launches_serving_server_families": fam["server"]["launches"],
                 "training_families": fam["encode_at_rows"]}
                if kname == "onehot_codes" else {}),
+            "launches_examples": {k: ex[k]["launches"]["encode_slots"]
+                                  for k in ("titanic", "iris", "boston")},
+            "launches_training_dsl": dsl["launches"]["encode_slots"],
+            "launches_serving_dsl": dsl["serving"]["launches"]["encode_slots"],
+            "training_dsl": dsl["encode_at_rows"],
             **{f"fused_{k}": fused[k] for k in ("ms", "device_ms", "plain_ms",
                                                  "bound_ms", "slots", "columns")}})
+    t = timings["bucketize_left_encode"]
+    kernels.append({
+        "name": "bucketize_left_encode", "route": "cuda",
+        "source": "transmogrifai_tpu_torch/perf/kernels/csrc/encode.cu",
+        "replaces": "transmogrifai_tpu/ops/scalers.py:115 (NumericBucketizer."
+                    "device_transform: XLA, no pallas_call; a slot kind of the "
+                    "kernel of encode.py:76 and :105)",
+        "launches": dsl["serving"]["left_closed"]["launches"],
+        "slots_per_launch": DSL_LEFT_SLOTS,
+        "launches_training_dsl": dsl["left_closed"]["launches"],
+        "max_abs_err": t["max_abs_err"], "parity": "bitwise",
+        "parity_cases": t["parity_cases"],
+        "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": "bytes", "library_ms": t["library_ms"],
+        "library": t["library"], "shape": t["shape"],
+        "timing": "ms/device_ms/plain_ms/bound_ms/library_ms: one left-closed slot "
+                  "at the serving batch; slots8: 8 slots at the dsl phase's rows; "
+                  "splits5000: one slot past shared memory",
+        "slots8": t["slots8"], "splits5000": t["splits5000"]})
+    for k in kernels[:3]:
+        k["launches_examples"] = {e: ex[e]["launches"][k["name"]]
+                                  for e in ("titanic", "iris", "boston")}
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

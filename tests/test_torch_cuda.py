@@ -1,6 +1,8 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card,
-and the wide pipeline's training from raw columns (its whole-table transform
-plan and the SanityChecker) on the card against the CPU.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card
+(the encode kernel's left-closed bucketize slots among them), and the wide
+pipeline's training from raw columns (its whole-table transform plan and the
+SanityChecker, and with the DSL's features added) on the card against the
+CPU.
 
 Marked ``cuda``: each test skips where there is no card.  The machine with
 the card has no JAX, so this file imports torch and the port only; run it
@@ -810,3 +812,107 @@ def test_families_serving_plan_on_the_card_equals_the_cpu():
         dev = max(abs(g[name]["probability_1"] - w[name]["probability_1"])
                   for g, w in zip(got, b["scored"]))
         assert dev <= 1e-12, dev
+
+
+# -- the left-closed bucketize slot (NumericBucketizer) -------------------------------
+
+@pytest.mark.parametrize("n", [1, 37, 1024, 5000])
+@pytest.mark.parametrize("n_slots", [1, 8])
+def test_left_closed_slots_bitwise_and_counted(n, n_slots):
+    from torch_encode_cases import left_slot_case
+
+    specs, inputs = left_slot_case(n, n + n_slots, "cuda", n_slots)
+    table = TKE.plan_slots(specs)
+    before = (TKE.encode_slots_launches, TKE.left_closed_launches, TKE.left_closed_slots)
+    got = TKE.encode_slots(inputs, table)
+    torch.cuda.synchronize()
+    assert (TKE.encode_slots_launches, TKE.left_closed_launches,
+            TKE.left_closed_slots) == (before[0] + 1, before[1] + 1, before[2] + n_slots)
+    assert torch.equal(got, TKE.encode_slots_torch(inputs, table))
+
+
+@pytest.mark.parametrize("n, offset, pad", [(37, 1, 3), (1024, 0, 0), (997, 2, 4)])
+def test_left_closed_slots_mixed_into_a_table_bitwise(n, offset, pad):
+    from torch_encode_cases import left_slot_case
+
+    specs, inputs = slot_case(n, 5, "cuda", 12)
+    lspecs, linputs = left_slot_case(n, 6, "cuda", 9)
+    for k, (s, x) in enumerate(zip(lspecs, linputs)):
+        specs.insert(2 * k, s)
+        inputs.insert(2 * k, x)
+    table = TKE.plan_slots(specs)
+    w = table.width
+    buf = torch.full((n, offset + w + pad), 7.0, device="cuda")
+    TKE.encode_slots(inputs, table, buf[:, offset:offset + w])
+    torch.cuda.synchronize()
+    assert torch.equal(buf[:, offset:offset + w], TKE.encode_slots_torch(inputs, table))
+    assert bool((buf[:, :offset] == 7.0).all()) and bool((buf[:, offset + w:] == 7.0).all())
+
+
+@pytest.mark.parametrize("n_splits", [4097, 5000])
+@pytest.mark.parametrize("track_nulls, track_invalid", [(True, True), (False, False),
+                                                        (True, False)])
+def test_left_closed_slot_past_shared_memory_bitwise(n_splits, track_nulls, track_invalid):
+    from torch_encode_cases import left_slot_case
+
+    specs, inputs = left_slot_case(3001, n_splits, "cuda", 1, n_splits=n_splits)
+    specs = [specs[0]._replace(track_nulls=track_nulls, track_invalid=track_invalid,
+                               width=TKE.bucket_width(n_splits, track_nulls, track_invalid))]
+    table = TKE.plan_slots(specs)
+    got = TKE.encode_slots(inputs, table)
+    torch.cuda.synchronize()
+    assert torch.equal(got, TKE.encode_slots_torch(inputs, table))
+
+
+def test_numeric_bucketizer_on_the_card_equals_the_cpu():
+    from transmogrifai_tpu_torch.ops.scalers import NumericBucketizer
+    from torch_encode_cases import left_slot_case
+
+    _, [x] = left_slot_case(4096, 1, "cpu", 1)
+    for kw in ({}, {"splits": (-1.0, 0.0, 2.0), "track_invalid": True},
+               {"splits": (float("-inf"), 0.5, float("inf")), "track_nulls": False}):
+        b = NumericBucketizer(**kw)
+        card = b.device_transform(x.cuda())
+        torch.cuda.synchronize()
+        assert torch.equal(card.cpu(), b.device_transform(x))
+
+
+def test_dsl_pipeline_on_the_card_equals_the_cpu():
+    """The wide table with the DSL's features at a cut, trained on the card:
+    one flush encodes every slot (the left-closed ones among them) in one
+    launch, the training vector bitwise the CPU's, LR CV within 1e-4, and
+    the serving plan's records equal the CPU plan's."""
+    import transmogrifai_tpu_torch as T
+    from torch_wide_data import dsl_pipeline, make_data, score_column
+    from transmogrifai_tpu_torch.types import feature_type_by_name
+    from transmogrifai_tpu_torch.workflow.fit import transform_dag
+
+    shape = dict(n_real=28, n_bucketized=3, n_pick=5, n_levels=30, n_binary=2)
+    cols, schema = make_data(3000, seed=4, **shape)
+    cols["score"] = score_column(3000, seed=4)
+    ftypes = {s["name"]: feature_type_by_name(s["type"]) for s in schema}
+    ftypes["score"] = T.types.RealNN
+    ds = T.Dataset.from_features(cols, ftypes)
+    models = {}
+    for dev in ("cpu", "cuda"):
+        label, sel, chk, pred = dsl_pipeline(T, ftypes, schema)
+        TKE.reset_launch_counts()
+        models[dev] = (T.Workflow().set_input_dataset(ds).set_result_features(label, pred)
+                       .train(device=dev), sel, chk, pred)
+        if dev == "cuda":
+            assert TKE.encode_slots_launches == 1 and TKE.left_closed_slots == 8
+            assert TKE.slots_encoded == 3 + 8 + 5
+    (cm, csel, cchk, cpred), (gm, gsel, gchk, gpred) = models["cpu"], models["cuda"]
+    for m, chk, dev in ((cm, cchk, "cpu"), (gm, gchk, "cuda")):
+        models[dev] = models[dev] + (transform_dag(ds, [chk.inputs[1]], m.fitted,
+                                                   torch.device("cpu"))[chk.inputs[1].name],)
+    assert models["cpu"][4].data.tobytes() == models["cuda"][4].data.tobytes()
+    for a, b in zip(cm.fitted[csel.uid].summary.validation_results,
+                    gm.fitted[gsel.uid].summary.validation_results):
+        np.testing.assert_allclose(b.metric_values, a.metric_values, rtol=0, atol=1e-4)
+    recs = [{k: cols[k][i] for k in cols if k != "label"} for i in range(256)]
+    plan = gm.serving_plan()
+    TKE.reset_launch_counts()
+    got = plan.score(recs)
+    assert TKE.encode_slots_launches == 1 and TKE.left_closed_slots == 8
+    assert got == gm.serving_plan(device="cpu").score(recs)

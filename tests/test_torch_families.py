@@ -448,10 +448,23 @@ def trained(record):
     ds = T.Dataset.from_features(cols, tf)
     TN.reset_path_counts()
     wf = T.Workflow().set_input_dataset(ds).set_result_features(label, pred)
-    model = wf.train(device="cpu")
+    # keep the LR sweep's eval operands (its validation scores' inputs)
+    import transmogrifai_tpu_torch.models.logistic as TLRmod
+
+    sweeps, eval_sweep = [], TLRmod.eval_linear_sweep
+
+    def capture(xd, yd, betas, vw, metric_fn, link):
+        sweeps.append((xd, betas, vw))
+        return eval_sweep(xd, yd, betas, vw, metric_fn, link)
+
+    TLRmod.eval_linear_sweep = capture
+    try:
+        model = wf.train(device="cpu")
+    finally:
+        TLRmod.eval_linear_sweep = eval_sweep
     return dict(model=model, ds=ds, cols=cols, schema=schema, label=label, sel=sel,
                 chk=chk, pred=pred, profile=wf.last_train_profile,
-                paths=TN.path_counts())
+                paths=TN.path_counts(), lr_sweep=sweeps[0])
 
 
 class TestFamiliesSlice:
@@ -497,6 +510,56 @@ class TestFamiliesSlice:
         np.testing.assert_allclose(np.asarray(win.coef), states["winner"]["coef"], rtol=0,
                                    atol=1e-6)
         assert abs(float(win.intercept) - states["winner"]["intercept"]) <= 1e-6
+
+    def test_lr_cv_gaps_are_near_tied_pairs_swapping_order(self, trained, record):
+        """The port's LR CV sweep (its validation scores, from the train's
+        own sweep) against the JAX package's over the same vector and folds
+        (``cv_scores.npz``, ``tools/make_torch_families_cv_scores.py``):
+        every (grid, fold) validation auPR that differs comes with pairs of
+        validation scores whose order differs between the packages, every
+        such pair is near-tied (within 1e-5 in both), and where the orders
+        agree the auPRs agree within 1e-7."""
+        import torch
+
+        from transmogrifai_tpu.evaluators.base import BinaryClassificationEvaluator as JBE
+        from transmogrifai_tpu.models.tuning import CrossValidator as JCV
+        from transmogrifai_tpu_torch.evaluators.base import (
+            BinaryClassificationEvaluator as TBE,
+        )
+        from transmogrifai_tpu_torch.models.tuning import CrossValidator as TCV
+
+        states, _ = record
+        rec = np.load(os.path.join(RECORD, "cv_scores.npz"))
+        sj, jm = rec["scores"], rec["metrics"]
+        for gi, c in enumerate(states["cv"]):
+            np.testing.assert_array_equal(jm[gi], c["values"])
+        summary = trained["model"].fitted[trained["sel"].uid].summary
+        tm = np.asarray([e.metric_values for e in summary.validation_results])
+        xd, betas, vw = trained["lr_sweep"]
+        g, k, d1 = betas.shape
+        n = sj.shape[2]
+        st = torch.sigmoid(xd @ betas.reshape(g * k, d1).T).numpy().T.reshape(g, k, n)
+        vw = vw.numpy()
+        y = np.ones(n, np.float32)
+        jvw = np.asarray(JCV(JBE(), num_folds=k).fold_weights(y, y)[1])
+        np.testing.assert_array_equal(jvw, TCV(TBE(), num_folds=k).fold_weights(y, y)[1])
+        np.testing.assert_array_equal(vw, jvw)
+        gaps = []
+        for gi in range(g):
+            for f in range(k):
+                rows = vw[f] > 0
+                a, b = sj[gi, f, rows].astype(np.float64), st[gi, f, rows].astype(np.float64)
+                da, db = a[:, None] - a[None, :], b[:, None] - b[None, :]
+                swapped = np.sign(da) != np.sign(db)
+                gap = abs(float(tm[gi, f]) - float(jm[gi, f]))
+                gaps.append(gap)
+                assert np.abs(da[swapped]).max(initial=0.0) <= 1e-5
+                assert np.abs(db[swapped]).max(initial=0.0) <= 1e-5
+                if not swapped.any():
+                    assert gap <= 1e-7, (gi, f, gap)
+                if gap > 1e-7:
+                    assert swapped.any(), (gi, f, gap)
+        assert max(gaps) <= 1e-4
 
     def test_hashing_took_the_native_path(self, trained):
         _need_native()

@@ -358,10 +358,17 @@ from transmogrifai_tpu_torch.serve import batcher, faults, pipeline, plan, resil
 from transmogrifai_tpu_torch.obs import metrics as obs_metrics, overlap
 from transmogrifai_tpu_torch.checkers import diagnostics
 from transmogrifai_tpu_torch.ops import dates, geo, text_lists, text_smart
-from transmogrifai_tpu_torch.utils import hashing, lang, text
-from transmogrifai_tpu_torch import native
+from transmogrifai_tpu_torch.ops import math, misc, onehot, scalers
+from transmogrifai_tpu_torch.utils import hashing, lang, pretty, text
+from transmogrifai_tpu_torch import native, dsl, params
+from transmogrifai_tpu_torch.aggregators import monoid
+from transmogrifai_tpu_torch.readers import avro, base as readers_base, files, joined
+from transmogrifai_tpu_torch.stages import functions
+from transmogrifai_tpu_torch.workflow import runner
 serde._register_stages()
 import chip_smoke
+sys.path.insert(0, {repo!r} + "/tests")
+import torch_examples_data, torch_wide_data, torch_encode_cases
 bad = sorted(m for m in set(sys.modules) - before
              if m.split(".")[0] in ("jax", "jaxlib", "transmogrifai_tpu"))
 print("BAD=" + ",".join(bad))
@@ -380,7 +387,8 @@ class TestNoJax:
     @pytest.mark.parametrize("root", ["transmogrifai_tpu_torch", "chip_smoke.py",
                                       os.path.join("tests", "torch_encode_cases.py"),
                                       os.path.join("tests", "torch_wide_data.py"),
-                                      os.path.join("tests", "torch_families_data.py")])
+                                      os.path.join("tests", "torch_families_data.py"),
+                                      os.path.join("tests", "torch_examples_data.py")])
     def test_ast_scan_finds_no_jax_import(self, root):
         path = os.path.join(REPO, root)
         files = [path] if path.endswith(".py") else [
@@ -397,6 +405,14 @@ class TestNoJax:
                         ("ops", "text_smart.py"), ("ops", "text_lists.py"),
                         ("ops", "dates.py"), ("ops", "geo.py"), ("utils", "lang.py"),
                         ("utils", "text.py"), ("utils", "hashing.py"),
+                        ("utils", "pretty.py"), ("ops", "math.py"), ("ops", "misc.py"),
+                        ("ops", "scalers.py"), ("ops", "onehot.py"), ("params.py",),
+                        ("aggregators", "monoid.py"), ("stages", "functions.py"),
+                        ("stages", "base.py"), ("features", "builder.py"),
+                        ("data", "dataset.py"), ("workflow", "runner.py"),
+                        ("workflow", "workflow.py"), ("workflow", "fit.py"),
+                        *(("readers", f"{m}.py") for m in (
+                            "avro", "base", "files", "joined")),
                         *(("serve", f"{m}.py") for m in (
                             "batcher", "faults", "pipeline", "plan", "resilience",
                             "server", "swap", "validator"))):
@@ -493,7 +509,7 @@ class TestEntryPointSignatures:
         short = tm.score(ds, device="cpu")
         full = tm.score(ds, True, device="cpu")
         assert set(short.names) < set(full.names)
-        with pytest.raises(NotImplementedError, match="dataset=None"):
+        with pytest.raises(ValueError, match="needs a dataset or a reader"):
             tm.score(device="cpu")
         with pytest.raises(TypeError):
             tm.score(ds, False, "cpu")

@@ -2,8 +2,9 @@
 
 Shared by tests/test_torch_encode.py (the plain version against the JAX
 package, on the CPU), tests/test_torch_cuda.py (the kernel against the plain
-version, on the card) and ``chip_smoke.py``'s fused-kernel phase.  Imports
-numpy, torch and the port only.
+version, on the card) and ``chip_smoke.py``'s kernel phases, the
+left-closed slots (:func:`left_slot_case`) among them.  Imports numpy,
+torch and the port only.
 """
 
 import numpy as np
@@ -58,3 +59,30 @@ def fixture_inputs(table, n: int, seed: int, device):
             a = _edge_values(rng, n, s.splits)
         out.append(torch.from_numpy(a).to(device))
     return out
+
+
+FLT_MAX = float(np.finfo(np.float32).max)
+
+
+def left_slot_case(n: int, seed: int, device, n_slots: int = 8, n_splits=None):
+    """Left-closed bucketize slots (NumericBucketizer's) over every edge case
+    and their inputs on ``device``: S = 2, 3 and 5 splits (or ``n_splits``)
+    with +-inf edges, +-FLT_MAX edges or finite ones, all four track flag
+    settings, and values with NaN, +-inf, +-FLT_MAX and every finite split
+    (ties)."""
+    rng = np.random.default_rng(seed)
+    specs, inputs = [], []
+    for k in range(n_slots):
+        S = n_splits or (2, 3, 5)[k % 3]
+        sp = np.sort(rng.normal(size=S)).astype(np.float32)
+        if k % 3 == 0:
+            sp[0], sp[-1] = -np.inf, np.inf
+        elif k % 3 == 1:
+            sp[0], sp[-1] = -FLT_MAX, FLT_MAX
+        specs.append(KE.bucketize_slot(sp, bool(k & 1), bool(k & 2), closed="left"))
+        a = _edge_values(rng, n, sp)
+        tail = np.float32([FLT_MAX, -FLT_MAX])[:max(0, n - 3 - len(sp))]
+        if len(tail):
+            a[-len(tail):] = tail
+        inputs.append(torch.from_numpy(a).to(device))
+    return specs, inputs

@@ -83,3 +83,71 @@ def wide_pipeline(pkg, ftypes, schema, num_folds: int = 2):
                  [{"reg_param": 0.01}, {"reg_param": 0.1}])])
     pred = label.transform_with(sel, checked)
     return label, sel, checked.origin_stage, pred
+
+
+# -- the DSL features over the wide table ----------------------------------------
+
+#: NumericBucketizer splits of the 8 fixed-split features: the even ones over
+#: +-inf edges without track_invalid, the odd ones finite with track_invalid
+DSL_SPLITS = ((float("-inf"), -0.5, 0.0, 0.5, float("inf")), (-1.0, 0.0, 1.0))
+
+
+def score_column(n: int, seed: int = 0) -> list:
+    """A non-null RealNN predictor for the PercentileCalibrator (the wide
+    table has none): standard normal from ``default_rng(seed + 1)``."""
+    return np.random.default_rng(seed + 1).normal(size=n).tolist()
+
+
+def head_level(v) -> bool:
+    """The exists predicate: a pick-list value at one of the top levels."""
+    return v is not None and v[-2:] in ("00", "01")
+
+
+def level_number(v):
+    """The map_to function: a pick-list level's number, as a Real."""
+    return None if v is None else float(v[-2:])
+
+
+def dsl_pipeline(pkg, ftypes, schema, num_folds: int = 2):
+    """(label, selector, checker, prediction) of the wide pipeline with the
+    DSL's features added, in ``pkg`` (either package's module): the raw
+    columns and 8 auto-bucketized Reals as in :func:`wide_pipeline`, plus 8
+    fixed-split ``NumericBucketizer`` features over Reals that are not
+    auto-bucketized (:data:`DSL_SPLITS`), 8 pairwise ``+ - * /`` features,
+    ``to_occur`` on 2 pick lists and ``exists`` on 2 more, a
+    ``PercentileCalibrator`` over the RealNN ``score`` column
+    (:func:`score_column`), an ``alias`` and a ``map_to``; then transmogrify
+    -> sanity_check -> the 2-fold LR selector."""
+    import importlib
+
+    scal = importlib.import_module(pkg.__name__ + ".ops.scalers")
+    lr = importlib.import_module(pkg.__name__ + ".models.logistic").LogisticRegression
+    label = pkg.FeatureBuilder.of("label", ftypes["label"]).extract_field() \
+        .as_response()
+    preds = {s["name"]: pkg.FeatureBuilder.of(s["name"], ftypes[s["name"]])
+             .extract_field().as_predictor()
+             for s in schema if not s.get("response")}
+    score = pkg.FeatureBuilder.of("score", ftypes["score"]).extract_field() \
+        .as_predictor()
+    reals = [s["name"] for s in schema if s["type"] == "Real" and not s["bucketized"]]
+    picks = [s["name"] for s in schema if s["type"] == "PickList"]
+    buckets = [preds[s["name"]].auto_bucketize(label)
+               for s in schema if s.get("bucketized")]
+    fixed = [preds[r].transform_with(scal.NumericBucketizer(
+        splits=DSL_SPLITS[j % 2], track_invalid=bool(j % 2)))
+        for j, r in enumerate(reals[:8])]
+    a, b = [preds[r] for r in reals[8:24:2]], [preds[r] for r in reals[9:24:2]]
+    math = [a[0] + b[0], a[1] - b[1], a[2] * b[2], a[3] / b[3],
+            a[4] + b[4], a[5] - b[5], a[6] * b[6], a[7] / b[7]]
+    values = [preds[picks[0]].to_occur(), preds[picks[1]].to_occur(),
+              preds[picks[2]].exists(head_level), preds[picks[3]].exists(head_level),
+              score.transform_with(scal.PercentileCalibrator(buckets=10)),
+              preds[reals[24]].alias(reals[24] + "_alias"),
+              preds[picks[4]].map_to(level_number, ftypes[reals[0]], name="level")]
+    vec = pkg.transmogrify(list(preds.values()) + buckets + fixed + math + values)
+    checked = label.sanity_check(vec)
+    sel = pkg.BinaryClassificationModelSelector.with_cross_validation(
+        num_folds=num_folds,
+        models=[(lr(), [{"reg_param": 0.01}, {"reg_param": 0.1}])])
+    pred = label.transform_with(sel, checked)
+    return label, sel, checked.origin_stage, pred

@@ -18,7 +18,14 @@ other two problem types, by k-fold CV or ``with_train_validation_split``;
 pred).train()`` fits it all on the CUDA card unless ``device`` says
 otherwise (``train(test_fraction=)`` holds rows out and evaluates them),
 each run of fitted stages between two fits transformed over the whole table
-on the card.  It saves (``model.save(path)``) and loads
+on the card.  Data comes in as a ``Dataset`` or through a reader
+(``DataReaders``: CSV, Parquet, JSON lines, Avro, a DataFrame, records;
+aggregate, conditional and joined readers), and ``workflow/runner.py``'s
+``WorkflowRunner``/``App`` run train, score, features and evaluate the way
+the reference's example apps do; the DSL's arithmetic (``a + b``,
+``family_size * fare``), ``bucketize``, ``indexed`` and value shortcuts
+build host stages, and ``NumericBucketizer`` a left-closed slot of the
+encode kernel.  It saves (``model.save(path)``) and loads
 (``WorkflowModel.load(path)``) models in the reference's format, either
 package's, scores them (``model.score``, ``model.evaluate``) and serves
 them: ``model.serving_plan()`` and ``plan.score(records)`` for batches,
@@ -53,17 +60,28 @@ from .ops.numeric import BinaryVectorizer, NumericVectorizer, RealNNVectorizer  
 from .ops.onehot import OneHotVectorizer  # noqa: F401
 from .ops.scalers import FillMissingWithMean, StandardScaler  # noqa: F401
 from .ops.transmogrifier import transmogrify  # noqa: F401
+from .readers.files import DataReaders  # noqa: F401
+from .readers.joined import (  # noqa: F401
+    JoinedAggregateReader,
+    JoinedReader,
+    JoinType,
+    TimeBasedFilter,
+    TimeColumn,
+)
 from .serve.plan import CompiledScoringPlan  # noqa: F401
 from .serve.server import ScoringServer  # noqa: F401
 from .workflow.serde import load_model, save_model  # noqa: F401
 from .workflow.workflow import Workflow, WorkflowModel  # noqa: F401
 
 __all__ = ["BinaryClassificationModelSelector", "BinaryVectorizer",
-           "CompiledScoringPlan", "Dataset", "DecisionTreeNumericBucketizer",
+           "CompiledScoringPlan", "DataReaders", "Dataset",
+           "DecisionTreeNumericBucketizer",
            "Evaluators", "FeatureBuilder", "FillMissingWithMean",
-           "GeneralizedLinearRegression", "LinearRegression", "LinearSVC",
+           "GeneralizedLinearRegression", "JoinType", "JoinedAggregateReader",
+           "JoinedReader", "LinearRegression", "LinearSVC",
            "LogisticRegression", "MultiClassificationModelSelector",
            "MultinomialLogisticRegression", "NaiveBayes", "NumericVectorizer",
            "OneHotVectorizer", "RealNNVectorizer", "RegressionModelSelector",
-           "SanityChecker", "ScoringServer", "StandardScaler", "VectorsCombiner",
-           "Workflow", "WorkflowModel", "load_model", "save_model", "transmogrify"]
+           "SanityChecker", "ScoringServer", "StandardScaler", "TimeBasedFilter",
+           "TimeColumn", "VectorsCombiner", "Workflow", "WorkflowModel",
+           "load_model", "save_model", "transmogrify"]

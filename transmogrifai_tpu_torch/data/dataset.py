@@ -200,6 +200,10 @@ class Dataset:
     def select(self, names: Iterable[str]) -> "Dataset":
         return Dataset({n: self[n] for n in names})
 
+    def drop(self, names: Iterable[str]) -> "Dataset":
+        drop = set(names)
+        return Dataset({n: c for n, c in self._columns.items() if n not in drop})
+
     def take(self, indices: np.ndarray) -> "Dataset":
         """The rows at ``indices`` (positions) of every column."""
         idx = np.asarray(indices)
@@ -213,6 +217,19 @@ class Dataset:
         perm = np.random.default_rng(seed).permutation(n)
         n_test = int(round(n * test_fraction))
         return self.take(perm[n_test:]), self.take(perm[:n_test])
+
+    def to_pandas(self):
+        """A pandas DataFrame of the python values (a vector column's rows as
+        arrays); imports pandas here, as the reference does."""
+        import pandas as pd
+
+        out = {}
+        for name, col in self._columns.items():
+            if col.kind is ColumnKind.VECTOR:
+                out[name] = list(col.data)
+            else:
+                out[name] = col.to_values()
+        return pd.DataFrame(out)
 
     def __repr__(self) -> str:
         cols = ", ".join(f"{n}:{c.ftype.__name__}" for n, c in self._columns.items())

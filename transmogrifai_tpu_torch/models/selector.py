@@ -78,6 +78,36 @@ class ModelSelectorSummary:
                 for ev in self.validation_results],
         }
 
+    def pretty(self) -> str:
+        """The winner, a table of every candidate's mean CV metric (best
+        first), the train metrics, failed families and holdout metrics --
+        the reference's text, line for line."""
+        from ..utils.pretty import Table
+
+        sign = -1.0 if self.larger_is_better else 1.0
+        rows = [
+            (ev.model_name, _grid_str(ev.grid), f"{ev.mean_metric:.4f}")
+            for ev in sorted(self.validation_results,
+                             key=lambda e: sign * e.mean_metric
+                             if np.isfinite(e.mean_metric) else np.inf)
+        ]
+        t = Table(("Model", "Grid", f"mean {self.metric_name}"), rows)
+        lines = [
+            f"Selected model: {self.best_model_name} {_grid_str(self.best_grid)}",
+            t.render(),
+            f"Train metrics: {self.train_evaluation}",
+        ]
+        if self.failed_models:
+            lines.append(f"FAILED model families (no finite CV metric): "
+                         f"{', '.join(self.failed_models)}")
+        if self.holdout_evaluation:
+            lines.append(f"Holdout metrics: {self.holdout_evaluation}")
+        return "\n".join(lines)
+
+
+def _grid_str(grid: Dict[str, Any]) -> str:
+    return "{" + ", ".join(f"{k}={v}" for k, v in sorted(grid.items())) + "}"
+
 
 class ModelSelector(PredictionEstimatorBase):
     """Estimator over (label, features): validates every (model, grid)

@@ -1,6 +1,7 @@
-"""One-hot pivots of categorical text and multi-pick lists (counterpart of
-``transmogrifai_tpu/ops/onehot.py``: ``OneHotVectorizer``,
-``MultiPickListVectorizer`` and their models).
+"""One-hot pivots of categorical text and multi-pick lists, and label
+indexing (counterpart of ``transmogrifai_tpu/ops/onehot.py``:
+``OneHotVectorizer``, ``MultiPickListVectorizer``, ``StringIndexer``, their
+models, and ``IndexToString``).
 
 String work stays on the host.  The fit keeps each feature's top-K levels by
 count (ties by value) that reach the minimum support, with the reference's
@@ -10,7 +11,8 @@ null, or -1 when nulls are untracked).  The device half writes every slot's
 one-hot block into one (n, sum of widths) output with one launch of the
 encode kernel (``perf/kernels/encode.py``, K4's slots).  A multi-pick row
 lights several levels, which no single level code can say, so the
-multi-pick model stays on the host, as in the reference.
+multi-pick model stays on the host, as in the reference.  The label
+indexer and its inverse are host stages, as in the reference.
 """
 
 from __future__ import annotations
@@ -23,8 +25,14 @@ import torch
 
 from ..data.dataset import Column
 from ..perf.kernels import encode as KE
-from ..stages.base import Param, SequenceEstimator, Transformer
-from ..types import OPSet, OPVector, Text
+from ..stages.base import (
+    Param,
+    SequenceEstimator,
+    Transformer,
+    UnaryEstimator,
+    UnaryTransformer,
+)
+from ..types import OPSet, OPVector, Real, RealNN, Text
 from ..utils.vector_metadata import (
     NULL_INDICATOR,
     OTHER_INDICATOR,
@@ -243,3 +251,88 @@ class MultiPickListVectorizerModel(OneHotVectorizerModel):
                     block[i, k if j is None else j] = 1.0
             blocks.append(block)
         return Column.vector(np.hstack(blocks), self._meta())
+
+
+class StringIndexer(UnaryEstimator):
+    """Text-like -> RealNN label index by descending frequency: index 0 is
+    the most frequent value, ties by value.  Values unseen at transform time
+    follow ``handle_invalid``: "error" (the default) raises, "keep" maps
+    them and missing values to one more index."""
+
+    input_types = (Text,)
+    output_type = RealNN
+    # label indexing is the canonical use (label.indexed() on a response)
+    allow_label_as_input = True
+
+    @property
+    def output_is_response(self):
+        return any(f.is_response for f in self._input_features)
+
+    handle_invalid = Param(default="error",
+                           validator=lambda v: v in ("error", "keep"))
+
+    def fit_columns(self, cols: List[Column], dataset, device) -> Transformer:
+        values = list(cols[0].data)
+        if self.handle_invalid == "error" and any(v is None for v in values):
+            raise ValueError(
+                "StringIndexer: input contains missing values; use "
+                "handle_invalid='keep' to map them to the unseen index")
+        counts = Counter(v for v in values if v is not None)
+        labels = [t for t, _ in sorted(counts.items(), key=lambda kv: (-kv[1], kv[0]))]
+        return StringIndexerModel(labels=labels, handle_invalid=self.handle_invalid)
+
+
+class StringIndexerModel(UnaryTransformer):
+    """A text value's index in ``labels`` (see :class:`StringIndexer`)."""
+
+    input_types = (Text,)
+    output_type = RealNN
+    allow_label_as_input = True
+
+    @property
+    def output_is_response(self):
+        return any(f.is_response for f in self._input_features)
+
+    def __init__(self, labels: List[str], handle_invalid: str = "error", **kw):
+        super().__init__(**kw)
+        self.labels = list(labels)
+        self.handle_invalid = handle_invalid
+
+    def transform_columns(self, cols: List[Column], dataset) -> Column:
+        index = {t: float(j) for j, t in enumerate(self.labels)}
+        unseen = float(len(self.labels))
+        out = np.empty(len(cols[0]), np.float64)
+        for i, v in enumerate(cols[0].data):
+            j = index.get(v) if v is not None else None
+            if j is None:
+                if self.handle_invalid == "error":
+                    what = "missing value" if v is None else f"unseen label {v!r}"
+                    raise ValueError(
+                        f"StringIndexer: {what} (handle_invalid='error'; use "
+                        "'keep' to map to the unseen index)")
+                j = unseen
+            out[i] = j
+        return Column.from_values(RealNN, out.tolist())
+
+
+class IndexToString(UnaryTransformer):
+    """RealNN index -> Text label, the inverse of StringIndexer; a missing,
+    NaN or out-of-range index gives a missing label."""
+
+    input_types = (Real,)
+    output_type = Text
+
+    def __init__(self, labels: List[str], **kw):
+        super().__init__(**kw)
+        self.labels = list(labels)
+
+    def transform_columns(self, cols: List[Column], dataset) -> Column:
+        out = []
+        for v in cols[0].to_values():
+            if v is None or (isinstance(v, float) and v != v):  # missing or NaN
+                out.append(None)
+            elif not 0 <= int(v) < len(self.labels):
+                out.append(None)
+            else:
+                out.append(self.labels[int(v)])
+        return Column.from_values(Text, out)

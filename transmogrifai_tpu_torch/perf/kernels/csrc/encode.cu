@@ -14,7 +14,16 @@
 //       sorted splits, ties and +-inf included; the bucket's column is 1 only
 //       when x is finite and s[0] < x <= s[S-1]; then the invalid column
 //       (present and out of range) and the null column (NaN), in the order
-//       of encode.py:140-148.
+//       of encode.py:140-148;
+//   left-closed bucketize (kLeftClosed; NumericBucketizer, which the
+//       reference computes in plain XLA, ops/scalers.py:115-138): v0 as
+//       above; the bucket is count(splits <= v0) - 1 clipped to [0, S-2],
+//       equal to searchsorted(side="right") - 1; in_range = present and
+//       s[0] <= x <= s[S-1], compared on x (so +inf is in range when
+//       s[S-1] is +inf); the bucket's column is 1 when in_range, or for any
+//       present value without track_invalid (out of range clamps to the edge
+//       bucket, and +-inf counts as present); then the invalid column
+//       (present and out of range) and the null column (NaN).
 // In both, a row of a slot has at most one column set (its "hot" column), so
 // the kernel builds each piece of output in shared memory (zeros, then the
 // hot columns) and stores it: every output element is written exactly once,
@@ -76,13 +85,14 @@ constexpr int kFields = 5;         // int64 fields of a table row
 // a few CTAs per SM over the 132 SMs; larger row counts loop over tiles
 constexpr long long kMaxBlocks = 132LL * 8;
 
-enum : int { kBucketize = 1, kTrackInvalid = 2, kTrackNulls = 4 };
+enum : int { kBucketize = 1, kTrackInvalid = 2, kTrackNulls = 4, kLeftClosed = 8 };
 
 struct Slot {
   const void* in;      // int32 codes (one-hot) or float32 values (bucketize)
   int col;             // the slot's first column in the output
   int width;           // the slot's columns
-  int kind;            // kBucketize | kTrackInvalid | kTrackNulls, 0 = one-hot
+  int kind;            // kBucketize | kTrackInvalid | kTrackNulls | kLeftClosed,
+                       // 0 = one-hot
   int split_off;       // the slot's first split in the launch's splits
   int n_splits;
   int pad;
@@ -102,21 +112,27 @@ static_assert(sizeof(SlotTable) <= 4096, "the slot table must fit 4 KB of parame
 static_assert(kTileBytes + kMaxSplits * 4 + kMaxSlots * sizeof(Slot) <= 48 * 1024,
               "tile, splits and table fit the shared memory a CTA takes without opting in");
 
-// count(s[j] < v0) over S splits: a compare-count over a shared-memory copy,
-// or a binary search (lower bound) over sorted splits in global memory --
+// count(s[j] < v0) over S splits (kLe: count(s[j] <= v0), the left-closed
+// twin): a compare-count over a shared-memory copy, or a binary search
+// (lower bound, kLe: upper bound) over sorted splits in global memory --
 // equal on sorted splits, ties and +-inf included
-template <bool kGlobal>
+template <bool kLe>
+__device__ __forceinline__ bool below(float s, float v0) {
+  return kLe ? (s <= v0) : (s < v0);
+}
+
+template <bool kGlobal, bool kLe>
 __device__ __forceinline__ int count_below(const float* s, int S, float v0) {
   if constexpr (kGlobal) {
     int lo = 0, hi = S;
     while (lo < hi) {
       const int mid = (lo + hi) >> 1;
-      if (__ldg(s + mid) < v0) lo = mid + 1; else hi = mid;
+      if (below<kLe>(__ldg(s + mid), v0)) lo = mid + 1; else hi = mid;
     }
     return lo;
   } else {
     int lt = 0;
-    for (int j = 0; j < S; ++j) lt += (s[j] < v0) ? 1 : 0;
+    for (int j = 0; j < S; ++j) lt += below<kLe>(s[j], v0) ? 1 : 0;
     return lt;
   }
 }
@@ -131,9 +147,17 @@ __device__ __forceinline__ int bucket_hot(float xv, const float* s, int S, int k
   const bool present = !isnan(xv);
   const bool finite = present && isfinite(xv);
   const float v0 = !present ? 0.0f : (finite ? xv : (xv > 0.0f ? FLT_MAX : -FLT_MAX));
-  const int lt = count_below<kGlobal>(s, S, v0);
   const int nb = S - 1;
   const int ti = (kind & kTrackInvalid) ? 1 : 0;
+  if (kind & kLeftClosed) {
+    const int le = count_below<kGlobal, true>(s, S, v0);
+    const bool in_range = present && xv >= split_at<kGlobal>(s, 0)
+                          && xv <= split_at<kGlobal>(s, S - 1);
+    if (in_range || (present && !ti)) return min(max(le - 1, 0), nb - 1);
+    if (present) return nb;
+    return (kind & kTrackNulls) ? nb + ti : -1;
+  }
+  const int lt = count_below<kGlobal, false>(s, S, v0);
   if (finite && xv > split_at<kGlobal>(s, 0) && xv <= split_at<kGlobal>(s, S - 1))
     return min(max(lt - 1, 0), nb - 1);
   if (present) return ti ? nb : -1;

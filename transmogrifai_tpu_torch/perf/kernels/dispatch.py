@@ -16,6 +16,7 @@ and the flags, so a fresh checkout builds everything from its own sources.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -56,10 +57,30 @@ def is_kernel_fault(exc: BaseException) -> bool:
     return isinstance(exc, (KernelError, torch.AcceleratorError))
 
 
+#: the device entry points called without one run on, inside use_device()
+_DEFAULT_DEVICE = None
+
+
+@contextlib.contextmanager
+def use_device(device):
+    """Within the block, an entry point called without ``device`` runs on
+    ``device`` (as if each call had named it): how a caller runs code that
+    names no device, an example app for one, on the CPU."""
+    global _DEFAULT_DEVICE
+    prev, _DEFAULT_DEVICE = _DEFAULT_DEVICE, torch.device(device)
+    try:
+        yield
+    finally:
+        _DEFAULT_DEVICE = prev
+
+
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: the CUDA card unless the caller
-    names another.  No card and no explicit device is an error, never a
-    silent move to the CPU."""
+    names another (by ``device``, or around the call by
+    :func:`use_device`).  No card and no explicit device is an error, never
+    a silent move to the CPU."""
+    if device is None:
+        device = _DEFAULT_DEVICE
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

@@ -19,7 +19,9 @@ kernels become one CUDA kernel (``csrc/encode.cu``).  The pieces here:
   failed build or launch raises :class:`dispatch.KernelError`;
 - the plain PyTorch version (:func:`encode_slots_torch`): the reference's XLA
   formulas (:func:`onehot_codes_torch`, :func:`bucketize_right_encode_torch`,
-  bitwise equal to the JAX kernels) applied slot by slot.  The CPU plan and
+  bitwise equal to the JAX kernels, and :func:`bucketize_left_encode_torch`,
+  bitwise equal to ``NumericBucketizer.device_transform``) applied slot by
+  slot.  The CPU plan and
   the tests use it, and ``chip_smoke.py`` holds the kernel against it;
 - the one-slot wrappers :func:`onehot_codes` and
   :func:`bucketize_right_encode`, one-slot tables of the same kernel, each
@@ -43,6 +45,10 @@ onehot_launches = 0
 bucketize_launches = 0
 encode_slots_launches = 0
 slots_encoded = 0
+#: launches of encode_slots whose chunk held a left-closed bucketize slot,
+#: and those slots
+left_closed_launches = 0
+left_closed_slots = 0
 
 #: slots a launch takes: the table travels as a kernel parameter of <= 4 KB
 #: (encode.cu: kMaxSlots); a longer table launches in chunks
@@ -54,7 +60,10 @@ MAX_SPLITS = 4096
 MAX_OUTPUT_WIDTH = 1 << 24
 
 ONEHOT, BUCKETIZE = "onehot", "bucketize"
-_KIND_BUCKETIZE, _TRACK_INVALID, _TRACK_NULLS = 1, 2, 4
+#: which edge of a bucket belongs to it: "right" (K5's ``(s[i], s[i+1]]``,
+#: the tree bucketizer's) or "left" (``[s[i], s[i+1])``, NumericBucketizer's)
+CLOSED = ("right", "left")
+_KIND_BUCKETIZE, _TRACK_INVALID, _TRACK_NULLS, _LEFT_CLOSED = 1, 2, 4, 8
 #: int64 fields of a table row: col, width, kind, split_off, n_splits
 #: (encode.cu: tmog_encode_slots)
 _FIELDS = 5
@@ -65,8 +74,10 @@ _SIGNATURES = {"tmog_encode_slots": (_VP, _VP, _INT, _I64, _VP, _I64, _VP, _INT,
 
 def reset_launch_counts() -> None:
     global onehot_launches, bucketize_launches, encode_slots_launches, slots_encoded
+    global left_closed_launches, left_closed_slots
     onehot_launches = bucketize_launches = 0
     encode_slots_launches = slots_encoded = 0
+    left_closed_launches = left_closed_slots = 0
 
 
 def launch_counts() -> dict:
@@ -95,12 +106,15 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
 
 class SlotSpec(NamedTuple):
     """One slot: a one-hot of ``width`` columns over int32 codes, or a
-    bucketize one-hot over float32 values with its ``splits`` and flags."""
+    bucketize one-hot over float32 values with its ``splits``, flags and
+    closed edge (``closed``, default "right": a table saved before the
+    left-closed kind keeps its meaning)."""
     kind: str
     width: int = 0
     splits: Tuple[float, ...] = ()
     track_nulls: bool = False
     track_invalid: bool = False
+    closed: str = "right"
 
 
 def onehot_slot(width: int) -> SlotSpec:
@@ -108,12 +122,12 @@ def onehot_slot(width: int) -> SlotSpec:
 
 
 def bucketize_slot(splits: Sequence[float], track_nulls: bool,
-                   track_invalid: bool) -> SlotSpec:
+                   track_invalid: bool, closed: str = "right") -> SlotSpec:
     splits = tuple(float(s) for s in np.asarray(splits, np.float32))
     return SlotSpec(BUCKETIZE, width=bucket_width(len(splits), track_nulls,
                                                   track_invalid),
                     splits=splits, track_nulls=bool(track_nulls),
-                    track_invalid=bool(track_invalid))
+                    track_invalid=bool(track_invalid), closed=closed)
 
 
 def bucket_width(n_splits: int, track_nulls: bool, track_invalid: bool) -> int:
@@ -169,12 +183,17 @@ class SlotTable:
                 s = self.specs[k]
                 kind = 0 if s.kind == ONEHOT else (
                     _KIND_BUCKETIZE | _TRACK_INVALID * s.track_invalid
-                    | _TRACK_NULLS * s.track_nulls)
+                    | _TRACK_NULLS * s.track_nulls
+                    | _LEFT_CLOSED * (s.closed == "left"))
                 self.rows[k] = (self.col[k], s.width, kind,
                                 self.split_off[k] - bounds[lo], len(s.splits))
             self._launches.append((lo, hi - lo,
                                    self.rows.ctypes.data + 8 * _FIELDS * lo,
                                    bounds[lo], bounds[hi] - bounds[lo]))
+        left = [s.kind == BUCKETIZE and s.closed == "left" for s in self.specs]
+        #: left-closed slots, and the chunks that hold one
+        self.n_left = sum(left)
+        self.left_chunks = sum(any(left[lo:hi]) for lo, hi in self.chunks)
         self._splits_on = {}
 
     def __len__(self) -> int:
@@ -191,8 +210,8 @@ class SlotTable:
 
 def plan_slots(specs: Sequence[SlotSpec]) -> SlotTable:
     """Plan a slot table; refuses an empty table, a width <= 0, a bucketize
-    slot with fewer than 2 splits and an unknown kind.  A bucketize slot
-    takes any count of splits past that."""
+    slot with fewer than 2 splits, an unknown kind and an unknown closed
+    edge.  A bucketize slot takes any count of splits past that."""
     specs = list(specs)
     if not specs:
         raise ValueError("a slot table needs at least one slot")
@@ -203,6 +222,8 @@ def plan_slots(specs: Sequence[SlotSpec]) -> SlotTable:
             if len(s.splits) < 2:
                 raise ValueError(f"slot {k}: a bucketize slot needs at least 2 "
                                  f"splits, got {len(s.splits)}")
+            if s.closed not in CLOSED:
+                raise ValueError(f"slot {k}: unknown closed edge {s.closed!r}")
             if s.width != bucket_width(len(s.splits), s.track_nulls, s.track_invalid):
                 raise ValueError(f"slot {k}: width {s.width} does not match its "
                                  "splits and flags")
@@ -251,6 +272,34 @@ def bucketize_right_encode_torch(x: torch.Tensor, splits: torch.Tensor,
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
+def bucketize_left_encode_torch(x: torch.Tensor, splits: torch.Tensor,
+                                track_nulls: bool,
+                                track_invalid: bool) -> torch.Tensor:
+    """Left-closed bucketize one-hot of ``x`` (float32, NaN = missing) over
+    ``splits`` (S >= 2 sorted edges): bucket ``count(s <= v0) - 1`` clipped
+    to [0, S-2], ``v0 = nan_to_num(x)``; the bucket's column is set when
+    ``s[0] <= x <= s[S-1]`` (on ``x``: +inf is in range when ``s[S-1]`` is
+    +inf), or for any present value without ``track_invalid`` (out of range
+    clamps to the edge bucket); then the optional invalid and null columns
+    -- the reference's ``NumericBucketizer.device_transform``
+    (``ops/scalers.py:115-138``)."""
+    n_buckets = int(splits.shape[0]) - 1
+    ok = ~torch.isnan(x)
+    v0 = torch.nan_to_num(x)
+    idx = torch.clamp(torch.searchsorted(splits, v0, side="right") - 1,
+                      0, n_buckets - 1)
+    in_range = ok & (x >= splits[0]) & (x <= splits[-1])
+    sel = in_range if track_invalid else ok
+    ids = torch.arange(n_buckets, device=x.device)
+    parts = [(idx[:, None] == ids).to(torch.float32)
+             * sel.to(torch.float32)[:, None]]
+    if track_invalid:
+        parts.append((ok & ~in_range).to(torch.float32)[:, None])
+    if track_nulls:
+        parts.append((~ok).to(torch.float32)[:, None])
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
 def encode_slots_torch(inputs: Sequence[torch.Tensor], table: SlotTable,
                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain version of :func:`encode_slots`: each slot's block by the
@@ -262,8 +311,9 @@ def encode_slots_torch(inputs: Sequence[torch.Tensor], table: SlotTable,
         else:
             off = table.split_off[k]
             splits = table.splits_on(x.device)[off:off + len(s.splits)]
-            block = bucketize_right_encode_torch(x, splits, s.track_nulls,
-                                                 s.track_invalid)
+            plain = (bucketize_left_encode_torch if s.closed == "left"
+                     else bucketize_right_encode_torch)
+            block = plain(x, splits, s.track_nulls, s.track_invalid)
         out[:, table.col[k]:table.col[k] + s.width] = block
     return out
 
@@ -337,6 +387,7 @@ def encode_slots(inputs: Sequence[torch.Tensor], table: SlotTable,
     when None) is an (n, ``table.width``) float32 tensor whose columns are
     contiguous -- a view into a wider buffer is fine."""
     global encode_slots_launches, slots_encoded
+    global left_closed_launches, left_closed_slots
     if inputs and inputs[0].device.type == "cpu":
         return encode_slots_torch(inputs, table, out)
     n = _check_inputs(inputs, table)
@@ -344,7 +395,10 @@ def encode_slots(inputs: Sequence[torch.Tensor], table: SlotTable,
     launched = _launch(inputs, table, out, table.splits_on(inputs[0].device),
                        "encode_slots")
     encode_slots_launches += launched
-    slots_encoded += len(table) if launched else 0
+    if launched:
+        slots_encoded += len(table)
+        left_closed_launches += table.left_chunks
+        left_closed_slots += table.n_left
     return out
 
 

@@ -108,6 +108,9 @@ class PipelineStage:
     output_type: Type[FeatureType] = OPVector
     #: whether a response feature may feed this stage as a non-label input
     allow_label_as_input: bool = False
+    #: whether the output is flagged as a response feature (a stage that
+    #: indexes a response makes the label, StringIndexer's case)
+    output_is_response: bool = False
 
     def __init__(self, operation_name: Optional[str] = None, uid: str = "",
                  **params):
@@ -191,6 +194,11 @@ class PipelineStage:
     def inputs(self) -> Tuple[Feature, ...]:
         return self._input_features
 
+    def _output_ftype(self) -> Type[FeatureType]:
+        """The output feature's type (a stage whose type follows its input
+        overrides this)."""
+        return self.output_type
+
     def make_output_name(self) -> str:
         base = "-".join(f.name for f in self._input_features) or "raw"
         return f"{base}_{self.operation_name}_{self.uid.rsplit('_', 1)[-1]}"
@@ -201,8 +209,8 @@ class PipelineStage:
                 raise ValueError(f"{type(self).__name__} {self.uid} has no "
                                  "output feature (set_input first)")
             self._output_feature = Feature(
-                name=self.make_output_name(), ftype=self.output_type,
-                is_response=False, origin_stage=self,
+                name=self.make_output_name(), ftype=self._output_ftype(),
+                is_response=bool(self.output_is_response), origin_stage=self,
                 parents=self._input_features, uid=feature_uid())
         return self._output_feature
 
@@ -269,6 +277,18 @@ class UnaryTransformer(Transformer):
     """1 input -> 1 output."""
 
 
+class BinaryTransformer(Transformer):
+    """2 inputs -> 1 output."""
+
+
+class TernaryTransformer(Transformer):
+    """3 inputs -> 1 output."""
+
+
+class QuaternaryTransformer(Transformer):
+    """4 inputs -> 1 output."""
+
+
 class SequenceTransformer(Transformer):
     """N inputs of ``sequence_input_type`` -> 1 output."""
 
@@ -281,8 +301,40 @@ class BinaryEstimator(Estimator):
     """2 inputs (a label and a feature) -> a fitted model."""
 
 
+class TernaryEstimator(Estimator):
+    """3 inputs -> a fitted model."""
+
+
 class SequenceEstimator(Estimator):
     """N inputs of ``sequence_input_type`` -> a fitted model."""
+
+
+class BinarySequenceEstimator(Estimator):
+    """1 fixed input + N inputs of ``sequence_input_type`` (a label and
+    features) -> a fitted model."""
+
+
+class UnaryLambdaTransformer(UnaryTransformer):
+    """Host elementwise transformer from a per-value function (the
+    reference's ``transformFn: I => O``), for host-kind columns: each
+    value of the input goes through ``fn`` and the results make a column of
+    ``output_type``."""
+
+    def __init__(self, fn: Callable[[Any], Any], input_type: Type[FeatureType],
+                 output_type: Type[FeatureType], operation_name: Optional[str] = None,
+                 fn_name: Optional[str] = None, **kw):
+        self.input_types = (input_type,)
+        self.output_type = output_type
+        super().__init__(operation_name=operation_name or fn_name or "lambda", **kw)
+        self.fn = fn
+        self.fn_name = fn_name
+
+    def transform_columns(self, cols, dataset):
+        from ..data.dataset import Column
+
+        values = [self.fn(v) for v in cols[0].to_values()]
+        return Column.from_values(self.output_type, [
+            v.value if isinstance(v, FeatureType) else v for v in values])
 
 
 class EstimatorStub(Estimator):

@@ -2,7 +2,9 @@
 Integral, Binary, Date, ...), the text types (Text and its free-form
 subtypes, PickList, ComboBox and the location texts), the collections
 (TextList, DateList, MultiPickList, Geolocation, OPVector), Prediction and
-their abstract bases.  The typed maps other than Prediction are not ported:
+their abstract bases, and the conversion helpers ``to_real`` ...
+``to_multi_picklist`` (the reference's ``types/package.scala`` implicits as
+plain functions).  The typed maps other than Prediction are not ported:
 transmogrify has no vectorizer for them yet."""
 
 from .base import (  # noqa: F401
@@ -56,3 +58,33 @@ from .text import (  # noqa: F401
     Text,
     TextArea,
 )
+
+
+# --- conversion helpers (package.scala equivalents) -------------------------
+
+def to_real(v) -> Real:
+    return Real(v)
+
+
+def to_real_nn(v) -> RealNN:
+    return RealNN(v)
+
+
+def to_integral(v) -> Integral:
+    return Integral(v)
+
+
+def to_binary(v) -> Binary:
+    return Binary(v)
+
+
+def to_text(v) -> Text:
+    return Text(v)
+
+
+def to_picklist(v) -> PickList:
+    return PickList(v)
+
+
+def to_multi_picklist(v) -> MultiPickList:
+    return MultiPickList(v)

@@ -72,3 +72,8 @@ def compute_dag(result_features: Sequence[Feature]) -> List[List["PipelineStage"
     for layer in layers:
         layer.sort(key=lambda s: s.uid)
     return [layer for layer in layers if layer]
+
+
+def all_stages(result_features: Sequence[Feature]) -> List["PipelineStage"]:
+    """Every non-generator stage in execution order (flattened layers)."""
+    return [s for layer in compute_dag(result_features) for s in layer]

@@ -4,10 +4,13 @@
 Stages run in one topologically ordered pass.  Fitted runners (transformers
 and the models of estimators already fitted) collect in a pending list; when
 an estimator needs a column that a pending runner has still to produce, the
-pending runners flush through one training-time transform plan
+pending runners it needs (those that make its missing inputs, and theirs in
+turn) flush through one training-time transform plan
 (``workflow/plan.py::fused_transform``): their device prefix runs over the
 whole table on ``device`` (every encode slot of the flush in one launch of
-the encode kernel), the rest on the host.  The estimator then fits on the
+the encode kernel), the rest on the host.  The other pending runners wait
+for a later flush, so a host stage an estimator needs early (a math
+feature) does not split the encode slots over two launches.  The estimator then fits on the
 dataset as it stands, and its model joins the pending list.  A last flush
 runs what is pending at the end.
 
@@ -50,6 +53,23 @@ def _resolve(stage: PipelineStage, fitted: Dict[str, Transformer]):
     return stage
 
 
+def _needed(pending: List[Transformer], stage: PipelineStage,
+            dataset: Dataset) -> List[Transformer]:
+    """The pending runners that make ``stage``'s inputs missing from
+    ``dataset``, and the pending runners those need in turn, in pending
+    order."""
+    by_output = {r.output_name: r for r in pending}
+    need: set = set()
+    stack = [f.name for f in stage.inputs if f.name not in dataset]
+    while stack:
+        runner = by_output.get(stack.pop())
+        if runner is None or id(runner) in need:
+            continue
+        need.add(id(runner))
+        stack.extend(f.name for f in runner.inputs if f.name not in dataset)
+    return [r for r in pending if id(r) in need]
+
+
 def fit_stage_list(dataset: Dataset, stages, fitted: Dict[str, Transformer],
                    device=None, profile: Optional[list] = None) -> Dataset:
     """Fit/transform an explicit stage list in topological order; fitted
@@ -62,8 +82,9 @@ def fit_stage_list(dataset: Dataset, stages, fitted: Dict[str, Transformer],
         runner = _resolve(stage, fitted)
         if runner is None:
             if pending and any(f.name not in dataset for f in stage.inputs):
-                dataset = fused_transform(dataset, pending, device, profile)
-                pending = []
+                now = _needed(pending, stage, dataset)
+                dataset = fused_transform(dataset, now, device, profile)
+                pending = [r for r in pending if all(r is not x for x in now)]
             t0 = time.perf_counter()
             runner = stage.fit(dataset, device=device)
             if profile is not None:

@@ -20,7 +20,10 @@ Loading:
   :class:`~..stages.base.EstimatorStub`; scoring resolves them to the fitted
   model saved under the same uid;
 - a stage class the port does not have raises ``ValueError`` naming it, and
-  nothing is returned: a model never loads half-built.
+  nothing is returned: a model never loads half-built;
+- a function a stage holds (an extract, a predicate) saves by registered
+  name or importable path, feature types by the reference's type path
+  (``stages/functions.py``); a lambda cannot be saved.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from ..stages.base import (
     STAGE_REGISTRY,
     Transformer,
 )
+from ..stages.functions import decode_function, encode_function
 from ..types import feature_type_by_name
 from ..utils.vector_metadata import VectorMetadata
 
@@ -66,6 +70,8 @@ def _register_stages() -> None:
         combiner,
         dates,
         geo,
+        math,
+        misc,
         numeric,
         onehot,
         scalers,
@@ -99,10 +105,7 @@ class _Decoder:
         if "__dataclass__" in v:
             return _restore_dataclass(v["__dataclass__"], self.decode(v["data"]))
         if "__registered_fn__" in v or "__imported_fn__" in v:
-            raise ValueError(
-                f"saved function {v.get('__registered_fn__') or v.get('__imported_fn__')!r} "
-                "is not ported to transmogrifai_tpu_torch: only named-field "
-                "extracts load")
+            return decode_function(v)
         if "__unserializable__" in v:
             return None
         return {k: self.decode(x) for k, x in v.items()}
@@ -134,7 +137,7 @@ def decode_stage(state: dict, dec: _Decoder) -> PipelineStage:
         return FeatureGeneratorStage(
             extract_fn=extract, ftype=feature_type_by_name(g["ftype"]),
             output_name=g["rawName"], is_response=g["isResponse"],
-            uid=state["uid"])
+            uid=state["uid"], aggregate_window_ms=g.get("windowMs"))
     if not state.get("full", True):
         return EstimatorStub(cls_name, uid=state["uid"],
                              operation_name=state["operationName"])
@@ -226,7 +229,8 @@ def load_model(path: str):
 #: attributes every stage has that the manifest records elsewhere, and
 #: runtime-only caches
 _SKIP_ATTRS = {"_param_values", "_input_features", "_output_feature",
-               "operation_name", "uid", "_code_memos", "_device_consts"}
+               "operation_name", "uid", "_code_memos", "_device_consts",
+               "_config_set"}
 
 
 class _Encoder:
@@ -265,6 +269,13 @@ class _Encoder:
             return {"__dataclass__": type(v).__name__,
                     "data": self.encode({f.name: getattr(v, f.name)
                                          for f in dataclasses.fields(v)})}
+        if callable(v):
+            desc = encode_function(v)
+            if desc is not None:
+                return desc
+            raise ValueError(
+                f"cannot save the function {v!r}: use a module-level function "
+                "or @register_function so it can round-trip")
         raise ValueError(f"cannot save a value of type {type(v).__name__}: {v!r}")
 
 
@@ -280,7 +291,7 @@ def encode_stage(stage: PipelineStage, enc: _Encoder, full: bool) -> dict:
                             "ftype": stage.ftype.__name__,
                             "isResponse": stage.is_response,
                             "extract": enc.encode(stage.extract_fn),
-                            "windowMs": None}
+                            "windowMs": stage.aggregate_window_ms}
         return out
     if full:
         out["attrs"] = {k: enc.encode(v) for k, v in vars(stage).items()

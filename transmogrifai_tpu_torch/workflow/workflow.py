@@ -7,7 +7,9 @@ Training from raw typed columns::
         BinaryClassificationModelSelector.with_cross_validation(),
         label.sanity_check(vec))
     wf = Workflow().set_input_dataset(ds).set_result_features(label, pred)
+    # or .set_reader(DataReaders.Simple.dataframe(df)) / CustomReader(...)
     model = wf.train()                       # fits on the CUDA card
+    print(model.summary_pretty())            # the selector's CV table
 
 Scoring a fitted or loaded model::
 
@@ -33,7 +35,16 @@ from typing import Dict, List, Optional, Sequence
 from ..data.dataset import Dataset
 from ..evaluators.base import Evaluator
 from ..features.feature import Feature
-from .dag import compute_dag
+from .dag import all_stages, compute_dag
+
+
+def dedup_raw_features(result_features: Sequence[Feature]) -> List[Feature]:
+    """All raw ancestors of the result features, each once (by uid)."""
+    out: Dict[str, Feature] = {}
+    for f in result_features:
+        for r in f.raw_features():
+            out.setdefault(r.uid, r)
+    return list(out.values())
 
 
 class Workflow:
@@ -42,6 +53,9 @@ class Workflow:
     def __init__(self):
         self.result_features: List[Feature] = []
         self._input_dataset: Optional[Dataset] = None
+        self._reader = None
+        self._warm_models: Dict[str, object] = {}
+        self._op_params = None
         #: records of the last ``train()``: one per estimator fit and one per
         #: transform flush (``workflow/fit.py::fit_stage_list``)
         self.last_train_profile: List[dict] = []
@@ -54,10 +68,32 @@ class Workflow:
                 if seen.get(stage.uid, stage) is not stage:
                     raise ValueError(f"[TM102] Duplicate stage uid in DAG: {stage.uid}")
                 seen[stage.uid] = stage
+        if self._op_params is not None:
+            self._op_params.apply_to_stages(all_stages(self.result_features))
         return self
 
     def set_input_dataset(self, ds: Dataset) -> "Workflow":
         self._input_dataset = ds
+        return self
+
+    def set_reader(self, reader) -> "Workflow":
+        """Read the training data through ``reader`` (``readers/``): its
+        ``generate_dataset`` of the raw features; the trained model keeps
+        it for ``score()`` with no dataset."""
+        self._reader = reader
+        return self
+
+    def with_model_stages(self, model: "WorkflowModel") -> "Workflow":
+        """Warm start: reuse ``model``'s fitted stages by uid."""
+        self._warm_models.update(model.fitted)
+        return self
+
+    def set_parameters(self, params) -> "Workflow":
+        """Apply an :class:`~..params.OpParams`' stage overrides (by class
+        name or uid); a param set in code wins over the configuration."""
+        self._op_params = params
+        if self.result_features:
+            params.apply_to_stages(all_stages(self.result_features))
         return self
 
     def with_raw_feature_filter(self, rff) -> "Workflow":
@@ -65,15 +101,15 @@ class Workflow:
             "the raw feature filter is not ported to transmogrifai_tpu_torch yet")
 
     def raw_features(self) -> List[Feature]:
-        out: Dict[str, Feature] = {}
-        for f in self.result_features:
-            for r in f.raw_features():
-                out.setdefault(r.uid, r)
-        return list(out.values())
+        return dedup_raw_features(self.result_features)
 
     def generate_raw_data(self) -> Dataset:
+        """The raw table: the reader's dataset of the raw features, else the
+        input dataset."""
+        if self._reader is not None:
+            return self._reader.generate_dataset(self.raw_features())
         if self._input_dataset is None:
-            raise ValueError("No input data: call set_input_dataset first")
+            raise ValueError("No input data: call set_input_dataset or set_reader first")
         ds = self._input_dataset
         missing = [f.name for f in self.raw_features() if f.name not in ds]
         if missing:
@@ -110,9 +146,13 @@ class Workflow:
         if test_fraction > 0.0:
             raw, test_ds = raw.split(test_fraction, seed=seed)
         profile: List[dict] = []
-        _, fitted = fit_dag(raw, self.result_features, device=dev, profile=profile)
+        _, fitted = fit_dag(raw, self.result_features, fitted=self._warm_models,
+                            device=dev, profile=profile)
         self.last_train_profile = profile
         model = WorkflowModel(result_features=self.result_features, fitted=fitted)
+        if self._reader is not None:
+            # the model keeps the workflow's reader for score() with no dataset
+            model.set_reader(self._reader)
         if test_ds is not None and test_ds.n_rows > 0:
             model._evaluate_holdout(test_ds, dev)
         return model
@@ -132,6 +172,20 @@ class WorkflowModel:
     def __init__(self, result_features: Sequence[Feature], fitted: Dict):
         self.result_features: List[Feature] = list(result_features)
         self.fitted = dict(fitted)
+        self._reader = None
+
+    def set_reader(self, reader) -> "WorkflowModel":
+        """The reader ``score``/``evaluate`` read through when given no
+        dataset."""
+        self._reader = reader
+        return self
+
+    def _read(self, dataset: Optional[Dataset]) -> Dataset:
+        if dataset is not None:
+            return dataset
+        if self._reader is None:
+            raise ValueError("score() needs a dataset or a reader")
+        return self._reader.generate_dataset(dedup_raw_features(self.result_features))
 
     def serving_plan(self, min_bucket: int = 8, max_bucket: int = 1024,
                      strict: bool = True, hbm_budget: Optional[float] = None,
@@ -159,15 +213,15 @@ class WorkflowModel:
 
     def score(self, dataset: Optional[Dataset] = None,
               keep_intermediate: bool = False, *, device=None) -> Dataset:
-        """Score a dataset of raw columns through one whole-table transform
-        plan (``workflow/fit.py::transform_dag``): its raw columns plus the
-        result features, or every stage's output with ``keep_intermediate``.
-        The reference's reader (``dataset=None``) is not ported."""
+        """Score a dataset of raw columns (with none, the reader's: see
+        :meth:`set_reader`) through one whole-table transform plan
+        (``workflow/fit.py::transform_dag``): its raw columns plus the
+        result features, or every stage's output with ``keep_intermediate``."""
         from ..perf.kernels.dispatch import resolve_device
         from .fit import transform_dag
 
         dev = resolve_device(device)
-        _refuse_unported("WorkflowModel.score", {"dataset=None": dataset is None})
+        dataset = self._read(dataset)
         out = transform_dag(dataset, self.result_features, self.fitted, dev)
         if keep_intermediate:
             return out
@@ -196,7 +250,7 @@ class WorkflowModel:
         """(the scored result features, the metrics) of one scoring pass."""
         evaluator, dataset = self._check_eval_args(evaluator, dataset)
         label, pred = self._label_and_pred()
-        scored = self.score(dataset, keep_intermediate=True, device=device)
+        scored = self.score(self._read(dataset), keep_intermediate=True, device=device)
         metrics = evaluator.evaluate(scored, label.name, pred.name)
         keep = [f.name for f in self.result_features if f.name in scored]
         return scored.select(keep), metrics
@@ -207,6 +261,25 @@ class WorkflowModel:
 
         return next((t for t in self.fitted.values() if isinstance(t, SelectedModel)),
                     None)
+
+    def summary(self):
+        """The model selector's summary (``ModelSelectorSummary``), or None."""
+        m = self.selector_model()
+        return m.summary if m else None
+
+    def summary_pretty(self) -> str:
+        """The selector's summary as text: the winner, a table of every
+        candidate's mean CV metric, the train (and holdout) metrics."""
+        s = self.summary()
+        return s.pretty() if s else "(no model selector in workflow)"
+
+    def compute_data_up_to(self, feature: Feature, dataset: Dataset, *,
+                           device=None) -> Dataset:
+        """Transform ``dataset`` by the fitted DAG only up to ``feature``."""
+        from ..perf.kernels.dispatch import resolve_device
+        from .fit import transform_dag
+
+        return transform_dag(dataset, [feature], self.fitted, resolve_device(device))
 
     def _evaluate_holdout(self, test_ds: Dataset, device) -> None:
         """The selector summary's ``holdout_evaluation``: the held-out rows
