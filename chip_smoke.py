@@ -224,7 +224,10 @@ Phases, one JSON line each:
                the record), Titanic's metrics within 1e-4 and its cv_auPR in
                0.67-0.90, the apps' scores beside the record's (Iris's
                classes equal wherever the record's top two probabilities are
-               0.1 apart, Boston's predictions within 1e-3 of their value),
+               0.1 apart and its probabilities within the spread of the
+               multinomial refit over every first Adam step a summation
+               order can give, torch_examples_data.refit_spread; Boston's
+               predictions within 1e-3 of their value),
                and K1-K3 (and K4 for Titanic) launched during each train,
                the counters zeroed just before.  Whether the card's Python imports pandas is
                printed.
@@ -240,7 +243,34 @@ Phases, one JSON line each:
                slots a batch, records equal to the CPU plan's.  Train
                seconds, records/s and the encode ms are printed beside phase
                10's.
-18. summary  — nvidia-smi's line, then one {"kernels": [...]} line, then the
+18. maps     — typed maps and the raw feature filter
+               (tests/torch_maps_data.py: a CRM object's custom fields as a
+               RealMap, CurrencyMap, IntegralMap, BinaryMap, PickListMap,
+               MultiPickListMap, TextMap, TextAreaMap, DateMap and
+               GeolocationMap, two PickLists, an auto-bucketized Real and
+               reals; a scoring table with a shifted key, an emptied map, a
+               key whose nulls track the label and a protected shifted Real)
+               through Workflow().with_raw_feature_filter(...) -> transmogrify
+               -> SanityChecker -> a 3-fold LR selector on the card.  (a) At
+               the record's 4096 rows (scoring 1024): the filter's
+               distributions, metrics and blacklist, the fitted states and
+               the training vector's sha256 equal to the JAX package's record
+               (fixtures/training_maps, tools/make_torch_maps_fixture.py), LR
+               CV within 1e-4 and the coefficients within rtol 1e-4 / atol
+               1e-5, the filter's two histogram passes on the card and the
+               flush's 3 slots in one encode launch.  (b) Workflow.train at
+               MAPS_ROWS (scoring a quarter), the counters zeroed just before:
+               seconds by part (the filter, its histograms by CUDA events
+               beside their bound, the map stages' fits and host transforms,
+               the flush and its encode launch, bitwise and timed, the
+               SanityChecker, the selector).  (c) save -> load ->
+               serving_plan() over 16 batches of 1024 records (maps missing,
+               empty, or short of keys): one encode launch of 3 slots a batch,
+               records equal to the CPU plan's, records/s.  (d) The JAX
+               package's saved model (the record's) serves the record's
+               requests on the card equal to the CPU plan's and within 1e-12
+               of the JAX plan's.
+19. summary  — nvidia-smi's line, then one {"kernels": [...]} line, then the
                last line {"ok": true, "device": {...}}.
 
 Phase 3 also holds K5 past shared memory (a 5000-split slot, its own launch
@@ -323,6 +353,13 @@ EXAMPLES_DIR = os.path.join("build", "examples")
 DSL_ROWS = 1 << 18
 DSL_SLOTS = 48
 DSL_LEFT_SLOTS = 8
+#: the maps record (tools/make_torch_maps_fixture.py) and the rows of the maps
+#: train timed by phase 18 (its scoring table a quarter of them); the slots
+#: of its flush and of each served batch: the two pick lists' one-hot and the
+#: auto-bucketized Real
+MAPS_FIXTURE = os.path.join("transmogrifai_tpu_torch", "fixtures", "training_maps")
+MAPS_ROWS = 1 << 18
+MAPS_SLOTS = 3
 #: CV metric tolerance of each family against the reference's record
 FAMILY_TOL = {"LogisticRegression": 1e-4, "LinearSVC": 1e-4,
               "RandomForestClassifier": 1e-6, "GradientBoostedTreesClassifier": 1e-3}
@@ -362,7 +399,14 @@ WIDE_ROWS = 1 << 16
 WIDE_LIBRARY_ROWS = {True: 256, False: 4096}
 
 
+#: the script's start on the host clock: each phase line carries its
+#: seconds since (``elapsed_s``)
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -631,6 +675,24 @@ def _left_library(torch, ins, table):
         outs.append(F.one_hot((torch.bucketize(torch.nan_to_num(x), s, right=True) - 1)
                               .clamp(0, nb - 1), nb).float())
     return outs
+
+
+def _table_library(torch, ins, table):
+    """One library call a slot, concatenated: one_hot of the codes (clamped
+    into range) for a one-hot slot, torch.bucketize + one_hot (buckets only)
+    for a bucketize slot; the yardstick of a whole-table encode launch."""
+    F = torch.nn.functional
+    outs = []
+    for k, (x, spec) in enumerate(zip(ins, table.specs)):
+        if not spec.splits:
+            outs.append(F.one_hot(x.long().clamp(0, spec.width - 1), spec.width).float())
+            continue
+        s = table.splits_on(x.device)[table.split_off[k]:table.split_off[k]
+                                      + len(spec.splits)]
+        nb = int(s.shape[0]) - 1
+        outs.append(F.one_hot((torch.bucketize(torch.nan_to_num(x), s) - 1)
+                              .clamp(0, nb - 1), nb).float())
+    return torch.cat(outs, 1)
 
 
 def k_left_closed(torch, KE, dev) -> dict:
@@ -2111,7 +2173,10 @@ def phase_training_raw(torch, KE, dev) -> dict:
            "ms": time_big_ms(lambda: KE.encode_slots(ins, table, buf), runs=21, warmup=3),
            "plain_ms": time_big_ms(lambda: KE.encode_slots_torch(ins, table, buf), runs=5),
            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-           "bound_by": "bytes", "library_ms": None,
+           "bound_by": "bytes",
+           "library_ms": time_big_ms(lambda: _table_library(torch, ins, table), runs=5),
+           "library": "per slot torch.nn.functional.one_hot(codes) or torch.bucketize + "
+                      "one_hot (buckets only), then torch.cat",
            "in_flush_ms": enc_flushes[0]["encode_ms"], "max_abs_err": 0.0}
     del plan, ins, buf
     out = {"rows": RAW_ROWS, "train_seconds": seconds,
@@ -2792,7 +2857,8 @@ def phase_examples(torch, KE, dev) -> dict:
         _reset_all(KE)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        train = app().main(["--run-type", "train", "--model-location", loc])
+        with E.refit_inputs() as refits:
+            train = app().main(["--run-type", "train", "--model-location", loc])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = _example_counts(KE)
@@ -2809,13 +2875,22 @@ def phase_examples(torch, KE, dev) -> dict:
         pred = next(n for n in score.scores.names if "modelSelector" in n)
         col = score.scores[pred]
         check(np.isfinite(col.data).all(), f"{name} scores finite")
+        refit_bound = None
         if col.prob is not None:
-            # the winner's refit on the card sums in another order than the
-            # JAX fit on the CPU: its probabilities are printed beside the
-            # record, and its classes held to the record's wherever the
-            # record's top two are 0.1 apart
+            # the winner's refit sums its first intercept gradient, zero in
+            # exact arithmetic, in the card's order, and Adam's first step
+            # turns that rounding into a move of up to 0.3 per intercept:
+            # its probabilities are held to the spread of the refits over
+            # every such first step (torch_examples_data.refit_spread, on
+            # the CPU from this train's refit inputs), and its classes to
+            # the record's wherever the record's top two are 0.1 apart
             wprob = np.asarray(want["scores"]["prob"])
             score_dev = float(np.max(np.abs(col.prob - wprob)))
+            check(len(refits) == 1, f"{name}: one multinomial LR refit ({len(refits)})")
+            refit_bound = E.iris_refit_bound(T.WorkflowModel.load(loc), refits[0])
+            check(score_dev <= refit_bound,
+                  f"{name} probabilities within the refit family's spread of the "
+                  f"record's ({score_dev} <= {refit_bound})")
             top2 = np.sort(wprob, axis=1)[:, -2:]
             clear = (top2[:, 1] - top2[:, 0]) > 0.1
             check(np.array_equal(col.pred[clear], np.asarray(want["scores"]["pred"])[clear]),
@@ -2832,6 +2907,7 @@ def phase_examples(torch, KE, dev) -> dict:
                      "train_evaluation": got["trainEvaluation"],
                      "record_train_evaluation": want["train"]["trainEvaluation"],
                      "score_metrics": score.metrics, "score_max_deviation": score_dev,
+                     "refit_bound": refit_bound,
                      "cv": rows}
 
     # dataprep: the aggregate and conditional readers over a custom reader
@@ -2963,6 +3039,236 @@ def phase_dsl(torch, KE, dev, raw: dict) -> dict:
                        "left_closed": {"launches": sleft[0], "slots": sleft[1]},
                        "records_equal_cpu": True}}
     emit({"phase": "dsl", **out})
+    return out
+
+
+def _maps_train(torch, n: int, dev):
+    """The maps pipeline (tests/torch_maps_data.py: seed 0, its scoring
+    table of n // 4 rows from seed 1) with its raw feature filter, trained
+    on ``dev`` through the port's entry points.  Returns (model, workflow,
+    handles, dataset, columns, host seconds of the data, train seconds)."""
+    import transmogrifai_tpu_torch as T
+    from torch_maps_data import make_maps, make_scoring, maps_filter, maps_pipeline
+    from transmogrifai_tpu_torch.types import feature_type_by_name
+
+    t0 = time.perf_counter()
+    cols, schema = make_maps(n, seed=0)
+    scols, sschema = make_scoring(n // 4, seed=1)
+    t1 = time.perf_counter()
+    ftypes = {s["name"]: feature_type_by_name(s["type"]) for s in schema}
+    ds = T.Dataset.from_features(cols, ftypes)
+    sds = T.Dataset.from_features(scols, {s["name"]: ftypes[s["name"]] for s in sschema})
+    t2 = time.perf_counter()
+    label, sel, chk, pred = maps_pipeline(T, ftypes, schema)
+    wf = T.Workflow().set_input_dataset(ds).set_result_features(label, pred) \
+        .with_raw_feature_filter(maps_filter(T, sds))
+    _sync(torch, dev)
+    t3 = time.perf_counter()
+    model = wf.train(device=dev)
+    _sync(torch, dev)
+    seconds = time.perf_counter() - t3
+    handles = {"label": label, "sel": sel, "chk": chk, "pred": pred}
+    return model, wf, handles, ds, cols, {"make_tables_s": t1 - t0,
+                                          "from_features_s": t2 - t1}, seconds
+
+
+def phase_maps(torch, KE, dev) -> dict:
+    """Typed maps and the raw feature filter on the card: (a) the 4096-row
+    train against the JAX package's record (fixtures/training_maps); (b)
+    Workflow.train at MAPS_ROWS by part; (c) save -> load -> serving_plan()
+    over 16 batches of 1024 records, equal to the CPU plan's; (d) the JAX
+    package's saved model serving the record's requests."""
+    import numpy as np
+
+    from torch_maps_data import fitted_states, make_records, vector_digest
+    from transmogrifai_tpu_torch import WorkflowModel
+    from transmogrifai_tpu_torch.filters import distribution as FD
+    from transmogrifai_tpu_torch.workflow.fit import transform_dag
+
+    # (a) parity at the record's size
+    with open(os.path.join(MAPS_FIXTURE, "states.json")) as fh:
+        states = json.load(fh)
+    with open(os.path.join(MAPS_FIXTURE, "records.json")) as fh:
+        recorded = json.load(fh)
+    with open(os.path.join(MAPS_FIXTURE, "rff.json")) as fh:
+        rff = json.load(fh)
+    _reset_all(KE)
+    FD.reset_launch_counts()
+    model, wf, h, ds, _, _, seconds_a = _maps_train(torch, states["rows"], dev)
+    launches_a = _all_counts(KE)
+    check(FD.launches == 2, f"the filter's two histogram passes ran ({FD.launches})")
+    check(json.loads(json.dumps(model.rff_summary.to_dict())) == rff["results"]
+          and model.blacklist == rff["blacklist"],
+          "the filter's distributions, metrics and blacklist == the JAX record "
+          f"(blacklist {model.blacklist})")
+    check(json.loads(json.dumps(fitted_states(model))) == states["fitted"],
+          "fitted states (map keys, fills, vocabularies, SmartText plans, date keys, "
+          "kept indices) == the JAX record")
+    vec = h["chk"].inputs[1]
+    got_vec = transform_dag(ds, [vec], model.fitted, dev)[vec.name].data
+    check(vector_digest(got_vec) == states["vector"],
+          f"the training vector on the card bitwise the JAX record's {states['vector']}")
+    summary = model.fitted[h["sel"].uid].summary
+    cv_dev = max(abs(a - b) for e, c in zip(summary.validation_results, states["cv"])
+                 for a, b in zip(e.metric_values, c["values"]))
+    check(cv_dev <= 1e-4, f"LR CV metrics within 1e-4 of the JAX record ({cv_dev})")
+    win = model.fitted[h["sel"].uid].model
+    coef_dev = float(np.max(np.abs(np.asarray(win.coef) - np.asarray(states["winner"]["coef"]))))
+    check(summary.best_grid == states["winner"]["grid"]
+          and np.allclose(win.coef, states["winner"]["coef"], rtol=1e-4, atol=1e-5),
+          f"the winner and its coefficients within rtol 1e-4 / atol 1e-5 ({coef_dev})")
+    check(launches_a["encode_slots"] == 1 and launches_a["encode_slots.slots"] == MAPS_SLOTS,
+          f"the flush's {MAPS_SLOTS} slots in one encode launch: {launches_a}")
+    # (d) the JAX package's saved model on the card
+    fixture = WorkflowModel.load(MAPS_FIXTURE)
+    check(fixture.blacklist == rff["blacklist"], "the JAX-saved blacklist loads")
+    fplan, fcpu = fixture.serving_plan(), fixture.serving_plan(device="cpu")
+    pname = recorded["prediction"]
+    rec_dev = 0.0
+    for b in recorded["batches"]:
+        got = fplan.score(b["records"])
+        check(got == fcpu.score(b["records"]), "the JAX-saved model: card records == CPU plan's")
+        rec_dev = max([rec_dev] + [abs(g[pname]["probability_1"] - w[pname]["probability_1"])
+                                   for g, w in zip(got, b["scored"])])
+    check(rec_dev <= 1e-12, f"the JAX-saved model's records within 1e-12 of the JAX "
+                            f"plan's ({rec_dev})")
+    del model, wf, h, ds, got_vec, fixture, fplan, fcpu
+
+    # (b) Workflow.train at MAPS_ROWS by part, the histograms' operands kept
+    hist_args = []
+    hist = FD.numeric_histograms
+
+    def keep(values, lo, hi, bins):
+        hist_args.append((values, lo, hi, bins))
+        return hist(values, lo, hi, bins)
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all(KE)
+    FD.reset_launch_counts()
+    FD.numeric_histograms = keep
+    try:
+        model, wf, h, ds, cols, data_s, seconds = _maps_train(torch, MAPS_ROWS, dev)
+    finally:
+        FD.numeric_histograms = hist
+    launches = _all_counts(KE)
+    peak = torch.cuda.max_memory_allocated()
+    check(FD.launches == 2 and len(hist_args) == 2
+          and all(a[0].device.type == "cuda" for a in hist_args),
+          f"the filter's histograms ran on the card, once a pass ({FD.launches})")
+    check(launches["encode_slots"] == 1 and launches["encode_slots.slots"] == MAPS_SLOTS
+          and launches["onehot_codes"] == launches["bucketize_right_encode"] == 0,
+          f"the training path launches the encode kernel once with {MAPS_SLOTS} slots: "
+          f"{launches}")
+    prof = wf.last_train_profile
+    fits = [r for r in prof if r["kind"] == "fit"]
+    flushes = [r for r in prof if r["kind"] == "flush"]
+    [filt] = [r for r in prof if r["kind"] == "filter"]
+    by_stage: dict = {}
+    for r in fits:
+        by_stage[r["stage"]] = by_stage.get(r["stage"], 0.0) + r["seconds"]
+    host_by_stage: dict = {}
+    for r in flushes:
+        for k, v in (r.get("host_stage_seconds") or {}).items():
+            host_by_stage[k] = host_by_stage.get(k, 0.0) + v
+    summary = model.fitted[h["sel"].uid].summary
+    for e in summary.validation_results:
+        check(all(np.isfinite(v) for v in e.metric_values), f"finite CV {e}")
+    histograms = []
+    for values, lo, hi, bins in hist_args:
+        n_rows, d = values.shape
+        nbytes = values.numel() * 4 + 2 * d * 4 + d * bins * 4
+        histograms.append({
+            "rows": n_rows, "columns": d, "bins": bins,
+            "ms": time_big_ms(lambda: hist(values, lo, hi, bins), runs=21, warmup=3),
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"})
+    # the flush's encode launch at MAPS_ROWS, bitwise, then timed
+    plan, ins = _flush_operands(model, h, ds, dev)
+    table = plan._encode_table
+    enc_w = table.width
+    buf = torch.empty((MAPS_ROWS, -(-enc_w // 4) * 4), device=dev)[:, :enc_w]
+    KE.encode_slots(ins, table, buf)
+    torch.cuda.synchronize()
+    check(torch.equal(buf, KE.encode_slots_torch(ins, table)),
+          f"the maps flush's encode launch bitwise at {MAPS_ROWS} rows")
+    nbytes = (sum(x.numel() * x.element_size() for x in ins) + table.splits.nbytes
+              + MAPS_ROWS * enc_w * 4)
+    enc = {"rows": MAPS_ROWS, "slots": len(table), "columns": enc_w,
+           "ms": time_big_ms(lambda: KE.encode_slots(ins, table, buf), runs=21, warmup=3),
+           "plain_ms": time_big_ms(lambda: KE.encode_slots_torch(ins, table, buf), runs=5),
+           "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "library_ms": time_big_ms(lambda: _table_library(torch, ins, table), runs=5),
+           "library": "per slot torch.nn.functional.one_hot(codes) or torch.bucketize + "
+                      "one_hot (buckets only), then torch.cat",
+           "max_abs_err": 0.0}
+    del plan, ins, buf
+    vec_width = int(transform_dag(ds.take(np.arange(8)), [h["chk"].inputs[1]], model.fitted,
+                                  dev)[h["chk"].inputs[1].name].data.shape[1])
+
+    # (c) save -> load -> the serving plan on the card, 16 batches of 1024
+    path = os.path.join("build", "maps_model")
+    model.save(path)
+    loaded = WorkflowModel.load(path)
+    check(loaded.blacklist == model.blacklist, "the blacklist survives save -> load")
+    splan, scpu = loaded.serving_plan(), loaded.serving_plan(device="cpu")
+    batches = [make_records(cols, range(i * BATCH, (i + 1) * BATCH)) for i in range(N_BATCHES)]
+    check(splan.score(batches[0]) == model.serving_plan().score(batches[0]),
+          "the loaded model serves the records the trained one does")
+    torch.cuda.synchronize()
+    _reset_all(KE)
+    rows, parts = [], []
+    t0 = time.perf_counter()
+    for b in batches:
+        rows.append(splan.score(b))
+        parts.append(dict(splan.last_timings))
+    wall = time.perf_counter() - t0
+    launches_serving = _all_counts(KE)
+    check(launches_serving["encode_slots"] == N_BATCHES
+          and launches_serving["encode_slots.slots"] == MAPS_SLOTS * N_BATCHES,
+          f"one encode launch of {MAPS_SLOTS} slots per batch: {launches_serving}")
+    for b, got in zip(batches, rows):
+        check(got == scpu.score(b), "card records == CPU plan records")
+    host_classes = sorted({type(r).__name__ for r in splan._remainder})
+
+    def med(key):
+        return statistics.median(p[key] for p in parts)
+
+    out = {"rows": MAPS_ROWS, "scoring_rows": MAPS_ROWS // 4, "train_seconds": seconds,
+           "data_host_seconds": data_s, "vector_width": vec_width,
+           "blacklist": model.blacklist,
+           "parts_seconds": {
+               "filter": filt["seconds"],
+               "filter_histograms_ms": [x["ms"] for x in histograms],
+               "map_stage_fits": sum(v for k, v in by_stage.items() if "Map" in k),
+               "stage_fits_host": sum(v for k, v in by_stage.items() if k not in (
+                   "SanityChecker", "ModelSelector")),
+               "map_host_transforms": sum(v for k, v in host_by_stage.items() if "Map" in k),
+               "host_transforms_by_class": host_by_stage,
+               "flushes": sum(r["seconds"] for r in flushes),
+               "flush_parts": [{k: r.get(k) for k in (
+                   "seconds", "stages", "encode_slots", "host_encode_s", "h2d_s",
+                   "device_s", "encode_ms", "d2h_s", "host_stages_s", "h2d_bytes",
+                   "d2h_bytes")} for r in flushes],
+               "sanity_checker": by_stage.get("SanityChecker"),
+               "selector": by_stage.get("ModelSelector")},
+           "fit_seconds_by_stage": by_stage, "histograms": histograms,
+           "launches": launches, "max_memory_allocated_bytes": peak,
+           "kept": len(model.fitted[h["chk"].uid].kept_indices),
+           "winner": summary.best_model_name, "winner_grid": summary.best_grid,
+           "cv": [{"grid": e.grid, "values": e.metric_values}
+                  for e in summary.validation_results],
+           "encode_at_rows": enc,
+           "serving": {"batches": N_BATCHES, "batch": BATCH,
+                       "records_per_s": N_BATCHES * BATCH / wall,
+                       "encode_ms_median": med("encode_ms"),
+                       "device_ms_median": med("device_ms"),
+                       "host_ms_median": med("host_ms"),
+                       "launches": launches_serving, "host_stages": host_classes,
+                       "records_equal_cpu": True},
+           "parity_4096": {"train_seconds": seconds_a, "cv_max_abs_dev": cv_dev,
+                           "coef_max_abs_dev": coef_dev, "record_max_abs_dev": rec_dev,
+                           "launches": launches_a}}
+    emit({"phase": "maps", **out})
     return out
 
 
@@ -3129,7 +3435,10 @@ def main() -> int:
     # 17. the DSL's features over phase 10's table at full width
     dsl = phase_dsl(torch, KE, dev, raw)
 
-    # 18. summary
+    # 18. typed maps and the raw feature filter
+    maps = phase_maps(torch, KE, dev)
+
+    # 19. summary
     kernels = []
     tree_src = "transmogrifai_tpu_torch/perf/kernels/csrc/trees.cu"
     for kname, replaces in (("hist_level", "transmogrifai_tpu/perf/kernels/histogram.py:80"),
@@ -3209,6 +3518,9 @@ def main() -> int:
             "launches_training_dsl": dsl["launches"]["encode_slots"],
             "launches_serving_dsl": dsl["serving"]["launches"]["encode_slots"],
             "training_dsl": dsl["encode_at_rows"],
+            "launches_training_maps": maps["launches"]["encode_slots"],
+            "launches_serving_maps": maps["serving"]["launches"]["encode_slots"],
+            "training_maps": maps["encode_at_rows"],
             **{f"fused_{k}": fused[k] for k in ("ms", "device_ms", "plain_ms",
                                                  "bound_ms", "slots", "columns")}})
     t = timings["bucketize_left_encode"]

@@ -916,3 +916,59 @@ def test_dsl_pipeline_on_the_card_equals_the_cpu():
     got = plan.score(recs)
     assert TKE.encode_slots_launches == 1 and TKE.left_closed_slots == 8
     assert got == gm.serving_plan(device="cpu").score(recs)
+
+
+@pytest.mark.parametrize("bins", [100, 7])
+def test_filter_histograms_on_the_card_equal_the_cpu(bins):
+    from transmogrifai_tpu_torch.filters.distribution import numeric_histograms
+
+    rng = np.random.default_rng(bins)
+    v = (rng.normal(size=(20_011, 9)) * 100).astype(np.float32)
+    v[rng.random(v.shape) < 0.1] = np.nan
+    v[:5, 1], v[5:9, 1], v[9:20, 2] = np.inf, -np.inf, 1e12
+    v[:, 3] = 7.0
+    v[:, 4] = np.nan
+    lo = np.nan_to_num(np.nanmin(np.where(np.isinf(v), np.nan, v), axis=0)).astype(np.float32)
+    hi = np.nan_to_num(np.nanmax(np.where(np.isinf(v), np.nan, v), axis=0)).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (v, lo, hi)]
+    want = numeric_histograms(*args, bins)
+    got = numeric_histograms(*[a.cuda() for a in args], bins)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_maps_training_on_the_card_equals_the_record():
+    """The maps table with its raw feature filter at the record's rows: the
+    filter's record, fitted states and training vector equal the JAX
+    package's (fixtures/training_maps)."""
+    import json
+
+    import transmogrifai_tpu_torch as T
+    from torch_maps_data import (
+        fitted_states,
+        make_maps,
+        make_scoring,
+        maps_filter,
+        maps_pipeline,
+        vector_digest,
+    )
+    from transmogrifai_tpu_torch.types import feature_type_by_name
+    from transmogrifai_tpu_torch.workflow.fit import transform_dag
+
+    record = os.path.join(REPO, "transmogrifai_tpu_torch", "fixtures", "training_maps")
+    with open(os.path.join(record, "states.json")) as fh:
+        states = json.load(fh)
+    with open(os.path.join(record, "rff.json")) as fh:
+        rff = json.load(fh)
+    cols, schema = make_maps(states["rows"], seed=states["seed"])
+    scols, sschema = make_scoring(states["scoring_rows"], seed=states["scoring_seed"])
+    ftypes = {s["name"]: feature_type_by_name(s["type"]) for s in schema}
+    ds = T.Dataset.from_features(cols, ftypes)
+    sds = T.Dataset.from_features(scols, {s["name"]: ftypes[s["name"]] for s in sschema})
+    label, _, chk, pred = maps_pipeline(T, ftypes, schema)
+    model = T.Workflow().set_input_dataset(ds).set_result_features(label, pred) \
+        .with_raw_feature_filter(maps_filter(T, sds)).train(device="cuda")
+    assert json.loads(json.dumps(model.rff_summary.to_dict())) == rff["results"]
+    assert json.loads(json.dumps(fitted_states(model))) == states["fitted"]
+    vec = chk.inputs[1]
+    got = transform_dag(ds, [vec], model.fitted, torch.device("cuda"))[vec.name].data
+    assert vector_digest(got) == states["vector"]

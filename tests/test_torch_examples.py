@@ -256,3 +256,58 @@ def test_dataprep_readers():
            "conditional": dict(zip(cond_keys, cond_ds["amount"].to_values()))}
     assert got == RECORD["dataprep"] == E.dataprep()
     assert E.PURCHASES == mod.PURCHASES
+
+
+class TestIrisRefit:
+    """The Iris refit's sensitivity to the order of one sum: every class
+    starts at probability 1/3 and the classes are balanced, so the first
+    intercept gradient is zero in exact arithmetic and Adam's first step
+    turns its float32 rounding into a move of up to 0.3 per intercept."""
+
+    @pytest.fixture(scope="class")
+    def refit(self):
+        with E.refit_inputs() as kept:
+            model = E.iris_workflow(E.records_reader(E.iris_records())).train(device="cpu")
+        assert len(kept) == 1
+        return model, kept[0]
+
+    def test_first_intercept_gradient_is_rounding(self, refit):
+        import torch
+
+        _, (x, y1, w, regs, _) = refit
+        p = torch.exp(torch.log_softmax(torch.zeros_like(y1), -1))
+        exact = ((p - y1).double() * w.T.double()).sum(0) / float(w.sum())
+        rounded = (x.T @ (w.T * (p - y1)))[-1] / w.sum()
+        # the exact mean of the float32 probabilities' excess over 1/3 is
+        # of the order of Adam's eps (1e-8), and the float32 product's is
+        # its 150 terms' rounding: the first step's size is set by rounding
+        assert (exact.abs() < 5e-8).all() and (rounded.abs() < 1e-6).all()
+        assert not torch.equal(rounded.double(), exact)
+
+    def test_family_reproduces_the_refit(self, refit):
+        from transmogrifai_tpu_torch.models.softmax import _softmax_fits
+
+        _, (x, y1, w, regs, max_iter) = refit
+        first = _softmax_fits(x, y1, w, regs, 1, True)[0, -1]
+        assert (first.abs() < 0.3).all() and (first.abs() > 0.1).all()
+        b = E.softmax_refit_family(x, y1, w, float(regs[0]), max_iter, first[None].numpy())
+        assert torch_equal(b[0], _softmax_fits(x, y1, w, regs, max_iter, True)[0])
+
+    def test_record_within_the_refit_bound(self, refit):
+        """The JAX record's probabilities lie within the refit family's
+        spread of the port's (the bound chip_smoke holds the card to), and
+        that spread is what lets two summation orders differ by ~1e-2."""
+        model, kept = refit
+        bound = E.iris_refit_bound(model, kept)
+        from transmogrifai_tpu_torch.data.dataset import Column
+
+        col = model.selector_model().predict_column(
+            Column.vector(E.iris_scoring_vector(model)), "cpu")
+        dev = float(np.max(np.abs(col.prob - np.asarray(RECORD["iris"]["scores"]["prob"]))))
+        assert dev <= 1e-4 < 1e-2 < bound < 0.05
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return bool(torch.equal(a, b))

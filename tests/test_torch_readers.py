@@ -136,11 +136,20 @@ class TestMonoids:
         assert got[0] == got[1]
 
     def test_a_typed_map_has_no_default_yet(self):
-        class SomeMap(TT.OPMap):
-            pass
+        """The typed maps are ported now: a map type with no default of its
+        own folds as the reference's does (the later value of a key wins)."""
+        values = [{"a": "x"}, {"a": "y", "b": "z"}, {}]
+        got = []
+        for mon, types_mod in ((T_mon, TT), (J_mon, JT)):
+            class SomeMap(types_mod.OPMap):
+                pass
 
-        with pytest.raises(TypeError, match="No default aggregator for SomeMap"):
-            T_mon.default_aggregator(SomeMap)
+            agg = mon.default_aggregator(SomeMap)
+            acc = agg.zero
+            for v in values:
+                acc = agg.plus(acc, v)
+            got.append(agg.present(acc))
+        assert got[0] == got[1] == {"a": "y", "b": "z"}
 
 
 # -- readers -------------------------------------------------------------------------

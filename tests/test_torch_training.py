@@ -247,8 +247,8 @@ class TestEntryPoints:
                    {"checkpointer": object()}, {"hbm_budget": 1e9}):
             with pytest.raises(NotImplementedError):
                 wf.train(device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match="raw feature filter"):
-            wf.with_raw_feature_filter(object())
+        # the raw feature filter is ported (tests/test_torch_rff.py)
+        assert wf.with_raw_feature_filter(None) is wf
 
     def test_estimator_fit_on_cpu(self):
         x, y = _data(n=120)

@@ -37,7 +37,6 @@ from transmogrifai_tpu.types import feature_type_by_name as jft
 from transmogrifai_tpu.workflow import fit as JFit
 import transmogrifai_tpu_torch as T
 from transmogrifai_tpu_torch.ops import numeric as TN
-from transmogrifai_tpu_torch.ops.transmogrifier import UNPORTED_FAMILIES
 from transmogrifai_tpu_torch.perf.kernels import encode as TKE
 from transmogrifai_tpu_torch.types import FeatureType
 from transmogrifai_tpu_torch.types import feature_type_by_name as tft
@@ -254,19 +253,27 @@ class TestTransmogrify:
 
         assert stages(T, tft) == stages(J, jft)
 
-    @pytest.mark.parametrize("family", sorted(UNPORTED_FAMILIES))
+    @pytest.mark.parametrize("family", ["map"])
     def test_unported_family_raises_by_name(self, family):
-        # only the typed maps are left: a subclass of the port's OPMap under
-        # the reference's type name stands for one
-        assert family == "map"
-        from transmogrifai_tpu_torch.types import OPMap
+        """The typed maps were transmogrify's last refused family: they now
+        vectorize, into the JAX package's stage graph (every map kind beside
+        a Real)."""
+        kinds = ["RealMap", "BinaryMap", "PickListMap", "TextMap", "DateMap",
+                 "GeolocationMap", "MultiPickListMap"]
 
-        ftype = type("RealMap", (OPMap,), {"__slots__": ()})
-        f = T.FeatureBuilder.of("x", ftype).extract_field().as_predictor()
-        r = T.FeatureBuilder.Real("r").extract_field().as_predictor()
-        with pytest.raises(NotImplementedError,
-                           match=f"'{family}' family.*{UNPORTED_FAMILIES[family]}"):
-            T.transmogrify([r, f])
+        def graph(pkg, ftype_of):
+            fs = [pkg.FeatureBuilder.Real("r").extract_field().as_predictor()]
+            fs += [pkg.FeatureBuilder.of(f"m{i}", ftype_of(k)).extract_field().as_predictor()
+                   for i, k in enumerate(kinds)]
+            vec = pkg.transmogrify(fs)
+            return [(type(p.origin_stage).__name__, [f.name for f in p.origin_stage.inputs])
+                    for p in vec.parents]
+
+        got = graph(T, tft)
+        assert got == graph(J, jft)
+        assert {"NumericMapVectorizer", "TextMapPivotVectorizer", "SmartTextMapVectorizer",
+                "DateMapToUnitCircleVectorizer", "GeolocationMapVectorizer"} <= \
+            {c for c, _ in got}
 
     def test_text_and_an_unknown_type(self):
         # free text vectorizes now (tests/test_torch_families.py); a type

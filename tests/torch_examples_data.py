@@ -14,6 +14,7 @@ only.
 
 from __future__ import annotations
 
+import contextlib
 import json
 
 import numpy as np
@@ -94,6 +95,117 @@ def cv_beside_record(got: dict, want: dict) -> list:
     return out
 
 # -- data -------------------------------------------------------------------
+
+#: where the multinomial LR refit's first Adam step may put each class's
+#: intercept (see :func:`softmax_refit_family`), in steps over (-0.3, 0.3)
+REFIT_FIRST_INTERCEPTS = (-0.3, -0.15, 0.0, 0.15, 0.3)
+
+
+def softmax_refit_family(x, y_onehot, w, reg: float, max_iter: int, first_intercepts):
+    """The Adam loop of ``models/softmax.py::_softmax_fits`` for one refit
+    (``x`` (n, d1) with its ones column last, one weight row ``w`` (1, n)),
+    run for F copies that differ only in the intercept row after the first
+    step: copy f's is ``first_intercepts[f]`` (F, C).  Returns B (F, d1, C).
+
+    At B = 0 every class's probability is 1/C, so the intercepts' first
+    gradient, mean(p - y) over the rows, is zero in exact arithmetic for
+    balanced classes: its float32 value is the rounding left by the sum's
+    order (the device's product), and Adam's first step, lr * g / (|g| +
+    eps) with |g| ~ eps, moves each intercept by anything in (-lr, lr)
+    whatever the data.  The copies span that box."""
+    import torch
+
+    from transmogrifai_tpu_torch.models.softmax import (
+        _BETA1,
+        _BETA2,
+        _EPS,
+        LR_DEFAULT,
+        _bias_corrections,
+    )
+
+    first = torch.as_tensor(np.asarray(first_intercepts, np.float32))
+    n_fits = first.shape[0]
+    n, d1 = x.shape
+    c = y_onehot.shape[1]
+    wT = w.repeat(n_fits, 1).T[:, :, None]
+    sw = torch.clamp_min(w.sum(), 1e-12)
+    pen = torch.ones((d1, 1), dtype=torch.float32)
+    pen[-1, 0] = 0.0
+    b = torch.zeros((n_fits, d1, c), dtype=torch.float32)
+    m, v = torch.zeros_like(b), torch.zeros_like(b)
+    c1, c2 = _bias_corrections(max_iter)
+    for i in range(max_iter):
+        logits = (x @ b.permute(1, 0, 2).reshape(d1, n_fits * c)).reshape(n, n_fits, c)
+        p = torch.exp(torch.log_softmax(logits, dim=-1))
+        r = (wT * (p - y_onehot[:, None, :])).reshape(n, n_fits * c)
+        g = (x.T @ r).reshape(d1, n_fits, c).permute(1, 0, 2) / sw + reg * pen[None] * b
+        m = _BETA1 * m + (1 - _BETA1) * g
+        v = _BETA2 * v + (1 - _BETA2) * g * g
+        b = b - LR_DEFAULT * (m / float(c1[i])) / (torch.sqrt(v / float(c2[i])) + _EPS)
+        if i == 0:
+            b[:, -1, :] = first
+    return b
+
+
+def refit_spread(x, y_onehot, w, reg: float, max_iter: int, vec: np.ndarray) -> float:
+    """The largest difference in any probability of the rows ``vec`` (the
+    scoring vector, float64 head) between two members of the refit family
+    whose first-step intercepts lie on the grid of
+    :data:`REFIT_FIRST_INTERCEPTS` per class: how far two summation orders
+    may set the refit's probabilities apart."""
+    import itertools
+
+    from transmogrifai_tpu_torch.models.base import softmax_probs
+
+    c = y_onehot.shape[1]
+    firsts = list(itertools.product(REFIT_FIRST_INTERCEPTS, repeat=c))
+    bs = softmax_refit_family(x, y_onehot, w, reg, max_iter, firsts).numpy().astype(np.float64)
+    probs = np.stack([softmax_probs(vec.astype(np.float64) @ b[:-1] + b[-1]) for b in bs])
+    lo, hi = probs.min(axis=0), probs.max(axis=0)
+    return float((hi - lo).max())
+
+
+@contextlib.contextmanager
+def refit_inputs():
+    """Inside the block, keep on the host the inputs (x, y_onehot, w, regs,
+    max_iter) of every call of ``models/softmax.py::_softmax_fits`` with one
+    weight row: the multinomial LR refits."""
+    from transmogrifai_tpu_torch.models import softmax as S
+
+    fits, kept = S._softmax_fits, []
+
+    def keep(x, y_onehot, w, regs, max_iter, has_intercept):
+        if w.shape[0] == 1:
+            kept.append((x.cpu().clone(), y_onehot.cpu().clone(), w.cpu().clone(),
+                         regs.cpu().clone(), max_iter))
+        return fits(x, y_onehot, w, regs, max_iter, has_intercept)
+
+    S._softmax_fits = keep
+    try:
+        yield kept
+    finally:
+        S._softmax_fits = fits
+
+
+def iris_scoring_vector(model) -> np.ndarray:
+    """The Iris app's scoring rows (``iris_records(seed=4)``) through
+    ``model``'s fitted transmogrify on the CPU: the selector's input
+    vector."""
+    from transmogrifai_tpu_torch.workflow.fit import transform_dag
+
+    feat = model.selector_model().inputs[1]
+    ds = records_reader(iris_records(seed=4)).generate_dataset(feat.raw_features())
+    return transform_dag(ds, [feat], model.fitted, "cpu")[feat.name].data
+
+
+def iris_refit_bound(model, refit) -> float:
+    """:func:`refit_spread` of the Iris refit whose inputs ``refit`` were
+    kept by :func:`refit_inputs`, over the scoring rows through ``model``:
+    the bound on a refit's probabilities against any other summation
+    order's (the JAX record's among them)."""
+    x, y_onehot, w, regs, max_iter = refit
+    return refit_spread(x, y_onehot, w, float(regs[0]), max_iter, iris_scoring_vector(model))
+
 
 def titanic_records(n: int = 800, seed: int = 7) -> list:
     """``titanic_simple.titanic_dataframe()``'s synthetic table as records."""

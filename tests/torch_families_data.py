@@ -296,14 +296,18 @@ def plain(v):
         return v.item()
     if isinstance(v, (list, tuple)):
         return [plain(x) for x in v]
+    if isinstance(v, dict):
+        return {k: plain(x) for k, x in v.items()}
     return v
 
 
-def fitted_states(model) -> dict:
+def fitted_states(model, state_attrs=None) -> dict:
     """{class: {"input,names": {attr: value}}} of the model's fitted stages
     and of its stage nodes that carry state of their own (the date list's
-    reference date).  Keyed by input names: the packages count stage uids
-    on their own."""
+    reference date), the attributes of ``state_attrs`` (default
+    :data:`STATE_ATTRS`).  Keyed by input names: the packages count stage
+    uids on their own."""
+    state_attrs = STATE_ATTRS if state_attrs is None else state_attrs
     stages = list(model.fitted.values())
     seen = {id(s) for s in stages}
     stack = list(model.result_features)
@@ -316,7 +320,7 @@ def fitted_states(model) -> dict:
         stack.extend(f.parents)
     out: dict = {}
     for st in stages:
-        attrs = STATE_ATTRS.get(type(st).__name__)
+        attrs = state_attrs.get(type(st).__name__)
         if attrs is None:
             continue
         key = ",".join(f.name for f in st.inputs)

@@ -5,8 +5,8 @@ numpy, never JAX and nothing of ``transmogrifai_tpu``.  It trains from raw
 typed columns as the reference does: ``transmogrify(features)`` vectorizes
 them (numeric fills and null indicators, categorical pivots, label-aware
 bucketizers; free text pivoted or murmur3-hashed, dates on the unit circle,
-date lists, text lists, multi-pick lists and geolocations; not the typed
-maps), ``label.sanity_check(vector)`` drops low-signal and leaky
+date lists, text lists, multi-pick lists, geolocations, and the 23 typed
+maps key by key), ``label.sanity_check(vector)`` drops low-signal and leaky
 slots, and ``label.transform_with(BinaryClassificationModelSelector
 .with_cross_validation(), checked)`` selects among the reference's default
 families (LogisticRegression, RandomForest, GBT, LinearSVC) or the ones a
@@ -16,7 +16,10 @@ LogisticRegression, RandomForest, DecisionTree, NaiveBayes) select for the
 other two problem types, by k-fold CV or ``with_train_validation_split``;
 ``Workflow().set_input_dataset(ds).set_result_features(label,
 pred).train()`` fits it all on the CUDA card unless ``device`` says
-otherwise (``train(test_fraction=)`` holds rows out and evaluates them),
+otherwise (``train(test_fraction=)`` holds rows out and evaluates them;
+``with_raw_feature_filter(RawFeatureFilter(...))`` first drops raw
+features, or map keys, that are sparse, drift from a scoring table or leak
+the label through their nulls),
 each run of fitted stages between two fits transformed over the whole table
 on the card.  Data comes in as a ``Dataset`` or through a reader
 (``DataReaders``: CSV, Parquet, JSON lines, Avro, a DataFrame, records;
@@ -43,6 +46,7 @@ from .checkers.sanity import SanityChecker  # noqa: F401
 from .data.dataset import Dataset  # noqa: F401
 from .evaluators.base import Evaluators  # noqa: F401
 from .features.builder import FeatureBuilder  # noqa: F401
+from .filters import RawFeatureFilter  # noqa: F401
 from .models.glm import GeneralizedLinearRegression  # noqa: F401
 from .models.linear import LinearRegression  # noqa: F401
 from .models.logistic import LogisticRegression  # noqa: F401
@@ -81,7 +85,8 @@ __all__ = ["BinaryClassificationModelSelector", "BinaryVectorizer",
            "JoinedReader", "LinearRegression", "LinearSVC",
            "LogisticRegression", "MultiClassificationModelSelector",
            "MultinomialLogisticRegression", "NaiveBayes", "NumericVectorizer",
-           "OneHotVectorizer", "RealNNVectorizer", "RegressionModelSelector",
+           "OneHotVectorizer", "RawFeatureFilter", "RealNNVectorizer",
+           "RegressionModelSelector",
            "SanityChecker", "ScoringServer", "StandardScaler", "TimeBasedFilter",
            "TimeColumn", "VectorsCombiner", "Workflow", "WorkflowModel",
            "load_model", "save_model", "transmogrify"]

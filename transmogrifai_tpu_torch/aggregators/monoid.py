@@ -3,8 +3,6 @@
 
 Reference: features/.../aggregators/ (MonoidAggregatorDefaults.scala:52-130, Event.scala,
 FeatureAggregator.scala, TimeBasedAggregator.scala:1-225, CutOffTime.scala).
-The typed maps are not ported yet, so of the map aggregators only
-Prediction's is here; another map type has no default aggregator.
 
 Every feature type has a default associative aggregator used by aggregate/conditional readers
 to fold a key's event records into one value, respecting predictor/response time windows
@@ -17,7 +15,16 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, Generic, Optional, Type, TypeVar
 
-from ..types import Binary, ColumnKind, FeatureType, Geolocation, Prediction
+from ..types import (
+    Binary,
+    BinaryMap,
+    ColumnKind,
+    FeatureType,
+    Geolocation,
+    GeolocationMap,
+    MultiPickListMap,
+    Prediction,
+)
 
 T = TypeVar("T")
 
@@ -88,9 +95,30 @@ def _concat_text(a, b):
     return a + " " + b
 
 
+def _union_map_sum(a: dict, b: dict) -> dict:
+    out = dict(a)
+    for k, v in b.items():
+        out[k] = out[k] + v if k in out else v
+    return out
+
+
 def _union_map_last(a: dict, b: dict) -> dict:
     out = dict(a)
     out.update(b)
+    return out
+
+
+def _union_map_or(a: dict, b: dict) -> dict:
+    out = dict(a)
+    for k, v in b.items():
+        out[k] = (out[k] or v) if k in out else v
+    return out
+
+
+def _union_map_set(a: dict, b: dict) -> dict:
+    out = {k: set(v) for k, v in a.items()}
+    for k, v in b.items():
+        out[k] = (out[k] | set(v)) if k in out else set(v)
     return out
 
 
@@ -134,7 +162,19 @@ def default_aggregator(ftype: Type[FeatureType]) -> MonoidAggregator:
         return MonoidAggregator([], lambda a, b: a + b)
     if kind is ColumnKind.TEXT_SET:
         return MonoidAggregator(set(), lambda a, b: a | b)
+    if issubclass(ftype, (MultiPickListMap,)):
+        return MonoidAggregator({}, _union_map_set)
+    if issubclass(ftype, (BinaryMap,)):
+        return MonoidAggregator({}, _union_map_or)
+    if issubclass(ftype, GeolocationMap):
+        return MonoidAggregator({}, _union_map_last)
     if issubclass(ftype, Prediction):
+        return MonoidAggregator({}, _union_map_last)
+    if kind is ColumnKind.MAP:
+        from ..types.maps import _DoubleMap, _LongMap
+
+        if issubclass(ftype, (_DoubleMap, _LongMap)):
+            return MonoidAggregator({}, _union_map_sum)
         return MonoidAggregator({}, _union_map_last)
     if kind is ColumnKind.VECTOR:
         import numpy as np

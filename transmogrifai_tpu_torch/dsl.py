@@ -13,15 +13,17 @@ to :class:`~.features.feature.Feature`, as the reference attaches them:
 - values: ``map_to(fn, type)``, ``alias(name)``, ``to_occur()``,
   ``exists(predicate)``, ``filter_values(predicate, default)``,
   ``replace_with(old, new)``;
+- maps: ``filter_keys(white_list, black_list)`` (FilterMap);
+- per type: ``vectorize(others, white_list_keys, black_list_keys, **kw)``
+  (the type's vectorizer, every map kind included; key lists through
+  ``filter_keys``), ``to_unit_circle(*periods)`` (a date or a date map),
+  ``smart_vectorize()`` (SmartText), ``is_substring(other)``;
 - the label: ``label.sanity_check(vector)``.
 
 ``transmogrify(features)`` and ``combine(vectors)`` are the module's
 exports.  The reference's text, NER, embedding, phone, e-mail, URL and
 time-period shortcuts whose stages are not ported yet are attached too:
-each raises ``NotImplementedError`` naming its stage when called.  The
-type-dispatched ``vectorize`` and the shortcuts over the ported families
-(``smart_vectorize``, ``to_unit_circle``, ``is_substring``) are not
-attached yet.
+each raises ``NotImplementedError`` naming its stage when called.
 """
 
 from __future__ import annotations
@@ -148,6 +150,107 @@ def _replace_with(self: Feature, old_value, new_value) -> Feature:
         input_type=self.ftype, old_value=old_value, new_value=new_value))
 
 
+def _filter_keys(self: Feature, white_list=(), black_list=(),
+                 filter_empty: bool = True) -> Feature:
+    """Map -> map with key white/black-listing (RichMapFeature.filter)."""
+    from .ops.collections_lift import FilterMap
+
+    return self.transform_with(FilterMap(
+        white_list_keys=tuple(white_list), black_list_keys=tuple(black_list),
+        filter_empty=filter_empty))
+
+
+def _vectorize(self: Feature, others: Sequence[Feature] = (),
+               white_list_keys: Sequence[str] = (),
+               black_list_keys: Sequence[str] = (), **kw) -> Feature:
+    """Type-dispatched vectorization (RichMapFeature/RichDateFeature/...
+    ``.vectorize``): ``others`` are same-typed features vectorized by the
+    same stage; for maps, ``white_list_keys``/``black_list_keys`` restrict
+    the keys (through ``filter_keys``); ``kw`` goes to the type's
+    vectorizer.  Types without one of their own go through ``transmogrify``
+    and take no ``kw``."""
+    from .types import Date, DateList, Geolocation, MultiPickList, OPMap
+    from .types.maps import DateMap, GeolocationMap, TextAreaMap, TextMap
+
+    feats = [self, *list(others)]
+    ftype = self.ftype
+    if issubclass(ftype, OPMap):
+        if white_list_keys or black_list_keys:
+            feats = [f.filter_keys(white_list=white_list_keys,
+                                   black_list=black_list_keys)
+                     for f in feats]
+        from .ops.collections_lift import DateMapToUnitCircleVectorizer
+        from .ops.maps import (
+            GeolocationMapVectorizer,
+            NumericMapVectorizer,
+            TextMapPivotVectorizer,
+        )
+        from .ops.text_smart import SmartTextMapVectorizer
+        from .types.maps import _SetMap, _StringMap
+
+        if issubclass(ftype, DateMap):
+            stage = DateMapToUnitCircleVectorizer(**kw)
+        elif issubclass(ftype, GeolocationMap):
+            stage = GeolocationMapVectorizer(**kw)
+        elif issubclass(ftype, (TextMap, TextAreaMap)):
+            stage = SmartTextMapVectorizer(**kw)
+        elif issubclass(ftype, (_StringMap, _SetMap)):
+            stage = TextMapPivotVectorizer(**kw)
+        else:
+            stage = NumericMapVectorizer(**kw)
+        return feats[0].transform_with(stage, *feats[1:])
+    if white_list_keys or black_list_keys:
+        raise TypeError("key white/black lists only apply to map features")
+    if issubclass(ftype, DateList):
+        from .ops.dates import DateListVectorizer
+
+        return feats[0].transform_with(DateListVectorizer(**kw), *feats[1:])
+    if issubclass(ftype, Date):
+        from .ops.dates import DateToUnitCircleVectorizer
+
+        return feats[0].transform_with(DateToUnitCircleVectorizer(**kw), *feats[1:])
+    if issubclass(ftype, MultiPickList):
+        from .ops.onehot import MultiPickListVectorizer
+
+        return feats[0].transform_with(MultiPickListVectorizer(**kw), *feats[1:])
+    if issubclass(ftype, Geolocation):
+        from .ops.geo import GeolocationVectorizer
+
+        return feats[0].transform_with(GeolocationVectorizer(**kw), *feats[1:])
+    if kw:
+        raise TypeError(
+            f"vectorize options {sorted(kw)} unsupported for "
+            f"{ftype.__name__}; use the type's vectorizer stage directly")
+    return transmogrify(feats)
+
+
+def _to_unit_circle(self: Feature, *periods: str,
+                    others: Sequence[Feature] = ()) -> Feature:
+    """Date/DateMap -> (cos, sin) unit-circle encoding per time period."""
+    from .ops.collections_lift import DateMapToUnitCircleVectorizer
+    from .ops.dates import DateToUnitCircleVectorizer
+    from .types.maps import DateMap
+
+    kw = {"time_periods": list(periods)} if periods else {}
+    cls = (DateMapToUnitCircleVectorizer if issubclass(self.ftype, DateMap)
+           else DateToUnitCircleVectorizer)
+    return self.transform_with(cls(**kw), *others)
+
+
+def _smart_vectorize(self: Feature, others: Sequence[Feature] = (),
+                     **kw) -> Feature:
+    from .ops.text_smart import SmartTextVectorizer
+
+    return self.transform_with(SmartTextVectorizer(**kw), *others)
+
+
+def _is_substring(self: Feature, other: Feature) -> Feature:
+    """self a substring of other -> Binary (RichTextFeature.isSubstring)."""
+    from .ops.misc import SubstringTransformer
+
+    return self.transform_with(SubstringTransformer(), other)
+
+
 def _unported(stage: str):
     def method(self: Feature, *args, **kwargs):
         raise NotImplementedError(
@@ -162,7 +265,6 @@ UNPORTED_SHORTCUTS = {
     "name_entity_tags": "NameEntityRecognizer",
     "word2vec": "Word2Vec",
     "lda_topics": "LDA",
-    "filter_keys": "FilterMap",
     "to_time_period": "TimePeriodTransformer",
     "to_ngram_similarity": "NGramSimilarity",
     "jaccard_similarity": "JaccardSimilarity",
@@ -208,6 +310,11 @@ Feature.to_occur = _to_occur
 Feature.exists = _exists
 Feature.filter_values = _filter_values
 Feature.replace_with = _replace_with
+Feature.filter_keys = _filter_keys
+Feature.vectorize = _vectorize
+Feature.to_unit_circle = _to_unit_circle
+Feature.smart_vectorize = _smart_vectorize
+Feature.is_substring = _is_substring
 for _name, _stage in UNPORTED_SHORTCUTS.items():
     setattr(Feature, _name, _unported(_stage))
 del _name, _stage

@@ -10,11 +10,13 @@ optional invalid and null columns.  When the tree found no split
 device half is a bucketize slot of the encode kernel
 (``perf/kernels/encode.py``, K5's slots); without, it stays a torch op (the
 reference computes that branch outside its Pallas kernel too).
+``DecisionTreeNumericMapBucketizer`` grows one such tree per key of a numeric
+map: a host stage, as in the reference.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -22,7 +24,7 @@ import torch
 from ..data.dataset import Column
 from ..perf.kernels import encode as KE
 from ..stages.base import BinaryEstimator, Param, Transformer
-from ..types import OPNumeric, OPVector, RealNN
+from ..types import OPMap, OPNumeric, OPVector, RealNN
 from ..utils.vector_metadata import NULL_INDICATOR, VectorColumnMetadata, VectorMetadata
 
 IMPURITIES = ("gini", "entropy")
@@ -127,6 +129,17 @@ def bucketize_right(v: np.ndarray, present: np.ndarray, splits: np.ndarray,
     return block
 
 
+def _bucket_labels(splits: np.ndarray) -> List[str]:
+    return [f"{splits[i]}-{splits[i + 1]}" for i in range(len(splits) - 1)]
+
+
+def _null_only_block(present: np.ndarray, track_nulls: bool) -> np.ndarray:
+    """The no-split branch: a width-1 null indicator (or no column)."""
+    if not track_nulls:
+        return np.zeros((len(present), 0), dtype=np.float32)
+    return (~present).astype(np.float32)[:, None]
+
+
 class DecisionTreeNumericBucketizer(BinaryEstimator):
     """Smart numeric bucketizer driven by a label-aware single-feature tree:
     (label RealNN, value) -> the value's one-hot over the tree's intervals."""
@@ -202,11 +215,9 @@ class DecisionTreeNumericBucketizerModel(Transformer):
     def _meta_cols(self, f) -> List[VectorColumnMetadata]:
         cols: List[VectorColumnMetadata] = []
         if self.should_split:
-            splits = np.asarray(self.splits)
-            for i in range(len(splits) - 1):
+            for lab in _bucket_labels(np.asarray(self.splits)):
                 cols.append(VectorColumnMetadata(
-                    f.name, f.ftype.__name__, grouping=f.name,
-                    indicator_value=f"{splits[i]}-{splits[i + 1]}"))
+                    f.name, f.ftype.__name__, grouping=f.name, indicator_value=lab))
             if self.track_invalid:
                 cols.append(VectorColumnMetadata(
                     f.name, f.ftype.__name__, grouping=f.name,
@@ -224,10 +235,103 @@ class DecisionTreeNumericBucketizerModel(Transformer):
         if self.should_split:
             block = bucketize_right(col.values_f64(), present, np.asarray(self.splits),
                                     self.track_nulls, self.track_invalid)
-        elif self.track_nulls:
-            block = (~present).astype(np.float32)[:, None]
         else:
-            block = np.zeros((len(present), 0), dtype=np.float32)
+            block = _null_only_block(present, self.track_nulls)
         meta = VectorMetadata(self.output_name, self._meta_cols(f),
+                              {f.name: f.history()}).reindexed()
+        return Column.vector(block, meta)
+
+
+class DecisionTreeNumericMapBucketizer(BinaryEstimator):
+    """Per-key smart bucketizer for numeric maps (DecisionTreeNumericMapBucketizer.scala)."""
+
+    input_types = (RealNN, OPMap)
+    output_type = OPVector
+    allow_label_as_input = True
+
+    impurity = Param(default="gini", validator=lambda v: v in IMPURITIES)
+    max_depth = Param(default=5)
+    max_bins = Param(default=32)
+    min_instances_per_node = Param(default=1)
+    min_info_gain = Param(default=0.01)
+    track_nulls = Param(default=True)
+    track_invalid = Param(default=False)
+
+    def _is_label_slot(self, feature, features) -> bool:
+        return feature is features[0]
+
+    def fit_columns(self, cols, dataset, device):
+        y = cols[0].values_f64()
+        maps = cols[1].data
+        n = len(maps)
+        keys = sorted({k for m in maps for k in (m or {})})
+        per_key_splits: Dict[str, List[float]] = {}
+        for k in keys:
+            v = np.full(n, np.nan)
+            for i, m in enumerate(maps):
+                if m and k in m:
+                    v[i] = float(m[k])
+            splits = find_tree_splits(
+                v, y, impurity=self.impurity, max_depth=self.max_depth,
+                max_bins=self.max_bins,
+                min_instances_per_node=self.min_instances_per_node,
+                min_info_gain=self.min_info_gain,
+            )
+            per_key_splits[k] = [-np.inf, *splits, np.inf] if splits else []
+        return DecisionTreeNumericMapBucketizerModel(
+            keys=keys, splits=per_key_splits,
+            track_nulls=self.track_nulls, track_invalid=self.track_invalid,
+        )
+
+
+class DecisionTreeNumericMapBucketizerModel(Transformer):
+    input_types = (RealNN, OPMap)
+    output_type = OPVector
+    allow_label_as_input = True
+
+    def __init__(self, keys: List[str], splits: Dict[str, List[float]],
+                 track_nulls: bool = True, track_invalid: bool = False, **kw):
+        super().__init__(**kw)
+        self.keys = list(keys)
+        self.splits = {k: list(v) for k, v in splits.items()}
+        self.track_nulls = track_nulls
+        self.track_invalid = track_invalid
+
+    def _is_label_slot(self, feature, features) -> bool:
+        return feature is features[0]
+
+    def transform_columns(self, cols, dataset):
+        f = self.inputs[1]
+        maps = cols[1].data
+        n = len(maps)
+        blocks: List[np.ndarray] = []
+        meta_cols: List[VectorColumnMetadata] = []
+        for k in self.keys:
+            v = np.full(n, np.nan)
+            present = np.zeros(n, dtype=np.bool_)
+            for i, m in enumerate(maps):
+                if m and k in m:
+                    v[i] = float(m[k])
+                    present[i] = True
+            splits = self.splits.get(k) or []
+            if splits:
+                sarr = np.asarray(splits)
+                blocks.append(bucketize_right(v, present, sarr,
+                                              self.track_nulls, self.track_invalid))
+                for lab in _bucket_labels(sarr):
+                    meta_cols.append(VectorColumnMetadata(
+                        f.name, f.ftype.__name__, grouping=k, indicator_value=lab))
+                if self.track_invalid:
+                    meta_cols.append(VectorColumnMetadata(
+                        f.name, f.ftype.__name__, grouping=k,
+                        indicator_value="OutOfBounds"))
+            else:
+                blocks.append(_null_only_block(present, self.track_nulls))
+            if self.track_nulls:
+                meta_cols.append(VectorColumnMetadata(
+                    f.name, f.ftype.__name__, grouping=k,
+                    indicator_value=NULL_INDICATOR))
+        block = np.hstack(blocks) if blocks else np.zeros((n, 0), np.float32)
+        meta = VectorMetadata(self.output_name, meta_cols,
                               {f.name: f.history()}).reindexed()
         return Column.vector(block, meta)

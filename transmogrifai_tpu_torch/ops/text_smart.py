@@ -1,6 +1,5 @@
 """SmartTextVectorizer — the categorical-or-free-text decision per feature
-(counterpart of ``transmogrifai_tpu/ops/text_smart.py``; the map variant is
-not ported).
+(counterpart of ``transmogrifai_tpu/ops/text_smart.py``).
 
 One fit pass keeps each feature's capped value counts (:class:`TextStats`).
 A feature with at most ``max_cardinality`` distinct values pivots as a
@@ -12,8 +11,10 @@ values: English or unknown text takes the fused native tokenize + hash
 stemming analyzer (``utils/text.analyze``) and then the hashing fill.
 Every decision keeps the reference's order (the first 1000 distinct values,
 the vocabulary sorted by (-count, value), the vote's tie broken by the
-sorted languages), so both packages decide alike.  All of it is host work,
-as in the reference: the model has no device half.
+sorted languages), so both packages decide alike.
+``SmartTextMapVectorizer`` makes the same decision for each key of a string
+map, the key its metadata grouping.  All of it is host work, as in the
+reference: the models have no device half.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import numpy as np
 from ..data.dataset import Column
 from ..stages.base import Param, SequenceEstimator, Transformer
 from ..types import OPVector, Text
+from ..types.maps import _StringMap
 from ..utils.vector_metadata import (
     NULL_INDICATOR,
     OTHER_INDICATOR,
@@ -232,4 +234,108 @@ class SmartTextVectorizerModel(Transformer):
             blocks.append(np.hstack([block] + extras) if extras else block)
         meta = VectorMetadata(self.output_name, meta_cols,
                               {f.name: f.history() for f in self.inputs}).reindexed()
+        return Column.vector(np.hstack(blocks), meta)
+
+
+class SmartTextMapVectorizer(SequenceEstimator):
+    """Per-map-key categorical-vs-free-text decision (SmartTextMapVectorizer.scala:1-296).
+
+    One fit pass computes TextStats per (feature, key); each key independently
+    pivots as a categorical (<= max_cardinality distinct values -> top-K one-hot
+    + OTHER + null) or hashes as free text, exactly like the scalar
+    SmartTextVectorizer but with the map's key as the grouping.  Accepts any
+    string-valued map (TextMap, TextAreaMap, ...).
+    """
+
+    sequence_input_type = _StringMap
+    output_type = OPVector
+
+    max_cardinality = Param(default=MAX_CARDINALITY_DEFAULT)
+    num_hashes = Param(default=NUM_HASHES_DEFAULT)
+    top_k = Param(default=TOP_K_DEFAULT)
+    min_support = Param(default=MIN_SUPPORT_DEFAULT)
+    clean_text = Param(default=True)
+    track_nulls = Param(default=True)
+    language = Param(default="auto", doc="auto = per-key majority vote")
+
+    def fit_columns(self, cols, dataset, device):
+        key_plans: List[Dict[str, dict]] = []
+        for col in cols:
+            stats: Dict[str, TextStats] = {}
+            for m in col.data:
+                for k, v in (m or {}).items():
+                    # register every seen key — keys with only empty values still
+                    # need a plan (hashed block + null indicator), like the
+                    # scalar vectorizer's all-empty column handling
+                    st = stats.setdefault(k, TextStats())
+                    if v:
+                        st.update(clean_text_value(v) if self.clean_text else v)
+            plan: Dict[str, dict] = {}
+            for k in sorted(stats):
+                cat, vocab = _decide_plan(stats[k], self.max_cardinality,
+                                          self.min_support, self.top_k)
+                lang = "en" if cat else _column_language(
+                    [(m or {}).get(k) for m in col.data], self.language)
+                plan[k] = {"categorical": cat, "vocab": vocab,
+                           "language": lang}
+            key_plans.append(plan)
+        return SmartTextMapVectorizerModel(
+            key_plans=key_plans, num_hashes=self.num_hashes,
+            clean_text=self.clean_text, track_nulls=self.track_nulls)
+
+
+class SmartTextMapVectorizerModel(Transformer):
+    sequence_input_type = _StringMap
+    output_type = OPVector
+
+    def __init__(self, key_plans: List[Dict[str, dict]],
+                 num_hashes: int = NUM_HASHES_DEFAULT, clean_text: bool = True,
+                 track_nulls: bool = True, **kw):
+        super().__init__(**kw)
+        self.key_plans = key_plans
+        self.num_hashes = num_hashes
+        self.clean_text = clean_text
+        self.track_nulls = track_nulls
+
+    def transform_columns(self, cols, dataset):
+        n = len(cols[0])
+        blocks: List[np.ndarray] = []
+        meta_cols: List[VectorColumnMetadata] = []
+        for f, col, plan in zip(self.inputs, cols, self.key_plans):
+            tname = f.ftype.__name__
+            for key, spec in plan.items():
+                grouping = f"{f.name}_{key}"
+                values = [(m or {}).get(key) for m in col.data]
+                if spec["categorical"]:
+                    block = _categorical_block(values, spec["vocab"],
+                                               self.clean_text, self.track_nulls)
+                    meta_cols.extend(_categorical_meta(f, spec["vocab"], grouping,
+                                                       self.track_nulls))
+                else:
+                    lang = spec.get("language", "en")
+                    if _use_native_hash(lang):
+                        from ..native import tokenize_hash_count
+
+                        block, _ = tokenize_hash_count(values, self.num_hashes)
+                    else:
+                        block = _analyzed_hash_block(values, lang,
+                                                     self.num_hashes)
+                    for b in range(self.num_hashes):
+                        meta_cols.append(VectorColumnMetadata(
+                            f.name, tname, grouping=grouping,
+                            descriptor_value=f"hash_{b}"))
+                    if self.track_nulls:
+                        nulls = np.array([0.0 if v else 1.0 for v in values],
+                                         dtype=np.float32)
+                        block = np.hstack([block, nulls[:, None]])
+                        meta_cols.append(VectorColumnMetadata(
+                            f.name, tname, grouping=grouping,
+                            indicator_value=NULL_INDICATOR))
+                blocks.append(block)
+        if not blocks:
+            blocks = [np.zeros((n, 0), np.float32)]
+        meta = VectorMetadata(
+            self.output_name, meta_cols,
+            {f.name: f.history() for f in self.inputs},
+        ).reindexed()
         return Column.vector(np.hstack(blocks), meta)

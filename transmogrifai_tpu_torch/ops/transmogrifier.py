@@ -5,9 +5,8 @@
 family's default vectorizer, and combines everything into a single OPVector
 feature with a ``VectorsCombiner``.  Families are visited in sorted order, as
 in the reference, so the combined vector's columns come in the reference's
-order.  Every family but ``map`` has its vectorizer in the port; a map
-feature raises ``NotImplementedError`` naming the family and the reference
-function it waits for.
+order.  The ``map`` family goes through ``ops/maps.py::transmogrify_maps``,
+which gives one vector per kind of map value.
 """
 
 from __future__ import annotations
@@ -46,6 +45,7 @@ from ..types import (
 from .combiner import VectorsCombiner
 from .dates import DateListVectorizer, DateToUnitCircleVectorizer
 from .geo import GeolocationVectorizer
+from .maps import transmogrify_maps
 from .numeric import BinaryVectorizer, NumericVectorizer, RealNNVectorizer
 from .onehot import MultiPickListVectorizer, OneHotVectorizer
 from .text_lists import TextListHashingVectorizer
@@ -55,9 +55,6 @@ from .text_smart import SmartTextVectorizer
 _CATEGORICAL_TEXT = (PickList, ComboBox, Country, State, City, PostalCode, Street)
 # free-form text subtypes go through the smart categorical-vs-text decision
 _SMART_TEXT = (TextArea, Email, URL, Phone, ID, Base64)
-
-#: the reference's default vectorizer of each family the port does not have
-UNPORTED_FAMILIES = {"map": "transmogrify_maps"}
 
 #: family -> the stage that vectorizes it
 _VECTORIZERS = {
@@ -112,19 +109,14 @@ def transmogrify(features: Sequence[Feature], label: Feature | None = None,
     groups: Dict[str, List[Feature]] = {}
     for f in features:
         groups.setdefault(_family(f.ftype), []).append(f)
-    for family in sorted(groups):
-        if family in UNPORTED_FAMILIES:
-            raise NotImplementedError(
-                f"transmogrify: the {family!r} family "
-                f"({', '.join(f.name for f in groups[family])}) needs the "
-                f"reference's {UNPORTED_FAMILIES[family]}, which is not ported "
-                "to transmogrifai_tpu_torch yet")
-
     vectors: List[Feature] = []
     for family in sorted(groups):
         feats = groups[family]
         if family == "vector":
             vectors.extend(feats)
+            continue
+        if family == "map":
+            vectors.extend(transmogrify_maps(feats))
             continue
         vectors.append(feats[0].transform_with(_VECTORIZERS[family](), *feats[1:]))
 

@@ -2,10 +2,9 @@
 Integral, Binary, Date, ...), the text types (Text and its free-form
 subtypes, PickList, ComboBox and the location texts), the collections
 (TextList, DateList, MultiPickList, Geolocation, OPVector), Prediction and
-their abstract bases, and the conversion helpers ``to_real`` ...
-``to_multi_picklist`` (the reference's ``types/package.scala`` implicits as
-plain functions).  The typed maps other than Prediction are not ported:
-transmogrify has no vectorizer for them yet."""
+the 23 typed maps, their abstract bases, and the conversion helpers
+``to_real`` ... ``to_multi_picklist`` (the reference's
+``types/package.scala`` implicits as plain functions)."""
 
 from .base import (  # noqa: F401
     Categorical,
@@ -30,7 +29,33 @@ from .collections import (  # noqa: F401
     OPVector,
     TextList,
 )
-from .maps import OPMap, Prediction  # noqa: F401
+from .maps import (  # noqa: F401
+    Base64Map,
+    BinaryMap,
+    CityMap,
+    ComboBoxMap,
+    CountryMap,
+    CurrencyMap,
+    DateMap,
+    DateTimeMap,
+    EmailMap,
+    GeolocationMap,
+    IDMap,
+    IntegralMap,
+    MultiPickListMap,
+    OPMap,
+    PercentMap,
+    PhoneMap,
+    PickListMap,
+    PostalCodeMap,
+    Prediction,
+    RealMap,
+    StateMap,
+    StreetMap,
+    TextAreaMap,
+    TextMap,
+    URLMap,
+)
 from .numerics import (  # noqa: F401
     Binary,
     Currency,

@@ -5,10 +5,9 @@ cheap value wrapper (``Real(1.0)``) and a column schema: ``kind`` says how a
 column of the type is stored (numeric arrays + validity masks, host object
 arrays, or an (n, d) float32 vector block).
 
-Only the types the ported slices reach are ported (see ``types/__init__``):
-every type but the typed maps.  ``feature_type_by_name`` refuses every other
-name, so a saved model using one fails at load time instead of scoring with
-a half-built DAG.
+Every type of the reference is here (see ``types/__init__``);
+``feature_type_by_name`` refuses any other name, so a saved model using one
+fails at load time instead of scoring with a half-built DAG.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """Contingency-matrix statistics the SanityChecker reads (host copy of
 ``transmogrifai_tpu/utils/stats.py``): chi-squared -> Cramér's V, pointwise
-mutual information, max rule confidence and support.  Float64 numpy, as in
+mutual information, max rule confidence and support, and the Pearson
+correlation with a label the RawFeatureFilter reads.  Float64 numpy, as in
 the reference, so the checker's group statistics come out bitwise equal."""
 
 from __future__ import annotations
@@ -65,3 +66,18 @@ def max_rule_confidences(contingency: np.ndarray) -> Tuple[np.ndarray, np.ndarra
         conf = np.where(row_totals[:, None] > 0, c / row_totals[:, None], 0.0)
     support = row_totals / total if total > 0 else np.zeros_like(row_totals)
     return conf.max(axis=1), support
+
+
+def pearson_with_label(x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """Pearson correlation of each column of x (n, d) with y (n,). NaN for zero variance."""
+    x = np.asarray(x, dtype=np.float64)
+    y = np.asarray(y, dtype=np.float64)
+    n = x.shape[0]
+    xm = x - x.mean(axis=0)
+    ym = y - y.mean()
+    cov = xm.T @ ym / n
+    sx = np.sqrt((xm ** 2).mean(axis=0))
+    sy = np.sqrt((ym ** 2).mean())
+    with np.errstate(divide="ignore", invalid="ignore"):
+        out = cov / (sx * sy)
+    return out

@@ -67,9 +67,11 @@ def _register_stages() -> None:
     )
     from ..ops import (  # noqa: F401
         bucketizers,
+        collections_lift,
         combiner,
         dates,
         geo,
+        maps,
         math,
         misc,
         numeric,
@@ -221,7 +223,8 @@ def load_model(path: str):
                 features[u] for u in s["inputUids"] if u in features)
         fitted[uid] = t
 
-    return WorkflowModel(result_features=result_features, fitted=fitted)
+    return WorkflowModel(result_features=result_features, fitted=fitted,
+                         blacklist=manifest.get("blacklist", []))
 
 
 # -- save -------------------------------------------------------------------------
@@ -336,7 +339,7 @@ def save_model(model, path: str) -> None:
         "formatVersion": FORMAT_VERSION,
         "versionInfo": {"version": __version__, "torch": torch.__version__},
         "resultFeatureUids": [f.uid for f in model.result_features],
-        "blacklist": [],
+        "blacklist": list(model.blacklist),
         "workflowCv": False,
         "features": [{"uid": f.uid, "name": f.name, "ftype": f.ftype.__name__,
                       "isResponse": f.is_response,

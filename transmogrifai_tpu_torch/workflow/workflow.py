@@ -8,6 +8,8 @@ Training from raw typed columns::
         label.sanity_check(vec))
     wf = Workflow().set_input_dataset(ds).set_result_features(label, pred)
     # or .set_reader(DataReaders.Simple.dataframe(df)) / CustomReader(...)
+    # optionally drop sparse, drifting or leaky raw features (or map keys)
+    # first: wf.with_raw_feature_filter(RawFeatureFilter(scoring_dataset=sds))
     model = wf.train()                       # fits on the CUDA card
     print(model.summary_pretty())            # the selector's CV table
 
@@ -30,6 +32,7 @@ raises.
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Sequence
 
 from ..data.dataset import Dataset
@@ -56,8 +59,10 @@ class Workflow:
         self._reader = None
         self._warm_models: Dict[str, object] = {}
         self._op_params = None
-        #: records of the last ``train()``: one per estimator fit and one per
-        #: transform flush (``workflow/fit.py::fit_stage_list``)
+        self._raw_feature_filter = None
+        #: records of the last ``train()``: the raw feature filter's, one per
+        #: estimator fit and one per transform flush
+        #: (``workflow/fit.py::fit_stage_list``)
         self.last_train_profile: List[dict] = []
 
     def set_result_features(self, *features: Feature) -> "Workflow":
@@ -97,8 +102,11 @@ class Workflow:
         return self
 
     def with_raw_feature_filter(self, rff) -> "Workflow":
-        raise NotImplementedError(
-            "the raw feature filter is not ported to transmogrifai_tpu_torch yet")
+        """Run ``rff`` (a :class:`~..filters.RawFeatureFilter`) over the raw
+        table at the start of ``train()``: the blacklisted features leave
+        the table and the DAG, bad map keys leave their columns."""
+        self._raw_feature_filter = rff
+        return self
 
     def raw_features(self) -> List[Feature]:
         return dedup_raw_features(self.result_features)
@@ -123,7 +131,8 @@ class Workflow:
               resume: Optional[str] = None, *, device=None) -> "WorkflowModel":
         """Fit the DAG on ``device`` (the CUDA card unless the caller names
         another).  The parameters are the reference's, in its order.  With
-        ``test_fraction`` > 0 the input splits first (``Dataset.split`` by
+        ``test_fraction`` > 0 the input splits (after the raw feature
+        filter, when one is set) first (``Dataset.split`` by
         ``seed``, the reference's draw): the DAG fits on the train part and
         the model selector's summary gets the metrics of the held-out part
         (``holdout_evaluation``).  The reference's checkpointing, strict
@@ -142,14 +151,24 @@ class Workflow:
             raise ValueError("set_result_features before train()")
         dev = resolve_device(device)
         raw = self.generate_raw_data()
+        profile: List[dict] = []
+        blacklist: List[str] = []
+        rff_summary = None
+        if self._raw_feature_filter is not None:
+            t0 = time.perf_counter()
+            raw, blacklist, rff_summary = self._raw_feature_filter.filter_raw(
+                raw, self.raw_features(), self.result_features, device=dev)
+            profile.append({"kind": "filter", "stage": "RawFeatureFilter",
+                            "seconds": time.perf_counter() - t0,
+                            "blacklist": list(blacklist)})
         test_ds = None
         if test_fraction > 0.0:
             raw, test_ds = raw.split(test_fraction, seed=seed)
-        profile: List[dict] = []
         _, fitted = fit_dag(raw, self.result_features, fitted=self._warm_models,
                             device=dev, profile=profile)
         self.last_train_profile = profile
-        model = WorkflowModel(result_features=self.result_features, fitted=fitted)
+        model = WorkflowModel(result_features=self.result_features, fitted=fitted,
+                              blacklist=blacklist, rff_summary=rff_summary)
         if self._reader is not None:
             # the model keeps the workflow's reader for score() with no dataset
             model.set_reader(self._reader)
@@ -169,9 +188,16 @@ def _refuse_unported(entry: str, asked: Dict[str, bool]) -> None:
 
 
 class WorkflowModel:
-    def __init__(self, result_features: Sequence[Feature], fitted: Dict):
+    """A fitted workflow.  ``blacklist`` names the raw features the raw
+    feature filter dropped (saved with the model); ``rff_summary`` is the
+    filter's :class:`~..filters.RawFeatureFilterResults` (not saved)."""
+
+    def __init__(self, result_features: Sequence[Feature], fitted: Dict,
+                 blacklist: Sequence[str] = (), rff_summary=None):
         self.result_features: List[Feature] = list(result_features)
         self.fitted = dict(fitted)
+        self.blacklist = list(blacklist)
+        self.rff_summary = rff_summary
         self._reader = None
 
     def set_reader(self, reader) -> "WorkflowModel":
