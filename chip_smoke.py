@@ -270,7 +270,31 @@ Phases, one JSON line each:
                package's saved model (the record's) serves the record's
                requests on the card equal to the CPU plan's and within 1e-12
                of the JAX plan's.
-19. summary  — nvidia-smi's line, then one {"kernels": [...]} line, then the
+19. text     — the text stack (fixtures/text_stack, the JAX package's record,
+               tools/make_torch_text_fixture.py): examples/text_reviews.py
+               with the import swapped, on the card (fitted states and the
+               training vector's sha256 equal, LR CV and the metrics within
+               1e-4, the side workflow's language and NER maps equal for
+               every row, the category slot in the encode kernel); the
+               tokenizer, stop-word, bigram, HashingTF and CountVectorizer
+               blocks' sha256 at 2000 rows with no Python hashing path; NER
+               over the reference's real-prose sentences (en, es, nl);
+               Word2Vec and LDA fitted on the card with the record's draws
+               fed to their seams (vectors within 1e-5, topic-word matrix
+               and the E-step's gamma within 1e-4 relative of the record;
+               within 1e-6 / 1e-4 of the same fits on the CPU; Word2Vec
+               bitwise run to run); the JAX-saved text model scoring on the
+               card (within 1e-5 of the CPU plan and of the record).  Then
+               the text pipeline (tests/torch_text_data.py) at its default
+               widths at TEXT_ROWS: Workflow.train on the card by part
+               (tokenizer, host stages, Word2Vec's pairs and its step loop
+               with steps/s, a step's time and kernels, LDA's count matrix
+               and EM, flushes, checker, selector), LDA's E-step ms an
+               iteration against its bound, peak device memory, save ->
+               load -> 16 served batches of 1024 (one encode launch a batch,
+               LDAModel's E-step on the card a batch), and NER alone on
+               TEXT_NER_ROWS documents.
+20. summary  — nvidia-smi's line, then one {"kernels": [...]} line, then the
                last line {"ok": true, "device": {...}}.
 
 Phase 3 also holds K5 past shared memory (a 5000-split slot, its own launch
@@ -360,6 +384,14 @@ DSL_LEFT_SLOTS = 8
 MAPS_FIXTURE = os.path.join("transmogrifai_tpu_torch", "fixtures", "training_maps")
 MAPS_ROWS = 1 << 18
 MAPS_SLOTS = 3
+#: the JAX package's record of the text stack (tools/make_torch_text_fixture.py),
+#: the rows of the text pipeline timed by phase 19 and of its NER timing: at
+#: 65 536 rows the phase took 289 s, past its ~120 s share of the script
+#: (the host's tokenizer and language detector ~1 ms a row each), so it runs
+#: half of them
+TEXT_FIXTURE = os.path.join("transmogrifai_tpu_torch", "fixtures", "text_stack")
+TEXT_ROWS = 1 << 15
+TEXT_NER_ROWS = 4096
 #: CV metric tolerance of each family against the reference's record
 FAMILY_TOL = {"LogisticRegression": 1e-4, "LinearSVC": 1e-4,
               "RandomForestClassifier": 1e-6, "GradientBoostedTreesClassifier": 1e-3}
@@ -3272,6 +3304,440 @@ def phase_maps(torch, KE, dev) -> dict:
     return out
 
 
+def _text_fed(E, arrays: dict, prefix: str):
+    """Seams that hand out the record's draws (``<prefix>w2v_w_in0`` ...)
+    on whatever device the fit asks; returns the (w2v, lda) pair."""
+    import torch
+
+    def w2v(seed, v, dim, device):
+        w_in, w_out = arrays[f"{prefix}w2v_w_in0"], arrays[f"{prefix}w2v_w_out0"]
+        check(w_in.shape == (v, dim), f"the recorded Word2Vec draws fit ({w_in.shape})")
+        return (torch.from_numpy(w_in.copy()).to(device),
+                torch.from_numpy(w_out.copy()).to(device))
+
+    def lda(seed, k, v, device):
+        lam0 = arrays[f"{prefix}lda_lam0"]
+        check(lam0.shape == (k, v), f"the recorded LDA draw fits ({lam0.shape})")
+        return torch.from_numpy(lam0.copy()).to(device)
+
+    return w2v, lda
+
+
+def _text_docs(rows_of: int, rows: int):
+    """The cleaned token lists of the first ``rows`` of the text table of
+    ``rows_of`` rows (seed 0): tokenizer -> stop words, on the host."""
+    from torch_text_data import make_text
+    from transmogrifai_tpu_torch.data.dataset import Column
+    from transmogrifai_tpu_torch.ops import text
+    from transmogrifai_tpu_torch.types import Text
+
+    cols, _ = make_text(rows_of, seed=0)
+    toks = text.TextTokenizer().transform_columns(
+        [Column.from_values(Text, cols["review"][:rows])], None)
+    return text.StopWordsRemover().transform_columns([toks], None)
+
+
+def _text_namespace():
+    import types
+
+    import transmogrifai_tpu_torch as T
+    from transmogrifai_tpu_torch.models.logistic import LogisticRegression
+    from transmogrifai_tpu_torch.ops import embeddings, text
+
+    return types.SimpleNamespace(
+        FeatureBuilder=T.FeatureBuilder, transmogrify=T.transmogrify,
+        SanityChecker=T.SanityChecker,
+        BinaryClassificationModelSelector=T.BinaryClassificationModelSelector,
+        LogisticRegression=LogisticRegression, text=text, embeddings=embeddings)
+
+
+def _records_within(got: list, want: list, pname: str, tol: float) -> float:
+    """Largest deviation of the prediction maps' values over max(1, |value|),
+    the other fields and the keys equal; fails past ``tol``.  LDA's E-step
+    rounds otherwise on the card (its products, torch's digamma), so a text
+    model's scores agree to float32's last bits, not bitwise."""
+    worst = 0.0
+    check(len(got) == len(want), "one output record per request")
+    for g, w in zip(got, want):
+        check(g.keys() == w.keys() and g[pname].keys() == w[pname].keys()
+              and g[pname]["prediction"] == w[pname]["prediction"]
+              and {k: v for k, v in g.items() if k != pname}
+              == {k: v for k, v in w.items() if k != pname},
+              "records equal but for the prediction's floats")
+        worst = max([worst] + [abs(g[pname][k] - w[pname][k]) / max(1.0, abs(w[pname][k]))
+                               for k in g[pname]])
+    check(worst <= tol, f"prediction values within {tol} ({worst})")
+    return worst
+
+
+def phase_text(torch, KE, dev) -> dict:
+    """The text stack on the card: (a) parity with the JAX package's record
+    (fixtures/text_stack): examples/text_reviews.py with the import swapped,
+    the stage blocks, NER over the real-prose sentences, Word2Vec and LDA
+    fitted on the card with the record's draws fed to the seams (and the
+    same fits on the CPU), and the JAX-saved text model scoring on the card;
+    (b) the text pipeline at its default widths at TEXT_ROWS, timed by part,
+    then save -> load -> 16 served batches of 1024, and NER alone on
+    TEXT_NER_ROWS documents."""
+    import numpy as np
+
+    import torch_text_data as TD
+    import transmogrifai_tpu_torch as T
+    from transmogrifai_tpu_torch import native
+    from transmogrifai_tpu_torch.models.base import full_f32
+    from transmogrifai_tpu_torch.ops import embeddings as E
+    from transmogrifai_tpu_torch.ops import text
+    from transmogrifai_tpu_torch.ops.ner import NameEntityRecognizer
+    from transmogrifai_tpu_torch.perf.kernels.dispatch import resolve_device
+    from transmogrifai_tpu_torch.types import feature_type_by_name
+    from transmogrifai_tpu_torch.workflow.fit import transform_dag
+
+    with open(os.path.join(TEXT_FIXTURE, "record.json")) as fh:
+        record = json.load(fh)
+    arrays = dict(np.load(os.path.join(TEXT_FIXTURE, "embeddings.npz")))
+    check(resolve_device(None).type == "cuda", "entry points default to the card")
+    out: dict = {}
+
+    # (a1) examples/text_reviews.py, the import swapped, on the card
+    want = record["text_reviews"]
+    _reset_all(KE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = TD.run_text_reviews(os.getcwd(), T, transform_dag, dev)
+    seconds = time.perf_counter() - t0
+    launches = _all_counts(KE)
+    check(got["states"] == want["states"], "text_reviews: fitted states == the JAX record")
+    check(got["vector"] == want["vector"],
+          f"text_reviews: the training vector bitwise the JAX record's {want['vector']}")
+    cv_dev = max(abs(a - b) for g, w in zip(got["cv"], want["cv"])
+                 for a, b in zip(g["values"], w["values"]))
+    check(cv_dev <= 1e-4, f"text_reviews: LR CV within 1e-4 of the JAX record ({cv_dev})")
+    met_dev = {k: abs(got["metrics"][k] - v) for k, v in want["metrics"].items()}
+    check(max(met_dev.values()) <= 1e-4,
+          f"text_reviews: metrics (AuPR {got['metrics']['auPR']}) within 1e-4: {met_dev}")
+    check(got["languages"] == want["languages"] and len(got["languages"]) == 2000,
+          "text_reviews: the side workflow's language maps == the record's, every row")
+    check(got["ner"] == want["ner"], "text_reviews: NER maps == the record's, every row")
+    check(launches["encode_slots"] >= 1
+          and launches["encode_slots.slots"] == launches["encode_slots"]
+          and launches["onehot_codes"] == 0,
+          f"text_reviews: the category slot in one encode launch per pass: {launches}")
+    out["text_reviews"] = {"seconds": seconds, "launches": launches, "cv_max_abs_dev": cv_dev,
+                           "metrics": got["metrics"], "metric_deviation": met_dev,
+                           "rows": len(got["languages"])}
+    del got
+
+    # (a2) the stage blocks at the record's rows, no Python hashing
+    rec = record["blocks"]
+    cols, schema = TD.make_text(rec["rows"], seed=0)
+    ftypes = {s["name"]: feature_type_by_name(s["type"]) for s in schema}
+    review = T.FeatureBuilder.of("review", ftypes["review"]).extract_field().as_predictor()
+    tokens = review.tokenize()
+    clean = tokens.transform_with(text.StopWordsRemover())
+    bigrams = clean.transform_with(text.NGramTransformer(n=2))
+    counts = bigrams.transform_with(text.CountVectorizer(vocab_size=512))
+    hashed = clean.transform_with(text.HashingTF(num_features=512))
+    feats = [tokens, clean, bigrams, counts, hashed]
+    ds = T.Dataset.from_features({"review": cols["review"]}, {"review": ftypes["review"]})
+    check(native.warmup(), f"the native hashing library built ({native.BUILD_ERROR})")
+    native.reset_path_counts()
+    model = T.Workflow().set_input_dataset(ds).set_result_features(*feats).train()
+    blocks = transform_dag(ds, feats, model.fitted, dev)
+    paths = _no_python_hashing(native, "the stage blocks")
+    for k, f in (("tokens", tokens), ("clean", clean), ("bigrams", bigrams)):
+        check(TD.token_digest(blocks[f.name].data) == rec[k], f"{k} sha256 == the record's")
+    check(TD.block_digest(blocks[counts.name].data) == rec["counts"]
+          and model.fitted[counts.origin_stage.uid].vocab == rec["count_vocab"],
+          "CountVectorizer's vocabulary and block == the record's")
+    check(TD.block_digest(blocks[hashed.name].data) == rec["hashed"],
+          "HashingTF's block sha256 == the record's")
+    out["blocks"] = {"rows": rec["rows"], "equal": True, "hashing_paths": paths}
+
+    # (a3) NER over the real-prose sentences
+    n_sent = 0
+    for lang in ("en", "es", "nl"):
+        pinned, auto = NameEntityRecognizer(language=lang), NameEntityRecognizer()
+        for r in record["ner"][lang]:
+            check(pinned.transform_values([r["sentence"]]) == r["pinned"]
+                  and auto.transform_values([r["sentence"]]) == r["auto"],
+                  f"NER ({lang}) == the record's: {r['sentence'][:40]}")
+            n_sent += 1
+    out["ner"] = {"sentences": n_sent, "equal": True}
+
+    # (a4) Word2Vec and LDA with the record's draws, on the card and the CPU
+    docs = _text_docs(2000, 400)
+    w2v_seam, lda_seam = E.draw_word2vec_init, E.draw_lda_init
+    E.draw_word2vec_init, E.draw_lda_init = _text_fed(E, arrays, "")
+    placed = []
+    fit_lda = E.fit_lda
+    cpu = torch.device("cpu")
+    try:
+        wc, wc2, wp = [E.Word2Vec(embedding_dim=16, max_vocab=200, epochs=2, batch_size=256)
+                       .fit_columns([docs], None, d) for d in (dev, dev, cpu)]
+        E.fit_lda = lambda x, *a: placed.append(a[-1]) or fit_lda(x, *a)
+        lc, lp = [E.LDA(k=4, max_vocab=200, max_iter=5, inner_iter=5)
+                  .fit_columns([docs], None, d) for d in (dev, cpu)]
+    finally:
+        E.draw_word2vec_init, E.draw_lda_init, E.fit_lda = w2v_seam, lda_seam, fit_lda
+    check([p.type for p in placed] == ["cuda", "cpu"], f"LDA fitted on {placed}")
+    check(wc.vocab == list(arrays["w2v_vocab"]), "Word2Vec vocabulary == the record's")
+    w2v_dev = float(np.max(np.abs(wc.vectors - arrays["w2v_vectors"])))
+    w2v_cpu = float(np.max(np.abs(wc.vectors - wp.vectors)))
+    check(w2v_dev <= 1e-5, f"Word2Vec on the card within 1e-5 of the JAX record ({w2v_dev})")
+    check(w2v_cpu <= 1e-6, f"Word2Vec on the card within 1e-6 of the CPU's ({w2v_cpu})")
+    check(wc.vectors.tobytes() == wc2.vectors.tobytes(),
+          "Word2Vec on the card bitwise from one run to the next")
+    lda_dev = float(np.max(np.abs(lc.topic_word - arrays["lda_topic_word"])
+                           / np.abs(arrays["lda_topic_word"])))
+    lda_cpu = float(np.max(np.abs(lc.topic_word - lp.topic_word) / np.abs(lp.topic_word)))
+    check(lc.vocab == list(arrays["lda_vocab"]) and lda_dev <= 1e-4,
+          f"LDA's topic-word matrix on the card within 1e-4 (relative) of the JAX "
+          f"record ({lda_dev})")
+    check(lda_cpu <= 1e-4, f"LDA on the card within 1e-4 (relative) of the CPU's ({lda_cpu})")
+    x = E._count_matrix(docs.data, {t: j for j, t in enumerate(lc.vocab)})
+    lam = torch.from_numpy(arrays["lda_topic_word"])
+    g_card = E.e_step(torch.from_numpy(x).to(dev), lam.to(dev), 0.25, 5)[0]
+    check(g_card.device.type == "cuda", "the E-step ran on the card")
+    g_card = g_card.cpu().numpy()
+    g_cpu = E.e_step(torch.from_numpy(x), lam, 0.25, 5)[0].numpy()
+    gam_dev = float(np.max(np.abs(g_card - arrays["lda_gamma"]) / np.abs(arrays["lda_gamma"])))
+    gam_cpu = float(np.max(np.abs(g_card - g_cpu) / np.abs(g_cpu)))
+    check(gam_dev <= 1e-4 and gam_cpu <= 1e-4,
+          f"the E-step's gamma on the card within 1e-4 of the JAX record ({gam_dev}) "
+          f"and of the CPU's ({gam_cpu}), relative")
+    out["embeddings"] = {"w2v_max_abs_dev_record": w2v_dev, "w2v_max_abs_dev_cpu": w2v_cpu,
+                         "w2v_card_run_to_run": "bitwise",
+                         "lda_max_rel_dev_record": lda_dev, "lda_max_rel_dev_cpu": lda_cpu,
+                         "gamma_max_rel_dev_record": gam_dev, "gamma_max_rel_dev_cpu": gam_cpu}
+
+    # (a5) the JAX-saved text model scoring on the card
+    rec = record["pipeline"]
+    jmodel = T.WorkflowModel.load(os.path.join(TEXT_FIXTURE, "model"))
+    jplan, jcpu = jmodel.serving_plan(), jmodel.serving_plan(device="cpu")
+    rec_dev = cpu_dev = 0.0
+    for b in rec["batches"]:
+        got = jplan.score(b["records"])
+        cpu_dev = max(cpu_dev, _records_within(got, jcpu.score(b["records"]),
+                                               rec["prediction"], 1e-5))
+        rec_dev = max(rec_dev, _records_within(got, b["scored"], rec["prediction"], 1e-5))
+    out["jax_saved_model"] = {"records": sum(len(b["records"]) for b in rec["batches"]),
+                              "max_abs_dev_cpu_plan": cpu_dev, "max_abs_dev_record": rec_dev}
+    del jmodel, jplan, jcpu, model, blocks
+
+    # (b) the text pipeline at its default widths, timed by part
+    t0 = time.perf_counter()
+    cols, schema = TD.make_text(TEXT_ROWS, seed=0)
+    t1 = time.perf_counter()
+    ftypes = {s["name"]: feature_type_by_name(s["type"]) for s in schema}
+    ds = T.Dataset.from_features(cols, ftypes)
+    t2 = time.perf_counter()
+    label, sel, chk, pred, h = TD.text_pipeline(_text_namespace(), ftypes, wide=True)
+    wf = T.Workflow().set_input_dataset(ds).set_result_features(label, pred)
+    timers: dict = {}
+    kept: dict = {}
+
+    def timed(name, fn, keep=None):
+        def run(*a, **kw):
+            s = time.perf_counter()
+            r = fn(*a, **kw)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            timers[name] = timers.get(name, 0.0) + time.perf_counter() - s
+            if keep is not None:
+                kept[keep] = a
+            return r
+        return run
+
+    originals = {k: getattr(E, k) for k in ("skipgram_pairs", "skipgram_epoch",
+                                            "train_skipgram", "fit_lda", "_count_matrix")}
+    E.skipgram_pairs = timed("w2v_pairs", originals["skipgram_pairs"])
+    E.skipgram_epoch = timed("w2v_draws", originals["skipgram_epoch"])
+    E.train_skipgram = timed("w2v_card", originals["train_skipgram"], keep="w2v")
+    E.fit_lda = timed("lda_em", originals["fit_lda"], keep="lda")
+    E._count_matrix = timed("lda_count_matrix", originals["_count_matrix"])
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all(KE)
+    E.reset_launch_counts()
+    native.reset_path_counts()
+    try:
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        model = wf.train(device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t3
+    finally:
+        for k, v in originals.items():
+            setattr(E, k, v)
+    peak = torch.cuda.max_memory_allocated()
+    launches = _all_counts(KE)
+    emb_counts = E.launch_counts()
+    paths = _no_python_hashing(native, "the text pipeline")
+    check(launches["encode_slots"] >= 1 and launches["onehot_codes"] == 0,
+          f"the text pipeline's pick lists went through the encode kernel: {launches}")
+    check(kept["w2v"][-1].type == "cuda" and kept["lda"][-1].type == "cuda",
+          "Word2Vec and LDA trained on the card")
+    w2v_m = model.fitted[h["w2v"].origin_stage.uid]
+    lda_m = model.fitted[h["lda"].origin_stage.uid]
+    check(len(w2v_m.vocab) == 10_000 and len(lda_m.vocab) == 10_000,
+          f"the 10 000-word caps bind ({len(w2v_m.vocab)}, {len(lda_m.vocab)})")
+    check(np.isfinite(w2v_m.vectors).all() and np.isfinite(lda_m.topic_word).all(),
+          "finite embeddings")
+    prof = wf.last_train_profile
+    fits = [r for r in prof if r["kind"] == "fit"]
+    flushes = [r for r in prof if r["kind"] == "flush"]
+    by_stage: dict = {}
+    for r in fits:
+        by_stage[r["stage"]] = by_stage.get(r["stage"], 0.0) + r["seconds"]
+    host_by_stage: dict = {}
+    for r in flushes:
+        for k, v in (r.get("host_stage_seconds") or {}).items():
+            host_by_stage[k] = host_by_stage.get(k, 0.0) + v
+    summary = model.fitted[sel.uid].summary
+    for e in summary.validation_results:
+        check(all(np.isfinite(v) for v in e.metric_values), f"finite CV {e}")
+    n_pairs = len(kept["w2v"][2])
+    steps = emb_counts["skipgram_steps"]
+
+    # Word2Vec's step: launches (the profiler's kernel count) and time
+    v_size, dim = len(w2v_m.vocab), int(w2v_m.vectors.shape[1])
+    w_in = torch.zeros((v_size, dim), device=dev) + 0.01
+    w_out = torch.zeros((v_size, dim), device=dev) + 0.01
+    bsz, k_neg = 1024, 4
+    gen = torch.Generator(device=dev).manual_seed(0)
+    c = torch.randint(0, v_size, (bsz,), device=dev, generator=gen)
+    oi = torch.randint(0, v_size, (bsz, 1 + k_neg), device=dev, generator=gen)
+    scale = torch.full((bsz,), -1.0 / bsz, device=dev)
+    sign = torch.tensor([1.0] + [-1.0] * k_neg, device=dev)
+    step = lambda: E.skipgram_step(w_in, w_out, c, oi, scale, sign, 0.05)  # noqa: E731
+    step_ms = time_big_ms(step, runs=51, warmup=5)
+    step_device_ms = time_device_ms(step)
+    kernels_per_step = None
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof_:
+            for _ in range(10):
+                step()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof_.events() if e.device_type.name == "CUDA"]
+        kernels_per_step = len(kernels) / 10 if kernels else None
+    except Exception as e:  # the profiler may not reach the card in the sandbox
+        kernels_per_step = f"not measured: {e!r}"[:200]
+    step_bytes = (bsz * (1 + (1 + k_neg)) * dim * 4 * 2   # gathers and scattered rows
+                  + bsz * (2 + k_neg) * 8)
+    step_ops = bsz * (1 + k_neg) * dim * 2 * 3
+    step_bound = max(step_bytes / HBM_BYTES_PER_S, step_ops / F32_OPS_PER_S) * 1e3
+
+    # LDA's E-step at the full count matrix: ms an iteration against its bound
+    x_full = kept["lda"][0]
+    xd = torch.from_numpy(x_full).to(dev)
+    lam = torch.from_numpy(lda_m.topic_word).to(dev)
+    alpha = 1.0 / lda_m.k
+    with full_f32():
+        e5 = time_big_ms(lambda: E.e_step(xd, lam, alpha, 5), runs=5, warmup=1)
+        e0 = time_big_ms(lambda: E.e_step(xd, lam, alpha, 0), runs=5, warmup=1)
+    d_docs, v_words = x_full.shape
+    it_bytes = d_docs * v_words * 4
+    it_ops = 2 * 2 * d_docs * lda_m.k * v_words
+    e_bound = max(it_bytes / HBM_BYTES_PER_S, it_ops / F32_OPS_PER_S) * 1e3
+    e_step = {"docs": d_docs, "vocab": v_words, "k": lda_m.k,
+              "ms_per_iteration": (e5 - e0) / 5, "ms_5_iterations": e5,
+              "ms_0_iterations": e0, "bound_ms": e_bound,
+              "bound_by": "bytes" if it_bytes / HBM_BYTES_PER_S >= it_ops / F32_OPS_PER_S
+              else "operations",
+              "bytes": it_bytes, "operations": it_ops}
+    del xd, lam, x_full, kept
+
+    # save -> load -> 16 served batches of 1024
+    path = os.path.join("build", "text_model")
+    t0s = time.perf_counter()
+    model.save(path)
+    t1s = time.perf_counter()
+    loaded = T.WorkflowModel.load(path)
+    t2s = time.perf_counter()
+    splan, scpu = loaded.serving_plan(), loaded.serving_plan(device="cpu")
+    batches = [TD.make_records(cols, range(i * BATCH, (i + 1) * BATCH))
+               for i in range(N_BATCHES)]
+    pname = pred.name
+    serve_cpu_dev = _records_within(splan.score(batches[0]), scpu.score(batches[0]),
+                                    pname, 1e-5)
+    torch.cuda.synchronize()
+    _reset_all(KE)
+    E.reset_launch_counts()
+    rows, parts = [], []
+    t0b = time.perf_counter()
+    for b in batches:
+        rows.append(splan.score(b))
+        parts.append(dict(splan.last_timings))
+    wall = time.perf_counter() - t0b
+    launches_serving = _all_counts(KE)
+    slots = len(splan._encode_table) if splan._encode_table is not None else 0
+    check(slots >= 1 and launches_serving["encode_slots"] == N_BATCHES
+          and launches_serving["encode_slots.slots"] == slots * N_BATCHES,
+          f"one encode launch of {slots} slots per served batch: {launches_serving}")
+    check(E.launch_counts()["lda_e_steps"] == N_BATCHES,
+          "LDAModel's E-step ran once per served batch")
+    for got in rows:
+        for r in got:
+            p = r[pname]
+            check(all(np.isfinite(v) for v in p.values()), f"finite prediction {p}")
+
+    def med(key):
+        return statistics.median(p[key] for p in parts)
+
+    # NER alone: per-token Python, as in the reference
+    ner_col = ds["review"].take(np.arange(TEXT_NER_ROWS))
+    t0n = time.perf_counter()
+    NameEntityRecognizer().transform_columns([ner_col], None)
+    ner_s = time.perf_counter() - t0n
+
+    host_fit = sum(v for k, v in by_stage.items()
+                   if k not in ("Word2Vec", "LDA", "SanityChecker", "ModelSelector"))
+    out["wide"] = {
+        "rows": TEXT_ROWS, "train_seconds": seconds,
+        "data_host_seconds": {"make_text_s": t1 - t0, "from_features_s": t2 - t1},
+        "parts_seconds": {
+            "tokenizer": host_by_stage.get("TextTokenizer"),
+            "host_stages_without_tokenizer": sum(v for k, v in host_by_stage.items()
+                                                 if k != "TextTokenizer"),
+            "host_transforms_by_class": host_by_stage,
+            "host_stage_fits": host_fit,
+            "word2vec_fit": by_stage.get("Word2Vec"),
+            "word2vec_pairs": timers.get("w2v_pairs"),
+            "word2vec_draws_host": timers.get("w2v_draws"),
+            "word2vec_card": timers.get("w2v_card") - timers.get("w2v_draws"),
+            "lda_fit": by_stage.get("LDA"),
+            "lda_count_matrix": timers.get("lda_count_matrix"),
+            "lda_em_card": timers.get("lda_em"),
+            "flushes": sum(r["seconds"] for r in flushes),
+            "sanity_checker": by_stage.get("SanityChecker"),
+            "selector": by_stage.get("ModelSelector")},
+        "fit_seconds_by_stage": by_stage,
+        "word2vec": {"vocab": v_size, "dim": dim, "pairs": n_pairs, "steps": steps,
+                     "epochs": emb_counts["skipgram_epochs"],
+                     "steps_per_s": steps / (timers["w2v_card"] - timers["w2v_draws"]),
+                     "step_ms": step_ms, "step_device_ms": step_device_ms,
+                     "step_bound_ms": step_bound, "kernels_per_step": kernels_per_step},
+        "lda_e_step": e_step, "max_memory_allocated_bytes": peak,
+        "launches": launches, "hashing_paths": paths,
+        "kept": len(model.fitted[chk.uid].kept_indices),
+        "winner_grid": summary.best_grid,
+        "cv": [{"grid": e.grid, "values": e.metric_values}
+               for e in summary.validation_results],
+        "save_s": t1s - t0s, "load_s": t2s - t1s,
+        "serving": {"batches": N_BATCHES, "batch": BATCH,
+                    "records_per_s": N_BATCHES * BATCH / wall,
+                    "encode_ms_median": med("encode_ms"),
+                    "device_ms_median": med("device_ms"),
+                    "host_ms_median": med("host_ms"),
+                    "launches": launches_serving, "slots_per_batch": slots,
+                    "host_stages": sorted({type(r).__name__ for r in splan._remainder}),
+                    "max_abs_dev_cpu_plan": serve_cpu_dev},
+        "ner": {"docs": TEXT_NER_ROWS, "ms_per_doc": ner_s / TEXT_NER_ROWS * 1e3}}
+    emit({"phase": "text", **out})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3438,7 +3904,10 @@ def main() -> int:
     # 18. typed maps and the raw feature filter
     maps = phase_maps(torch, KE, dev)
 
-    # 19. summary
+    # 19. the text stack
+    txt = phase_text(torch, KE, dev)
+
+    # 20. summary
     kernels = []
     tree_src = "transmogrifai_tpu_torch/perf/kernels/csrc/trees.cu"
     for kname, replaces in (("hist_level", "transmogrifai_tpu/perf/kernels/histogram.py:80"),
@@ -3521,6 +3990,10 @@ def main() -> int:
             "launches_training_maps": maps["launches"]["encode_slots"],
             "launches_serving_maps": maps["serving"]["launches"]["encode_slots"],
             "training_maps": maps["encode_at_rows"],
+            "launches_text_reviews": txt["text_reviews"]["launches"]["encode_slots"],
+            "launches_training_text": txt["wide"]["launches"]["encode_slots"],
+            "launches_serving_text": txt["wide"]["serving"]["launches"]["encode_slots"],
+            "slots_serving_text": txt["wide"]["serving"]["slots_per_batch"],
             **{f"fused_{k}": fused[k] for k in ("ms", "device_ms", "plain_ms",
                                                  "bound_ms", "slots", "columns")}})
     t = timings["bucketize_left_encode"]

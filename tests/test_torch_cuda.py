@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card
-(the encode kernel's left-closed bucketize slots among them), and the wide
+(the encode kernel's left-closed bucketize slots among them), the wide
 pipeline's training from raw columns (its whole-table transform plan and the
 SanityChecker, and with the DSL's features added) on the card against the
-CPU.
+CPU, and Word2Vec's step loop and LDA's EM on the card against the same
+functions on the CPU.
 
 Marked ``cuda``: each test skips where there is no card.  The machine with
 the card has no JAX, so this file imports torch and the port only; run it
@@ -972,3 +973,71 @@ def test_maps_training_on_the_card_equals_the_record():
     vec = chk.inputs[1]
     got = transform_dag(ds, [vec], model.fitted, torch.device("cuda"))[vec.name].data
     assert vector_digest(got) == states["vector"]
+
+
+def _embedding_docs(n: int = 400):
+    from torch_text_data import make_text
+
+    from transmogrifai_tpu_torch.data.dataset import Column
+    from transmogrifai_tpu_torch.ops import text
+    from transmogrifai_tpu_torch.types import Text
+
+    cols, _ = make_text(n, seed=0)
+    toks = text.TextTokenizer().transform_columns(
+        [Column.from_values(Text, cols["review"])], None)
+    return text.StopWordsRemover().transform_columns([toks], None)
+
+
+@pytest.mark.parametrize("batch,num_neg", [(256, 4), (100, 2)])
+def test_word2vec_step_loop_on_the_card_equals_the_cpu(batch, num_neg):
+    """The same draws (the CPU generator's, fed to the card too) and the
+    same epochs: the card's vectors within 1e-6 of the CPU's, and bitwise
+    from one run to the next (index_put_ sums repeated rows in order)."""
+    from transmogrifai_tpu_torch.ops import embeddings as E
+
+    docs = _embedding_docs()
+    w_in, w_out = E.draw_word2vec_init(42, 200, 16, torch.device("cpu"))
+    real = E.draw_word2vec_init
+    E.draw_word2vec_init = lambda s, v, d, dev: (w_in[:v].to(dev, copy=True),
+                                                  w_out[:v].to(dev, copy=True))
+    try:
+        fits = {}
+        for dev in ("cpu", "cuda", "cuda"):
+            est = E.Word2Vec(embedding_dim=16, max_vocab=200, epochs=2, batch_size=batch,
+                             num_negatives=num_neg)
+            E.reset_launch_counts()
+            m = est.fit_columns([docs], None, torch.device(dev))
+            fits.setdefault(dev, []).append(m.vectors)
+            assert E.launch_counts()["skipgram_epochs"] == 2
+    finally:
+        E.draw_word2vec_init = real
+    np.testing.assert_allclose(fits["cuda"][0], fits["cpu"][0], rtol=0, atol=1e-6)
+    assert fits["cuda"][0].tobytes() == fits["cuda"][1].tobytes()
+
+
+def test_lda_on_the_card_equals_the_cpu():
+    """LDA's EM and LDAModel's E-step on the card, from the same initial
+    draw as the CPU: the topic-word matrix within 1e-4 of the CPU's,
+    relative (the tolerance the JAX package's record is held to: the card's
+    products and digamma round otherwise, and five EM rounds carry it to
+    ~1.3e-5), and the topic proportions within 1e-5."""
+    import transmogrifai_tpu_torch as T
+    from transmogrifai_tpu_torch.ops import embeddings as E
+    from transmogrifai_tpu_torch.types import TextList
+
+    docs = _embedding_docs()
+    lam0 = E.draw_lda_init(42, 4, 200, torch.device("cpu"))
+    real = E.draw_lda_init
+    E.draw_lda_init = lambda s, k, v, dev: lam0[:, :v].to(dev, copy=True)
+    try:
+        models = {dev: E.LDA(k=4, max_vocab=200, max_iter=5).fit_columns(
+            [docs], None, torch.device(dev)) for dev in ("cpu", "cuda")}
+    finally:
+        E.draw_lda_init = real
+    np.testing.assert_allclose(models["cuda"].topic_word, models["cpu"].topic_word, rtol=1e-4)
+    m = models["cpu"]
+    T.FeatureBuilder.of("d", TextList).extract_field().as_predictor().transform_with(m)
+    ds = T.Dataset({"d": docs})
+    got = m.transform(ds, device="cuda")[m.output_name].data
+    want = m.transform(ds, device="cpu")[m.output_name].data
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)

@@ -490,6 +490,36 @@ def _stage_of(feature):
                                for k, v in st.get_params().items()}
 
 
+#: the reference's text, NER, embedding, time-period, phone, e-mail, URL
+#: and MIME shortcuts: name -> the features it builds from raw ones
+TEXT_SHORTCUTS = {
+    "tokenize": lambda raw: [raw("t", "Text").tokenize(),
+                             raw("u", "Text").tokenize(language="en", min_token_length=2)],
+    "name_entity_tags": lambda raw: [raw("t", "Text").name_entity_tags()],
+    "word2vec": lambda raw: [raw("l", "TextList").word2vec(embedding_dim=8, epochs=1)],
+    "lda_topics": lambda raw: [raw("l", "TextList").lda_topics(k=3)],
+    "to_time_period": lambda raw: [raw("d", "Date").to_time_period("DayOfWeek"),
+                                   raw("dl", "DateList").to_time_period("HourOfDay"),
+                                   raw("dm", "DateMap").to_time_period("WeekOfYear")],
+    "to_ngram_similarity": lambda raw: [raw("t", "Text").to_ngram_similarity(
+        raw("u", "Text"), n=2)],
+    "jaccard_similarity": lambda raw: [raw("m", "MultiPickList").jaccard_similarity(
+        raw("n", "MultiPickList"))],
+    "detect_languages": lambda raw: [raw("t", "Text").detect_languages()],
+    "parse_phone": lambda raw: [raw("p", "Phone").parse_phone(),
+                                raw("q", "Phone").parse_phone(raw("r", "Text"))],
+    "is_valid_phone": lambda raw: [raw("p", "Phone").is_valid_phone(default_region="GB"),
+                                   raw("q", "Phone").is_valid_phone(raw("r", "Text"))],
+    "to_email_prefix": lambda raw: [raw("e", "Email").to_email_prefix()],
+    "to_email_domain": lambda raw: [raw("e", "Email").to_email_domain()],
+    "is_valid_email": lambda raw: [raw("e", "Email").is_valid_email()],
+    "to_domain": lambda raw: [raw("w", "URL").to_domain()],
+    "to_protocol": lambda raw: [raw("w", "URL").to_protocol()],
+    "is_valid_url": lambda raw: [raw("w", "URL").is_valid_url()],
+    "detect_mime_types": lambda raw: [raw("b", "Base64").detect_mime_types()],
+}
+
+
 class TestDsl:
     @pytest.mark.parametrize("build", [
         lambda p, a, b, s: a + b, lambda p, a, b, s: a - b,
@@ -528,12 +558,15 @@ class TestDsl:
         sc = a.scale()
         assert type(a.descale(sc).origin_stage).__name__ == "DescalerTransformer"
 
-    @pytest.mark.parametrize("name", sorted(T.dsl.UNPORTED_SHORTCUTS))
-    def test_unported_shortcut_raises_naming_its_stage(self, name):
+    @pytest.mark.parametrize("name", sorted(TEXT_SHORTCUTS))
+    def test_text_shortcut_builds_the_reference_stage(self, name):
         assert hasattr(J.features.feature.Feature, name)
-        f = _raw(T, "t", "Text")
-        with pytest.raises(NotImplementedError, match=T.dsl.UNPORTED_SHORTCUTS[name]):
-            getattr(f, name)()
+        got = []
+        for pkg in (J, T):
+            outs = TEXT_SHORTCUTS[name](lambda n, t: _raw(pkg, n, t))
+            got.append([(_stage_of(o), o.ftype.__name__,
+                         getattr(o.origin_stage, "operation_name", None)) for o in outs])
+        assert got[0] == got[1]
 
 
 # -- serde both ways ------------------------------------------------------------------

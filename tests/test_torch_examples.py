@@ -49,6 +49,7 @@ from transmogrifai_tpu_torch.models.trees import (
 )
 from transmogrifai_tpu_torch.perf.kernels.dispatch import use_device
 from transmogrifai_tpu_torch.readers.files import DataReaders
+from transmogrifai_tpu_torch.workflow import fit as TFit
 from transmogrifai_tpu_torch.workflow import workflow as TW
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -305,6 +306,44 @@ class TestIrisRefit:
             Column.vector(E.iris_scoring_vector(model)), "cpu")
         dev = float(np.max(np.abs(col.prob - np.asarray(RECORD["iris"]["scores"]["prob"]))))
         assert dev <= 1e-4 < 1e-2 < bound < 0.05
+
+
+@pytest.fixture(scope="module")
+def text_reviews():
+    import torch_text_data as TD
+
+    with open(os.path.join(REPO, "transmogrifai_tpu_torch", "fixtures", "text_stack",
+                           "record.json")) as fh:
+        want = json.load(fh)["text_reviews"]
+    with use_device("cpu"):
+        got = TD.run_text_reviews(REPO, T, TFit.transform_dag, "cpu")
+    return got, want
+
+
+class TestTextReviews:
+    """``examples/text_reviews.py`` with the import swapped, against the JAX
+    package's record (``fixtures/text_stack``, made by
+    ``tools/make_torch_text_fixture.py``)."""
+
+    def test_fitted_states_and_vector_equal(self, text_reviews):
+        got, want = text_reviews
+        assert got["states"] == want["states"]
+        assert got["vector"] == want["vector"]
+
+    def test_cv_and_metrics_within_the_lr_gate(self, text_reviews):
+        got, want = text_reviews
+        assert [r["grid"] for r in got["cv"]] == [r["grid"] for r in want["cv"]]
+        np.testing.assert_allclose([r["values"] for r in got["cv"]],
+                                   [r["values"] for r in want["cv"]], rtol=0, atol=1e-4)
+        assert got["metrics"].keys() == want["metrics"].keys()
+        for k, v in want["metrics"].items():
+            assert abs(got["metrics"][k] - v) <= 1e-4, k
+
+    def test_side_workflow_maps_equal_every_row(self, text_reviews):
+        got, want = text_reviews
+        assert len(got["languages"]) == len(want["languages"]) == 2000
+        assert got["languages"] == want["languages"]
+        assert got["ner"] == want["ner"]
 
 
 def torch_equal(a, b) -> bool:

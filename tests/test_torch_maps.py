@@ -418,7 +418,6 @@ class TestDsl:
 
         got = _dsl_graph("t", build)
         assert got == _dsl_graph("j", build) and got[1]
-        assert shortcut not in T.dsl.UNPORTED_SHORTCUTS
 
     def test_dsl_vectors_bitwise(self):
         cols, names = _maps(300, seed=14)

@@ -328,9 +328,9 @@ class TestUnportedStages:
     def test_unported_transformer_class_is_named(self, tmp_path):
         def edit(m):
             comb = next(s for s in m["stages"] if s["class"] == "VectorsCombiner")
-            comb["class"] = "TextTokenizer"  # ops/text.py is not ported yet
+            comb["class"] = "SelectedModelCombiner"  # models/combiner.py is not ported
         path = _rewrite_manifest(FIXTURE, str(tmp_path / "m"), edit)
-        with pytest.raises(ValueError, match="TextTokenizer"):
+        with pytest.raises(ValueError, match="SelectedModelCombiner"):
             TModel.load(path)
 
     def test_unported_feature_type_is_named(self, tmp_path):
@@ -364,6 +364,8 @@ from transmogrifai_tpu_torch.ops import bucketizers, collections_lift, maps
 from transmogrifai_tpu_torch.filters import distribution, raw_feature_filter
 from transmogrifai_tpu_torch.types import maps as map_types
 from transmogrifai_tpu_torch.ops import math, misc, onehot, scalers
+from transmogrifai_tpu_torch.ops import domains, embeddings, ner, ner_lang, ner_model, phone
+from transmogrifai_tpu_torch.ops import text as text_ops
 from transmogrifai_tpu_torch.utils import hashing, lang, pretty, text
 from transmogrifai_tpu_torch import native, dsl, params
 from transmogrifai_tpu_torch.aggregators import monoid
@@ -373,7 +375,7 @@ from transmogrifai_tpu_torch.workflow import runner
 serde._register_stages()
 import chip_smoke
 sys.path.insert(0, {repo!r} + "/tests")
-import torch_examples_data, torch_wide_data, torch_encode_cases, torch_maps_data
+import torch_examples_data, torch_wide_data, torch_encode_cases, torch_maps_data, torch_text_data
 bad = sorted(m for m in set(sys.modules) - before
              if m.split(".")[0] in ("jax", "jaxlib", "transmogrifai_tpu"))
 print("BAD=" + ",".join(bad))
@@ -394,7 +396,8 @@ class TestNoJax:
                                       os.path.join("tests", "torch_wide_data.py"),
                                       os.path.join("tests", "torch_families_data.py"),
                                       os.path.join("tests", "torch_examples_data.py"),
-                                      os.path.join("tests", "torch_maps_data.py")])
+                                      os.path.join("tests", "torch_maps_data.py"),
+                                      os.path.join("tests", "torch_text_data.py")])
     def test_ast_scan_finds_no_jax_import(self, root):
         path = os.path.join(REPO, root)
         files = [path] if path.endswith(".py") else [
@@ -421,6 +424,9 @@ class TestNoJax:
                         ("ops", "collections_lift.py"), ("ops", "bucketizers.py"),
                         ("filters", "__init__.py"), ("filters", "distribution.py"),
                         ("filters", "raw_feature_filter.py"),
+                        *(("ops", f"{m}.py") for m in (
+                            "text", "ner", "ner_lang", "ner_model", "embeddings",
+                            "phone", "domains")),
                         *(("readers", f"{m}.py") for m in (
                             "avro", "base", "files", "joined")),
                         *(("serve", f"{m}.py") for m in (

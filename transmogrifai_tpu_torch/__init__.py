@@ -28,7 +28,12 @@ aggregate, conditional and joined readers), and ``workflow/runner.py``'s
 the reference's example apps do; the DSL's arithmetic (``a + b``,
 ``family_size * fare``), ``bucketize``, ``indexed`` and value shortcuts
 build host stages, and ``NumericBucketizer`` a left-closed slot of the
-encode kernel.  It saves (``model.save(path)``) and loads
+encode kernel.  The text stack (``ops/text.py``: tokenizer, stop words,
+n-grams, HashingTF, CountVectorizer, similarities, language detection; NER
+in ``ops/ner.py`` with the learned en/es/nl taggers; phone, e-mail, URL and
+MIME stages; the time-period stages) is host work with the reference's
+outputs, and Word2Vec and LDA (``ops/embeddings.py``) train on the card,
+where ``LDAModel``'s E-step also runs at transform time.  It saves (``model.save(path)``) and loads
 (``WorkflowModel.load(path)``) models in the reference's format, either
 package's, scores them (``model.score``, ``model.evaluate``) and serves
 them: ``model.serving_plan()`` and ``plan.score(records)`` for batches,
@@ -59,6 +64,8 @@ from .models.selector import (  # noqa: F401
 from .models.softmax import MultinomialLogisticRegression  # noqa: F401
 from .models.svm import LinearSVC  # noqa: F401
 from .ops.bucketizers import DecisionTreeNumericBucketizer  # noqa: F401
+from .ops import embeddings as _embeddings  # noqa: F401  (registers Word2Vec/LDA)
+from .ops import ner as _ner  # noqa: F401  (registers NameEntityRecognizer)
 from .ops.combiner import VectorsCombiner  # noqa: F401
 from .ops.numeric import BinaryVectorizer, NumericVectorizer, RealNNVectorizer  # noqa: F401
 from .ops.onehot import OneHotVectorizer  # noqa: F401

@@ -17,13 +17,20 @@ to :class:`~.features.feature.Feature`, as the reference attaches them:
 - per type: ``vectorize(others, white_list_keys, black_list_keys, **kw)``
   (the type's vectorizer, every map kind included; key lists through
   ``filter_keys``), ``to_unit_circle(*periods)`` (a date or a date map),
+  ``to_time_period(period)`` (a date, a date list or a date map),
   ``smart_vectorize()`` (SmartText), ``is_substring(other)``;
+- text: ``tokenize()``, ``detect_languages()``, ``name_entity_tags()``,
+  ``word2vec()``, ``lda_topics()`` (the last two on a token list),
+  ``to_ngram_similarity(other)``, ``jaccard_similarity(other)`` (multi-pick
+  lists);
+- phone, e-mail, URL and MIME: ``parse_phone(region)``,
+  ``is_valid_phone(region)``, ``to_email_prefix()``, ``to_email_domain()``,
+  ``is_valid_email()``, ``to_domain()``, ``to_protocol()``,
+  ``is_valid_url()``, ``detect_mime_types()``;
 - the label: ``label.sanity_check(vector)``.
 
 ``transmogrify(features)`` and ``combine(vectors)`` are the module's
-exports.  The reference's text, NER, embedding, phone, e-mail, URL and
-time-period shortcuts whose stages are not ported yet are attached too:
-each raises ``NotImplementedError`` naming its stage when called.
+exports.
 """
 
 from __future__ import annotations
@@ -100,6 +107,34 @@ def _sanity_check(self: Feature, features: Feature, **params) -> Feature:
     if not self.is_response:
         raise ValueError("sanity_check must be called on the response (label) feature")
     return self.transform_with(SanityChecker(**params), features)
+
+
+def _tokenize(self: Feature, **kw) -> Feature:
+    """Text -> TextList (RichTextFeature.tokenize)."""
+    from .ops.text import TextTokenizer
+
+    return self.transform_with(TextTokenizer(**kw))
+
+
+def _name_entity_tags(self: Feature) -> Feature:
+    """Text -> MultiPickListMap of token -> entity types (RichTextFeature NER)."""
+    from .ops.ner import NameEntityRecognizer
+
+    return self.transform_with(NameEntityRecognizer())
+
+
+def _word2vec(self: Feature, **kw) -> Feature:
+    """TextList -> averaged skip-gram embedding vector (RichTextFeature.word2vec)."""
+    from .ops.embeddings import Word2Vec
+
+    return self.transform_with(Word2Vec(**kw))
+
+
+def _lda_topics(self: Feature, **kw) -> Feature:
+    """TextList -> LDA topic-proportion vector (RichTextFeature.lda)."""
+    from .ops.embeddings import LDA
+
+    return self.transform_with(LDA(**kw))
 
 
 def _indexed(self: Feature, **kw) -> Feature:
@@ -237,11 +272,49 @@ def _to_unit_circle(self: Feature, *periods: str,
     return self.transform_with(cls(**kw), *others)
 
 
+def _to_time_period(self: Feature, period: str) -> Feature:
+    """Date/DateList/DateMap -> extracted calendar field (toTimePeriod)."""
+    from .ops.dates import (
+        TimePeriodListTransformer,
+        TimePeriodMapTransformer,
+        TimePeriodTransformer,
+    )
+    from .types import DateList
+    from .types.maps import DateMap
+
+    if issubclass(self.ftype, DateMap):
+        stage = TimePeriodMapTransformer(period=period)
+    elif issubclass(self.ftype, DateList):
+        stage = TimePeriodListTransformer(period=period)
+    else:
+        stage = TimePeriodTransformer(period=period)
+    return self.transform_with(stage)
+
+
+def _to_ngram_similarity(self: Feature, other: Feature, n: int = 3) -> Feature:
+    from .ops.text import NGramSimilarity
+
+    return self.transform_with(NGramSimilarity(n=n), other)
+
+
+def _jaccard_similarity(self: Feature, other: Feature) -> Feature:
+    from .ops.text import JaccardSimilarity
+
+    return self.transform_with(JaccardSimilarity(), other)
+
+
 def _smart_vectorize(self: Feature, others: Sequence[Feature] = (),
                      **kw) -> Feature:
     from .ops.text_smart import SmartTextVectorizer
 
     return self.transform_with(SmartTextVectorizer(**kw), *others)
+
+
+def _detect_languages(self: Feature) -> Feature:
+    """Text -> RealMap of language confidences (RichTextFeature.detectLanguages)."""
+    from .ops.text import LanguageDetector
+
+    return self.transform_with(LanguageDetector())
 
 
 def _is_substring(self: Feature, other: Feature) -> Feature:
@@ -251,34 +324,71 @@ def _is_substring(self: Feature, other: Feature) -> Feature:
     return self.transform_with(SubstringTransformer(), other)
 
 
-def _unported(stage: str):
-    def method(self: Feature, *args, **kwargs):
-        raise NotImplementedError(
-            f"{stage} is not ported to transmogrifai_tpu_torch yet")
+# -- phone (RichTextFeature.scala:451-544) ----------------------------------
 
-    return method
+def _parse_phone(self: Feature, region: Optional[Feature] = None,
+                 **kw) -> Feature:
+    from .ops.phone import ParsePhoneDefaultCountry, ParsePhoneNumber
+
+    if region is not None:
+        return self.transform_with(ParsePhoneNumber(**kw), region)
+    return self.transform_with(ParsePhoneDefaultCountry(**kw))
 
 
-#: the reference's shortcuts whose stages are not ported yet
-UNPORTED_SHORTCUTS = {
-    "tokenize": "TextTokenizer",
-    "name_entity_tags": "NameEntityRecognizer",
-    "word2vec": "Word2Vec",
-    "lda_topics": "LDA",
-    "to_time_period": "TimePeriodTransformer",
-    "to_ngram_similarity": "NGramSimilarity",
-    "jaccard_similarity": "JaccardSimilarity",
-    "detect_languages": "LanguageDetector",
-    "parse_phone": "ParsePhoneNumber",
-    "is_valid_phone": "IsValidPhoneNumber",
-    "to_email_prefix": "ops.domains.email_prefix",
-    "to_email_domain": "ops.domains.email_domain",
-    "is_valid_email": "ValidEmailTransformer",
-    "to_domain": "UrlToDomainTransformer",
-    "to_protocol": "ops.domains.url_protocol",
-    "is_valid_url": "ValidUrlTransformer",
-    "detect_mime_types": "MimeTypeDetector",
-}
+def _is_valid_phone(self: Feature, region: Optional[Feature] = None,
+                    **kw) -> Feature:
+    from .ops.phone import IsValidPhoneDefaultCountry, IsValidPhoneNumber
+
+    if region is not None:
+        return self.transform_with(IsValidPhoneNumber(**kw), region)
+    return self.transform_with(IsValidPhoneDefaultCountry(**kw))
+
+
+# -- email / url / base64 (RichTextFeature.scala:565-687) -------------------
+
+def _to_email_prefix(self: Feature) -> Feature:
+    from .ops.domains import email_prefix
+    from .types import Text
+
+    return self.map_to(email_prefix, Text, name="emailPrefix")
+
+
+def _to_email_domain(self: Feature) -> Feature:
+    from .ops.domains import email_domain
+    from .types import Text
+
+    return self.map_to(email_domain, Text, name="emailDomain")
+
+
+def _is_valid_email(self: Feature) -> Feature:
+    from .ops.domains import ValidEmailTransformer
+
+    return self.transform_with(ValidEmailTransformer())
+
+
+def _to_domain(self: Feature) -> Feature:
+    from .ops.domains import UrlToDomainTransformer
+
+    return self.transform_with(UrlToDomainTransformer())
+
+
+def _to_protocol(self: Feature) -> Feature:
+    from .ops.domains import url_protocol
+    from .types import Text
+
+    return self.map_to(url_protocol, Text, name="urlProtocol")
+
+
+def _is_valid_url(self: Feature) -> Feature:
+    from .ops.domains import ValidUrlTransformer
+
+    return self.transform_with(ValidUrlTransformer())
+
+
+def _detect_mime_types(self: Feature) -> Feature:
+    from .ops.domains import MimeTypeDetector
+
+    return self.transform_with(MimeTypeDetector())
 
 
 def combine(features: Sequence[Feature], name: str = "combined") -> Feature:
@@ -315,8 +425,22 @@ Feature.vectorize = _vectorize
 Feature.to_unit_circle = _to_unit_circle
 Feature.smart_vectorize = _smart_vectorize
 Feature.is_substring = _is_substring
-for _name, _stage in UNPORTED_SHORTCUTS.items():
-    setattr(Feature, _name, _unported(_stage))
-del _name, _stage
+Feature.tokenize = _tokenize
+Feature.name_entity_tags = _name_entity_tags
+Feature.word2vec = _word2vec
+Feature.lda_topics = _lda_topics
+Feature.to_time_period = _to_time_period
+Feature.to_ngram_similarity = _to_ngram_similarity
+Feature.jaccard_similarity = _jaccard_similarity
+Feature.detect_languages = _detect_languages
+Feature.parse_phone = _parse_phone
+Feature.is_valid_phone = _is_valid_phone
+Feature.to_email_prefix = _to_email_prefix
+Feature.to_email_domain = _to_email_domain
+Feature.is_valid_email = _is_valid_email
+Feature.to_domain = _to_domain
+Feature.to_protocol = _to_protocol
+Feature.is_valid_url = _is_valid_url
+Feature.detect_mime_types = _detect_mime_types
 
 __all__ = ["transmogrify", "combine"]

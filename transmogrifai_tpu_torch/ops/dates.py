@@ -1,6 +1,6 @@
-"""Date vectorizers (counterpart of ``transmogrifai_tpu/ops/dates.py``):
-calendar periods, the unit-circle projection of dates and the date-list
-pivots.
+"""Date stages (counterpart of ``transmogrifai_tpu/ops/dates.py``):
+calendar periods and the time-period transformers of a date, a date list and
+a date map, the unit-circle projection of dates and the date-list pivots.
 
 ``extract_time_period`` is numpy ``datetime64`` calendar math in UTC with
 java.time's conventions, as in the reference; torch has no calendar math, and
@@ -15,8 +15,8 @@ from typing import List
 import numpy as np
 
 from ..data.dataset import Column
-from ..stages.base import Param, SequenceTransformer
-from ..types import Date, DateList, OPVector
+from ..stages.base import Param, SequenceTransformer, UnaryTransformer
+from ..types import Date, DateList, DateMap, Integral, IntegralMap, OPVector
 from ..utils.vector_metadata import NULL_INDICATOR, VectorColumnMetadata, VectorMetadata
 
 #: the periods DateToUnitCircleVectorizer projects by default, and their sizes
@@ -54,6 +54,79 @@ def extract_time_period(ms: np.ndarray, period: str) -> np.ndarray:
         ordinal = (days - first).astype(np.int64)  # 0-based day within month/year
         return (ordinal + first_dow) // 7 + 1
     raise ValueError(f"Unknown time period {period!r}")
+
+
+class TimePeriodTransformer(UnaryTransformer):
+    """Date -> Integral calendar ordinal (reference TimePeriodTransformer.scala)."""
+
+    input_types = (Date,)
+    output_type = Integral
+
+    period = Param(default="DayOfMonth", validator=lambda v: v in ALL_TIME_PERIODS)
+
+    def transform_columns(self, cols, dataset):
+        col = cols[0]
+        vals = extract_time_period(col.data.astype(np.int64), self.period)
+        return Column(Integral, vals.astype(np.int64), col.present())
+
+
+class TimePeriodListTransformer(UnaryTransformer):
+    """DateList -> OPVector of per-event ordinals (TimePeriodListTransformer.scala)."""
+
+    input_types = (DateList,)
+    output_type = OPVector
+
+    period = Param(default="DayOfMonth", validator=lambda v: v in ALL_TIME_PERIODS)
+    max_elements = Param(default=16, doc="static width: lists pad/truncate to this")
+    pad_value = Param(default=-1.0, doc="slot filler for missing events; -1 cannot "
+                                        "collide with any real ordinal (HourOfDay min is 0)")
+
+    def transform_columns(self, cols, dataset):
+        import warnings
+
+        f = self.inputs[0]
+        lists = cols[0].to_values()
+        width = self.max_elements
+        block = np.full((len(lists), width), float(self.pad_value), dtype=np.float32)
+        truncated = 0
+        for i, lst in enumerate(lists):
+            if not lst:
+                continue
+            if len(lst) > width:
+                truncated += 1
+            ms = np.asarray(lst[:width], dtype=np.int64)
+            block[i, :len(ms)] = extract_time_period(ms, self.period)
+        if truncated:
+            warnings.warn(
+                f"{type(self).__name__}: {truncated} rows had more than "
+                f"{width} events; excess events were dropped (raise max_elements)")
+        meta_cols = [VectorColumnMetadata(
+            f.name, f.ftype.__name__, grouping=f.name,
+            descriptor_value=f"{self.period}_{j}") for j in range(width)]
+        meta = VectorMetadata(self.output_name, meta_cols,
+                              {f.name: f.history()}).reindexed()
+        return Column.vector(block, meta)
+
+
+class TimePeriodMapTransformer(UnaryTransformer):
+    """DateMap -> IntegralMap of ordinals (TimePeriodMapTransformer.scala)."""
+
+    input_types = (DateMap,)
+    output_type = IntegralMap
+
+    period = Param(default="DayOfMonth", validator=lambda v: v in ALL_TIME_PERIODS)
+
+    def transform_columns(self, cols, dataset):
+        out = []
+        for m in cols[0].to_values():
+            if not m:
+                out.append(None)
+            else:
+                ks = list(m)
+                ms = np.asarray([int(m[k]) for k in ks], dtype=np.int64)
+                ords = extract_time_period(ms, self.period)
+                out.append({k: int(o) for k, o in zip(ks, ords)})
+        return Column.from_values(IntegralMap, out)
 
 
 def _period_values(ms: np.ndarray, period: str) -> np.ndarray:

@@ -9,8 +9,11 @@ Lambdas and closures cannot round-trip and are refused at save time.
 Feature types cross between the packages by name: a port type saves under
 the reference's module path (``transmogrifai_tpu.types.<module>:<Name>``,
 written as a string, never imported here), and such a path loads as the
-port's type of that name.  Any other path into the reference package is
-refused on load: the port never imports it.
+port's type of that name.  So do the value helpers the DSL stores in its
+stages (``ops.domains``' ``email_prefix``, ``email_domain``,
+``url_protocol``): the port's and the reference's module of that name hold
+the same functions.  Any other path into the reference package is refused on
+load: the port never imports it.
 """
 
 from __future__ import annotations
@@ -25,6 +28,9 @@ FN_REGISTRY: Dict[str, Callable] = {}
 _FN_NAMES: Dict[int, str] = {}
 _REFERENCE = "transmogrifai_tpu"
 _TYPES_PREFIX = _REFERENCE + ".types."
+_PORT = __name__.split(".")[0]
+#: modules of value helpers that save under the reference's module path
+_MIRRORED_MODULES = ("ops.domains",)
 
 
 def register_function(name: str):
@@ -54,6 +60,9 @@ def encode_function(fn: Callable) -> Optional[dict]:
             for part in qual.split("."):
                 obj = getattr(obj, part)
             if obj is fn:
+                for m in _MIRRORED_MODULES:
+                    if mod == f"{_PORT}.{m}":
+                        mod = f"{_REFERENCE}.{m}"
                 return {"__imported_fn__": f"{mod}:{qual}"}
         except Exception:
             pass
@@ -74,6 +83,9 @@ def decode_function(desc: dict) -> Callable:
         if isinstance(cls, type) and issubclass(cls, FeatureType):
             return cls
         return feature_type_by_name(qual)   # raises, naming the type
+    for m in _MIRRORED_MODULES:
+        if mod == f"{_REFERENCE}.{m}":
+            mod = f"{_PORT}.{m}"
     if mod == _REFERENCE or mod.startswith(_REFERENCE + "."):
         raise ValueError(
             f"saved function {desc['__imported_fn__']!r} lives in the JAX "

@@ -1,6 +1,5 @@
-"""Host text utilities: tokenization and language-aware analysis (the
-port's copy of ``transmogrifai_tpu/utils/text.py``: ``tokenize`` and
-``analyze``; the sentence splitter and n-gram helpers are not ported).
+"""Host text utilities: tokenization, n-grams, language-aware analysis and
+sentence splitting (the port's copy of ``transmogrifai_tpu/utils/text.py``).
 
 The roles of TransmogrifAI's LuceneTextAnalyzer and TextTokenizer, as simple
 host functions: strings never reach the device; the tokenizers feed the
@@ -10,7 +9,7 @@ hashing trick, whose count blocks do.
 from __future__ import annotations
 
 import re
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 _TOKEN_RE = re.compile(r"[^\W\d_]+|\d+", re.UNICODE)
 
@@ -85,6 +84,20 @@ def tokenize(
     return tokens
 
 
+def ngrams(tokens: Sequence[str], n: int = 2) -> List[str]:
+    """Word n-grams (reference OpNGram)."""
+    if n <= 1:
+        return list(tokens)
+    return [" ".join(tokens[i:i + n]) for i in range(len(tokens) - n + 1)]
+
+
+def char_ngrams(text: str, n: int = 3) -> List[str]:
+    """Character n-grams (reference NGramSimilarity's Lucene char-ngram analyzer)."""
+    if len(text) < n:
+        return [text] if text else []
+    return [text[i:i + n] for i in range(len(text) - n + 1)]
+
+
 # Language identification, per-language stopwords, and stemming live in
 # utils/lang.py (30+ language char-n-gram profiles, 10 Snowball-style
 # stemmers — the optimaize LanguageDetector + LuceneTextAnalyzer roles).
@@ -146,3 +159,54 @@ def analyze(
         tokens = stem_tokens(tokens, lang)
     return tokens
 
+
+_ABBREVIATIONS = frozenset({
+    "mr", "mrs", "ms", "dr", "prof", "sr", "jr", "st", "vs", "inc",
+    "corp", "ltd", "dept", "univ", "approx", "fig",
+    "e.g", "i.e", "u.s", "u.k",
+})
+
+#: per-language EXTRA abbreviation sets — kept out of the English default so
+#: short English words ("nr", "tel") never suppress English boundaries
+#: selected by split_sentences(language=...)
+_ABBREVIATIONS_LANG = {
+    "es": frozenset({"sra", "srta", "dra", "avda", "núm", "pág", "tel",
+                     "ud", "uds"}),
+    "nl": frozenset({"dhr", "mevr", "drs", "ir", "nr", "bv", "n.v", "b.v",
+                     "o.a"}),
+}
+
+_SENTENCE_END_RE = re.compile(r"([.!?]+)(\s+|$)")
+
+
+def split_sentences(text: Optional[str], language: str = "en") -> List[str]:
+    """Abbreviation-aware sentence splitter (OpenNLPSentenceSplitter role —
+    the reference likewise ships per-language sentence models,
+    OpenNLPModels.scala:48-70).
+
+    Splits on ./!/? followed by whitespace, except after known abbreviations
+    (the English base set plus ``language``'s extras) and single initials
+    ("J. Doe" — but not the pronoun "I").
+    """
+    abbrevs = _ABBREVIATIONS | _ABBREVIATIONS_LANG.get(language, frozenset())
+    if not text:
+        return []
+    sentences: List[str] = []
+    start = 0
+    for m in _SENTENCE_END_RE.finditer(text):
+        end = m.end(1)
+        prev_word = text[start:m.start(1)].rsplit(None, 1)
+        last = prev_word[-1] if prev_word else ""
+        low = last.lower().rstrip(".")
+        if m.group(1) == ".":
+            is_initial = len(last) == 1 and last.isupper() and last != "I"
+            if low in abbrevs or is_initial:
+                continue  # abbreviation or initial, not a boundary
+        chunk = text[start:end].strip()
+        if chunk:
+            sentences.append(chunk)
+        start = m.end()
+    tail = text[start:].strip()
+    if tail:
+        sentences.append(tail)
+    return sentences

@@ -70,13 +70,18 @@ def _register_stages() -> None:
         collections_lift,
         combiner,
         dates,
+        domains,
+        embeddings,
         geo,
         maps,
         math,
         misc,
+        ner,
         numeric,
         onehot,
+        phone,
         scalers,
+        text,
         text_lists,
         text_smart,
     )
