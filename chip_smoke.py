@@ -294,7 +294,34 @@ Phases, one JSON line each:
                load -> 16 served batches of 1024 (one encode launch a batch,
                LDAModel's E-step on the card a batch), and NER alone on
                TEXT_NER_ROWS documents.
-20. summary  — nvidia-smi's line, then one {"kernels": [...]} line, then the
+20. workflow_cv — the wide pipeline (phase 10's table, 3 folds; LR over 2
+               grids and an MLP with 10 tanh units) through
+               Workflow().with_workflow_cv().train() on the card: the
+               bucketizers and the checker re-fitted per fold, every fold's
+               8 bucketize slots transformed in ONE encode launch.  (a) At
+               the record's 8192 rows (fixtures/workflow_cv, the JAX
+               package's, the MLP's draws fed from it): every fold's splits,
+               kept indices and vector sha256 equal, LR CV within 1e-4, MLP
+               CV within WCV_MLP_TOL, the winner, the refit within rtol 1e-4
+               / atol 1e-5; the fold transform one launch of 3 x 8 slots,
+               bitwise against encode_slots_torch on the card, and every
+               fold's vector bitwise the CPU plan's; model_insights() of the
+               JAX-saved model equal to the record (1e-6 relative), the
+               card-trained one's within WCV_TRAINED_INSIGHTS_TOL and its
+               MLP CV entries within WCV_MLP_TOL; the MLP swept again with TF32 on (a control of
+               lower precision, its deviation printed); LOCO of the
+               JAX-saved model over 256 rows on the card within 1e-9 of the
+               record.  (b) At WCV_ROWS, the counters zeroed just before:
+               seconds by part (the before fit, each fold's bucketizer and
+               checker fits and flushes, the fold transform and its launch
+               by CUDA events beside its bound, its plain version and the
+               library composite, each fold's sweep by family, the MLP's
+               Adam steps/s, the refit), the same train without workflow CV
+               beside it, peak device memory.  (c) LOCO over WCV_LOCO_ROWS
+               served records of that model on the card: the active pairs
+               re-scored, the device and host milliseconds, records/s, and
+               model_insights()'s seconds.
+21. summary  — nvidia-smi's line, then one {"kernels": [...]} line, then the
                last line {"ok": true, "device": {...}}.
 
 Phase 3 also holds K5 past shared memory (a 5000-split slot, its own launch
@@ -392,6 +419,18 @@ MAPS_SLOTS = 3
 TEXT_FIXTURE = os.path.join("transmogrifai_tpu_torch", "fixtures", "text_stack")
 TEXT_ROWS = 1 << 15
 TEXT_NER_ROWS = 4096
+#: the JAX package's record of the wide pipeline trained with workflow-level
+#: CV (tools/make_torch_workflow_cv_fixture.py), the rows of phase 20's
+#: timed train and its served LOCO records; the MLP's CV metrics are held
+#: to WCV_MLP_TOL of the record, as LR's are
+WCV_FIXTURE = os.path.join("transmogrifai_tpu_torch", "fixtures", "workflow_cv")
+WCV_ROWS = 1 << 18
+WCV_LOCO_ROWS = 1024
+WCV_MLP_TOL = 1e-4
+#: the card-trained model's insights against the record, the MLP's CV
+#: entries aside: they carry the refit's float32 work (its coefficients,
+#: the checker's statistics), as the coefficients' own rule does
+WCV_TRAINED_INSIGHTS_TOL = 1e-5
 #: CV metric tolerance of each family against the reference's record
 FAMILY_TOL = {"LogisticRegression": 1e-4, "LinearSVC": 1e-4,
               "RandomForestClassifier": 1e-6, "GradientBoostedTreesClassifier": 1e-3}
@@ -2083,8 +2122,7 @@ def _flush_operands(model, handles, ds, dev):
     runners = [model.fitted.get(s.uid, s) for layer in compute_dag([vec])
                for s in layer]
     plan = ColumnarTransformPlan(runners, frozenset(ds.names), dev)
-    ops, _ = plan._place(plan._host_entries(ds), ds.n_rows)
-    return plan, [ops[i] for i in plan._encode_inputs]
+    return plan, plan.encode_operands(ds)
 
 
 def phase_training_raw(torch, KE, dev) -> dict:
@@ -3738,6 +3776,363 @@ def phase_text(torch, KE, dev) -> dict:
     return out
 
 
+# -- workflow-level CV, ModelInsights and LOCO -------------------------------------
+
+def _wcv_train(torch, ds, schema, dev, wcv: bool):
+    """The wide pipeline over ``ds`` with the workflow-CV selector (3 folds,
+    LR + MLP; tests/torch_wide_data.py::wcv_models) trained on ``dev``, with
+    workflow-level CV or without.  Returns (model, workflow, handles,
+    seconds)."""
+    import transmogrifai_tpu_torch as T
+    from torch_wide_data import WCV_FOLDS, wcv_models, wide_pipeline
+    from transmogrifai_tpu_torch.types import feature_type_by_name
+
+    ftypes = {s["name"]: feature_type_by_name(s["type"]) for s in schema}
+    label, sel, chk, pred = wide_pipeline(T, ftypes, schema, WCV_FOLDS, wcv_models(T))
+    wf = T.Workflow().set_input_dataset(ds).set_result_features(label, pred)
+    if wcv:
+        wf = wf.with_workflow_cv()
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    model = wf.train(device=dev)
+    _sync(torch, dev)
+    return model, wf, {"label": label, "sel": sel, "chk": chk, "pred": pred}, \
+        time.perf_counter() - t0
+
+
+class _FoldCapture:
+    """Wraps workflow/fit.py's fused_fold_transforms for one train: keeps its
+    dataset, ``during`` stages, fold maps and fold datasets."""
+
+    def __init__(self):
+        from transmogrifai_tpu_torch.workflow import fit as F
+
+        self.F, self.real, self.seen = F, F.fused_fold_transforms, {}
+
+    def __enter__(self):
+        def capture(dataset, during, maps, *a, **kw):
+            out = self.real(dataset, during, maps, *a, **kw)
+            self.seen.update(dataset=dataset, during=during, maps=maps, out=out)
+            return out
+
+        self.F.fused_fold_transforms = capture
+        return self
+
+    def __exit__(self, *exc):
+        self.F.fused_fold_transforms = self.real
+
+
+def _record_draws(arrays: dict):
+    """The MLP's initial draws from the record (the reference's
+    ``jax.random`` draws by network size), as models/mlp.py's seam returns
+    them."""
+    import torch
+    from torch_wide_data import mlp_key
+
+    def draws(sizes, seed, device):
+        return [(torch.from_numpy(arrays[mlp_key(sizes, seed, i, "w")].copy()).to(device),
+                 torch.from_numpy(arrays[mlp_key(sizes, seed, i, "b")].copy()).to(device))
+                for i in range(len(sizes) - 1)]
+
+    return draws
+
+
+def _tf32_on(torch):
+    """A stand-in for ``full_f32`` that lets float32 products use TF32 (the
+    MLP control of lower precision)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def tf32_on():
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+
+    return tf32_on
+
+
+def _fold_table(torch, KE, cap: dict, dev, time_it: bool) -> dict:
+    """The fold transform's one launch rebuilt from a captured train: bitwise
+    against encode_slots_torch on the card, and with ``time_it`` timed beside
+    its bound (each distinct operand read once -- every fold's bucketize
+    slots of one raw column read the same tensor -- and n*sum(W_f)*4 bytes
+    out, over the card's memory rate), its plain version and the library
+    composite."""
+    from transmogrifai_tpu_torch.workflow.plan import FoldTransformPlan
+
+    ds = cap["dataset"]
+    plan = FoldTransformPlan([[m[s.uid] for s in cap["during"]] for m in cap["maps"]],
+                             frozenset(ds.names), dev)
+    table, n = plan.table, ds.n_rows
+    ins = plan.encode_operands(ds)
+    buf = torch.empty((n, -(-table.width // 4) * 4), device=dev)[:, :table.width]
+    KE.encode_slots(ins, table, buf)
+    torch.cuda.synchronize()
+    check(torch.equal(buf, KE.encode_slots_torch(ins, table)),
+          f"the fold transform's launch of {len(table)} slots bitwise at {n} rows")
+    out = {"rows": n, "folds": len(plan.plans), "slots": len(table),
+           "columns": table.width, "chunks": len(table.chunks), "max_abs_err": 0.0}
+    if time_it:
+        distinct = {id(t): t for t in ins}.values()
+        nbytes = sum(t.nbytes for t in distinct) + n * table.width * 4
+        out.update({
+            "operands": len(ins), "distinct_operands": len(distinct),
+            "ms": time_big_ms(lambda: KE.encode_slots(ins, table, buf), runs=21, warmup=3),
+            "plain_ms": time_big_ms(lambda: KE.encode_slots_torch(ins, table, buf), runs=5),
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "library_ms": time_big_ms(lambda: _table_library(torch, ins, table), runs=5),
+            "library": "per slot torch.bucketize + torch.nn.functional.one_hot "
+                       "(buckets only), then torch.cat"})
+    return out
+
+
+def _split_slots(seen: dict) -> int:
+    """Bucketize slots of a captured train's folds: one per fold and
+    bucketizer that found a split."""
+    return sum(1 for m in seen["maps"] for r in m.values()
+               if type(r).__name__ == "DecisionTreeNumericBucketizerModel" and r.should_split)
+
+
+def _wcv_parts(prof: list) -> dict:
+    """Seconds by part of a workflow-CV train's profile: the before fit (the
+    records before the first fold's), each fold's fits and flushes, the fold
+    transform, each fold's sweep by family, and the refit (the records after
+    the last sweep)."""
+    first = next(i for i, r in enumerate(prof) if "fold" in r)
+    last = max(i for i, r in enumerate(prof) if r["kind"] == "fold_sweep")
+    folds: dict = {}
+    for r in prof[first:last + 1]:
+        if r["kind"] in ("fit", "flush") and "fold" in r:
+            part = folds.setdefault(r["fold"], {"bucketizers_s": 0.0, "checker_s": 0.0,
+                                                "flushes_s": 0.0, "flush_encode_ms": []})
+            if r["kind"] == "flush":
+                part["flushes_s"] += r["seconds"]
+                if r.get("encode_ms") is not None:
+                    part["flush_encode_ms"].append(r["encode_ms"])
+            elif r["stage"] == "SanityChecker":
+                part["checker_s"] += r["seconds"]
+            else:
+                part["bucketizers_s"] += r["seconds"]
+    [ft] = [r for r in prof if r["kind"] == "fold_transform"]
+    sweeps = [r for r in prof if r["kind"] == "fold_sweep"]
+    return {"before_s": sum(r["seconds"] for r in prof[:first]),
+            "before_fits": sum(r["kind"] == "fit" for r in prof[:first]),
+            "folds": [folds[f] for f in sorted(folds)],
+            "fold_transform": {k: ft.get(k) for k in (
+                "seconds", "plans", "encode_slots", "encode_width", "encode_launches",
+                "encode_ms", "host_encode_s", "device_s", "d2h_s", "host_stages_s",
+                "h2d_copies", "h2d_bytes", "d2h_bytes")},
+            "fold_sweeps": [{"fold": r["fold"], "seconds": r["seconds"],
+                             "width": r["width"], "family_seconds": r["family_seconds"]}
+                            for r in sweeps],
+            "refit_s": sum(r["seconds"] for r in prof[last + 1:])}
+
+
+def phase_workflow_cv(torch, KE, dev) -> dict:
+    """Workflow-level CV, ModelInsights and LOCO on the card: (a) the
+    record's 8192-row train against fixtures/workflow_cv; (b) the train at
+    WCV_ROWS by part beside the same train without workflow CV; (c) LOCO
+    over WCV_LOCO_ROWS served records and model_insights()."""
+    import numpy as np
+
+    import transmogrifai_tpu_torch as T
+    from torch_wide_data import (
+        WCV_MLP_GRIDS,
+        fold_states,
+        insights_deviation,
+        loco_deviation,
+        make_data,
+        mlp_fold_cv,
+        split_family_cv,
+    )
+    from transmogrifai_tpu_torch.insights import RecordInsightsLOCO
+    from transmogrifai_tpu_torch.insights.model_insights import _json_default
+    from transmogrifai_tpu_torch.models import mlp as TM
+    from transmogrifai_tpu_torch.types import feature_type_by_name
+    from transmogrifai_tpu_torch.workflow.plan import fused_fold_transforms
+
+    def plain(d):
+        return json.loads(json.dumps(d, default=_json_default))
+
+    with open(os.path.join(WCV_FIXTURE, "states.json")) as fh:
+        states = json.load(fh)
+    with np.load(os.path.join(WCV_FIXTURE, "mlp_init.npz")) as npz:
+        draws = {k: npz[k] for k in npz.files}
+
+    # (a) parity with the record at its rows, the MLP's draws fed from it
+    t0 = time.perf_counter()
+    cols, schema = make_data(states["rows"], seed=states["seed"], **states["shape"])
+    ftypes = {s["name"]: feature_type_by_name(s["type"]) for s in schema}
+    ds = T.Dataset.from_features(cols, ftypes)
+    own_draws = TM.draw_mlp_init
+    TM.draw_mlp_init = _record_draws(draws)
+    try:
+        KE.reset_launch_counts()
+        with _FoldCapture() as cap:
+            model, wf, h, seconds_a = _wcv_train(torch, ds, schema, dev, wcv=True)
+        launches_a = KE.launch_counts()
+    finally:
+        TM.draw_mlp_init = own_draws
+    seen = cap.seen
+    folds = fold_states(seen["maps"], seen["out"], h["sel"].inputs[1].name)
+    for f, (g, w) in enumerate(zip(folds, states["folds"])):
+        check(g["splits"] == w["splits"], f"fold {f}: bucketizer splits equal to the record")
+        check(g["kept"] == w["kept"], f"fold {f}: kept indices equal to the record")
+        check(g["vector"] == w["vector"], f"fold {f}: vector sha256 equal to the record")
+    check(len(folds) == len(states["folds"]) == 3, "3 folds")
+    summary = model.summary()
+    cv_dev = {}
+    for ev, r in zip(summary.validation_results, states["cv"]):
+        grid = {k: list(v) if isinstance(v, tuple) else v for k, v in ev.grid.items()}
+        check((ev.model_name, grid) == (r["model"], r["grid"]), f"CV row {r['model']}")
+        d = float(np.max(np.abs(np.asarray(ev.metric_values) - np.asarray(r["values"]))))
+        cv_dev[ev.model_name] = max(cv_dev.get(ev.model_name, 0.0), d)
+    check(len(summary.validation_results) == len(states["cv"]), "every CV row")
+    check(cv_dev["LogisticRegression"] <= 1e-4, f"LR CV within 1e-4 ({cv_dev})")
+    check(cv_dev["MultilayerPerceptronClassifier"] <= WCV_MLP_TOL,
+          f"MLP CV within {WCV_MLP_TOL} ({cv_dev})")
+    win = states["winner"]
+    check((summary.best_model_name, summary.best_grid) == (win["name"], win["grid"]),
+          f"winner {summary.best_model_name} {summary.best_grid} == the record's")
+    got_win = model.selector_model().model
+    coef_dev = float(np.max(np.abs(np.asarray(got_win.coef) - np.asarray(win["coef"]))))
+    check(np.allclose(got_win.coef, win["coef"], rtol=1e-4, atol=1e-5)
+          and np.isclose(got_win.intercept, win["intercept"], rtol=1e-4, atol=1e-5),
+          f"refit coefficients within rtol 1e-4 / atol 1e-5 ({coef_dev})")
+    [ft_a] = [r for r in wf.last_train_profile if r["kind"] == "fold_transform"]
+    check(ft_a["encode_launches"] == 1 and ft_a["encode_slots"] == _split_slots(seen) == 24,
+          f"the fold transform: one launch of 3 x 8 slots ({ft_a})")
+    table_a = _fold_table(torch, KE, seen, dev, time_it=False)
+    cpu_folds = fused_fold_transforms(seen["dataset"], seen["during"], seen["maps"],
+                                      torch.device("cpu"))
+    vec_name = h["sel"].inputs[1].name
+    for f, (c, p) in enumerate(zip(seen["out"], cpu_folds)):
+        check(c[vec_name].data.tobytes() == p[vec_name].data.tobytes(),
+              f"fold {f}'s vector on the card bitwise the CPU plan's")
+    jax_model = T.WorkflowModel.load(WCV_FIXTURE)
+    with open(os.path.join(WCV_FIXTURE, "insights.json")) as fh:
+        want_ins = json.load(fh)
+    ins_dev = insights_deviation(want_ins, plain(jax_model.model_insights().to_dict()))
+    check(ins_dev <= 1e-6, f"the JAX-saved model's insights equal the record ({ins_dev})")
+    got_ins = plain(model.model_insights().to_dict())
+    got_ins["stageInfo"] = sorted(v["class"] for v in got_ins["stageInfo"].values())
+    want_cmp = dict(want_ins, stageInfo=sorted(v["class"]
+                                               for v in want_ins["stageInfo"].values()))
+    # its selection summary carries the MLP's CV metrics: held as the CV is
+    want_rest, want_mlp = split_family_cv(want_cmp, "MultilayerPerceptronClassifier")
+    got_rest, got_mlp = split_family_cv(got_ins, "MultilayerPerceptronClassifier")
+    ins_seen: list = []
+    trained_ins_dev = insights_deviation(want_rest, got_rest, frozenset({"bestModelUID"}),
+                                         seen=ins_seen)
+    trained_ins_worst = sorted(ins_seen, reverse=True)[:5]
+    check(trained_ins_dev <= WCV_TRAINED_INSIGHTS_TOL,
+          f"the card-trained model's insights within {WCV_TRAINED_INSIGHTS_TOL} of the "
+          f"record, the MLP's CV entries aside ({trained_ins_worst})")
+    trained_mlp_dev = float(np.max(np.abs(np.subtract(got_mlp, want_mlp))))
+    check(len(got_mlp) == len(want_mlp) > 0 and trained_mlp_dev <= WCV_MLP_TOL,
+          f"its MLP CV entries within {WCV_MLP_TOL} ({trained_mlp_dev})")
+    # the control: the MLP swept again on the run's fold vectors with TF32 on
+    want_cv = [r["values"] for r in states["cv"]
+               if r["model"] == "MultilayerPerceptronClassifier"]
+    own_f32 = TM.full_f32
+    TM.draw_mlp_init, TM.full_f32 = _record_draws(draws), _tf32_on(torch)
+    try:
+        tf32_cv = mlp_fold_cv(h["sel"], seen["out"], dev)
+    finally:
+        TM.draw_mlp_init, TM.full_f32 = own_draws, own_f32
+    tf32_dev = float(np.max(np.abs(tf32_cv - np.asarray(want_cv))))
+    with open(os.path.join(WCV_FIXTURE, "loco.json")) as fh:
+        rec = json.load(fh)
+    vec = jax_model.score(ds.take(np.arange(rec["rows"])), keep_intermediate=True,
+                          device=dev)[rec["vector"]]
+    loco_dev = {}
+    for strategy in ("abs", "positive"):
+        t = RecordInsightsLOCO(jax_model.selector_model(), top_k=rec[strategy]["top_k"],
+                               strategy=strategy, device=dev)
+        got = t.transform_columns([vec], None)
+        loco_dev[strategy] = loco_deviation(rec[strategy]["rows"], list(got.data), strategy)
+        check(loco_dev[strategy] <= 1e-9,
+              f"LOCO ({strategy}) of the JAX-saved model within 1e-9 of the record "
+              f"({loco_dev[strategy]})")
+    parity = {"rows": states["rows"], "train_seconds": seconds_a,
+              "phase_seconds": time.perf_counter() - t0, "cv_max_abs_dev": cv_dev,
+              "coef_max_abs_dev": coef_dev, "insights_rel_dev": ins_dev,
+              "trained_insights_rel_dev": trained_ins_dev,
+              "trained_insights_worst": trained_ins_worst,
+              "trained_insights_differing": len(ins_seen),
+              "trained_insights_mlp_cv_dev": trained_mlp_dev,
+              "mlp_cv_tf32_control_dev": tf32_dev, "loco_max_abs_dev": loco_dev,
+              "launches": launches_a, "fold_transform": table_a}
+    del model, wf, cap, seen, cpu_folds, jax_model, ds, cols
+
+    # (b) the train at WCV_ROWS by part, beside the same train without
+    # workflow CV
+    t0 = time.perf_counter()
+    cols, schema = make_data(WCV_ROWS, seed=0, **states["shape"])
+    ds = T.Dataset.from_features(cols, {s["name"]: feature_type_by_name(s["type"])
+                                        for s in schema})
+    del cols
+    data_s = time.perf_counter() - t0
+    _, _, _, plain_seconds = _wcv_train(torch, ds, schema, dev, wcv=False)
+    torch.cuda.reset_peak_memory_stats()
+    KE.reset_launch_counts()
+    with _FoldCapture() as cap:
+        model, wf, h, seconds = _wcv_train(torch, ds, schema, dev, wcv=True)
+    launches = KE.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    parts = _wcv_parts(wf.last_train_profile)
+    ft = parts["fold_transform"]
+    check(ft["encode_launches"] == 1 and ft["encode_slots"] == _split_slots(cap.seen) > 3,
+          f"the fold transform at {WCV_ROWS} rows: one launch of every fold's "
+          f"bucketize slots ({ft})")
+    check(launches["encode_slots"] >= 1 and launches["onehot_codes"] == 0
+          and launches["bucketize_right_encode"] == 0,
+          f"the workflow-CV train launches the encode kernel: {launches}")
+    summary = model.summary()
+    for e in summary.validation_results:
+        check(all(np.isfinite(v) for v in e.metric_values), f"finite CV {e}")
+    table = _fold_table(torch, KE, cap.seen, dev, time_it=True)
+    table["in_train_ms"] = ft["encode_ms"]
+    mlp_s = [r["family_seconds"].get("MultilayerPerceptronClassifier") for r
+             in parts["fold_sweeps"]]
+    steps = 200 * len(WCV_MLP_GRIDS)   # max_iter Adam steps a grid point, folds batched
+    timed = {"rows": WCV_ROWS, "train_seconds": seconds, "plain_train_seconds": plain_seconds,
+             "data_host_seconds": data_s, "parts_seconds": parts,
+             "mlp_adam_steps_per_s": [steps / s for s in mlp_s if s],
+             "launches": launches, "max_memory_allocated_bytes": peak,
+             "winner": summary.best_model_name, "winner_grid": summary.best_grid,
+             "cv": [{"model": e.model_name, "grid": e.grid, "values": e.metric_values}
+                    for e in summary.validation_results],
+             "fold_transform": table}
+    del cap
+
+    # (c) LOCO over served records of that model, and its insights
+    scored = model.score(ds.take(np.arange(WCV_LOCO_ROWS)), keep_intermediate=True,
+                         device=dev)
+    loco = RecordInsightsLOCO(model.selector_model(), device=dev)
+    t1 = time.perf_counter()
+    out = loco.transform_columns([scored[h["sel"].inputs[1].name]], None)
+    loco_s = time.perf_counter() - t1
+    check(len(out) == WCV_LOCO_ROWS and all(0 < len(m) <= 20 for m in out.data),
+          "LOCO: 1..20 entries for every record")
+    check(all(np.isfinite(v).all() for m in out.data[:64]
+              for v in RecordInsightsLOCO.parse(m).values()), "finite LOCO diffs")
+    t1 = time.perf_counter()
+    ins = model.model_insights()
+    insights_s = time.perf_counter() - t1
+    check(len(ins.features) > 0 and ins.selected_model_info["bestModelName"]
+          == summary.best_model_name, "model_insights() of the trained model")
+    timed["loco"] = {"rows": WCV_LOCO_ROWS, **loco.last_profile, "seconds": loco_s,
+                     "records_per_s": WCV_LOCO_ROWS / loco_s}
+    timed["model_insights_seconds"] = insights_s
+    emit({"phase": "workflow_cv", "parity": parity, **timed})
+    return {"parity": parity, **timed}
+
+
 def main() -> int:
     import torch
 
@@ -3907,7 +4302,10 @@ def main() -> int:
     # 19. the text stack
     txt = phase_text(torch, KE, dev)
 
-    # 20. summary
+    # 20. workflow-level CV, ModelInsights and LOCO
+    wcv = phase_workflow_cv(torch, KE, dev)
+
+    # 21. summary
     kernels = []
     tree_src = "transmogrifai_tpu_torch/perf/kernels/csrc/trees.cu"
     for kname, replaces in (("hist_level", "transmogrifai_tpu/perf/kernels/histogram.py:80"),
@@ -3994,6 +4392,11 @@ def main() -> int:
             "launches_training_text": txt["wide"]["launches"]["encode_slots"],
             "launches_serving_text": txt["wide"]["serving"]["launches"]["encode_slots"],
             "slots_serving_text": txt["wide"]["serving"]["slots_per_batch"],
+            **({"launches_workflow_cv": wcv["launches"]["encode_slots"],
+                "launches_workflow_cv_parity": wcv["parity"]["launches"]["encode_slots"],
+                "workflow_cv_fold_transform": wcv["fold_transform"]}
+               if kname == "bucketize_right_encode" else
+               {"launches_workflow_cv": wcv["launches"]["encode_slots"]}),
             **{f"fused_{k}": fused[k] for k in ("ms", "device_ms", "plain_ms",
                                                  "bound_ms", "slots", "columns")}})
     t = timings["bucketize_left_encode"]

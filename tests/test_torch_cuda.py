@@ -1041,3 +1041,103 @@ def test_lda_on_the_card_equals_the_cpu():
     got = m.transform(ds, device="cuda")[m.output_name].data
     want = m.transform(ds, device="cpu")[m.output_name].data
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
+
+
+# -- workflow-level CV: the fold transform, LOCO --------------------------------
+
+def _fold_maps(n: int):
+    """The wide cut's ``before`` dataset, ``during`` stages and 3 folds'
+    fitted maps (fitted on the CPU), and the selector's vector name."""
+    import transmogrifai_tpu_torch as T
+    from torch_wide_data import make_data, wide_pipeline
+    from transmogrifai_tpu_torch.types import feature_type_by_name
+    from transmogrifai_tpu_torch.workflow.dag import cut_dag
+    from transmogrifai_tpu_torch.workflow.fit import fit_stage_list
+
+    cols, schema = make_data(n, **RAW_CUT)
+    ftypes = {s["name"]: feature_type_by_name(s["type"]) for s in schema}
+    label, sel, chk, pred = wide_pipeline(T, ftypes, schema, 3)
+    ds = T.Dataset.from_features(cols, ftypes)
+    before, during, _ = cut_dag([label, pred])
+    ds_before = fit_stage_list(ds, before, {}, device="cpu")
+    maps = []
+    for f in range(3):
+        ff, copies = {}, [s.copy() for s in during]
+        fit_stage_list(ds_before.take(np.flatnonzero(np.arange(n) % 3 != f)), copies, ff,
+                       device="cpu")
+        maps.append({c.uid: ff.get(c.uid, c) for c in copies})
+    return ds_before, during, maps, sel.inputs[1].name
+
+
+@pytest.mark.parametrize("n", [3000, 20011])
+def test_fold_transform_one_launch_on_the_card_equals_the_plain_path(n):
+    """Every fold's encode slots in ONE encode_slots launch on the card,
+    each fold's outputs bitwise the CPU plan's (encode_slots_torch)."""
+    from transmogrifai_tpu_torch.workflow.plan import fused_fold_transforms
+
+    ds, during, maps, vec = _fold_maps(n)
+    slots = sum(1 for m in maps for r in m.values()
+                if type(r).__name__ == "DecisionTreeNumericBucketizerModel" and r.should_split)
+    TKE.reset_launch_counts()
+    card = fused_fold_transforms(ds, during, maps, torch.device("cuda"))
+    counts = TKE.launch_counts()
+    cpu = fused_fold_transforms(ds, during, maps, torch.device("cpu"))
+    assert counts["encode_slots"] == 1 and counts["encode_slots.slots"] == slots > 3
+    for c, p in zip(card, cpu):
+        for s in during:
+            assert c[s.output_name].data.tobytes() == p[s.output_name].data.tobytes()
+        assert c[vec].meta.to_dict() == p[vec].meta.to_dict()
+
+
+@pytest.mark.parametrize("family", ["lr", "mlp"])
+def test_loco_on_the_card_equals_the_cpu(family):
+    from transmogrifai_tpu_torch.data.dataset import Column
+    from transmogrifai_tpu_torch.insights import RecordInsightsLOCO
+    from transmogrifai_tpu_torch.models.logistic import LogisticRegressionModel
+    from transmogrifai_tpu_torch.models.mlp import MLPClassifierModel
+
+    rng = np.random.default_rng(7)
+    d = 300
+    x = rng.normal(size=(512, d))
+    x[rng.random(x.shape) < 0.8] = 0.0
+    if family == "lr":
+        model = LogisticRegressionModel(coef=rng.normal(size=d) / 10, intercept=0.2)
+    else:
+        model = MLPClassifierModel(classes=np.arange(2.0), weights=[
+            (rng.normal(size=(d, 10)) / 10, rng.normal(size=10)),
+            (rng.normal(size=(10, 2)), rng.normal(size=2))])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = RecordInsightsLOCO(model, top_k=20, max_rows_per_batch=4096, device=dev)
+        out[dev] = [RecordInsightsLOCO.parse(m)
+                    for m in t.transform_columns([Column.vector(x)], None).data]
+        if dev == "cuda":
+            assert t.last_profile["device_ms"] is not None
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert list(a) == list(b)
+        for k in a:
+            np.testing.assert_allclose(a[k], b[k], rtol=0, atol=1e-12)
+
+
+def test_loco_group_sums_repeat_on_the_card():
+    """Groups of many active slots: two runs on the card give the same bits
+    (each group adds its diffs in slot order, no racing additions)."""
+    from transmogrifai_tpu_torch.data.dataset import Column
+    from transmogrifai_tpu_torch.insights import RecordInsightsLOCO
+    from transmogrifai_tpu_torch.models.logistic import LogisticRegressionModel
+    from transmogrifai_tpu_torch.utils.vector_metadata import (
+        VectorColumnMetadata,
+        VectorMetadata,
+    )
+
+    rng = np.random.default_rng(11)
+    d = 256
+    x = rng.normal(size=(512, d))
+    x[rng.random(x.shape) < 0.3] = 0.0
+    meta = VectorMetadata("vec", [
+        VectorColumnMetadata(f"txt{i // 64}", "Text", grouping="hash", index=i)
+        for i in range(d)])
+    model = LogisticRegressionModel(coef=rng.normal(size=d), intercept=0.1)
+    runs = [RecordInsightsLOCO(model, top_k=4, meta=meta, device="cuda")
+            .transform_columns([Column.vector(x, meta)], None).data for _ in range(2)]
+    assert list(runs[0]) == list(runs[1])

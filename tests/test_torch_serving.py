@@ -320,17 +320,19 @@ class TestUnportedStages:
     def test_unported_model_class_is_named(self, tmp_path):
         def edit(m):
             sel = next(s for s in m["fitted"].values() if s["class"] == "SelectedModel")
-            sel["attrs"]["model"]["__stage__"]["class"] = "MLPClassifierModel"
+            # every model class of the reference is ported: a name neither
+            # package has stands for a class the port lacks
+            sel["attrs"]["model"]["__stage__"]["class"] = "HologramClassifierModel"
         path = _rewrite_manifest(FIXTURE, str(tmp_path / "m"), edit)
-        with pytest.raises(ValueError, match="MLPClassifierModel"):
+        with pytest.raises(ValueError, match="HologramClassifierModel"):
             TModel.load(path)
 
     def test_unported_transformer_class_is_named(self, tmp_path):
         def edit(m):
             comb = next(s for s in m["stages"] if s["class"] == "VectorsCombiner")
-            comb["class"] = "SelectedModelCombiner"  # models/combiner.py is not ported
+            comb["class"] = "HologramCombiner"  # a class neither package has
         path = _rewrite_manifest(FIXTURE, str(tmp_path / "m"), edit)
-        with pytest.raises(ValueError, match="SelectedModelCombiner"):
+        with pytest.raises(ValueError, match="HologramCombiner"):
             TModel.load(path)
 
     def test_unported_feature_type_is_named(self, tmp_path):
@@ -431,7 +433,12 @@ class TestNoJax:
                             "avro", "base", "files", "joined")),
                         *(("serve", f"{m}.py") for m in (
                             "batcher", "faults", "pipeline", "plan", "resilience",
-                            "server", "swap", "validator"))):
+                            "server", "swap", "validator")),
+                        *(("insights", f"{m}.py") for m in (
+                            "__init__", "loco", "model_insights")),
+                        *(("models", f"{m}.py") for m in (
+                            "__init__", "mlp", "isotonic", "random_param", "combiner")),
+                        ("workflow", "dag.py")):
                 assert os.path.join(path, *mod) in files
         bad = []
         for fn in files:

@@ -52,9 +52,12 @@ from .data.dataset import Dataset  # noqa: F401
 from .evaluators.base import Evaluators  # noqa: F401
 from .features.builder import FeatureBuilder  # noqa: F401
 from .filters import RawFeatureFilter  # noqa: F401
+from .insights import ModelInsights, RecordInsightsCorr, RecordInsightsLOCO  # noqa: F401
+from .models import combiner as _combiner  # noqa: F401  (registers SelectedModelCombiner)
 from .models.glm import GeneralizedLinearRegression  # noqa: F401
 from .models.linear import LinearRegression  # noqa: F401
 from .models.logistic import LogisticRegression  # noqa: F401
+from .models.mlp import MultilayerPerceptronClassifier  # noqa: F401
 from .models.naive_bayes import NaiveBayes  # noqa: F401
 from .models.selector import (  # noqa: F401
     BinaryClassificationModelSelector,
@@ -90,7 +93,8 @@ __all__ = ["BinaryClassificationModelSelector", "BinaryVectorizer",
            "Evaluators", "FeatureBuilder", "FillMissingWithMean",
            "GeneralizedLinearRegression", "JoinType", "JoinedAggregateReader",
            "JoinedReader", "LinearRegression", "LinearSVC",
-           "LogisticRegression", "MultiClassificationModelSelector",
+           "LogisticRegression", "ModelInsights", "MultiClassificationModelSelector",
+           "MultilayerPerceptronClassifier", "RecordInsightsCorr", "RecordInsightsLOCO",
            "MultinomialLogisticRegression", "NaiveBayes", "NumericVectorizer",
            "OneHotVectorizer", "RawFeatureFilter", "RealNNVectorizer",
            "RegressionModelSelector",

@@ -113,6 +113,14 @@ def eval_softmax_sweep(xd: torch.Tensor, yd: torch.Tensor, bs: torch.Tensor,
                          for f in range(k)]) for gi in range(g)]
 
 
+def linear_margin64(x: torch.Tensor, coef: np.ndarray, intercept) -> torch.Tensor:
+    """float64 ``x @ coef + intercept`` on ``x``'s device (the linear heads'
+    host formula)."""
+    c = torch.from_numpy(np.asarray(coef, np.float64)).to(x.device)
+    b = torch.from_numpy(np.asarray(intercept, np.float64)).to(x.device)
+    return x.to(torch.float64) @ c + b
+
+
 def linear_eval_payload(xd: torch.Tensor, coef: np.ndarray, intercept: float,
                         link: str):
     """(score, prediction) float32 tensors of a linear head over ``xd``."""
@@ -142,6 +150,14 @@ class PredictionModelBase(Transformer):
         selector's train evaluation, or None when the model has no device
         scoring path."""
         return None
+
+    def insight_payload(self, x: torch.Tensor) -> torch.Tensor:
+        """The record insights' payload of the rows ``x`` (a tensor on any
+        device), on that device: the class probabilities, else the
+        prediction as one column, in float64 -- the function
+        ``predict_column`` computes on the host (``insights/loco.py``)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no device scorer for record insights")
 
     def transform(self, dataset: Dataset, device=None) -> Dataset:
         vec = dataset[self.inputs[1].name]

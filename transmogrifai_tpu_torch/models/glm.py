@@ -25,7 +25,13 @@ import torch
 
 from ..data.dataset import Column
 from ..stages.base import Param
-from .base import PredictionEstimatorBase, PredictionModelBase, full_f32, sweep_tensors
+from .base import (
+    PredictionEstimatorBase,
+    PredictionModelBase,
+    full_f32,
+    linear_margin64,
+    sweep_tensors,
+)
 from .linear import weighted_grams
 from .logistic import _fit_tensors, _pen_mask, _with_ones
 from .prediction import PredictionColumn
@@ -159,3 +165,13 @@ class GLMModel(PredictionModelBase):
         else:
             mu = eta
         return PredictionColumn.regression(mu)
+
+    def insight_payload(self, x):
+        eta = linear_margin64(x, self.coef, self.intercept)
+        if self.family == "binomial":
+            mu = 1.0 / (1.0 + torch.exp(-eta))
+        elif self.family in ("poisson", "gamma"):
+            mu = torch.exp(torch.clamp(eta, -30, 30))
+        else:
+            mu = eta
+        return mu[:, None]

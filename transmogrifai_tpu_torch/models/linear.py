@@ -26,6 +26,7 @@ from .base import (
     PredictionModelBase,
     eval_linear_sweep,
     full_f32,
+    linear_margin64,
     sweep_tensors,
 )
 from .logistic import _fit_tensors, _pen_mask, _with_ones
@@ -95,3 +96,6 @@ class LinearRegressionModel(PredictionModelBase):
     def predict_column(self, vec: Column, device=None) -> PredictionColumn:
         return PredictionColumn.regression(
             vec.data.astype(np.float64) @ self.coef + self.intercept)
+
+    def insight_payload(self, x):
+        return linear_margin64(x, self.coef, self.intercept)[:, None]

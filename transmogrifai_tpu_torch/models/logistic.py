@@ -37,6 +37,7 @@ from .base import (
     eval_linear_sweep,
     full_f32,
     linear_eval_payload,
+    linear_margin64,
     place_rows,
 )
 from .prediction import PredictionColumn
@@ -308,4 +309,8 @@ class LogisticRegressionModel(PredictionModelBase):
         with full_f32():
             return linear_eval_payload(place_rows(np.asarray(x32, np.float32), device),
                                        self.coef, self.intercept, link="sigmoid")
+
+    def insight_payload(self, x):
+        p1 = 1.0 / (1.0 + torch.exp(-linear_margin64(x, self.coef, self.intercept)))
+        return torch.stack([1.0 - p1, p1], dim=1)
 

@@ -118,3 +118,8 @@ class NaiveBayesModel(PredictionModelBase):
         raw = x @ self.log_theta.T + self.log_prior
         prob = softmax_probs(raw)
         return PredictionColumn(self.classes[np.argmax(raw, axis=1)], raw, prob)
+
+    def insight_payload(self, x):
+        shift = torch.from_numpy(self.shift).to(x.device)
+        xs = torch.clamp(x.to(torch.float64) - shift, min=0.0)
+        return torch.softmax(linear_margin64(xs, self.log_theta.T, self.log_prior), dim=1)

@@ -141,8 +141,11 @@ class ModelSelector(PredictionEstimatorBase):
         t1 = time.perf_counter()
         profile["prep"] = t1 - t0
 
-        result: ValidationResult = self.validator.validate(
-            self.models, x, y, base_w, device)
+        # workflow-level CV seeds the validation result (its in-fold feature
+        # engineering ran in Workflow.train)
+        result: Optional[ValidationResult] = getattr(self, "_preselected", None)
+        if result is None:
+            result = self.validator.validate(self.models, x, y, base_w, device)
         t2 = time.perf_counter()
         profile["validate"] = t2 - t1
         profile.update({f"cv.{k}": v for k, v in result.family_seconds.items()})
@@ -223,6 +226,9 @@ class SelectedModel(PredictionModelBase):
 
     def eval_payload_device(self, x32, device):
         return self.model.eval_payload_device(x32, device)
+
+    def insight_payload(self, x):
+        return self.model.insight_payload(x)
 
 
 class BinaryClassificationModelSelector:

@@ -24,6 +24,7 @@ from .base import (
     PredictionModelBase,
     eval_softmax_sweep,
     full_f32,
+    linear_margin64,
     softmax_probs,
     sweep_tensors,
 )
@@ -129,3 +130,6 @@ class MultinomialLogisticRegressionModel(PredictionModelBase):
     def predict_column(self, vec: Column, device=None) -> PredictionColumn:
         logits = vec.data.astype(np.float64) @ self.coef + self.intercept
         return PredictionColumn.classification(logits, softmax_probs(logits))
+
+    def insight_payload(self, x):
+        return torch.softmax(linear_margin64(x, self.coef, self.intercept), dim=1)

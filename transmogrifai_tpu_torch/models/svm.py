@@ -25,6 +25,7 @@ from .base import (
     PredictionModelBase,
     full_f32,
     linear_eval_payload,
+    linear_margin64,
     place_rows,
 )
 from .logistic import (
@@ -144,3 +145,7 @@ class LinearSVCModel(PredictionModelBase):
         with full_f32():
             return linear_eval_payload(place_rows(np.asarray(x32, np.float32), device),
                                        self.coef, self.intercept, link="identity")
+
+    def insight_payload(self, x):
+        z = linear_margin64(x, self.coef, self.intercept)
+        return (z > 0.0).to(torch.float64)[:, None]

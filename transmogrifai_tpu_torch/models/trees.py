@@ -497,10 +497,27 @@ class _TreeEnsembleModelBase(PredictionModelBase):
         return m.cpu().numpy().astype(np.float64) + base[None, :]
 
     def _margin_sum(self, x32: np.ndarray, device) -> torch.Tensor:
-        xd = place_rows(np.asarray(x32, np.float32), device)
-        binned = digitize(xd, torch.from_numpy(self.edges).to(device), self.n_bins)
-        return _predict_trees_sum(self._tree_batch(device), binned,
+        return self._margin_sum_rows(place_rows(np.asarray(x32, np.float32), device))
+
+    def _margin_sum_rows(self, xd: torch.Tensor) -> torch.Tensor:
+        """(n, K) float32 summed leaf values of float32 rows on a device."""
+        binned = digitize(xd, torch.from_numpy(self.edges).to(xd.device), self.n_bins)
+        return _predict_trees_sum(self._tree_batch(xd.device), binned,
                                   self.max_depth, self.n_bins)
+
+    def _margin64(self, x: torch.Tensor) -> torch.Tensor:
+        """(n, K) float64 margins (summed leaves + base score) of rows on
+        their device: the device path of :meth:`_margin`."""
+        m = self._margin_sum_rows(x.to(torch.float32).contiguous()).to(torch.float64)
+        return m + torch.from_numpy(self.base_score).to(x.device)[None, :]
+
+    def feature_importances(self, d: int) -> np.ndarray:
+        """Split-count importances per feature (XGBoost's 'weight' type)."""
+        feats = np.asarray(self.trees["feat"]).ravel()
+        leaves = np.asarray(self.trees["is_leaf"]).ravel()
+        counts = np.bincount(feats[~leaves], minlength=d).astype(np.float64)
+        tot = counts.sum()
+        return counts / tot if tot > 0 else counts
 
     def _margin_host(self, x: np.ndarray) -> np.ndarray:
         """Pure-numpy traversal over flat tree arrays (the reference's host
@@ -551,6 +568,13 @@ class GBTClassifierModel(_TreeEnsembleModelBase):
         e = np.exp(m - m.max(axis=1, keepdims=True))
         return PredictionColumn.classification(m, e / e.sum(axis=1, keepdims=True))
 
+    def insight_payload(self, x):
+        m = self._margin64(x)
+        if m.shape[1] == 1:
+            p1 = 1.0 / (1.0 + torch.exp(-m[:, 0]))
+            return torch.stack([1 - p1, p1], dim=1)
+        return torch.softmax(m, dim=1)
+
     def eval_payload_device(self, x32, device):
         if self.n_outputs != 1:
             return None
@@ -561,6 +585,9 @@ class GBTClassifierModel(_TreeEnsembleModelBase):
 class GBTRegressorModel(_TreeEnsembleModelBase):
     def predict_column(self, vec: Column, device=None) -> PredictionColumn:
         return PredictionColumn(self._margin(vec.data, device)[:, 0])
+
+    def insight_payload(self, x):
+        return self._margin64(x)[:, :1]
 
 
 class ForestClassifierModel(_TreeEnsembleModelBase):
@@ -574,6 +601,14 @@ class ForestClassifierModel(_TreeEnsembleModelBase):
             prob = prob / np.maximum(prob.sum(axis=1, keepdims=True), 1e-12)
         return PredictionColumn.classification(prob * self.n_trees, prob)
 
+    def insight_payload(self, x):
+        mean = self._margin64(x) / self.n_trees
+        if mean.shape[1] == 1:
+            p1 = torch.clamp(mean[:, 0], 0.0, 1.0)
+            return torch.stack([1 - p1, p1], dim=1)
+        prob = torch.clamp(mean, 0.0, 1.0)
+        return prob / torch.clamp(prob.sum(dim=1, keepdim=True), min=1e-12)
+
     def eval_payload_device(self, x32, device):
         if self.n_outputs != 1:
             return None
@@ -586,6 +621,9 @@ class ForestClassifierModel(_TreeEnsembleModelBase):
 class ForestRegressorModel(_TreeEnsembleModelBase):
     def predict_column(self, vec: Column, device=None) -> PredictionColumn:
         return PredictionColumn(self._margin(vec.data, device)[:, 0] / self.n_trees)
+
+    def insight_payload(self, x):
+        return self._margin64(x)[:, :1] / self.n_trees
 
 
 # ---------------------------------------------------------------------------

@@ -153,6 +153,50 @@ class ValidationResult:
         return self.evaluations[self.best_index]
 
 
+def sweep_families(models: Sequence[Tuple[PredictionEstimatorBase,
+                                           List[Dict[str, Any]]]],
+                   x: np.ndarray, y: np.ndarray, train_w: np.ndarray,
+                   val_w: np.ndarray, metric_fn, device
+                   ) -> Tuple[List[np.ndarray], Dict[str, float]]:
+    """Every family's (grid, fold) metric matrix over the folds of
+    ``train_w`` / ``val_w`` (k, n): each family's sweep is launched on the
+    device before any metric is read, then gathered in launch order.  A
+    family that raises is logged and scores NaN; a kernel's or the device's
+    fault raises.  Returns (matrices, host seconds by family)."""
+    seconds: Dict[str, float] = {}
+    launched = []
+    for est, grids in models:
+        grids = grids or [{}]
+        name = type(est).__name__
+        t0 = time.perf_counter()
+        try:
+            gather = est.cv_sweep_async(x, y, train_w, val_w, grids,
+                                        metric_fn, device)
+        except Exception as e:
+            if dispatch.is_kernel_fault(e):
+                raise
+            log.warning("model %s failed in CV launch (%s); excluded from "
+                        "selection", name, e)
+            gather = None
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+        launched.append((name, grids, gather))
+    out: List[np.ndarray] = []
+    for name, grids, gather in launched:
+        t0 = time.perf_counter()
+        scores = np.full((len(grids), train_w.shape[0]), np.nan)
+        if gather is not None:
+            try:
+                scores = np.asarray(gather(), dtype=np.float64)
+            except Exception as e:
+                if dispatch.is_kernel_fault(e):
+                    raise
+                log.warning("model %s failed in CV (%s); excluded from "
+                            "selection", name, e)
+        seconds[name] += time.perf_counter() - t0
+        out.append(scores)
+    return out, seconds
+
+
 class CrossValidator:
     """k-fold CV over (estimator, grid) pairs; grids with non-finite metrics
     on any fold lose to grids evaluated on every fold."""
@@ -192,52 +236,28 @@ class CrossValidator:
                  device) -> ValidationResult:
         base_w = np.ones_like(y, dtype=np.float32) if base_w is None else base_w
         train_w, val_w = self.fold_weights(y, base_w)
-        metric_fn = self.evaluator.metric_fn()
-        seconds: Dict[str, float] = {}
+        scores, seconds = sweep_families(models, x, y, train_w, val_w,
+                                         self.evaluator.metric_fn(), device)
+        return self.result(models, scores, seconds)
 
-        # phase 1: launch every family's sweep
-        launched = []
-        for est, grids in models:
-            grids = grids or [{}]
-            name = type(est).__name__
-            t0 = time.perf_counter()
-            try:
-                gather = est.cv_sweep_async(x, y, train_w, val_w, grids,
-                                            metric_fn, device)
-            except Exception as e:
-                if dispatch.is_kernel_fault(e):
-                    raise
-                log.warning("model %s failed in CV launch (%s); excluded from "
-                            "selection", name, e)
-                gather = None
-            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
-            launched.append((est, grids, gather))
-
-        # phase 2: gather in launch order
+    def result(self, models, scores: List[np.ndarray],
+               seconds: Dict[str, float]) -> ValidationResult:
+        """The ValidationResult of per-family (grid, fold) metric matrices:
+        one evaluation per (family, grid), the families whose every metric
+        is non-finite listed as failed."""
         evaluations: List[ModelEvaluation] = []
         failed: List[str] = []
-        for est, grids, gather in launched:
+        for (est, grids), sc in zip(models, scores):
             name = type(est).__name__
-            t0 = time.perf_counter()
-            scores = np.full((len(grids), self.num_folds), np.nan)
-            if gather is not None:
-                try:
-                    scores = np.asarray(gather(), dtype=np.float64)
-                except Exception as e:
-                    if dispatch.is_kernel_fault(e):
-                        raise
-                    log.warning("model %s failed in CV (%s); excluded from "
-                                "selection", name, e)
-            seconds[name] += time.perf_counter() - t0
-            if not np.isfinite(scores).any():
+            if not np.isfinite(sc).any():
                 failed.append(name)
                 log.error("model family %s produced no finite CV metric; it "
                           "did not compete in selection", name)
-            for gi, grid in enumerate(grids):
+            for gi, grid in enumerate(grids or [{}]):
                 evaluations.append(ModelEvaluation(
                     model_name=name, model_uid=est.uid, grid=grid,
                     metric_name=self.evaluator.default_metric,
-                    metric_values=[float(v) for v in scores[gi]]))
+                    metric_values=[float(v) for v in sc[gi]]))
         return ValidationResult(evaluations, self._best_index(evaluations),
                                 failed, seconds)
 

@@ -4,6 +4,8 @@ Counterpart of ``transmogrifai_tpu/workflow/dag.py``: a stage's layer is its
 maximum distance from any result feature; layers run from the deepest
 (closest to the raw features) to distance 0, and stages within a layer are
 ordered by uid, so the port visits stages in the reference's order.
+:func:`cut_dag` splits the DAG around its model selector for
+workflow-level CV.
 """
 
 from __future__ import annotations
@@ -77,3 +79,57 @@ def compute_dag(result_features: Sequence[Feature]) -> List[List["PipelineStage"
 def all_stages(result_features: Sequence[Feature]) -> List["PipelineStage"]:
     """Every non-generator stage in execution order (flattened layers)."""
     return [s for layer in compute_dag(result_features) for s in layer]
+
+
+def cut_dag(result_features: Sequence[Feature]):
+    """Split the DAG around its one ModelSelector for workflow-level CV:
+    ``(before, during, selector)``, or None when the DAG has no selector
+    (more than one raises).
+
+    - ``before``: the selector's label-independent upstream stages, and the
+      stages that make the label (a StringIndexer on the response is the
+      label, not leakage): fitted once, outside CV;
+    - ``during``: the upstream estimators that read the response, and
+      everything downstream of them up to the selector: re-fitted per fold.
+    """
+    from ..models.selector import ModelSelector
+    from ..stages.base import Estimator
+
+    stages_topo = all_stages(result_features)
+    selectors = [s for s in stages_topo if isinstance(s, ModelSelector)]
+    if not selectors:
+        return None
+    if len(selectors) > 1:
+        raise ValueError(
+            "workflow-level CV requires exactly one ModelSelector in the DAG; "
+            f"found {len(selectors)}")
+    sel = selectors[0]
+
+    def ancestors(features) -> set:
+        seen: set = set()
+        stack = list(features)
+        while stack:
+            st = stack.pop().origin_stage
+            if st is None or isinstance(st, FeatureGeneratorStage) or st.uid in seen:
+                continue
+            seen.add(st.uid)
+            stack.extend(st.inputs)
+        return seen
+
+    upstream = ancestors(sel.inputs)
+    label_path = ancestors(sel.inputs[:1])
+    during = {s.uid for s in stages_topo
+              if s.uid in upstream and s.uid not in label_path
+              and isinstance(s, Estimator) and any(f.is_response for f in s.inputs)}
+    changed = True
+    while changed:
+        changed = False
+        for s in stages_topo:
+            if s.uid in upstream and s.uid not in during and any(
+                    p.origin_stage is not None
+                    and not isinstance(p.origin_stage, FeatureGeneratorStage)
+                    and p.origin_stage.uid in during for p in s.inputs):
+                during.add(s.uid)
+                changed = True
+    before = [s for s in stages_topo if s.uid in upstream and s.uid not in during]
+    return before, [s for s in stages_topo if s.uid in during], sel

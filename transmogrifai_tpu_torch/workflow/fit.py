@@ -15,8 +15,10 @@ dataset as it stands, and its model joins the pending list.  A last flush
 runs what is pending at the end.
 
 :func:`transform_dag` is the scoring twin: every fitted runner, through one
-plan.  The reference's out-of-core epochs, fault points, stage checkpoints
-and workflow-level cross-validation are not ported.
+plan.  :func:`workflow_cv_validate` is workflow-level cross-validation: the
+label-dependent stages re-fitted inside every fold.  The reference's
+out-of-core epochs, fault points, stage checkpoints and sweep journal are
+not ported.
 """
 
 from __future__ import annotations
@@ -24,11 +26,13 @@ from __future__ import annotations
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
+
 from ..data.dataset import Dataset
 from ..features.feature import Feature
 from ..stages.base import Estimator, PipelineStage, Transformer
 from .dag import compute_dag
-from .plan import fused_transform
+from .plan import fused_fold_transforms, fused_transform
 
 
 def fit_dag(dataset: Dataset, result_features: Sequence[Feature],
@@ -112,3 +116,74 @@ def transform_dag(dataset: Dataset, result_features: Sequence[Feature],
                     "Train the workflow first.")
             runners.append(runner)
     return fused_transform(dataset, runners, device)
+
+
+def workflow_cv_validate(ds_before: Dataset, during, selector, device,
+                         profile: Optional[list] = None):
+    """In-fold feature engineering CV (counterpart of the reference's
+    ``workflow_cv_validate``): for every fold, copies of the label-dependent
+    ``during`` stages (uids kept: the fold maps are keyed by uid) fit on the
+    fold's training rows only; every fold's fitted stages then transform
+    ALL rows (:func:`~.plan.fused_fold_transforms`: all folds' encode slots
+    in one launch); and every (family, grid) of the selector sweeps each
+    fold's vector on ``device``, the metrics aggregated as the selector's
+    own CV does.  Returns the ValidationResult the selector is seeded with.
+    With ``profile`` (a list), the fold fits' records carry ``"fold": f``,
+    then come the fold transform's record and one ``{"kind": "fold_sweep"}``
+    record per fold (host seconds by family)."""
+    from ..models.tuning import sweep_families
+
+    label_f, vec_f = selector.inputs[0], selector.inputs[1]
+    if label_f.name not in ds_before:
+        raise ValueError("workflow CV: label column not materialized before selector")
+    y = ds_before[label_f.name].data.astype(np.float32)
+    # the selector's own base weights: splitter rebalancing and sample weights
+    base_w, _ = (selector.splitter.prepare(y) if selector.splitter is not None
+                 else (np.ones_like(y, dtype=np.float32), None))
+    if "__sample_weight__" in ds_before:
+        base_w = base_w * ds_before["__sample_weight__"].data.astype(np.float32)
+    validator = selector.validator
+    train_w, val_w = validator.fold_weights(y, base_w)
+    k = train_w.shape[0]
+    metric_fn = validator.evaluator.metric_fn()
+
+    # the fold fits read only the during stages' inputs (and label, weights)
+    fit_cols = {label_f.name, "__sample_weight__"}
+    for s in during:
+        fit_cols.update(fi.name for fi in s.inputs)
+    ds_fit_view = ds_before.select([c for c in ds_before.names if c in fit_cols])
+
+    fold_runner_maps: List[Dict[str, Transformer]] = []
+    for f in range(k):
+        fold_fitted: Dict[str, Transformer] = {}
+        copies = [s.copy() for s in during]
+        fold_profile: Optional[list] = [] if profile is not None else None
+        fit_stage_list(ds_fit_view.take(np.flatnonzero(train_w[f] > 0)), copies,
+                       fold_fitted, device=device, profile=fold_profile)
+        if profile is not None:
+            profile.extend({**r, "fold": f} for r in fold_profile)
+        # plain transformers in the cut have no fitted entry: the copy runs
+        fold_runner_maps.append({c.uid: fold_fitted.get(c.uid, c) for c in copies})
+
+    fold_datasets = fused_fold_transforms(
+        ds_before, during, fold_runner_maps, device,
+        keep=frozenset({vec_f.name}), profile=profile)
+
+    scores: List[List[np.ndarray]] = []
+    seconds: Dict[str, float] = {}
+    for f in range(k):
+        x_f = np.asarray(fold_datasets[f][vec_f.name].data, np.float32)
+        t0 = time.perf_counter()
+        sc, sec = sweep_families(selector.models, x_f, y, train_w[f:f + 1],
+                                 val_w[f:f + 1], metric_fn, device)
+        scores.append(sc)
+        for name, v in sec.items():
+            seconds[name] = seconds.get(name, 0.0) + v
+        if profile is not None:
+            profile.append({"kind": "fold_sweep", "fold": f,
+                            "seconds": time.perf_counter() - t0,
+                            "family_seconds": sec, "rows": len(y),
+                            "width": int(x_f.shape[1])})
+    per_family = [np.concatenate([scores[f][i] for f in range(k)], axis=1)
+                  for i in range(len(selector.models))]
+    return validator.result(selector.models, per_family, seconds)

@@ -26,8 +26,11 @@ training flushes of ``workflow/fit.py`` and ``WorkflowModel.score(dataset)``.
 The table goes through in one pass (not in serving's row buckets), and every
 prefix stage's output comes back to the host as a full ``Column`` with the
 metadata its host ``transform`` gives (recovered by replaying those
-transforms over zero rows).  Unlike the reference, a planning or launch
-failure raises: nothing falls back to the per-stage host path.
+transforms over zero rows).  :class:`JointPrefix` is the one executor of
+such plans: a flush runs one, :class:`FoldTransformPlan` the k fold-fitted
+variants of one prefix (workflow-level CV), every fold's encode slots in
+one slot table.  Unlike the reference, a planning or launch failure
+raises: nothing falls back to the per-stage host path.
 """
 
 from __future__ import annotations
@@ -54,6 +57,13 @@ DEVICE_LIFT_KINDS = frozenset(
 #: the dataset path also lifts materialized OPVector columns (their float32
 #: block): each run sees the concrete table
 DATASET_LIFT_KINDS = DEVICE_LIFT_KINDS | {ColumnKind.VECTOR}
+
+
+def encode_buffer(rows: int, width: int, device: torch.device) -> torch.Tensor:
+    """An (rows, width) float32 view whose row stride is rounded up to 4
+    floats, so the encode kernel's rows start 16-byte aligned."""
+    return torch.empty((rows, -(-width // 4) * 4), dtype=torch.float32,
+                       device=device)[:, :width]
 
 
 def device_slots(runner) -> Tuple[int, ...]:
@@ -159,6 +169,30 @@ class Staging:
         return copies
 
 
+def place_entries(entries: List[np.ndarray], keys: Sequence[tuple], n: int,
+                  device: torch.device) -> Tuple[List[torch.Tensor], int]:
+    """Host entries on ``device``: the 1-D ones packed, one copy per dtype
+    (:class:`Staging`); each vector block its own copy.  ``keys`` name the
+    entries in errors.  Returns (operands, copies)."""
+    ops: List[Optional[torch.Tensor]] = [None] * len(entries)
+    flat = [i for i, e in enumerate(entries) if e.ndim == 1]
+    copies = 0
+    if flat:
+        for i in flat:
+            if entries[i].shape[0] != n:
+                raise ValueError(f"operand {keys[i]} has "
+                                 f"{entries[i].shape[0]} rows, the table {n}")
+        st = Staging(tuple(entries[i].dtype for i in flat), n, device)
+        copies += st.load([entries[i] for i in flat], n)
+        for j, i in enumerate(flat):
+            ops[i] = st.operands[j]
+    for i, e in enumerate(entries):
+        if ops[i] is None:
+            ops[i] = torch.from_numpy(np.ascontiguousarray(e)).to(device)
+            copies += int(device.type == "cuda")
+    return ops, copies
+
+
 class DevicePrefix:
     """The device prefix of topo-ordered fitted ``runners`` under an entry
     rule, wired for execution on ``device`` (the shared half of the serving
@@ -237,15 +271,12 @@ class DevicePrefix:
 
     def _encode(self, ops_in: List[torch.Tensor], rows: int,
                 env: Dict[str, torch.Tensor]) -> None:
-        """The grouped stages' outputs, by one encode_slots call: a buffer
-        whose row stride is rounded up to 4 floats (so the kernel's rows
-        start 16-byte aligned), each stage's block a view of it."""
+        """The grouped stages' outputs, by one encode_slots call into one
+        buffer (:func:`encode_buffer`), each stage's block a view of it."""
         table = self._encode_table
         if table is None:
             return
-        width = table.width
-        buf = torch.empty((rows, -(-width // 4) * 4), dtype=torch.float32,
-                          device=self.device)[:, :width]
+        buf = encode_buffer(rows, table.width, self.device)
         KE.encode_slots([ops_in[i] for i in self._encode_inputs], table, buf)
         for uid, col, w in self._encode_blocks:
             env[uid] = buf[:, col:col + w]
@@ -289,15 +320,10 @@ def _materialize_from(template: Column, arr: np.ndarray) -> Column:
 class ColumnarTransformPlan(DevicePrefix):
     """Fitted topo-ordered runners over a dataset of the columns
     ``available``: :meth:`apply_prefix` runs the device prefix over the whole
-    table on ``device`` and appends every prefix stage's output column;
-    the caller runs ``remainder`` on the host.
-
-    ``last_timings`` (seconds) splits the last :meth:`apply_prefix` into
-    host encode (entries and the zero-row metadata replay), the copies to
-    the device, the device prefix (the encode group's launch is also timed
-    alone, ``encode_ms``, with CUDA events on the card), the copies back,
-    and building the output columns; ``h2d_copies`` / ``d2h_copies`` count
-    its copies across the host-device boundary (0 on the CPU)."""
+    table on ``device`` (through :class:`JointPrefix`) and appends every
+    prefix stage's output column; the caller runs ``remainder`` on the
+    host.  ``last_timings``: the last :meth:`apply_prefix`'s, as
+    :class:`JointPrefix` gives them."""
 
     def __init__(self, runners: Sequence[Any], available: frozenset,
                  device: torch.device):
@@ -333,42 +359,104 @@ class ColumnarTransformPlan(DevicePrefix):
             info[runner.get_output().uid] = ds0[runner.output_name]
         return info
 
-    def _host_entries(self, dataset: Dataset) -> List[np.ndarray]:
-        out = []
-        for key in self._entry_keys:
-            if key[0] == "lift":
-                out.append(_lift_column(dataset[self._entry_lifts[key].name]))
-            else:
-                runner, slot, f = self._entry_encoders[key]
-                out.append(np.asarray(runner.encode_device_input(slot, dataset[f.name])))
-        return out
+    def _host_entry(self, key: tuple, dataset: Dataset) -> np.ndarray:
+        if key[0] == "lift":
+            return _lift_column(dataset[self._entry_lifts[key].name])
+        runner, slot, f = self._entry_encoders[key]
+        return np.asarray(runner.encode_device_input(slot, dataset[f.name]))
 
-    def _place(self, entries: List[np.ndarray], n: int) -> Tuple[List[torch.Tensor], int]:
-        """The entries on the device: 1-D ones packed, one copy per dtype;
-        each vector block its own copy.  Returns (operands, copies)."""
-        ops: List[Optional[torch.Tensor]] = [None] * len(entries)
-        flat = [i for i, e in enumerate(entries) if e.ndim == 1]
-        copies = 0
-        if flat:
-            for i in flat:
-                if entries[i].shape[0] != n:
-                    raise ValueError(f"operand {self._entry_keys[i]} has "
-                                     f"{entries[i].shape[0]} rows, the table {n}")
-            st = Staging(tuple(entries[i].dtype for i in flat), n, self.device)
-            copies += st.load([entries[i] for i in flat], n)
-            for j, i in enumerate(flat):
-                ops[i] = st.operands[j]
-        for i, e in enumerate(entries):
-            if ops[i] is None:
-                ops[i] = torch.from_numpy(np.ascontiguousarray(e)).to(self.device)
-                copies += int(self.device.type == "cuda")
-        return ops, copies
+    def encode_operands(self, dataset: Dataset) -> List[torch.Tensor]:
+        """The encode group's operands over ``dataset``, placed on the
+        plan's device (what :meth:`apply_prefix` passes to its launch)."""
+        return JointPrefix([self]).encode_operands(dataset)
 
     def apply_prefix(self, dataset: Dataset) -> Dataset:
         """Run the device prefix over the whole table, appending every
         prefix stage's output column."""
         if not self._prefix:
             return dataset
+        joint = JointPrefix([self])
+        (out,) = joint.apply_prefix(dataset)
+        self.last_timings = joint.last_timings
+        return out
+
+
+# ---------------------------------------------------------------------------
+# One or more prefixes over one dataset, their encode groups in one launch
+# ---------------------------------------------------------------------------
+
+class JointPrefix:
+    """The executor of :class:`ColumnarTransformPlan` prefixes over one
+    dataset (one plan for a flush; k fold-fitted variants of one prefix for
+    workflow-level CV).  Every plan's encode group joins ONE slot table:
+    slot (f, s) is plan f's slot s with its own splits and width, and the
+    table writes one ``(n, sum_f W_f)`` buffer whose column block
+    ``[off_f, off_f + W_f)`` is plan f's.  A lift every plan reads is placed
+    once; a stage-encoded entry (a fold's own vocabulary) once per plan.
+    The rest of each prefix then runs on its views; the caller runs each
+    plan's ``remainder`` on the host.  A failure to plan or to launch
+    raises.
+
+    ``last_timings`` (seconds) splits the last :meth:`apply_prefix` into
+    host encode (entries and the zero-row metadata replay), the copies to
+    the device, the device prefixes (the joint launch is also timed alone,
+    ``encode_ms``, with CUDA events on the card), the copies back, and
+    building the output columns; ``h2d_copies`` / ``d2h_copies`` count its
+    copies across the host-device boundary (0 on the CPU) and
+    ``encode_launches`` the encode kernel's launches."""
+
+    def __init__(self, plans: Sequence[ColumnarTransformPlan]):
+        self.plans = list(plans)
+        self.device = self.plans[0].device
+        specs: List[KE.SlotSpec] = []
+        #: per slot of the joint table: (plan, entry index in that plan)
+        self._inputs: List[Tuple[int, int]] = []
+        #: per plan: its block's first column in the joint buffer
+        self._offsets: List[int] = []
+        for f, p in enumerate(self.plans):
+            self._offsets.append(sum(s.width for s in specs))
+            if p._encode_table is not None:
+                specs.extend(p._encode_table.specs)
+                self._inputs.extend((f, i) for i in p._encode_inputs)
+        self.table = (self.plans[0]._encode_table if len(self.plans) == 1
+                      else KE.plan_slots(specs) if specs else None)
+        self.last_timings: Dict[str, Any] = {}
+
+    @property
+    def remainders(self) -> List[List[Any]]:
+        return [p.remainder for p in self.plans]
+
+    def _entries(self, dataset: Dataset):
+        """(host entries, their keys, per plan the indices of its entries
+        among them): a lift every plan reads is one entry."""
+        keys: List[tuple] = []
+        index: Dict[tuple, int] = {}
+        plan_ops: List[List[int]] = []
+        entries: List[np.ndarray] = []
+        for f, p in enumerate(self.plans):
+            mine = []
+            for key in p._entry_keys:
+                g = key if key[0] == "lift" else (f, *key)
+                if g not in index:
+                    index[g] = len(keys)
+                    keys.append(g)
+                    entries.append(p._host_entry(key, dataset))
+                mine.append(index[g])
+            plan_ops.append(mine)
+        return entries, keys, plan_ops
+
+    def encode_operands(self, dataset: Dataset) -> List[torch.Tensor]:
+        """The joint slot table's operands over ``dataset``, placed on the
+        device (what :meth:`apply_prefix` passes to its launch)."""
+        entries, keys, plan_ops = self._entries(dataset)
+        ops, _ = place_entries(entries, keys, dataset.n_rows, self.device)
+        return [ops[plan_ops[f][i]] for f, i in self._inputs]
+
+    def apply_prefix(self, dataset: Dataset, keep: Optional[frozenset] = None
+                     ) -> List[Dataset]:
+        """Every plan's prefix over the whole table: one dataset per plan,
+        ``dataset`` plus that plan's prefix outputs (only the columns named
+        in ``keep``, when given)."""
         n = dataset.n_rows
         on_card = self.device.type == "cuda"
 
@@ -377,40 +465,98 @@ class ColumnarTransformPlan(DevicePrefix):
                 torch.cuda.synchronize(self.device)
 
         t0 = time.perf_counter()
-        info = self._out_info(dataset)
-        entries = self._host_entries(dataset)
+        infos = [p._out_info(dataset) for p in self.plans]
+        entries, keys, plan_ops = self._entries(dataset)
         t1 = time.perf_counter()
-        ops_in, h2d = self._place(entries, n)
+        ops, h2d = place_entries(entries, keys, n, self.device)
         sync()
         t2 = time.perf_counter()
-        env: Dict[str, torch.Tensor] = {}
-        if on_card:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-        self._encode(ops_in, n, env)
-        if on_card:
-            end.record()
-        self._run_wiring(ops_in, env)
+        envs: List[Dict[str, torch.Tensor]] = [{} for _ in self.plans]
+        launches0 = KE.encode_slots_launches
+        if self.table is not None:
+            buf = encode_buffer(n, self.table.width, self.device)
+            if on_card:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            KE.encode_slots([ops[plan_ops[f][i]] for f, i in self._inputs],
+                            self.table, buf)
+            if on_card:
+                end.record()
+            for f, p in enumerate(self.plans):
+                off = self._offsets[f]
+                for uid, col, w in p._encode_blocks:
+                    envs[f][uid] = buf[:, off + col:off + col + w]
+        for f, p in enumerate(self.plans):
+            p._run_wiring([ops[g] for g in plan_ops[f]], envs[f])
         sync()
         t3 = time.perf_counter()
-        outs = [env[u].cpu().numpy() for u in self._out_uids]
+        outs = [{u: envs[f][u].cpu().numpy() for u in p._out_uids
+                 if keep is None or p._out_names[u] in keep}
+                for f, p in enumerate(self.plans)]
         t4 = time.perf_counter()
-        cols = {self._out_names[u]: _materialize_from(info[u], arr)
-                for u, arr in zip(self._out_uids, outs)}
-        out = dataset.with_columns(cols)
+        out = [dataset.with_columns({p._out_names[u]: _materialize_from(infos[f][u], arr)
+                                     for u, arr in outs[f].items()})
+               for f, p in enumerate(self.plans)]
         t5 = time.perf_counter()
+        arrays = [a for o in outs for a in o.values()]
         self.last_timings = {
-            "rows": n, "stages": len(self._prefix),
-            "encode_slots": len(self._encode_table) if self._encode_table else 0,
+            "rows": n, "plans": len(self.plans),
+            "stages": sum(len(p._prefix) for p in self.plans),
+            "encode_slots": len(self.table) if self.table is not None else 0,
+            "encode_width": self.table.width if self.table is not None else 0,
             "host_encode_s": t1 - t0, "h2d_s": t2 - t1, "device_s": t3 - t2,
             "d2h_s": t4 - t3, "columns_s": t5 - t4,
             "encode_ms": start.elapsed_time(end)
-            if on_card and self._encode_table is not None else None,
-            "h2d_copies": h2d, "d2h_copies": len(outs) if on_card else 0,
+            if on_card and self.table is not None else None,
+            "encode_launches": KE.encode_slots_launches - launches0,
+            "h2d_copies": h2d, "d2h_copies": len(arrays) if on_card else 0,
             "h2d_bytes": sum(e.nbytes for e in entries),
-            "d2h_bytes": sum(a.nbytes for a in outs)}
+            "d2h_bytes": sum(a.nbytes for a in arrays)}
         return out
+
+
+class FoldTransformPlan(JointPrefix):
+    """k fold-fitted variants of the same topo-ordered runners over one
+    dataset: ``fold_runners[f]`` is fold f's list (copies share uids, each
+    fold with its own fitted state).  Each fold gets its own
+    :class:`ColumnarTransformPlan` (a bucketizer that found no split in one
+    fold is a wired torch op there and an encode slot in another), and
+    every fold's encode slots run in one launch (:class:`JointPrefix`)."""
+
+    def __init__(self, fold_runners: Sequence[Sequence[Any]], available: frozenset,
+                 device: torch.device):
+        super().__init__([ColumnarTransformPlan(r, available, device)
+                          for r in fold_runners])
+
+
+def fused_fold_transforms(dataset: Dataset, during: Sequence[Any],
+                          fold_runner_maps: Sequence[Dict[str, Any]], device=None,
+                          keep: Optional[frozenset] = None,
+                          profile: Optional[list] = None) -> List[Dataset]:
+    """Apply every fold's fitted ``during`` stages to ALL rows of
+    ``dataset``: the device prefixes through one :class:`FoldTransformPlan`
+    (all folds' encode slots in one ``encode_slots`` call), then each fold's
+    host remainder.  ``fold_runner_maps[f]`` maps a stage uid to fold f's
+    runner (a plain transformer maps to itself).  With ``profile`` (a
+    list), appends one ``{"kind": "fold_transform", ...}`` record."""
+    t0 = time.perf_counter()
+    resolved = [[m.get(s.uid, s) for s in during] for m in fold_runner_maps]
+    dev = resolve_device(device)
+    plan = FoldTransformPlan(resolved, frozenset(dataset.names), dev)
+    if keep is not None:
+        keep = frozenset(keep) | {f.name for rem in plan.remainders
+                                  for r in rem for f in r.inputs}
+    out = plan.apply_prefix(dataset, keep)
+    t1 = time.perf_counter()
+    out = [run_host_stages(ds, rem, device=dev)
+           for ds, rem in zip(out, plan.remainders)]
+    if profile is not None:
+        profile.append({"kind": "fold_transform", "seconds": time.perf_counter() - t0,
+                        "host_stages_s": time.perf_counter() - t1,
+                        "host_stages": sum(len(r) for r in plan.remainders),
+                        **plan.last_timings})
+    return out
 
 
 def fused_transform(dataset: Dataset, runners: Sequence[Any], device=None,

@@ -56,9 +56,12 @@ def _register_stages() -> None:
     """Import every module that defines a ported stage class."""
     from ..checkers import sanity  # noqa: F401
     from ..models import (  # noqa: F401
+        combiner,
         glm,
+        isotonic,
         linear,
         logistic,
+        mlp,
         naive_bayes,
         selector,
         softmax,
@@ -229,7 +232,8 @@ def load_model(path: str):
         fitted[uid] = t
 
     return WorkflowModel(result_features=result_features, fitted=fitted,
-                         blacklist=manifest.get("blacklist", []))
+                         blacklist=manifest.get("blacklist", []),
+                         workflow_cv=manifest.get("workflowCv", False))
 
 
 # -- save -------------------------------------------------------------------------
@@ -345,7 +349,7 @@ def save_model(model, path: str) -> None:
         "versionInfo": {"version": __version__, "torch": torch.__version__},
         "resultFeatureUids": [f.uid for f in model.result_features],
         "blacklist": list(model.blacklist),
-        "workflowCv": False,
+        "workflowCv": bool(getattr(model, "workflow_cv", False)),
         "features": [{"uid": f.uid, "name": f.name, "ftype": f.ftype.__name__,
                       "isResponse": f.is_response,
                       "originStageUid": f.origin_stage.uid if f.origin_stage else None,

@@ -11,7 +11,10 @@ Training from raw typed columns::
     # optionally drop sparse, drifting or leaky raw features (or map keys)
     # first: wf.with_raw_feature_filter(RawFeatureFilter(scoring_dataset=sds))
     model = wf.train()                       # fits on the CUDA card
+    # or wf.with_workflow_cv().train(): the label-dependent stages (the
+    # bucketizers, the checker) re-fit inside every CV fold
     print(model.summary_pretty())            # the selector's CV table
+    print(model.model_insights().pretty())   # per-slot stats, contributions
 
 Scoring a fitted or loaded model::
 
@@ -60,10 +63,21 @@ class Workflow:
         self._warm_models: Dict[str, object] = {}
         self._op_params = None
         self._raw_feature_filter = None
+        self._workflow_cv = False
         #: records of the last ``train()``: the raw feature filter's, one per
         #: estimator fit and one per transform flush
-        #: (``workflow/fit.py::fit_stage_list``)
+        #: (``workflow/fit.py::fit_stage_list``); with workflow CV also the
+        #: fold fits (``"fold": f``), the fold transform and the fold sweeps
+        #: (``workflow/fit.py::workflow_cv_validate``)
         self.last_train_profile: List[dict] = []
+
+    def with_workflow_cv(self) -> "Workflow":
+        """Move the CV loop outside the model selector: ``train()`` re-fits
+        the label-dependent stages between the raw features and the
+        selector inside every fold (``workflow/dag.py::cut_dag``), so the CV
+        estimate carries no label leakage from their fits."""
+        self._workflow_cv = True
+        return self
 
     def set_result_features(self, *features: Feature) -> "Workflow":
         self.result_features = list(features)
@@ -164,11 +178,32 @@ class Workflow:
         test_ds = None
         if test_fraction > 0.0:
             raw, test_ds = raw.split(test_fraction, seed=seed)
-        _, fitted = fit_dag(raw, self.result_features, fitted=self._warm_models,
-                            device=dev, profile=profile)
+        warm = dict(self._warm_models)
+        preseeded = None
+        if self._workflow_cv:
+            from .dag import cut_dag
+            from .fit import fit_stage_list, workflow_cv_validate
+
+            cut = cut_dag(self.result_features)
+            if cut is None:
+                raise ValueError("with_workflow_cv requires a ModelSelector in the DAG")
+            before, during, selector = cut
+            if selector.uid not in warm:
+                ds_before = fit_stage_list(raw, before, warm, device=dev,
+                                           profile=profile)
+                selector._preselected = workflow_cv_validate(
+                    ds_before, during, selector, dev, profile=profile)
+                preseeded = selector
+        try:
+            _, fitted = fit_dag(raw, self.result_features, fitted=warm,
+                                device=dev, profile=profile)
+        finally:
+            if preseeded is not None:
+                del preseeded._preselected
         self.last_train_profile = profile
         model = WorkflowModel(result_features=self.result_features, fitted=fitted,
-                              blacklist=blacklist, rff_summary=rff_summary)
+                              blacklist=blacklist, rff_summary=rff_summary,
+                              workflow_cv=self._workflow_cv)
         if self._reader is not None:
             # the model keeps the workflow's reader for score() with no dataset
             model.set_reader(self._reader)
@@ -190,14 +225,19 @@ def _refuse_unported(entry: str, asked: Dict[str, bool]) -> None:
 class WorkflowModel:
     """A fitted workflow.  ``blacklist`` names the raw features the raw
     feature filter dropped (saved with the model); ``rff_summary`` is the
-    filter's :class:`~..filters.RawFeatureFilterResults` (not saved)."""
+    filter's :class:`~..filters.RawFeatureFilterResults` (not saved).
+    :meth:`model_insights` explains it (``insights/``)."""
 
     def __init__(self, result_features: Sequence[Feature], fitted: Dict,
-                 blacklist: Sequence[str] = (), rff_summary=None):
+                 blacklist: Sequence[str] = (), rff_summary=None,
+                 workflow_cv: bool = False):
         self.result_features: List[Feature] = list(result_features)
         self.fitted = dict(fitted)
         self.blacklist = list(blacklist)
         self.rff_summary = rff_summary
+        #: whether the producing workflow re-fit the label-dependent stages
+        #: per fold (``with_workflow_cv``; saved with the model)
+        self.workflow_cv = bool(workflow_cv)
         self._reader = None
 
     def set_reader(self, reader) -> "WorkflowModel":
@@ -298,6 +338,15 @@ class WorkflowModel:
         candidate's mean CV metric, the train (and holdout) metrics."""
         s = self.summary()
         return s.pretty() if s else "(no model selector in workflow)"
+
+    def model_insights(self):
+        """The :class:`~..insights.ModelInsights` of this model: every slot
+        of the checked vector with its provenance, the sanity checker's
+        statistics and the selected model's contribution, the label summary
+        and the selection summary (``insights/model_insights.py``)."""
+        from ..insights.model_insights import extract_model_insights
+
+        return extract_model_insights(self)
 
     def compute_data_up_to(self, feature: Feature, dataset: Dataset, *,
                            device=None) -> Dataset:
