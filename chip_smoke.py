@@ -195,7 +195,7 @@ Phases, one JSON line each:
                sha256 equal, LR within 1e-4, the pick lists' 2 slots in one
                encode launch, and the JAX-saved model's records on the card
                equal to the CPU plan's and within 1e-12 of the JAX plan's.
-               (c) Workflow.train at FAMILY_ROWS (262 144) with the counters
+               (c) Workflow.train at FAMILY_ROWS (131 072) with the counters
                zeroed just before: seconds by part (stage fits, the SmartText
                fit, the hashing transforms, the flushes, the SanityChecker,
                the selector), the vector width, peak device memory, the
@@ -321,7 +321,42 @@ Phases, one JSON line each:
                served records of that model on the card: the active pairs
                re-scored, the device and host milliseconds, records/s, and
                model_insights()'s seconds.
-21. summary  — nvidia-smi's line, then one {"kernels": [...]} line, then the
+21. streaming — Spark-free scoring, streaming, durable training and the
+               continual loop on the card.  (a) Parity: STREAM_PARITY_RECORDS
+               of the serving fixture's records as JSON lines through
+               MicroBatchStreamingReader and WorkflowRunner's STREAMING_SCORE
+               in micro-batches of 1024: one encode launch of 40 slots a
+               batch, each batch's scores bitwise the CPU's, the committed
+               offset the file's length and a restarted reader replaying
+               nothing; score_function(model) on the card equal to
+               model.score; serving_wide's export refused as the JAX package
+               refuses it (its decision-tree bucketizers), so the bundle is
+               exported from fixtures/training_families and scored in a
+               process that cannot import torch or jax, within 1e-6 of
+               LocalScorer on the card.  (b) STREAM_RECORDS streamed, timed by
+               part (JSONL read and parse, extract, host encode, device prefix
+               and its launch by CUDA events, head, write, commit), one encode
+               launch a batch; LocalScorer's p50/p99 of one record and its
+               records/s at 1024; the bundle's records/s at 1024.  (c) Phase
+               10's raw table at CONT_TRAIN_ROWS through transmogrify, the
+               checker and a 3-fold selector over LR and GBT (the example's
+               grids) on the card; CONT_STREAM_RECORDS labelled records
+               behind ScoringServer through ContinualTrainer (the second half
+               shifted by CONT_SHIFT on a quarter of the Reals) while a side
+               client keeps requesting: drift fires, the warm refit on a
+               65 536-record window with the prefix frozen builds and loads
+               no kernel, reuses the prefix and launches K1-K3 (the GBT), the
+               candidate shadows and is promoted sharing the prefix, and a
+               FaultHarness breaker trip inside probation rolls back (TM808).
+               (d) bench.py's 4-family sweep at RESUME_ROWS with resume=dir,
+               killed at the third family's device sync (the first two
+               families' blocks committed); the resumed run has 2 journal
+               hits, launches only the other two families (K1-K3 only the
+               GBT's levels and the refit's) and ends bitwise equal to an
+               uninterrupted run; an injected "CUDA out of memory" at the
+               GBT's launch degrades it to the next row bucket (TM822) and
+               commits nothing under its full-fidelity key.
+22. summary  — nvidia-smi's line, then one {"kernels": [...]} line, then the
                last line {"ok": true, "device": {...}}.
 
 Phase 3 also holds K5 past shared memory (a 5000-split slot, its own launch
@@ -388,11 +423,12 @@ INT8_LIBRARY_ROWS = 1 << 16
 FIXTURE_ROWS = 20000
 #: rows of the raw-column training run timed by phase 10
 RAW_ROWS = 1 << 18
-#: the families record (tools/make_torch_families_fixture.py) and the rows of
-#: the families train timed by phase 15
+#: the families record (tools/make_torch_families_fixture.py; phase 21
+#: exports its model's bundle) and the rows of the families train timed by
+#: phase 15 (262 144 until phase 21 took its share of the script's time)
 FAMILIES_FIXTURE = os.path.join("transmogrifai_tpu_torch", "fixtures",
                                 "training_families")
-FAMILY_ROWS = 1 << 18
+FAMILY_ROWS = 1 << 17
 #: the JAX package's record of the reference's example apps
 #: (tools/make_torch_examples_fixture.py) and where the apps save their models
 EXAMPLES_RECORD = os.path.join("transmogrifai_tpu_torch", "fixtures", "examples",
@@ -407,17 +443,17 @@ DSL_LEFT_SLOTS = 8
 #: the maps record (tools/make_torch_maps_fixture.py) and the rows of the maps
 #: train timed by phase 18 (its scoring table a quarter of them); the slots
 #: of its flush and of each served batch: the two pick lists' one-hot and the
-#: auto-bucketized Real
+#: auto-bucketized Real (262 144 rows until phase 21 took its share)
 MAPS_FIXTURE = os.path.join("transmogrifai_tpu_torch", "fixtures", "training_maps")
-MAPS_ROWS = 1 << 18
+MAPS_ROWS = 1 << 17
 MAPS_SLOTS = 3
 #: the JAX package's record of the text stack (tools/make_torch_text_fixture.py),
 #: the rows of the text pipeline timed by phase 19 and of its NER timing: at
 #: 65 536 rows the phase took 289 s, past its ~120 s share of the script
-#: (the host's tokenizer and language detector ~1 ms a row each), so it runs
-#: half of them
+#: (the host's tokenizer and language detector ~1 ms a row each), so it ran
+#: half of them, and a quarter since phase 21 took its share of the script
 TEXT_FIXTURE = os.path.join("transmogrifai_tpu_torch", "fixtures", "text_stack")
-TEXT_ROWS = 1 << 15
+TEXT_ROWS = 1 << 14
 TEXT_NER_ROWS = 4096
 #: the JAX package's record of the wide pipeline trained with workflow-level
 #: CV (tools/make_torch_workflow_cv_fixture.py), the rows of phase 20's
@@ -4133,6 +4169,634 @@ def phase_workflow_cv(torch, KE, dev) -> dict:
     return {"parity": parity, **timed}
 
 
+# -- 21. streaming: Spark-free scoring, streaming, continual refit, resume -------
+
+STREAM_BATCH = 1024
+#: records of the parity stream (8 micro-batches) and of the timed one
+STREAM_PARITY_RECORDS = 8 * STREAM_BATCH
+STREAM_RECORDS = 65536
+#: the continual loop: train rows, labelled records streamed (the second
+#: half shifted by CONT_SHIFT standard deviations on a quarter of the Reals)
+CONT_TRAIN_ROWS = 65536
+CONT_STREAM_RECORDS = 131072
+CONT_SHIFTED_REALS = 16
+CONT_SHIFT = 3.0
+#: the example's (examples/serving_streaming.py) selector grids
+CONT_GBT_GRID = {"num_rounds": 20, "max_depth": 3}
+#: bench.py's 4-family sweep, resumed
+RESUME_ROWS = 262144
+STREAM_RECORD = os.path.join("transmogrifai_tpu_torch", "fixtures", "streaming")
+
+
+def make_records_fast(schema: dict, n: int, rng) -> list:
+    """Requests drawn like :func:`make_records` (missing, unseen, absent
+    fields) column by column with numpy, for record counts where the
+    per-field loop would take minutes."""
+    import numpy as np
+
+    feats = [f for f in schema["features"] if not f.get("response")]
+    cols = []
+    for f in feats:
+        u = rng.random(n)
+        if f["type"] == "Real":
+            v = rng.normal(size=n).tolist()
+        elif f["type"] == "Binary":
+            v = (rng.random(n) < 0.3).tolist()
+        else:
+            lv = np.asarray(f["levels"])[rng.integers(len(f["levels"]), size=n)]
+            unseen = rng.integers(1000, size=n)
+            v = [f"unseen{k}" if x < 0.15 else str(s)
+                 for x, s, k in zip(u.tolist(), lv.tolist(), unseen.tolist())]
+        cols.append((f["name"], u.tolist(), v))
+    out = [{} for _ in range(n)]
+    for name, u, v in cols:
+        for r, x, val in zip(out, u, v):
+            if x >= 0.1:
+                r[name] = val
+            elif x >= 0.02:
+                r[name] = None
+    return out
+
+
+def _write_jsonl(path: str, records) -> None:
+    with open(path, "w") as fh:
+        for r in records:
+            fh.write(json.dumps(r) + "\n")
+
+
+def _stream_score(events: str, offsets: str, out_dir: str, model_dir: str):
+    """STREAMING_SCORE of ``events`` through the port's runner in
+    micro-batches of STREAM_BATCH, offsets committed to ``offsets``;
+    returns (RunResult, reader)."""
+    from transmogrifai_tpu_torch import Workflow
+    from transmogrifai_tpu_torch.params import OpParams
+    from transmogrifai_tpu_torch.readers import (JsonlTailSource,
+                                                 MicroBatchStreamingReader,
+                                                 OffsetCheckpoint)
+    from transmogrifai_tpu_torch.workflow.runner import RunType, WorkflowRunner
+
+    reader = MicroBatchStreamingReader(
+        JsonlTailSource(events), OffsetCheckpoint(offsets), batch_interval=0.0,
+        max_batch_records=STREAM_BATCH, min_batch_records=STREAM_BATCH,
+        max_empty_polls=0, sleep=lambda s: None)
+    runner = WorkflowRunner(workflow=Workflow(), streaming_reader=reader)
+    res = runner.run(RunType.STREAMING_SCORE, OpParams(
+        model_location=model_dir, write_location=os.path.join(out_dir, "s.csv")))
+    return res, reader
+
+
+def _pred_parts(col) -> tuple:
+    import numpy as np
+
+    return tuple(np.asarray(getattr(col, p)).tobytes() for p in ("pred", "raw", "prob"))
+
+
+def _stream_parity(torch, KE, dev, schema: dict, tmp: str) -> dict:
+    """(a) the fixture's records streamed in micro-batches on the card, each
+    batch equal to the CPU plan's; offsets exact; score_function equal to
+    model.score; the exported bundle within 1e-6 of LocalScorer."""
+    import numpy as np
+
+    import torch_stream_data as S
+    from transmogrifai_tpu_torch import WorkflowModel
+    from transmogrifai_tpu_torch.local import LocalScorer, export_standalone
+    from transmogrifai_tpu_torch.local.scoring import _plain
+    from transmogrifai_tpu_torch.readers import (JsonlTailSource,
+                                                 MicroBatchStreamingReader,
+                                                 OffsetCheckpoint)
+    from transmogrifai_tpu_torch.readers.base import rows_to_dataset
+    from transmogrifai_tpu_torch.workflow.workflow import dedup_raw_features
+
+    records = make_records(schema, STREAM_PARITY_RECORDS, np.random.default_rng(21))
+    events, offsets = os.path.join(tmp, "parity.jsonl"), os.path.join(tmp, "parity.offsets")
+    _write_jsonl(events, records)
+    cpu_model = WorkflowModel.load(FIXTURE)
+    raws = dedup_raw_features(cpu_model.result_features)
+    pred = next(f.name for f in cpu_model.result_features
+                if f.ftype.__name__ == "Prediction")
+    _reset_all(KE)
+    res, reader = _stream_score(events, offsets, os.path.join(tmp, "parity_out"), FIXTURE)
+    launches = _all_counts(KE)
+    n_batches = STREAM_PARITY_RECORDS // STREAM_BATCH
+    check(res.metrics["batches"] == n_batches
+          and [b.n_rows for b in res.scores] == [STREAM_BATCH] * n_batches,
+          f"{n_batches} micro-batches of {STREAM_BATCH}: {res.metrics}")
+    on_card = dev.type == "cuda"   # (a CPU rehearsal launches no kernel)
+    check(not on_card or launches["encode_slots"] == n_batches
+          and launches["encode_slots.slots"] == 40 * n_batches
+          and launches["onehot_codes"] == launches["bucketize_right_encode"] == 0,
+          f"one encode launch of 40 slots per micro-batch: {launches}")
+    for i, got in enumerate(res.scores):
+        chunk = records[i * STREAM_BATCH:(i + 1) * STREAM_BATCH]
+        want = cpu_model.score(rows_to_dataset(chunk, raws, allow_missing_response=True),
+                               device="cpu")
+        check(_pred_parts(got[pred]) == _pred_parts(want[pred]),
+              f"micro-batch {i}: the card's scores bitwise the CPU plan's")
+    size = os.path.getsize(events)
+    with open(offsets) as fh:
+        committed = json.load(fh)[JsonlTailSource(events).source_id]
+    check(committed == size, f"committed offset {committed} == the file's {size} bytes")
+    again = MicroBatchStreamingReader(JsonlTailSource(events), OffsetCheckpoint(offsets),
+                                      batch_interval=0.0, max_empty_polls=0,
+                                      sleep=lambda s: None)
+    check(list(again.stream_datasets(raws)) == [], "a restarted reader replays nothing")
+
+    card_model = WorkflowModel.load(FIXTURE)
+    scorer = LocalScorer(card_model)
+    check(scorer.device == dev, "score_function binds to the default device (the card)")
+    ds = rows_to_dataset(records[:STREAM_BATCH], raws, allow_missing_response=True)
+    local = scorer.batch(records[:STREAM_BATCH])
+    want = [_plain(v) for v in card_model.score(ds, device=dev)[pred].to_values()]
+    check([r[pred] for r in local] == want,
+          "score_function's records == model.score on the card")
+    try:
+        export_standalone(card_model, os.path.join(tmp, "wide_bundle"))
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    with open(os.path.join(STREAM_RECORD, "export_refusals.json")) as fh:
+        check(refused == json.load(fh)["serving_wide"],
+              f"serving_wide's export refused as the JAX package refuses it: {refused}")
+    fam = WorkflowModel.load(FAMILIES_FIXTURE)
+    with open(os.path.join(FAMILIES_FIXTURE, "records.json")) as fh:
+        fam_recs = [r for b in json.load(fh)["batches"] for r in b["records"]]
+    fam_pred = next(f.name for f in fam.result_features if f.ftype.__name__ == "Prediction")
+    bundle = os.path.join(tmp, "families_bundle")
+    export_standalone(fam, bundle)
+    fam_local = LocalScorer(fam).batch(fam_recs)
+    out = S.run_bundle(bundle, fam_recs, batch=len(fam_recs))
+    check(out["loaded"] == [], f"the bundle's process loaded {out['loaded']}")
+    bundle_dev = S.bundle_deviation(out["rows"], fam_local, fam_pred)
+    check(bundle_dev <= 1e-6, f"the bundle within 1e-6 of LocalScorer on the card ({bundle_dev})")
+    return {"records": STREAM_PARITY_RECORDS, "batches": n_batches,
+            "launches": launches, "committed_offset": committed, "file_bytes": size,
+            "records_equal_cpu": True, "score_function_equal_score": True,
+            "serving_wide_export": "refused (DecisionTreeNumericBucketizer), as the "
+                                   "JAX package refuses it",
+            "bundle_model": "fixtures/training_families", "bundle_rows": len(fam_recs),
+            "bundle_max_abs_dev": bundle_dev}
+
+
+def _stream_timed(torch, KE, dev, schema: dict, tmp: str) -> dict:
+    """(b) 65 536 records streamed at full width, by part; LocalScorer's
+    latency of one record and records/s at 1024; the bundle's records/s."""
+    import numpy as np
+
+    import torch_stream_data as S
+    import transmogrifai_tpu_torch.readers.streaming as RS
+    from transmogrifai_tpu_torch import WorkflowModel
+    from transmogrifai_tpu_torch.local import LocalScorer, export_standalone
+    from transmogrifai_tpu_torch.workflow import plan as WP
+    from transmogrifai_tpu_torch.workflow import runner as WR
+
+    t0 = time.perf_counter()
+    records = make_records_fast(schema, STREAM_RECORDS, np.random.default_rng(22))
+    events = os.path.join(tmp, "timed.jsonl")
+    _write_jsonl(events, records)
+    make_s = time.perf_counter() - t0
+    parts = {"read_parse_s": 0.0, "extract_s": 0.0, "host_encode_s": 0.0,
+             "device_prefix_s": 0.0, "encode_launch_ms": 0.0, "head_s": 0.0,
+             "write_s": 0.0, "commit_s": 0.0}
+    launches_per_batch = []
+    # time the parts by wrapping the functions each micro-batch goes through
+    saved = [(RS.JsonlTailSource, "poll"), (RS, "rows_to_dataset"),
+             (WP.JointPrefix, "apply_prefix"), (WP, "run_host_stages"),
+             (WR, "_write_dataset"), (RS.OffsetCheckpoint, "commit")]
+    saved = [(o, n, getattr(o, n)) for o, n in saved]
+
+    def timed(key, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                parts[key] += time.perf_counter() - t
+        return run
+
+    real_apply = WP.JointPrefix.apply_prefix
+
+    def apply_prefix(self, *a, **k):
+        before = KE.encode_slots_launches
+        out = real_apply(self, *a, **k)
+        launches_per_batch.append(KE.encode_slots_launches - before)
+        tm = self.last_timings
+        parts["host_encode_s"] += tm["host_encode_s"] + tm["columns_s"]
+        parts["device_prefix_s"] += tm["h2d_s"] + tm["device_s"] + tm["d2h_s"]
+        parts["encode_launch_ms"] += tm["encode_ms"] or 0.0
+        return out
+
+    RS.JsonlTailSource.poll = timed("read_parse_s", RS.JsonlTailSource.poll)
+    RS.rows_to_dataset = timed("extract_s", RS.rows_to_dataset)
+    WP.JointPrefix.apply_prefix = apply_prefix
+    WP.run_host_stages = timed("head_s", WP.run_host_stages)
+    WR._write_dataset = timed("write_s", WR._write_dataset)
+    RS.OffsetCheckpoint.commit = timed("commit_s", RS.OffsetCheckpoint.commit)
+    try:
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        res, reader = _stream_score(events, os.path.join(tmp, "timed.offsets"),
+                                    os.path.join(tmp, "timed_out"), FIXTURE)
+        _sync(torch, dev)
+        wall = time.perf_counter() - t0
+    finally:
+        for o, n, f in saved:
+            setattr(o, n, f)
+    parts["other_s"] = wall - sum(v for k, v in parts.items() if k.endswith("_s"))
+    n_batches = res.metrics["batches"]
+    check(n_batches == STREAM_RECORDS // STREAM_BATCH
+          and launches_per_batch == [int(dev.type == "cuda")] * n_batches,
+          f"one encode launch per micro-batch: {launches_per_batch[:8]}...")
+    # LocalScorer: one record, then batches of 1024
+    model = WorkflowModel.load(FIXTURE)
+    scorer = LocalScorer(model)
+    for r in records[:20]:
+        scorer(r)
+    lat = []
+    for r in records[:300]:
+        t = time.perf_counter()
+        scorer(r)
+        lat.append(1e3 * (time.perf_counter() - t))
+    batches = [records[i:i + STREAM_BATCH] for i in range(0, 16 * STREAM_BATCH, STREAM_BATCH)]
+    scorer.batch(batches[0])
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    for b in batches:
+        scorer.batch(b)
+    _sync(torch, dev)
+    local_rps = 16 * STREAM_BATCH / (time.perf_counter() - t0)
+    # the bundle (the families model: serving_wide's is refused) at 1024
+    fam = WorkflowModel.load(FAMILIES_FIXTURE)
+    with open(os.path.join(FAMILIES_FIXTURE, "records.json")) as fh:
+        fam_recs = [r for b in json.load(fh)["batches"] for r in b["records"]]
+    bundle = os.path.join(tmp, "families_bundle_timed")
+    export_standalone(fam, bundle)
+    many = (fam_recs * (16 * STREAM_BATCH // len(fam_recs) + 1))[:16 * STREAM_BATCH]
+    out = S.run_bundle(bundle, many, batch=STREAM_BATCH)
+    fam_scorer = LocalScorer(fam)
+    fam_scorer.batch(many[:STREAM_BATCH])
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    for i in range(0, len(many), STREAM_BATCH):
+        fam_scorer.batch(many[i:i + STREAM_BATCH])
+    _sync(torch, dev)
+    fam_local_rps = len(many) / (time.perf_counter() - t0)
+    return {"records": STREAM_RECORDS, "batches": n_batches,
+            "records_per_s": STREAM_RECORDS / wall, "wall_s": wall,
+            "parts": parts, "make_records_and_jsonl_s": make_s,
+            "encode_launches_per_batch": 1,
+            "local_scorer": {"p50_ms": float(np.percentile(lat, 50)),
+                             "p99_ms": float(np.percentile(lat, 99)),
+                             "records_per_s_at_1024": local_rps},
+            "bundle": {"model": "fixtures/training_families",
+                       "records_per_s_at_1024": len(many) / out["seconds"],
+                       "local_scorer_records_per_s_at_1024": fam_local_rps}}
+
+
+def _continual_data(n_train: int, n_stream: int):
+    """Phase 10's raw table at ``n_train`` rows and ``n_stream`` labelled
+    records of the same maker (another seed) with the second half shifted by
+    CONT_SHIFT on the first CONT_SHIFTED_REALS Reals."""
+    from torch_wide_data import FIXTURE_SHAPE, make_data
+
+    cols, schema = make_data(n_train, seed=31, **FIXTURE_SHAPE)
+    scols, _ = make_data(n_stream, seed=32, **FIXTURE_SHAPE)
+    names = list(scols)
+    records = [dict(zip(names, row)) for row in zip(*(scols[k] for k in names))]
+    shifted = [f"r{j}" for j in range(CONT_SHIFTED_REALS)]
+    for r in records[n_stream // 2:]:
+        for k in shifted:
+            if r[k] is not None:
+                r[k] += CONT_SHIFT
+    return cols, schema, records
+
+
+def _continual(torch, KE, dev, tmp: str) -> dict:
+    """(c) train at CONT_TRAIN_ROWS on the card; stream CONT_STREAM_RECORDS
+    labelled records behind ScoringServer; drift fires; the warm refit on a
+    65 536-record window with the prefix frozen builds nothing and launches
+    K1-K3 (the GBT); the candidate shadows, is promoted, and a breaker trip
+    inside probation rolls the server back."""
+    import threading
+
+    import transmogrifai_tpu_torch as T
+    from torch_wide_data import wide_pipeline
+    from transmogrifai_tpu_torch.models.trees import GradientBoostedTreesClassifier
+    from transmogrifai_tpu_torch.perf.kernels import dispatch
+    from transmogrifai_tpu_torch.readers import ListSource, MicroBatchStreamingReader
+    from transmogrifai_tpu_torch.serve import (CircuitOpenError, FaultHarness,
+                                               ScoringServer, TransientScoringError)
+    from transmogrifai_tpu_torch.types import feature_type_by_name
+    from transmogrifai_tpu_torch.workflow import continual as C
+    from transmogrifai_tpu_torch.workflow.workflow import dedup_raw_features
+
+    t0 = time.perf_counter()
+    cols, schema, records = _continual_data(CONT_TRAIN_ROWS, CONT_STREAM_RECORDS)
+    ftypes = {s["name"]: feature_type_by_name(s["type"]) for s in schema}
+    ds = T.Dataset.from_features(cols, ftypes)
+    del cols
+    data_s = time.perf_counter() - t0
+    label, sel, chk, pred = wide_pipeline(
+        T, ftypes, schema, num_folds=3,
+        models=[(T.LogisticRegression(), [{"reg_param": 0.01}]),
+                (GradientBoostedTreesClassifier(), [dict(CONT_GBT_GRID)])])
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    model = T.Workflow().set_input_dataset(ds).set_result_features(label, pred).train(device=dev)
+    _sync(torch, dev)
+    train_s = time.perf_counter() - t0
+    raws = dedup_raw_features(model.result_features)
+    snap = C.TrainingSnapshot.from_dataset(ds, features=raws)
+    del ds
+    server = ScoringServer(model, max_batch=STREAM_BATCH, max_wait_ms=2.0,
+                           max_queue=1 << 16,
+                           resilience={"max_retries": 0, "failure_threshold": 2,
+                                       "recovery_batches": 8})
+    plan_compiles0 = server.plan.metrics()["compile_count"]
+    refit = C.RefitController(model, sleep=lambda s: None)
+    window = {}
+    real_refit = refit.refit
+    # a side client: closed-loop requests (64 outstanding) while the refit
+    # runs, to read the records/s the server keeps serving meanwhile (the
+    # loop itself waits for the refit, as the reference's does)
+    side = [{k: v for k, v in r.items() if k != "label"} for r in records[:4096]]
+    done_at = []
+
+    def client(stop):
+        i, pending = 0, []
+        while not stop.is_set():
+            pending.append(server.submit(side[i % len(side)]))
+            i += 1
+            if len(pending) >= 64:
+                pending.pop(0).result(timeout=120)
+                done_at.append(time.perf_counter())
+        for f in pending:
+            f.result(timeout=120)
+            done_at.append(time.perf_counter())
+
+    def refit_timed(win):
+        window["builds0"] = dispatch.build_counts()
+        window["plan_compiles0"] = server.plan.metrics()["compile_count"]
+        _reset_all(KE)
+        stop = threading.Event()
+        th = threading.Thread(target=client, args=(stop,), daemon=True)
+        window["t0"] = time.perf_counter()
+        th.start()
+        try:
+            return real_refit(win)
+        finally:
+            _sync(torch, dev)
+            window["t1"] = time.perf_counter()
+            window["launches"] = _all_counts(KE)
+            # the refit runs on this thread; the server's batches launch
+            # the encode kernel on its own threads meanwhile
+            window["refit_encode_launches"] = KE.thread_encode_launches()
+            stop.set()
+            th.join(timeout=300)
+            window["side_client_done"] = not th.is_alive()
+            window["rows"] = win.n_rows
+            window["plan_compiles1"] = server.plan.metrics()["compile_count"]
+
+    refit.refit = refit_timed
+    reader = MicroBatchStreamingReader(ListSource(records, "labelled"), batch_interval=0.0,
+                                       max_batch_records=STREAM_BATCH,
+                                       min_batch_records=STREAM_BATCH, max_empty_polls=0,
+                                       sleep=lambda s: None)
+    trainer = C.ContinualTrainer(server, model, reader, snapshot=snap, refit=refit,
+                                 window_records=CONT_TRAIN_ROWS,
+                                 probation_batches=1 << 30)
+    t0 = time.perf_counter()
+    metrics = trainer.run()
+    _sync(torch, dev)
+    stream_s = time.perf_counter() - t0
+    check(window.get("side_client_done", False), "the side client finished")
+    codes = [d.code for d in trainer.diagnostics]
+    last = trainer.last_refit
+    check(metrics["drift_events"] >= 1 and ("TM801" in codes or "TM802" in codes),
+          f"drift fired: {metrics['drift_events']} events, codes {sorted(set(codes))}")
+    check(metrics["refits"] == 1 and last is not None, f"one warm refit: {metrics}")
+    check(window["rows"] == CONT_TRAIN_ROWS, f"the refit window holds {window['rows']} rows")
+    check(last.backend_compiles == 0 and last.prefix_reused,
+          f"the refit built or loaded {last.backend_compiles} kernels, prefix reused "
+          f"{last.prefix_reused}")
+    check("TM809" not in codes, "no TM809")
+    builds = {k: dispatch.build_counts()[k] - window["builds0"][k] for k in ("builds", "loads")}
+    for k in ("hist_level", "split_scan", "row_select_lanes"):
+        check(dev.type != "cuda" or window["launches"][k] > 0,
+              f"the refit's GBT launched {k}")
+    check(window["plan_compiles1"] == window["plan_compiles0"],
+          "the serving plan allocated nothing during the refit")
+    flushes = [r for r in refit.last_train_profile if r["kind"] == "flush"]
+    encoded = [r for r in flushes if r.get("encode_slots")]
+    check(dev.type != "cuda" or (
+        encoded and all(r["encode_launches"] == 1 for r in encoded)
+        and sum(r.get("encode_launches", 0) for r in flushes)
+        == window["refit_encode_launches"] == len(encoded)),
+          f"the refit's own encode launches: one a flush with slots "
+          f"({[r.get('encode_launches') for r in flushes]} in {len(flushes)} flushes, "
+          f"{window['refit_encode_launches']} on the refit's thread)")
+    check(metrics["promotions"] == 1 and metrics["swap"]["swaps"] == 1
+          and metrics["swap"]["history"][0]["shared_prefix"] is True,
+          f"the candidate shadowed and was promoted with the shared prefix: {metrics['swap']}")
+    check(metrics["record_errors"] == 0, "no record failed while streaming")
+    check(server.in_probation(), "still in probation at the stream's end")
+    harness = FaultHarness(seed=0)
+    harness.script("device", [TransientScoringError("dead"), TransientScoringError("dead")])
+    probe = [{k: v for k, v in r.items() if k != "label"} for r in records[-4:]]
+    with harness:
+        for r in probe[:3]:
+            try:
+                server.score(r, timeout=60)
+            except (TransientScoringError, CircuitOpenError):
+                pass   # the card plan has no host path: the batch fails
+    swap = server.swap_metrics()
+    check(swap["rollbacks"] == 1 and swap["active_version"] == 1,
+          f"the breaker trip in probation rolled back: {swap}")
+    trainer._tick()
+    check("TM808" in [d.code for d in trainer.diagnostics], "TM808 recorded")
+    check(trainer._model is model, "the control plane back on the base model")
+    served = server.score(probe[3], timeout=60)
+    check(pred.name in served, "the rolled-back model serves")
+    server.close()
+    in_refit = sum(1 for t in done_at if t <= window["t1"])
+    refit_s = window["t1"] - window["t0"]
+    prof = refit.last_train_profile
+    return {"train_rows": CONT_TRAIN_ROWS, "stream_records": CONT_STREAM_RECORDS,
+            "data_s": data_s, "train_s": train_s, "stream_s": stream_s,
+            "stream_records_per_s": CONT_STREAM_RECORDS / stream_s,
+            "side_client_records": len(done_at),
+            "codes": sorted(set(codes)), "counters": trainer.counters,
+            "refit": {"rows": window["rows"], "seconds": refit_s,
+                      "result_seconds": last.seconds,
+                      "kernel_builds_loads": builds, "backend_compiles": last.backend_compiles,
+                      "prefix_reused": last.prefix_reused,
+                      "serving_plan_compile_count": [window["plan_compiles0"],
+                                                     window["plan_compiles1"]],
+                      "launches": window["launches"],
+                      "launches_note": "the refit's K1-K3; the encode kernel's "
+                                       "global count holds the server's batches "
+                                       "during the refit too",
+                      "encode_launches": window["refit_encode_launches"],
+                      "encode_flushes": len(encoded),
+                      "parts": [{k: r.get(k) for k in ("kind", "stage", "seconds",
+                                                       "encode_launches")}
+                                for r in prof],
+                      "served_records_per_s_during_refit": in_refit / refit_s},
+            "serving_plan_compile_count_start": plan_compiles0,
+            "swap": {k: swap[k] for k in ("swaps", "rollbacks", "active_version")},
+            "shared_prefix": metrics["swap"]["history"][0]["shared_prefix"]}
+
+
+def _resume_workflow(x, y):
+    import numpy as np
+
+    from transmogrifai_tpu_torch import (BinaryClassificationModelSelector,
+                                         FeatureBuilder, Workflow)
+    from transmogrifai_tpu_torch.data.dataset import Column, Dataset
+    from transmogrifai_tpu_torch.types import RealNN
+
+    label = FeatureBuilder.RealNN("label").extract_field().as_response()
+    vec = FeatureBuilder.OPVector("features").extract_field().as_predictor()
+    selector = BinaryClassificationModelSelector.with_cross_validation(
+        num_folds=FOLDS, seed=SELECTOR_SEED)
+    pred = label.transform_with(selector, vec)
+    ds = Dataset({"label": Column(RealNN, y.astype(np.float64),
+                                  np.ones(len(y), dtype=np.bool_)),
+                  "features": Column.vector(x)})
+    return Workflow().set_input_dataset(ds).set_result_features(label, pred), selector
+
+
+def _winner_arrays(model, selector) -> dict:
+    import numpy as np
+
+    win = model.fitted[selector.uid].model
+    if hasattr(win, "trees"):
+        return {k: np.asarray(v).tobytes() for k, v in win.trees.items()}
+    return {"coef": np.asarray(win.coef).tobytes(), "intercept": repr(win.intercept)}
+
+
+def _resume(torch, KE, dev, tmp: str) -> dict:
+    """(d) the 4-family sweep killed at the third family's device sync and
+    resumed: 2 journal hits, the replayed families launch nothing, the model
+    bitwise an uninterrupted run's; an out-of-memory at the GBT's launch
+    degrades it to the next row bucket and commits nothing for it."""
+    import numpy as np
+
+    from transmogrifai_tpu_torch.models import base as MB
+    from transmogrifai_tpu_torch.serve import FaultHarness
+    from transmogrifai_tpu_torch.workflow import resilience
+    from transmogrifai_tpu_torch.workflow.resilience import SweepJournal
+
+    x, y = synth(RESUME_ROWS, D, 0)
+    wf, ref_sel = _resume_workflow(x, y)
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    ref = wf.train(device=dev)
+    _sync(torch, dev)
+    ref_s = time.perf_counter() - t0
+    ref_sum = ref.fitted[ref_sel.uid].summary
+    resume = os.path.join(tmp, "resume")
+    wf, sel = _resume_workflow(x, y)
+    killed = False
+    harness = FaultHarness().script("device_sync", [None, None, RuntimeError("killed")])
+    with harness:
+        try:
+            wf.train(device=dev, resume=resume)
+        except RuntimeError as e:
+            killed = "killed" in str(e)
+    check(killed, "the first run died at the third family's device sync")
+    journal_path = os.path.join(resume, "sweep_journal.json")
+    check(len(SweepJournal(journal_path).keys()) == 2, "two blocks committed before the kill")
+    launched = []
+    real = MB.PredictionEstimatorBase.cv_sweep_async
+
+    def counted(self, *a, **k):
+        launched.append(type(self).__name__)
+        return real(self, *a, **k)
+
+    MB.PredictionEstimatorBase.cv_sweep_async = counted
+    wf, sel = _resume_workflow(x, y)
+    _reset_all(KE)
+    try:
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        model = wf.train(device=dev, resume=resume)
+        _sync(torch, dev)
+        resumed_s = time.perf_counter() - t0
+    finally:
+        MB.PredictionEstimatorBase.cv_sweep_async = real
+    launches = _all_counts(KE)
+    res = resilience.last()
+    summ = model.fitted[sel.uid].summary
+    win = model.fitted[sel.uid].model
+    refit_levels = win.max_depth * (win.n_trees if "GBT" in type(win).__name__ else 1) \
+        if hasattr(win, "trees") else 0
+    gbt_levels = 50 * 3
+    check(res.journal.hits == 2 and res.journal.commits == 2,
+          f"journal hits {res.journal.hits}, commits {res.journal.commits}")
+    check(launched == ["GradientBoostedTreesClassifier", "LinearSVC"],
+          f"only the uncommitted families launched: {launched}")
+    for k in ("hist_level", "split_scan", "row_select_lanes"):
+        check(dev.type != "cuda" or launches[k] == gbt_levels + refit_levels,
+              f"{k}: {launches[k]} launches == the GBT's {gbt_levels} + refit "
+              f"{refit_levels} (the replayed forest launched nothing)")
+    check(summ.best_model_name == ref_sum.best_model_name
+          and summ.best_grid == ref_sum.best_grid
+          and [e.metric_values for e in summ.validation_results]
+          == [e.metric_values for e in ref_sum.validation_results]
+          and _winner_arrays(model, sel) == _winner_arrays(ref, ref_sel),
+          "the resumed model bitwise the uninterrupted run's")
+    # an out-of-memory at the GBT's launch: the bucket ladder
+    oom_dir = os.path.join(tmp, "resume_oom")
+    harness = FaultHarness().fail_when(
+        "sweep_dispatch",
+        lambda ctx: ctx["family"] == "GradientBoostedTreesClassifier"
+        and ctx["rows"] > RESUME_ROWS // 2,
+        lambda: torch.OutOfMemoryError("CUDA out of memory. Tried to allocate 2.00 GiB"))
+    wf, sel = _resume_workflow(x, y)
+    with harness:
+        oom_model = wf.train(device=dev, resume=oom_dir)
+    ores = resilience.last()
+    keys = SweepJournal(os.path.join(oom_dir, "sweep_journal.json")).keys()
+    check(ores.degradations == [{"kind": "bucket_shrink",
+                                 "family": "GradientBoostedTreesClassifier",
+                                 "rows_from": RESUME_ROWS, "row_cap": RESUME_ROWS // 2}],
+          f"the GBT degraded to the next bucket: {ores.degradations}")
+    check(len(keys) == 3, f"nothing committed for the degraded block: {len(keys)} keys")
+    check("TM822" in [d.code for d in ores.diagnostics], "TM822 recorded")
+    gbt = [e for e in oom_model.fitted[sel.uid].summary.validation_results
+           if e.model_name == "GradientBoostedTreesClassifier"]
+    check(gbt and all(np.isfinite(v) for e in gbt for v in e.metric_values),
+          "the degraded GBT's CV metrics are finite")
+    return {"rows": RESUME_ROWS, "uninterrupted_s": ref_s, "resumed_s": resumed_s,
+            "journal_hits": res.journal.hits, "launched_families": launched,
+            "launches": launches, "winner": summ.best_model_name,
+            "bitwise_equal": True,
+            "oom": {"degradations": ores.degradations, "journal_keys": len(keys)}}
+
+
+def phase_streaming(torch, KE, dev) -> dict:
+    """Phase 21: (a) parity, (b) full width timed, (c) the continual loop,
+    (d) resume."""
+    import shutil
+    import tempfile
+
+    with open(os.path.join(FIXTURE, "schema.json")) as fh:
+        schema = json.load(fh)
+    tmp = tempfile.mkdtemp(prefix="tmog_stream_")
+    try:
+        out = {"parity": _stream_parity(torch, KE, dev, schema, tmp)}
+        emit({"phase": "streaming_parity", **out["parity"]})
+        out["timed"] = _stream_timed(torch, KE, dev, schema, tmp)
+        emit({"phase": "streaming_timed", **out["timed"]})
+        out["continual"] = _continual(torch, KE, dev, tmp)
+        emit({"phase": "streaming_continual", **out["continual"]})
+        out["resume"] = _resume(torch, KE, dev, tmp)
+        emit({"phase": "streaming_resume", **out["resume"]})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4305,7 +4969,10 @@ def main() -> int:
     # 20. workflow-level CV, ModelInsights and LOCO
     wcv = phase_workflow_cv(torch, KE, dev)
 
-    # 21. summary
+    # 21. Spark-free scoring, streaming, the continual loop, resume
+    stream = phase_streaming(torch, KE, dev)
+
+    # 22. summary
     kernels = []
     tree_src = "transmogrifai_tpu_torch/perf/kernels/csrc/trees.cu"
     for kname, replaces in (("hist_level", "transmogrifai_tpu/perf/kernels/histogram.py:80"),
@@ -4351,6 +5018,8 @@ def main() -> int:
         if kname == "row_select_lanes":
             entry["launches_by_path"] = {k: train["launches"][f"row_select_lanes.{k}"]
                                          for k in ("tile", "direct")}
+        entry["launches_streaming_refit"] = stream["continual"]["refit"]["launches"][kname]
+        entry["launches_resumed_sweep"] = stream["resume"]["launches"][kname]
         kernels.append(entry)
     for kname, replaces in (("onehot_codes", "transmogrifai_tpu/perf/kernels/encode.py:76"),
                             ("bucketize_right_encode",
@@ -4397,6 +5066,8 @@ def main() -> int:
                 "workflow_cv_fold_transform": wcv["fold_transform"]}
                if kname == "bucketize_right_encode" else
                {"launches_workflow_cv": wcv["launches"]["encode_slots"]}),
+            "launches_streaming": stream["parity"]["launches"]["encode_slots"],
+            "launches_streaming_refit": stream["continual"]["refit"]["encode_launches"],
             **{f"fused_{k}": fused[k] for k in ("ms", "device_ms", "plain_ms",
                                                  "bound_ms", "slots", "columns")}})
     t = timings["bucketize_left_encode"]

@@ -1141,3 +1141,124 @@ def test_loco_group_sums_repeat_on_the_card():
     runs = [RecordInsightsLOCO(model, top_k=4, meta=meta, device="cuda")
             .transform_columns([Column.vector(x, meta)], None).data for _ in range(2)]
     assert list(runs[0]) == list(runs[1])
+
+
+# -- local scoring, streaming, the continual refit, a resumed sweep -------------
+
+def test_local_scorer_and_streaming_score_launch_once_a_batch(tmp_path):
+    """score_function and STREAMING_SCORE on the card: one encode launch of
+    40 slots a batch, scores bitwise the CPU's, offsets committed."""
+    import json
+
+    from transmogrifai_tpu_torch import Workflow, WorkflowModel
+    from transmogrifai_tpu_torch.local import LocalScorer
+    from transmogrifai_tpu_torch.params import OpParams
+    from transmogrifai_tpu_torch.readers import (JsonlTailSource,
+                                                 MicroBatchStreamingReader,
+                                                 OffsetCheckpoint)
+    from transmogrifai_tpu_torch.workflow.runner import RunType, WorkflowRunner
+
+    with open(os.path.join(FIXTURE, "schema.json")) as fh:
+        schema = json.load(fh)
+    recs = _records(schema, 600, np.random.default_rng(11))
+    model = WorkflowModel.load(FIXTURE)
+    pred = model.result_features[-1].name
+    card, cpu = LocalScorer(model), LocalScorer(model, device="cpu")
+    assert card.device.type == "cuda"
+    TKE.reset_launch_counts()
+    got = card.batch(recs[:256])
+    assert TKE.launch_counts()["encode_slots"] == 1
+    assert TKE.launch_counts()["encode_slots.slots"] == 40
+    assert got == cpu.batch(recs[:256]) and card(recs[0]) == got[0]
+
+    events = str(tmp_path / "e.jsonl")
+    with open(events, "w") as fh:
+        fh.writelines(json.dumps(r) + "\n" for r in recs)
+    reader = MicroBatchStreamingReader(
+        JsonlTailSource(events), OffsetCheckpoint(str(tmp_path / "o.json")),
+        batch_interval=0.0, max_batch_records=256, min_batch_records=256,
+        max_empty_polls=0, sleep=lambda s: None)
+    TKE.reset_launch_counts()
+    res = WorkflowRunner(workflow=Workflow(), streaming_reader=reader).run(
+        RunType.STREAMING_SCORE, OpParams(model_location=FIXTURE,
+                                          write_location=str(tmp_path / "o" / "s.csv")))
+    assert res.metrics["batches"] == 3 == TKE.launch_counts()["encode_slots"]
+    with open(tmp_path / "o.json") as fh:
+        assert json.load(fh)["jsonl:e.jsonl"] == os.path.getsize(events)
+    want = cpu.batch(recs[256:512])
+    assert [v for v in res.scores[1][pred].to_values()] == [r[pred] for r in want]
+
+
+def test_continual_refit_on_the_card_builds_nothing():
+    """The warm refit on the card: the prefix reused, no kernel built or
+    loaded after prime, the candidate's coefficients near the CPU's."""
+    import sys
+    import types
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import torch_stream_data as S
+
+    import transmogrifai_tpu_torch as T
+    from transmogrifai_tpu_torch.models.logistic import LogisticRegression
+    from transmogrifai_tpu_torch.readers.base import rows_to_dataset
+    from transmogrifai_tpu_torch.workflow import continual as C
+    from transmogrifai_tpu_torch.workflow.workflow import dedup_raw_features
+
+    pkg = types.SimpleNamespace(
+        FeatureBuilder=T.FeatureBuilder, transmogrify=T.transmogrify,
+        BinaryClassificationModelSelector=T.BinaryClassificationModelSelector,
+        LogisticRegression=LogisticRegression, Workflow=T.Workflow,
+        rows_to_dataset=rows_to_dataset, dedup_raw_features=dedup_raw_features,
+        continual=C)
+    model, raws, train_ds, _ = S.continual_base(pkg, {})
+    ctl = C.RefitController(model, sleep=lambda s: None)
+    assert ctl.device.type == "cuda"
+    ctl.prime(train_ds)
+    window = rows_to_dataset(S.make_records(S.N_TRAIN, 9, shift=1.0), raws)
+    res = ctl.refit(window)
+    assert res.backend_compiles == 0 and res.prefix_reused and res.diagnostics == []
+    cpu = C.RefitController(model, sleep=lambda s: None, device="cpu").refit(window)
+    np.testing.assert_allclose(S.coefficients(res.model), S.coefficients(cpu.model),
+                               rtol=0, atol=1e-5)
+
+
+def test_killed_sweep_resumes_bitwise_on_the_card(tmp_path):
+    """The 4-family sweep killed at the third family's device sync resumes
+    with 2 journal hits, launching only the other families, bitwise equal
+    to an uninterrupted run on the card."""
+    from transmogrifai_tpu_torch import (BinaryClassificationModelSelector,
+                                         FeatureBuilder, Workflow)
+    from transmogrifai_tpu_torch.data.dataset import Column, Dataset
+    from transmogrifai_tpu_torch.serve.faults import FaultHarness
+    from transmogrifai_tpu_torch.types import RealNN
+    from transmogrifai_tpu_torch.workflow import resilience
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(4096, 16)).astype(np.float32)
+    y = (rng.random(4096) < 1 / (1 + np.exp(-x[:, 0]))).astype(np.float64)
+
+    def build():
+        label = FeatureBuilder.RealNN("label").extract_field().as_response()
+        vec = FeatureBuilder.OPVector("features").extract_field().as_predictor()
+        sel = BinaryClassificationModelSelector.with_cross_validation(num_folds=3, seed=7)
+        pred = label.transform_with(sel, vec)
+        ds = Dataset({"label": Column.from_values(RealNN, y.tolist()),
+                      "features": Column.vector(x)})
+        return Workflow().set_input_dataset(ds).set_result_features(label, pred), sel
+
+    wf, ref_sel = build()
+    ref = wf.train().fitted[ref_sel.uid]
+    wf, _ = build()
+    with FaultHarness().script("device_sync", [None, None, RuntimeError("killed")]):
+        with pytest.raises(RuntimeError, match="killed"):
+            wf.train(resume=str(tmp_path))
+    wf, sel = build()
+    TH.reset_launch_counts()
+    got = wf.train(resume=str(tmp_path)).fitted[sel.uid]
+    assert resilience.last().journal.hits == 2
+    assert got.summary.best_model_name == ref.summary.best_model_name
+    assert [e.metric_values for e in got.summary.validation_results] == \
+        [e.metric_values for e in ref.summary.validation_results]
+    assert TH.launch_counts()["hist_level"] == 50 * 3 + (
+        got.model.max_depth * got.model.n_trees if "GBT" in type(got.model).__name__
+        else got.model.max_depth if hasattr(got.model, "trees") else 0)

@@ -27,6 +27,11 @@ examples with the JAX package on the CPU:
 ``tests/torch_examples_data.py`` (the numpy-only copy that ``chip_smoke.py``
 runs on the card) is pinned here value for value to the examples' frames,
 and its apps' evaluate runs hold a model the example saved.
+
+``examples/serving_streaming.py`` (the local scorer, the standalone bundle
+in a subprocess, the checkpointed stream through the runner) runs the same
+way, held to ``fixtures/streaming/example.json``
+(``tools/make_torch_streaming_fixture.py``).
 """
 
 import json
@@ -350,3 +355,53 @@ def torch_equal(a, b) -> bool:
     import torch
 
     return bool(torch.equal(a, b))
+
+
+# ---------------------------------------------------------------------------
+# serving_streaming: local scorer, the standalone bundle, checkpointed stream
+# ---------------------------------------------------------------------------
+
+with open(os.path.join(REPO, "transmogrifai_tpu_torch", "fixtures", "streaming",
+                       "example.json")) as _fh:
+    STREAM_RECORD = json.load(_fh)
+
+
+@pytest.fixture(scope="module")
+def serving_streaming():
+    mod = load_example("serving_streaming")
+    captured = {}
+    train = mod.train_model
+
+    def keep(workdir):
+        wf, model = train(workdir)
+        captured["best"] = model.summary().best_model_name
+        return wf, model
+
+    mod.train_model = keep
+    with use_device("cpu"):
+        out = mod.main()
+    return out, captured
+
+
+class TestServingStreaming:
+    """``examples/serving_streaming.py`` on the port (LR and GBT(20 rounds,
+    depth 3) in 3-fold CV, the in-process scorer, the standalone bundle in a
+    subprocess, the checkpointed stream through the runner) against the
+    JAX package's run (``fixtures/streaming/example.json``)."""
+
+    def test_winner_and_stream_batches(self, serving_streaming):
+        out, captured = serving_streaming
+        assert captured["best"] == STREAM_RECORD["best_model_name"]
+        assert out["result"].metrics["batches"] == STREAM_RECORD["batches"]
+
+    def test_in_process_and_standalone_within_the_record(self, serving_streaming):
+        out, _ = serving_streaming
+        want = STREAM_RECORD["in_process"]
+        assert set(out["in_process"]) == set(want)
+        for k, v in want.items():
+            assert abs(out["in_process"][k] - v) <= TOL["LogisticRegression"][1], k
+        sa, want_sa = out["standalone"], STREAM_RECORD["standalone"]
+        assert sa["prediction"] == want_sa["prediction"]
+        assert abs(sa["probability"][1] - want_sa["probability"][1]) \
+            <= TOL["LogisticRegression"][1]
+        assert abs(sa["probability"][1] - out["in_process"]["probability_1"]) <= 1e-6

@@ -13,8 +13,8 @@ against the JAX package, on the same records and files (in ``tmp_path``).
 - ``workflow/``: ``set_reader``, ``set_parameters``, ``with_model_stages``,
   ``summary_pretty``, ``compute_data_up_to``, ``score``/``evaluate`` through
   the reader, and ``WorkflowRunner``/``App`` over TRAIN, SCORE, FEATURES and
-  EVALUATE; every run type or param that needs a module not ported yet
-  raises naming it.
+  EVALUATE (STREAMING_SCORE: ``tests/test_torch_streaming.py``); every
+  param that needs a module not ported yet raises naming it.
 """
 
 import json
@@ -560,7 +560,7 @@ class TestRunner:
         assert sel is not None
 
     @pytest.mark.parametrize("what, kw, match", [
-        ("streaming_score", {}, "STREAMING_SCORE"),
+        ("streaming_score", {"log_stage_metrics": True}, "log_stage_metrics"),
         ("train", {"log_stage_metrics": True}, "log_stage_metrics"),
         ("train", {"collect_stage_metrics": True}, "collect_stage_metrics"),
         ("train", {"profile_trace_dir": "p"}, "profile_trace_dir")])

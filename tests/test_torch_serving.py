@@ -374,10 +374,14 @@ from transmogrifai_tpu_torch.aggregators import monoid
 from transmogrifai_tpu_torch.readers import avro, base as readers_base, files, joined
 from transmogrifai_tpu_torch.stages import functions
 from transmogrifai_tpu_torch.workflow import runner
+from transmogrifai_tpu_torch.readers import streaming
+from transmogrifai_tpu_torch.local import export as local_export, scoring as local_scoring
+from transmogrifai_tpu_torch.workflow import checkpoint, continual, resilience as wf_resilience
 serde._register_stages()
 import chip_smoke
 sys.path.insert(0, {repo!r} + "/tests")
 import torch_examples_data, torch_wide_data, torch_encode_cases, torch_maps_data, torch_text_data
+import torch_stream_data
 bad = sorted(m for m in set(sys.modules) - before
              if m.split(".")[0] in ("jax", "jaxlib", "transmogrifai_tpu"))
 print("BAD=" + ",".join(bad))
@@ -399,7 +403,8 @@ class TestNoJax:
                                       os.path.join("tests", "torch_families_data.py"),
                                       os.path.join("tests", "torch_examples_data.py"),
                                       os.path.join("tests", "torch_maps_data.py"),
-                                      os.path.join("tests", "torch_text_data.py")])
+                                      os.path.join("tests", "torch_text_data.py"),
+                                      os.path.join("tests", "torch_stream_data.py")])
     def test_ast_scan_finds_no_jax_import(self, root):
         path = os.path.join(REPO, root)
         files = [path] if path.endswith(".py") else [
@@ -430,7 +435,11 @@ class TestNoJax:
                             "text", "ner", "ner_lang", "ner_model", "embeddings",
                             "phone", "domains")),
                         *(("readers", f"{m}.py") for m in (
-                            "avro", "base", "files", "joined")),
+                            "avro", "base", "files", "joined", "streaming")),
+                        *(("local", f"{m}.py") for m in (
+                            "__init__", "scoring", "export")),
+                        *(("workflow", f"{m}.py") for m in (
+                            "checkpoint", "resilience", "continual")),
                         *(("serve", f"{m}.py") for m in (
                             "batcher", "faults", "pipeline", "plan", "resilience",
                             "server", "swap", "validator")),

@@ -45,6 +45,9 @@ from transmogrifai_tpu_torch.data.dataset import Column as TCol
 from transmogrifai_tpu_torch.data.dataset import Dataset as TDs
 from transmogrifai_tpu_torch.models import trees as TT
 from transmogrifai_tpu_torch.perf.kernels import dispatch as TD
+from transmogrifai_tpu_torch.stages.base import Estimator
+from transmogrifai_tpu_torch.workflow.checkpoint import StageCheckpointer
+from transmogrifai_tpu_torch.workflow.dag import all_stages
 from transmogrifai_tpu_torch.types import RealNN as TRealNN
 
 CPU = torch.device("cpu")
@@ -198,11 +201,11 @@ class TestEntryPoints:
         sel = TSel.with_cross_validation()
         assert [(type(e).__name__, g) for e, g in sel.models] == ref
 
-    def test_train_takes_the_reference_positional_order(self):
+    def test_train_takes_the_reference_positional_order(self, tmp_path):
         """``train(0.2, 7)`` asks for a 20 % test split drawn from seed 7: it
         trains on the rest and evaluates the held-out rows, it does not train
-        on every row with seed 0.2; the third positional is the checkpointer,
-        not ported."""
+        on every row with seed 0.2; the third positional is the checkpointer
+        (it saves every fitted stage)."""
         import inspect
 
         label, _, _, pred = _port_wiring(("rf",))
@@ -210,8 +213,10 @@ class TestEntryPoints:
             .set_result_features(label, pred)
         held = wf.train(0.2, 7, device="cpu")
         assert set(held.selector_model().summary.holdout_evaluation) >= {"auPR", "auROC"}
-        with pytest.raises(NotImplementedError, match="checkpointer"):
-            wf.train(0.2, 7, object(), device="cpu")
+        ckpt = StageCheckpointer(str(tmp_path / "stages"))
+        wf.train(0.2, 7, ckpt, device="cpu")
+        assert sorted(ckpt.load_all()) == sorted(
+            s.uid for s in all_stages([pred]) if isinstance(s, Estimator))
         with pytest.raises(NotImplementedError, match="hbm_budget"):
             wf.train(0.0, 42, None, False, 1e9, device="cpu")
         with pytest.raises(TypeError):
@@ -242,9 +247,8 @@ class TestEntryPoints:
         label, _, _, pred = _port_wiring()
         wf = TWorkflow().set_input_dataset(_port_ds(*_data(n=50))) \
             .set_result_features(label, pred)
-        for kw in ({"strict": True}, {"resume": "/nonexistent"},
-                   {"host_budget": 1}, {"telemetry": "x"},
-                   {"checkpointer": object()}, {"hbm_budget": 1e9}):
+        for kw in ({"strict": True}, {"host_budget": 1}, {"telemetry": "x"},
+                   {"hbm_budget": 1e9}):
             with pytest.raises(NotImplementedError):
                 wf.train(device="cpu", **kw)
         # the raw feature filter is ported (tests/test_torch_rff.py)

@@ -58,7 +58,13 @@ def sweep_tensors(x, y, train_w, val_w, device):
 
 def gather_scores(pending) -> np.ndarray:
     """Host copy of a pending sweep result: a list of per-grid (k,) device
-    tensors (this is where the host waits for the sweep)."""
+    tensors (this is where the host waits for the sweep).  The
+    ``device_sync`` fault point fires before the copy: a fault of the
+    in-flight sweep surfaces here, and the resilient sweep
+    (``models/tuning.py::sweep_families``) re-launches through its ladder."""
+    from ..serve.faults import fault_point
+
+    fault_point("device_sync", programs=len(pending))
     return np.stack([p.detach().cpu().numpy().astype(np.float64)
                      for p in pending])
 

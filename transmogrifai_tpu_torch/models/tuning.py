@@ -7,11 +7,11 @@ block, as in the reference: the numpy draws are the reference's, so both
 packages see the same folds.  ``validate`` launches every family's sweep on
 the device before it reads any metric (phase 1), then gathers them in launch
 order (phase 2); it times both phases per family on the host clock
-(``family_seconds``).  The reference's sweep journal, mesh, fault points and
-resilience ladder are not ported: a family that raises is logged and left
-out of selection, as the reference does without them.  A kernel's or the
-device's failure (``dispatch.is_kernel_fault``) is not the family's and
-raises.
+(``family_seconds``).  A family that raises is logged and left out of
+selection; a kernel's or the device's failure (``dispatch.is_kernel_fault``)
+is not the family's and raises.  Under ``Workflow.train(resume=...)`` each
+family's block is journaled and retried instead
+(``workflow/resilience.py``); the reference's mesh is not ported.
 """
 
 from __future__ import annotations
@@ -156,45 +156,140 @@ class ValidationResult:
 def sweep_families(models: Sequence[Tuple[PredictionEstimatorBase,
                                            List[Dict[str, Any]]]],
                    x: np.ndarray, y: np.ndarray, train_w: np.ndarray,
-                   val_w: np.ndarray, metric_fn, device
+                   val_w: np.ndarray, metric_fn, device,
+                   fold_spec: tuple = (), metric_name: str = "",
+                   block: str = "all"
                    ) -> Tuple[List[np.ndarray], Dict[str, float]]:
     """Every family's (grid, fold) metric matrix over the folds of
     ``train_w`` / ``val_w`` (k, n): each family's sweep is launched on the
     device before any metric is read, then gathered in launch order.  A
     family that raises is logged and scores NaN; a kernel's or the device's
-    fault raises.  Returns (matrices, host seconds by family)."""
+    fault raises.  Returns (matrices, host seconds by family).
+
+    Under an active ``workflow/resilience.py::resilient_training`` context
+    each family is one durable journal unit, keyed by the family, its
+    grids, ``fold_spec`` (k, seed, stratify), ``metric_name``, the data's
+    digest and ``block`` ("all", or "fold<f>" for a workflow-CV fold): a
+    journaled block replays its committed scores and launches nothing; a
+    failure retries through the backoff and bucket ladder instead of
+    leaving the family out (``sweep_dispatch`` / ``device_sync`` fault
+    points); a non-retryable error fails fast with the journal intact."""
+    from ..serve.faults import fault_point
+    from ..workflow import resilience
+
+    res = resilience.active()
+    journal = res.journal if res is not None else None
+    digest = resilience.data_digest(x, y, train_w, val_w) \
+        if journal is not None else None
     seconds: Dict[str, float] = {}
-    launched = []
+    launched: List[_FamilyLaunch] = []
     for est, grids in models:
-        grids = grids or [{}]
-        name = type(est).__name__
+        fam = _FamilyLaunch(est, type(est).__name__, grids or [{}])
+        launched.append(fam)
+        if journal is not None:
+            fam.key = resilience.sweep_block_key(fam.name, fam.grids, fold_spec,
+                                                 metric_name, digest, None, block)
+            fam.cached = journal.load(fam.key)
+            if fam.cached is not None:
+                continue
         t0 = time.perf_counter()
         try:
-            gather = est.cv_sweep_async(x, y, train_w, val_w, grids,
-                                        metric_fn, device)
+            fault_point("sweep_dispatch", family=fam.name, rows=len(y), dp=1,
+                        attempt=0)
+            fam.gather = est.cv_sweep_async(x, y, train_w, val_w, fam.grids,
+                                            metric_fn, device)
         except Exception as e:
-            if dispatch.is_kernel_fault(e):
-                raise
-            log.warning("model %s failed in CV launch (%s); excluded from "
-                        "selection", name, e)
-            gather = None
-        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
-        launched.append((name, grids, gather))
-    out: List[np.ndarray] = []
-    for name, grids, gather in launched:
-        t0 = time.perf_counter()
-        scores = np.full((len(grids), train_w.shape[0]), np.nan)
-        if gather is not None:
-            try:
-                scores = np.asarray(gather(), dtype=np.float64)
-            except Exception as e:
-                if dispatch.is_kernel_fault(e):
+            if res is not None:
+                if not resilience.is_retryable_training(e):
+                    res.note_fail_fast(f"sweep:{fam.name}", e)
                     raise
-                log.warning("model %s failed in CV (%s); excluded from "
-                            "selection", name, e)
-        seconds[name] += time.perf_counter() - t0
+                fam.pending_error = e  # re-launched by the ladder below
+            elif dispatch.is_kernel_fault(e):
+                raise
+            else:
+                log.warning("model %s failed in CV launch (%s); excluded "
+                            "from selection", fam.name, e)
+        seconds[fam.name] = seconds.get(fam.name, 0.0) + time.perf_counter() - t0
+    out: List[np.ndarray] = []
+    for fam in launched:
+        t0 = time.perf_counter()
+        if fam.cached is not None:
+            scores = fam.cached
+        else:
+            scores = _gather_family(fam, x, y, train_w, val_w, metric_fn, device,
+                                    res, journal)
+        seconds[fam.name] = seconds.get(fam.name, 0.0) + time.perf_counter() - t0
         out.append(scores)
     return out, seconds
+
+
+@dataclass
+class _FamilyLaunch:
+    """One family of a sweep between its launch and its gather: the
+    journal's committed scores (``cached``: nothing was launched), the
+    pending sweep (``gather``), or a retryable launch error the resilience
+    ladder re-runs (``pending_error``); none of them when the family failed
+    and is left out of the selection."""
+    est: PredictionEstimatorBase
+    name: str
+    grids: List[Dict[str, Any]]
+    key: Optional[str] = None
+    cached: Optional[np.ndarray] = None
+    gather: Any = None
+    pending_error: Optional[Exception] = None
+
+
+def _gather_family(fam: _FamilyLaunch, x, y, train_w, val_w, metric_fn, device,
+                   res, journal) -> np.ndarray:
+    """A launched family's (grid, fold) scores, NaN where it failed; under
+    resilience a failure re-runs through the ladder, and the scores are
+    journaled unless the ladder degraded them."""
+    scores = np.full((len(fam.grids), train_w.shape[0]), np.nan)
+    if fam.gather is None and fam.pending_error is None:
+        return scores
+    key = fam.key
+    try:
+        if fam.pending_error is not None:
+            raise fam.pending_error
+        scores = np.asarray(fam.gather(), dtype=np.float64)
+    except Exception as e:
+        if res is not None:
+            n_deg = len(res.degradations)
+            scores = _resilient_sweep(fam.est, fam.grids, fam.name, x, y, train_w,
+                                      val_w, metric_fn, device, res, e)
+            if len(res.degradations) > n_deg:
+                # scores of capped rows must not be journaled under the
+                # full-fidelity key: a resumed run re-runs it
+                key = None
+        elif dispatch.is_kernel_fault(e):
+            raise
+        else:
+            log.warning("model %s failed in CV (%s); excluded from "
+                        "selection", fam.name, e)
+    if journal is not None and key is not None:
+        journal.commit(key, scores, family=fam.name)
+    return scores
+
+
+def _resilient_sweep(est, grids, name, x, y, train_w, val_w, metric_fn,
+                     device, res, first_error) -> np.ndarray:
+    """Re-run one family's whole fold block through the resilience ladder:
+    bounded in-place retries with backoff, or the next-smaller row bucket
+    (repeated out-of-memory).  Each attempt is a full re-launch and
+    gather: the failed pending sweep is not recoverable."""
+    from ..serve.faults import fault_point
+    from ..workflow import resilience
+
+    def attempt(row_cap, attempt_i):
+        xa, ya, twa, vwa = resilience.capped_views(row_cap, x, y, train_w,
+                                                   val_w)
+        fault_point("sweep_dispatch", family=name, rows=len(ya), dp=1,
+                    attempt=attempt_i)
+        return np.asarray(est.cv_sweep(xa, ya, twa, vwa, grids, metric_fn,
+                                       device), dtype=np.float64)
+
+    return resilience.run_sweep_block(attempt, family=name, rows=len(y),
+                                      res=res, pending_error=first_error)
 
 
 class CrossValidator:
@@ -236,8 +331,10 @@ class CrossValidator:
                  device) -> ValidationResult:
         base_w = np.ones_like(y, dtype=np.float32) if base_w is None else base_w
         train_w, val_w = self.fold_weights(y, base_w)
-        scores, seconds = sweep_families(models, x, y, train_w, val_w,
-                                         self.evaluator.metric_fn(), device)
+        scores, seconds = sweep_families(
+            models, x, y, train_w, val_w, self.evaluator.metric_fn(), device,
+            fold_spec=(self.num_folds, self.seed, self.stratify),
+            metric_name=self.evaluator.default_metric)
         return self.result(models, scores, seconds)
 
     def result(self, models, scores: List[np.ndarray],

@@ -1,6 +1,6 @@
 """Metrics registry (counterpart of ``transmogrifai_tpu/obs/metrics.py``):
 counters, gauges and histograms with labels, the one source of truth for the
-serving server's counters.
+serving server's counters and the continual trainer's.
 
 Components create their metrics in a :class:`MetricsRegistry` under the
 canonical Prometheus-style names of :data:`CANONICAL_METRICS`; their
@@ -378,6 +378,37 @@ CANONICAL_METRICS: Dict[str, Tuple[str, str, Optional[str], str]] = {
     "tmog_serve_swap_shadow_dropped_total":
         ("counter", "swap", "shadow_dropped", "records shed by a saturated "
          "mirror queue (resets per candidate)"),
+    # -- ContinualTrainer (workflow/continual.py) ---------------------------
+    "tmog_continual_batches_total":
+        ("counter", "continual", "batches", "streamed batches processed"),
+    "tmog_continual_records_total":
+        ("counter", "continual", "records", "streamed records processed"),
+    "tmog_continual_record_errors_total":
+        ("counter", "continual", "record_errors", "records whose scoring "
+         "future failed"),
+    "tmog_continual_drift_evaluations_total":
+        ("counter", "continual", "drift_evaluations", "drift evaluations "
+         "run"),
+    "tmog_continual_drift_events_total":
+        ("counter", "continual", "drift_events", "evaluations that fired "
+         "TM801-TM803"),
+    "tmog_continual_refits_total":
+        ("counter", "continual", "refits", "successful warm refits"),
+    "tmog_continual_refit_failures_total":
+        ("counter", "continual", "refit_failures", "refits or stagings that "
+         "failed (TM805)"),
+    "tmog_continual_candidates_staged_total":
+        ("counter", "continual", "candidates_staged", "candidates staged "
+         "for shadow scoring"),
+    "tmog_continual_gate_rejections_total":
+        ("counter", "continual", "gate_rejections", "promotion-gate "
+         "refusals (TM806)"),
+    "tmog_continual_promotions_total":
+        ("counter", "continual", "promotions", "committed promotions "
+         "(TM807)"),
+    "tmog_continual_swap_failures_total":
+        ("counter", "continual", "swap_failures", "promote() attempts that "
+         "raised"),
 }
 
 

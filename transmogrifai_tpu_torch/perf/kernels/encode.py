@@ -14,8 +14,10 @@ kernels become one CUDA kernel (``csrc/encode.cu``).  The pieces here:
 - the wrapper (:func:`encode_slots`): checks device, dtype, shape,
   contiguity and alignment, launches the kernel once per chunk on the current
   stream without synchronising, and counts each launch in
-  ``encode_slots_launches`` (and the slots in ``slots_encoded``).  A CPU
-  tensor takes the plain version instead; any other device raises, and a
+  ``encode_slots_launches`` (and the slots in ``slots_encoded``), and in
+  the launching thread's own count (:func:`thread_encode_launches`: a
+  training flush reads its own launches while a server's batches launch
+  on other threads).  A CPU tensor takes the plain version instead; any other device raises, and a
   failed build or launch raises :class:`dispatch.KernelError`;
 - the plain PyTorch version (:func:`encode_slots_torch`): the reference's XLA
   formulas (:func:`onehot_codes_torch`, :func:`bucketize_right_encode_torch`,
@@ -34,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -49,6 +52,8 @@ slots_encoded = 0
 #: and those slots
 left_closed_launches = 0
 left_closed_slots = 0
+#: the encode_slots launches of each thread (``encode_slots`` attribute)
+_thread = threading.local()
 
 #: slots a launch takes: the table travels as a kernel parameter of <= 4 KB
 #: (encode.cu: kMaxSlots); a longer table launches in chunks
@@ -78,6 +83,7 @@ def reset_launch_counts() -> None:
     onehot_launches = bucketize_launches = 0
     encode_slots_launches = slots_encoded = 0
     left_closed_launches = left_closed_slots = 0
+    _thread.encode_slots = 0
 
 
 def launch_counts() -> dict:
@@ -85,6 +91,12 @@ def launch_counts() -> dict:
             "bucketize_right_encode": bucketize_launches,
             "encode_slots": encode_slots_launches,
             "encode_slots.slots": slots_encoded}
+
+
+def thread_encode_launches() -> int:
+    """The calling thread's encode_slots launches (zeroed for it by
+    :func:`reset_launch_counts`)."""
+    return getattr(_thread, "encode_slots", 0)
 
 
 def _lib():
@@ -395,6 +407,7 @@ def encode_slots(inputs: Sequence[torch.Tensor], table: SlotTable,
     launched = _launch(inputs, table, out, table.splits_on(inputs[0].device),
                        "encode_slots")
     encode_slots_launches += launched
+    _thread.encode_slots = thread_encode_launches() + launched
     if launched:
         slots_encoded += len(table)
         left_closed_launches += table.left_chunks

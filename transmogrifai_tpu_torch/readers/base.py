@@ -19,6 +19,7 @@ from ..aggregators.monoid import CutOffTime, Event, aggregate_events
 from ..data.dataset import Column, Dataset
 from ..features.feature import Feature, _NamedExtract
 from ..features.generator import FeatureGeneratorStage
+from ..types.base import FeatureType
 
 
 def _generators(raw_features: Sequence[Feature]) -> List[FeatureGeneratorStage]:
@@ -71,8 +72,7 @@ def extract_columns(records: Sequence[Any], named_gens,
     cols: Dict[str, Column] = {}
     for name, g in named_gens:
         try:
-            values = [g.extract(r).value for r in records]
-            cols[name] = Column.from_values(g.ftype, values)
+            cols[name] = Column.from_values(g.ftype, _extracted(g, records))
         except Exception:
             if not (allow_missing_response and g.is_response):
                 raise
@@ -85,6 +85,21 @@ def extract_columns(records: Sequence[Any], named_gens,
                     raise  # label supplied but malformed: surface the bug
             # absent label (or non-introspectable extract): tolerated
     return cols
+
+
+def _extracted(g, records: Sequence[Any]) -> list:
+    """``g``'s raw values over the records, left for ``Column.from_values``
+    to convert: the conversion ``g.extract`` would do, run once (a
+    non-nullable type raises the same ``NonNullableEmptyException``).  A
+    typed value an extract function returns must be of ``g``'s type, as
+    ``g.extract`` checks."""
+    values = list(map(g.extract_fn, records))
+    for v in values:
+        if isinstance(v, FeatureType) and not isinstance(v, g.ftype):
+            raise TypeError(
+                f"extract for {g.raw_name!r} returned {type(v).__name__},"
+                f" expected {g.ftype.__name__}")
+    return values
 
 
 def rows_to_dataset(records: Sequence[Any], raw_features: Sequence[Feature],

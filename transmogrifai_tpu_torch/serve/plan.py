@@ -58,8 +58,6 @@ PyTorch version — the tests' path, and the reference the card is held to.
 from __future__ import annotations
 
 import contextlib
-import hashlib
-import json
 import threading
 import time
 from collections import deque
@@ -81,7 +79,6 @@ from ..workflow.plan import (
     run_host_stages,
     serving_entry_ok,
 )
-from ..workflow.serde import _Encoder, encode_stage
 from ..workflow.workflow import _refuse_unported
 from .faults import fault_point
 
@@ -315,8 +312,8 @@ class CompiledScoringPlan(DevicePrefix):
         self.last_timings: Dict[str, float] = {}
         #: the same, with rows and bucket, of the most recent batches
         self.batch_timings: "deque[Dict[str, float]]" = deque(maxlen=4096)
-        self._content_fingerprint = self._prefix_fingerprint(environment=False)
-        self._fingerprint = self._prefix_fingerprint(environment=True)
+        self._content_fingerprint = self.prefix_fingerprint(environment=False)
+        self._fingerprint = self.prefix_fingerprint(environment=True)
 
     # -- introspection -------------------------------------------------------
     @property
@@ -416,24 +413,6 @@ class CompiledScoringPlan(DevicePrefix):
             gen = f.origin_stage
             if gen.raw_name not in host_needed:
                 self._encoder_light[gen.raw_name] = gen
-
-    def _prefix_fingerprint(self, environment: bool) -> str:
-        """sha256 of the prefix stages' fitted state (encoded as the port's
-        ``workflow/serde.py`` saves it, so a reloaded copy of a model hashes
-        equal) and the prefix's wiring; ``environment`` adds the device
-        type."""
-        enc = _Encoder()
-        payload = {"stages": [encode_stage(s, enc, full=True) for s in self._prefix],
-                   "extra": {"entries": [list(k) for k in self._entry_keys],
-                             "outs": self._out_uids}}
-        if environment:
-            payload["device"] = self.device.type
-        h = hashlib.sha256(json.dumps(payload, sort_keys=True, default=repr).encode())
-        for key in sorted(enc.arrays):
-            arr = np.ascontiguousarray(enc.arrays[key])
-            h.update(f"{key}:{arr.shape}:{arr.dtype}".encode())
-            h.update(arr.tobytes())
-        return h.hexdigest()
 
     # -- the device half -------------------------------------------------------
     def _on_stream(self):

@@ -16,15 +16,17 @@ runs what is pending at the end.
 
 :func:`transform_dag` is the scoring twin: every fitted runner, through one
 plan.  :func:`workflow_cv_validate` is workflow-level cross-validation: the
-label-dependent stages re-fitted inside every fold.  The reference's
-out-of-core epochs, fault points, stage checkpoints and sweep journal are
-not ported.
+label-dependent stages re-fitted inside every fold.  Under
+``resilient_training`` (``Workflow.train(resume=...)``) a stage fit retries
+transient faults (the ``stage_fit`` fault point) and every fold's sweep is a
+journaled block; ``on_fit`` hands each fitted model to a stage
+checkpointer.  The reference's out-of-core epochs are not ported.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -37,15 +39,17 @@ from .plan import fused_fold_transforms, fused_transform
 
 def fit_dag(dataset: Dataset, result_features: Sequence[Feature],
             fitted: Optional[Dict[str, Transformer]] = None,
-            device=None, profile: Optional[list] = None
+            device=None, profile: Optional[list] = None,
+            on_fit: Optional[Callable[[Transformer], None]] = None
             ) -> Tuple[Dataset, Dict[str, Transformer]]:
     """Fit every estimator and apply every transformer.  Returns
     (transformed dataset, {stage uid: fitted transformer}); stages already
-    in ``fitted`` are reused.  ``profile``: see :func:`fit_stage_list`."""
+    in ``fitted`` are reused.  ``profile``, ``on_fit``: see
+    :func:`fit_stage_list`."""
     fitted = dict(fitted or {})
     stages = [s for layer in compute_dag(result_features) for s in layer]
     dataset = fit_stage_list(dataset, stages, fitted, device=device,
-                             profile=profile)
+                             profile=profile, on_fit=on_fit)
     return dataset, fitted
 
 
@@ -75,12 +79,18 @@ def _needed(pending: List[Transformer], stage: PipelineStage,
 
 
 def fit_stage_list(dataset: Dataset, stages, fitted: Dict[str, Transformer],
-                   device=None, profile: Optional[list] = None) -> Dataset:
+                   device=None, profile: Optional[list] = None,
+                   on_fit: Optional[Callable[[Transformer], None]] = None
+                   ) -> Dataset:
     """Fit/transform an explicit stage list in topological order; fitted
-    models land in ``fitted`` under their estimator's uid.  With ``profile``
-    (a list), appends one record per estimator fit (``{"kind": "fit",
-    "stage": class name, "seconds": ...}``) and one per flush (the plan's
-    timings, :func:`~.plan.fused_transform`)."""
+    models land in ``fitted`` under their estimator's uid, and ``on_fit``
+    (when given) receives each as it is fitted.  With ``profile`` (a list),
+    appends one record per estimator fit (``{"kind": "fit", "stage": class
+    name, "seconds": ...}``) and one per flush (the plan's timings,
+    :func:`~.plan.fused_transform`)."""
+    from ..serve.faults import fault_point
+    from .resilience import retry_call
+
     pending: List[Transformer] = []
     for stage in stages:
         runner = _resolve(stage, fitted)
@@ -89,13 +99,22 @@ def fit_stage_list(dataset: Dataset, stages, fitted: Dict[str, Transformer],
                 now = _needed(pending, stage, dataset)
                 dataset = fused_transform(dataset, now, device, profile)
                 pending = [r for r in pending if all(r is not x for x in now)]
+
+            def fit_once(_stage=stage, _ds=dataset):
+                fault_point("stage_fit", stage=_stage.uid)
+                return _stage.fit(_ds, device=device)
+
             t0 = time.perf_counter()
-            runner = stage.fit(dataset, device=device)
+            # retried with bounded backoff under resilient_training (a fit
+            # is pure given its inputs); a plain call otherwise
+            runner = retry_call(fit_once, "stage_fit", stage=stage.uid)
             if profile is not None:
                 profile.append({"kind": "fit", "stage": type(stage).__name__,
                                 "uid": stage.uid,
                                 "seconds": time.perf_counter() - t0})
             fitted[stage.uid] = runner
+            if on_fit is not None:
+                on_fit(runner)
         pending.append(runner)
     if pending:
         dataset = fused_transform(dataset, pending, device, profile)
@@ -174,8 +193,11 @@ def workflow_cv_validate(ds_before: Dataset, during, selector, device,
     for f in range(k):
         x_f = np.asarray(fold_datasets[f][vec_f.name].data, np.float32)
         t0 = time.perf_counter()
-        sc, sec = sweep_families(selector.models, x_f, y, train_w[f:f + 1],
-                                 val_w[f:f + 1], metric_fn, device)
+        sc, sec = sweep_families(
+            selector.models, x_f, y, train_w[f:f + 1], val_w[f:f + 1],
+            metric_fn, device,
+            fold_spec=(validator.num_folds, validator.seed, validator.stratify),
+            metric_name=validator.evaluator.default_metric, block=f"fold{f}")
         scores.append(sc)
         for name, v in sec.items():
             seconds[name] = seconds.get(name, 0.0) + v

@@ -35,6 +35,8 @@ raises: nothing falls back to the per-stage host path.
 
 from __future__ import annotations
 
+import hashlib
+import json
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -281,6 +283,26 @@ class DevicePrefix:
         for uid, col, w in self._encode_blocks:
             env[uid] = buf[:, col:col + w]
 
+    def prefix_fingerprint(self, environment: bool = False) -> str:
+        """sha256 of the prefix stages' fitted state (encoded as the port's
+        ``workflow/serde.py`` saves it, so a reloaded copy of a model hashes
+        equal) and the prefix's wiring (entries, outputs); ``environment``
+        adds the device type.  Equal fingerprints run the same prefix."""
+        from .serde import _Encoder, encode_stage
+
+        enc = _Encoder()
+        payload = {"stages": [encode_stage(s, enc, full=True) for s in self._prefix],
+                   "extra": {"entries": [list(k) for k in self._entry_keys],
+                             "outs": self._out_uids}}
+        if environment:
+            payload["device"] = self.device.type
+        h = hashlib.sha256(json.dumps(payload, sort_keys=True, default=repr).encode())
+        for key in sorted(enc.arrays):
+            arr = np.ascontiguousarray(enc.arrays[key])
+            h.update(f"{key}:{arr.shape}:{arr.dtype}".encode())
+            h.update(arr.tobytes())
+        return h.hexdigest()
+
     def _run_wiring(self, ops_in: List[torch.Tensor],
                     env: Dict[str, torch.Tensor]) -> None:
         """Every prefix stage outside the encode group, in topological order."""
@@ -339,6 +361,11 @@ class ColumnarTransformPlan(DevicePrefix):
         # every prefix output materializes (a later fit may read any)
         self._out_uids = [r.get_output().uid for r in self._prefix]
         self._out_names = {r.get_output().uid: r.output_name for r in self._prefix}
+        self._needed = sorted({f.name for r in self._prefix for f in r.inputs})
+        #: the replayed output metadata of inputs that carry none (raw
+        #: columns), by the inputs' types: a plan kept across batches
+        #: (``local/scoring.py``) replays the prefix's metadata once
+        self._info_cache: Dict[tuple, Dict[str, Column]] = {}
         self.last_timings: Dict[str, float] = {}
 
     @property
@@ -348,15 +375,23 @@ class ColumnarTransformPlan(DevicePrefix):
     def _out_info(self, dataset: Dataset) -> Dict[str, Column]:
         """Each prefix output's (type, metadata, kind), by replaying the
         prefix's host transforms over zero rows: metadata depends on the
-        fitted state and the input metadata only."""
+        fitted state and the input metadata only, so inputs without
+        metadata replay once per set of input types."""
+        present = [n for n in self._needed if n in dataset]
+        key = None
+        if all(dataset[n].meta is None for n in present):
+            key = tuple((n, dataset[n].ftype) for n in present)
+            hit = self._info_cache.get(key)
+            if hit is not None:
+                return hit
         empty = np.zeros(0, dtype=np.intp)
-        needed = {f.name for runner in self._prefix for f in runner.inputs}
-        ds0 = Dataset({name: dataset[name].take(empty)
-                       for name in needed if name in dataset})
+        ds0 = Dataset({name: dataset[name].take(empty) for name in present})
         info: Dict[str, Column] = {}
         for runner in self._prefix:
             ds0 = runner.transform(ds0)
             info[runner.get_output().uid] = ds0[runner.output_name]
+        if key is not None:
+            self._info_cache[key] = info
         return info
 
     def _host_entry(self, key: tuple, dataset: Dataset) -> np.ndarray:
@@ -403,7 +438,7 @@ class JointPrefix:
     ``encode_ms``, with CUDA events on the card), the copies back, and
     building the output columns; ``h2d_copies`` / ``d2h_copies`` count its
     copies across the host-device boundary (0 on the CPU) and
-    ``encode_launches`` the encode kernel's launches."""
+    ``encode_launches`` the encode kernel's launches by this call's thread."""
 
     def __init__(self, plans: Sequence[ColumnarTransformPlan]):
         self.plans = list(plans)
@@ -472,7 +507,7 @@ class JointPrefix:
         sync()
         t2 = time.perf_counter()
         envs: List[Dict[str, torch.Tensor]] = [{} for _ in self.plans]
-        launches0 = KE.encode_slots_launches
+        launches0 = KE.thread_encode_launches()
         if self.table is not None:
             buf = encode_buffer(n, self.table.width, self.device)
             if on_card:
@@ -509,7 +544,7 @@ class JointPrefix:
             "d2h_s": t4 - t3, "columns_s": t5 - t4,
             "encode_ms": start.elapsed_time(end)
             if on_card and self.table is not None else None,
-            "encode_launches": KE.encode_slots_launches - launches0,
+            "encode_launches": KE.thread_encode_launches() - launches0,
             "h2d_copies": h2d, "d2h_copies": len(arrays) if on_card else 0,
             "h2d_bytes": sum(e.nbytes for e in entries),
             "d2h_bytes": sum(a.nbytes for a in arrays)}
@@ -557,6 +592,26 @@ def fused_fold_transforms(dataset: Dataset, during: Sequence[Any],
                         "host_stages": sum(len(r) for r in plan.remainders),
                         **plan.last_timings})
     return out
+
+
+def plan_for_features(dataset: Dataset, result_features, fitted, device=None
+                      ) -> Optional[ColumnarTransformPlan]:
+    """The whole-table plan ``transform_dag`` would run for a fitted
+    workflow over ``dataset`` (None when a stage is unfitted), built and
+    not run: its :meth:`~DevicePrefix.prefix_fingerprint` names the prefix
+    (``workflow/continual.py`` compares a refit's with its base model's)."""
+    from .dag import compute_dag
+    from .fit import _resolve
+
+    runners = []
+    for layer in compute_dag(result_features):
+        for stage in layer:
+            runner = _resolve(stage, dict(fitted))
+            if runner is None:
+                return None
+            runners.append(runner)
+    return ColumnarTransformPlan(runners, frozenset(dataset.names),
+                                 resolve_device(device))
 
 
 def fused_transform(dataset: Dataset, runners: Sequence[Any], device=None,

@@ -6,8 +6,12 @@ score, streamingScore, computeFeatures :190-194, evaluate; metrics written to
 metricsLocation) and OpApp/OpAppWithRunner (OpApp.scala:49-213) parsing args into
 OpParams and dispatching the run type.
 
-TRAIN, SCORE, FEATURES and EVALUATE are ported.  STREAMING_SCORE needs
-``readers/streaming.py``, and the per-stage metrics and the profile trace
+All five run types are ported.  STREAMING_SCORE scores each micro-batch
+of the streaming reader (``readers/streaming.py``) through
+``WorkflowModel.score`` (one whole-table plan, one encode launch a batch)
+and commits the reader's offset only after the batch's output is written
+under ``write_location`` (at-least-once; with no write location nothing is
+committed).  The per-stage metrics and the profile trace
 (``OpParams.log_stage_metrics``, ``collect_stage_metrics``,
 ``profile_trace_dir``) need ``obs/``: each raises ``NotImplementedError``
 by name when asked for.  The runs call the workflow's entry points with no
@@ -28,7 +32,7 @@ from typing import Any, Callable, Dict, List, Optional
 from ..evaluators.base import Evaluator
 from ..features.feature import Feature
 from ..params import OpParams
-from .workflow import Workflow, WorkflowModel, _refuse_unported
+from .workflow import Workflow, WorkflowModel, _refuse_unported, dedup_raw_features
 
 
 class RunType(enum.Enum):
@@ -44,7 +48,7 @@ class RunResult:
     run_type: RunType
     metrics: Dict[str, Any] = field(default_factory=dict)
     model_location: Optional[str] = None
-    scores: Any = None  # Dataset (score/features)
+    scores: Any = None  # Dataset (score/features) or list of Datasets (streaming)
 
     def to_dict(self) -> dict:
         return {"runType": self.run_type.value, "metrics": self.metrics,
@@ -81,14 +85,13 @@ class WorkflowRunner:
     def run(self, run_type: RunType, params: Optional[OpParams] = None) -> RunResult:
         params = params or OpParams()
         _refuse_unported(f"WorkflowRunner.run({run_type.value})", {
-            "RunType.STREAMING_SCORE (readers.streaming)":
-                run_type is RunType.STREAMING_SCORE,
             "OpParams.log_stage_metrics (obs)": bool(params.log_stage_metrics),
             "OpParams.collect_stage_metrics (obs)": bool(params.collect_stage_metrics),
             "OpParams.profile_trace_dir (obs)": params.profile_trace_dir is not None})
         handler = {
             RunType.TRAIN: self._train,
             RunType.SCORE: self._score,
+            RunType.STREAMING_SCORE: self._streaming_score,
             RunType.FEATURES: self._features,
             RunType.EVALUATE: self._evaluate,
         }[run_type]
@@ -136,6 +139,28 @@ class WorkflowRunner:
             _write_dataset(params.write_location, scores)
         return RunResult(RunType.SCORE, metrics=metrics,
                          model_location=params.model_location, scores=scores)
+
+    def _streaming_score(self, params: OpParams) -> RunResult:
+        model = self._load_model(params)
+        if self.streaming_reader is None:
+            raise ValueError("streaming_score run needs a streaming_reader")
+        raws = dedup_raw_features(model.result_features)
+        outs = []
+        commit = getattr(self.streaming_reader, "commit", None)
+        for i, batch in enumerate(self.streaming_reader.stream_datasets(raws)):
+            scored = model.score(batch)
+            outs.append(scored)
+            # offset-checkpointing readers commit only AFTER the batch's
+            # output is durable (at-least-once).  Without a write_location
+            # the scores live only in this process, so nothing is committed:
+            # a crash replays instead of dropping the in-memory batches.
+            if params.write_location:
+                _write_dataset(_indexed_path(params.write_location, i), scored)
+                if commit is not None:
+                    commit()
+        return RunResult(RunType.STREAMING_SCORE,
+                         metrics={"batches": len(outs)},
+                         model_location=params.model_location, scores=outs)
 
     def _features(self, params: OpParams) -> RunResult:
         model = self._load_model(params)
@@ -212,3 +237,8 @@ def _write_dataset(path: str, ds) -> None:
         df.to_json(path, orient="records")
     else:
         df.to_csv(path, index=False)
+
+
+def _indexed_path(path: str, i: int) -> str:
+    base, ext = os.path.splitext(path)
+    return f"{base}_{i}{ext}"

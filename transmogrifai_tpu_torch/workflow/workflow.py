@@ -35,6 +35,8 @@ raises.
 
 from __future__ import annotations
 
+import logging
+import os
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -42,6 +44,8 @@ from ..data.dataset import Dataset
 from ..evaluators.base import Evaluator
 from ..features.feature import Feature
 from .dag import all_stages, compute_dag
+
+log = logging.getLogger(__name__)
 
 
 def dedup_raw_features(result_features: Sequence[Feature]) -> List[Feature]:
@@ -149,18 +153,52 @@ class Workflow:
         filter, when one is set) first (``Dataset.split`` by
         ``seed``, the reference's draw): the DAG fits on the train part and
         the model selector's summary gets the metrics of the held-out part
-        (``holdout_evaluation``).  The reference's checkpointing, strict
-        validation, device-memory budget, host budget, telemetry and resume
-        are not ported: each raises ``NotImplementedError`` by name when
-        asked for."""
+        (``holdout_evaluation``).
+
+        ``checkpointer`` (a :class:`~.checkpoint.StageCheckpointer`) saves
+        each fitted stage as it completes and warm-starts the stages it
+        finds on disk whose uid and fingerprint match; a stage whose params
+        changed refits, and so does every checkpointed estimator downstream
+        of a stage that refits.
+
+        ``resume`` (a directory) makes the fit durable: the stages
+        checkpoint under ``resume/stages`` (unless a ``checkpointer`` was
+        passed), every completed sweep block commits to the fsync'd
+        ``resume/sweep_journal.json``, and the fit runs inside
+        :func:`~.resilience.resilient_training`: transient faults retry with
+        bounded backoff, an out-of-memory sweep retries on fewer rows, and
+        a killed run re-invoked with the same directory replays every
+        committed block without launching it, ending in the model of an
+        uninterrupted run.  Chunked-epoch offsets (``chunk_offsets.json``)
+        wait for the chunked store, which the port does not have: the only
+        way a table becomes chunked in the reference, ``host_budget``, is
+        refused here.
+
+        The reference's strict validation, device-memory budget, host
+        budget and telemetry are not ported: each raises
+        ``NotImplementedError`` by name when asked for."""
+        _refuse_unported("Workflow.train", {
+            "strict": bool(strict), "hbm_budget": hbm_budget is not None,
+            "host_budget": host_budget is not None,
+            "telemetry": telemetry is not None})
+        if resume is None:
+            return self._train(test_fraction, seed, checkpointer, device)
+        from .checkpoint import StageCheckpointer
+        from .resilience import SweepJournal, resilient_training
+
+        os.makedirs(resume, exist_ok=True)
+        if checkpointer is None:
+            checkpointer = StageCheckpointer(os.path.join(resume, "stages"))
+        with resilient_training(
+                journal=SweepJournal(os.path.join(resume, "sweep_journal.json")),
+                seed=seed):
+            return self._train(test_fraction, seed, checkpointer, device)
+
+    def _train(self, test_fraction: float, seed: int, checkpointer,
+               device) -> "WorkflowModel":
         from ..perf.kernels.dispatch import resolve_device
         from .fit import fit_dag
 
-        _refuse_unported("Workflow.train", {
-            "checkpointer": checkpointer is not None, "strict": bool(strict),
-            "hbm_budget": hbm_budget is not None,
-            "host_budget": host_budget is not None,
-            "telemetry": telemetry is not None, "resume": resume is not None})
         if not self.result_features:
             raise ValueError("set_result_features before train()")
         dev = resolve_device(device)
@@ -179,6 +217,9 @@ class Workflow:
         if test_fraction > 0.0:
             raw, test_ds = raw.split(test_fraction, seed=seed)
         warm = dict(self._warm_models)
+        on_fit = None
+        if checkpointer is not None:
+            on_fit = self._resume_checkpoints(checkpointer, warm)
         preseeded = None
         if self._workflow_cv:
             from .dag import cut_dag
@@ -190,13 +231,13 @@ class Workflow:
             before, during, selector = cut
             if selector.uid not in warm:
                 ds_before = fit_stage_list(raw, before, warm, device=dev,
-                                           profile=profile)
+                                           profile=profile, on_fit=on_fit)
                 selector._preselected = workflow_cv_validate(
                     ds_before, during, selector, dev, profile=profile)
                 preseeded = selector
         try:
             _, fitted = fit_dag(raw, self.result_features, fitted=warm,
-                                device=dev, profile=profile)
+                                device=dev, profile=profile, on_fit=on_fit)
         finally:
             if preseeded is not None:
                 del preseeded._preselected
@@ -210,6 +251,62 @@ class Workflow:
         if test_ds is not None and test_ds.n_rows > 0:
             model._evaluate_holdout(test_ds, dev)
         return model
+
+    def _resume_checkpoints(self, checkpointer, warm: Dict):
+        """Warm-start from ``checkpointer``'s entries (into ``warm``): an
+        entry binds to the DAG stage of its uid when the saved fingerprint
+        matches the stage's; then every loaded entry downstream of an
+        estimator that will refit is dropped (it was fitted on stale
+        inputs), looking through transformers to the nearest estimator
+        ancestors.  Returns the ``on_fit`` hook that checkpoints each stage
+        as it is fitted."""
+        from ..stages.base import Estimator
+        from .checkpoint import stage_fingerprint
+
+        by_uid = {s.uid: s for s in all_stages(self.result_features)}
+        entries = checkpointer.load_entries()
+        for uid, (model, saved_fp) in entries.items():
+            dag_stage = by_uid.get(uid)
+            if dag_stage is None:
+                continue
+            if saved_fp is not None and saved_fp != stage_fingerprint(dag_stage):
+                log.warning("checkpoint for %s has different stage params; "
+                            "refitting", uid)
+                continue
+            model._input_features = tuple(dag_stage.inputs)
+            model._output_feature = dag_stage.get_output()
+            warm[uid] = model
+
+        def estimator_ancestors(stage):
+            seen, stack, found = set(), list(stage.inputs), []
+            while stack:
+                st = stack.pop().origin_stage
+                if st is None or st.uid in seen:
+                    continue
+                seen.add(st.uid)
+                if isinstance(st, Estimator):
+                    found.append(st)
+                else:
+                    stack.extend(st.inputs)
+            return found
+
+        loaded = set(entries) & set(warm)
+        changed = True
+        while changed:
+            changed = False
+            for uid in list(loaded):
+                if any(est.uid in by_uid and est.uid not in warm
+                       for est in estimator_ancestors(by_uid[uid])):
+                    del warm[uid]
+                    loaded.discard(uid)
+                    changed = True
+
+        def on_fit(model):
+            dag_stage = by_uid.get(model.uid)
+            fp = stage_fingerprint(dag_stage) if dag_stage is not None else None
+            checkpointer.save_stage(model, fingerprint=fp)
+
+        return on_fit
 
 
 def _refuse_unported(entry: str, asked: Dict[str, bool]) -> None:
