@@ -356,7 +356,35 @@ Phases, one JSON line each:
                uninterrupted run; an injected "CUDA out of memory" at the
                GBT's launch degrades it to the next row bucket (TM822) and
                commits nothing under its full-fidelity key.
-22. summary  — nvidia-smi's line, then one {"kernels": [...]} line, then the
+22. fleet    — FleetServer(max_batch=1024, max_wait_ms=2) on the card
+               (serve/registry.py).  (a) Each fingerprint alone: the plan's
+               static estimate (checkers/plancheck.py) must lie between 1x
+               and 4x the rise of max_memory_allocated over warm() and one
+               1024-record batch; the wide model's bf16 and int8 plans
+               at full width give prefix vectors bitwise (int8) and within
+               one bf16 ulp of their CPU plans'.  (b) Tenants: wide_f32 and
+               wide_f32_twin (the fixture loaded twice: the twin allocates
+               no device byte and builds no staging), families at f32, bf16
+               and int8 (the TM511 gate passes them on 1024 of their
+               records); wide_bf16 and wide_int8 are refused with TM511 on
+               1024 of the phase's records in both packages (a value within
+               a bf16/int8 step of a tree bucketizer's split flips its
+               bucket), leaving nothing behind.  (c) 8 client threads, 128
+               requests outstanding each, mix the tenants' requests: one
+               encode launch per tenant sub-batch with the counters zeroed
+               just before, no staging or landing allocation after warm(),
+               every record equal to its tenant's CPU plan's for the
+               sub-batch it was served in, the reduced tenants' prefix
+               vectors as in (a) and their scores within TM511_BOUNDS of the
+               f32 tenant's; records/s and each tenant's p50/p99 printed.
+               (d) A FaultHarness route fault on families fails only its
+               records.  (e) Admission: with a budget that fits one more
+               tenant only without the least recently scored one, the
+               workflow-CV fixture's model evicts families_int8 and
+               memory_allocated falls by the bytes its plan released (within
+               the allocator's 512-byte rounding); a candidate over an empty
+               registry's budget is refused with TM509, nothing changed.
+23. summary  — nvidia-smi's line, then one {"kernels": [...]} line, then the
                last line {"ok": true, "device": {...}}.
 
 Phase 3 also holds K5 past shared memory (a 5000-split slot, its own launch
@@ -379,6 +407,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Optional
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
@@ -994,17 +1023,24 @@ RESILIENCE_ZERO = ("quarantined", "retries", "bucket_splits", "device_failures",
                    "fallback_batches")
 
 
-def _capture_batches(plan) -> list:
+def _capture_batches(plan, launches: Optional[list] = None) -> list:
     """Record every batch the plan begins (the records, in order): the
     fixture's head is a float64 product whose last bit can depend on a row's
     place in its batch, so a served record is held to the CPU plan's record
-    for the same batch."""
+    for the same batch.  With ``launches``, each begin's encode launches on
+    its thread go there too."""
+    from transmogrifai_tpu_torch.perf.kernels import encode as KE
+
     seen = []
     begin = plan.begin_score
 
     def recording(records):
         seen.append(list(records))
-        return begin(records)
+        n0 = KE.thread_encode_launches()
+        fin = begin(records)
+        if launches is not None:
+            launches.append(KE.thread_encode_launches() - n0)
+        return fin
     plan.begin_score = recording
     return seen
 
@@ -4797,6 +4833,332 @@ def phase_streaming(torch, KE, dev) -> dict:
     return out
 
 
+#: phase 22: the fleet's tenants (name, fixture, precision, SLO class), the
+#: reduced-precision registrations the TM511 gate refuses on the phase's
+#: calibration batch (in both packages: one of 1024 real records puts a value
+#: within a bf16 / int8 step of a tree bucketizer's split, and the flipped
+#: bucket moves the raw margin by ~1), the records each tenant is sent, and
+#: the candidate the admission check registers (the wide pipeline's
+#: workflow-CV fixture: serving_wide's shapes, its own fitted state)
+FLEET_TENANTS = (("wide_f32", FIXTURE, "f32", "gold"),
+                 ("wide_f32_twin", FIXTURE, "f32", "gold"),
+                 ("families", FAMILIES_FIXTURE, "f32", "bronze"),
+                 ("families_bf16", FAMILIES_FIXTURE, "bf16", "silver"),
+                 ("families_int8", FAMILIES_FIXTURE, "int8", "bronze"))
+FLEET_REFUSED = (("wide_bf16", "bf16", "silver"), ("wide_int8", "int8", "bronze"))
+FLEET_CANDIDATE = WCV_FIXTURE
+FLEET_WIDE_RECORDS = 2048
+FLEET_FAMILY_RECORDS = 1024
+FLEET_CALIBRATION = 1024
+FLEET_CLIENTS = 8
+FLEET_WINDOW = 128
+BF16_ULP = 2.0 ** -8
+
+
+def _settled(torch) -> int:
+    """Device bytes allocated once every freed tensor is gone."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def _reduced_vectors(card, cpu, batch, precision: str) -> float:
+    """The card plan's prefix vectors against the CPU plan's of its class:
+    int8 bitwise; bf16's largest relative error (at most one bf16 ulp)."""
+    import numpy as np
+
+    entries = cpu._encode_records(batch)[1]
+    worst = 0.0
+    for g, c in zip(card._fused(*entries), cpu._fused(*entries)):
+        if precision == "int8":
+            check(g.tobytes() == c.tobytes(),
+                  "int8 prefix vectors bitwise the CPU int8 plan's")
+            continue
+        fin = ~np.isnan(c)
+        rel = np.abs(g[fin] - c[fin]) / np.maximum(np.abs(c[fin]), 1e-30)
+        worst = max(worst, float(np.max(rel, initial=0.0)))
+    check(worst <= BF16_ULP, f"bf16 prefix vectors within 1 bf16 ulp of the CPU "
+                             f"bf16 plan's ({worst})")
+    return worst
+
+
+def _estimate_against_card(torch, name, model, precision, records) -> dict:
+    """One fingerprint alone on the card: the rise of max_memory_allocated
+    over warm() and one max_bucket batch, beside the static estimate; a
+    reduced class's prefix vectors against the CPU plan's."""
+    from transmogrifai_tpu_torch.checkers.plancheck import analyze_scoring_plan
+    from transmogrifai_tpu_torch.serve import compile_plan
+
+    plan = compile_plan(model, 8, BATCH, precision=precision)
+    est = analyze_scoring_plan(plan).peak_hbm_bytes
+    base = _settled(torch)
+    torch.cuda.reset_peak_memory_stats()
+    plan.warm()
+    plan.score(records[:BATCH])
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    held = _settled(torch) - base
+    out = {"estimate_bytes": est, "card_peak_rise_bytes": rise, "ratio": est / rise,
+           "resident_after_warm_bytes": held}
+    if precision != "f32":
+        cpu = compile_plan(model, 8, BATCH, precision=precision, device="cpu")
+        out["prefix_max_rel_err"] = _reduced_vectors(plan, cpu, records[:BATCH], precision)
+    plan.release_executables()
+    del plan
+    out["left_after_release_bytes"] = _settled(torch) - base
+    check(rise <= est <= 4 * rise,
+          f"{name}: static estimate {est} B within 1x-4x of the card's peak rise {rise} B")
+    return out
+
+
+def phase_fleet(torch, KE, dev) -> dict:
+    """Phase 22: tenants' models of every precision class behind one
+    FleetServer on the card."""
+    import threading
+    from collections import deque
+
+    import numpy as np
+
+    from transmogrifai_tpu_torch import WorkflowModel
+    from transmogrifai_tpu_torch.checkers.diagnostics import OpCheckError
+    from transmogrifai_tpu_torch.serve import (TM511_BOUNDS, FaultHarness, FleetServer,
+                                               ModelRegistry, compile_plan)
+
+    t_start = time.perf_counter()
+    with open(os.path.join(FIXTURE, "schema.json")) as fh:
+        schema = json.load(fh)
+    with open(os.path.join(FAMILIES_FIXTURE, "records.json")) as fh:
+        fam_recorded = json.load(fh)
+    fam = [r for b in fam_recorded["batches"] for r in b["records"]]
+    recs = {"wide": make_records(schema, FLEET_WIDE_RECORDS, np.random.default_rng(22)),
+            # copies: a record is held to the CPU plan's by its identity
+            "families": [dict(fam[i % len(fam)]) for i in range(FLEET_FAMILY_RECORDS)]}
+    fixture = {t: fx for t, fx, _, _ in FLEET_TENANTS}
+    source = {t: ("families" if fx == FAMILIES_FIXTURE else "wide") for t, fx in fixture.items()}
+    precision = {t: p for t, _, p, _ in FLEET_TENANTS}
+    slo = {t: c for t, _, _, c in FLEET_TENANTS}
+    models = {t: WorkflowModel.load(fx) for t, fx in fixture.items()}
+    out = {"tenants": {t: {"fixture": fixture[t], "precision": precision[t], "slo": slo[t]}
+                       for t in fixture}}
+
+    # (a) each fingerprint's static estimate against the card, alone (and
+    # the wide model's reduced classes at full width against the CPU)
+    est = {}
+    for t, fx, p in (("wide_f32", FIXTURE, "f32"), ("wide_bf16", FIXTURE, "bf16"),
+                     ("wide_int8", FIXTURE, "int8"), ("families", FAMILIES_FIXTURE, "f32"),
+                     ("families_bf16", FAMILIES_FIXTURE, "bf16"),
+                     ("families_int8", FAMILIES_FIXTURE, "int8")):
+        est[t] = _estimate_against_card(torch, t, WorkflowModel.load(fx), p,
+                                        recs["families" if fx == FAMILIES_FIXTURE else "wide"])
+    out["estimate"] = est
+    seconds = {"estimate": time.perf_counter() - t_start}
+
+    fleet = FleetServer(max_batch=BATCH, max_wait_ms=2)
+    try:
+        # (b) registration: the twin shares the wide f32 tenant's device
+        # state; the gate refuses the wide model's reduced classes, leaving
+        # nothing behind; the families model's pass it
+        fleet.register("wide_f32", models["wide_f32"], slo="gold")
+        before = _settled(torch)
+        fleet.register("wide_f32_twin", models["wide_f32_twin"], slo="gold")
+        twin_bytes = _settled(torch) - before
+        m = fleet.metrics()
+        check(twin_bytes == 0 and m["fleet"]["shared_prefix_registrations"] == 1
+              and m["tenants"]["wide_f32_twin"]["plan"]["staging_builds"] == 0,
+              f"the shared-fingerprint twin allocated {twin_bytes} B on the card and "
+              "built no staging")
+        refused = {}
+        for t, p, c in FLEET_REFUSED:
+            before = _settled(torch)
+            try:
+                fleet.register(t, WorkflowModel.load(FIXTURE), slo=c, precision=p,
+                               calibration=recs["wide"][:FLEET_CALIBRATION])
+                check(False, f"{t} passed the TM511 gate")
+            except OpCheckError as e:
+                codes = [d.code for d in e.report.errors()]
+                check(codes == ["TM511"], f"{t} refused with TM511: {codes}")
+                refused[t] = {"code": "TM511", "message": e.report.errors()[0].message}
+            check(t not in fleet.tenants() and _settled(torch) == before,
+                  f"the {t} refusal registered nothing and left nothing on the card")
+        for t in ("families", "families_bf16", "families_int8"):
+            fleet.register(t, models[t], slo=slo[t], precision=precision[t],
+                           calibration=recs["families"][:FLEET_CALIBRATION]
+                           if precision[t] != "f32" else None)
+        plans = {t: fleet.models.get(t).swapper.active.plan for t in fixture}
+        check(all(p.device.type == "cuda" and p.warm_buckets() == p.bucket_ladder()
+                  for p in plans.values()), "every tenant warm on the card")
+        out["sharing"] = {"twin_device_bytes": twin_bytes,
+                          "shared_prefix_registrations":
+                          m["fleet"]["shared_prefix_registrations"]}
+        out["tm511_refused"] = refused
+        seconds["register"] = time.perf_counter() - t_start - sum(seconds.values())
+
+        # (c) load: 8 closed-loop clients (FLEET_WINDOW outstanding each)
+        # mixing the tenants' requests
+        begun = {t: [] for t in plans}
+        captured = {t: _capture_batches(p, begun[t]) for t, p in plans.items()}
+        counts0 = {t: p.metrics()["compile_count"] for t, p in plans.items()}
+        work = [(t, r) for t in plans for r in recs[source[t]]]
+        work = [work[i] for i in np.random.default_rng(7).permutation(len(work))]
+        shares = [work[k::FLEET_CLIENTS] for k in range(FLEET_CLIENTS)]
+        results = [[] for _ in range(FLEET_CLIENTS)]
+        errors = []
+
+        def client(k):
+            try:
+                window = deque()
+                for t, r in shares[k]:
+                    if len(window) >= FLEET_WINDOW:
+                        window.popleft().result(timeout=120)
+                    f = fleet.submit(t, r)
+                    results[k].append((t, r, f))
+                    window.append(f)
+                for f in window:
+                    f.result(timeout=120)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(e)
+
+        torch.cuda.synchronize()
+        KE.reset_launch_counts()
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(FLEET_CLIENTS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(300)
+        wall = time.perf_counter() - t0
+        launches = KE.launch_counts()
+        for p in plans.values():
+            del p.begin_score
+        check(not errors and not any(th.is_alive() for th in threads),
+              f"fleet clients finished cleanly: {errors[:3]}")
+        per_tenant = fleet.batcher.tenant_metrics()
+        sub_batches = {t: len(c) for t, c in captured.items()}
+        launched = {t: sum(n) for t, n in begun.items()}
+        check(all(launched[t] == sub_batches[t] for t in plans)
+              and launches["encode_slots"] == sum(launched.values()),
+              f"one encode launch per tenant sub-batch: {launched} of {sub_batches} "
+              f"({launches})")
+        check(all(p.metrics()["compile_count"] == counts0[t] for t, p in plans.items()),
+              "no staging or landing allocation after warm()")
+        pairs = [p for ps in results for p in ps]
+        check(len(pairs) == len(work), "every request answered")
+
+        seconds["load"] = time.perf_counter() - t_start - sum(seconds.values())
+
+        # (d) records against the CPU plans, sub-batch by sub-batch as served
+        cpu = {t: compile_plan(models[t], 8, BATCH, precision=precision[t], device="cpu")
+               for t in plans}
+        pred = {t: next(f.name for f in models[t].result_features
+                        if f.ftype.__name__ == "Prediction") for t in plans}
+        want, reduced_dev, bf16_err = {}, {}, 0.0
+        for t, batches in captured.items():
+            for b in batches:
+                rows = cpu[t].score(b)
+                for r, row in zip(b, rows):
+                    want[(t, id(r))] = row
+                if precision[t] == "f32":
+                    continue
+                bf16_err = max(bf16_err, _reduced_vectors(plans[t], cpu[t], b, precision[t]))
+                ref = cpu["families"].score(b)
+                reduced_dev[t] = max([reduced_dev.get(t, 0.0)] + [
+                    abs(a[pred[t]][k] - w[pred[t]][k]) for a, w in zip(rows, ref)
+                    for k in w[pred[t]] if k != "prediction"])
+        check(all(reduced_dev[t] <= TM511_BOUNDS[precision[t]] for t in reduced_dev),
+              f"reduced tenants' scores within TM511_BOUNDS of the f32 tenant's: "
+              f"{reduced_dev}")
+        for t, r, f in pairs:
+            check(f.result() == want[(t, id(r))],
+                  f"{t}: card record == the CPU plan's for its sub-batch")
+        out["load"] = {
+            "clients": FLEET_CLIENTS, "window": FLEET_WINDOW, "records": len(pairs),
+            "seconds": wall, "records_per_s": len(pairs) / wall,
+            "sub_batches": sub_batches, "launches": launched,
+            "latency_ms": {t: {q: per_tenant.get(t, {}).get(f"latency_{q}_ms")
+                               for q in ("p50", "p99")} for t in plans},
+            "device_ms_median": {t: statistics.median(
+                x["device_ms"] for x in list(plans[t].batch_timings)[-sub_batches[t]:])
+                for t in plans},
+            "records_equal_cpu": True, "int8_prefix_bitwise_cpu": True,
+            "bf16_prefix_max_rel_err": bf16_err,
+            "reduced_score_delta_vs_f32": reduced_dev}
+
+        seconds["checks"] = time.perf_counter() - t_start - sum(seconds.values())
+
+        # (e) a route fault on one tenant fails only its records
+        caught = {t: _capture_batches(p) for t, p in plans.items()}
+        with FaultHarness().fail_when("route", lambda ctx: ctx.get("tenant") == "families",
+                                      lambda: RuntimeError("injected route fault")):
+            futs = [(t, r, fleet.submit(t, r)) for t in plans for r in recs[source[t]][:64]]
+            got = [(t, r, f.exception(timeout=120) or f.result()) for t, r, f in futs]
+        for p in plans.values():
+            del p.begin_score
+        check(all(isinstance(g, RuntimeError) for t, _, g in got if t == "families")
+              and not caught["families"],
+              "the families tenant's records failed with the route fault, its plan idle")
+        served = {}
+        for t, batches in caught.items():
+            for b in batches:
+                for r, row in zip(b, cpu[t].score(b)):
+                    served[(t, id(r))] = row
+        check(all(g == served[(t, id(r))] for t, r, g in got if t != "families"),
+              "every other tenant's records == the CPU plan's, as without the fault")
+        out["faults"] = {"route_failed": sum(1 for t, _, _ in got if t == "families"),
+                         "others_served": sum(1 for t, _, _ in got if t != "families")}
+
+        # (f) admission: a budget with room for one more tenant only once the
+        # least recently scored goes; then a candidate over a budget: TM509
+        victim = "families_int8"
+        for t in (victim, "families_bf16", "families", "wide_f32_twin", "wide_f32"):
+            fleet.score(t, recs[source[t]][0], timeout=60)   # the LRU order
+        candidate = WorkflowModel.load(FLEET_CANDIDATE)
+        need = fleet.models._peak_bytes(compile_plan(candidate, 8, BATCH))
+        resident = fleet.models.resident_hbm_bytes()
+        fleet.models.hbm_budget = resident - fleet.models._peak_bytes(plans[victim]) + need
+        evictions0 = fleet.metrics()["fleet"]["evictions"]
+        before = _settled(torch)
+        fleet.register("wide_wcv", candidate, slo="silver", warm=False)
+        freed = before - _settled(torch)
+        released = plans[victim].last_released_bytes
+        m = fleet.metrics()
+        check(m["fleet"]["evictions"] == evictions0 + 1
+              and m["tenants"][victim]["warm_buckets"] == []
+              and all(m["tenants"][t]["warm_buckets"] for t in plans if t != victim),
+              f"the least recently scored tenant ({victim}) evicted, the others warm")
+        check(released > 0 and abs(freed - released) <= 512,
+              f"memory_allocated fell by the evicted tenant's released bytes "
+              f"({freed} vs {released})")
+        row = fleet.score(victim, recs["families"][0], timeout=60)
+        check(row == cpu[victim].score([recs["families"][0]])[0],
+              "the evicted tenant still serves")
+        small = ModelRegistry(hbm_budget=need - 1)
+        before = _settled(torch)
+        try:
+            small.register("too_big", WorkflowModel.load(FLEET_CANDIDATE))
+            check(False, "a candidate larger than the budget was admitted")
+        except OpCheckError as e:
+            check([d.code for d in e.report.errors()] == ["TM509"], f"TM509: {e}")
+        check(len(small) == 0 and _settled(torch) == before
+              and small.metrics()["fleet"]["admission_refusals"] == 1,
+              "the refusal changed nothing")
+        out["admission"] = {"budget": fleet.models.hbm_budget, "candidate_bytes": need,
+                            "evicted": victim, "freed_bytes": freed,
+                            "released_bytes": released, "refused": "TM509"}
+        out["statusz"] = {t: {k: v for k, v in r.items()
+                              if k in ("precision", "completed", "p99_ms", "warm_buckets")}
+                          for t, r in fleet.statusz()["tenants"].items()}
+    finally:
+        fleet.close()
+    seconds["faults_admission"] = time.perf_counter() - t_start - sum(seconds.values())
+    out["seconds"] = time.perf_counter() - t_start
+    out["seconds_by_part"] = seconds
+    emit({"phase": "fleet", **out})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4920,6 +5282,9 @@ def main() -> int:
 
     # 4b. the scoring server: records one request each
     server = phase_serving_server(torch, KE, model, batches, cpu_plan)
+    # the card plan's device state goes with it (plans of one fingerprint
+    # share theirs: phase 22 sizes the wide model's alone)
+    del plan
 
     # 5. tree kernels
     tree_err = phase_tree_parity(torch, dev)
@@ -4972,7 +5337,10 @@ def main() -> int:
     # 21. Spark-free scoring, streaming, the continual loop, resume
     stream = phase_streaming(torch, KE, dev)
 
-    # 22. summary
+    # 22. the fleet: tenants of every precision class behind one batcher
+    fleet = phase_fleet(torch, KE, dev)
+
+    # 23. summary
     kernels = []
     tree_src = "transmogrifai_tpu_torch/perf/kernels/csrc/trees.cu"
     for kname, replaces in (("hist_level", "transmogrifai_tpu/perf/kernels/histogram.py:80"),
@@ -5067,6 +5435,7 @@ def main() -> int:
                if kname == "bucketize_right_encode" else
                {"launches_workflow_cv": wcv["launches"]["encode_slots"]}),
             "launches_streaming": stream["parity"]["launches"]["encode_slots"],
+            "launches_fleet": fleet["load"]["launches"],
             "launches_streaming_refit": stream["continual"]["refit"]["encode_launches"],
             **{f"fused_{k}": fused[k] for k in ("ms", "device_ms", "plain_ms",
                                                  "bound_ms", "slots", "columns")}})

@@ -292,11 +292,15 @@ class TestRefitController:
         assert res.prefix_reused and res.backend_compiles == 0
 
     def test_no_card_and_slo_monitor_raise(self, base, monkeypatch):
+        """The trainer takes an SLO monitor and polls it at stream cadence
+        (tests/test_torch_slo.py drives it); one without ``poll`` raises at
+        the first poll.  Without a card and a device, the refit raises."""
         model = base[0]
         server = ScoringServer(model, max_batch=8, **CPU)
         try:
-            with pytest.raises(NotImplementedError, match="slo_monitor"):
-                TC.ContinualTrainer(server, model, None, slo_monitor=object())
+            trainer = TC.ContinualTrainer(server, model, None, slo_monitor=object())
+            with pytest.raises(AttributeError, match="poll"):
+                trainer._poll_slo()
         finally:
             server.close()
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

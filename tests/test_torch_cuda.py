@@ -2,8 +2,9 @@
 (the encode kernel's left-closed bucketize slots among them), the wide
 pipeline's training from raw columns (its whole-table transform plan and the
 SanityChecker, and with the DSL's features added) on the card against the
-CPU, and Word2Vec's step loop and LDA's EM on the card against the same
-functions on the CPU.
+CPU, Word2Vec's step loop and LDA's EM on the card against the same
+functions on the CPU, and the fleet's reduced-precision lowering, shared
+prefix state and eviction on the card.
 
 Marked ``cuda``: each test skips where there is no card.  The machine with
 the card has no JAX, so this file imports torch and the port only; run it
@@ -211,6 +212,94 @@ def test_server_on_the_card_fails_an_oom_batch_not_to_the_cpu():
         == (1, 0, 0)
     assert plan["host_scored_records"] == 0
     assert rows == model.serving_plan(device="cpu").score(recs)
+
+
+# -- the fleet: reduced precision, shared prefix state, eviction ----------------
+
+def _wide():
+    import json
+
+    from transmogrifai_tpu_torch import WorkflowModel
+
+    with open(os.path.join(FIXTURE, "schema.json")) as fh:
+        schema = json.load(fh)
+    return WorkflowModel.load, schema
+
+
+def _settled() -> int:
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+@pytest.mark.parametrize("precision", ["bf16", "int8"])
+def test_precision_lowering_on_the_card_equals_the_cpu(precision):
+    """The lowering over the packed float32 staging block, on the card
+    against the CPU: int8 bitwise, bf16 bitwise (a cast), prefix outputs
+    likewise, and the encode kernel launched once a batch."""
+    from transmogrifai_tpu_torch.serve import compile_plan
+    from transmogrifai_tpu_torch.serve.plan import lower_block
+
+    rng = np.random.default_rng(11)
+    block = (rng.standard_normal((68, 1024)) * 10.0 ** rng.uniform(-3, 3, (68, 1))
+             ).astype(np.float32)
+    block[:, ::97] = np.nan
+    block[3, 5] = np.inf
+    got = lower_block(torch.from_numpy(block).cuda(), precision).float().cpu()
+    want = lower_block(torch.from_numpy(block), precision).float()
+    assert torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0))
+    load, schema = _wide()
+    model = load(FIXTURE)
+    card = compile_plan(model, precision=precision)
+    cpu = compile_plan(model, precision=precision, device="cpu")
+    recs = _records(schema, 1024, np.random.default_rng(4))
+    entries = cpu._encode_records(recs)[1]
+    TKE.reset_launch_counts()
+    outs = card._fused(*entries)
+    assert TKE.encode_slots_launches == 1
+    for a, b in zip(outs, cpu._fused(*entries)):
+        assert np.array_equal(a, b, equal_nan=True)
+
+
+def test_shared_fingerprint_allocates_no_device_bytes():
+    from transmogrifai_tpu_torch.serve import FleetServer
+
+    load, schema = _wide()
+    recs = _records(schema, 64, np.random.default_rng(6))
+    with FleetServer(max_batch=64, max_wait_ms=2) as fleet:
+        fleet.register("a", load(FIXTURE))
+        before = _settled()
+        fleet.register("twin", load(FIXTURE))
+        assert _settled() == before
+        m = fleet.metrics()
+        assert m["fleet"]["shared_prefix_registrations"] == 1
+        assert m["tenants"]["twin"]["plan"]["staging_builds"] == 0
+        rows = [f.result(60) for f in [fleet.submit("twin", r) for r in recs]]
+    assert len(rows) == 64
+
+
+def test_eviction_frees_what_resident_hbm_bytes_said():
+    """Evicting a cold tenant frees its staging buffers and constants:
+    ``memory_allocated`` falls by the bytes its plan reports released, and
+    the fleet's resident estimate by that fingerprint's estimate."""
+    from transmogrifai_tpu_torch.serve import FleetServer
+
+    load, schema = _wide()
+    with FleetServer(max_batch=256, max_wait_ms=2) as fleet:
+        fleet.register("cold", load(FIXTURE))
+        fleet.register("hot", load(FIXTURE), precision="bf16",
+                       calibration=_records(schema, 64, np.random.default_rng(1)))
+        cold_plan = fleet.models.get("cold").swapper.active.plan
+        resident = fleet.models.resident_hbm_bytes()
+        each = fleet.models._peak_bytes(cold_plan)
+        before = _settled()
+        fleet.models._release_tenant(fleet.models.get("cold"))
+        freed = before - _settled()
+        assert cold_plan.last_released_bytes > 0
+        assert abs(freed - cold_plan.last_released_bytes) <= 512
+        assert fleet.models.resident_hbm_bytes() == resident - each
 
 
 # -- tree kernels (K1 histogram, K2 split scan, K3 routing) ---------------------

@@ -266,11 +266,12 @@ class TestSignatures:
         assert (plan.min_bucket, plan.max_bucket) == (16, 1024)
         plan = TS.CompiledScoringPlan(fx.tm, 8, 64, True, None, "float32", device="cpu")
         assert (plan.max_bucket, plan.precision) == (64, "f32")
-        with pytest.raises(NotImplementedError, match="hbm_budget"):
-            TS.CompiledScoringPlan(fx.tm, 8, 64, True, 1e9, device="cpu")
-        for p in ("bf16", "int8"):
-            with pytest.raises(NotImplementedError, match="precision"):
-                TS.CompiledScoringPlan(fx.tm, precision=p, device="cpu")
+        plan = TS.CompiledScoringPlan(fx.tm, 8, 64, True, 1e9, device="cpu")
+        assert plan.max_bucket == 64                  # a budget it fits
+        with pytest.raises(OpCheckError, match="TM601"):
+            TS.CompiledScoringPlan(fx.tm, 8, 64, True, 1024.0, device="cpu")
+        for p, name in (("bf16", "bf16"), ("BFloat16", "bf16"), ("i8", "int8")):
+            assert TS.CompiledScoringPlan(fx.tm, precision=p, device="cpu").precision == name
         with pytest.raises(ValueError, match="unknown precision"):
             TS.CompiledScoringPlan(fx.tm, precision="fp8", device="cpu")
         with pytest.raises(TypeError):
@@ -300,8 +301,12 @@ class TestSignatures:
             TS.CompiledScoringPlan(broken, strict=False, device="cpu")
 
     def test_server_refuses_hbm_budget(self, fx):
-        with pytest.raises(NotImplementedError, match="hbm_budget"):
-            TS.ScoringServer(fx.tm, hbm_budget=1e9, device="cpu")
+        """A budget the model's plan cannot fit refuses it with TM601 (the
+        plan's admission gate); one it fits serves."""
+        with pytest.raises(OpCheckError, match="TM601"):
+            TS.ScoringServer(fx.tm, hbm_budget=1024.0, device="cpu")
+        with TS.ScoringServer(fx.tm, max_batch=8, hbm_budget=1e9, device="cpu") as server:
+            assert server.plan.max_bucket == 8
 
     def test_without_card_every_entry_point_raises(self, fx, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -33,6 +33,7 @@ import torch
 
 from transmogrifai_tpu.workflow.workflow import WorkflowModel as JModel
 from transmogrifai_tpu_torch import WorkflowModel as TModel
+from transmogrifai_tpu_torch.checkers.diagnostics import OpCheckError
 from transmogrifai_tpu_torch.types import FeatureTypeError
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -377,6 +378,9 @@ from transmogrifai_tpu_torch.workflow import runner
 from transmogrifai_tpu_torch.readers import streaming
 from transmogrifai_tpu_torch.local import export as local_export, scoring as local_scoring
 from transmogrifai_tpu_torch.workflow import checkpoint, continual, resilience as wf_resilience
+from transmogrifai_tpu_torch.serve import registry
+from transmogrifai_tpu_torch.obs import slo
+from transmogrifai_tpu_torch.checkers import plancheck
 serde._register_stages()
 import chip_smoke
 sys.path.insert(0, {repo!r} + "/tests")
@@ -442,7 +446,11 @@ class TestNoJax:
                             "checkpoint", "resilience", "continual")),
                         *(("serve", f"{m}.py") for m in (
                             "batcher", "faults", "pipeline", "plan", "resilience",
-                            "server", "swap", "validator")),
+                            "server", "swap", "validator", "registry")),
+                        ("obs", "slo.py"), ("checkers", "plancheck.py"),
+                        ("ops", "_consts.py"), ("features", "feature.py"),
+                        *(("types", f"{m}.py") for m in (
+                            "__init__", "base", "numerics", "text", "collections")),
                         *(("insights", f"{m}.py") for m in (
                             "__init__", "loco", "model_insights")),
                         *(("models", f"{m}.py") for m in (
@@ -516,8 +524,9 @@ class TestEntryPointSignatures:
         plan = tm.serving_plan(16, 512, True, device="cpu")
         assert (plan.min_bucket, plan.max_bucket) == (16, 512)
         assert plan.device == torch.device("cpu")
-        with pytest.raises(NotImplementedError, match="hbm_budget"):
-            tm.serving_plan(8, 1024, True, 1e9, device="cpu")
+        assert tm.serving_plan(8, 1024, True, 1e9, device="cpu").max_bucket == 1024
+        with pytest.raises(OpCheckError, match="TM601"):
+            tm.serving_plan(8, 1024, True, 4096.0, device="cpu")
         with pytest.raises(TypeError):
             tm.serving_plan("cpu")
 

@@ -46,13 +46,23 @@ routing kernels (``perf/kernels/csrc/trees.cu``) are hand-written CUDA.
 
 __version__ = "0.1.0"
 
+from .types import *  # noqa: F401,F403  (the feature type hierarchy)
 from . import dsl  # noqa: F401  (attaches the feature DSL methods)
+from .checkers.diagnostics import (  # noqa: F401
+    DagCycleError,
+    Diagnostic,
+    DiagnosticReport,
+    OpCheckError,
+    Severity,
+)
 from .checkers.sanity import SanityChecker  # noqa: F401
-from .data.dataset import Dataset  # noqa: F401
+from .data.dataset import Column, Dataset  # noqa: F401
 from .evaluators.base import Evaluators  # noqa: F401
 from .features.builder import FeatureBuilder  # noqa: F401
+from .features.feature import Feature, FeatureHistory  # noqa: F401
 from .filters import RawFeatureFilter  # noqa: F401
 from .insights import ModelInsights, RecordInsightsCorr, RecordInsightsLOCO  # noqa: F401
+from .local import export_standalone, score_function  # noqa: F401
 from .models import combiner as _combiner  # noqa: F401  (registers SelectedModelCombiner)
 from .models.glm import GeneralizedLinearRegression  # noqa: F401
 from .models.linear import LinearRegression  # noqa: F401
@@ -61,6 +71,7 @@ from .models.mlp import MultilayerPerceptronClassifier  # noqa: F401
 from .models.naive_bayes import NaiveBayes  # noqa: F401
 from .models.selector import (  # noqa: F401
     BinaryClassificationModelSelector,
+    ModelSelector,
     MultiClassificationModelSelector,
     RegressionModelSelector,
 )
@@ -82,22 +93,25 @@ from .readers.joined import (  # noqa: F401
     TimeBasedFilter,
     TimeColumn,
 )
+from .readers.streaming import (  # noqa: F401
+    JsonlTailSource,
+    MicroBatchStreamingReader,
+    OffsetCheckpoint,
+)
 from .serve.plan import CompiledScoringPlan  # noqa: F401
 from .serve.server import ScoringServer  # noqa: F401
 from .workflow.serde import load_model, save_model  # noqa: F401
 from .workflow.workflow import Workflow, WorkflowModel  # noqa: F401
 
-__all__ = ["BinaryClassificationModelSelector", "BinaryVectorizer",
-           "CompiledScoringPlan", "DataReaders", "Dataset",
-           "DecisionTreeNumericBucketizer",
-           "Evaluators", "FeatureBuilder", "FillMissingWithMean",
-           "GeneralizedLinearRegression", "JoinType", "JoinedAggregateReader",
-           "JoinedReader", "LinearRegression", "LinearSVC",
-           "LogisticRegression", "ModelInsights", "MultiClassificationModelSelector",
-           "MultilayerPerceptronClassifier", "RecordInsightsCorr", "RecordInsightsLOCO",
-           "MultinomialLogisticRegression", "NaiveBayes", "NumericVectorizer",
-           "OneHotVectorizer", "RawFeatureFilter", "RealNNVectorizer",
-           "RegressionModelSelector",
-           "SanityChecker", "ScoringServer", "StandardScaler", "TimeBasedFilter",
-           "TimeColumn", "VectorsCombiner", "Workflow", "WorkflowModel",
-           "load_model", "save_model", "transmogrify"]
+#: the reference's public names (``transmogrifai_tpu.__all__``); the other
+#: attributes above are importable by name but not exported
+__all__ = [
+    "Feature", "FeatureHistory", "FeatureBuilder", "Column", "Dataset",
+    "Workflow", "WorkflowModel", "transmogrify", "SanityChecker",
+    "BinaryClassificationModelSelector", "MultiClassificationModelSelector",
+    "RegressionModelSelector", "ModelSelector", "Evaluators", "DataReaders",
+    "score_function", "export_standalone", "MicroBatchStreamingReader",
+    "OffsetCheckpoint", "JsonlTailSource",
+    "Diagnostic", "DiagnosticReport", "Severity", "OpCheckError",
+    "DagCycleError",
+]

@@ -123,6 +123,10 @@ class Column:
             return np.ones(len(self), dtype=np.bool_)
         return np.array([not _is_empty_obj(v) for v in self.data], dtype=np.bool_)
 
+    def fill_rate(self) -> float:
+        n = len(self)
+        return float(self.present().sum() / n) if n else 0.0
+
     def to_values(self) -> List[Any]:
         """Raw python values (None where missing; [] for a missing
         geolocation, and lists and sets as stored)."""
@@ -137,6 +141,23 @@ class Column:
         if self.kind is ColumnKind.VECTOR:
             return [np.asarray(row) for row in self.data]
         return list(self.data)
+
+    def to_feature_values(self) -> List[FeatureType]:
+        return [self.ftype(v) for v in self.to_values()]
+
+    def concat(self, other: "Column") -> "Column":
+        """This column's rows followed by ``other``'s (same type; the
+        metadata is this column's)."""
+        if self.ftype is not other.ftype:
+            raise TypeError("cannot concat columns of different types")
+        data = np.concatenate([self.data, other.data])
+        if self.mask is None and other.mask is None:
+            mask = None
+        else:
+            left = self.mask if self.mask is not None else np.ones(len(self), dtype=np.bool_)
+            right = other.mask if other.mask is not None else np.ones(len(other), dtype=np.bool_)
+            mask = np.concatenate([left, right])
+        return Column(self.ftype, data, mask, self.meta)
 
     def __repr__(self) -> str:
         return f"Column<{self.ftype.__name__}>(n={len(self)}, kind={self.kind.value})"
@@ -166,6 +187,10 @@ class Dataset:
     def from_features(cls, values: Mapping[str, Sequence[Any]],
                       ftypes: Mapping[str, Type[FeatureType]]) -> "Dataset":
         return cls({k: Column.from_values(ftypes[k], v) for k, v in values.items()})
+
+    @classmethod
+    def empty(cls) -> "Dataset":
+        return cls({})
 
     @property
     def n_rows(self) -> int:
@@ -209,6 +234,12 @@ class Dataset:
         idx = np.asarray(indices)
         return Dataset({n: c.take(idx) for n, c in self._columns.items()})
 
+    def concat(self, other: "Dataset") -> "Dataset":
+        """This dataset's rows followed by ``other``'s (the same columns)."""
+        if set(self.names) != set(other.names):
+            raise ValueError("cannot concat datasets with different columns")
+        return Dataset({n: c.concat(other[n]) for n, c in self._columns.items()})
+
     def split(self, test_fraction: float, seed: int = 42):
         """(train, test): a numpy permutation from ``seed``, its first
         round(n * test_fraction) rows the test part -- the reference's
@@ -230,6 +261,21 @@ class Dataset:
             else:
                 out[name] = col.to_values()
         return pd.DataFrame(out)
+
+    def row(self, i: int) -> Dict[str, Any]:
+        """Row ``i`` as {name: python value} (None / [] where missing; a
+        vector column's row as an array)."""
+        out: Dict[str, Any] = {}
+        for n, c in self._columns.items():
+            if c.is_numeric:
+                out[n] = c.data[i].item() if (c.mask is None or c.mask[i]) else None
+            elif c.kind is ColumnKind.GEO:
+                out[n] = list(c.data[i]) if (c.mask is None or c.mask[i]) else []
+            elif c.kind is ColumnKind.VECTOR:
+                out[n] = np.asarray(c.data[i])
+            else:
+                out[n] = c.data[i]
+        return out
 
     def __repr__(self) -> str:
         cols = ", ".join(f"{n}:{c.ftype.__name__}" for n, c in self._columns.items())

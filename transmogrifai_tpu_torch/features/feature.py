@@ -10,7 +10,7 @@ to the raw ones.  DAGs are rebuilt from saved models or wired by hand:
 from __future__ import annotations
 
 import itertools
-from typing import TYPE_CHECKING, Dict, List, Optional, Tuple, Type
+from typing import TYPE_CHECKING, Dict, Iterable, List, Optional, Tuple, Type
 
 from ..types import FeatureType
 
@@ -59,6 +59,10 @@ class Feature:
     def is_raw(self) -> bool:
         return len(self.parents) == 0
 
+    @property
+    def origin_stage_name(self) -> str:
+        return self.origin_stage.operation_name if self.origin_stage else "raw"
+
     def transform_with(self, stage: "PipelineStage", *others: "Feature") -> "Feature":
         """Apply ``stage`` to this feature (and co-inputs); its output feature."""
         stage.set_input(self, *others)
@@ -96,13 +100,43 @@ class Feature:
                     frontier.append((p, dist + 1))
         return distances
 
-    def history(self) -> Dict[str, List[str]]:
-        """Provenance dict (origin raw features, stage operation names) that
-        vector metadata records per input feature."""
+    def all_features(self) -> List["Feature"]:
+        """Every feature in this feature's ancestry, itself included, once each."""
+        seen: Dict[str, Feature] = {}
+        stack = [self]
+        while stack:
+            f = stack.pop()
+            if f.uid in seen:
+                continue
+            seen[f.uid] = f
+            stack.extend(f.parents)
+        return list(seen.values())
+
+    def pretty_parent_stages(self, indent: int = 0) -> str:
+        """Human-readable lineage tree."""
+        lines = [f"{'  ' * indent}{'+-- ' if indent else ''}{self.origin_stage_name} -> "
+                 f"{self.name} ({self.ftype.__name__})"]
+        for p in self.parents:
+            lines.append(p.pretty_parent_stages(indent + 1))
+        return "\n".join(lines)
+
+    def as_raw(self, is_response: Optional[bool] = None) -> "Feature":
+        """A raw copy of this feature, read by name from a record (no lineage)."""
+        from .generator import FeatureGeneratorStage
+
+        resp = self.is_response if is_response is None else is_response
+        stage = FeatureGeneratorStage(extract_fn=_NamedExtract(self.name),
+                                      ftype=self.ftype, output_name=self.name,
+                                      is_response=resp)
+        return stage.get_output()
+
+    def history(self) -> "FeatureHistory":
+        """Provenance (origin raw features, stage operation names) that
+        vector metadata records per input feature (``.to_dict()``)."""
         origins = sorted(f.name for f in self.raw_features()) \
             if not self.is_raw else [self.name]
         stages = sorted({s.operation_name for s in self.parent_stages()})
-        return {"originFeatures": origins, "stages": stages}
+        return FeatureHistory(origin_features=origins, stages=stages)
 
 
 class _NamedExtract:
@@ -120,3 +154,25 @@ class _NamedExtract:
 
     def __repr__(self):
         return f"_NamedExtract({self.key!r})"
+
+
+class FeatureHistory:
+    """Provenance of a derived feature: its raw origins and the operation
+    names of the stages between."""
+
+    __slots__ = ("origin_features", "stages")
+
+    def __init__(self, origin_features: Iterable[str], stages: Iterable[str]):
+        self.origin_features = list(origin_features)
+        self.stages = list(stages)
+
+    def to_dict(self) -> dict:
+        return {"originFeatures": self.origin_features, "stages": self.stages}
+
+    def merge(self, other: "FeatureHistory") -> "FeatureHistory":
+        return FeatureHistory(
+            sorted(set(self.origin_features) | set(other.origin_features)),
+            sorted(set(self.stages) | set(other.stages)))
+
+    def __repr__(self):
+        return f"FeatureHistory(origins={self.origin_features}, stages={self.stages})"

@@ -217,6 +217,14 @@ class MetricsRegistry:
         with self._lock:
             return [self._metrics[k] for k in sorted(self._metrics)]
 
+    def get(self, name: str,
+            labels: Optional[Mapping[str, str]] = None) -> Optional[Any]:
+        """The registered metric under (name, labels), or None: the
+        read-only accessor of consumers such as the SLO monitor
+        (``obs/slo.py``), without get-or-create side effects."""
+        with self._lock:
+            return self._metrics.get((name, _label_key(labels)))
+
     def labeled_values(self, label: str) -> List[str]:
         """Distinct values of ``label`` across registered metrics."""
         label = str(label)
@@ -378,6 +386,27 @@ CANONICAL_METRICS: Dict[str, Tuple[str, str, Optional[str], str]] = {
     "tmog_serve_swap_shadow_dropped_total":
         ("counter", "swap", "shadow_dropped", "records shed by a saturated "
          "mirror queue (resets per candidate)"),
+    # -- ModelRegistry / FleetServer (serve/registry.py) --------------------
+    "tmog_serve_fleet_tenants":
+        ("gauge", "fleet", None, "tenants currently registered in the "
+         "fleet"),
+    "tmog_serve_fleet_registrations_total":
+        ("counter", "fleet", "registrations", "tenant models admitted to "
+         "the registry"),
+    "tmog_serve_fleet_shared_prefix_total":
+        ("counter", "fleet", "shared_prefix_registrations", "registrations "
+         "whose plan fingerprint was already resident — the fleet-wide "
+         "executable-dedup (zero-compile) figure"),
+    "tmog_serve_fleet_evictions_total":
+        ("counter", "fleet", "evictions", "cold tenants whose warm bucket "
+         "executables the HBM admission controller evicted (LRU by "
+         "last-scored)"),
+    "tmog_serve_fleet_admission_refusals_total":
+        ("counter", "fleet", "admission_refusals", "registrations/stagings "
+         "refused with TM509 after eviction could not make room"),
+    "tmog_serve_fleet_scored_records_total":
+        ("counter", "fleet", None, "records scored per tenant (labeled "
+         "tenant=...)"),
     # -- ContinualTrainer (workflow/continual.py) ---------------------------
     "tmog_continual_batches_total":
         ("counter", "continual", "batches", "streamed batches processed"),

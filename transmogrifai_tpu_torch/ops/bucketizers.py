@@ -205,7 +205,10 @@ class DecisionTreeNumericBucketizerModel(Transformer):
                 return torch.zeros((x.shape[0], 0), dtype=torch.float32,
                                    device=x.device)
             return torch.isnan(x).to(torch.float32)[:, None]
-        return KE.encode_slots([x], KE.slot_table(self.device_slot_specs()))
+        # a bf16 ``x`` (a reduced serving class) reaches the kernel as its
+        # float32 widening, as the reference's K5 widens it
+        return KE.encode_slots([x.to(torch.float32)],
+                               KE.slot_table(self.device_slot_specs()))
 
     def transform(self, dataset):
         col = dataset[self.inputs[1].name]
@@ -238,7 +241,7 @@ class DecisionTreeNumericBucketizerModel(Transformer):
         else:
             block = _null_only_block(present, self.track_nulls)
         meta = VectorMetadata(self.output_name, self._meta_cols(f),
-                              {f.name: f.history()}).reindexed()
+                              {f.name: f.history().to_dict()}).reindexed()
         return Column.vector(block, meta)
 
 
@@ -333,5 +336,5 @@ class DecisionTreeNumericMapBucketizerModel(Transformer):
                     indicator_value=NULL_INDICATOR))
         block = np.hstack(blocks) if blocks else np.zeros((n, 0), np.float32)
         meta = VectorMetadata(self.output_name, meta_cols,
-                              {f.name: f.history()}).reindexed()
+                              {f.name: f.history().to_dict()}).reindexed()
         return Column.vector(block, meta)

@@ -216,6 +216,6 @@ class DateMapToUnitCircleVectorizerModel(Transformer):
             blocks = [np.zeros((n, 0), np.float32)]
         meta = VectorMetadata(
             self.output_name, meta_cols,
-            {f.name: f.history() for f in self.inputs},
+            {f.name: f.history().to_dict() for f in self.inputs},
         ).reindexed()
         return Column.vector(np.hstack(blocks), meta)

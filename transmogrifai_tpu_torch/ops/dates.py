@@ -104,7 +104,7 @@ class TimePeriodListTransformer(UnaryTransformer):
             f.name, f.ftype.__name__, grouping=f.name,
             descriptor_value=f"{self.period}_{j}") for j in range(width)]
         meta = VectorMetadata(self.output_name, meta_cols,
-                              {f.name: f.history()}).reindexed()
+                              {f.name: f.history().to_dict()}).reindexed()
         return Column.vector(block, meta)
 
 
@@ -220,7 +220,7 @@ class DateListVectorizer(SequenceTransformer):
                     f.name, f.ftype.__name__, grouping=f.name,
                     indicator_value=NULL_INDICATOR))
         meta = VectorMetadata(self.output_name, meta_cols,
-                              {f.name: f.history() for f in self.inputs}).reindexed()
+                              {f.name: f.history().to_dict() for f in self.inputs}).reindexed()
         return Column.vector(np.hstack(blocks), meta)
 
 
@@ -249,5 +249,5 @@ class DateToUnitCircleVectorizer(SequenceTransformer):
                         f.name, f.ftype.__name__, grouping=f.name,
                         descriptor_value=f"{axis}_{period}"))
         meta = VectorMetadata(self.output_name, meta_cols,
-                              {f.name: f.history() for f in self.inputs}).reindexed()
+                              {f.name: f.history().to_dict() for f in self.inputs}).reindexed()
         return Column.vector(np.hstack(blocks), meta)

@@ -53,5 +53,5 @@ class GeolocationVectorizerModel(Transformer):
                     indicator_value=NULL_INDICATOR))
             blocks.append(np.hstack(parts))
         meta = VectorMetadata(self.output_name, meta_cols,
-                              {f.name: f.history() for f in self.inputs}).reindexed()
+                              {f.name: f.history().to_dict() for f in self.inputs}).reindexed()
         return Column.vector(np.hstack(blocks), meta)

@@ -107,7 +107,7 @@ class NumericMapVectorizerModel(Transformer):
                         indicator_value=NULL_INDICATOR))
         meta = VectorMetadata(
             self.output_name, meta_cols,
-            {f.name: f.history() for f in self.inputs},
+            {f.name: f.history().to_dict() for f in self.inputs},
         ).reindexed()
         return Column.vector(np.hstack(blocks) if blocks else np.zeros((n, 0), np.float32),
                              meta)
@@ -207,7 +207,7 @@ class TextMapPivotVectorizerModel(Transformer):
                         f.name, f.ftype.__name__, grouping=k, indicator_value=NULL_INDICATOR))
         meta = VectorMetadata(
             self.output_name, meta_cols,
-            {f.name: f.history() for f in self.inputs},
+            {f.name: f.history().to_dict() for f in self.inputs},
         ).reindexed()
         return Column.vector(np.hstack(blocks) if blocks else np.zeros((n, 0), np.float32),
                              meta)
@@ -338,7 +338,7 @@ class GeolocationMapVectorizerModel(Transformer):
                         indicator_value=NULL_INDICATOR))
         meta = VectorMetadata(
             self.output_name, meta_cols,
-            {f.name: f.history() for f in self.inputs},
+            {f.name: f.history().to_dict() for f in self.inputs},
         ).reindexed()
         return Column.vector(np.hstack(blocks) if blocks else np.zeros((n, 0), np.float32),
                              meta)

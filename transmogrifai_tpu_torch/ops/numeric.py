@@ -37,7 +37,7 @@ def _numeric_meta(stage, track_nulls: bool) -> VectorMetadata:
                                              grouping=f.name,
                                              indicator_value=NULL_INDICATOR))
     meta = VectorMetadata(stage.output_name, cols,
-                          {f.name: f.history() for f in stage.inputs})
+                          {f.name: f.history().to_dict() for f in stage.inputs})
     return meta.reindexed()
 
 

@@ -176,7 +176,7 @@ class OneHotVectorizerModel(Transformer):
                 cols.append(VectorColumnMetadata(f.name, f.ftype.__name__,
                                                  grouping=f.name, indicator_value=NULL_INDICATOR))
         return VectorMetadata(self.output_name, cols,
-                              {f.name: f.history() for f in self.inputs}).reindexed()
+                              {f.name: f.history().to_dict() for f in self.inputs}).reindexed()
 
     def transform_columns(self, cols, dataset):
         n = len(cols[0])

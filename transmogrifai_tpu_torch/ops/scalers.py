@@ -56,7 +56,13 @@ class FillMissingWithMeanModel(UnaryTransformer):
         self.mean = mean
 
     def device_transform(self, x: torch.Tensor) -> torch.Tensor:
+        """The reference's ``where(isnan(x), float32(mean), x)``: its
+        float32 constant is strongly typed, so a bf16 ``x`` (a reduced
+        serving class) comes out float32 there; torch's 0-dim tensors do not
+        promote, so the port widens ``x`` itself."""
         mean = device_const(self, "mean", self.mean, np.float32, x.device)
+        if x.dtype != torch.float32:
+            x = x.to(torch.promote_types(x.dtype, torch.float32))
         return torch.where(torch.isnan(x), mean, x)
 
     def transform_columns(self, cols, dataset):
@@ -99,11 +105,26 @@ class StandardScalerModel(UnaryTransformer):
         as XLA compiles it into the serving program, where division by the
         baked constant becomes a multiply by its float32 reciprocal (the
         two round differently in the last bit)."""
+        if x.dtype == torch.bfloat16:
+            return self._bf16_transform(x)
         mean = device_const(self, "mean", self.mean, np.float32, x.device)
         inv = device_const(self, "inv_std",
                            np.float32(1.0) / np.float32(self.std), np.float32,
                            x.device)
         return (x - mean) * inv
+
+    def _bf16_transform(self, x: torch.Tensor) -> torch.Tensor:
+        """A bf16 ``x`` (a reduced serving class), as XLA compiles the
+        reference's ``(x - mean) / std`` for it: the weakly typed constants
+        become bf16, the subtraction is rounded to bf16, and the division
+        becomes a float32 multiply by the reciprocal of the bf16 ``std``,
+        rounded to bf16.  torch would round a 0-dim float32 factor to bf16
+        first, so the float32 steps are written out."""
+        mean16 = torch.tensor(self.mean, dtype=torch.float64).to(torch.bfloat16).item()
+        std16 = torch.tensor(self.std, dtype=torch.float64).to(torch.bfloat16).item()
+        inv = float(np.float32(1.0) / np.float32(std16))
+        d = (x.to(torch.float32) - mean16).to(torch.bfloat16)
+        return (d.to(torch.float32) * inv).to(torch.bfloat16)
 
     def transform_columns(self, cols, dataset):
         v = (cols[0].data.astype(np.float64) - self.mean) / self.std
@@ -132,7 +153,10 @@ class NumericBucketizer(UnaryTransformer):
         """The left-closed bucketize one-hot of ``x`` (float32, NaN for
         missing): one slot of the encode kernel on the card, its plain
         version on the CPU."""
-        return KE.encode_slots([x], KE.slot_table(self.device_slot_specs()))
+        # a bf16 ``x`` (a reduced serving class) compares exactly as its
+        # float32 widening, as the reference's float32 splits promote it
+        return KE.encode_slots([x.to(torch.float32)],
+                               KE.slot_table(self.device_slot_specs()))
 
     def transform_columns(self, cols, dataset):
         f = self.inputs[0]
@@ -170,7 +194,7 @@ class NumericBucketizer(UnaryTransformer):
                 f.name, f.ftype.__name__, grouping=f.name,
                 indicator_value=NULL_INDICATOR))
         meta = VectorMetadata(self.output_name, meta_cols,
-                              {f.name: f.history()}).reindexed()
+                              {f.name: f.history().to_dict()}).reindexed()
         return Column.vector(block, meta)
 
 

@@ -56,5 +56,5 @@ class TextListHashingVectorizer(SequenceTransformer):
                     f.name, f.ftype.__name__, grouping=f.name,
                     indicator_value=NULL_INDICATOR))
         meta = VectorMetadata(self.output_name, meta_cols,
-                              {f.name: f.history() for f in self.inputs}).reindexed()
+                              {f.name: f.history().to_dict() for f in self.inputs}).reindexed()
         return Column.vector(np.hstack(blocks), meta)

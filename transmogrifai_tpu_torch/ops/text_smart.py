@@ -233,7 +233,7 @@ class SmartTextVectorizerModel(Transformer):
                                                       indicator_value=NULL_INDICATOR))
             blocks.append(np.hstack([block] + extras) if extras else block)
         meta = VectorMetadata(self.output_name, meta_cols,
-                              {f.name: f.history() for f in self.inputs}).reindexed()
+                              {f.name: f.history().to_dict() for f in self.inputs}).reindexed()
         return Column.vector(np.hstack(blocks), meta)
 
 
@@ -336,6 +336,6 @@ class SmartTextMapVectorizerModel(Transformer):
             blocks = [np.zeros((n, 0), np.float32)]
         meta = VectorMetadata(
             self.output_name, meta_cols,
-            {f.name: f.history() for f in self.inputs},
+            {f.name: f.history().to_dict() for f in self.inputs},
         ).reindexed()
         return Column.vector(np.hstack(blocks), meta)

@@ -17,8 +17,10 @@ kernels become one CUDA kernel (``csrc/encode.cu``).  The pieces here:
   ``encode_slots_launches`` (and the slots in ``slots_encoded``), and in
   the launching thread's own count (:func:`thread_encode_launches`: a
   training flush reads its own launches while a server's batches launch
-  on other threads).  A CPU tensor takes the plain version instead; any other device raises, and a
-  failed build or launch raises :class:`dispatch.KernelError`;
+  on other threads).  A CPU tensor takes the plain version instead; a meta
+  tensor gets its output's shape only (``checkers/plancheck.py`` sizes the
+  prefix with them); any other device raises, and a failed build or
+  launch raises :class:`dispatch.KernelError`;
 - the plain PyTorch version (:func:`encode_slots_torch`): the reference's XLA
   formulas (:func:`onehot_codes_torch`, :func:`bucketize_right_encode_torch`,
   bitwise equal to the JAX kernels, and :func:`bucketize_left_encode_torch`,
@@ -404,6 +406,8 @@ def encode_slots(inputs: Sequence[torch.Tensor], table: SlotTable,
         return encode_slots_torch(inputs, table, out)
     n = _check_inputs(inputs, table)
     out = _output(table, n, inputs[0].device, out)
+    if out.device.type == "meta":   # shapes only: the static memory estimate
+        return out
     launched = _launch(inputs, table, out, table.splits_on(inputs[0].device),
                        "encode_slots")
     encode_slots_launches += launched

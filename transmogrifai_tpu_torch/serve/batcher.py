@@ -35,6 +35,10 @@ it.
 Per-record fault isolation: a scorer exposing ``score_isolated(records) ->
 [result | Exception, ...]`` (``serve/resilience.py``, ``serve/swap.py``)
 gets per-record outcomes routed to per-record futures.
+A fleet scorer exposing ``score_isolated_tenants(records, tenants)``
+(``serve/registry.py::FleetServer``) also gets each request's tenant, and
+fans the flushed batch out per tenant; ``drop_tenant`` forgets a removed
+tenant's labeled series and degraded flag.
 
 Pipelined flushing: with ``pipeline_depth`` > 0 (default: the
 ``TMOG_SERVE_PIPELINE_DEPTH`` knob, 2) and a scorer exposing the staged
@@ -134,6 +138,10 @@ class MicroBatcher:
         if max_batch < 1 or max_queue < 1:
             raise ValueError("max_batch and max_queue must be >= 1")
         self._score = score_batch
+        # multi-tenant routing protocol (serve/registry.py): the fleet
+        # dispatcher receives the per-request tenant ids beside the records
+        # and fans each sub-batch out to its tenant's scoring stack
+        self._fleet = callable(getattr(score_batch, "score_isolated_tenants", None))
         # per-record isolation protocol (serve/resilience.py): outcomes are
         # routed future-by-future instead of all-or-nothing
         self._isolated = callable(getattr(score_batch, "score_isolated", None))
@@ -356,6 +364,16 @@ class MicroBatcher:
             else:
                 self._degraded.discard(tenant)
 
+    def drop_tenant(self, tenant: str) -> None:
+        """Forget a tenant's cached labeled metrics and degraded flag (the
+        registry's unregister hook; the registry drops the exported series
+        itself with ``drop_labeled``)."""
+        with self._lock:
+            self._degraded.discard(tenant)
+        with self._tenant_metrics_lock:
+            for key in [k for k in self._tenant_metrics if k[1] == tenant]:
+                del self._tenant_metrics[key]
+
     def _tenant_metric(self, ctor, name: str, tenant: str, **kw):
         key = (name, tenant)
         with self._tenant_metrics_lock:
@@ -560,6 +578,12 @@ class MicroBatcher:
         ``begin_*`` protocol defer the whole lockstep dispatch to finalize —
         full semantics, no overlap."""
         records = [r.record for r in batch]
+        if self._fleet:
+            tenants = [r.tenant for r in batch]
+            begin = getattr(self._score, "begin_isolated_tenants", None)
+            if callable(begin):
+                return begin(records, tenants)
+            return lambda: self._score.score_isolated_tenants(records, tenants)
         if self._isolated:
             begin = getattr(self._score, "begin_isolated", None)
             if callable(begin):
@@ -624,7 +648,10 @@ class MicroBatcher:
                 self._ring.task_done()
 
     def _dispatch(self, batch: List[_Request]) -> Sequence[Any]:
-        """Lockstep scorer dispatch across the two scorer protocols."""
+        """Lockstep scorer dispatch across the three scorer protocols."""
+        if self._fleet:
+            return self._score.score_isolated_tenants(
+                [r.record for r in batch], [r.tenant for r in batch])
         if self._isolated:
             return self._score.score_isolated(
                 [r.record for r in batch])

@@ -28,10 +28,25 @@ The pipelined batcher (``serve/batcher.py``) encodes batch N+1 while batch
 N's device work and host remainder finish; lockstep serving calls the two
 halves back to back, so both run the same code.
 
+Precision classes (:class:`Precision`): ``f32`` (default), ``bf16`` and
+``int8`` lower the float entries once a batch, over the packed float32
+staging buffer (:func:`lower_block`: one row-wise ``amax`` for int8's
+per-entry scales, then the elementwise quant-dequant), before the one
+encode launch; the encode kernel reads float32 (bf16 values widened
+exactly), and the stages after it compute at the class's dtype.  A reduced
+class joins the fingerprint.
+
+Plans of one fingerprint on one device share their device-side state
+(:class:`_SharedPrefix`: staging buffers, the stages' device constants, the
+stream and the dispatch lock), as the reference's plans share executables:
+a second plan of a model already warm there allocates nothing on the card.
+:meth:`CompiledScoringPlan.release_executables` releases a plan's warm
+buckets (the fleet's eviction).
+
 Buffers shared between batches in flight:
 
-- every batch's device work goes on one stream, the plan's (the device's
-  current stream when the plan was built), whatever stream the calling
+- every batch's device work goes on one stream, the shared state's (the
+  device's current stream when it was made), whatever stream the calling
   thread has set: so batch N+1's copy into a bucket's staging buffers is
   ordered after batch N's kernels that read them, and ``Staging.load``
   waits for batch N's copy out of the pinned host buffer before refilling
@@ -42,9 +57,10 @@ Buffers shared between batches in flight:
   the server reserves its pipeline depth + 1 (``reserve_inflight``).  A
   batch that finds every set in use gets a new one (counted in
   ``compile_count``);
-- a lock orders the staging refill and the launches of concurrent callers
-  (the batcher's flusher, its finalizer's retries, direct ``score``
-  callers); another guards the counters and the free sets.
+- the shared state's lock orders the staging refill and the launches of
+  concurrent callers (the batcher's flusher, its finalizer's retries,
+  direct ``score`` callers, other plans of the fingerprint); another guards
+  each plan's counters and free sets.
 
 Batches pad to power-of-two row buckets (as the reference, whose jit cache
 needed them): the kernels see a handful of shapes, and a batch's padded rows
@@ -60,16 +76,19 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
+import weakref
 from collections import deque
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..checkers.diagnostics import DiagnosticReport, OpCheckError, make_diagnostic
+from ..checkers.diagnostics import OpCheckError
+from ..checkers.plancheck import block_bytes
 from ..data.dataset import Column, Dataset
 from ..features.feature import Feature, _NamedExtract
 from ..features.generator import FeatureGeneratorStage
+from ..ops._consts import const_store
 from ..perf.kernels.dispatch import resolve_device
 from ..types import ColumnKind, NonNullableEmptyException
 from ..workflow.dag import compute_dag
@@ -79,32 +98,135 @@ from ..workflow.plan import (
     run_host_stages,
     serving_entry_ok,
 )
-from ..workflow.workflow import _refuse_unported
 from .faults import fault_point
 
-#: precision names the plan serves (the reference's f32 aliases); its
-#: reduced classes are refused by name
-_F32_NAMES = frozenset({"f32", "float32", "fp32"})
-_REDUCED_NAMES = frozenset({"bf16", "bfloat16", "int8", "i8"})
+class Precision:
+    """Numeric class of the device prefix (the reference's
+    ``serve/plan.py::Precision``).
+
+    - ``f32`` — the default: every float operand stays float32, and the
+      plan's fingerprint carries no precision tag, so f32 plans share
+      prefix state with every f32 plan of the same model.
+    - ``bf16`` — float entry operands are rounded to bfloat16 at the prefix
+      boundary; the prefix stages compute at bf16 where their operands are
+      bf16 (the encode kernel reads them widened back to float32, exactly
+      the bf16 values), and float outputs leave as float32.
+    - ``int8`` — dynamic per-tensor symmetric quant-dequant of each float
+      entry: scaled by ``max|x| / 127`` over its finite values, rounded
+      half to even into [-127, 127] and multiplied back to float32; NaN and
+      inf pass through.
+
+    Both reduced classes are deterministic per input.  A registry admits a
+    reduced-precision plan only past the TM511 calibration parity gate
+    (``serve/validator.py::check_precision_parity``), fail-closed.
+    """
+
+    F32 = "f32"
+    BF16 = "bf16"
+    INT8 = "int8"
+    ALL = (F32, BF16, INT8)
+
+    _ALIASES = {"f32": F32, "float32": F32, "fp32": F32,
+                "bf16": BF16, "bfloat16": BF16,
+                "int8": INT8, "i8": INT8}
+
+    @staticmethod
+    def normalize(value) -> str:
+        """Canonical precision name; ValueError on anything unknown (an
+        unrecognized class never serves as f32)."""
+        if value is None:
+            return Precision.F32
+        key = str(value).strip().lower()
+        try:
+            return Precision._ALIASES[key]
+        except KeyError:
+            raise ValueError(
+                f"unknown precision {value!r}; expected one of "
+                f"{Precision.ALL}") from None
 
 
-def _normalize_precision(precision) -> str:
-    if precision is None:
-        return "f32"
-    key = str(precision).strip().lower()
-    if key in _F32_NAMES:
-        return "f32"
-    if key in _REDUCED_NAMES:
-        _refuse_unported("CompiledScoringPlan", {f"precision={precision!r}": True})
-    raise ValueError(f"unknown precision {precision!r}; expected one of "
-                     "('f32', 'bf16', 'int8')")
+#: TM511 parity bounds: max |prediction delta| vs f32 over the calibration
+#: batch, per precision class (the reference's values)
+TM511_BOUNDS = {Precision.BF16: 1e-2, Precision.INT8: 5e-2}
+
+#: float32(1 / 127): XLA compiles the reference's ``max|x| / 127.0`` into a
+#: multiply by this constant (the division by the tensor scale that follows
+#: stays a true division)
+_INV127 = float(np.float32(1.0) / np.float32(127.0))
 
 
-def _unfitted(result_features: Sequence[Feature], fitted: Mapping[str, Any]) -> List[str]:
-    from ..stages.base import Estimator
+def lower_block(x: torch.Tensor, precision: str) -> torch.Tensor:
+    """Precision-class lowering of a (k, rows) block of float32 entries, one
+    entry a row (the float32 staging buffer): bf16 rounding, or int8's
+    quant-dequant with one scale per row (per entry, as the reference's
+    per-tensor scale; padded rows are zeros in both packages, so they do
+    not move it)."""
+    if precision == Precision.BF16:
+        return x.to(torch.bfloat16)
+    finite = torch.isfinite(x)
+    mag = torch.where(finite, x.abs(), torch.zeros((), dtype=x.dtype, device=x.device))
+    scale = torch.clamp(mag.amax(dim=1, keepdim=True), min=1e-12) * _INV127
+    q = torch.clamp(torch.round(x / scale), -127.0, 127.0).to(torch.int8)
+    return torch.where(finite, q.to(torch.float32) * scale, x)
 
-    return [stage.uid for layer in compute_dag(result_features) for stage in layer
-            if isinstance(stage, Estimator) and fitted.get(stage.uid) is None]
+
+class _SharedPrefix:
+    """The device-side state of one prefix on one device, shared by every
+    plan of its fingerprint there (the port's counterpart of the
+    reference's process-wide executable cache): the prefix machinery of the
+    plan that made it (``owner``: its runners run every batch, their device
+    constants live in ``consts``, its slot table's splits on the device),
+    each row bucket's staging buffers, the stream every batch's device work
+    goes on, and the lock that orders the staging refill and the launches.
+    ``holders[bucket]`` are the plans holding the bucket warm."""
+
+    def __init__(self, owner: "CompiledScoringPlan", device: torch.device):
+        # the owner's prefix machinery without the plan itself: the state
+        # outlives the plan that made it, and holds no cycle back to it
+        self.owner = DevicePrefix.__new__(DevicePrefix)
+        for name in ("device", "_encode_table", "_encode_inputs", "_encode_blocks",
+                     "_wiring"):
+            setattr(self.owner, name, getattr(owner, name))
+        self.device = device
+        self.stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
+        self.lock = threading.Lock()
+        self.consts: Dict[tuple, torch.Tensor] = {}
+        self.staging: Dict[int, Staging] = {}
+        #: row bucket -> the live plans holding it (weakly: a plan dropped
+        #: without a release holds nothing)
+        self.holders: Dict[int, "weakref.WeakSet[CompiledScoringPlan]"] = {}
+
+    def release_constants(self) -> int:
+        """Drop the device constants and the slot table's device splits;
+        the bytes freed."""
+        freed = sum(_block_bytes(t) for t in self.consts.values())
+        self.consts.clear()
+        table = self.owner._encode_table
+        if table is not None:
+            t = table._splits_on.pop(self.device, None)
+            if t is not None:
+                freed += _block_bytes(t)
+        return freed
+
+
+#: (fingerprint, device) -> the shared device-side prefix state, while a plan
+#: references it
+_SHARED: "weakref.WeakValueDictionary[Tuple[str, str], _SharedPrefix]" = \
+    weakref.WeakValueDictionary()
+_SHARED_LOCK = threading.Lock()
+
+
+def _block_bytes(t: torch.Tensor) -> int:
+    """Device bytes a tensor's allocation holds: its storage in the caching
+    allocator's 512-byte blocks."""
+    return block_bytes(t.untyped_storage().nbytes())
+
+
+def _staging_bytes(st: Staging) -> int:
+    """Device bytes of a bucket's staging buffers (none on the CPU, where
+    the packed host buffer is the operand)."""
+    return sum(_block_bytes(dev) for _idx, _np, host, dev in st.buffers
+               if dev is not host)
 
 
 def resolve_scoring_stages(result_features: Sequence[Feature],
@@ -253,11 +375,16 @@ class CompiledScoringPlan(DevicePrefix):
     ``plan.score(records)`` returns one ``{result feature name: value}`` dict
     per record, the reference plan's output contract.  The parameters are the
     reference's, in its order, and ``device`` by keyword only.  ``strict``
-    refuses a model with an unfitted estimator by :class:`OpCheckError`
-    (TM501; without it, a ``ValueError``); the reference's other
-    servability checks are not ported.  Its device-memory admission gate
-    (``hbm_budget``) and reduced precision classes raise
-    ``NotImplementedError`` by name.
+    runs the servability checks (``serve/validator.py::check_servability``:
+    an unfitted estimator is TM501, raised as :class:`OpCheckError`;
+    without it, a ``ValueError``).  ``hbm_budget`` (bytes) runs the TM601
+    admission gate at construction: a plan whose static peak device-memory
+    estimate (``checkers/plancheck.py``) exceeds it refuses to build.
+    ``precision`` picks the prefix's numeric class (:class:`Precision`).
+
+    Plans of one fingerprint on one device share their device-side prefix
+    state (:class:`_SharedPrefix`): a second plan of a model already warm
+    there allocates nothing on the device.
     """
 
     def __init__(self, model, min_bucket: int = 8, max_bucket: int = 1024,
@@ -265,31 +392,27 @@ class CompiledScoringPlan(DevicePrefix):
                  precision: Optional[str] = None, *, device=None):
         if max_bucket < min_bucket or min_bucket < 1:
             raise ValueError(f"bad bucket range [{min_bucket}, {max_bucket}]")
-        _refuse_unported("CompiledScoringPlan", {"hbm_budget": hbm_budget is not None})
-        self._precision = _normalize_precision(precision)
+        self._precision = Precision.normalize(precision)
         self.min_bucket = 1 << (int(min_bucket) - 1).bit_length()
         self.max_bucket = 1 << (int(max_bucket) - 1).bit_length()
         self.result_features: List[Feature] = list(model.result_features)
         if strict:
-            unfitted = _unfitted(self.result_features, model.fitted)
-            if unfitted:
-                report = DiagnosticReport()
-                report.extend(make_diagnostic(
-                    "TM501", "estimator has no fitted model; cannot compile a "
-                    "scoring plan", stage_uid=uid) for uid in unfitted)
+            from .validator import check_servability
+
+            report = check_servability(self.result_features, fitted=model.fitted)
+            if report.errors():
                 raise OpCheckError(report)
         super().__init__(resolve_scoring_stages(self.result_features, model.fitted),
                          serving_entry_ok, resolve_device(device))
         self._generators = self._collect_generators()
         self._build_sources()
-        on_card = self.device.type == "cuda"
-        #: every batch's device work goes on this stream
-        self._stream = torch.cuda.current_stream(self.device) if on_card else None
-        #: orders the staging refill and the launches of concurrent callers
-        self._dispatch_lock = threading.Lock()
-        #: guards the counters, the timings and the free landing sets
+        #: guards the counters, the timings, the held buckets and the free
+        #: landing sets
         self._lock = threading.Lock()
-        #: row bucket -> its staging buffers
+        #: the shared device-side prefix state, once the plan first stages
+        self._entry: Optional[_SharedPrefix] = None
+        #: row bucket -> the staging buffers this plan holds warm (built by
+        #: it, or by another plan of its fingerprint)
         self._staging: Dict[int, Staging] = {}
         #: row bucket -> landing sets not in flight
         self._free: Dict[int, List[_OutSlot]] = {}
@@ -299,21 +422,34 @@ class CompiledScoringPlan(DevicePrefix):
         self._sets: Dict[int, int] = {}
         self._slot_specs: Optional[List[Tuple[tuple, torch.dtype]]] = None
         self._entry_dtypes: Optional[List[np.dtype]] = None
-        #: staging and landing-set allocations (the port's counterpart of
-        #: the reference's bucket compiles); after ``warm()`` serving adds none
+        #: buckets taken warm (staging, whether built or shared) and
+        #: landing-set allocations: the port's counterpart of the
+        #: reference's bucket compiles; after ``warm()`` serving adds none
         self.compile_count = 0
+        #: device bytes the last :meth:`release_executables` freed
+        self.last_released_bytes = 0
         self._counters = {"scored_records": 0, "scored_batches": 0,
                           "bucket_batches": {}, "host_scored_records": 0,
                           "padding_rows": 0, "encode_ms": 0.0, "device_ms": 0.0,
-                          "host_ms": 0.0, "h2d_copies": 0}
+                          "host_ms": 0.0, "h2d_copies": 0, "staging_builds": 0}
         #: per-part milliseconds of the last finalized batch: host encode,
         #: device prefix (H2D copies + kernels; CUDA events on the card),
         #: host remainder
         self.last_timings: Dict[str, float] = {}
         #: the same, with rows and bucket, of the most recent batches
         self.batch_timings: "deque[Dict[str, float]]" = deque(maxlen=4096)
-        self._content_fingerprint = self.prefix_fingerprint(environment=False)
-        self._fingerprint = self.prefix_fingerprint(environment=True)
+        self._entry_specs = self._compute_entry_specs()
+        # the class joins the hash only when it is not f32, so an f32
+        # plan's fingerprint stays what it was before precision classes
+        extra = {} if self._precision == Precision.F32 else {"precision": self._precision}
+        self._content_fingerprint = self.prefix_fingerprint(environment=False, extra=extra)
+        self._fingerprint = self.prefix_fingerprint(environment=True, extra=extra)
+        if hbm_budget is not None:
+            from .validator import check_plan_admission
+
+            report = check_plan_admission(self, hbm_budget)
+            if report.errors():
+                raise OpCheckError(report)
 
     # -- introspection -------------------------------------------------------
     @property
@@ -329,7 +465,30 @@ class CompiledScoringPlan(DevicePrefix):
 
     @property
     def precision(self) -> str:
+        """The prefix's numeric class (:class:`Precision`): ``f32``
+        (default), ``bf16`` or ``int8``; part of the fingerprint when it is
+        not f32."""
         return self._precision
+
+    @property
+    def entry_specs(self) -> List[Tuple[tuple, str]]:
+        """(trailing shape, dtype name) of each prefix entry operand, in the
+        reference's entry order: a lift is ``((), "float32")`` (a
+        geolocation ``((3,), "float32")``), a stage's encoding its
+        ``device_input_spec``."""
+        return list(self._entry_specs)
+
+    def _compute_entry_specs(self) -> List[Tuple[tuple, str]]:
+        specs = []
+        for key in self._entry_keys:
+            if key[0] == "lift":
+                geo = self._entry_lifts[key].ftype.kind is ColumnKind.GEO
+                specs.append(((3,) if geo else (), "float32"))
+            else:
+                runner, slot, _f = self._entry_encoders[key]
+                trailing, dtype = runner.device_input_spec(slot)
+                specs.append((tuple(trailing), str(dtype)))
+        return specs
 
     @property
     def device_stage_uids(self) -> List[str]:
@@ -348,7 +507,7 @@ class CompiledScoringPlan(DevicePrefix):
         return out
 
     def warm_buckets(self) -> List[int]:
-        """Buckets whose staging buffers are built."""
+        """Buckets whose staging buffers this plan holds."""
         with self._lock:
             return sorted(self._staging)
 
@@ -356,20 +515,23 @@ class CompiledScoringPlan(DevicePrefix):
         """Counters, under the reference's keys where the port has them:
         ``scored_records`` / ``scored_batches`` (finalized batches),
         ``bucket_batches`` (batches per row bucket), ``host_scored_records``
-        (records ``score_host`` served), ``compile_count`` (staging and
-        landing-set allocations; the port compiles nothing at serving time),
+        (records ``score_host`` served), ``compile_count`` (buckets taken
+        warm and landing sets allocated; the port compiles nothing at
+        serving time),
         ``buckets_compiled`` (buckets with staging), ``fused_stages`` /
         ``host_stages``.  The port's own: ``encode_ms`` / ``device_ms`` /
         ``host_ms`` (summed per-part times), ``padding_rows`` (rows padded
-        up to the bucket), ``h2d_copies`` (host-to-device copies) and
-        ``device``."""
+        up to the bucket), ``h2d_copies`` (host-to-device copies),
+        ``staging_builds`` (staging buffers this plan allocated; a plan
+        whose fingerprint is already warm on its device allocates none),
+        ``precision`` and ``device``."""
         with self._lock:
             out = {k: (dict(v) if isinstance(v, dict) else v)
                    for k, v in self._counters.items()}
             out.update(compile_count=self.compile_count,
                        buckets_compiled=sorted(self._staging))
-        out.update(device=str(self.device), fused_stages=len(self._prefix),
-                   host_stages=len(self._remainder))
+        out.update(device=str(self.device), precision=self._precision,
+                   fused_stages=len(self._prefix), host_stages=len(self._remainder))
         return out
 
     # -- construction helpers ------------------------------------------------
@@ -415,16 +577,35 @@ class CompiledScoringPlan(DevicePrefix):
                 self._encoder_light[gen.raw_name] = gen
 
     # -- the device half -------------------------------------------------------
-    def _on_stream(self):
-        if self._stream is None:
-            return contextlib.nullcontext()
-        return torch.cuda.stream(self._stream)
+    def _shared(self) -> _SharedPrefix:
+        """The device-side prefix state of this plan's fingerprint on its
+        device: another live plan's, or a new one this plan owns."""
+        with self._lock:
+            if self._entry is not None:
+                return self._entry
+        key = (self._fingerprint, str(self.device))
+        with _SHARED_LOCK:
+            entry = _SHARED.get(key)
+            if entry is None:
+                entry = _SharedPrefix(self, self.device)
+                _SHARED[key] = entry
+        with self._lock:
+            if self._entry is None:
+                self._entry = entry
+            return self._entry
 
-    def _stage(self, entries: List[np.ndarray], n: int,
-               bucket: int) -> List[torch.Tensor]:
+    def _stage(self, entries: List[np.ndarray], n: int, bucket: int) -> List[torch.Tensor]:
         """The batch's entries as device operands, through the bucket's
-        staging buffers (one copy per dtype).  Caller holds the dispatch
-        lock."""
+        staging buffers (one copy per dtype)."""
+        entry = self._shared()
+        with entry.lock:
+            return self._load(entry, entries, n, bucket).operands
+
+    def _load(self, entry: _SharedPrefix, entries: List[np.ndarray], n: int,
+              bucket: int) -> Staging:
+        """The batch's entries loaded into the bucket's staging buffers (one
+        copy per dtype): the shared ones when another plan of the
+        fingerprint built them.  Caller holds the shared lock."""
         for e in entries:
             if e.ndim != 1 or e.shape[0] != n:
                 raise ValueError(f"a prefix operand must be 1-D with {n} rows, "
@@ -432,14 +613,102 @@ class CompiledScoringPlan(DevicePrefix):
         dtypes = tuple(e.dtype for e in entries)
         st = self._staging.get(bucket)
         if st is None or st.dtypes != dtypes:
-            st = Staging(dtypes, bucket, self.device)
+            st = entry.staging.get(bucket)
+            built = st is None or st.dtypes != dtypes
+            if built:
+                st = Staging(dtypes, bucket, self.device)
+                entry.staging[bucket] = st
+            entry.holders.setdefault(bucket, weakref.WeakSet()).add(self)
             with self._lock:
                 self._staging[bucket] = st
                 self.compile_count += 1
+                if built:
+                    self._counters["staging_builds"] += 1
         copies = st.load(entries, n)
         with self._lock:
             self._counters["h2d_copies"] += copies
-        return st.operands
+        return st
+
+    def _lowered(self, operands: List[torch.Tensor], blocks: List[tuple]
+                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """(the wiring's operands, the encode group's operands) of a staged
+        batch (``blocks``: each packed device buffer with the entries it
+        holds, as :class:`Staging` packs them): the staged rows themselves
+        for f32; otherwise the float32 block lowered once for all its
+        entries (:func:`lower_block`), which the encode kernel reads as
+        float32."""
+        ops = list(operands)
+        if self._precision == Precision.F32:
+            return ops, ops
+        enc = list(ops)
+        for idx, dev in blocks:
+            if dev.dtype != torch.float32:
+                continue
+            low = lower_block(dev, self._precision)
+            wide = low if low.dtype == torch.float32 else low.to(torch.float32)
+            for r, i in enumerate(idx):
+                ops[i], enc[i] = low[r], wide[r]
+        return ops, enc
+
+    def _prefix_outputs(self, owner: "CompiledScoringPlan", operands: List[torch.Tensor],
+                        blocks: List[tuple], rows: int) -> Dict[str, torch.Tensor]:
+        """Run the prefix over staged operands (the lowering, the encode
+        group's one launch, the other stages through ``owner``'s runners,
+        whose fingerprint is this plan's) and return the outputs the host
+        needs, by feature uid.  On the card the caller holds the shared
+        lock, inside the shared stream and constant store."""
+        ops, enc = self._lowered(operands, blocks)
+        env: Dict[str, torch.Tensor] = {}
+        owner._encode(enc, rows, env)
+        owner._run_wiring(ops, env, unify=self._precision != Precision.F32)
+        outs = {u: env[u] for u in self._out_uids}
+        if self._precision == Precision.BF16:
+            # float outputs leave the device as float32 whatever the class
+            outs = {u: t.to(torch.float32) if t.is_floating_point() else t
+                    for u, t in outs.items()}
+        return outs
+
+    def _device_scope(self, entry: _SharedPrefix):
+        """The shared lock, the shared stream and the shared constant
+        store, entered together."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(entry.lock)
+        if entry.stream is not None:
+            stack.enter_context(torch.cuda.stream(entry.stream))
+        stack.enter_context(const_store(entry.consts))
+        return stack
+
+    def release_executables(self, drop_shared: bool = True) -> int:
+        """Release every warm bucket this plan holds — the eviction hook of
+        the fleet's admission controller (``serve/registry.py``): its
+        staging buffers and its landing sets; the next batch builds them
+        again and counts in ``compile_count``.  ``drop_shared`` also drops
+        the buckets from the fingerprint's shared state (and, once it holds
+        no bucket, the prefix's device constants); a caller that knows
+        another warm plan shares the fingerprint passes ``False``, so that
+        plan keeps serving without an allocation.  Returns the buckets
+        released; :attr:`last_released_bytes` is the device memory freed."""
+        with self._lock:
+            entry = self._entry
+            buckets = dict(self._staging)
+            self._staging.clear()
+            self._free.clear()
+            self._sets.clear()
+        freed = 0
+        if entry is not None:
+            with entry.lock:
+                for b, st in buckets.items():
+                    holders = entry.holders.get(b, weakref.WeakSet())
+                    holders.discard(self)
+                    if drop_shared and entry.staging.get(b) is st:
+                        del entry.staging[b]
+                        entry.holders.pop(b, None)
+                        if not holders:
+                            freed += _staging_bytes(st)
+                if drop_shared and not entry.staging:
+                    freed += entry.release_constants()
+        self.last_released_bytes = freed
+        return len(buckets)
 
     def reserve_inflight(self, batches: int) -> "CompiledScoringPlan":
         """Landing sets per bucket: how many batches may be begun and not
@@ -478,7 +747,9 @@ class CompiledScoringPlan(DevicePrefix):
 
     def _release(self, handle: _Inflight) -> None:
         with self._lock:
-            self._free[handle.bucket].append(handle.slot)
+            free = self._free.get(handle.bucket)
+            if free is not None:  # else released since (release_executables)
+                free.append(handle.slot)
 
     def _dispatch(self, entries: List[np.ndarray], n: int) -> _Inflight:
         """Stage the batch, launch its prefix and start its copies back into
@@ -486,24 +757,25 @@ class CompiledScoringPlan(DevicePrefix):
         bucket = _bucket_for(n, self.min_bucket, self.max_bucket)
         on_card = self.device.type == "cuda"
         start = end = None
-        with self._dispatch_lock, self._on_stream():
+        entry = self._shared()
+        with self._device_scope(entry):
             t0 = time.perf_counter()
             if on_card:
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
-            ops_in = self._stage(entries, n, bucket)
-            env: Dict[str, torch.Tensor] = {}
-            self._encode(ops_in, bucket, env)
-            self._run_wiring(ops_in, env)
+            st = self._load(entry, entries, n, bucket)
+            outs = self._prefix_outputs(entry.owner, st.operands,
+                                        [(idx, dev) for idx, _np, _h, dev in st.buffers],
+                                        bucket)
             if on_card:
                 end.record()
             t1 = time.perf_counter()
-            slot = self._take_slot(bucket, env)
+            slot = self._take_slot(bucket, outs)
             handle = _Inflight(bucket, slot, n, start, end, t0, t1)
             try:
                 for host, u in zip(slot.host, self._out_uids):
-                    host[:n].copy_(env[u][:n], non_blocking=on_card)
+                    host[:n].copy_(outs[u][:n], non_blocking=on_card)
                 if on_card:
                     handle.done = torch.cuda.Event()
                     handle.done.record()
@@ -511,6 +783,21 @@ class CompiledScoringPlan(DevicePrefix):
                 self._release(handle)
                 raise
         return handle
+
+    def _fused(self, *entries: np.ndarray) -> List[np.ndarray]:
+        """The device prefix over raw entry operands (one array per entry,
+        in :attr:`entry_specs` order, at most ``max_bucket`` rows): its
+        outputs as host arrays — what the TM511 synthetic calibration gate
+        compares between a plan and its f32 twin."""
+        n = int(entries[0].shape[0]) if entries else 0
+        if not self._prefix or not 0 < n <= self.max_bucket:
+            raise ValueError(f"_fused takes 1..{self.max_bucket} rows of a "
+                             "plan with a device prefix")
+        handle = self._dispatch([np.ascontiguousarray(e) for e in entries], n)
+        try:
+            return [a.copy() for a in handle.wait()]
+        finally:
+            self._release(handle)
 
     def _warm_entries(self, rows: int) -> List[np.ndarray]:
         """Zero operands of the entries' dtypes (each encoder's dtype from
@@ -585,11 +872,7 @@ class CompiledScoringPlan(DevicePrefix):
             raise ValueError(f"prefix_outputs takes 1..{self.max_bucket} records")
         if not self._prefix:
             return []
-        handle = self._dispatch(self._encode_records(records)[1], len(records))
-        try:
-            return [a.copy() for a in handle.wait()]
-        finally:
-            self._release(handle)
+        return self._fused(*self._encode_records(records)[1])
 
     def score(self, records: Sequence[Mapping[str, Any]]) -> List[Dict[str, Any]]:
         """Batch scoring: host encode, device prefix, host remainder —
@@ -697,3 +980,13 @@ class CompiledScoringPlan(DevicePrefix):
                     row[f.name] = _plain(v)
         return out
 
+
+def compile_plan(model, min_bucket: int = 8, max_bucket: int = 1024,
+                 strict: bool = True, hbm_budget: Optional[float] = None,
+                 precision: Optional[str] = None, *, device=None) -> CompiledScoringPlan:
+    """Bind a fitted model for online scoring (the reference's
+    ``compile_plan``): ``hbm_budget`` (bytes) arms the TM601 admission
+    gate, ``precision`` picks the numeric class (:class:`Precision`)."""
+    return CompiledScoringPlan(model, min_bucket=min_bucket, max_bucket=max_bucket,
+                               strict=strict, hbm_budget=hbm_budget,
+                               precision=precision, device=device)

@@ -35,7 +35,6 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
 from ..checkers.diagnostics import OpCheckError
 from ..obs.metrics import MetricsRegistry
 from ..perf.kernels.dispatch import resolve_device
-from ..workflow.workflow import _refuse_unported
 from .batcher import MicroBatcher
 from .pipeline import pipeline_depth as _env_pipeline_depth
 from .plan import CompiledScoringPlan
@@ -110,8 +109,9 @@ class ScoringServer:
       ``statusz()`` — plan, batcher, resilience and swap counters.
 
     The parameters are the reference's, in its order, and ``device`` by
-    keyword only.  The reference's device-memory admission gate
-    (``hbm_budget``) raises ``NotImplementedError`` by name.
+    keyword only.  ``hbm_budget`` (bytes) arms every plan's TM601
+    admission gate (``serve/validator.py::check_plan_admission``): a model
+    whose static peak device-memory estimate exceeds it is refused.
     """
 
     def __init__(self, model, max_batch: int = 256, max_wait_ms: float = 2.0,
@@ -122,8 +122,8 @@ class ScoringServer:
                  hbm_budget: Optional[float] = None,
                  registry: Optional[MetricsRegistry] = None,
                  pipeline_depth: Optional[int] = None, *, device=None):
-        _refuse_unported("ScoringServer", {"hbm_budget": hbm_budget is not None})
         self.device = resolve_device(device)
+        self.hbm_budget = hbm_budget
         # one registry per server: the batcher/swap/breaker series are
         # unlabeled fixed names, so two servers sharing a registry would
         # merge their counters
@@ -151,7 +151,7 @@ class ScoringServer:
 
     def _build_entry(self, model, warm: bool = True) -> ModelEntry:
         plan = CompiledScoringPlan(model, self.min_bucket, self.max_bucket,
-                                   device=self.device)
+                                   hbm_budget=self.hbm_budget, device=self.device)
         plan.reserve_inflight(self._depth + 1)
         if warm:
             plan.warm()

@@ -235,6 +235,12 @@ class Transformer(PipelineStage):
         raise NotImplementedError(
             f"{type(self).__name__} declares no device encoding for slot {slot}")
 
+    def device_input_spec(self, slot: int):
+        """(trailing shape, dtype name) of the operand
+        :meth:`encode_device_input` makes for ``slot``: one int32 code a row
+        by default."""
+        return (), "int32"
+
     def device_slot_specs(self) -> Optional[tuple]:
         return None
 

@@ -1,87 +1,87 @@
-"""Feature types of the ported slices: the numerics and dates (Real, RealNN,
-Integral, Binary, Date, ...), the text types (Text and its free-form
-subtypes, PickList, ComboBox and the location texts), the collections
-(TextList, DateList, MultiPickList, Geolocation, OPVector), Prediction and
-the 23 typed maps, their abstract bases, and the conversion helpers
-``to_real`` ... ``to_multi_picklist`` (the reference's
-``types/package.scala`` implicits as plain functions)."""
+"""Feature type system (45 types).  Reference: features/.../types/ package.
 
-from .base import (  # noqa: F401
-    Categorical,
+Includes the implicit-conversion equivalents of the reference ``types/package.scala``
+(``to_real``, ``to_text``, …) as plain functions.
+"""
+
+from .base import (
     ColumnKind,
     FeatureType,
     FeatureTypeError,
-    Location,
-    MultiResponse,
-    NonNullable,
     NonNullableEmptyException,
+    NonNullable,
+    Categorical,
     SingleResponse,
+    MultiResponse,
+    Location,
     feature_type_by_name,
+    all_feature_types,
+    is_feature_type_name,
 )
-from .collections import (  # noqa: F401
-    DateList,
-    DateTimeList,
-    Geolocation,
-    MultiPickList,
+from .numerics import (
+    OPNumeric,
+    Real,
+    RealNN,
+    Currency,
+    Percent,
+    Integral,
+    Date,
+    DateTime,
+    Binary,
+)
+from .text import (
+    Text,
+    TextArea,
+    Email,
+    URL,
+    Phone,
+    ID,
+    Base64,
+    PickList,
+    ComboBox,
+    Country,
+    State,
+    City,
+    PostalCode,
+    Street,
+)
+from .collections import (
     OPCollection,
     OPList,
     OPSet,
-    OPVector,
     TextList,
+    DateList,
+    DateTimeList,
+    MultiPickList,
+    Geolocation,
+    OPVector,
 )
-from .maps import (  # noqa: F401
-    Base64Map,
-    BinaryMap,
-    CityMap,
+from .maps import (
+    OPMap,
+    TextMap,
+    TextAreaMap,
+    EmailMap,
+    URLMap,
+    PhoneMap,
+    IDMap,
+    PickListMap,
     ComboBoxMap,
+    Base64Map,
     CountryMap,
+    StateMap,
+    CityMap,
+    PostalCodeMap,
+    StreetMap,
+    RealMap,
     CurrencyMap,
+    PercentMap,
+    IntegralMap,
     DateMap,
     DateTimeMap,
-    EmailMap,
-    GeolocationMap,
-    IDMap,
-    IntegralMap,
+    BinaryMap,
     MultiPickListMap,
-    OPMap,
-    PercentMap,
-    PhoneMap,
-    PickListMap,
-    PostalCodeMap,
+    GeolocationMap,
     Prediction,
-    RealMap,
-    StateMap,
-    StreetMap,
-    TextAreaMap,
-    TextMap,
-    URLMap,
-)
-from .numerics import (  # noqa: F401
-    Binary,
-    Currency,
-    Date,
-    DateTime,
-    Integral,
-    OPNumeric,
-    Percent,
-    Real,
-    RealNN,
-)
-from .text import (  # noqa: F401
-    ID,
-    URL,
-    Base64,
-    City,
-    ComboBox,
-    Country,
-    Email,
-    Phone,
-    PickList,
-    PostalCode,
-    State,
-    Street,
-    Text,
-    TextArea,
 )
 
 
@@ -113,3 +113,12 @@ def to_picklist(v) -> PickList:
 
 def to_multi_picklist(v) -> MultiPickList:
     return MultiPickList(v)
+
+
+import types as _types_mod
+
+__all__ = [
+    n for n in dir()
+    if not n.startswith("_") and not isinstance(globals()[n], _types_mod.ModuleType)
+]
+del _types_mod

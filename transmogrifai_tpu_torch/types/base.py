@@ -1,23 +1,41 @@
-"""Feature type system — the port's copy of the reference type hierarchy.
+"""Feature type system — the port's copy of the reference type hierarchy
+(``transmogrifai_tpu/types/base.py``, itself after TransmogrifAI's
+FeatureType.scala:44-124, registry :265-324).
 
-Counterpart of ``transmogrifai_tpu/types/base.py``.  Each class is both a
-cheap value wrapper (``Real(1.0)``) and a column schema: ``kind`` says how a
-column of the type is stored (numeric arrays + validity masks, host object
-arrays, or an (n, d) float32 vector block).
+The hierarchy serves two roles:
 
-Every type of the reference is here (see ``types/__init__``);
-``feature_type_by_name`` refuses any other name, so a saved model using one
-fails at load time instead of scoring with a half-built DAG.
+1. A lightweight value wrapper (``Real(1.0)``, ``PickList("a")``) used by extract functions,
+   the testkit, and local scoring — cheap ``__slots__`` objects.
+2. A *column schema*: each class carries ``kind`` (how a column of this type is stored:
+   float/int/bool arrays + validity masks, object arrays on host, or an (n, d) float32
+   vector block), the numpy dtype and nullability.  The columnar path is what reaches
+   the device; values never cross to it one at a time.
 """
 
 from __future__ import annotations
 
 import enum
-from typing import Any, ClassVar, Dict, Type
+from typing import Any, ClassVar, Dict, Optional, Type
+
+
+def _freeze(v: Any):
+    """Recursively convert a value to a hashable form (lists/sets/dicts frozen)."""
+    if isinstance(v, (set, frozenset)):
+        return frozenset(_freeze(x) for x in v)
+    if isinstance(v, dict):
+        return tuple(sorted((k, _freeze(x)) for k, x in v.items()))
+    if isinstance(v, (list, tuple)):
+        return tuple(_freeze(x) for x in v)
+    return v
 
 
 class ColumnKind(enum.Enum):
-    """Physical storage class of a column of a given FeatureType."""
+    """Physical storage class of a column of a given FeatureType.
+
+    Numeric kinds (FLOAT/INT/BOOL) are stored as dense numpy/JAX arrays plus a validity bitmap
+    (True = present) so they can be moved straight to HBM.  Host kinds (TEXT/lists/sets/maps)
+    live in CPU DRAM as object arrays until a vectorizer turns them into device tensors.
+    """
 
     FLOAT = "float"          # np.float64 values + bool mask
     INT = "int"              # np.int64 values + bool mask
@@ -28,7 +46,7 @@ class ColumnKind(enum.Enum):
     TEXT_SET = "text_set"    # object array of set[str]
     MAP = "map"              # object array of dict[str, value]
     GEO = "geo"              # (n, 3) float64 [lat, lon, accuracy] + mask
-    VECTOR = "vector"        # (n, d) float32 block, never null
+    VECTOR = "vector"        # (n, d) float32 device array, never null
 
 
 class FeatureTypeError(TypeError):
@@ -46,8 +64,7 @@ class FeatureType:
 
     kind: ClassVar[ColumnKind]
     is_nullable: ClassVar[bool] = True
-    # mixin markers (the reference's Categorical / SingleResponse /
-    # MultiResponse / Location)
+    # mixin markers (reference: NonNullable / Categorical / SingleResponse / MultiResponse / Location)
     is_categorical: ClassVar[bool] = False
     is_single_response: ClassVar[bool] = False
     is_multi_response: ClassVar[bool] = False
@@ -57,20 +74,68 @@ class FeatureType:
         v = self._convert(value)
         if v is None and not self.is_nullable:
             raise NonNullableEmptyException(
-                f"{type(self).__name__} cannot be empty")
+                f"{type(self).__name__} cannot be empty"
+            )
         self._value = v
 
+    # -- conversion ---------------------------------------------------------
     @classmethod
     def _convert(cls, value: Any) -> Any:
         return value
 
+    # -- accessors ----------------------------------------------------------
     @property
     def value(self) -> Any:
         return self._value
 
+    @property
+    def is_empty(self) -> bool:
+        v = self._value
+        if v is None:
+            return True
+        if isinstance(v, (list, set, dict, tuple, str)):
+            return len(v) == 0
+        return False
+
+    @property
+    def non_empty(self) -> bool:
+        return not self.is_empty
+
+    def exists(self, predicate) -> bool:
+        return (not self.is_empty) and bool(predicate(self._value))
+
+    # -- dunder -------------------------------------------------------------
+    def __eq__(self, other: Any) -> bool:
+        return type(self) is type(other) and self._value == other._value
+
+    def __hash__(self) -> int:
+        return hash((type(self).__name__, _freeze(self._value)))
+
     def __repr__(self) -> str:
         return f"{type(self).__name__}({self._value!r})"
 
+    # -- schema helpers -----------------------------------------------------
+    @classmethod
+    def type_name(cls) -> str:
+        return cls.__name__
+
+    @classmethod
+    def empty(cls) -> "FeatureType":
+        """The default/empty instance of this type (FeatureTypeDefaults equivalent)."""
+        return cls(None) if cls.is_nullable else cls(cls._default_non_null())
+
+    @classmethod
+    def _default_non_null(cls) -> Any:  # pragma: no cover - overridden
+        raise NotImplementedError
+
+    @classmethod
+    def is_subtype_of(cls, other: Type["FeatureType"]) -> bool:
+        return issubclass(cls, other)
+
+
+# ---------------------------------------------------------------------------
+# Mixins (markers, matching the reference trait names)
+# ---------------------------------------------------------------------------
 
 class NonNullable:
     is_nullable = False
@@ -92,6 +157,10 @@ class Location:
     is_location = True
 
 
+# ---------------------------------------------------------------------------
+# Registry — reference FeatureType.scala:265-324
+# ---------------------------------------------------------------------------
+
 _REGISTRY: Dict[str, Type[FeatureType]] = {}
 
 
@@ -101,11 +170,16 @@ def register(cls: Type[FeatureType]) -> Type[FeatureType]:
 
 
 def feature_type_by_name(name: str) -> Type[FeatureType]:
-    """Resolve a feature type class from its reference name; raises on a name
-    the port does not have yet."""
+    """FeatureTypeFactory equivalent: resolve a feature type class from its name."""
     try:
         return _REGISTRY[name]
     except KeyError:
-        raise FeatureTypeError(
-            f"feature type {name!r} is not ported to transmogrifai_tpu_torch "
-            f"yet (ported: {sorted(_REGISTRY)})") from None
+        raise FeatureTypeError(f"Unknown feature type: {name!r}") from None
+
+
+def all_feature_types() -> Dict[str, Type[FeatureType]]:
+    return dict(_REGISTRY)
+
+
+def is_feature_type_name(name: str) -> bool:
+    return name in _REGISTRY

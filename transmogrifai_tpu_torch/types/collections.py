@@ -1,10 +1,13 @@
-"""Collection feature types: lists, sets, geolocation and vector
-(counterpart of ``transmogrifai_tpu/types/collections.py``)."""
+"""Collection feature types: lists, sets, geolocation, vector.
+
+Reference: features/.../types/Lists.scala, Sets.scala, Geolocation.scala:1-206, OPVector.scala.
+"""
 
 from __future__ import annotations
 
+import math
 import numbers
-from typing import Any, List, Set
+from typing import Any, List, Optional, Set
 
 import numpy as np
 
@@ -45,6 +48,10 @@ class TextList(OPList):
                 raise FeatureTypeError(f"{cls.__name__} expects strings, got {v!r}")
         return out
 
+    @classmethod
+    def _default_non_null(cls):
+        return []
+
 
 @register
 class DateList(OPList):
@@ -63,6 +70,10 @@ class DateList(OPList):
                 raise FeatureTypeError(f"{cls.__name__} expects integers, got {v!r}")
             out.append(int(v))
         return out
+
+    @classmethod
+    def _default_non_null(cls):
+        return []
 
 
 @register
@@ -93,10 +104,17 @@ class MultiPickList(MultiResponse, OPSet):
                 raise FeatureTypeError(f"{cls.__name__} expects strings, got {v!r}")
         return out
 
+    @classmethod
+    def _default_non_null(cls):
+        return set()
+
 
 @register
 class Geolocation(Location, OPList):
-    """(lat, lon, accuracy) triple; accuracy is an integer rank; empty = []."""
+    """(lat, lon, accuracy) triple.  Reference: Geolocation.scala:1-206.
+
+    accuracy is an integer rank (reference GeolocationAccuracy enum ordinal); empty = [].
+    """
 
     __slots__ = ()
     kind = ColumnKind.GEO
@@ -110,7 +128,8 @@ class Geolocation(Location, OPList):
             return []
         if len(vals) != 3:
             raise FeatureTypeError(
-                f"{cls.__name__} expects [lat, lon, accuracy], got {value!r}")
+                f"{cls.__name__} expects [lat, lon, accuracy], got {value!r}"
+            )
         lat, lon, acc = vals
         if not (-90.0 <= lat <= 90.0):
             raise FeatureTypeError(f"Latitude out of range: {lat}")
@@ -118,11 +137,39 @@ class Geolocation(Location, OPList):
             raise FeatureTypeError(f"Longitude out of range: {lon}")
         return [lat, lon, acc]
 
+    @classmethod
+    def _default_non_null(cls):
+        return []
+
+    @property
+    def lat(self) -> Optional[float]:
+        return self._value[0] if self._value else None
+
+    @property
+    def lon(self) -> Optional[float]:
+        return self._value[1] if self._value else None
+
+    @property
+    def accuracy(self) -> Optional[float]:
+        return self._value[2] if self._value else None
+
+    def to_unit_sphere(self) -> Optional[np.ndarray]:
+        """Project to 3-D unit-sphere coordinates (used by the geo vectorizer)."""
+        if self.is_empty:
+            return None
+        lat, lon = math.radians(self._value[0]), math.radians(self._value[1])
+        return np.array(
+            [math.cos(lat) * math.cos(lon), math.cos(lat) * math.sin(lon), math.sin(lat)]
+        )
+
 
 @register
 class OPVector(OPCollection):
-    """Numeric vector — the universal model-input type.  A column of it is
-    one (n, d) float32 block with attached vector metadata."""
+    """Dense/sparse numeric vector — the universal model-input type.
+
+    Values are 1-D float arrays; the columnar path stores a whole column as a single
+    (n, d) device array with attached vector metadata (see utils/vector_metadata.py).
+    """
 
     __slots__ = ()
     kind = ColumnKind.VECTOR
@@ -136,3 +183,17 @@ class OPVector(OPCollection):
         if arr.ndim != 1:
             raise FeatureTypeError(f"{cls.__name__} expects a 1-D vector")
         return arr
+
+    @classmethod
+    def _default_non_null(cls):
+        return np.zeros((0,), dtype=np.float32)
+
+    def __eq__(self, other: Any) -> bool:
+        return type(self) is type(other) and np.array_equal(self._value, other._value)
+
+    def __hash__(self) -> int:
+        return hash((type(self).__name__, self._value.tobytes()))
+
+    @property
+    def is_empty(self) -> bool:
+        return self._value.size == 0

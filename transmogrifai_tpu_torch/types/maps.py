@@ -1,10 +1,7 @@
-"""Map feature types: row-wise ``Dict[str, V]`` (counterpart of
-``transmogrifai_tpu/types/maps.py``, copied).
+"""Map feature types — row-wise Map[String, V].  Reference: features/.../types/Maps.scala:1-424.
 
-23 map types mirror the scalar and collection types (string, numeric,
-boolean, set and geolocation values), plus ``Prediction``, a real map with
-the reserved keys ``prediction``, ``probability_<i>`` and
-``rawPrediction_<i>``.
+24 map types mirroring every scalar/collection type, plus ``Prediction`` (a RealMap with
+reserved keys ``prediction`` / ``probability_*`` / ``rawPrediction_*``).
 """
 
 from __future__ import annotations
@@ -36,6 +33,10 @@ class OPMap(FeatureType):
                 raise FeatureTypeError(f"{cls.__name__} keys must be strings, got {k!r}")
             out[k] = cls._convert_value(v)
         return out
+
+    @classmethod
+    def _default_non_null(cls):
+        return {}
 
 
 class _StringMap(OPMap):
@@ -223,8 +224,10 @@ class GeolocationMap(OPMap):
 
 @register
 class Prediction(NonNullable, _DoubleMap):
-    """Model output map with reserved keys ``prediction``,
-    ``rawPrediction_<i>`` and ``probability_<i>``."""
+    """Model output map with reserved keys.  Reference: Maps.scala `Prediction`.
+
+    Keys: ``prediction`` (required), ``probability_<i>``, ``rawPrediction_<i>``.
+    """
 
     __slots__ = ()
 
@@ -237,5 +240,52 @@ class Prediction(NonNullable, _DoubleMap):
         out = super()._convert(value)
         if cls.PredictionName not in out:
             raise FeatureTypeError(
-                f"Prediction map must contain '{cls.PredictionName}' key, got {sorted(out)}")
+                f"Prediction map must contain '{cls.PredictionName}' key, got {sorted(out)}"
+            )
+        for k in out:
+            if k == cls.PredictionName:
+                continue
+            prefix, _, idx = k.rpartition("_")
+            if prefix not in (cls.RawPredictionName, cls.ProbabilityName) or not idx.isdigit():
+                raise FeatureTypeError(f"Invalid Prediction key: {k!r}")
         return out
+
+    @classmethod
+    def make(cls, prediction: float, raw_prediction=None, probability=None) -> "Prediction":
+        m: Dict[str, float] = {cls.PredictionName: float(prediction)}
+        if raw_prediction is not None:
+            raw = list(raw_prediction) if hasattr(raw_prediction, "__iter__") else [raw_prediction]
+            for i, v in enumerate(raw):
+                m[f"{cls.RawPredictionName}_{i}"] = float(v)
+        if probability is not None:
+            prob = list(probability) if hasattr(probability, "__iter__") else [probability]
+            for i, v in enumerate(prob):
+                m[f"{cls.ProbabilityName}_{i}"] = float(v)
+        return cls(m)
+
+    @property
+    def prediction(self) -> float:
+        return self._value[self.PredictionName]
+
+    @property
+    def raw_prediction(self) -> List[float]:
+        return self._keyed(self.RawPredictionName)
+
+    @property
+    def probability(self) -> List[float]:
+        return self._keyed(self.ProbabilityName)
+
+    def _keyed(self, prefix: str) -> List[float]:
+        items = [
+            (int(k.rsplit("_", 1)[1]), v)
+            for k, v in self._value.items()
+            if k.startswith(prefix + "_")
+        ]
+        return [v for _, v in sorted(items)]
+
+    def score(self) -> float:
+        """Probability of the positive class if present, else the prediction."""
+        prob = self.probability
+        if prob:
+            return prob[-1] if len(prob) == 2 else max(prob)
+        return self.prediction

@@ -1,4 +1,4 @@
-"""Numeric feature types (counterpart of ``transmogrifai_tpu/types/numerics.py``)."""
+"""Numeric feature types.  Reference: features/.../types/Numerics.scala, OPNumeric.scala."""
 
 from __future__ import annotations
 
@@ -20,10 +20,13 @@ class OPNumeric(FeatureType):
 
     __slots__ = ()
 
+    def to_double(self) -> Optional[float]:
+        return None if self._value is None else float(self._value)
+
 
 @register
 class Real(OPNumeric):
-    """Optional double."""
+    """Optional double.  Reference: Numerics.scala `Real`."""
 
     __slots__ = ()
     kind = ColumnKind.FLOAT
@@ -38,10 +41,14 @@ class Real(OPNumeric):
             return float(value)
         raise FeatureTypeError(f"{cls.__name__} expects a number, got {value!r}")
 
+    @classmethod
+    def _default_non_null(cls) -> float:
+        return 0.0
+
 
 @register
 class RealNN(NonNullable, Real):
-    """Non-nullable real — the only legal label/response scalar."""
+    """Non-nullable real — the only legal label/response scalar.  Reference: `RealNN`."""
 
     __slots__ = ()
 
@@ -58,7 +65,7 @@ class Percent(Real):
 
 @register
 class Integral(OPNumeric):
-    """Optional long."""
+    """Optional long.  Reference: Numerics.scala `Integral`."""
 
     __slots__ = ()
     kind = ColumnKind.INT
@@ -73,10 +80,14 @@ class Integral(OPNumeric):
             return int(value)
         raise FeatureTypeError(f"{cls.__name__} expects an integer, got {value!r}")
 
+    @classmethod
+    def _default_non_null(cls) -> int:
+        return 0
+
 
 @register
 class Date(Integral):
-    """Epoch-millis date."""
+    """Epoch-millis date.  Reference: Numerics.scala `Date`."""
 
     __slots__ = ()
 
@@ -88,7 +99,7 @@ class DateTime(Date):
 
 @register
 class Binary(SingleResponse, OPNumeric):
-    """Optional boolean."""
+    """Optional boolean.  Reference: Numerics.scala `Binary`."""
 
     __slots__ = ()
     kind = ColumnKind.BOOL
@@ -102,3 +113,10 @@ class Binary(SingleResponse, OPNumeric):
         if isinstance(value, numbers.Real) and float(value) in (0.0, 1.0):
             return bool(value)
         raise FeatureTypeError(f"{cls.__name__} expects a boolean, got {value!r}")
+
+    @classmethod
+    def _default_non_null(cls) -> bool:
+        return False
+
+    def to_double(self) -> Optional[float]:
+        return None if self._value is None else float(self._value)

@@ -1,14 +1,14 @@
-"""Text feature types (counterpart of ``transmogrifai_tpu/types/text.py``)."""
+"""Text feature types.  Reference: features/.../types/Text.scala (305 LoC, 14 subtypes)."""
 
 from __future__ import annotations
 
 from typing import Any, Optional
 
 from .base import (
-    Categorical,
     ColumnKind,
     FeatureType,
     FeatureTypeError,
+    Categorical,
     Location,
     register,
 )
@@ -29,6 +29,10 @@ class Text(FeatureType):
             return value
         raise FeatureTypeError(f"{cls.__name__} expects a string, got {value!r}")
 
+    @classmethod
+    def _default_non_null(cls) -> str:
+        return ""
+
 
 @register
 class TextArea(Text):
@@ -38,6 +42,25 @@ class TextArea(Text):
 @register
 class Email(Text):
     __slots__ = ()
+
+    @property
+    def prefix(self) -> Optional[str]:
+        p = self._split()
+        return p[0] if p else None
+
+    @property
+    def domain(self) -> Optional[str]:
+        p = self._split()
+        return p[1] if p else None
+
+    def _split(self):
+        v = self._value
+        if not v or "@" not in v:
+            return None
+        prefix, _, domain = v.partition("@")
+        if not prefix or not domain or "@" in domain:
+            return None
+        return prefix, domain
 
 
 @register

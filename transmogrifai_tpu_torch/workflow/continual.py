@@ -762,8 +762,11 @@ class ContinualTrainer:
     ``snapshot=None`` bootstraps the drift baseline from the first
     ``bootstrap_records`` streamed rows; pass a train-time
     :class:`TrainingSnapshot` for a true training baseline.  The refit runs
-    on the server's plan's device.  ``slo_monitor`` (``obs/slo.py``) is
-    not ported and raises ``NotImplementedError`` by name.
+    on the server's plan's device.  ``slo_monitor`` (an
+    :class:`~..obs.slo.SloMonitor`, or anything with ``poll``,
+    ``diagnostics`` and ``status``) is polled after every streamed batch;
+    its new TM902/TM903 findings join the trainer's diagnostics and its
+    status is ``metrics()["slo"]``.
     """
 
     def __init__(self, server, model, reader, *,
@@ -780,11 +783,10 @@ class ContinualTrainer:
                  refit_enabled: bool = True,
                  registry: Optional[MetricsRegistry] = None,
                  slo_monitor=None):
-        from .workflow import _refuse_unported
-
-        _refuse_unported("ContinualTrainer",
-                         {"slo_monitor (obs.slo)": slo_monitor is not None})
         self._server = server
+        #: polled after every streamed batch (``_poll_slo``)
+        self._slo_monitor = slo_monitor
+        self._slo_diags_seen = 0
         self.refit_enabled = bool(refit_enabled)
         self._model = model
         self._reader = reader
@@ -870,6 +872,7 @@ class ContinualTrainer:
             self._c["records"].inc(len(records))
             self._ingest(ds, records)
             self._tick()
+            self._poll_slo()
             if max_batches is not None \
                     and self._c["batches"].value \
                     - self._c_base["batches"] >= max_batches:
@@ -1118,10 +1121,23 @@ class ContinualTrainer:
             del self.diagnostics[:len(self.diagnostics)
                                  - self.max_diagnostics]
 
+    def _poll_slo(self) -> None:
+        """Drive the SLO monitor at stream cadence and fold its new
+        TM902/TM903 findings into the trainer's diagnostics."""
+        if self._slo_monitor is None:
+            return
+        self._slo_monitor.poll()
+        diags = self._slo_monitor.diagnostics()
+        if len(diags) > self._slo_diags_seen:
+            self._note(diags[self._slo_diags_seen:])
+            self._slo_diags_seen = len(diags)
+
     # -- observability -------------------------------------------------------
     def metrics(self) -> Dict[str, Any]:
         out: Dict[str, Any] = dict(self.counters)
         out["diagnostics_recorded"] = len(self.diagnostics)
+        if self._slo_monitor is not None:
+            out["slo"] = self._slo_monitor.status()
         if self._detector is not None:
             out["drift"] = {"records": self._detector.records,
                             "features": self._detector.feature_stats()}

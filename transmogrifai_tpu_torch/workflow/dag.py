@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import TYPE_CHECKING, Dict, List, Optional, Sequence
 
+from ..checkers.diagnostics import DagCycleError
 from ..features.feature import Feature
 from ..features.generator import FeatureGeneratorStage
 
@@ -51,12 +52,19 @@ def find_feature_cycle(result_features: Sequence[Feature]) -> Optional[List[Feat
     return None
 
 
+def cycle_stage_uids(cycle: Sequence[Feature]) -> List[str]:
+    """Stage uids along a feature cycle (feature names for raw features)."""
+    return [f.origin_stage.uid if f.origin_stage is not None else f"feature:{f.name}"
+            for f in cycle]
+
+
 def compute_dag(result_features: Sequence[Feature]) -> List[List["PipelineStage"]]:
-    """Layered DAG of non-generator stages, dependency layers first."""
+    """Layered DAG of non-generator stages, dependency layers first; a
+    cyclic graph raises :class:`DagCycleError` (TM101, the cycle's stage
+    uids)."""
     cycle = find_feature_cycle(result_features)
     if cycle is not None:
-        raise ValueError(
-            f"[TM101] feature DAG has a cycle through {[f.name for f in cycle]}")
+        raise DagCycleError(cycle_stage_uids(cycle))
     distances: Dict["PipelineStage", int] = {}
     for f in result_features:
         for stage, dist in f.parent_stages().items():
@@ -74,6 +82,18 @@ def compute_dag(result_features: Sequence[Feature]) -> List[List["PipelineStage"
     for layer in layers:
         layer.sort(key=lambda s: s.uid)
     return [layer for layer in layers if layer]
+
+
+def raw_feature_generators(result_features: Sequence[Feature]) -> List[FeatureGeneratorStage]:
+    """Every FeatureGeneratorStage reachable from the result features, once
+    each, ordered by raw name."""
+    seen: Dict[str, FeatureGeneratorStage] = {}
+    for f in result_features:
+        for raw in f.raw_features():
+            stage = raw.origin_stage
+            if isinstance(stage, FeatureGeneratorStage):
+                seen.setdefault(stage.uid, stage)
+    return sorted(seen.values(), key=lambda s: s.raw_name)
 
 
 def all_stages(result_features: Sequence[Feature]) -> List["PipelineStage"]:

@@ -35,6 +35,7 @@ raises: nothing falls back to the per-stage host path.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
 import time
@@ -104,6 +105,15 @@ def serving_entry_ok(runner, slot, f) -> bool:
     """Serving rule: raw features only, canonical lift or stage encoding."""
     return isinstance(f.origin_stage, FeatureGeneratorStage) and (
         f.ftype.kind in DEVICE_LIFT_KINDS or runner.device_lifts_input(slot))
+
+
+def _unify_float_dtypes(ops: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Promote every float operand to the widest float dtype present."""
+    floats = {o.dtype for o in ops if o.is_floating_point()}
+    if len(floats) <= 1:
+        return ops
+    widest = functools.reduce(torch.promote_types, floats)
+    return [o.to(widest) if o.is_floating_point() else o for o in ops]
 
 
 def run_host_stages(dataset: Dataset, runners: Sequence[Any],
@@ -278,22 +288,25 @@ class DevicePrefix:
         table = self._encode_table
         if table is None:
             return
-        buf = encode_buffer(rows, table.width, self.device)
-        KE.encode_slots([ops_in[i] for i in self._encode_inputs], table, buf)
+        inputs = [ops_in[i] for i in self._encode_inputs]
+        buf = encode_buffer(rows, table.width, inputs[0].device)
+        KE.encode_slots(inputs, table, buf)
         for uid, col, w in self._encode_blocks:
             env[uid] = buf[:, col:col + w]
 
-    def prefix_fingerprint(self, environment: bool = False) -> str:
+    def prefix_fingerprint(self, environment: bool = False,
+                           extra: Optional[Dict[str, Any]] = None) -> str:
         """sha256 of the prefix stages' fitted state (encoded as the port's
         ``workflow/serde.py`` saves it, so a reloaded copy of a model hashes
-        equal) and the prefix's wiring (entries, outputs); ``environment``
+        equal), the prefix's wiring (entries, outputs) and ``extra`` (the
+        serving plan's precision class when it is not f32); ``environment``
         adds the device type.  Equal fingerprints run the same prefix."""
         from .serde import _Encoder, encode_stage
 
         enc = _Encoder()
         payload = {"stages": [encode_stage(s, enc, full=True) for s in self._prefix],
                    "extra": {"entries": [list(k) for k in self._entry_keys],
-                             "outs": self._out_uids}}
+                             "outs": self._out_uids, **(extra or {})}}
         if environment:
             payload["device"] = self.device.type
         h = hashlib.sha256(json.dumps(payload, sort_keys=True, default=repr).encode())
@@ -304,10 +317,16 @@ class DevicePrefix:
         return h.hexdigest()
 
     def _run_wiring(self, ops_in: List[torch.Tensor],
-                    env: Dict[str, torch.Tensor]) -> None:
-        """Every prefix stage outside the encode group, in topological order."""
+                    env: Dict[str, torch.Tensor], unify: bool = False) -> None:
+        """Every prefix stage outside the encode group, in topological order.
+        With ``unify`` (a reduced-precision serving class), each stage's
+        float operands are first promoted to the widest float dtype among
+        them, as the reference's ``_unify_float_dtypes``: a bf16 entry can
+        meet a sibling a stage already made float32."""
         for runner, srcs, out_uid in self._wiring:
             ops = [env[key] if tag == "env" else ops_in[key] for tag, key in srcs]
+            if unify:
+                ops = _unify_float_dtypes(ops)
             env[out_uid] = runner.device_transform(*ops)
 
 

@@ -350,20 +350,27 @@ class WorkflowModel:
             raise ValueError("score() needs a dataset or a reader")
         return self._reader.generate_dataset(dedup_raw_features(self.result_features))
 
+    def score_function(self, *, device=None):
+        """Engine-free scoring closure (``local/scoring.py::score_function``):
+        ``scorer(record) -> {result: value}``, and ``scorer.batch(records)``
+        for many records, on ``device`` (the CUDA card unless it names
+        another)."""
+        from ..local.scoring import score_function
+
+        return score_function(self, device=device)
+
     def serving_plan(self, min_bucket: int = 8, max_bucket: int = 1024,
                      strict: bool = True, hbm_budget: Optional[float] = None,
                      *, device=None):
         """Bind this model to ``device`` for batch scoring
-        (:class:`~..serve.plan.CompiledScoringPlan`).  ``strict`` checks
-        only that every estimator is fitted (TM501): the reference's other
-        servability checks are not ported, nor is its device-memory
-        admission gate, ``hbm_budget``."""
+        (:class:`~..serve.plan.CompiledScoringPlan`).  ``strict`` runs the
+        servability checks (TM501-TM504); ``hbm_budget`` (bytes) arms the
+        TM601 admission gate: a plan whose static peak device-memory
+        estimate exceeds it refuses to build."""
         from ..serve.plan import CompiledScoringPlan
 
-        _refuse_unported("WorkflowModel.serving_plan",
-                         {"hbm_budget": hbm_budget is not None})
         return CompiledScoringPlan(self, min_bucket, max_bucket, strict,
-                                   device=device)
+                                   hbm_budget, device=device)
 
     def serve(self, **kwargs):
         """In-process scoring server over this model
