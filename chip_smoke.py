@@ -384,7 +384,34 @@ Phases, one JSON line each:
                memory_allocated falls by the bytes its plan released (within
                the allocator's 512-byte rounding); a candidate over an empty
                registry's budget is refused with TM509, nothing changed.
-23. summary  — nvidia-smi's line, then one {"kernels": [...]} line, then the
+23. obs      — the telemetry layer (obs/, perf/timers.py, utils/listener.py)
+               on the card's paths, sizes cut to keep it near 25 s.  (a)
+               ScoringServer(max_batch=1024, max_wait_ms=2) over 4 096
+               serving_wide requests from 8 clients: telemetry off, at the
+               batch detail, at the requests detail, off again; every record
+               equal to the CPU plan's for its batch, 0 compile events after
+               warm(), statusz's device_seconds / padding_rows = the plan's
+               sums; at the requests detail every request's begin/end pair
+               links to a flushed batch_seq and the slowest request's chain
+               has encode, device and host; flushed on size, the records
+               with telemetry on == off.  (b) serving_wide + training_families
+               behind one FleetServer: per-tenant device seconds sum to the
+               batch total, statusz shows the plans' own.  (c) TMOG_PROFILE
+               around one served batch in a fresh process: the capture
+               names encode_slots_kernel, records equal an unprofiled
+               batch's; in the script's process the records must equal too
+               and the kernels its capture holds are reported.  (d)
+               phase 10's table at 65 536 rows under a 2-fold LR + GBT
+               selector, untraced and with Workflow.train(telemetry=dir):
+               K1-K3 and the encode kernel launch; trace.json's train.* spans
+               of the reference's names nest; metrics.jsonl one compile line
+               with 0 nvcc builds; the trained model's plan warming records
+               its bucket allocations; a warm refit records 0 events and no
+               TM901; a cold bucket in a warm context raises TM901.  (e)
+               WorkflowRunner TRAIN with collect_stage_metrics at 8 192 rows:
+               a fit record per estimator and a transform record per stage;
+               the card's memory fields from torch.cuda.
+24. summary  — nvidia-smi's line, then one {"kernels": [...]} line, then the
                last line {"ok": true, "device": {...}}.
 
 Phase 3 also holds K5 past shared memory (a 5000-split slot, its own launch
@@ -4517,7 +4544,7 @@ def _continual(torch, KE, dev, tmp: str) -> dict:
     import transmogrifai_tpu_torch as T
     from torch_wide_data import wide_pipeline
     from transmogrifai_tpu_torch.models.trees import GradientBoostedTreesClassifier
-    from transmogrifai_tpu_torch.perf.kernels import dispatch
+    from transmogrifai_tpu_torch.perf import compile_snapshot
     from transmogrifai_tpu_torch.readers import ListSource, MicroBatchStreamingReader
     from transmogrifai_tpu_torch.serve import (CircuitOpenError, FaultHarness,
                                                ScoringServer, TransientScoringError)
@@ -4570,7 +4597,7 @@ def _continual(torch, KE, dev, tmp: str) -> dict:
             done_at.append(time.perf_counter())
 
     def refit_timed(win):
-        window["builds0"] = dispatch.build_counts()
+        window["compiles0"] = compile_snapshot()
         window["plan_compiles0"] = server.plan.metrics()["compile_count"]
         _reset_all(KE)
         stop = threading.Event()
@@ -4615,7 +4642,8 @@ def _continual(torch, KE, dev, tmp: str) -> dict:
           f"the refit built or loaded {last.backend_compiles} kernels, prefix reused "
           f"{last.prefix_reused}")
     check("TM809" not in codes, "no TM809")
-    builds = {k: dispatch.build_counts()[k] - window["builds0"][k] for k in ("builds", "loads")}
+    since = compile_snapshot().minus(window["compiles0"]).events
+    builds = {"builds": since.get("nvcc_build", 0), "loads": since.get("library_load", 0)}
     for k in ("hist_level", "split_scan", "row_select_lanes"):
         check(dev.type != "cuda" or window["launches"][k] > 0,
               f"the refit's GBT launched {k}")
@@ -5159,6 +5187,517 @@ def phase_fleet(torch, KE, dev) -> dict:
     return out
 
 
+#: phase 23: the telemetry layer on the card.  (a) the wide server's load
+#: under telemetry off, at the batch and at the requests detail; (b) two
+#: tenants' device cost; (c) a TMOG_PROFILE capture; (d) a traced train of
+#: phase 10's table with a tree family and a warm refit; (e) the runner with
+#: collect_stage_metrics.  Sizes cut to keep the phase near 25 s.
+OBS_RECORDS = 4096
+OBS_REPS = 3
+OBS_FIXED_RECORDS = 2048
+OBS_CLIENTS = 8
+OBS_WINDOW = 256
+OBS_FLEET_WIDE = 1024
+OBS_FLEET_FAMILIES = 128
+OBS_TRAIN_ROWS = 1 << 16
+OBS_REFIT_ROWS = 1 << 13
+OBS_RUNNER_ROWS = 1 << 13
+OBS_GBT_GRID = {"num_rounds": 10, "max_depth": 3}
+#: (d)'s trains, in order: the first train of the table is also its
+#: warm-up (the caching allocator's blocks of its size), so the untraced
+#: one runs first and the traced one is held to it
+OBS_TRAIN_ORDER = ("plain", "traced")
+
+
+def _nesting_violations(events) -> list:
+    """X events of one tid must nest: two spans are disjoint or one holds
+    the other (1 us of clock rounding allowed)."""
+    by_tid = {}
+    for ev in events:
+        if ev.get("ph") == "X":
+            by_tid.setdefault(ev["tid"], []).append(ev)
+    bad = []
+    for tid, evs in by_tid.items():
+        stack = []
+        for ev in sorted(evs, key=lambda e: (e["ts"], -e["dur"])):
+            while stack and ev["ts"] >= stack[-1]["ts"] + stack[-1]["dur"] - 1.0:
+                stack.pop()
+            if stack and ev["ts"] + ev["dur"] > stack[-1]["ts"] + stack[-1]["dur"] + 1.0:
+                bad.append((stack[-1]["name"], ev["name"]))
+            stack.append(ev)
+    return bad
+
+
+def _obs_server_run(torch, KE, server, batches, records, cpu_plan,
+                    detail: Optional[str], check_records: bool) -> dict:
+    """One closed-loop run (OBS_CLIENTS threads) of the warm wide server
+    under ``Telemetry(detail=...)``, or with telemetry off (None): 0 compile
+    events, one encode launch per flushed batch, statusz's device seconds
+    the plan's sums; with ``check_records`` every served record equals the
+    CPU plan's record for its batch."""
+    from transmogrifai_tpu_torch.obs import Telemetry
+    from transmogrifai_tpu_torch.perf import measure_compiles
+
+    tel = Telemetry(detail=detail) if detail is not None else None
+    batches.clear()
+    torch.cuda.synchronize()
+    KE.reset_launch_counts()
+    bat0 = server.batcher.metrics()
+    if tel is not None:
+        tel.start()
+    try:
+        with measure_compiles() as probe:
+            pairs, wall = _drive_clients(server, records, OBS_CLIENTS, OBS_WINDOW)
+    finally:
+        if tel is not None:
+            tel.stop()
+    launches = KE.launch_counts()["encode_slots"]
+    bat = server.batcher.metrics()
+    status = server.statusz()
+    plan_m = server.plan.metrics()
+    n_batches = bat["batches"] - bat0["batches"]
+    check(bat["completed"] - bat0["completed"] == len(records)
+          and bat["failed"] == bat0["failed"],
+          f"every request completed ({detail}): {bat['completed'] - bat0['completed']}")
+    check(probe.backend_compiles == 0, f"no compile after warm() ({detail}): "
+          f"{probe.to_dict()}")
+    check(launches == n_batches == len(batches),
+          f"one encode launch per flushed batch ({detail}): {launches} / {n_batches}")
+    if check_records:
+        want = _expected(cpu_plan, batches)
+        check(all(f.result() == want[id(r)] for r, f in pairs),
+              f"every served record == the CPU plan's for its batch ({detail})")
+    plan_s = plan_m["device_ms"] / 1e3
+    check(status["padding_rows"] == plan_m["padding_rows"]
+          and abs(status["device_seconds"] - plan_s) <= 1e-9 * max(1.0, plan_s),
+          f"statusz reads the canonical counters: {status['device_seconds']} s vs the "
+          f"plan's {plan_s} s")
+    out = {"detail": detail or "off", "records": len(records),
+           "records_per_s": len(records) / wall, "seconds": wall,
+           "batches": n_batches, "launches": launches,
+           "latency_p50_ms": bat["latency_p50_ms"],
+           "latency_p99_ms": bat["latency_p99_ms"],
+           "records_checked": check_records}
+    if tel is not None:
+        evs = tel.recorder.events("backend_compile")
+        check(evs == [], f"0 backend_compile events after warm() ({detail}): {evs[:3]}")
+        out["trace"] = tel.tracer.chrome_trace()
+        out["trace_events"] = len(tel.tracer)
+    return out
+
+
+def _obs_requests_checks(trace: dict) -> dict:
+    from transmogrifai_tpu_torch.obs import reconstruct_request, request_events
+
+    reqs = request_events(trace)
+    flush = {ev["args"]["batch_seq"]: ev for ev in trace["traceEvents"]
+             if ev.get("ph") == "X" and ev.get("name") == "serve.flush"}
+    check(len(reqs) == OBS_RECORDS, f"one request track per request: {len(reqs)}")
+    check(all(set(p) == {"b", "e"} and p["e"]["args"].get("batch_seq") in flush
+              for p in reqs.values()),
+          "every request has its begin/end pair linked to a flushed batch_seq")
+    slow = max(reqs, key=lambda rid: reqs[rid]["e"]["args"]["total_ms"])
+    chain = reconstruct_request(trace, slow)
+    check(sorted(chain["phases"]) == ["device", "encode", "host"],
+          f"the slowest request's chain has encode, device and host: {chain['phases']}")
+    check(_nesting_violations(trace["traceEvents"]) == [], "X spans nest per thread")
+    return {"requests": len(reqs), "slowest": chain}
+
+
+def _obs_fleet(torch, KE, wide_model) -> dict:
+    """(b) serving_wide and training_families behind one FleetServer: the
+    per-tenant device seconds sum to the batch total, and statusz shows the
+    plans' own summed device seconds."""
+    import numpy as np
+
+    from transmogrifai_tpu_torch import WorkflowModel
+    from transmogrifai_tpu_torch.serve import FleetServer
+
+    with open(os.path.join(FIXTURE, "schema.json")) as fh:
+        schema = json.load(fh)
+    with open(os.path.join(FAMILIES_FIXTURE, "records.json")) as fh:
+        fam = [r for b in json.load(fh)["batches"] for r in b["records"]]
+    wide = make_records(schema, OBS_FLEET_WIDE, np.random.default_rng(23))
+    fams = [dict(fam[i % len(fam)]) for i in range(OBS_FLEET_FAMILIES)]
+    mixed = [("wide", r) for r in wide]
+    for i, r in enumerate(fams):
+        mixed.insert(4 * i + 1, ("families", r))
+    t0 = time.perf_counter()
+    fam_model = WorkflowModel.load(FAMILIES_FIXTURE)
+    fleet = FleetServer(max_batch=BATCH, max_wait_ms=2)
+    try:
+        fleet.register("wide", wide_model, slo="gold")
+        fleet.register("families", fam_model, slo="bronze")
+        setup_s = time.perf_counter() - t0
+        KE.reset_launch_counts()
+        t0 = time.perf_counter()
+        futs = [fleet.submit(t, r) for t, r in mixed]
+        for f in futs:
+            f.result(timeout=120)
+        wall = time.perf_counter() - t0
+        launches = KE.launch_counts()["encode_slots"]
+        total = fleet.batcher.metrics()["device_seconds"]
+        per = {t: r["device_seconds"] for t, r in fleet.batcher.tenant_metrics().items()}
+        status = fleet.statusz()
+        plans = {t: fleet.models.get(t).swapper.active.plan.metrics()["device_ms"] / 1e3
+                 for t in ("wide", "families")}
+    finally:
+        fleet.close()
+    tenant_sum = sum(per.values())
+    check(total > 0 and all(v > 0 for v in per.values()), f"device seconds billed: {per}")
+    check(abs(tenant_sum - total) <= 1e-9 * total,
+          f"per-tenant device seconds sum to the total: {tenant_sum} vs {total}")
+    check(status["fleet"]["device_seconds"] == total
+          and all(abs(status["tenants"][t]["device_seconds"] - plans[t]) <= 1e-9 * plans[t]
+                  for t in plans),
+          f"statusz shows the plans' device seconds: {status['fleet']['device_seconds']} "
+          f"vs {plans}")
+    return {"records": len(mixed), "records_per_s": len(mixed) / wall,
+            "device_seconds": total, "tenant_device_seconds": per,
+            "plan_device_seconds": plans, "sum_minus_total": tenant_sum - total,
+            "launches": launches, "setup_s": setup_s, "serve_s": wall}
+
+
+#: (c)'s fresh process: the fixture's plan on the card, one batch scored
+#: plain, then again under TMOG_PROFILE
+_PROFILE_CHILD = r"""
+import json, os, sys
+sys.path.insert(0, os.getcwd())
+from transmogrifai_tpu_torch import WorkflowModel
+args = json.load(open(sys.argv[1]))
+plan = WorkflowModel.load(args["fixture"]).serving_plan().warm()
+plain = plan.score(args["records"])
+os.environ["TMOG_PROFILE"] = args["dir"]
+profiled = plan.score(args["records"])
+with open(args["out"], "w") as fh:
+    json.dump({"equal": profiled == plain}, fh)
+"""
+
+
+def _capture_kernels(d: str) -> list:
+    """The kernel names of the one Chrome trace TMOG_PROFILE wrote to ``d``."""
+    files = os.listdir(d)
+    check(len(files) == 1, f"one capture per dispatch: {files}")
+    with open(os.path.join(d, files[0])) as fh:
+        events = json.load(fh)["traceEvents"]
+    return sorted({e.get("name", "") for e in events if e.get("cat") == "kernel"})
+
+
+def _obs_profile(torch, KE, model, records) -> dict:
+    """(c) TMOG_PROFILE around one served batch.  In a fresh process (as a
+    user sets it for a run) the capture names the encode kernel and the
+    records equal an unprofiled batch's.  In this process, after the
+    earlier phases, the records must equal too, and the capture either
+    names the kernel or says it is short of kernels (``last_capture``:
+    torch's profiler drops a capture's first GPU events in a process that
+    has lived minutes; PERF.md, open questions)."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    from transmogrifai_tpu_torch.obs.profile import last_capture
+
+    tmp = tempfile.mkdtemp(prefix="tmog_prof_")
+    try:
+        child = {"fixture": FIXTURE, "records": records,
+                 "dir": os.path.join(tmp, "child"), "out": os.path.join(tmp, "child.json")}
+        with open(os.path.join(tmp, "args.json"), "w") as fh:
+            json.dump(child, fh)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", _PROFILE_CHILD,
+                               os.path.join(tmp, "args.json")],
+                              capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"the profiled child process ran: {proc.stderr[-2000:]}")
+        with open(child["out"]) as fh:
+            check(json.load(fh)["equal"], "profiled records == unprofiled records (child)")
+        kernels = _capture_kernels(child["dir"])
+        check(any("encode_slots_kernel" in k for k in kernels),
+              f"the capture names encode_slots_kernel: {kernels[:20]}")
+        size = sum(os.path.getsize(os.path.join(child["dir"], f))
+                   for f in os.listdir(child["dir"]))
+        # the same in this process
+        plan = model.serving_plan().warm()
+        plain = plan.score(records)
+        os.environ["TMOG_PROFILE"] = os.path.join(tmp, "here")
+        try:
+            KE.reset_launch_counts()
+            t0 = time.perf_counter()
+            profiled = plan.score(records)
+            seconds = time.perf_counter() - t0
+            launches = KE.launch_counts()["encode_slots"]
+        finally:
+            del os.environ["TMOG_PROFILE"]
+        check(profiled == plain and launches == 1,
+              "profiled records == unprofiled records, one encode launch (this process)")
+        here = _capture_kernels(os.path.join(tmp, "here"))
+        cap = last_capture()
+        names = any("encode_slots_kernel" in k for k in here)
+        check(cap.get("launches", 0) >= 1 and (names or not cap["complete"]),
+              f"the in-process capture names encode_slots_kernel or says it is "
+              f"short of kernels: {cap}, kernels {here[:20]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"capture_bytes": size, "kernels": kernels, "child_s": child_s,
+            "seconds": seconds, "launches": launches,
+            "in_process_kernels": len(here),
+            "in_process_names_encode": names,
+            "in_process_launches": cap["launches"], "in_process_device_kernels": cap["kernels"],
+            "in_process_complete": cap["complete"],
+            "records_equal_unprofiled": True}
+
+
+def _obs_train(torch, KE, dev) -> dict:
+    """(d) phase 10's table at OBS_TRAIN_ROWS under a 2-fold LR + GBT
+    selector: untraced, then Workflow.train(telemetry=dir); the warm refit
+    under a flight recorder; a cold bucket in a warm context."""
+    import tempfile
+
+    import transmogrifai_tpu_torch as T
+    from torch_wide_data import FIXTURE_SHAPE, make_data, wide_pipeline
+    from transmogrifai_tpu_torch.models.trees import GradientBoostedTreesClassifier
+    from transmogrifai_tpu_torch.obs import FlightRecorder, Telemetry, flight
+    from transmogrifai_tpu_torch.types import feature_type_by_name
+    from transmogrifai_tpu_torch.workflow import continual as C
+
+    t0 = time.perf_counter()
+    cols, schema = make_data(OBS_TRAIN_ROWS, seed=41, **FIXTURE_SHAPE)
+    ftypes = {s["name"]: feature_type_by_name(s["type"]) for s in schema}
+    ds = T.Dataset.from_features(cols, ftypes)
+    del cols
+    data_s = time.perf_counter() - t0
+    models = [(T.LogisticRegression(), [{"reg_param": 0.01}]),
+              (GradientBoostedTreesClassifier(), [dict(OBS_GBT_GRID)])]
+
+    def train(telemetry=None):
+        label, sel, chk, pred = wide_pipeline(T, ftypes, schema, models=models)
+        wf = T.Workflow().set_input_dataset(ds).set_result_features(label, pred)
+        _sync(torch, dev)
+        t = time.perf_counter()
+        model = wf.train(device=dev, telemetry=telemetry)
+        _sync(torch, dev)
+        return model, time.perf_counter() - t
+
+    times = {"plain": [], "traced": []}
+    for kind in OBS_TRAIN_ORDER:
+        if kind == "plain":
+            times["plain"].append(train()[1])
+            continue
+        d = tempfile.mkdtemp(prefix="tmog_obs_train_")
+        _reset_all(KE)
+        model, traced_s = train(telemetry=d)
+        launches = _all_counts(KE)
+        times["traced"].append(traced_s)
+    plain_s = times["plain"][-1]
+    check(all(launches[k] > 0 for k in ("hist_level", "split_scan", "row_select_lanes",
+                                        "encode_slots")),
+          f"K1-K3 and the encode kernel launched in the traced train: {launches}")
+    check(sorted(os.listdir(d)) == ["flight.json", "metrics.jsonl", "trace.json"],
+          f"train(telemetry=) dumped the reference's files: {os.listdir(d)}")
+    with open(os.path.join(d, "trace.json")) as fh:
+        trace = json.load(fh)
+    spans = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    names = {e["name"] for e in spans}
+    fam = "GradientBoostedTreesClassifier"
+    want = {"fit.modelSelector", "fit.modelSelector.prep", "fit.modelSelector.validate",
+            f"fit.modelSelector.validate.cv.dispatch.{fam}",
+            f"fit.modelSelector.validate.cv.gather.{fam}",
+            "fit.modelSelector.refit", "fit.modelSelector.train_eval",
+            "fit.sanityChecker", "transform.fused_plan"}
+    check(want <= names and all(e["cat"] == "train" for e in spans),
+          f"train.* spans of the reference's names: missing {sorted(want - names)}")
+    check(_nesting_violations(spans) == [], "train spans nest as the reference's")
+    sel_span = next(e for e in spans if e["name"] == "fit.modelSelector")
+    inner = [e for e in spans if e["name"].startswith("fit.modelSelector.")]
+    check(all(sel_span["ts"] - 1.0 <= e["ts"] and e["ts"] + e["dur"]
+              <= sel_span["ts"] + sel_span["dur"] + 1.0 for e in inner),
+          "the selector's phases lie inside fit.modelSelector")
+    with open(os.path.join(d, "metrics.jsonl")) as fh:
+        lines = [json.loads(ln) for ln in fh.read().splitlines()]
+    check(len(lines) == 1 and lines[0]["source"] == "Workflow.train"
+          and lines[0]["compile"]["events"].get("nvcc_build", 0) == 0,
+          f"one compile line, 0 nvcc builds: {lines[-1]['compile']}")
+    with open(os.path.join(d, "flight.json")) as fh:
+        train_flight = json.load(fh)
+    # the training path allocates no serving bucket; the trained model's
+    # plan warming under a recorder does, one staging + landing per bucket
+    with Telemetry(out_dir=d) as tel:
+        plan = model.serving_plan().warm()
+    with open(os.path.join(d, "flight.json")) as fh:
+        warm_flight = [e for e in json.load(fh)["events"] if e["kind"] == "backend_compile"]
+    check(len(warm_flight) == 2 * len(plan.bucket_ladder())
+          and {e["data"]["what"] for e in warm_flight} == {"staging", "landing"}
+          and not any(e["data"]["unexpected"] for e in warm_flight),
+          f"flight.json holds the plan's bucket allocations: {len(warm_flight)}")
+    del tel
+    # the warm refit inside compile_context(warm=True): 0 events, no TM901
+    import numpy as np
+
+    window = ds.take(np.arange(OBS_REFIT_ROWS))
+    refit = C.RefitController(model, sleep=lambda s: None)
+    refit.prime(window)
+    rec = flight.install_recorder(FlightRecorder())
+    try:
+        t = time.perf_counter()
+        res = refit.refit(window)
+        refit_s = time.perf_counter() - t
+        refit_events = rec.events("backend_compile")
+        check(res.backend_compiles == 0 and refit_events == []
+              and rec.diagnostics() == [],
+              f"the warm refit recorded 0 compile events and no TM901: {refit_events[:3]}")
+        # a deliberately cold bucket inside a warm context
+        cold = model.serving_plan(min_bucket=2, max_bucket=2)
+        cold.release_executables()
+        with open(os.path.join(FIXTURE, "schema.json")) as fh:
+            fixture_schema = json.load(fh)
+        cold_recs = [{k: v for k, v in r.items() if k != "label"}
+                     for r in make_records(fixture_schema, 2, np.random.default_rng(2))]
+        with flight.compile_context("chip_smoke.cold", warm=True):
+            cold.score(cold_recs)
+        diags = rec.diagnostics()
+        check(rec.unexpected_compiles >= 1 and {x.code for x in diags} == {"TM901"},
+              f"a cold bucket in a warm context raised TM901: {diags}")
+    finally:
+        flight.uninstall_recorder()
+    import shutil
+    shutil.rmtree(d, ignore_errors=True)
+    return {"rows": OBS_TRAIN_ROWS, "data_s": data_s, "order": list(OBS_TRAIN_ORDER),
+            "train_s": times, "traced_over_plain": traced_s / plain_s,
+            "train_spans": len(spans), "train_flight_compile_events":
+            sum(1 for e in train_flight["events"] if e["kind"] == "backend_compile"),
+            "compile_line": lines[0]["compile"], "warm_flight_compile_events": len(warm_flight),
+            "refit_rows": OBS_REFIT_ROWS, "refit_s": refit_s,
+            "refit_backend_compiles": res.backend_compiles,
+            "tm901_cold_bucket": rec.unexpected_compiles, "launches": launches}
+
+
+def _obs_runner(torch, KE, dev) -> dict:
+    """(e) WorkflowRunner TRAIN with collect_stage_metrics: a fit and a
+    transform record per stage; an extra listener reads the card's memory."""
+    import transmogrifai_tpu_torch as T
+    from torch_wide_data import FIXTURE_SHAPE, make_data, wide_pipeline
+    from transmogrifai_tpu_torch.params import OpParams
+    from transmogrifai_tpu_torch.types import feature_type_by_name
+    from transmogrifai_tpu_torch.utils.listener import (OpMetricsListener, add_listener,
+                                                        remove_listener)
+    from transmogrifai_tpu_torch.workflow.runner import RunType, WorkflowRunner
+
+    cols, schema = make_data(OBS_RUNNER_ROWS, seed=43, **FIXTURE_SHAPE)
+    ftypes = {s["name"]: feature_type_by_name(s["type"]) for s in schema}
+    ds = T.Dataset.from_features(cols, ftypes)
+    del cols
+    label, sel, chk, pred = wide_pipeline(T, ftypes, schema)
+    wf = T.Workflow().set_input_dataset(ds).set_result_features(label, pred)
+    mem = add_listener(OpMetricsListener(track_device_memory=True))
+    try:
+        t = time.perf_counter()
+        res = WorkflowRunner(workflow=wf).run(RunType.TRAIN,
+                                              OpParams(collect_stage_metrics=True))
+        seconds = time.perf_counter() - t
+    finally:
+        remove_listener(mem)
+    app = res.metrics["appMetrics"]
+    recs = app["stageMetrics"]
+    stages = {m["stage_uid"] for m in recs}
+    by = {(m["stage_uid"], m["phase"]) for m in recs}
+    estimators = {m["stage_uid"] for m in recs if m["phase"] == "fit"}
+    check(app["runType"] == "train" and all((u, "transform") in by for u in stages)
+          and all((u, "fit") in by for u in estimators) and len(estimators) >= 3,
+          f"a fit record per estimator and a transform record per stage: "
+          f"{len(estimators)} fits, {len(stages)} stages")
+    check(all(m["n_rows"] == OBS_RUNNER_ROWS for m in recs), "every record has the rows")
+    in_use = [m.device_bytes_in_use for m in mem.metrics.stage_metrics]
+    peak = [m.device_peak_bytes for m in mem.metrics.stage_metrics]
+    check(all(v is not None and v > 0 for v in in_use + peak),
+          "torch.cuda reports the card's memory for every stage")
+    return {"rows": OBS_RUNNER_ROWS, "seconds": seconds, "records": len(recs),
+            "fits": len(estimators), "stages": len(stages),
+            "device_bytes_in_use_max": max(in_use), "device_peak_bytes_max": max(peak)}
+
+
+def phase_obs(torch, KE, dev) -> dict:
+    """Phase 23: the telemetry layer on the card's paths."""
+    import numpy as np
+
+    from transmogrifai_tpu_torch import WorkflowModel
+    from transmogrifai_tpu_torch.obs import Telemetry
+    from transmogrifai_tpu_torch.serve import ScoringServer
+
+    t_start = time.perf_counter()
+    left0 = KE.left_closed_launches
+    with open(os.path.join(FIXTURE, "schema.json")) as fh:
+        schema = json.load(fh)
+    model = WorkflowModel.load(FIXTURE)
+    cpu_plan = model.serving_plan(device="cpu")
+    records = make_records(schema, OBS_RECORDS, np.random.default_rng(24))
+    seconds = {}
+    # (a) telemetry off, at the batch detail, at the requests detail, in
+    # turn, OBS_REPS times over one warm server
+    runs = []
+    with ScoringServer(model, max_batch=BATCH, max_wait_ms=2) as server:
+        batches = _capture_batches(server.plan)
+        for rep in range(OBS_REPS):
+            for detail in (None, "batch", "requests"):
+                runs.append(_obs_server_run(torch, KE, server, batches, records,
+                                            cpu_plan, detail, check_records=rep == 0))
+        status = server.statusz()
+        plan_m = server.plan.metrics()
+    req = _obs_requests_checks(next(r for r in runs if r["detail"] == "requests")["trace"])
+    for r in runs:
+        r.pop("trace", None)
+    rps = {d: [r["records_per_s"] for r in runs if r["detail"] == d]
+           for d in ("off", "batch", "requests")}
+    # flush on size: the same batches on and off, records bitwise equal
+    fixed = {}
+    for detail in (None, "requests"):
+        with ScoringServer(model, max_batch=BATCH, max_wait_ms=SIZE_ONLY_MS,
+                           pipeline_depth=0) as srv:
+            tel = Telemetry(detail=detail) if detail else None
+            if tel is not None:
+                tel.start()
+            try:
+                fixed[detail] = [f.result(timeout=120) for f in
+                                 [srv.submit(r) for r in records[:OBS_FIXED_RECORDS]]]
+            finally:
+                if tel is not None:
+                    tel.stop()
+    check(fixed[None] == fixed["requests"],
+          "records bitwise equal with telemetry on and off (the same batches)")
+    seconds["server"] = time.perf_counter() - t_start
+    seconds["server_loads"] = sum(r["seconds"] for r in runs)
+    fleet = _obs_fleet(torch, KE, model)
+    seconds["fleet"] = time.perf_counter() - t_start - seconds["server"]
+    t_part = time.perf_counter()
+    prof = _obs_profile(torch, KE, model, records[:BATCH])
+    seconds["profile"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    train = _obs_train(torch, KE, dev)
+    seconds["train"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    runner = _obs_runner(torch, KE, dev)
+    seconds["runner"] = time.perf_counter() - t_part
+    off = statistics.median(rps["off"])
+    out = {"server": {"runs": runs, "requests_detail": req,
+                      "records_per_s_median": {d: statistics.median(v)
+                                               for d, v in rps.items()},
+                      "batch_over_off": statistics.median(rps["batch"]) / off,
+                      "requests_over_off": statistics.median(rps["requests"]) / off,
+                      "device_seconds": status["device_seconds"],
+                      "plan_device_s": plan_m["device_ms"] / 1e3,
+                      "plan_dispatch_s": plan_m["dispatch_ms"] / 1e3,
+                      "padding_rows": status["padding_rows"],
+                      "records_equal_on_off": OBS_FIXED_RECORDS},
+           "fleet": fleet, "profile": prof, "train": train, "runner": runner,
+           "launches": {"encode_slots": sum(r["launches"] for r in runs)
+                        + fleet["launches"] + prof["launches"]
+                        + train["launches"]["encode_slots"],
+                        "left_closed": KE.left_closed_launches - left0,
+                        **{k: train["launches"][k]
+                           for k in ("hist_level", "split_scan", "row_select_lanes")}},
+           "seconds_by_part": seconds, "seconds": time.perf_counter() - t_start}
+    emit({"phase": "obs", **out})
+    return out
+
 def main() -> int:
     import torch
 
@@ -5340,7 +5879,11 @@ def main() -> int:
     # 22. the fleet: tenants of every precision class behind one batcher
     fleet = phase_fleet(torch, KE, dev)
 
-    # 23. summary
+    # 23. the telemetry layer: traced serving, per-tenant cost, a profiler
+    # capture, a traced train and refit, the runner's stage metrics
+    obs = phase_obs(torch, KE, dev)
+
+    # 24. summary
     kernels = []
     tree_src = "transmogrifai_tpu_torch/perf/kernels/csrc/trees.cu"
     for kname, replaces in (("hist_level", "transmogrifai_tpu/perf/kernels/histogram.py:80"),
@@ -5388,6 +5931,7 @@ def main() -> int:
                                          for k in ("tile", "direct")}
         entry["launches_streaming_refit"] = stream["continual"]["refit"]["launches"][kname]
         entry["launches_resumed_sweep"] = stream["resume"]["launches"][kname]
+        entry["launches_obs"] = obs["launches"][kname]
         kernels.append(entry)
     for kname, replaces in (("onehot_codes", "transmogrifai_tpu/perf/kernels/encode.py:76"),
                             ("bucketize_right_encode",
@@ -5437,6 +5981,7 @@ def main() -> int:
             "launches_streaming": stream["parity"]["launches"]["encode_slots"],
             "launches_fleet": fleet["load"]["launches"],
             "launches_streaming_refit": stream["continual"]["refit"]["encode_launches"],
+            "launches_obs": obs["launches"]["encode_slots"],
             **{f"fused_{k}": fused[k] for k in ("ms", "device_ms", "plain_ms",
                                                  "bound_ms", "slots", "columns")}})
     t = timings["bucketize_left_encode"]
@@ -5449,6 +5994,7 @@ def main() -> int:
         "launches": dsl["serving"]["left_closed"]["launches"],
         "slots_per_launch": DSL_LEFT_SLOTS,
         "launches_training_dsl": dsl["left_closed"]["launches"],
+        "launches_obs": obs["launches"]["left_closed"],
         "max_abs_err": t["max_abs_err"], "parity": "bitwise",
         "parity_cases": t["parity_cases"],
         "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],

@@ -214,6 +214,85 @@ def test_server_on_the_card_fails_an_oom_batch_not_to_the_cpu():
     assert rows == model.serving_plan(device="cpu").score(recs)
 
 
+# -- telemetry on the card (obs/) ------------------------------------------------
+
+def test_profile_capture_names_the_encode_kernel(tmp_path, monkeypatch):
+    """``TMOG_PROFILE`` around one served batch: the exported Chrome trace
+    names the hand-written encode kernel, and the batch's records equal an
+    unprofiled batch's."""
+    import json
+
+    load, schema = _wide()
+    plan = load(FIXTURE).serving_plan().warm()
+    recs = _records(schema, 256, np.random.default_rng(11))
+    plain = plan.score(recs)
+    monkeypatch.setenv("TMOG_PROFILE", str(tmp_path / "prof"))
+    profiled = plan.score(recs)
+    monkeypatch.delenv("TMOG_PROFILE")
+    (name,) = os.listdir(tmp_path / "prof")
+    with open(tmp_path / "prof" / name) as fh:
+        names = {e.get("name", "") for e in json.load(fh)["traceEvents"]}
+    assert any("encode_slots_kernel" in n for n in names), sorted(names)[:40]
+    assert profiled == plain
+    from transmogrifai_tpu_torch.obs.profile import last_capture
+
+    cap = last_capture()
+    assert cap["launches"] >= 1 and cap["complete"], cap
+
+
+def test_warm_served_batches_record_no_compile_event_on_the_card():
+    """After ``warm()`` (every bucket's staging and landing sets, the
+    kernel library loaded) served batches record 0 compile events; a cold
+    bucket inside a warm context records TM901."""
+    from transmogrifai_tpu_torch.obs import FlightRecorder, flight
+    from transmogrifai_tpu_torch.perf import measure_compiles
+
+    load, schema = _wide()
+    model = load(FIXTURE)
+    plan = model.serving_plan().warm()
+    recs = _records(schema, 300, np.random.default_rng(12))
+    rec = flight.install_recorder(FlightRecorder())
+    try:
+        with measure_compiles() as probe:
+            for n in (1, 37, 300):
+                plan.score(recs[:n])
+        assert probe.backend_compiles == 0
+        assert rec.events("backend_compile") == []
+        cold = model.serving_plan(min_bucket=2, max_bucket=2)
+        cold.release_executables()
+        with flight.compile_context("test.warm", warm=True):
+            cold.score(recs[:2])
+        assert rec.unexpected_compiles >= 1
+        assert {d.code for d in rec.diagnostics()} == {"TM901"}
+    finally:
+        flight.uninstall_recorder()
+
+
+def test_per_tenant_device_seconds_sum_to_the_total_on_the_card():
+    """Two tenants on one card: their ``device_seconds`` (the prefix as
+    CUDA events time it) sum to the batch total, which equals the plans'
+    own summed ``device_ms``."""
+    from transmogrifai_tpu_torch.serve import FleetServer
+
+    load, schema = _wide()
+    recs = _records(schema, 256, np.random.default_rng(13))
+    with FleetServer(max_batch=64, max_wait_ms=2) as fleet:
+        fleet.register("a", load(FIXTURE))
+        fleet.register("b", load(FIXTURE))
+        futs = [fleet.submit("ab"[i % 2], r) for i, r in enumerate(recs)]
+        for f in futs:
+            f.result(60)
+        total = fleet.batcher.metrics()["device_seconds"]
+        per = fleet.batcher.tenant_metrics()
+        status = fleet.statusz()
+        plans = sum(fleet.models.get(t).swapper.active.plan.metrics()["device_ms"]
+                    for t in "ab") / 1e3
+    assert total > 0 and per["a"]["device_seconds"] > 0 and per["b"]["device_seconds"] > 0
+    assert sum(r["device_seconds"] for r in per.values()) == pytest.approx(total, rel=1e-9)
+    assert status["fleet"]["device_seconds"] == total
+    assert total == pytest.approx(plans, rel=1e-9)
+
+
 # -- the fleet: reduced precision, shared prefix state, eviction ----------------
 
 def _wide():

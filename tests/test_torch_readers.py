@@ -564,10 +564,68 @@ class TestRunner:
         ("train", {"log_stage_metrics": True}, "log_stage_metrics"),
         ("train", {"collect_stage_metrics": True}, "collect_stage_metrics"),
         ("train", {"profile_trace_dir": "p"}, "profile_trace_dir")])
-    def test_unported_run_type_or_param_raises_by_name(self, what, kw, match):
-        runner = T_run.WorkflowRunner(workflow=T.Workflow())
-        with pytest.raises(NotImplementedError, match=match):
-            runner.run(T_run.RunType(what), T_params.OpParams(**kw))
+    def test_unported_run_type_or_param_raises_by_name(self, what, kw, match,
+                                                       tmp_path, caplog):
+        """The runner's stage-metrics and profile options (each raised by
+        name before the port had ``obs/``) now give what the reference's
+        give: ``match`` names the option each case exercises."""
+        import glob
+        import logging
+
+        from transmogrifai_tpu_torch.readers.streaming import (
+            ListSource, MicroBatchStreamingReader)
+        from transmogrifai_tpu_torch.utils.listener import active_listeners
+
+        wf, _vec = _lr_workflow(T, TLR, T_rb.CustomReader(lambda: TRAIN))
+        loc = str(tmp_path / "model")
+        # the trace directory lands under the test's own tmp_path
+        kw = {k: str(tmp_path / v) if k == "profile_trace_dir" else v
+              for k, v in kw.items()}
+        params = T_params.OpParams(**kw)
+        with use_device("cpu"), caplog.at_level(
+                logging.INFO, logger="transmogrifai_tpu_torch.metrics"):
+            if what == "streaming_score":
+                T_run.WorkflowRunner(workflow=wf).run(
+                    T_run.RunType.TRAIN, T_params.OpParams(model_location=loc))
+                caplog.clear()
+                reader = MicroBatchStreamingReader(
+                    ListSource([{k: v for k, v in r.items() if k != "y"}
+                                for r in SCORE]),
+                    batch_interval=0.0, max_batch_records=60, max_empty_polls=0,
+                    sleep=lambda s: None)
+                params = T_params.OpParams(model_location=loc, **kw)
+                res = T_run.WorkflowRunner(workflow=T.Workflow(),
+                                           streaming_reader=reader).run(
+                    T_run.RunType(what), params)
+            else:
+                res = T_run.WorkflowRunner(workflow=wf).run(
+                    T_run.RunType(what), params)
+        assert active_listeners() == []
+        logged = [r.getMessage() for r in caplog.records
+                  if r.name == "transmogrifai_tpu_torch.metrics"]
+        if match == "log_stage_metrics":
+            # every fitted stage's transform lands once per scored table;
+            # a train also logs its fits
+            assert any(" transform: " in m for m in logged), logged
+            assert any(" fit: " in m for m in logged) == (what == "train")
+            assert "appMetrics" not in res.metrics
+        elif match == "collect_stage_metrics":
+            # one record per stage fit and transform, each with the rows and
+            # columns the JAX package's per-stage path reports
+            jwf, _ = _lr_workflow(J, JLR, J_rb.CustomReader(lambda: TRAIN))
+            jres = J_run.WorkflowRunner(workflow=jwf).run(
+                J_run.RunType.TRAIN, J_params.OpParams(**kw))
+            app = res.metrics["appMetrics"]
+            assert app["runType"] == "train" and not logged
+            shape = lambda a: [(m["stage_class"], m["phase"], m["n_rows"],  # noqa: E731
+                                m["n_cols_in"], m["n_cols_out"])
+                               for m in a["stageMetrics"]]
+            assert shape(app) == shape(jres.metrics["appMetrics"])
+            assert ("SelectedModel", "transform", len(TRAIN), 5, 6) in shape(app)
+        else:
+            (trace,) = glob.glob(os.path.join(kw["profile_trace_dir"], "trace-*.json"))
+            with open(trace) as fh:
+                assert json.load(fh)["traceEvents"]
 
     def test_run_types_and_result_equal_the_reference(self):
         assert [t.value for t in T_run.RunType] == [t.value for t in J_run.RunType]

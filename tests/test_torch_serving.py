@@ -361,6 +361,9 @@ from transmogrifai_tpu_torch.features import builder
 from transmogrifai_tpu_torch.workflow import fit, serde, workflow
 from transmogrifai_tpu_torch.serve import batcher, faults, pipeline, plan, resilience, server, swap, validator
 from transmogrifai_tpu_torch.obs import metrics as obs_metrics, overlap
+from transmogrifai_tpu_torch.obs import flight, profile, reqtrace, trace
+from transmogrifai_tpu_torch.perf import timers
+from transmogrifai_tpu_torch.utils import listener
 from transmogrifai_tpu_torch.checkers import diagnostics
 from transmogrifai_tpu_torch.ops import dates, geo, text_lists, text_smart
 from transmogrifai_tpu_torch.ops import bucketizers, collections_lift, maps
@@ -455,7 +458,11 @@ class TestNoJax:
                             "__init__", "loco", "model_insights")),
                         *(("models", f"{m}.py") for m in (
                             "__init__", "mlp", "isotonic", "random_param", "combiner")),
-                        ("workflow", "dag.py")):
+                        ("workflow", "dag.py"),
+                        *(("obs", f"{m}.py") for m in (
+                            "__init__", "trace", "flight", "reqtrace", "profile")),
+                        ("perf", "__init__.py"), ("perf", "timers.py"),
+                        ("utils", "listener.py")):
                 assert os.path.join(path, *mod) in files
         bad = []
         for fn in files:

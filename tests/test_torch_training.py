@@ -23,6 +23,9 @@ The same seeded data (n=400, d=6, NaNs in one feature) and the same wiring —
   does not build or launch raises out of the fit.
 """
 
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -243,14 +246,23 @@ class TestEntryPoints:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             est.fit(ds)
 
-    def test_unported_train_options_raise(self):
+    def test_unported_train_options_raise(self, tmp_path):
         label, _, _, pred = _port_wiring()
         wf = TWorkflow().set_input_dataset(_port_ds(*_data(n=50))) \
             .set_result_features(label, pred)
-        for kw in ({"strict": True}, {"host_budget": 1}, {"telemetry": "x"},
-                   {"hbm_budget": 1e9}):
-            with pytest.raises(NotImplementedError):
+        for kw in ({"strict": True}, {"host_budget": 1}, {"hbm_budget": 1e9}):
+            with pytest.raises(NotImplementedError, match=next(iter(kw))):
                 wf.train(device="cpu", **kw)
+        # telemetry is ported: the train dumps the reference's three files
+        tel = str(tmp_path / "tel")
+        wf.train(device="cpu", telemetry=tel)
+        assert sorted(os.listdir(tel)) == ["flight.json", "metrics.jsonl",
+                                           "trace.json"]
+        with open(os.path.join(tel, "metrics.jsonl")) as fh:
+            line = json.loads(fh.read().splitlines()[-1])
+        assert line["source"] == "Workflow.train"
+        assert "backend_compiles" in line["compile"]
+        assert any(p.startswith("fit.") for p in line["phases"])
         # the raw feature filter is ported (tests/test_torch_rff.py)
         assert wf.with_raw_feature_filter(None) is wf
 

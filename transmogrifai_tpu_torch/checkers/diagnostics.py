@@ -332,7 +332,7 @@ DIAGNOSTIC_CODES: Dict[str, Tuple[Severity, str, str]] = {
               "the refit was expected to reuse the built kernel libraries "
               "and the frozen prefix (frozen prep stages) but kernel builds "
               "or library loads were observed "
-              "(perf/kernels/dispatch.py::build_counts); check that the prep "
+              "(perf/timers.py::measure_compiles); check that the prep "
               "stages are really frozen"),
     # -- training resilience (workflow/resilience.py) -----------------------
     "TM820": (Severity.INFO, "retryable training fault; retrying",

@@ -15,7 +15,6 @@ RandomForest, GBT, GLM gaussian; a DataSplitter).
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -129,26 +128,40 @@ class ModelSelector(PredictionEstimatorBase):
         self.last_fit_profile: Dict[str, float] = {}
 
     def fit_columns(self, cols, dataset, device):
-        profile: Dict[str, float] = {}
-        t0 = time.perf_counter()
+        from ..perf.timers import PhaseRecorder, record_phases
+
+        # every fit records its own phases (a few spans: cheap), and
+        # ``last_fit_profile`` reads their seconds; record_phases nests, so
+        # an ambient recorder (a workflow's) and a tracer see the same spans
+        rec = PhaseRecorder()
+        with record_phases(rec):
+            fitted, family_seconds = self._fit_columns_profiled(
+                cols, dataset, device)
+        profile = {k: rec.total(k) for k in ("prep", "validate", "refit")}
+        profile["train_eval"] = rec.total("train_eval") + rec.total("holdout_eval")
+        profile.update({f"cv.{k}": v for k, v in family_seconds.items()})
+        self.last_fit_profile = profile
+        return fitted
+
+    def _fit_columns_profiled(self, cols, dataset, device):
+        from ..perf.timers import phase
+
         label, vec = cols
         x = np.asarray(vec.data, np.float32)
         y = np.asarray(label.data, np.float32)
-        base_w, prep_summary = (self.splitter.prepare(y) if self.splitter is not None
-                                else (np.ones_like(y, dtype=np.float32), None))
-        if "__sample_weight__" in dataset:
-            base_w = base_w * dataset["__sample_weight__"].data.astype(np.float32)
-        t1 = time.perf_counter()
-        profile["prep"] = t1 - t0
+        with phase("prep"):
+            base_w, prep_summary = (
+                self.splitter.prepare(y) if self.splitter is not None
+                else (np.ones_like(y, dtype=np.float32), None))
+            if "__sample_weight__" in dataset:
+                base_w = base_w * dataset["__sample_weight__"].data.astype(np.float32)
 
         # workflow-level CV seeds the validation result (its in-fold feature
         # engineering ran in Workflow.train)
         result: Optional[ValidationResult] = getattr(self, "_preselected", None)
         if result is None:
-            result = self.validator.validate(self.models, x, y, base_w, device)
-        t2 = time.perf_counter()
-        profile["validate"] = t2 - t1
-        profile.update({f"cv.{k}": v for k, v in result.family_seconds.items()})
+            with phase("validate"):
+                result = self.validator.validate(self.models, x, y, base_w, device)
         if result.evaluations and not any(
                 np.isfinite(v) for ev in result.evaluations for v in ev.metric_values):
             names = result.failed_models or sorted(
@@ -157,12 +170,11 @@ class ModelSelector(PredictionEstimatorBase):
                                f"finite CV metric (failed: {', '.join(names)})")
         best_eval = result.best
         best_est = next(e for e, _ in self.models if e.uid == best_eval.model_uid)
-        best_model = best_est.copy().set_params(**best_eval.grid) \
-            ._fit_arrays(x, y, base_w, device)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        t3 = time.perf_counter()
-        profile["refit"] = t3 - t2
+        with phase("refit"):
+            best_model = best_est.copy().set_params(**best_eval.grid) \
+                ._fit_arrays(x, y, base_w, device)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
 
         payload = best_model.eval_payload_device(x, device)
         yd = wd = None
@@ -184,14 +196,15 @@ class ModelSelector(PredictionEstimatorBase):
 
         evaluators = [self.validator.evaluator] + self.train_evaluators
         train_eval: Dict[str, float] = {}
-        for ev in evaluators:
-            train_eval.update(evaluate(ev, None))
+        with phase("train_eval"):
+            for ev in evaluators:
+                train_eval.update(evaluate(ev, None))
         holdout_eval: Dict[str, float] = {}
         hmask = getattr(self.splitter, "holdout_mask", None)
         if hmask is not None and hmask.any():
-            for ev in evaluators:
-                holdout_eval.update(evaluate(ev, hmask.astype(np.float64)))
-        profile["train_eval"] = time.perf_counter() - t3
+            with phase("holdout_eval"):
+                for ev in evaluators:
+                    holdout_eval.update(evaluate(ev, hmask.astype(np.float64)))
 
         summary = ModelSelectorSummary(
             validation_type=type(self.validator).__name__,
@@ -205,9 +218,8 @@ class ModelSelector(PredictionEstimatorBase):
             train_evaluation=train_eval,
             holdout_evaluation=holdout_eval,
             failed_models=list(result.failed_models))
-        self.last_fit_profile = profile
         return SelectedModel(model=best_model, summary=summary,
-                             feature_meta=vec.meta)
+                             feature_meta=vec.meta), result.family_seconds
 
 
 class SelectedModel(PredictionModelBase):

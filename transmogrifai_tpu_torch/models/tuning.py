@@ -173,7 +173,15 @@ def sweep_families(models: Sequence[Tuple[PredictionEstimatorBase,
     journaled block replays its committed scores and launches nothing; a
     failure retries through the backoff and bucket ladder instead of
     leaving the family out (``sweep_dispatch`` / ``device_sync`` fault
-    points); a non-retryable error fails fast with the journal intact."""
+    points); a non-retryable error fails fast with the journal intact.
+
+    Each family's launch is a ``cv.dispatch.<family>`` phase and its gather
+    a ``cv.gather.<family>`` one (``perf/timers.py``); a launch runs under
+    the ``TMOG_PROFILE`` hook (``obs/profile.py``), and a replayed block
+    records a ``sweep_block_resume`` flight event."""
+    from ..obs import flight as obs_flight
+    from ..obs.profile import maybe_profile
+    from ..perf.timers import phase
     from ..serve.faults import fault_point
     from ..workflow import resilience
 
@@ -191,13 +199,17 @@ def sweep_families(models: Sequence[Tuple[PredictionEstimatorBase,
                                                  metric_name, digest, None, block)
             fam.cached = journal.load(fam.key)
             if fam.cached is not None:
+                where = {} if block == "all" else {"fold": int(block[4:])}
+                obs_flight.record_event("sweep_block_resume", family=fam.name,
+                                        key=fam.key, **where)
                 continue
         t0 = time.perf_counter()
         try:
-            fault_point("sweep_dispatch", family=fam.name, rows=len(y), dp=1,
-                        attempt=0)
-            fam.gather = est.cv_sweep_async(x, y, train_w, val_w, fam.grids,
-                                            metric_fn, device)
+            with phase(f"cv.dispatch.{fam.name}"), maybe_profile("sweep"):
+                fault_point("sweep_dispatch", family=fam.name, rows=len(y), dp=1,
+                            attempt=0)
+                fam.gather = est.cv_sweep_async(x, y, train_w, val_w, fam.grids,
+                                                metric_fn, device)
         except Exception as e:
             if res is not None:
                 if not resilience.is_retryable_training(e):
@@ -216,8 +228,9 @@ def sweep_families(models: Sequence[Tuple[PredictionEstimatorBase,
         if fam.cached is not None:
             scores = fam.cached
         else:
-            scores = _gather_family(fam, x, y, train_w, val_w, metric_fn, device,
-                                    res, journal)
+            with phase(f"cv.gather.{fam.name}"):
+                scores = _gather_family(fam, x, y, train_w, val_w, metric_fn,
+                                        device, res, journal)
         seconds[fam.name] = seconds.get(fam.name, 0.0) + time.perf_counter() - t0
         out.append(scores)
     return out, seconds

@@ -6,14 +6,17 @@ Components create their metrics in a :class:`MetricsRegistry` under the
 canonical Prometheus-style names of :data:`CANONICAL_METRICS`; their
 ``metrics()`` plain dicts are views over the registry.  The registry exports
 as Prometheus text (:meth:`MetricsRegistry.to_prometheus`) and as a JSON-able
-snapshot (:meth:`MetricsRegistry.snapshot`).  Every metric object has its own
+snapshot (:meth:`MetricsRegistry.snapshot`, one JSONL line with
+:meth:`MetricsRegistry.write_jsonl`).  Every metric object has its own
 lock, so the batcher's flusher and finalizer, the shadow-mirror worker and
 the control plane update them without a global lock.
 """
 
 from __future__ import annotations
 
+import json
 import threading
+import time
 from collections import deque
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
@@ -74,6 +77,10 @@ class Gauge:
         with self._lock:
             self._v = v
 
+    def inc(self, n=1) -> None:
+        with self._lock:
+            self._v += n
+
     @property
     def value(self):
         with self._lock:
@@ -115,7 +122,7 @@ class Histogram:
             self._max = v if self._max is None else max(self._max, v)
             self._reservoir.append(v)
             if self._exact is not None:
-                key = int(v) if v.is_integer() else v
+                key = int(v) if float(v).is_integer() else v
                 if key in self._exact or len(self._exact) < _EXACT_MAX:
                     self._exact[key] = self._exact.get(key, 0) + 1
                 else:
@@ -291,6 +298,15 @@ class MetricsRegistry:
                     lines.append(f"{name}{lab} {m.value}")
         return "\n".join(lines) + "\n"
 
+    def write_jsonl(self, fh, extra: Optional[Mapping[str, Any]] = None
+                    ) -> None:
+        """Append one snapshot line: ``{"ts": ..., "metrics": {...}}``."""
+        line: Dict[str, Any] = {"ts": round(time.time(), 3),
+                                "metrics": self.snapshot()}
+        if extra:
+            line.update(extra)
+        fh.write(json.dumps(line, sort_keys=True, default=str) + "\n")
+
 
 #: canonical name -> (kind, owner, legacy alias key, help): the serving
 #: server's metrics under the reference's names.  The aliases are the keys
@@ -326,6 +342,16 @@ CANONICAL_METRICS: Dict[str, Tuple[str, str, Optional[str], str]] = {
     "tmog_serve_batcher_latency_seconds":
         ("histogram", "batcher", None, "enqueue-to-result latency "
          "(legacy view: latency_p50_ms/p95/p99; also exported per tenant)"),
+    "tmog_serve_batcher_device_seconds_total":
+        ("counter", "batcher", "device_seconds", "seconds of compiled "
+         "fused-prefix device dispatch spent by flushed batches; the "
+         "per-tenant labeled series amortize each shared batch's device "
+         "time across its constituent tenants (cost accounting, "
+         "obs/reqtrace.py)"),
+    "tmog_serve_batcher_padding_rows_total":
+        ("counter", "batcher", "padding_rows", "filler rows dispatched to "
+         "pad batches up to their power-of-two padding bucket (padding "
+         "waste)"),
     # -- Pipelined flush path (serve/pipeline.py via serve/batcher.py) ------
     "tmog_serve_pipeline_depth":
         ("gauge", "pipeline", None, "configured in-flight window of the "
@@ -445,3 +471,17 @@ def canonical_help(name: str) -> str:
     entry = CANONICAL_METRICS.get(name)
     return entry[3] if entry else ""
 
+
+
+def legacy_aliases(owner: str) -> Dict[str, str]:
+    """{legacy key: canonical name} for one component's metrics() view."""
+    return {alias: name
+            for name, (_kind, own, alias, _help) in CANONICAL_METRICS.items()
+            if own == owner and alias is not None}
+
+
+def assert_json_stable(payload: Any) -> str:
+    """``json.dumps`` with sorted keys — the round-trip contract every
+    exported metrics/flight payload must satisfy (raises TypeError on a
+    non-serializable payload)."""
+    return json.dumps(payload, sort_keys=True)

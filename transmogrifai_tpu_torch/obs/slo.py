@@ -22,9 +22,9 @@ many times faster than sustainable the error budget is being spent.
 
 ``poll()`` runs from ``FleetServer.statusz()`` and the continual trainer's
 batch loop; there is no background thread, so tests drive it with a fake
-clock and exact counter states.  The reference also writes ``slo_burn`` and
-``slo_escalation`` events to its flight recorder, which the port does not
-have yet.
+clock and exact counter states.  Each TM902/TM903 finding also lands an
+``slo_burn`` flight event, and each escalation or recovery an
+``slo_escalation`` one (``obs/flight.py``).
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ import time
 from collections import deque
 from typing import Any, Callable, Dict, List, Mapping, Optional, Union
 
+from . import flight as obs_flight
 from .metrics import MetricsRegistry
 
 #: per-tenant sliding-window sample bound (one sample per poll; a 1s poll
@@ -125,7 +126,7 @@ class SloMonitor:
     ``tenants`` is a ``{tenant: slo class name}`` mapping or a zero-arg
     callable returning one (the fleet's live tenant table).  ``escalate``
     (optional) is called ``escalate(tenant, degraded: bool)`` on budget
-    exhaustion/recovery — the PR 12 shed-tier escalation hook.
+    exhaustion/recovery — the batcher's shed-tier escalation hook.
     """
 
     def __init__(self, registry: MetricsRegistry,
@@ -167,7 +168,7 @@ class SloMonitor:
     # -- the poll loop -------------------------------------------------------
     def poll(self, now: Optional[float] = None) -> Dict[str, Dict[str, Any]]:
         """Sample every tenant's counters, evaluate burn rates and budget,
-        record TM902/TM903 on transitions, drive escalation.
+        fire TM902/TM903 + flight events on transitions, drive escalation.
         Returns (and retains as ``last_status``) the per-tenant status.
 
         Rates are counter DELTAS between retained samples, so a tenant's
@@ -215,30 +216,38 @@ class SloMonitor:
                                       ("slow", burn_slow, budget.slow_burn)):
             if rate >= threshold and kind not in firing:
                 firing.add(kind)
-                self._fire("TM902", tenant,
+                self._fire("TM902", tenant, slo,
                            f"tenant {tenant!r} ({slo}) is burning its SLO "
                            f"error budget at {rate:.1f}x the sustainable "
                            f"rate ({kind} window; threshold "
                            f"{threshold:.1f}x, budget remaining "
-                           f"{remaining:.0%})")
+                           f"{remaining:.0%})",
+                           window=kind, burn_rate=round(rate, 2),
+                           budget_remaining=round(remaining, 4))
             elif rate < threshold / 2.0:
                 firing.discard(kind)  # hysteresis: re-arm at half threshold
 
         if remaining <= 0.0 and "exhausted" not in firing:
             firing.add("exhausted")
-            self._fire("TM903", tenant,
+            self._fire("TM903", tenant, slo,
                        f"tenant {tenant!r} ({slo}) exhausted its "
                        f"{budget.window_s:.0f}s error budget "
                        f"(target {budget.target}); shed-tier escalation "
-                       + ("armed" if self._escalate else "not armed"))
+                       + ("armed" if self._escalate else "not armed"),
+                       burn_rate=round(max(burn_fast, burn_slow), 2),
+                       budget_remaining=round(remaining, 4))
             if self._escalate is not None and tenant not in self._escalated:
                 self._escalated.add(tenant)
                 self._escalate(tenant, True)
+                obs_flight.record_event("slo_escalation", tenant=tenant,
+                                        slo=slo, degraded=True)
         elif remaining >= self.rearm_remaining:
             firing.discard("exhausted")
             if self._escalate is not None and tenant in self._escalated:
                 self._escalated.discard(tenant)
                 self._escalate(tenant, False)
+                obs_flight.record_event("slo_escalation", tenant=tenant,
+                                        slo=slo, degraded=False)
 
         return {"slo": slo,
                 "burn_fast": round(burn_fast, 3),
@@ -249,9 +258,12 @@ class SloMonitor:
                 "firing": sorted(firing),
                 "escalated": tenant in self._escalated}
 
-    def _fire(self, code: str, tenant: str, message: str) -> None:
+    def _fire(self, code: str, tenant: str, slo: str, message: str,
+              **data) -> None:
         self._diags.append({"code": code, "message": message,
                             "location": f"tenant:{tenant}"})
+        obs_flight.record_event("slo_burn", code=code, tenant=tenant,
+                                slo=slo, **data)
 
     def disarm(self) -> None:
         """Release every tenant this monitor escalated (degraded) — the
@@ -264,6 +276,8 @@ class SloMonitor:
         if self._escalate is not None:
             for tenant in escalated:
                 self._escalate(tenant, False)
+                obs_flight.record_event("slo_escalation", tenant=tenant,
+                                        slo=None, degraded=False)
 
     # -- introspection -------------------------------------------------------
     def diagnostics(self) -> List[Any]:

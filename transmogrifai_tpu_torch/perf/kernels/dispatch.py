@@ -28,6 +28,8 @@ from typing import Dict, Iterable
 
 import torch
 
+from ..timers import note_compile
+
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
@@ -38,15 +40,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: kernel library name -> loaded ctypes handle
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
-_LOCK_COUNTS = threading.Lock()
 #: (library, function) pairs whose ctypes signature is set
 _BOUND: set = set()
 #: library name -> {"seconds": build seconds (0 when cached), "log": ptxas/nvcc output}
 BUILD_INFO: Dict[str, Dict[str, object]] = {}
-#: nvcc builds finished and kernel libraries loaded in this process (the
-#: port's counterpart of the reference's backend compile count: a warm path
-#: adds neither)
-_BUILD_COUNTS = {"builds": 0, "loads": 0}
 
 
 class KernelError(RuntimeError):
@@ -154,8 +151,8 @@ def build(names: Iterable[str]) -> Dict[str, str]:
             failed.append(f"{n}: nvcc exit {proc.returncode}\n{log}")
             continue
         os.replace(tmp, todo[n])  # atomic: concurrent builders agree on the file
-        with _LOCK_COUNTS:
-            _BUILD_COUNTS["builds"] += 1
+        note_compile("nvcc_build", BUILD_INFO[n]["seconds"], cache_hit=False,
+                     library=n)
     if failed:
         raise KernelError("CUDA kernel build failed:\n" + "\n".join(failed))
     return paths
@@ -175,8 +172,10 @@ def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
             except OSError as e:
                 raise KernelError(f"cannot load kernel library {path}: {e}") from e
             _LIBS[name] = lib
-            with _LOCK_COUNTS:
-                _BUILD_COUNTS["loads"] += 1
+            # found built on disk, not by nvcc in this process: a cache hit
+            cached = BUILD_INFO.get(name, {}).get("log") == "cached"
+            note_compile("library_load", cache_hit=True if cached else None,
+                         library=name)
         for fn, argtypes in signatures.items():
             if (name, fn) in _BOUND:
                 continue
@@ -185,15 +184,6 @@ def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
             f.restype = ctypes.c_int
             _BOUND.add((name, fn))
         return lib
-
-
-def build_counts() -> Dict[str, int]:
-    """{"builds": nvcc builds, "loads": kernel libraries loaded} so far in
-    this process; the difference of two readings is what a path between
-    them built and loaded (``workflow/continual.py`` reads it around a warm
-    refit, which must add neither)."""
-    with _LOCK_COUNTS:
-        return dict(_BUILD_COUNTS)
 
 
 def check_launch(err: int, what: str) -> None:

@@ -53,7 +53,15 @@ finalize in flush order and each runs the lockstep code
 
 Every counter lives in a :class:`~..obs.metrics.MetricsRegistry` under the
 canonical ``tmog_serve_batcher_*`` names; ``metrics()`` is a plain-dict
-view over it.
+view over it.  Each flushed batch carries a ``BatchTrace``
+(``obs/reqtrace.py``, always on): the plan's device marks feed the
+``tmog_serve_batcher_device_seconds_total`` and
+``tmog_serve_batcher_padding_rows_total`` counters, per tenant too, when the
+batch completes.  When an ``obs`` tracer is installed, each flushed batch
+emits a ``serve.flush`` span (tagged with the ``batch_seq`` join key); at
+``detail="requests"`` every request also exports its own async track —
+submit → queue → flush → response with the outcome — linked to its batch
+via ``batch_seq``.
 """
 
 from __future__ import annotations
@@ -65,6 +73,8 @@ from concurrent.futures import Future
 from typing import (Any, Callable, Dict, List, Mapping, NamedTuple, Optional,
                     Sequence, Tuple, Union)
 
+from ..obs import reqtrace
+from ..obs import trace as obs_trace
 from ..obs.metrics import MetricsRegistry
 from ..obs.overlap import OverlapStats
 from .faults import DeadlineExceededError, LoadShedError, fault_point
@@ -105,7 +115,7 @@ _DEGRADED_TIER_PENALTY = 1_000_000
 
 class _Request:
     __slots__ = ("record", "future", "t_enqueue", "deadline", "tenant",
-                 "tier", "slo")
+                 "tier", "slo", "ctx")
 
     def __init__(self, record: Mapping[str, Any],
                  deadline_ms: Optional[float] = None,
@@ -119,6 +129,10 @@ class _Request:
         self.tenant = tenant
         self.tier = tier
         self.slo = slo
+        #: request trace id (obs/reqtrace.py mint_request) — None unless a
+        #: tracer with detail="requests" is installed at submit time;
+        #: cleared when the request's track is emitted
+        self.ctx = None
 
 
 class MicroBatcher:
@@ -176,6 +190,8 @@ class MicroBatcher:
         self._c_deadline = _c("tmog_serve_batcher_deadline_expired_total")
         self._c_shed = _c("tmog_serve_batcher_shed_total")
         self._c_batches = _c("tmog_serve_batcher_batches_total")
+        self._c_device_seconds = _c("tmog_serve_batcher_device_seconds_total")
+        self._c_padding = _c("tmog_serve_batcher_padding_rows_total")
         self._g_depth = self.registry.gauge(
             "tmog_serve_batcher_queue_depth",
             _h("tmog_serve_batcher_queue_depth"))
@@ -244,6 +260,12 @@ class MicroBatcher:
         req = _Request(record, deadline_ms, tenant=tenant,
                        tier=slo_cls.tier if slo_cls is not None else 0,
                        slo=slo_cls.name if slo_cls is not None else None)
+        # minted BEFORE the request enters the queue: the flusher may claim
+        # it the instant the lock releases, and an id attached late would
+        # miss its own flush (obs/reqtrace.py; None at batch detail).  With
+        # no tracer installed the submit pays this one module-global read.
+        if obs_trace._TRACER is not None:
+            req.ctx = reqtrace.mint_request()
         expired: List[_Request] = []
         shed: List[_Request] = []
         try:
@@ -274,14 +296,19 @@ class MicroBatcher:
                 # phantom nonzero depth on an idle queue
                 self._g_depth.set(depth)
                 self._wake.notify_all()
+        except BaseException as e:
+            reqtrace.finish_request(req, f"rejected:{type(e).__name__}")
+            raise
         finally:
             # resolve evicted futures OUTSIDE the lock: set_exception runs
             # client done-callbacks synchronously, and a callback touching
             # the batcher would deadlock on the non-reentrant lock
             for r in expired:
+                reqtrace.finish_request(r, "deadline_expired")
                 r.future.set_exception(DeadlineExceededError(
                     "request deadline expired while queued"))
             for r in shed:
+                reqtrace.finish_request(r, "shed")
                 r.future.set_exception(LoadShedError(
                     f"request shed at tier {r.tier} to admit higher-tier "
                     "traffic under backpressure",
@@ -315,6 +342,7 @@ class MicroBatcher:
                     expired.append(r)
                 else:
                     self._c_cancelled.inc()
+                    reqtrace.finish_request(r, "cancelled")
             else:
                 keep.append(r)
         self._pending = keep
@@ -351,6 +379,7 @@ class MicroBatcher:
                 shed.append(victim)
             else:
                 self._c_cancelled.inc()
+                reqtrace.finish_request(victim, "cancelled")
         return expired, shed
 
     # -- per-tenant state ------------------------------------------------------
@@ -395,8 +424,8 @@ class MicroBatcher:
 
     def tenant_metrics(self) -> Dict[str, Dict[str, Any]]:
         """{tenant: {shed, completed, failed, deadline_expired,
-        latency_p50_ms/p95/p99}} over the per-tenant labeled series this
-        batcher has created."""
+        device_seconds, latency_p50_ms/p95/p99}} over the per-tenant labeled
+        series this batcher has created."""
         with self._tenant_metrics_lock:
             items = dict(self._tenant_metrics)
         counters = {"tmog_serve_batcher_shed_total": "shed",
@@ -409,6 +438,8 @@ class MicroBatcher:
             row = out.setdefault(tenant, {})
             if name in counters:
                 row[counters[name]] = m.value
+            elif name == "tmog_serve_batcher_device_seconds_total":
+                row["device_seconds"] = m.value
             elif name == "tmog_serve_batcher_latency_seconds":
                 for q, key in ((0.50, "latency_p50_ms"),
                                (0.95, "latency_p95_ms"),
@@ -442,6 +473,7 @@ class MicroBatcher:
                     self._c_cancelled.inc()
             self._wake.notify_all()
         for req in evicted:  # outside the lock: done-callbacks may re-enter
+            reqtrace.finish_request(req, "closed")
             req.future.set_exception(BatcherClosedError(
                 "batcher shut down before flush"))
         self._thread.join(timeout)
@@ -486,6 +518,11 @@ class MicroBatcher:
             "deadline_expired": self._c_deadline.value,
             "shed": self._c_shed.value,
             "batches": self._c_batches.value,
+            # unrounded: per-tenant amortized shares must sum EXACTLY to
+            # this total (the cost-accounting invariant) — rounding belongs
+            # to display surfaces
+            "device_seconds": self._c_device_seconds.value,
+            "padding_rows": self._c_padding.value,
         }
         with self._lock:
             out["queue_depth"] = len(self._pending)
@@ -541,6 +578,7 @@ class MicroBatcher:
         for r in batch:
             if not r.future.set_running_or_notify_cancel():
                 cancelled += 1
+                reqtrace.finish_request(r, "cancelled")
                 continue
             if r.deadline is not None and r.deadline <= now:
                 expired += 1
@@ -548,6 +586,7 @@ class MicroBatcher:
                     self._tenant_counter(
                         "tmog_serve_batcher_deadline_expired_total",
                         r.tenant).inc()
+                reqtrace.finish_request(r, "deadline_expired")
                 r.future.set_exception(DeadlineExceededError(
                     "request deadline expired before flush"))
                 continue
@@ -569,7 +608,15 @@ class MicroBatcher:
             batch = self._claim(batch)
             if not batch:
                 continue
-            self._route_results(batch, lambda: self._dispatch(batch))
+            # the batch trace is ALWAYS minted (a slotted object + a few
+            # phase marks): the per-tenant device-time cost counters must
+            # accumulate with telemetry fully off (obs/reqtrace.py)
+            bt, token = reqtrace.begin_batch(len(batch))
+            try:
+                self._flush(batch, bt)
+            finally:
+                reqtrace.end_batch(token)
+                self._account_batch(bt, batch)
 
     # -- pipelined flusher ---------------------------------------------------
     def _begin_batch(self, batch: List[_Request]) -> Callable[[], Sequence[Any]]:
@@ -610,6 +657,8 @@ class MicroBatcher:
                 batch = self._claim(batch)
                 if not batch:
                     continue
+                t_claim = time.monotonic()
+                bt, token = reqtrace.begin_batch(len(batch))
                 t0 = time.perf_counter()
                 try:
                     fin = self._begin_batch(batch)
@@ -618,16 +667,20 @@ class MicroBatcher:
 
                     def fin(_e: BaseException = err) -> Sequence[Any]:
                         raise _e
+                finally:
+                    reqtrace.end_batch(token)
                 self._pipe_stats.add_load(time.perf_counter() - t0)
-                self._ring.put((batch, fin))
+                self._ring.put((batch, bt, t_claim, fin))
         finally:
             self._ring.close()
 
     def _finalize_loop(self) -> None:
         """Consumer half: wait for batch N's device outputs, run its host
-        remainder and route its futures, in flush order.  Ring waits on an
-        empty window are starvation (the finalizer outran the flusher's
-        encode) and count toward the stall counter."""
+        remainder, route its futures and account the batch, in flush order,
+        re-entering the flusher's batch trace via ``reqtrace.batch_scope`` so
+        the host and device marks land on the right BatchTrace.  Ring waits
+        on an empty window are starvation (the finalizer outran the
+        flusher's encode) and count toward the stall counter."""
         while True:
             empty = self._ring.empty()
             t0 = time.perf_counter()
@@ -639,13 +692,34 @@ class MicroBatcher:
                 self._c_pipe_stalls.inc()
             if item is None:
                 return
-            batch, fin = item
+            batch, bt, t_claim, fin = item
             try:
-                self._route_results(batch, fin)
+                with reqtrace.batch_scope(bt):
+                    self._flush_finalize(batch, bt, t_claim, fin)
             finally:
+                self._account_batch(bt, batch)
                 self._pipe_stats.add_chunk()
                 self._g_pipe_overlap.set(self._pipe_stats.overlap_fraction)
                 self._ring.task_done()
+
+    def _flush_finalize(self, batch: List[_Request], bt, t_claim: float,
+                        fin: Callable[[], Sequence[Any]]) -> None:
+        # pipelined twin of _flush: the serve.flush span lives on the
+        # finalizer thread; phase spans carry batch_seq, so the causal
+        # chain joins on the key, not the tid (obs/reqtrace.py)
+        with obs_trace.span("serve.flush", cat="serve",
+                            batch=len(batch), batch_seq=bt.seq,
+                            pipelined=True):
+            self._route_results(batch, bt, t_claim, lambda: fin())
+
+    def _flush(self, batch: List[_Request], bt) -> None:
+        t_claim = time.monotonic()
+        # serve.flush: the whole batch lifecycle on this worker thread —
+        # the plan's encode/device/host spans nest inside it, and batch_seq
+        # is the join key per-request async events link through
+        with obs_trace.span("serve.flush", cat="serve",
+                            batch=len(batch), batch_seq=bt.seq):
+            self._route_results(batch, bt, t_claim, lambda: self._dispatch(batch))
 
     def _dispatch(self, batch: List[_Request]) -> Sequence[Any]:
         """Lockstep scorer dispatch across the three scorer protocols."""
@@ -657,7 +731,7 @@ class MicroBatcher:
                 [r.record for r in batch])
         return self._score([r.record for r in batch])
 
-    def _route_results(self, batch: List[_Request],
+    def _route_results(self, batch: List[_Request], bt, t_claim: float,
                        score_fn: Callable[[], Sequence[Any]]) -> None:
         """Score the batch and route results/failures to futures and
         counters — the shared body of the lockstep and the pipelined loops
@@ -680,8 +754,12 @@ class MicroBatcher:
             for tenant, n in tenant_failed.items():
                 self._tenant_counter(
                     "tmog_serve_batcher_failed_total", tenant).inc(n)
+            err = f"error:{type(e).__name__}"
             for r in batch:
                 r.future.set_exception(e)
+            self._emit_request_tracks(
+                bt, t_claim,
+                [(r, err) for r in batch if r.ctx is not None])
             return
         now = time.monotonic()
         ok = [not isinstance(res, Exception) for res in results]
@@ -703,8 +781,47 @@ class MicroBatcher:
             name = "tmog_serve_batcher_completed_total" if good \
                 else "tmog_serve_batcher_failed_total"
             self._tenant_counter(name, tenant).inc(n)
+        tracked = []
         for r, res, good in zip(batch, results, ok):
             if good:
                 r.future.set_result(res)
             else:
                 r.future.set_exception(res)
+            if r.ctx is not None:
+                tracked.append(
+                    (r, "ok" if good
+                     else f"error:{type(res).__name__}"))
+        self._emit_request_tracks(bt, t_claim, tracked)
+
+    def _emit_request_tracks(self, bt, t_claim: float, tracked) -> None:
+        """Export the flushed batch's request tracks as ONE ring slot
+        (obs/reqtrace.py): ``tracked`` is [(request, outcome), ...] for the
+        requests that were minted ids at submit.  Per-request cost is one
+        small tuple."""
+        if not tracked:
+            return
+        tracer = obs_trace.active_tracer()
+        if tracer is None:
+            return
+        rows = []
+        for r, outcome in tracked:
+            rows.append((r.ctx, r.t_enqueue, r.tenant, r.slo, outcome))
+            r.ctx = None
+        tracer.add_request_batch(bt.seq, t_claim, rows)
+
+    def _account_batch(self, bt, batch: List[_Request]) -> None:
+        """Per-tenant device-time cost accounting: amortize the flushed
+        batch's device phase marks across its constituent tenants (exact
+        for the fleet's per-tenant sub-batch dispatches; record-share for
+        untagged time) — the per-tenant totals sum to the batch total."""
+        # the tenants are read only when untagged device time is amortized
+        device_s, per_tenant, padded = reqtrace.batch_device_cost(
+            bt, (r.tenant for r in batch))
+        if padded:
+            self._c_padding.inc(padded)
+        if device_s <= 0.0:
+            return
+        self._c_device_seconds.inc(device_s)
+        for tenant, secs in per_tenant.items():
+            self._tenant_counter("tmog_serve_batcher_device_seconds_total",
+                                 tenant).inc(secs)

@@ -202,10 +202,22 @@ class FaultHarness:
 
 def fault_point(point: str, **ctx) -> None:
     """Hook on the scoring path; raises the scheduled fault when a harness
-    is active, otherwise costs one global read."""
+    is active, otherwise costs one global read.  Every injected fault is
+    also recorded by the installed flight recorder (``obs/flight.py``) —
+    and auto-dumps the ring buffer when the recorder has a dump_dir — so a
+    harness run leaves its own postmortem artifact."""
     harness = _ACTIVE
     if harness is None:
         return
     err = harness._check(point, ctx)
     if err is not None:
+        from ..obs import flight as obs_flight
+
+        # the per-tenant fault points (register/evict/route/shed, and any
+        # serve-level point the fleet fires with a tenant in its context)
+        # carry the tenant into the flight event + auto-dumped snapshot
+        tenant = ctx.get("tenant")
+        obs_flight.record_fault(point, err,
+                                tenant=str(tenant)
+                                if tenant is not None else None)
         raise err

@@ -84,12 +84,17 @@ import numpy as np
 import torch
 
 from ..checkers.diagnostics import OpCheckError
+from ..obs import flight as obs_flight
+from ..obs import reqtrace
+from ..obs import trace as obs_trace
+from ..obs.profile import maybe_profile
 from ..checkers.plancheck import block_bytes
 from ..data.dataset import Column, Dataset
 from ..features.feature import Feature, _NamedExtract
 from ..features.generator import FeatureGeneratorStage
 from ..ops._consts import const_store
 from ..perf.kernels.dispatch import resolve_device
+from ..perf.timers import note_compile
 from ..types import ColumnKind, NonNullableEmptyException
 from ..workflow.dag import compute_dag
 from ..workflow.plan import (
@@ -426,12 +431,17 @@ class CompiledScoringPlan(DevicePrefix):
         #: landing-set allocations: the port's counterpart of the
         #: reference's bucket compiles; after ``warm()`` serving adds none
         self.compile_count = 0
+        #: flips once a full-ladder ``warm()`` finishes: a later bucket
+        #: allocation on this plan is an UNEXPECTED warm-path compile
+        #: (flight recorder, TM901); ``release_executables`` clears it
+        self._warmed = False
         #: device bytes the last :meth:`release_executables` freed
         self.last_released_bytes = 0
         self._counters = {"scored_records": 0, "scored_batches": 0,
                           "bucket_batches": {}, "host_scored_records": 0,
                           "padding_rows": 0, "encode_ms": 0.0, "device_ms": 0.0,
-                          "host_ms": 0.0, "h2d_copies": 0, "staging_builds": 0}
+                          "host_ms": 0.0, "dispatch_ms": 0.0, "h2d_copies": 0,
+                          "staging_builds": 0}
         #: per-part milliseconds of the last finalized batch: host encode,
         #: device prefix (H2D copies + kernels; CUDA events on the card),
         #: host remainder
@@ -520,7 +530,9 @@ class CompiledScoringPlan(DevicePrefix):
         serving time),
         ``buckets_compiled`` (buckets with staging), ``fused_stages`` /
         ``host_stages``.  The port's own: ``encode_ms`` / ``device_ms`` /
-        ``host_ms`` (summed per-part times), ``padding_rows`` (rows padded
+        ``host_ms`` (summed per-part times; ``device_ms`` from CUDA events on
+        the card, the host's enqueue inside them), ``dispatch_ms`` (the
+        host's clock around each dispatch), ``padding_rows`` (rows padded
         up to the bucket), ``h2d_copies`` (host-to-device copies),
         ``staging_builds`` (staging buffers this plan allocated; a plan
         whose fingerprint is already warm on its device allocates none),
@@ -616,7 +628,10 @@ class CompiledScoringPlan(DevicePrefix):
             st = entry.staging.get(bucket)
             built = st is None or st.dtypes != dtypes
             if built:
-                st = Staging(dtypes, bucket, self.device)
+                with obs_flight.compile_context("serve.plan", fingerprint=self._fingerprint,
+                                                warm=self._warmed):
+                    st = Staging(dtypes, bucket, self.device)
+                    note_compile("staging", bucket=bucket)
                 entry.staging[bucket] = st
             entry.holders.setdefault(bucket, weakref.WeakSet()).add(self)
             with self._lock:
@@ -694,6 +709,7 @@ class CompiledScoringPlan(DevicePrefix):
             self._staging.clear()
             self._free.clear()
             self._sets.clear()
+            self._warmed = False
         freed = 0
         if entry is not None:
             with entry.lock:
@@ -708,6 +724,11 @@ class CompiledScoringPlan(DevicePrefix):
                 if drop_shared and not entry.staging:
                     freed += entry.release_constants()
         self.last_released_bytes = freed
+        if buckets:
+            obs_flight.record_event(
+                "executable_release", fingerprint=self._fingerprint,
+                buckets=sorted(buckets), drop_shared=bool(drop_shared),
+                released_bytes=freed)
         return len(buckets)
 
     def reserve_inflight(self, batches: int) -> "CompiledScoringPlan":
@@ -729,7 +750,11 @@ class CompiledScoringPlan(DevicePrefix):
         pin = self.device.type == "cuda"
         self._sets[bucket] = self._sets.get(bucket, 0) + count
         self.compile_count += 1
-        return [_OutSlot(self._slot_specs, bucket, pin) for _ in range(count)]
+        with obs_flight.compile_context("serve.plan", fingerprint=self._fingerprint,
+                                        warm=self._warmed):
+            made = [_OutSlot(self._slot_specs, bucket, pin) for _ in range(count)]
+            note_compile("landing", bucket=bucket, sets=count)
+        return made
 
     def _take_slot(self, bucket: int, env: Dict[str, torch.Tensor]) -> _OutSlot:
         """A free landing set of ``bucket``; the bucket's first batch builds
@@ -821,6 +846,7 @@ class CompiledScoringPlan(DevicePrefix):
         pinned memory."""
         if not self._prefix:
             return self
+        full_ladder = buckets is None
         for b in (self.bucket_ladder() if buckets is None else buckets):
             b = _bucket_for(b, self.min_bucket, self.max_bucket)
             handle = self._dispatch(self._warm_entries(b), b)
@@ -828,6 +854,11 @@ class CompiledScoringPlan(DevicePrefix):
                 handle.wait()
             finally:
                 self._release(handle)
+        if full_ladder:
+            # only a FULL bucket-ladder warm arms the TM901 expectation: a
+            # partial warm legitimately allocates its missing buckets later
+            with self._lock:
+                self._warmed = True
         return self
 
     # -- the host halves -------------------------------------------------------
@@ -897,15 +928,37 @@ class CompiledScoringPlan(DevicePrefix):
                 return out
             return _finalize_split
 
+        # request-scoped attribution (obs/reqtrace.py), captured here on the
+        # submitting thread and baked into the closure: phase marks feed the
+        # per-tenant device-time cost counters, and the tenant arg on the
+        # phase spans attributes a fleet flush's sub-batches to their
+        # tenants.  One contextvar read each outside a batcher flush.
+        # batch_seq rides every phase span so reconstruct_request rebuilds
+        # the causal chain even when pipelined batches interleave.
+        bt = reqtrace.active_batch()
+        tenant = reqtrace.current_tenant()
+        t_attr: Dict[str, Any] = {} if tenant is None else {"tenant": tenant}
+        if bt is not None:
+            t_attr["batch_seq"] = bt.seq
+
         t0 = time.perf_counter()
-        fault_point("encode", records=records)
-        host_cols, entries = self._encode_records(records)
-        encode_ms = (time.perf_counter() - t0) * 1e3
+        with obs_trace.span("serve.encode", cat="serve", records=n, **t_attr):
+            fault_point("encode", records=records)
+            host_cols, entries = self._encode_records(records)
+        encode_s = time.perf_counter() - t0
+        if bt is not None:
+            reqtrace.mark_phase("encode", t0, encode_s, records=n)
         handle = None
+        dispatch_s = 0.0
         if self._prefix:
             bucket = _bucket_for(n, self.min_bucket, self.max_bucket)
-            fault_point("device", records=records, bucket=bucket)
-            handle = self._dispatch(entries, n)
+            td = time.perf_counter()
+            with obs_trace.span("serve.device", cat="serve", records=n,
+                                bucket=bucket, padded=bucket - n, **t_attr):
+                fault_point("device", records=records, bucket=bucket)
+                with maybe_profile("serve"):  # TMOG_PROFILE dispatch hook
+                    handle = self._dispatch(entries, n)
+            dispatch_s = time.perf_counter() - td
 
         def _finalize() -> List[Dict[str, Any]]:
             try:
@@ -915,20 +968,40 @@ class CompiledScoringPlan(DevicePrefix):
                     for f, arr in zip(self._out_features, handle.wait()):
                         cols[f.name] = self._materialize(f, arr)
                     device_ms = handle.device_ms()
+                    if bt is not None:
+                        # the device mark is the prefix as the card's events
+                        # time it (the figure metrics()["device_ms"] sums),
+                        # with the host's dispatch seconds beside it; on the
+                        # CPU both are the host's clock
+                        bt.marks.append(reqtrace.Mark(
+                            "device", handle.t0, device_ms / 1e3, tenant,
+                            {"records": n, "bucket": handle.bucket,
+                             "padded": handle.bucket - n,
+                             "dispatch_s": dispatch_s}))
                 t1 = time.perf_counter()
-                fault_point("host", records=records)
-                ds = run_host_stages(Dataset(cols), self._remainder, device=self.device)
-                out = self._rows_from(ds, n)
-                host_ms = (time.perf_counter() - t1) * 1e3
+                with obs_trace.span("serve.host", cat="serve", records=n, **t_attr):
+                    fault_point("host", records=records)
+                    # per-stage phase spans only at the heavy "requests"
+                    # detail: serve.host already times the whole remainder
+                    tracer = obs_trace.active_tracer()
+                    ds = run_host_stages(
+                        Dataset(cols), self._remainder, device=self.device,
+                        phases=tracer is None or tracer.detail == "requests")
+                    out = self._rows_from(ds, n)
+                host_s = time.perf_counter() - t1
+                if bt is not None:
+                    bt.marks.append(reqtrace.Mark("host", t1, host_s, tenant,
+                                                  {"records": n}))
             finally:
                 if handle is not None:
                     self._release(handle)
-            timings = {"encode_ms": encode_ms, "device_ms": device_ms,
-                       "host_ms": host_ms}
+            timings = {"encode_ms": encode_s * 1e3, "device_ms": device_ms,
+                       "host_ms": host_s * 1e3}
             with self._lock:
                 c = self._counters
                 for k, v in timings.items():
                     c[k] += v
+                c["dispatch_ms"] += dispatch_s * 1e3
                 c["scored_records"] += n
                 c["scored_batches"] += 1
                 if handle is not None:
@@ -937,7 +1010,7 @@ class CompiledScoringPlan(DevicePrefix):
                     c["padding_rows"] += handle.bucket - n
                 self.last_timings = timings
                 self.batch_timings.append(
-                    {**timings, "rows": n,
+                    {**timings, "dispatch_ms": dispatch_s * 1e3, "rows": n,
                      "bucket": handle.bucket if handle is not None else 0})
             return out
         return _finalize
@@ -958,7 +1031,21 @@ class CompiledScoringPlan(DevicePrefix):
         ds = Dataset(extract_columns(
             records, [(g.raw_name, g) for g in self._generators],
             allow_missing_response=True))
-        ds = run_host_stages(ds, self._runners, device=torch.device("cpu"))
+        bt = reqtrace.active_batch()
+        tenant = reqtrace.current_tenant()
+        t_attr = {} if tenant is None else {"tenant": tenant}
+        t0 = time.perf_counter()
+        with obs_trace.span("serve.host_fallback", cat="serve", records=n,
+                            **t_attr):
+            # same per-stage-span gating as begin_score(): at the default
+            # batch detail the degraded path must not flood the tracer
+            tracer = obs_trace.active_tracer()
+            ds = run_host_stages(
+                ds, self._runners, device=torch.device("cpu"),
+                phases=tracer is None or tracer.detail == "requests")
+        if bt is not None:
+            reqtrace.mark_phase("host_fallback", t0,
+                                time.perf_counter() - t0, records=n)
         out = self._rows_from(ds, n)
         with self._lock:
             self._counters["host_scored_records"] += n

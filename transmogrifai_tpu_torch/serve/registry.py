@@ -51,6 +51,8 @@ from concurrent.futures import Future
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
 
 from ..checkers.diagnostics import OpCheckError
+from ..obs import flight as obs_flight
+from ..obs import reqtrace
 from ..obs.metrics import MetricsRegistry, canonical_help
 from ..perf.kernels.dispatch import resolve_device
 from ..workflow.workflow import _refuse_unported
@@ -229,6 +231,9 @@ class ModelRegistry:
             # per-tenant scored-records series exists from registration on,
             # so a scrape shows the tenant even before its first request
             self._scored_counter(tenant)
+        obs_flight.record_event("fleet_register", tenant=tenant, slo=slo,
+                                fingerprint=entry.fingerprint,
+                                shared_prefix=shared)
         return state
 
     def unregister(self, tenant: str) -> None:
@@ -248,6 +253,7 @@ class ModelRegistry:
         for value in self.registry.labeled_values("entry"):
             if value.startswith(f"{tenant}/"):
                 self.registry.drop_labeled("entry", value)
+        obs_flight.record_event("fleet_unregister", tenant=tenant)
 
     def _build_entry(self, tenant: str, model, version: int,
                      warm: bool = False,
@@ -288,9 +294,16 @@ class ModelRegistry:
         finally:
             f32_plan.release_executables(
                 drop_shared=not self._is_resident(f32_plan.fingerprint))
+        delta = report.max_precision_delta
         if report.errors():
             plan.release_executables(drop_shared=not self._is_resident(plan.fingerprint))
+            obs_flight.record_event(
+                "fleet_precision_refused", tenant=tenant,
+                precision=plan.precision, max_delta=delta)
             raise OpCheckError(report)
+        obs_flight.record_event(
+            "fleet_precision_admitted", tenant=tenant,
+            precision=plan.precision, max_delta=delta)
 
     # -- blue/green lifecycle, per tenant ------------------------------------
     def stage_candidate(self, tenant: str, model, warm: bool = True,
@@ -423,6 +436,9 @@ class ModelRegistry:
             freed = self._release_tenant(victim)
             evicted.append(victim.tenant)
             self._c_evictions.inc()
+            obs_flight.record_event("fleet_evict", tenant=victim.tenant,
+                                    freed_buckets=freed,
+                                    for_tenant=tenant)
             log.warning("fleet admission: evicted cold tenant %r "
                         "(%d warm buckets) to admit %r",
                         victim.tenant, freed, tenant)
@@ -434,6 +450,9 @@ class ModelRegistry:
                                        self.hbm_budget, evicted=evicted)
         if report.errors():
             self._c_refusals.inc()
+            obs_flight.record_event("fleet_admission_refused", tenant=tenant,
+                                    need_bytes=need,
+                                    resident_bytes=sum(resident.values()))
             raise OpCheckError(report)
 
     def _coldest_warm_tenant(self, exclude: str) -> Optional[TenantState]:
@@ -652,7 +671,11 @@ class FleetServer:
                         "fleet submit requires a tenant id")
                 state = self.models.get(tenant)
                 fault_point("route", tenant=tenant, records=len(sub))
-                results = state.swapper.score_isolated(sub)
+                # tenant scope: the sub-batch's phase marks and serve spans
+                # carry this tenant, so a shared flush's device time bills
+                # each tenant exactly (obs/reqtrace.py cost accounting)
+                with reqtrace.tenant_scope(tenant):
+                    results = state.swapper.score_isolated(sub)
             except Exception as e:  # noqa: BLE001 — outcome-shaped per tenant
                 results = [e] * len(sub)
                 state = None
@@ -693,7 +716,8 @@ class FleetServer:
                         "fleet submit requires a tenant id")
                 state = self.models.get(tenant)
                 fault_point("route", tenant=tenant, records=len(sub))
-                fin = state.swapper.begin_isolated(sub)
+                with reqtrace.tenant_scope(tenant):
+                    fin = state.swapper.begin_isolated(sub)
                 staged.append((tenant, idxs, state, sub, fin, None))
             except Exception as e:  # noqa: BLE001 — outcome-shaped per tenant
                 staged.append((tenant, idxs, None, sub, None, e))
@@ -705,7 +729,8 @@ class FleetServer:
                     results: Sequence[Any] = [err] * len(sub)
                 else:
                     try:
-                        results = fin()
+                        with reqtrace.tenant_scope(tenant):
+                            results = fin()
                     except Exception as e:  # noqa: BLE001
                         results = [e] * len(sub)
                         state = None
@@ -788,8 +813,9 @@ class FleetServer:
         """One JSON-able fleet status snapshot.
 
         Per tenant: request rate since the previous ``statusz()`` call,
-        p99 latency, shed/deadline/failure counts, the active plan's summed
-        device-prefix seconds, breaker state, warm buckets and, when
+        p99 latency, shed/deadline/failure counts, the device seconds its
+        sub-batches spent (``tmog_serve_batcher_device_seconds_total``: the
+        device prefix as the card's events time it), breaker state, warm buckets and, when
         :meth:`arm_slo_monitor` was called, the SLO budget and burn status
         (polling the monitor as a side effect)."""
         now = time.monotonic()
@@ -822,7 +848,7 @@ class FleetServer:
                 "failed": bt.get("failed", 0),
                 "shed": bt.get("shed", 0),
                 "deadline_expired": bt.get("deadline_expired", 0),
-                "device_seconds": active.plan.metrics()["device_ms"] / 1e3,
+                "device_seconds": bt.get("device_seconds", 0.0),
                 "p99_ms": bt.get("latency_p99_ms"),
                 "breaker": breaker.state if breaker is not None else None,
                 "warm_buckets": len(active.plan.warm_buckets()),
@@ -847,7 +873,7 @@ class FleetServer:
                 "hbm_budget": self.models.hbm_budget,
                 "evictions": self.models._c_evictions.value,
                 "shed": batcher["shed"],
-                "device_seconds": sum(r["device_seconds"] for r in tenants.values()),
+                "device_seconds": batcher["device_seconds"],
                 "slo_monitor_armed": self.slo_monitor is not None,
                 "pipeline_depth": batcher["pipeline"]["depth"],
                 "pipeline_overlap": batcher["pipeline"]["overlap_fraction"],

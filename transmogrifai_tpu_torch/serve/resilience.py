@@ -45,6 +45,8 @@ import time
 from collections import deque
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
 
+from ..obs import flight as obs_flight
+from ..obs import reqtrace
 from ..obs.metrics import MetricsRegistry, canonical_help
 from ..perf.kernels.dispatch import is_kernel_fault
 from .faults import CircuitOpenError, PoisonRecordError, is_retryable
@@ -99,6 +101,10 @@ class CircuitBreaker:
         self.transitions: "deque[str]" = deque(maxlen=64)
 
     def _to(self, state: str) -> None:
+        # flight-recorder event BEFORE the assignment so the record carries
+        # both sides of the transition (obs/flight.py; no-op uninstalled)
+        obs_flight.record_event("breaker_transition",
+                                **{"from": self.state, "to": state})
         self.transitions.append(f"{self.state}->{state}")
         self.state = state
         self._g_state.set(self._STATE_CODE[state])
@@ -368,6 +374,10 @@ class ResilientScorer:
                     self._sleep(delay * (0.5 + 0.5 * self._rng.random()))
                     attempt += 1
                     self._c["retries"].inc()
+                    # the retry lands in the request causal chain
+                    reqtrace.mark_phase("retry", time.perf_counter(), 0.0,
+                                        attempt=attempt,
+                                        cause=type(e).__name__)
                     continue
                 if len(records) > 1 and depth < _MAX_SPLIT_DEPTH:
                     # batch-shaped failure (memory scales with the padding
@@ -387,6 +397,8 @@ class ResilientScorer:
         if len(records) == 1:
             return [self._quarantine(records[0], exc)]
         self._c["bisect_batches"].inc()
+        reqtrace.mark_phase("bisect", time.perf_counter(), 0.0,
+                            records=len(records))
         mid = len(records) // 2
         out: List[Any] = []
         for half in (records[:mid], records[mid:]):
@@ -400,12 +412,21 @@ class ResilientScorer:
 
     def _quarantine(self, record, exc: BaseException) -> PoisonRecordError:
         self._c["quarantined"].inc()
+        # flight-recorder postmortem trail (cause TYPE only — a record
+        # payload must never leak into a telemetry dump); the fleet's
+        # tenant attribution threads through
+        attribution = {} if self.tenant is None else {"tenant": self.tenant}
+        obs_flight.record_event("quarantine", cause=type(exc).__name__,
+                                **attribution)
         err = PoisonRecordError(
             f"record quarantined: scoring failed with "
             f"{type(exc).__name__}: {exc}", cause=exc)
         if self._dead_letter is not None:
             try:
                 self._dead_letter(record, exc)
+                obs_flight.record_event("dead_letter",
+                                        cause=type(exc).__name__,
+                                        **attribution)
             except Exception as dl:  # noqa: BLE001 — DLQ must not break serving
                 log.warning("dead-letter callback failed: %s", dl)
         return err

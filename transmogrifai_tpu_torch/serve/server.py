@@ -275,8 +275,9 @@ class ScoringServer:
 
     def statusz(self) -> Dict[str, Any]:
         """One JSON-able status line.  ``device_seconds`` and
-        ``padding_rows`` are the active plan's (its summed device-prefix
-        time, its padded rows)."""
+        ``padding_rows`` are the batcher's canonical counters
+        (``tmog_serve_batcher_device_seconds_total``: the device prefix as
+        the card's events time it; ``..._padding_rows_total``)."""
         bat = self.batcher.metrics()
         plan = self.plan.metrics()
         res = self.resilience
@@ -289,8 +290,8 @@ class ScoringServer:
             "failed": bat["failed"],
             "deadline_expired": bat["deadline_expired"],
             "p99_ms": bat["latency_p99_ms"],
-            "device_seconds": plan["device_ms"] / 1e3,
-            "padding_rows": plan["padding_rows"],
+            "device_seconds": bat["device_seconds"],
+            "padding_rows": bat["padding_rows"],
             "breaker": res.breaker.state if res is not None else None,
             "warm_buckets": len(self.plan.warm_buckets()),
             "candidate_staged": self.has_candidate(),

@@ -34,6 +34,9 @@ import threading
 from collections import deque
 from typing import Any, Dict, List, Mapping, Optional, Sequence
 
+from ..obs import flight as obs_flight
+from ..obs import reqtrace
+from ..obs import trace as obs_trace
 from ..obs.metrics import MetricsRegistry, canonical_help
 from .faults import fault_point
 
@@ -226,6 +229,12 @@ class SwappableScorer:
     def _enqueue_shadow(self, candidate: ModelEntry,
                         records: Sequence[Mapping[str, Any]],
                         out: List[Any]) -> None:
+        # the mirror runs on its own thread, so the flusher's batch
+        # trace contextvar will not reach it — carry the batch_seq
+        # through the queue so the mirror span links into the flushed
+        # batch's causal chain (obs/reqtrace.py)
+        bt = reqtrace.active_batch()
+        batch_seq = bt.seq if bt is not None else None
         # hand the batch to the mirror worker: the flush thread never
         # waits on shadow scoring, so a staged candidate cannot delay
         # primary futures or expire live deadlines
@@ -235,7 +244,7 @@ class SwappableScorer:
             else:
                 self._ensure_shadow_thread_locked()
                 self._shadow_queue.append(
-                    (candidate, list(records), list(out)))
+                    (candidate, list(records), list(out), batch_seq))
                 self._shadow_pending += 1
                 self._shadow_cv.notify_all()
 
@@ -251,9 +260,10 @@ class SwappableScorer:
             with self._shadow_cv:
                 while not self._shadow_queue:
                     self._shadow_cv.wait()
-                candidate, records, primary = self._shadow_queue.popleft()
+                (candidate, records, primary,
+                 batch_seq) = self._shadow_queue.popleft()
             try:
-                self._mirror(candidate, records, primary)
+                self._mirror(candidate, records, primary, batch_seq)
             finally:
                 with self._shadow_cv:
                     self._shadow_pending -= 1
@@ -268,15 +278,20 @@ class SwappableScorer:
 
     def _mirror(self, candidate: ModelEntry,
                 records: Sequence[Mapping[str, Any]],
-                primary: List[Any]) -> None:
+                primary: List[Any],
+                batch_seq: Optional[int] = None) -> None:
         """Shadow-score one batch on the candidate; failures (including
         injected ``shadow`` faults) are counted, never raised.  Accumulated
         statistics are tagged by candidate identity: a mirror finishing
         after its candidate was discarded/replaced is dropped, never
-        credited to a different candidate's gate."""
+        credited to a different candidate's gate.  ``batch_seq`` links the
+        mirror span back to the primary flush it shadows."""
+        seq_attr = {} if batch_seq is None else {"batch_seq": batch_seq}
         try:
-            fault_point("shadow", records=records)
-            shadow = candidate.score_isolated(records)
+            with obs_trace.span("serve.shadow_mirror", cat="serve",
+                                records=len(records), **seq_attr):
+                fault_point("shadow", records=records)
+                shadow = candidate.score_isolated(records)
         except Exception as e:  # noqa: BLE001 — shadow never breaks primary
             with self._lock:
                 if self._candidate is candidate:
@@ -411,6 +426,7 @@ class SwappableScorer:
                 record["tenant"] = self.tenant
             self._c["swaps"].inc()
             self._append_history_locked(record)
+        obs_flight.record_event("swap", **record)
         return record
 
     def rollback(self, reason: str = "manual") -> Dict[str, Any]:
@@ -432,6 +448,7 @@ class SwappableScorer:
                 record["tenant"] = self.tenant
             self._c["rollbacks"].inc()
             self._append_history_locked(record)
+        obs_flight.record_event("rollback", **record)
         log.warning("rolled back to model version %d (%s)",
                     good.version, reason)
         return record

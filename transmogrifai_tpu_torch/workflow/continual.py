@@ -18,8 +18,10 @@ stream:
    plan's prefix keeps its content fingerprint
    (``workflow/plan.py::DevicePrefix.prefix_fingerprint``, the serving
    plan's too) and the refit builds and loads no kernel
-   (``perf/kernels/dispatch.py::build_counts``, the port's counterpart of
-   the reference's backend compile count; TM809 reports a violation).
+   (``perf/timers.py::measure_compiles``: kernel builds, library loads and
+   serving-bucket allocations, the port's counterpart of the reference's
+   backend compiles; TM809 reports a violation, and with a flight recorder
+   installed each one is also a TM901 finding).
    Retries are bounded with exponential backoff; a refit that still fails
    raises :class:`RefitError` (TM805) and the serving model is untouched.
    Each successful refit checkpoints atomically (versioned save + fsync'd
@@ -37,10 +39,9 @@ stream:
 
 Every phase fires a named fault point (``drift`` / ``refit`` /
 ``checkpoint`` / ``swap`` / ``rollback`` / ``shadow``) through the
-:class:`~..serve.faults.FaultHarness`.  The reference's trace spans and
-flight-recorder events (``obs/trace.py``, ``obs/flight.py``) and its SLO
-monitor (``obs/slo.py``) are not ported; ``ContinualTrainer(slo_monitor=...)``
-raises by name.
+:class:`~..serve.faults.FaultHarness`.  With telemetry on, the loop emits
+``continual.drift`` / ``refit`` / ``gate`` / ``swap`` spans (``obs/trace.py``)
+and a ``drift`` flight event per firing evaluation (``obs/flight.py``).
 """
 
 from __future__ import annotations
@@ -59,6 +60,8 @@ import numpy as np
 from ..checkers.diagnostics import (Diagnostic, DiagnosticReport,
                                     make_diagnostic)
 from ..data.dataset import Dataset
+from ..obs import flight as obs_flight
+from ..obs import trace as obs_trace
 from ..obs.metrics import MetricsRegistry, canonical_help
 from ..serve.faults import fault_point
 from ..types import ColumnKind
@@ -359,8 +362,9 @@ class RefitResult:
     """Outcome of one successful warm refit."""
 
     model: Any
-    #: kernel builds + kernel library loads during the refit (the port's
-    #: counterpart of the reference's backend compiles; 0 when warm)
+    #: kernel builds + library loads + bucket allocations during the refit
+    #: (``measure_compiles``: the port's counterpart of the reference's
+    #: backend compiles; 0 when warm)
     backend_compiles: int
     prefix_reused: bool
     attempts: int
@@ -516,12 +520,14 @@ class RefitController:
         """Run the whole frozen-prefix plan over ``dataset`` once on the
         device, so every kernel library the refit and the shadow plan reach
         is built and loaded before the first refit.  Returns the kernel
-        builds and loads paid here."""
+        builds and loads paid here (``perf/timers.py::measure_compiles``)."""
+        from ..perf import measure_compiles
         from .fit import transform_dag
 
-        before = _builds()
-        transform_dag(dataset, self._features, self._base.fitted, self.device)
-        self.prime_compiles = _builds() - before
+        with obs_flight.compile_context("continual.prime"), \
+                measure_compiles() as probe:
+            transform_dag(dataset, self._features, self._base.fitted, self.device)
+        self.prime_compiles = probe.backend_compiles
         return self.prime_compiles
 
     # -- the refit -----------------------------------------------------------
@@ -530,12 +536,14 @@ class RefitController:
 
         The window must carry the label column (continuous training streams
         labeled records).  On success returns the candidate model, the
-        backend-compile count of the whole train (zero when the prefix plan
-        cache and the sweep executable cache both hit), and the atomic
-        checkpoint path when enabled.  Raises :class:`RefitError` after the
+        compile count of the whole train (``perf/timers.py::measure_compiles``:
+        kernel builds, library loads and serving-bucket allocations — zero
+        when the frozen prefix and the built kernels serve it), and the
+        atomic checkpoint path when enabled.  Raises :class:`RefitError` after the
         bounded retries are exhausted — the caller's serving model (and its
         durable checkpoint) are untouched.
         """
+        from ..perf import measure_compiles
         from .workflow import Workflow
 
         t0 = time.monotonic()
@@ -550,9 +558,17 @@ class RefitController:
                 if getattr(self._base, "workflow_cv", False):
                     wf.with_workflow_cv()
                 wf._warm_models = dict(warm)
-                before = _builds()
-                model = wf.set_input_dataset(window).train(device=self.device)
-                compiles = _builds() - before
+                # warm-path compile tagging: with a flight recorder
+                # installed, any compile in here records as an UNEXPECTED
+                # recompile (TM901 — the dynamic twin of TM809)
+                with obs_trace.span("continual.refit", cat="continual",
+                                    rows=window.n_rows, attempt=attempt), \
+                        obs_flight.compile_context(
+                            "continual.refit",
+                            warm=self.expect_zero_prefix_compiles), \
+                        measure_compiles() as probe:
+                    model = wf.set_input_dataset(window).train(device=self.device)
+                compiles = probe.backend_compiles
                 self.last_train_profile = wf.last_train_profile
                 ckpt = self.save_version(model) if self.checkpoint_dir \
                     else None
@@ -577,9 +593,9 @@ class RefitController:
         if self.expect_zero_prefix_compiles and compiles > 0:
             diags.append(make_diagnostic(
                 "TM809",
-                f"warm refit performed {compiles} kernel build(s) or "
-                "library load(s); the frozen prefix and the built kernels "
-                "were expected to serve this refit at zero"
+                f"warm refit performed {compiles} compile(s) (kernel builds, "
+                "library loads or bucket allocations); the frozen prefix and "
+                "the built kernels were expected to serve this refit at zero"
                 + ("" if prefix_reused else
                    " (the prefix fingerprint CHANGED — prep is not frozen)")))
             for d in diags:
@@ -934,7 +950,9 @@ class ContinualTrainer:
         if self._detector is None:
             return
         try:
-            report = self._detector.evaluate()
+            with obs_trace.span("continual.drift", cat="continual",
+                                records=self._detector.records):
+                report = self._detector.evaluate()
         except Exception as e:  # noqa: BLE001 — injected drift faults
             log.warning("drift evaluation failed (%s: %s)",
                         type(e).__name__, e)
@@ -945,6 +963,10 @@ class ContinualTrainer:
                 and len(self._window) >= min(self.window_records,
                                              self._detector.min_records):
             self._c["drift_events"].inc()
+            obs_flight.record_event(
+                "drift", codes=sorted({d.code for d in report
+                                       if d.code != "TM804"}),
+                records=self._detector.records)
             self._refit_and_stage()
 
     def _observe_rollback(self) -> None:
@@ -1051,7 +1073,9 @@ class ContinualTrainer:
             return
         cand_metric = best_validation_metric(self._candidate_model) \
             if getattr(self, "_candidate_model", None) is not None else None
-        refusals = self._gate.check(shadow, self._active_metric, cand_metric)
+        with obs_trace.span("continual.gate", cat="continual",
+                            mirrored=shadow["mirrored_records"]):
+            refusals = self._gate.check(shadow, self._active_metric, cand_metric)
         if refusals:
             self._note(refusals)
             self._c["gate_rejections"].inc()
@@ -1065,7 +1089,8 @@ class ContinualTrainer:
                if self._detector is not None else None,
                "ckpt": self._marked_ckpt}
         try:
-            swap = self._server.promote(probation_batches=self.probation_batches)
+            with obs_trace.span("continual.swap", cat="continual"):
+                swap = self._server.promote(probation_batches=self.probation_batches)
         except Exception as e:  # noqa: BLE001 — injected swap faults
             self._c["swap_failures"].inc()
             self._swap_attempts += 1
@@ -1154,13 +1179,6 @@ class ContinualTrainer:
             }
         return out
 
-
-def _builds() -> int:
-    """Kernel builds plus library loads so far in this process."""
-    from ..perf.kernels.dispatch import build_counts
-
-    c = build_counts()
-    return c["builds"] + c["loads"]
 
 
 def rows_to_snapshot(records: Sequence[Mapping[str, Any]], raw_features,

@@ -87,8 +87,14 @@ def fit_stage_list(dataset: Dataset, stages, fitted: Dict[str, Transformer],
     (when given) receives each as it is fitted.  With ``profile`` (a list),
     appends one record per estimator fit (``{"kind": "fit", "stage": class
     name, "seconds": ...}``) and one per flush (the plan's timings,
-    :func:`~.plan.fused_transform`)."""
+    :func:`~.plan.fused_transform`).  Each fit is a ``fit.<stage>`` phase
+    (``perf/timers.py``) and, with a stage-metrics listener active
+    (``utils/listener.py``), a ``fit`` record; the flushes report their
+    stages as ``transform`` records."""
+    from ..perf.timers import phase
     from ..serve.faults import fault_point
+    from ..utils.listener import stage_timer
+    from .plan import operation_name
     from .resilience import retry_call
 
     pending: List[Transformer] = []
@@ -106,8 +112,12 @@ def fit_stage_list(dataset: Dataset, stages, fitted: Dict[str, Transformer],
 
             t0 = time.perf_counter()
             # retried with bounded backoff under resilient_training (a fit
-            # is pure given its inputs); a plain call otherwise
-            runner = retry_call(fit_once, "stage_fit", stage=stage.uid)
+            # is pure given its inputs); a plain call otherwise.  Each fit
+            # is a fit.<stage> phase and a listener's "fit" record
+            with phase(f"fit.{operation_name(stage)}"), \
+                    stage_timer(stage, "fit", dataset) as finish:
+                runner = retry_call(fit_once, "stage_fit", stage=stage.uid)
+                finish(None)
             if profile is not None:
                 profile.append({"kind": "fit", "stage": type(stage).__name__,
                                 "uid": stage.uid,

@@ -117,22 +117,41 @@ def _unify_float_dtypes(ops: List[torch.Tensor]) -> List[torch.Tensor]:
 
 
 def run_host_stages(dataset: Dataset, runners: Sequence[Any],
-                    device=None, seconds: Optional[Dict[str, float]] = None) -> Dataset:
+                    device=None, phases: bool = True,
+                    per_runner: Optional[List[Tuple[Any, float, float]]] = None,
+                    phase_name: Optional[Callable[[Any], str]] = None
+                    ) -> Dataset:
     """The host remainder: each runner's columnar ``transform`` in order.
     A runner that ``scores_on_device`` (a fitted model) is told ``device``,
-    where it may score large batches.  With ``seconds`` (a dict), adds each
-    runner's seconds under its class name."""
+    where it may score large batches.  With ``per_runner`` (a list),
+    appends ``(runner, start wall time, seconds)`` for each.  Each runner is
+    a ``transform.<class>`` phase (``perf/timers.py``: a no-op unless a
+    recorder or tracer is active; ``phase_name`` names it otherwise);
+    ``phases=False`` skips them — the serving path passes it at the
+    tracer's default ``batch`` detail, where the enclosing ``serve.host``
+    span times the whole remainder."""
+    from ..perf.timers import phase
+
     out = dataset
     for runner in runners:
         t0 = time.perf_counter()
-        if getattr(runner, "scores_on_device", False):
-            out = runner.transform(out, device=device)
+        w0 = time.time() if per_runner is not None else 0.0
+        if phases:
+            name = phase_name(runner) if phase_name is not None \
+                else type(runner).__name__
+            with phase(f"transform.{name}"):
+                out = _run_host_stage(runner, out, device)
         else:
-            out = runner.transform(out)
-        if seconds is not None:
-            name = type(runner).__name__
-            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+            out = _run_host_stage(runner, out, device)
+        if per_runner is not None:
+            per_runner.append((runner, w0, time.perf_counter() - t0))
     return out
+
+
+def _run_host_stage(runner, dataset: Dataset, device) -> Dataset:
+    if getattr(runner, "scores_on_device", False):
+        return runner.transform(dataset, device=device)
+    return runner.transform(dataset)
 
 
 class Staging:
@@ -427,10 +446,13 @@ class ColumnarTransformPlan(DevicePrefix):
     def apply_prefix(self, dataset: Dataset) -> Dataset:
         """Run the device prefix over the whole table, appending every
         prefix stage's output column."""
+        from ..perf.timers import phase
+
         if not self._prefix:
             return dataset
         joint = JointPrefix([self])
-        (out,) = joint.apply_prefix(dataset)
+        with phase("transform.fused_plan"):
+            (out,) = joint.apply_prefix(dataset)
         self.last_timings = joint.last_timings
         return out
 
@@ -598,10 +620,13 @@ def fused_fold_transforms(dataset: Dataset, during: Sequence[Any],
     resolved = [[m.get(s.uid, s) for s in during] for m in fold_runner_maps]
     dev = resolve_device(device)
     plan = FoldTransformPlan(resolved, frozenset(dataset.names), dev)
+    from ..perf.timers import phase
+
     if keep is not None:
         keep = frozenset(keep) | {f.name for rem in plan.remainders
                                   for r in rem for f in r.inputs}
-    out = plan.apply_prefix(dataset, keep)
+    with phase("transform.fused_fold_plan"):
+        out = plan.apply_prefix(dataset, keep)
     t1 = time.perf_counter()
     out = [run_host_stages(ds, rem, device=dev)
            for ds, rem in zip(out, plan.remainders)]
@@ -633,6 +658,11 @@ def plan_for_features(dataset: Dataset, result_features, fitted, device=None
                                  resolve_device(device))
 
 
+def operation_name(stage) -> str:
+    """A stage's name in phase paths: its operation name, else its class."""
+    return getattr(stage, "operation_name", None) or type(stage).__name__
+
+
 def fused_transform(dataset: Dataset, runners: Sequence[Any], device=None,
                     profile: Optional[list] = None) -> Dataset:
     """Transform ``dataset`` by ``runners`` on ``device`` (the CUDA card
@@ -641,15 +671,42 @@ def fused_transform(dataset: Dataset, runners: Sequence[Any], device=None,
     remainder.  A failure to plan or to launch raises; nothing falls back to
     the per-stage path.  With ``profile`` (a list), appends the flush's
     timings as one ``{"kind": "flush", ...}`` record (``host_stage_seconds``:
-    the host remainder's seconds by stage class)."""
+    the host remainder's seconds by stage class).
+
+    With a stage-metrics listener active (``utils/listener.py``) the flush
+    still runs as one plan — its prefix stays one encode launch on the
+    device — and hands the listeners one ``transform`` record per stage it
+    ran, in ``runners`` order, with the rows and columns the stage saw and
+    made: a host-remainder stage's own seconds, a prefix stage the wall
+    time of the whole prefix."""
+    from ..utils.listener import active_listeners, notify_stage
+
+    listening = bool(active_listeners())
     t0 = time.perf_counter()
+    w0 = time.time()
     plan = ColumnarTransformPlan(runners, frozenset(dataset.names),
                                  resolve_device(device))
     out = plan.apply_prefix(dataset)
     t1 = time.perf_counter()
-    host: Optional[Dict[str, float]] = {} if profile is not None else None
-    out = run_host_stages(out, plan.remainder, device=device, seconds=host)
+    timed: Optional[list] = [] if listening or profile is not None else None
+    # a flush with no device prefix names its stages' phases as the
+    # reference's per-stage path does (by operation name)
+    out = run_host_stages(out, plan.remainder, device=device, per_runner=timed,
+                          phase_name=None if plan._prefix else operation_name)
+    if listening:
+        own = {id(r): (w, dt) for r, w, dt in timed}
+        names = list(dataset.names)
+        for r in runners:
+            n_in = len(names)
+            if r.output_name not in names:
+                names.append(r.output_name)
+            w, dt = own.get(id(r), (w0, t1 - t0))
+            notify_stage(r, "transform", dt * 1e3, dataset.n_rows, n_in,
+                         len(names), w)
     if profile is not None:
+        host: Dict[str, float] = {}
+        for r, _w, dt in timed:
+            host[type(r).__name__] = host.get(type(r).__name__, 0.0) + dt
         profile.append({"kind": "flush", "seconds": time.perf_counter() - t0,
                         "host_stages_s": time.perf_counter() - t1,
                         "host_stages": len(plan.remainder),

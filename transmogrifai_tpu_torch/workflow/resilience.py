@@ -272,8 +272,13 @@ class TrainResilience:
 
     def note_retry(self, point: str, attempt: int, delay: float,
                    exc: BaseException, **ctx) -> None:
+        from ..obs import flight as obs_flight
+
         with self._lock:
             self.retries += 1
+        obs_flight.record_event("train_retry", point=point, attempt=attempt,
+                                delay_s=round(delay, 4),
+                                error=f"{type(exc).__name__}: {exc}", **ctx)
         self._diag("TM820",
                    f"retryable training fault at {point!r} (attempt "
                    f"{attempt}: {type(exc).__name__}: {exc}); retrying in "
@@ -281,10 +286,15 @@ class TrainResilience:
 
     def note_degrade_bucket(self, family: str, rows_from: int, cap: int,
                             exc: BaseException) -> None:
+        from ..obs import flight as obs_flight
+
         with self._lock:
             self.degradations.append({"kind": "bucket_shrink",
                                       "family": family,
                                       "rows_from": rows_from, "row_cap": cap})
+        obs_flight.record_event("degrade_bucket_shrink", family=family,
+                                rows_from=rows_from, row_cap=cap,
+                                error=f"{type(exc).__name__}: {exc}")
         self._diag("TM822",
                    f"family {family}: repeated resource exhaustion at "
                    f"{rows_from} rows; retrying at the next-smaller row "

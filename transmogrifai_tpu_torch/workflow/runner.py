@@ -11,10 +11,11 @@ of the streaming reader (``readers/streaming.py``) through
 ``WorkflowModel.score`` (one whole-table plan, one encode launch a batch)
 and commits the reader's offset only after the batch's output is written
 under ``write_location`` (at-least-once; with no write location nothing is
-committed).  The per-stage metrics and the profile trace
-(``OpParams.log_stage_metrics``, ``collect_stage_metrics``,
-``profile_trace_dir``) need ``obs/``: each raises ``NotImplementedError``
-by name when asked for.  The runs call the workflow's entry points with no
+committed).  ``OpParams.log_stage_metrics`` / ``collect_stage_metrics``
+attach an :class:`~..utils.listener.OpMetricsListener` for the run (the
+collected ``appMetrics`` join the result's metrics), and
+``profile_trace_dir`` wraps the run in a ``torch.profiler`` capture
+exported as a Chrome trace.  The runs call the workflow's entry points with no
 device, so they run on the CUDA card unless the caller wraps them in
 ``perf.kernels.dispatch.use_device``.  A ``write_location`` writes through
 pandas, imported only then.
@@ -32,7 +33,13 @@ from typing import Any, Callable, Dict, List, Optional
 from ..evaluators.base import Evaluator
 from ..features.feature import Feature
 from ..params import OpParams
-from .workflow import Workflow, WorkflowModel, _refuse_unported, dedup_raw_features
+from ..utils.listener import (
+    OpMetricsListener,
+    add_listener,
+    profile_trace,
+    remove_listener,
+)
+from .workflow import Workflow, WorkflowModel, dedup_raw_features
 
 
 class RunType(enum.Enum):
@@ -84,10 +91,6 @@ class WorkflowRunner:
     # -- dispatch ------------------------------------------------------------
     def run(self, run_type: RunType, params: Optional[OpParams] = None) -> RunResult:
         params = params or OpParams()
-        _refuse_unported(f"WorkflowRunner.run({run_type.value})", {
-            "OpParams.log_stage_metrics (obs)": bool(params.log_stage_metrics),
-            "OpParams.collect_stage_metrics (obs)": bool(params.collect_stage_metrics),
-            "OpParams.profile_trace_dir (obs)": params.profile_trace_dir is not None})
         handler = {
             RunType.TRAIN: self._train,
             RunType.SCORE: self._score,
@@ -95,7 +98,23 @@ class WorkflowRunner:
             RunType.FEATURES: self._features,
             RunType.EVALUATE: self._evaluate,
         }[run_type]
-        result = handler(params)
+        listener = None
+        if params.log_stage_metrics or params.collect_stage_metrics:
+            listener = add_listener(OpMetricsListener(
+                log_stage_metrics=params.log_stage_metrics,
+                collect_stage_metrics=params.collect_stage_metrics,
+                custom_tag=params.custom_tag))
+            listener.on_app_start(run_type.value)
+        try:
+            with profile_trace(params.profile_trace_dir):
+                result = handler(params)
+        finally:
+            if listener is not None:
+                listener.on_app_end()
+                remove_listener(listener)
+        if listener is not None and params.collect_stage_metrics:
+            result.metrics = dict(result.metrics)
+            result.metrics["appMetrics"] = listener.metrics.to_dict()
         if params.metrics_location and result.metrics:
             _write_json(params.metrics_location, result.to_dict())
         for fn in self._end_handlers:

@@ -174,25 +174,59 @@ class Workflow:
         way a table becomes chunked in the reference, ``host_budget``, is
         refused here.
 
-        The reference's strict validation, device-memory budget, host
-        budget and telemetry are not ported: each raises
-        ``NotImplementedError`` by name when asked for."""
+        ``telemetry`` (an output directory path, or a prebuilt
+        :class:`~..obs.Telemetry`; default: the ``TMOG_TELEMETRY`` env var)
+        wraps the fit in the ``obs`` layer: every ``perf.phase`` site lands
+        as a ``train`` trace span, kernel builds and loads land in the
+        flight recorder, dumped as ``trace.json`` / ``flight.json`` / a
+        ``metrics.jsonl`` line (compile counts and phase seconds) under the
+        directory when the fit finishes.  A bundle the caller already
+        started keeps its session: the fit neither stops nor dumps it.
+
+        The reference's strict validation, device-memory budget and host
+        budget are not ported: each raises ``NotImplementedError`` by name
+        when asked for."""
+        from contextlib import ExitStack
+
+        from ..obs import resolve_telemetry
+
         _refuse_unported("Workflow.train", {
             "strict": bool(strict), "hbm_budget": hbm_budget is not None,
-            "host_budget": host_budget is not None,
-            "telemetry": telemetry is not None})
-        if resume is None:
-            return self._train(test_fraction, seed, checkpointer, device)
-        from .checkpoint import StageCheckpointer
-        from .resilience import SweepJournal, resilient_training
+            "host_budget": host_budget is not None})
+        with ExitStack() as stack:
+            if resume is not None:
+                from .checkpoint import StageCheckpointer
+                from .resilience import SweepJournal, resilient_training
 
-        os.makedirs(resume, exist_ok=True)
-        if checkpointer is None:
-            checkpointer = StageCheckpointer(os.path.join(resume, "stages"))
-        with resilient_training(
-                journal=SweepJournal(os.path.join(resume, "sweep_journal.json")),
-                seed=seed):
-            return self._train(test_fraction, seed, checkpointer, device)
+                os.makedirs(resume, exist_ok=True)
+                if checkpointer is None:
+                    checkpointer = StageCheckpointer(os.path.join(resume, "stages"))
+                stack.enter_context(resilient_training(
+                    journal=SweepJournal(os.path.join(resume, "sweep_journal.json")),
+                    seed=seed))
+            tel = resolve_telemetry(telemetry)
+            if tel is None:
+                return self._train(test_fraction, seed, checkpointer, device)
+            from ..perf import PhaseRecorder, compile_snapshot, record_phases
+
+            # ownership-aware activation: a caller that already started this
+            # bundle keeps its session — we neither stop nor dump over it
+            owned = tel.activate()
+            t0 = compile_snapshot()
+            rec = PhaseRecorder()
+            try:
+                with record_phases(rec):
+                    return self._train(test_fraction, seed, checkpointer, device)
+            finally:
+                if owned:
+                    # dump in the finally so a FAILED fit still leaves its
+                    # trace/flight postmortem
+                    tel.stop()
+                    tel.dump(metrics_payload={
+                        "compile": compile_snapshot().minus(t0).to_dict(),
+                        "phases": rec.report(),
+                        "source": "Workflow.train",
+                    })
 
     def _train(self, test_fraction: float, seed: int, checkpointer,
                device) -> "WorkflowModel":
