@@ -411,7 +411,34 @@ Phases, one JSON line each:
                WorkflowRunner TRAIN with collect_stage_metrics at 8 192 rows:
                a fit record per estimator and a transform record per stage;
                the card's memory fields from torch.cuda.
-24. summary  — nvidia-smi's line, then one {"kernels": [...]} line, then the
+24. ooc      — out-of-core training and scoring (data/chunked.py,
+               readers/prefetch.py, workflow/ooc.py): phase 10's wide
+               pipeline with an LR (2 grids) + GBT selector at OOC_ROWS
+               (65 536 rows = 8 chunks of 8192).  (a) Trained in memory, then
+               on ChunkedDataset.from_dataset of the same table with
+               train(host_budget=B), B the largest fit set (the checker's
+               label and 866-wide vector): fitted states equal, the winner,
+               every CV metric and the winner's arrays bitwise equal, the
+               encode kernel launched once per chunk of the one epoch with
+               slots (counters zeroed just before), one tile allocation per
+               epoch with a device prefix, K1-K3 as in memory; seconds by
+               part (the table's spill, the epochs: host encode, copies,
+               device, the outputs' spill; prefetch wait and overlap; each
+               fit), bytes spilled, the prefetcher's stalls.  (d) The
+               flush's analyze_transform_plan estimate within 1x-4x of the
+               rise of max_memory_allocated over that flush; train(
+               hbm_budget=) under it and a chunk tile under its own refused
+               with TM601 before any encode launch.  (c) At OOC_RESUME_ROWS
+               (4 chunks) under train(resume=dir), a non-retryable fault at
+               ingest_chunk chunk 2; the re-run records chunk_resume with 2
+               skipped and ends bitwise an uninterrupted chunked train.  (b)
+               score_dataset over that chunked table (a plan of 8192-record
+               buckets): records equal to in-memory scoring of the same rows
+               in the same batches, one encode launch per chunk; records/s
+               beside the in-memory plan's.  (e) The chunk tile's launch (40
+               slots over 8192 x 728) bitwise its plain version, timed beside
+               its bound, plain version and library composite.
+25. summary  — nvidia-smi's line, then one {"kernels": [...]} line, then the
                last line {"ok": true, "device": {...}}.
 
 Phase 3 also holds K5 past shared memory (a 5000-split slot, its own launch
@@ -5698,6 +5725,331 @@ def phase_obs(torch, KE, dev) -> dict:
     emit({"phase": "obs", **out})
     return out
 
+# -- the out-of-core path: chunked store, chunked epochs, score_dataset -----
+
+OOC_ROWS = 1 << 16          # 8 chunks of the reference's 8192 rows
+OOC_RESUME_ROWS = 1 << 15   # 4 chunks
+OOC_CHUNK = 8192
+OOC_GBT_GRID = {"num_rounds": 5, "max_depth": 3}
+OOC_SAMPLE = 2048           # rows held equal to Dataset.from_features
+
+
+def _ooc_dataset(T, cols: dict, ftypes: dict):
+    """``Dataset.from_features`` of make_data's columns built with numpy
+    (the per-value conversion takes ~10x longer at OOC_ROWS); the phase
+    holds its first OOC_SAMPLE rows equal to from_features'."""
+    import numpy as np
+
+    from transmogrifai_tpu_torch.types import ColumnKind
+
+    out = {}
+    for name, vals in cols.items():
+        ft = ftypes[name]
+        if ft.kind in (ColumnKind.FLOAT, ColumnKind.BOOL):
+            mask = np.fromiter((v is not None for v in vals), np.bool_, len(vals))
+            dtype = np.float64 if ft.kind is ColumnKind.FLOAT else np.bool_
+            data = np.array([0 if v is None else v for v in vals], dtype=dtype)
+            out[name] = T.Column(ft, data, mask)
+        else:
+            data = np.empty(len(vals), dtype=object)
+            data[:] = vals
+            out[name] = T.Column(ft, data)
+    return T.Dataset(out)
+
+
+def _ooc_states(model) -> dict:
+    """The fitted fills, vocabularies, splits and kept indices, in input
+    order (the checker's inputs are named by stage uids)."""
+    import numpy as np
+
+    out = {}
+    for cls, attr in (("NumericVectorizerModel", "fills"),
+                      ("OneHotVectorizerModel", "vocabs"),
+                      ("DecisionTreeNumericBucketizerModel", "splits"),
+                      ("SanityCheckerModel", "kept_indices")):
+        fitted = _fitted_by(model, cls)
+        out[cls] = [np.asarray(getattr(fitted[k], attr)).tolist()
+                    if attr == "fills" else getattr(fitted[k], attr)
+                    for k in sorted(fitted)]
+    return out
+
+
+def _ooc_selection(model, sel) -> dict:
+    summary = model.fitted[sel.uid].summary
+    return {"winner": summary.best_model_name, "grid": summary.best_grid,
+            "cv": [(e.model_name, e.grid, list(e.metric_values))
+                   for e in summary.validation_results],
+            "arrays": _winner_arrays(model, sel)}
+
+
+def _ooc_epoch_parts(prof: list) -> dict:
+    """The chunked train's seconds by part, summed over its epochs, and its
+    fits' seconds by stage."""
+    epochs = [r for r in prof if r["kind"] == "epoch"]
+    parts: dict = {}
+    for r in epochs:
+        for k, v in r["parts_s"].items():
+            parts[k] = parts.get(k, 0.0) + v
+    fits: dict = {}
+    for r in prof:
+        if r["kind"] == "fit":
+            fits[r["stage"]] = fits.get(r["stage"], 0.0) + r["seconds"]
+    return {"epochs_s": sum(r["seconds"] for r in epochs), "epoch_parts_s": parts,
+            "fits_s": fits,
+            "prefetch": {k: sum(r["prefetch"].get(k, 0) for r in epochs)
+                         for k in ("load_seconds", "wait_seconds", "stalls", "chunks")},
+            "overlap_fraction": [r["prefetch"].get("overlap_fraction") for r in epochs],
+            "bytes_spilled": sum(r["bytes_spilled"] for r in epochs),
+            "epochs": [{k: r[k] for k in ("seconds", "stages", "device_stages",
+                                          "encode_slots", "chunks", "encode_launches",
+                                          "tile_allocations", "bytes_spilled")}
+                       for r in epochs]}
+
+
+def phase_ooc(torch, KE, dev) -> dict:
+    """Phase 24: the wide raw-column pipeline (phase 10's table, LR 2 grids
+    + GBT) out of core at OOC_ROWS.  (a) In memory, then on the chunked
+    store with train(host_budget=B): equal states, bitwise CV and winner,
+    one encode launch per chunk of the epoch with slots, one tile a device
+    epoch.  (d) The flush's static estimate against the card's peak rise, a
+    budget under it refused with TM601 before any encode launch.  (c)
+    Resume at OOC_RESUME_ROWS.  (b) score_dataset over that chunked table.
+    (e) The chunk-tile launch bitwise and timed."""
+    import tempfile
+
+    import numpy as np
+
+    import transmogrifai_tpu_torch as T
+    from torch_wide_data import FIXTURE_SHAPE, make_data, wide_pipeline
+    from transmogrifai_tpu_torch.checkers.diagnostics import OpCheckError
+    from transmogrifai_tpu_torch.checkers.plancheck import analyze_transform_plan
+    from transmogrifai_tpu_torch.data.chunked import ChunkedDataset, column_nbytes
+    from transmogrifai_tpu_torch.models.logistic import LogisticRegression
+    from transmogrifai_tpu_torch.models.trees import GradientBoostedTreesClassifier
+    from transmogrifai_tpu_torch.obs import flight as obs_flight
+    from transmogrifai_tpu_torch.serve.faults import FaultHarness
+    from transmogrifai_tpu_torch.types import feature_type_by_name
+    from transmogrifai_tpu_torch.workflow.dag import compute_dag
+    from transmogrifai_tpu_torch.workflow.ooc import chunked_transform_epoch
+    from transmogrifai_tpu_torch.workflow.plan import (ColumnarTransformPlan,
+                                                       encode_buffer, run_host_stages)
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    cols, schema = make_data(OOC_ROWS, seed=0, **FIXTURE_SHAPE)
+    ftypes = {s["name"]: feature_type_by_name(s["type"]) for s in schema}
+    ds = _ooc_dataset(T, cols, ftypes)
+    ref = T.Dataset.from_features({k: v[:OOC_SAMPLE] for k, v in cols.items()}, ftypes)
+    got = ds.take(np.arange(OOC_SAMPLE))
+    for name in ref.names:
+        a, b = ref[name], got[name]
+        check(a.ftype is b.ftype and a.data.dtype == b.data.dtype
+              and np.array_equal(a.data, b.data)
+              and (a.mask is None) == (b.mask is None)
+              and (a.mask is None or np.array_equal(a.mask, b.mask)),
+              f"the numpy-built column {name} equals Dataset.from_features'")
+    del cols, ref, got
+    data_s = time.perf_counter() - t0
+
+    def pipeline():
+        models = [(LogisticRegression(), [{"reg_param": 0.01}, {"reg_param": 0.1}]),
+                  (GradientBoostedTreesClassifier(), [dict(OOC_GBT_GRID)])]
+        return wide_pipeline(T, ftypes, schema, models=models)
+
+    def train(data, **kw):
+        label, sel, chk, pred = pipeline()
+        wf = T.Workflow().set_input_dataset(data).set_result_features(label, pred)
+        _sync(torch, dev)
+        _reset_all(KE)
+        t = time.perf_counter()
+        model = wf.train(device=dev, **kw)
+        _sync(torch, dev)
+        return (model, wf, {"label": label, "sel": sel, "chk": chk, "pred": pred},
+                time.perf_counter() - t, _all_counts(KE))
+
+    # (a) in memory
+    model_m, wf_m, h_m, mem_s, launches_m = train(ds)
+    # (d) the training flush's estimate against the card; the fit set
+    vec = h_m["chk"].inputs[1]
+    runners = [model_m.fitted.get(s.uid, s) for layer in compute_dag([vec])
+               for s in layer]
+    plan = ColumnarTransformPlan(runners, frozenset(ds.names), dev)
+    est = analyze_transform_plan(plan, ds).peak_hbm_bytes
+    base = _settled(torch)
+    torch.cuda.reset_peak_memory_stats()
+    flushed = plan.apply_prefix(ds)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    check(rise <= est <= 4 * rise,
+          f"the training flush's static estimate {est} B within 1x-4x of the "
+          f"card's peak rise {rise} B")
+    flushed = run_host_stages(flushed, plan.remainder, device=dev)
+    fit_set = column_nbytes(ds[h_m["label"].name]) + column_nbytes(flushed[vec.name])
+    budget = fit_set  # the largest fit set: the checker's label and vector
+    del flushed, plan
+
+    # (a) on the chunked store
+    with tempfile.TemporaryDirectory(prefix="tmog_ooc_") as tmp:
+        t0 = time.perf_counter()
+        cds = ChunkedDataset.from_dataset(ds, spill_dir=os.path.join(tmp, "table"))
+        spill_s = time.perf_counter() - t0
+        check(cds.n_chunks == OOC_ROWS // OOC_CHUNK, f"{cds.n_chunks} chunks")
+        model_c, wf_c, h_c, chunked_s, launches_c = train(cds, host_budget=budget)
+        check(_ooc_states(model_c) == _ooc_states(model_m),
+              "fills, vocabularies, splits and kept indices equal in memory and chunked")
+        sel_m, sel_c = _ooc_selection(model_m, h_m["sel"]), _ooc_selection(model_c, h_c["sel"])
+        check(sel_c == sel_m, f"winner, every CV metric and the winner's arrays bitwise "
+                              f"equal: {sel_c['winner']} vs {sel_m['winner']}")
+        prof = wf_c.last_train_profile
+        epochs = [r for r in prof if r["kind"] == "epoch"]
+        with_slots = [r for r in epochs if r["encode_slots"]]
+        want = sum(r["chunks"] - r["chunks_skipped"] for r in with_slots)
+        check(launches_c["encode_slots"] == want == cds.n_chunks * len(with_slots)
+              and len(with_slots) == 1
+              and launches_c["encode_slots.slots"] == want * with_slots[0]["encode_slots"]
+              and launches_c["onehot_codes"] == launches_c["bucketize_right_encode"] == 0,
+              f"encode launches {launches_c['encode_slots']} == chunks x epochs with "
+              f"slots ({want}): {epochs}")
+        check(all(r["tile_allocations"] == (1 if r["device_stages"] else 0) for r in epochs),
+              f"one tile allocation per device epoch: {epochs}")
+        tree_keys = ("hist_level", "split_scan", "row_select_lanes")
+        check(all(launches_c[k] == launches_m[k] > 0 for k in tree_keys),
+              f"K1-K3 launch in the chunked sweep as in memory: "
+              f"{ {k: (launches_c[k], launches_m[k]) for k in tree_keys} }")
+        a = {"rows": OOC_ROWS, "chunks": cds.n_chunks, "host_budget": budget,
+             "table_bytes": cds.nbytes, "largest_fit_set_bytes": fit_set,
+             "in_memory_train_s": mem_s, "chunked_train_s": chunked_s,
+             "chunked_over_in_memory": chunked_s / mem_s, "spill_table_s": spill_s,
+             "launches": launches_c, "launches_in_memory": launches_m,
+             "winner": sel_c["winner"], **_ooc_epoch_parts(prof)}
+        emit({"phase": "ooc_train", **a})
+
+        # (d) a budget under the estimate: TM601 before any encode launch
+        label_b, _, _, pred_b = pipeline()
+        wf_b = T.Workflow().set_input_dataset(ds).set_result_features(label_b, pred_b)
+        _reset_all(KE)
+        try:
+            wf_b.train(hbm_budget=est // 2, device=dev)
+            refused = None
+        except OpCheckError as e:
+            refused = [d.code for d in e.report]
+        counts = _all_counts(KE)
+        check(refused == ["TM601"] and counts["encode_slots"] == 0,
+              f"hbm_budget under the estimate refused with TM601 before any encode "
+              f"launch: {refused}, {counts}")
+        tile_plan = ColumnarTransformPlan(
+            [model_c.fitted.get(s.uid, s) for layer in compute_dag([h_c["chk"].inputs[1]])
+             for s in layer], frozenset(cds.names), dev)
+        tile_est = analyze_transform_plan(tile_plan, cds, OOC_CHUNK).peak_hbm_bytes
+        _reset_all(KE)
+        try:
+            chunked_transform_epoch(cds, tile_plan._runners, hbm_budget=tile_est // 2,
+                                    device=dev)
+            tile_refused = None
+        except OpCheckError as e:
+            tile_refused = [d.code for d in e.report]
+        check(tile_refused == ["TM601"] and _all_counts(KE)["encode_slots"] == 0,
+              f"a chunk tile over its budget refused with TM601: {tile_refused}")
+        d = {"flush_estimate_bytes": est, "flush_card_peak_rise_bytes": rise,
+             "ratio": est / rise if rise else None, "refused": refused,
+             "launches_when_refused": counts,
+             "tile_estimate_bytes": tile_est, "tile_refused": tile_refused}
+        del cds
+
+        # (c) resume at OOC_RESUME_ROWS
+        cds_r = ChunkedDataset.from_dataset(ds.take(np.arange(OOC_RESUME_ROWS)),
+                                            spill_dir=os.path.join(tmp, "resume_table"))
+        label_r, sel_r, _, pred_r = pipeline()
+        wf_r = T.Workflow().set_input_dataset(cds_r).set_result_features(label_r, pred_r)
+        t0 = time.perf_counter()
+        clean = wf_r.train(device=dev)
+        clean_s = time.perf_counter() - t0
+        resume_dir = os.path.join(tmp, "resume")
+        harness = FaultHarness()
+        harness.script("ingest_chunk", [None, None,
+                                        RuntimeError("non-retryable fault at chunk 2")])
+        try:
+            with harness:
+                wf_r.train(resume=resume_dir, device=dev)
+            killed = None
+        except RuntimeError as e:
+            killed = str(e)
+        with open(os.path.join(resume_dir, "chunk_offsets.json")) as fh:
+            offsets = json.load(fh)
+        check(killed == "non-retryable fault at chunk 2" and list(offsets.values()) == [2],
+              f"the first epoch killed at chunk 2 with 2 chunks committed: "
+              f"{killed}, {offsets}")
+        recorder = obs_flight.install_recorder(obs_flight.FlightRecorder())
+        t0 = time.perf_counter()
+        try:
+            resumed = wf_r.train(resume=resume_dir, device=dev)
+        finally:
+            obs_flight.uninstall_recorder()
+        resumed_s = time.perf_counter() - t0
+        evs = recorder.events("chunk_resume")
+        check([e["data"]["skipped_chunks"] for e in evs] == [2]
+              and evs[0]["data"]["total_chunks"] == cds_r.n_chunks,
+              f"the re-run records chunk_resume with 2 skipped: {evs}")
+        check(_ooc_selection(resumed, sel_r) == _ooc_selection(clean, sel_r)
+              and _ooc_states(resumed) == _ooc_states(clean),
+              "the resumed model bitwise an uninterrupted chunked train's")
+        c = {"rows": OOC_RESUME_ROWS, "chunks": cds_r.n_chunks,
+             "uninterrupted_train_s": clean_s, "resumed_train_s": resumed_s,
+             "chunk_resume": evs[0]["data"]}
+
+        # (b) score_dataset over the chunked table, against the same rows'
+        # records scored in memory in the same 8192-record batches
+        splan = model_c.serving_plan(8, OOC_CHUNK, device=dev).warm()
+        KE.reset_launch_counts()
+        t0 = time.perf_counter()
+        rows_c = splan.score_dataset(cds_r)
+        score_s = time.perf_counter() - t0
+        score_launches = KE.launch_counts()["encode_slots"]
+        t0 = time.perf_counter()
+        recs = splan._records_of(cds_r.materialize())
+        decode_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rows_m = [r for i in range(0, len(recs), OOC_CHUNK)
+                  for r in splan.score(recs[i:i + OOC_CHUNK])]
+        mem_score_s = time.perf_counter() - t0
+        check(rows_c == rows_m and len(rows_c) == OOC_RESUME_ROWS,
+              "score_dataset's records equal in-memory scoring of the same rows")
+        check(score_launches == cds_r.n_chunks,
+              f"one encode launch per chunk: {score_launches} for {cds_r.n_chunks}")
+        b = {"rows": OOC_RESUME_ROWS, "chunks": cds_r.n_chunks, "launches": score_launches,
+             "score_dataset_records_per_s": OOC_RESUME_ROWS / score_s,
+             "in_memory_records_per_s": OOC_RESUME_ROWS / mem_score_s,
+             "in_memory_decode_s": decode_s, "prefetch": splan.last_prefetch}
+        del cds_r, splan, recs, rows_c, rows_m
+
+    # (e) the chunk tile's launch: 40 slots over OOC_CHUNK rows
+    ins = tile_plan.encode_operands(ds.take(np.arange(OOC_CHUNK)))
+    table = tile_plan._encode_table
+    buf = encode_buffer(OOC_CHUNK, table.width, dev)
+    KE.encode_slots(ins, table, buf)
+    torch.cuda.synchronize()
+    check(torch.equal(buf, KE.encode_slots_torch(ins, table)),
+          "the chunk tile's encode launch bitwise its plain version")
+    nbytes = (sum(x.numel() * x.element_size() for x in ins) + table.splits.nbytes
+              + OOC_CHUNK * table.width * 4)
+    e = {"rows": OOC_CHUNK, "slots": len(table), "columns": table.width,
+         "ms": time_device_ms(lambda: KE.encode_slots(ins, table, buf)),
+         "host_inclusive_ms": time_ms(lambda: KE.encode_slots(ins, table, buf)),
+         "plain_ms": time_big_ms(lambda: KE.encode_slots_torch(ins, table, buf), runs=5),
+         "library_ms": time_big_ms(lambda: _table_library(torch, ins, table), runs=5),
+         "library": "per slot torch.nn.functional.one_hot(codes) or torch.bucketize + "
+                    "one_hot (buckets only), then torch.cat",
+         "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+         "in_epoch_ms": a["epoch_parts_s"].get("encode", 0.0) * 1e3 / a["chunks"],
+         "launches_per_chunked_train": launches_c["encode_slots"], "max_abs_err": 0.0}
+    del ins, buf, tile_plan
+    out = {"data_host_s": data_s, "train": a, "budget": d, "resume": c, "score": b,
+           "chunk_tile": e, "launches": launches_c,
+           "phase_s": time.perf_counter() - t_phase}
+    emit({"phase": "ooc", **{k: v for k, v in out.items() if k != "train"}})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5883,7 +6235,10 @@ def main() -> int:
     # capture, a traced train and refit, the runner's stage metrics
     obs = phase_obs(torch, KE, dev)
 
-    # 24. summary
+    # 24. out of core: the chunked store, chunked epochs, resume, score_dataset
+    ooc = phase_ooc(torch, KE, dev)
+
+    # 25. summary
     kernels = []
     tree_src = "transmogrifai_tpu_torch/perf/kernels/csrc/trees.cu"
     for kname, replaces in (("hist_level", "transmogrifai_tpu/perf/kernels/histogram.py:80"),
@@ -5932,6 +6287,7 @@ def main() -> int:
         entry["launches_streaming_refit"] = stream["continual"]["refit"]["launches"][kname]
         entry["launches_resumed_sweep"] = stream["resume"]["launches"][kname]
         entry["launches_obs"] = obs["launches"][kname]
+        entry["launches_ooc"] = ooc["launches"][kname]
         kernels.append(entry)
     for kname, replaces in (("onehot_codes", "transmogrifai_tpu/perf/kernels/encode.py:76"),
                             ("bucketize_right_encode",
@@ -5982,6 +6338,8 @@ def main() -> int:
             "launches_fleet": fleet["load"]["launches"],
             "launches_streaming_refit": stream["continual"]["refit"]["encode_launches"],
             "launches_obs": obs["launches"]["encode_slots"],
+            "launches_ooc": ooc["launches"]["encode_slots"],
+            "ooc_chunk_tile": ooc["chunk_tile"],
             **{f"fused_{k}": fused[k] for k in ("ms", "device_ms", "plain_ms",
                                                  "bound_ms", "slots", "columns")}})
     t = timings["bucketize_left_encode"]

@@ -1430,3 +1430,69 @@ def test_killed_sweep_resumes_bitwise_on_the_card(tmp_path):
     assert TH.launch_counts()["hist_level"] == 50 * 3 + (
         got.model.max_depth * got.model.n_trees if "GBT" in type(got.model).__name__
         else got.model.max_depth if hasattr(got.model, "trees") else 0)
+
+
+def _chunked_wide(n: int):
+    """The wide pipeline's vector runners, fitted on the CPU, and its raw
+    table of ``n`` rows in memory and on a chunked store of 2048-row
+    chunks."""
+    from torch_wide_data import make_data, wide_pipeline
+
+    import transmogrifai_tpu_torch as T
+    from transmogrifai_tpu_torch.data.chunked import ChunkedDataset
+    from transmogrifai_tpu_torch.types import feature_type_by_name
+    from transmogrifai_tpu_torch.workflow.dag import compute_dag
+
+    cols, schema = make_data(n, n_real=6, n_bucketized=3, n_pick=4, n_levels=30,
+                             n_binary=2, seed=5)
+    ftypes = {s["name"]: feature_type_by_name(s["type"]) for s in schema}
+    ds = T.Dataset.from_features(cols, ftypes)
+    label, _, chk, _ = wide_pipeline(T, ftypes, schema)
+    vec = chk.inputs[1]
+    model = T.Workflow().set_input_dataset(ds).set_result_features(vec).train(device="cpu")
+    runners = [model.fitted.get(s.uid, s) for layer in compute_dag([vec]) for s in layer]
+    return ds, ChunkedDataset.from_dataset(ds, chunk_rows=2048), runners, vec.name
+
+
+@pytest.mark.parametrize("n", [2048 * 3, 2048 * 3 + 777])
+def test_chunked_epoch_one_launch_a_chunk_one_tile_bitwise_the_cpu(n):
+    """A chunked epoch on the card: one encode launch per chunk (the tail
+    padded to the tile), one chunk-tile allocation, its vector bitwise the
+    same epoch on the CPU and the in-memory flush."""
+    from transmogrifai_tpu_torch.perf import measure_compiles
+    from transmogrifai_tpu_torch.workflow.ooc import EpochStats, chunked_transform_epoch
+    from transmogrifai_tpu_torch.workflow.plan import fused_transform
+
+    ds, cds, runners, vec = _chunked_wide(n)
+    TKE.reset_launch_counts()
+    stats = EpochStats()
+    with measure_compiles() as c:
+        card = chunked_transform_epoch(cds, runners, stats=stats, device="cuda")
+    counts = TKE.launch_counts()
+    assert counts["encode_slots"] == stats.encode_launches == cds.n_chunks
+    assert c.events.get("chunk_tile") == stats.tile_allocations == 1
+    cpu = chunked_transform_epoch(cds, runners, device="cpu")
+    mem = fused_transform(ds, runners, "cpu")
+    got = card[vec].materialize().data
+    assert got.tobytes() == cpu[vec].materialize().data.tobytes() == mem[vec].data.tobytes()
+
+
+def test_chunked_epoch_kernel_error_is_not_demoted(monkeypatch):
+    """A KernelError at a chunk's launch fails the epoch on the card: no
+    later chunk runs and nothing reruns on the host."""
+    from transmogrifai_tpu_torch.perf.kernels.dispatch import KernelError
+    from transmogrifai_tpu_torch.workflow.ooc import chunked_transform_epoch
+
+    _, cds, runners, _ = _chunked_wide(2048 * 3)
+    real, calls = TKE.encode_slots, []
+
+    def failing(*a, **k):
+        calls.append(1)
+        if len(calls) == 2:
+            raise KernelError("encode_slots: an injected launch failure")
+        return real(*a, **k)
+
+    monkeypatch.setattr(TKE, "encode_slots", failing)
+    with pytest.raises(KernelError):
+        chunked_transform_epoch(cds, runners, device="cuda")
+    assert len(calls) == 2

@@ -3,9 +3,10 @@ line in the port (``obs/reqtrace.py``, ``serve/batcher.py``,
 ``serve/registry.py``), held to the JAX package's.
 
 The reference's ``tests/test_obs_requests.py`` test by test, under the same
-names, on the CPU, less ``TestOutOfCoreFlightEvents`` (the port has no
-chunked store yet) and the ``cli top`` half of
-``test_statusz_stream_and_cli_top`` (no ``cli/`` yet).  The reference's
+names, on the CPU, less the ``cli top`` half of
+``test_statusz_stream_and_cli_top`` (no ``cli/`` yet); the out-of-core
+flight events (``spill_activation``, ``prefetch_stall``, ``chunk_resume``)
+also carry the JAX package's payload keys.  The reference's
 fleet replay runs through ``cli serve --models ... --telemetry DIR
 --trace-detail requests --statusz-out``; here the same replay runs through
 the library calls that command makes (a ``FleetServer`` under
@@ -458,6 +459,138 @@ class TestFaultTenantAttribution:
         faults = recorder.events("fault_injected")
         assert len(faults) == 1
         assert "tenant" not in faults[0]["data"]
+
+
+# ---------------------------------------------------------------------------
+# Out-of-core flight events (data/chunked.py, readers/prefetch.py,
+# workflow/ooc.py)
+# ---------------------------------------------------------------------------
+
+def _recorded(flight_mod, kind, fn):
+    """The ``kind`` events ``fn()`` records under a fresh recorder of
+    ``flight_mod`` (either package's), and ``fn``'s result."""
+    recorder = flight_mod.install_recorder(flight_mod.FlightRecorder())
+    try:
+        out = fn()
+    finally:
+        flight_mod.uninstall_recorder()
+    return recorder.events(kind), out
+
+
+class TestOutOfCoreFlightEvents:
+    def test_spill_activation_recorded(self, tmp_path):
+        from transmogrifai_tpu.data import chunked as JC
+        from transmogrifai_tpu.data.dataset import Column as JColumn
+        from transmogrifai_tpu.data.dataset import Dataset as JDataset
+        from transmogrifai_tpu_torch.data.chunked import ChunkedDataset, maybe_chunk
+        from transmogrifai_tpu_torch.data.dataset import Column, Dataset
+        from transmogrifai_tpu_torch.types import Real
+
+        x = np.arange(4096, dtype=np.float64)
+        ds = Dataset({"x": Column(Real, x, np.ones(4096, dtype=np.bool_))})
+        evs, out = _recorded(obs_flight, "spill_activation", lambda: maybe_chunk(
+            ds, budget=1024, spill_dir=str(tmp_path / "spill")))
+        assert isinstance(out, ChunkedDataset)
+        assert len(evs) == 1
+        assert evs[0]["data"]["host_budget"] == 1024
+        assert evs[0]["data"]["dataset_bytes"] > 1024
+        jds = JDataset({"x": JColumn(J.types.Real, x, np.ones(4096, dtype=np.bool_))})
+        jevs, _ = _recorded(JO.flight, "spill_activation", lambda: JC.maybe_chunk(
+            jds, budget=1024, spill_dir=str(tmp_path / "jspill")))
+        assert evs[0]["data"] == jevs[0]["data"]
+
+    def test_prefetch_stall_recorded(self):
+        from transmogrifai_tpu.readers import prefetch as JPF
+        from transmogrifai_tpu_torch.readers.prefetch import (ChunkPrefetcher,
+                                                              PrefetchStats)
+
+        def slow_loader(ci):
+            time.sleep(0.02)
+            return ci * 10
+
+        stats = PrefetchStats()
+
+        def drain():
+            with ChunkPrefetcher(slow_loader, 4, stats=stats) as chunks:
+                return [item for _ci, item in chunks]
+
+        evs, got = _recorded(obs_flight, "prefetch_stall", drain)
+        assert got == [0, 10, 20, 30]
+        assert evs, "an immediately-draining consumer must record stalls"
+        assert stats.stalls == len(evs)
+        assert all(ev["data"]["wait_s"] > 0 for ev in evs)
+        assert all(ev["data"]["chunk"] < 4 for ev in evs)
+
+        def jdrain():
+            with JPF.ChunkPrefetcher(slow_loader, 4) as chunks:
+                return [item for _ci, item in chunks]
+
+        jevs, _ = _recorded(JO.flight, "prefetch_stall", jdrain)
+        assert jevs and sorted(evs[0]["data"]) == sorted(jevs[0]["data"])
+
+    def test_chunk_resume_recorded(self, tmp_path):
+        from transmogrifai_tpu.data import chunked as JC
+        from transmogrifai_tpu.data.dataset import Column as JColumn
+        from transmogrifai_tpu.data.dataset import Dataset as JDataset
+        from transmogrifai_tpu.readers import OffsetCheckpoint as JOffsetCheckpoint
+        from transmogrifai_tpu.workflow import ooc as JOoc
+        from transmogrifai_tpu.workflow.dag import compute_dag as j_compute_dag
+        from transmogrifai_tpu_torch.data.chunked import ChunkedDataset
+        from transmogrifai_tpu_torch.data.dataset import Column, Dataset
+        from transmogrifai_tpu_torch.readers import OffsetCheckpoint
+        from transmogrifai_tpu_torch.types import Real, RealNN
+        from transmogrifai_tpu_torch.workflow.dag import compute_dag
+        from transmogrifai_tpu_torch.workflow.ooc import (EpochStats,
+                                                          chunked_transform_epoch)
+
+        rng = np.random.default_rng(3)
+        n = 600
+        nums = [rng.normal(size=n) for _ in range(3)]
+        y = (rng.random(n) > 0.5).astype(np.float64)
+        data = {}
+        for key, pkg, column, dataset, real, realnn in (
+                ("t", None, Column, Dataset, Real, RealNN),
+                ("j", J, JColumn, JDataset, J.types.Real, J.types.RealNN)):
+            cols = {f"num{i}": column(real, v, np.ones(n, dtype=np.bool_))
+                    for i, v in enumerate(nums)}
+            cols["label"] = column(realnn, y, np.ones(n, dtype=np.bool_))
+            fb = FeatureBuilder if pkg is None else pkg.FeatureBuilder
+            tm = transmogrify if pkg is None else pkg.transmogrify
+            label = fb.of("label", realnn).extract_field().as_response()
+            feats = [fb.of(f"num{i}", real).extract_field().as_predictor()
+                     for i in range(3)]
+            checked = label.sanity_check(tm(feats))
+            wf = (Workflow() if pkg is None else pkg.Workflow())
+            m = wf.set_input_dataset(dataset(cols)).set_result_features(
+                label, checked).train()
+            data[key] = (dataset(cols), m)
+
+        out = {}
+        for key, cds_cls, ckpt_cls, dag, epoch, stats_cls, flight in (
+                ("t", ChunkedDataset, OffsetCheckpoint, compute_dag,
+                 chunked_transform_epoch, EpochStats, obs_flight),
+                ("j", JC.ChunkedDataset, JOffsetCheckpoint, j_compute_dag,
+                 JOoc.chunked_transform_epoch, JOoc.EpochStats, JO.flight)):
+            ds, m = data[key]
+            runners = [m.fitted.get(s.uid, s)
+                       for layer in dag(m.result_features) for s in layer]
+            cds = cds_cls.from_dataset(ds, chunk_rows=256,
+                                       spill_dir=str(tmp_path / f"store_{key}"))
+            ckpt = ckpt_cls(str(tmp_path / f"offsets_{key}.json"))
+            epoch(cds, runners, checkpoint=ckpt)
+            # re-run the SAME committed epoch under a recorder: the resume
+            # skips every chunk and records exactly that
+            stats = stats_cls()
+            evs, _ = _recorded(flight, "chunk_resume", lambda: epoch(
+                cds, runners, checkpoint=ckpt, stats=stats))
+            assert stats.chunks_skipped == cds.n_chunks
+            assert len(evs) == 1
+            assert evs[0]["data"]["skipped_chunks"] == cds.n_chunks
+            assert evs[0]["data"]["total_chunks"] == cds.n_chunks
+            out[key] = evs[0]["data"]
+        assert sorted(out["t"]) == sorted(out["j"])
+        assert {k: v for k, v in out["t"].items() if k != "epoch"} == \
+            {k: v for k, v in out["j"].items() if k != "epoch"}
 
 
 # ---------------------------------------------------------------------------

@@ -181,10 +181,25 @@ class TestReaders:
             with pytest.raises(Exception):
                 rb.rows_to_dataset(recs, feats)
 
-    def test_generate_chunked_is_refused_by_name(self):
-        feats = _feats(T, {"x": "Real"})
-        with pytest.raises(NotImplementedError, match="data.chunked"):
-            T_rb.CustomReader(lambda: RECORDS).generate_chunked(feats)
+    def test_generate_chunked_is_refused_by_name(self, tmp_path):
+        """``generate_chunked`` is ported (it was refused by name until the
+        chunked store came): once materialized it equals
+        ``generate_dataset``, in chunks of ``chunk_rows`` records, as in the
+        JAX package; the aggregate readers still refuse it by name."""
+        out = []
+        for key, (pkg, rb) in {"j": (J, J_rb), "t": (T, T_rb)}.items():
+            feats = _feats(pkg, SPEC, response=("y",))
+            cds = rb.CustomReader(lambda: RECORDS).generate_chunked(
+                feats, chunk_rows=2, spill_dir=str(tmp_path / key))
+            assert (cds.n_rows, cds.n_chunks, cds.chunk_rows) == (3, 2, 2)
+            got = cds.materialize()
+            _same_ds(rb.CustomReader(lambda: RECORDS).generate_dataset(feats), got)
+            out.append(got)
+            agg = rb.AggregateReader(rb.CustomReader(lambda: RECORDS),
+                                     key_fn=lambda r: r["id"], time_fn=lambda r: 0)
+            with pytest.raises(NotImplementedError, match="generate_chunked"):
+                agg.generate_chunked(feats)
+        _same_ds(*out)
 
     def _frame(self):
         return pd.DataFrame({"id": ["k1", "k2", "k3"], "x": [1.5, np.nan, -2.0],

@@ -411,7 +411,8 @@ class TestNoJax:
                                       os.path.join("tests", "torch_examples_data.py"),
                                       os.path.join("tests", "torch_maps_data.py"),
                                       os.path.join("tests", "torch_text_data.py"),
-                                      os.path.join("tests", "torch_stream_data.py")])
+                                      os.path.join("tests", "torch_stream_data.py"),
+                                      os.path.join("tests", "torch_ooc_data.py")])
     def test_ast_scan_finds_no_jax_import(self, root):
         path = os.path.join(REPO, root)
         files = [path] if path.endswith(".py") else [
@@ -462,7 +463,8 @@ class TestNoJax:
                         *(("obs", f"{m}.py") for m in (
                             "__init__", "trace", "flight", "reqtrace", "profile")),
                         ("perf", "__init__.py"), ("perf", "timers.py"),
-                        ("utils", "listener.py")):
+                        ("utils", "listener.py"), ("data", "chunked.py"),
+                        ("readers", "prefetch.py"), ("workflow", "ooc.py")):
                 assert os.path.join(path, *mod) in files
         bad = []
         for fn in files:

@@ -220,8 +220,10 @@ class TestEntryPoints:
         wf.train(0.2, 7, ckpt, device="cpu")
         assert sorted(ckpt.load_all()) == sorted(
             s.uid for s in all_stages([pred]) if isinstance(s, Estimator))
-        with pytest.raises(NotImplementedError, match="hbm_budget"):
-            wf.train(0.0, 42, None, False, 1e9, device="cpu")
+        with pytest.raises(NotImplementedError, match="strict"):
+            wf.train(0.0, 42, None, True, device="cpu")
+        # the fifth positional is hbm_budget: a generous one admits the fit
+        assert wf.train(0.0, 7, None, False, 1e12, device="cpu").summary() is not None
         with pytest.raises(TypeError):
             wf.train(0.0, 42, None, False, None, None, None, None, "cpu")
         ref = list(inspect.signature(JWorkflow.train).parameters)
@@ -247,12 +249,36 @@ class TestEntryPoints:
             est.fit(ds)
 
     def test_unported_train_options_raise(self, tmp_path):
+        """``strict`` still raises by name.  ``host_budget`` and
+        ``hbm_budget`` are ported and decide as the JAX package does: a
+        1-byte host budget spills the table and refuses the selector's fit
+        set (TM607); a selector over a raw vector runs no device prefix, so
+        a 16-byte device budget has no plan to refuse and the fit trains."""
+        from transmogrifai_tpu.checkers.diagnostics import OpCheckError as JOpCheckError
+        from transmogrifai_tpu_torch.checkers.diagnostics import OpCheckError
+
+        x, y = _data(n=50)
         label, _, _, pred = _port_wiring()
-        wf = TWorkflow().set_input_dataset(_port_ds(*_data(n=50))) \
-            .set_result_features(label, pred)
-        for kw in ({"strict": True}, {"host_budget": 1}, {"hbm_budget": 1e9}):
-            with pytest.raises(NotImplementedError, match=next(iter(kw))):
-                wf.train(device="cpu", **kw)
+        wf = TWorkflow().set_input_dataset(_port_ds(x, y)).set_result_features(label, pred)
+        with pytest.raises(NotImplementedError, match="strict"):
+            wf.train(device="cpu", strict=True)
+        jlabel = JFB.RealNN("label").extract_field().as_response()
+        jvec = JFB.OPVector("d").extract_field().as_predictor()
+        jsel = JSel.with_cross_validation(num_folds=2, seed=3, models=[
+            (JT.RandomForestClassifier(num_trees=4), RF_GRIDS)])
+        jwf = JWorkflow().set_input_dataset(JDs({
+            "label": JCol.from_values(JRealNN, y.tolist()), "d": JCol.vector(x)})) \
+            .set_result_features(jlabel, jlabel.transform_with(jsel, jvec))
+        with pytest.raises(OpCheckError) as got:
+            wf.train(device="cpu", host_budget=1)
+        with pytest.raises(JOpCheckError) as want:
+            jwf.train(host_budget=1)
+        assert [d.code for d in got.value.report] == \
+            [d.code for d in want.value.report] == ["TM607"]
+        assert jwf.train(hbm_budget=16).summary() is not None
+        assert wf.train(device="cpu", hbm_budget=16).summary() is not None
+        assert wf.train(device="cpu", host_budget=1 << 30,
+                        hbm_budget=1e12).summary() is not None
         # telemetry is ported: the train dumps the reference's three files
         tel = str(tmp_path / "tel")
         wf.train(device="cpu", telemetry=tel)

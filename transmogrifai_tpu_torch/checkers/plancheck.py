@@ -1,6 +1,6 @@
-"""Static device-memory estimate of a scoring plan (the part of
-``transmogrifai_tpu/checkers/plancheck.py`` that admission needs: TM601 and
-the fleet's TM509).
+"""Static device-memory estimates of scoring and training transform plans
+(the part of ``transmogrifai_tpu/checkers/plancheck.py`` that admission
+needs: TM601 and the fleet's TM509).
 
 The reference takes its number from XLA's live-buffer analysis of the traced
 program.  The port has no traced program, so it sizes the prefix itself,
@@ -15,6 +15,13 @@ allocated on any device), at every bucket of the plan's ladder:
   with its temporaries, the copies back), each storage counted once and
   all of them held to the end of the batch — more than the card keeps
   alive at once, never less.
+
+A training plan (``workflow/plan.py::ColumnarTransformPlan``) is sized the
+same way at one row count — the whole table for a flush, the chunk tile for
+a chunked epoch (:func:`analyze_transform_plan`): the staging of its
+entries (the packed 1-D block per dtype and every vector block), the encode
+buffer, every wiring stage with its temporaries and the copies back, all
+held together, plus its stages' constants and the packed splits.
 
 Each allocation is rounded as the CUDA caching allocator rounds its blocks
 (512 bytes), and one above 1 MiB gets 1 MiB more: a cached block that size
@@ -110,19 +117,24 @@ def _torch_dtype(name: str) -> torch.dtype:
     return torch.from_numpy(np.zeros(0, np.dtype(name))).dtype
 
 
-def _meta_batch(plan, rows: int):
-    """Meta operands of one batch of ``rows`` rows, packed as
-    :class:`~..workflow.plan.Staging` packs them: (operands, blocks,
+def _meta_batch(plan, rows: int, specs=None):
+    """Meta operands of one batch of ``rows`` rows (``specs``: the entries'
+    (trailing shape, dtype), default ``plan.entry_specs``), packed as
+    :class:`~..workflow.plan.Staging` packs them, an entry with a trailing
+    shape (a vector block) in a buffer of its own: (operands, blocks,
     staging bytes)."""
+    specs = plan.entry_specs if specs is None else specs
     groups: Dict[str, List[int]] = {}
-    operands: List[Optional[torch.Tensor]] = [None] * len(plan.entry_specs)
-    for i, (trailing, dtype) in enumerate(plan.entry_specs):
+    operands: List[Optional[torch.Tensor]] = [None] * len(specs)
+    staged = 0
+    for i, (trailing, dtype) in enumerate(specs):
         if trailing:
             operands[i] = torch.empty((rows, *trailing), dtype=_torch_dtype(dtype),
                                       device="meta")
+            staged += allocation_bound(operands[i].untyped_storage().nbytes())
         else:
             groups.setdefault(dtype, []).append(i)
-    blocks, staged = [], 0
+    blocks = []
     for dtype, idx in groups.items():
         dev = torch.empty((len(idx), rows), dtype=_torch_dtype(dtype), device="meta")
         staged += allocation_bound(dev.untyped_storage().nbytes())
@@ -171,6 +183,64 @@ def analyze_scoring_plan(plan, buckets: Optional[Sequence[int]] = None
     return report
 
 
+def transform_entry_specs(plan, dataset) -> List[tuple]:
+    """(trailing shape, dtype name) of each entry of a
+    :class:`~..workflow.plan.ColumnarTransformPlan` over ``dataset`` (a
+    ``Dataset`` or ``ChunkedDataset``), from the columns' kinds and widths:
+    nothing is lifted or encoded."""
+    from ..types import ColumnKind
+
+    specs = []
+    for key in plan._entry_keys:
+        if key[0] == "lift":
+            col = dataset[plan._entry_lifts[key].name]
+            trailing = ((int(col.width),) if col.kind is ColumnKind.VECTOR
+                        else (3,) if col.kind is ColumnKind.GEO else ())
+            specs.append((trailing, "float32"))
+        else:
+            runner, slot, _f = plan._entry_encoders[key]
+            trailing, dtype = runner.device_input_spec(slot)
+            specs.append((tuple(trailing), str(np.dtype(dtype))))
+    return specs
+
+
+def analyze_transform_plan(plan, dataset, rows: Optional[int] = None
+                           ) -> PlanCostReport:
+    """The static device-memory estimate of a training
+    :class:`~..workflow.plan.ColumnarTransformPlan` over ``dataset`` at
+    ``rows`` rows (default the dataset's: a whole-table flush; a chunked
+    epoch passes its chunk tile).  One bucket: resident = the staging of the
+    entries, the stages' constants and the packed splits; transient = the
+    encode buffer, the wiring stages and the copies back, all held."""
+    from ..ops._consts import const_store
+
+    rows = int(dataset.n_rows if rows is None else rows)
+    report = PlanCostReport(plan=f"transform/{len(plan._prefix)}stages/{rows}rows")
+    if not plan._prefix:
+        report.notes.append("empty device prefix: every stage runs on host")
+        return report
+    specs = transform_entry_specs(plan, dataset)
+    operands, _, staged = _meta_batch(plan, rows, specs)
+    with const_store({}) as consts, _Allocations() as allocs:
+        env: Dict[str, torch.Tensor] = {}
+        plan._encode(operands, rows, env)
+        plan._run_wiring(operands, env)
+        for uid in plan._out_uids:   # a copy back needs a contiguous source
+            env[uid].contiguous()
+    transient = sum(allocation_bound(n) for n in allocs.storages.values())
+    constants = sum(allocation_bound(t.untyped_storage().nbytes())
+                    for t in consts.values())
+    table = plan._encode_table
+    splits = allocation_bound(table.splits.nbytes) if table is not None \
+        and table.splits.size else 0
+    report.staging_bytes = staged
+    report.constant_bytes = constants + splits
+    report.buckets.append(BucketCost(bucket=rows,
+                                     resident_bytes=staged + constants + splits,
+                                     transient_bytes=transient))
+    return report
+
+
 def _fmt_bytes(b: float) -> str:
     for unit in ("B", "KiB", "MiB", "GiB"):
         if abs(b) < 1024 or unit == "GiB":
@@ -181,7 +251,8 @@ def _fmt_bytes(b: float) -> str:
 
 def cost_diagnostics(report: PlanCostReport,
                      hbm_budget: Optional[float] = None) -> List[Diagnostic]:
-    """TM601 when the peak estimate at some bucket exceeds ``hbm_budget``."""
+    """TM601 when the peak estimate at some bucket (a scoring plan's row
+    bucket, a training plan's rows) exceeds ``hbm_budget``."""
     diags: List[Diagnostic] = []
     if hbm_budget is not None and report.buckets:
         worst = max(report.buckets, key=lambda b: b.peak_hbm_bytes)

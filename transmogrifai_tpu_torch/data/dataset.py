@@ -24,6 +24,98 @@ _NUMERIC_DTYPES = {
     ColumnKind.BOOL: np.bool_,
 }
 
+#: slab granularity of the memmap-aware gather — matches the chunked store's
+#: row-bucket tile (data/chunked.py), so a spilled column's pages are touched
+#: once, chunk by chunk, in ascending order
+_GATHER_SLAB_ROWS = 8192
+
+
+def _gather_rows(data: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    """Row gather that is memory-map aware.
+
+    Plain arrays take the numpy fancy-index fast path.  For a ``np.memmap``
+    source the indices are visited in ASCENDING order in bounded slabs
+    (chunk-local gather): each touched page is read once, sequentially, and
+    the full column is never materialized in host DRAM — peak RSS is the
+    output plus one slab (``tests/test_torch_ooc.py`` pins this).
+    """
+    if not isinstance(data, np.memmap):
+        return data[idx]
+    if idx.dtype == np.bool_:
+        idx = np.flatnonzero(idx)
+    idx = idx.astype(np.intp, copy=False)
+    n_rows = data.shape[0]
+    if idx.size and (int(idx.min()) < -n_rows or int(idx.max()) >= n_rows):
+        # same contract as the plain-array path (numpy raises); a single
+        # +n wrap would silently alias out-of-range indices to valid rows
+        raise IndexError(
+            f"take index out of bounds for memmap of {n_rows} rows")
+    idx = np.where(idx < 0, idx + n_rows, idx)
+    order = np.argsort(idx, kind="stable")
+    sorted_idx = idx[order]
+    out = np.empty((idx.shape[0],) + data.shape[1:], dtype=data.dtype)
+    row_bytes = int(np.prod(data.shape[1:], dtype=np.int64)) \
+        * data.dtype.itemsize
+    release = _mmap_releaser(data)
+    step = _GATHER_SLAB_ROWS
+    s = 0
+    while s < sorted_idx.size:
+        # one slab-aligned group of indices at a time, ascending
+        slab = int(sorted_idx[s]) // step
+        e = int(np.searchsorted(sorted_idx, (slab + 1) * step, side="left"))
+        sl, pos = sorted_idx[s:e], order[s:e]
+        if sl.size * 32 >= step:
+            # dense group: one sequential slab read, in-memory gather
+            lo = slab * step
+            block = np.asarray(data[lo:min(lo + step, data.shape[0])])
+            out[pos] = block[sl - lo]
+        else:
+            # sparse group: per-element reads touch only the pages holding
+            # the requested rows (a whole-group fancy-index on a memmap
+            # faults the entire map resident)
+            for j in range(sl.size):
+                out[pos[j]] = data[sl[j]]
+        # drop the map's resident pages up to the end of this group: the
+        # ascending walk never revisits them, and without the release the
+        # kernel's fault-around keeps every touched (clean, file-backed)
+        # page counted in RSS until memory pressure — exactly the residency
+        # the budget gate is supposed to bound
+        release((slab + 1) * step * row_bytes)
+        s = e
+    return out
+
+
+def _mmap_releaser(data: "np.memmap"):
+    """Page-release hook for the ascending memmap gather: returns
+    ``release(end_byte)`` advising the kernel the map's prefix up to
+    ``end_byte`` (array-relative) is no longer needed.  No-op where madvise
+    is unavailable; pages refault transparently if re-read later."""
+    import mmap as _mmap_mod
+
+    buf = getattr(data, "_mmap", None)
+    advise = getattr(buf, "madvise", None)
+    dontneed = getattr(_mmap_mod, "MADV_DONTNEED", None)
+    if advise is None or dontneed is None:  # pragma: no cover — non-linux
+        return lambda end_byte: None
+    page = _mmap_mod.PAGESIZE
+    base = int(getattr(data, "offset", 0))
+    prev = 0  # high-water mark: advise only the newly-consumed delta
+
+    def release(end_byte: int) -> None:
+        nonlocal prev
+        end = min(((base + end_byte) // page) * page,  # floor: never drop ahead
+                  len(buf))
+        if end <= prev:
+            return
+        try:
+            advise(dontneed, prev, end - prev)
+        except (OSError, ValueError):  # pragma: no cover — best-effort
+            pass
+        prev = end
+
+    return release
+
+
 
 class Column:
     """A single typed column: values + (for numeric kinds) validity mask."""
@@ -92,8 +184,8 @@ class Column:
     def take(self, indices: np.ndarray) -> "Column":
         """The rows at ``indices`` (positions), type and metadata kept."""
         indices = np.asarray(indices)
-        mask = self.mask[indices] if self.mask is not None else None
-        return Column(self.ftype, self.data[indices], mask, self.meta)
+        mask = _gather_rows(self.mask, indices) if self.mask is not None else None
+        return Column(self.ftype, _gather_rows(self.data, indices), mask, self.meta)
 
     @property
     def kind(self) -> ColumnKind:

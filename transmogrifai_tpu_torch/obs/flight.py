@@ -33,11 +33,19 @@ events of:
   :class:`~..serve.faults.FaultHarness` injected; when the recorder has a
   ``dump_dir``, each injected fault auto-dumps the ring buffer (bounded
   count), so the harness run leaves a postmortem artifact.
-- ``train_retry`` / ``degrade_bucket_shrink`` / ``sweep_block_resume`` —
-  the training resilience trail (workflow/resilience.py,
-  models/tuning.py): every backoff retry with its fault point and delay,
-  every next-smaller row bucket, and every sweep block a durable journal
-  let a re-run skip.
+- ``train_retry`` / ``degrade_bucket_shrink`` / ``sweep_block_resume`` /
+  ``chunk_resume`` — the training resilience trail (workflow/resilience.py,
+  models/tuning.py, workflow/ooc.py): every backoff retry with its fault
+  point and delay, every next-smaller row bucket, every sweep block a
+  durable journal let a re-run skip, and every chunked-epoch prefix a
+  committed chunk offset let a re-run skip (``epoch``,
+  ``skipped_chunks``, ``total_chunks``).
+- ``spill_activation`` — a table over the host budget spilled to the
+  chunked store (data/chunked.py ``maybe_chunk``: ``dataset_bytes``,
+  ``host_budget``, ``chunk_rows``).
+- ``prefetch_stall`` — the chunk consumer waited on an empty prefetch
+  buffer for longer than a millisecond (readers/prefetch.py: ``chunk``,
+  ``wait_s``).
 
 Like the fault harness, the recorder is process-global while installed (the
 batcher flusher is another thread, so a contextvar would not reach it);

@@ -17,7 +17,9 @@ happen, by a direct call into :func:`note_compile` (nothing polls):
   ``nvcc`` had to build a miss, and ``compile_seconds`` sums ``nvcc``'s
   seconds;
 - a serving plan's first allocation for a row bucket: its staging buffers
-  or a landing set (``serve/plan.py``).
+  or a landing set (``serve/plan.py``);
+- a chunked epoch's one chunk tile: the pinned staging and encode buffer
+  every chunk of the epoch reuses (``workflow/plan.py::TileBuffers``).
 
 Each also lands one ``backend_compile`` flight event under the calling
 thread's ``compile_context`` (``obs/flight.py``), so one inside a warm
@@ -168,14 +170,14 @@ def phase(name: str) -> _Phase:
 # ---------------------------------------------------------------------------
 
 #: the kinds :func:`note_compile` counts (``CompileStats.events`` keys)
-COMPILE_KINDS = ("nvcc_build", "library_load", "staging", "landing")
+COMPILE_KINDS = ("nvcc_build", "library_load", "staging", "landing", "chunk_tile")
 
 
 @dataclass
 class CompileStats:
     """Cumulative compile counters (process-wide since import):
-    ``backend_compiles`` = kernel builds + library loads + bucket
-    allocations; ``trace_seconds`` stays 0 (nothing is traced)."""
+    ``backend_compiles`` = kernel builds + library loads + bucket and
+    chunk-tile allocations; ``trace_seconds`` stays 0 (nothing is traced)."""
 
     backend_compiles: int = 0
     compile_seconds: float = 0.0

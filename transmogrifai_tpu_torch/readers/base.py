@@ -7,8 +7,8 @@ CSVReaders.scala, ParquetProductReader.scala, DataReaders.scala factory.
 Ingestion is host work: columnar from a pandas frame with a fast path when a
 feature's extract function is a named-field read, per record for arbitrary
 extract functions, and aggregate/conditional readers apply monoid event
-aggregation with cutoff semantics.  The chunked out-of-core path
-(``generate_chunked``) needs ``data/chunked.py``, which is not ported yet.
+aggregation with cutoff semantics.  ``generate_chunked`` streams the
+records straight into a chunked spill store (``data/chunked.py``).
 """
 
 from __future__ import annotations
@@ -49,11 +49,25 @@ class Reader:
     def generate_chunked(self, raw_features: Sequence[Feature],
                          chunk_rows: Optional[int] = None,
                          spill_dir: Optional[str] = None):
-        """Out-of-core ingestion into a chunked spill store: needs
-        ``data.chunked``, which is not ported yet."""
-        raise NotImplementedError(
-            f"{type(self).__name__}.generate_chunked: data.chunked is not "
-            "ported to transmogrifai_tpu_torch yet")
+        """Out-of-core ingestion: stream ``read_records()`` straight into a
+        chunked spill store, ``chunk_rows`` records (default 8192) a chunk,
+        so the whole table is never resident on the host; returns a
+        :class:`~..data.chunked.ChunkedDataset`."""
+        from ..data.chunked import DEFAULT_CHUNK_ROWS, ChunkedDatasetWriter
+
+        chunk_rows = int(chunk_rows or DEFAULT_CHUNK_ROWS)
+        gens = _generators(raw_features)
+        named = [(f.name, g) for f, g in zip(raw_features, gens)]
+        writer = ChunkedDatasetWriter(chunk_rows=chunk_rows, spill_dir=spill_dir)
+        buf: List[Any] = []
+        for r in self.read_records():
+            buf.append(r)
+            if len(buf) == chunk_rows:
+                writer.append(Dataset(extract_columns(buf, named)))
+                buf = []
+        if buf:
+            writer.append(Dataset(extract_columns(buf, named)))
+        return writer.finish()
 
 
 def extract_columns(records: Sequence[Any], named_gens,

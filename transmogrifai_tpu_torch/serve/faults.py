@@ -17,6 +17,20 @@ The server also fires ``shed`` (the batcher's backpressure reclaim), and
 ``shadow``, ``swap`` and ``rollback`` (``serve/swap.py``), each before its
 phase mutates anything.
 
+Training-path fault points (``workflow/resilience.py``: each retried with
+bounded backoff under ``resilient_training``, a plain raise otherwise):
+
+- ``ingest_chunk``     — one chunk of a chunked epoch, before its device
+  prefix runs (``workflow/ooc.py``);
+- ``prefetch``         — the background chunk loader, on its worker thread
+  (``readers/prefetch.py``);
+- ``stage_fit``        — each estimator fit (``workflow/fit.py``);
+- ``sweep_dispatch``   — one family's fold x grid launch
+  (``models/tuning.py``);
+- ``device_sync``      — the blocking fetch of a sweep's scores
+  (``models/base.py::gather_scores``);
+- ``checkpoint_write`` — a stage checkpoint or a sweep-journal commit.
+
 Usage in tests::
 
     harness = FaultHarness(seed=0)

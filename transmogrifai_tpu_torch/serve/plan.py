@@ -448,6 +448,8 @@ class CompiledScoringPlan(DevicePrefix):
         self.last_timings: Dict[str, float] = {}
         #: the same, with rows and bucket, of the most recent batches
         self.batch_timings: "deque[Dict[str, float]]" = deque(maxlen=4096)
+        #: the prefetcher's counters of the last chunked :meth:`score_dataset`
+        self.last_prefetch: Dict[str, Any] = {}
         self._entry_specs = self._compute_entry_specs()
         # the class joins the hash only when it is not f32, so an f32
         # plan's fingerprint stays what it was before precision classes
@@ -1014,6 +1016,78 @@ class CompiledScoringPlan(DevicePrefix):
                      "bucket": handle.bucket if handle is not None else 0})
             return out
         return _finalize
+
+    def score_dataset(self, dataset, sink=None):
+        """Batch scoring of a (possibly chunked) dataset of raw columns.
+
+        An in-memory ``Dataset`` decodes to records and runs through
+        :meth:`score`; a :class:`~..data.chunked.ChunkedDataset` goes chunk
+        by chunk, the NEXT chunk's disk read and record decode prefetched
+        behind the current chunk's scoring (``readers/prefetch.py``), each
+        chunk one :meth:`score` call: one encode launch when the chunk fits
+        ``max_bucket``.  ``last_prefetch`` keeps the prefetcher's counters.
+
+        Without a ``sink`` the rows of the WHOLE table return as one list;
+        ``sink(rows)`` (called once per chunk, in order) streams them
+        instead and the call returns the row count, so host residency stays
+        one chunk.  Only features with named-field extracts can be scored
+        from columns (a custom extract's record shape cannot be rebuilt:
+        score those records with :meth:`score`)."""
+        from ..data.chunked import ChunkedDataset
+
+        if not isinstance(dataset, ChunkedDataset):
+            rows = self.score(self._records_of(dataset))
+            if sink is None:
+                return rows
+            sink(rows)
+            return len(rows)
+        from ..readers.prefetch import ChunkPrefetcher, PrefetchStats
+
+        raw_names = [g.raw_name for g in self._generators if g.raw_name in dataset]
+        self._check_named_extracts(dataset)
+
+        def loader(ci):
+            # the whole ingest half runs on the prefetch worker: the chunk's
+            # raw columns off the spill store and their decode to records
+            return self._records_of(dataset.chunk(ci, names=raw_names))
+
+        out: List[Dict[str, Any]] = []
+        count = 0
+        stats = PrefetchStats()
+        with ChunkPrefetcher(loader, dataset.n_chunks, stats=stats) as chunks:
+            for _ci, records in chunks:
+                rows = self.score(records)
+                count += len(rows)
+                if sink is None:
+                    out.extend(rows)
+                else:
+                    sink(rows)
+        self.last_prefetch = stats.to_dict()
+        return count if sink is not None else out
+
+    def _check_named_extracts(self, ds) -> None:
+        """Refuse dataset scoring when a generator has a custom extract:
+        re-running it over the rebuilt {field: value} record would read the
+        wrong shape."""
+        custom = [g.raw_name for g in self._generators
+                  if g.raw_name in ds
+                  and not isinstance(getattr(g, "extract_fn", None), _NamedExtract)]
+        if custom:
+            raise ValueError(
+                f"score_dataset needs named-field extracts, but feature(s) "
+                f"{sorted(custom)} use custom extract fns whose original "
+                f"record shape cannot be rebuilt from columns — score the "
+                f"raw records via plan.score(records) instead")
+
+    def _records_of(self, ds: Dataset) -> List[Dict[str, Any]]:
+        """Raw-record dicts (keyed by each generator's extract key) from a
+        dataset of raw columns: the columnar-to-record decode dataset
+        scoring feeds through :meth:`score`."""
+        self._check_named_extracts(ds)
+        keys = [(g.extract_fn.key, g.raw_name) for g in self._generators
+                if g.raw_name in ds]
+        cols = {raw: ds[raw].to_values() for _k, raw in keys}
+        return [{k: cols[raw][i] for k, raw in keys} for i in range(ds.n_rows)]
 
     def score_host(self, records: Sequence[Mapping[str, Any]]
                    ) -> List[Dict[str, Any]]:

@@ -20,7 +20,14 @@ label-dependent stages re-fitted inside every fold.  Under
 ``resilient_training`` (``Workflow.train(resume=...)``) a stage fit retries
 transient faults (the ``stage_fit`` fault point) and every fold's sweep is a
 journaled block; ``on_fit`` hands each fitted model to a stage
-checkpointer.  The reference's out-of-core epochs are not ported.
+checkpointer.
+
+A :class:`~..data.chunked.ChunkedDataset` takes the out-of-core twins
+(``workflow/ooc.py``): each flush a chunked epoch (one encode launch per
+chunk tile, outputs spilled), each estimator fit over its materialized
+input columns only.  ``hbm_budget`` arms the TM601 gate on every plan a fit
+runs (``workflow/plan.py::check_plan_hbm_budget``); ``host_budget`` the
+TM607 gate on every materialization a chunked fit cannot avoid.
 """
 
 from __future__ import annotations
@@ -40,17 +47,26 @@ from .plan import fused_fold_transforms, fused_transform
 def fit_dag(dataset: Dataset, result_features: Sequence[Feature],
             fitted: Optional[Dict[str, Transformer]] = None,
             device=None, profile: Optional[list] = None,
-            on_fit: Optional[Callable[[Transformer], None]] = None
+            on_fit: Optional[Callable[[Transformer], None]] = None,
+            hbm_budget: Optional[float] = None,
+            host_budget: Optional[float] = None
             ) -> Tuple[Dataset, Dict[str, Transformer]]:
     """Fit every estimator and apply every transformer.  Returns
     (transformed dataset, {stage uid: fitted transformer}); stages already
-    in ``fitted`` are reused.  ``profile``, ``on_fit``: see
+    in ``fitted`` are reused.  ``profile``, ``on_fit``, the budgets: see
     :func:`fit_stage_list`."""
     fitted = dict(fitted or {})
     stages = [s for layer in compute_dag(result_features) for s in layer]
     dataset = fit_stage_list(dataset, stages, fitted, device=device,
-                             profile=profile, on_fit=on_fit)
+                             profile=profile, on_fit=on_fit,
+                             hbm_budget=hbm_budget, host_budget=host_budget)
     return dataset, fitted
+
+
+def _is_chunked(dataset) -> bool:
+    from ..data.chunked import ChunkedDataset
+
+    return isinstance(dataset, ChunkedDataset)
 
 
 def _resolve(stage: PipelineStage, fitted: Dict[str, Transformer]):
@@ -78,63 +94,84 @@ def _needed(pending: List[Transformer], stage: PipelineStage,
     return [r for r in pending if id(r) in need]
 
 
-def fit_stage_list(dataset: Dataset, stages, fitted: Dict[str, Transformer],
-                   device=None, profile: Optional[list] = None,
-                   on_fit: Optional[Callable[[Transformer], None]] = None
-                   ) -> Dataset:
-    """Fit/transform an explicit stage list in topological order; fitted
-    models land in ``fitted`` under their estimator's uid, and ``on_fit``
-    (when given) receives each as it is fitted.  With ``profile`` (a list),
-    appends one record per estimator fit (``{"kind": "fit", "stage": class
-    name, "seconds": ...}``) and one per flush (the plan's timings,
-    :func:`~.plan.fused_transform`).  Each fit is a ``fit.<stage>`` phase
-    (``perf/timers.py``) and, with a stage-metrics listener active
-    (``utils/listener.py``), a ``fit`` record; the flushes report their
-    stages as ``transform`` records."""
+def _fit_stage(stage: Estimator, dataset: Dataset, fitted: Dict[str, Transformer],
+               device=None, profile: Optional[list] = None,
+               on_fit: Optional[Callable[[Transformer], None]] = None) -> Transformer:
+    """Fit one estimator on ``dataset`` (retried with bounded backoff under
+    ``resilient_training``: a fit is pure given its inputs), as a
+    ``fit.<stage>`` phase and a listener's ``fit`` record; its model lands
+    in ``fitted`` and goes to ``on_fit``."""
     from ..perf.timers import phase
     from ..serve.faults import fault_point
     from ..utils.listener import stage_timer
     from .plan import operation_name
     from .resilience import retry_call
 
+    def fit_once():
+        fault_point("stage_fit", stage=stage.uid)
+        return stage.fit(dataset, device=device)
+
+    t0 = time.perf_counter()
+    with phase(f"fit.{operation_name(stage)}"), \
+            stage_timer(stage, "fit", dataset) as finish:
+        runner = retry_call(fit_once, "stage_fit", stage=stage.uid)
+        finish(None)
+    if profile is not None:
+        profile.append({"kind": "fit", "stage": type(stage).__name__,
+                        "uid": stage.uid, "seconds": time.perf_counter() - t0})
+    fitted[stage.uid] = runner
+    if on_fit is not None:
+        on_fit(runner)
+    return runner
+
+
+def fit_stage_list(dataset: Dataset, stages, fitted: Dict[str, Transformer],
+                   device=None, profile: Optional[list] = None,
+                   on_fit: Optional[Callable[[Transformer], None]] = None,
+                   hbm_budget: Optional[float] = None,
+                   host_budget: Optional[float] = None) -> Dataset:
+    """Fit/transform an explicit stage list in topological order; fitted
+    models land in ``fitted`` under their estimator's uid, and ``on_fit``
+    (when given) receives each as it is fitted.  With ``profile`` (a list),
+    appends one record per estimator fit (``{"kind": "fit", "stage": class
+    name, "seconds": ...}``) and one per flush (the plan's timings,
+    :func:`~.plan.fused_transform`; a chunked epoch's ``{"kind":
+    "epoch"}``).  Each fit is a ``fit.<stage>`` phase (``perf/timers.py``)
+    and, with a stage-metrics listener active (``utils/listener.py``), a
+    ``fit`` record; the flushes report their stages as ``transform``
+    records.  A :class:`~..data.chunked.ChunkedDataset` takes
+    ``workflow/ooc.py::fit_stage_list_chunked``; ``hbm_budget`` gates every
+    flush's plan (TM601), ``host_budget`` a chunked fit's materializations
+    (TM607)."""
+    if _is_chunked(dataset):
+        from .ooc import fit_stage_list_chunked
+
+        return fit_stage_list_chunked(dataset, stages, fitted, on_fit=on_fit,
+                                      hbm_budget=hbm_budget,
+                                      host_budget=host_budget, device=device,
+                                      profile=profile)
     pending: List[Transformer] = []
     for stage in stages:
         runner = _resolve(stage, fitted)
         if runner is None:
             if pending and any(f.name not in dataset for f in stage.inputs):
                 now = _needed(pending, stage, dataset)
-                dataset = fused_transform(dataset, now, device, profile)
+                dataset = fused_transform(dataset, now, device, profile,
+                                          hbm_budget=hbm_budget)
                 pending = [r for r in pending if all(r is not x for x in now)]
-
-            def fit_once(_stage=stage, _ds=dataset):
-                fault_point("stage_fit", stage=_stage.uid)
-                return _stage.fit(_ds, device=device)
-
-            t0 = time.perf_counter()
-            # retried with bounded backoff under resilient_training (a fit
-            # is pure given its inputs); a plain call otherwise.  Each fit
-            # is a fit.<stage> phase and a listener's "fit" record
-            with phase(f"fit.{operation_name(stage)}"), \
-                    stage_timer(stage, "fit", dataset) as finish:
-                runner = retry_call(fit_once, "stage_fit", stage=stage.uid)
-                finish(None)
-            if profile is not None:
-                profile.append({"kind": "fit", "stage": type(stage).__name__,
-                                "uid": stage.uid,
-                                "seconds": time.perf_counter() - t0})
-            fitted[stage.uid] = runner
-            if on_fit is not None:
-                on_fit(runner)
+            runner = _fit_stage(stage, dataset, fitted, device=device,
+                                profile=profile, on_fit=on_fit)
         pending.append(runner)
     if pending:
-        dataset = fused_transform(dataset, pending, device, profile)
+        dataset = fused_transform(dataset, pending, device, profile,
+                                  hbm_budget=hbm_budget)
     return dataset
 
 
-def transform_dag(dataset: Dataset, result_features: Sequence[Feature],
-                  fitted: Dict[str, Transformer], device) -> Dataset:
-    """Scoring: apply every fitted runner of the DAG to ``dataset`` through
-    one whole-table plan (no fitting; an unfitted estimator raises)."""
+def _runners(result_features: Sequence[Feature],
+             fitted: Dict[str, Transformer]) -> List[Transformer]:
+    """Every fitted runner of the DAG in topological order (an unfitted
+    estimator raises)."""
     runners = []
     for layer in compute_dag(result_features):
         for stage in layer:
@@ -144,11 +181,27 @@ def transform_dag(dataset: Dataset, result_features: Sequence[Feature],
                     f"Stage {stage.uid} is an unfitted estimator; cannot score. "
                     "Train the workflow first.")
             runners.append(runner)
-    return fused_transform(dataset, runners, device)
+    return runners
+
+
+def transform_dag(dataset: Dataset, result_features: Sequence[Feature],
+                  fitted: Dict[str, Transformer], device) -> Dataset:
+    """Scoring: apply every fitted runner of the DAG to ``dataset`` through
+    one whole-table plan (no fitting; an unfitted estimator raises).  A
+    :class:`~..data.chunked.ChunkedDataset` goes chunk by chunk through
+    one epoch (``workflow/ooc.py::transform_dag_chunked``) and comes back
+    chunked."""
+    if _is_chunked(dataset):
+        from .ooc import transform_dag_chunked
+
+        return transform_dag_chunked(dataset, result_features, fitted, device)
+    return fused_transform(dataset, _runners(result_features, fitted), device)
 
 
 def workflow_cv_validate(ds_before: Dataset, during, selector, device,
-                         profile: Optional[list] = None):
+                         profile: Optional[list] = None,
+                         hbm_budget: Optional[float] = None,
+                         host_budget: Optional[float] = None):
     """In-fold feature engineering CV (counterpart of the reference's
     ``workflow_cv_validate``): for every fold, copies of the label-dependent
     ``during`` stages (uids kept: the fold maps are keyed by uid) fit on the
@@ -159,10 +212,23 @@ def workflow_cv_validate(ds_before: Dataset, during, selector, device,
     own CV does.  Returns the ValidationResult the selector is seeded with.
     With ``profile`` (a list), the fold fits' records carry ``"fold": f``,
     then come the fold transform's record and one ``{"kind": "fold_sweep"}``
-    record per fold (host seconds by family)."""
+    record per fold (host seconds by family).  A chunked ``ds_before``
+    materializes exactly the ``during`` stages' inputs, the label, the
+    vector and ``__sample_weight__``, behind the TM607 gate of
+    ``host_budget``; ``hbm_budget`` gates the fold fits' flushes and the
+    fold transform (TM601)."""
     from ..models.tuning import sweep_families
 
     label_f, vec_f = selector.inputs[0], selector.inputs[1]
+    if _is_chunked(ds_before):
+        from .ooc import _gate_fit_residency
+
+        need = {label_f.name, vec_f.name, "__sample_weight__"}
+        for s in during:
+            need.update(fi.name for fi in s.inputs)
+        names = [n for n in ds_before.names if n in need]
+        _gate_fit_residency(ds_before, selector, names, host_budget)
+        ds_before = ds_before.materialize(names)
     if label_f.name not in ds_before:
         raise ValueError("workflow CV: label column not materialized before selector")
     y = ds_before[label_f.name].data.astype(np.float32)
@@ -188,7 +254,8 @@ def workflow_cv_validate(ds_before: Dataset, during, selector, device,
         copies = [s.copy() for s in during]
         fold_profile: Optional[list] = [] if profile is not None else None
         fit_stage_list(ds_fit_view.take(np.flatnonzero(train_w[f] > 0)), copies,
-                       fold_fitted, device=device, profile=fold_profile)
+                       fold_fitted, device=device, profile=fold_profile,
+                       hbm_budget=hbm_budget)
         if profile is not None:
             profile.extend({**r, "fold": f} for r in fold_profile)
         # plain transformers in the cut have no fitted entry: the copy runs
@@ -196,7 +263,7 @@ def workflow_cv_validate(ds_before: Dataset, during, selector, device,
 
     fold_datasets = fused_fold_transforms(
         ds_before, during, fold_runner_maps, device,
-        keep=frozenset({vec_f.name}), profile=profile)
+        keep=frozenset({vec_f.name}), profile=profile, hbm_budget=hbm_budget)
 
     scores: List[List[np.ndarray]] = []
     seconds: Dict[str, float] = {}

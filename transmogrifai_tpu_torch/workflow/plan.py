@@ -31,6 +31,13 @@ such plans: a flush runs one, :class:`FoldTransformPlan` the k fold-fitted
 variants of one prefix (workflow-level CV), every fold's encode slots in
 one slot table.  Unlike the reference, a planning or launch failure
 raises: nothing falls back to the per-stage host path.
+
+A chunked epoch (``workflow/ooc.py``) runs one plan over every chunk of a
+table with ``apply_prefix(chunk, tile=rows)``: the chunk is staged into the
+plan's one :class:`TileBuffers` (pinned staging, vector blocks and encode
+buffer of ``tile`` rows, allocated at the first chunk and counted as one
+compile), so chunks 2..N allocate nothing.  ``hbm_budget`` arms the TM601
+gate (:func:`check_plan_hbm_budget`) before any launch.
 """
 
 from __future__ import annotations
@@ -224,6 +231,66 @@ def place_entries(entries: List[np.ndarray], keys: Sequence[tuple], n: int,
     return ops, copies
 
 
+class TileBuffers:
+    """The device buffers of one chunk tile of ``tile`` rows, allocated once
+    and refilled by every chunk of an epoch: the 1-D entries packed in one
+    :class:`Staging`, each vector entry in its own pinned host buffer and
+    device block, and the encode buffer (:func:`encode_buffer`).  Rows past
+    a chunk's ``n`` are zeroed, so the tail chunk runs the same tile.  The
+    allocation is counted as one ``chunk_tile`` compile
+    (``perf/timers.py::note_compile``)."""
+
+    def __init__(self, entries: List[np.ndarray], tile: int, width: int,
+                 device: torch.device):
+        from ..perf.timers import note_compile
+
+        t0 = time.perf_counter()
+        on_card = device.type == "cuda"
+        self.tile = int(tile)
+        self._flat = [i for i, e in enumerate(entries) if e.ndim == 1]
+        self.staging = Staging(tuple(entries[i].dtype for i in self._flat),
+                               self.tile, device) if self._flat else None
+        self._blocks: Dict[int, tuple] = {}
+        for i, e in enumerate(entries):
+            if e.ndim == 1:
+                continue
+            host = torch.from_numpy(np.zeros((self.tile, *e.shape[1:]), e.dtype))
+            if on_card:
+                host = host.pin_memory()
+            self._blocks[i] = (host.numpy(), host,
+                               host.to(device) if on_card else host)
+        self.copied = torch.cuda.Event() if on_card and self._blocks else None
+        self.encode = encode_buffer(self.tile, width, device) if width else None
+        note_compile("chunk_tile", time.perf_counter() - t0, rows=self.tile,
+                     entries=len(entries))
+
+    def load(self, entries: List[np.ndarray], n: int
+             ) -> Tuple[List[torch.Tensor], int]:
+        """The chunk's ``n`` rows of entries into the tile's buffers, their
+        copies to the device started; returns (operands, copies)."""
+        if n > self.tile:
+            raise ValueError(f"a chunk of {n} rows exceeds the tile of {self.tile}")
+        ops: List[Optional[torch.Tensor]] = [None] * len(entries)
+        copies = 0
+        if self.staging is not None:
+            copies += self.staging.load([entries[i] for i in self._flat], n)
+            for j, i in enumerate(self._flat):
+                ops[i] = self.staging.operands[j]
+        if self.copied is not None:
+            # a pinned block is refilled only once its last copy finished
+            self.copied.synchronize()
+        for i, (host_np, host, dev) in self._blocks.items():
+            host_np[:n] = entries[i]
+            host_np[n:] = 0
+            if dev is not host:
+                dev.copy_(host, non_blocking=True)
+                copies += 1
+            ops[i] = dev
+        if self.copied is not None:
+            self.copied.record(torch.cuda.current_stream(dev.device))
+        return ops, copies
+
+
 class DevicePrefix:
     """The device prefix of topo-ordered fitted ``runners`` under an entry
     rule, wired for execution on ``device`` (the shared half of the serving
@@ -404,6 +471,9 @@ class ColumnarTransformPlan(DevicePrefix):
         #: columns), by the inputs' types: a plan kept across batches
         #: (``local/scoring.py``) replays the prefix's metadata once
         self._info_cache: Dict[tuple, Dict[str, Column]] = {}
+        #: the chunk tile's buffers (:class:`TileBuffers`), kept across the
+        #: chunks of an epoch
+        self._tile_buffers: Optional[TileBuffers] = None
         self.last_timings: Dict[str, float] = {}
 
     @property
@@ -443,16 +513,18 @@ class ColumnarTransformPlan(DevicePrefix):
         plan's device (what :meth:`apply_prefix` passes to its launch)."""
         return JointPrefix([self]).encode_operands(dataset)
 
-    def apply_prefix(self, dataset: Dataset) -> Dataset:
+    def apply_prefix(self, dataset: Dataset, tile: Optional[int] = None) -> Dataset:
         """Run the device prefix over the whole table, appending every
-        prefix stage's output column."""
+        prefix stage's output column.  ``tile`` (a chunked epoch's chunk
+        rows) runs the table through this plan's :class:`TileBuffers` of
+        that many rows instead of buffers sized to the table."""
         from ..perf.timers import phase
 
         if not self._prefix:
             return dataset
         joint = JointPrefix([self])
         with phase("transform.fused_plan"):
-            (out,) = joint.apply_prefix(dataset)
+            (out,) = joint.apply_prefix(dataset, tile=tile)
         self.last_timings = joint.last_timings
         return out
 
@@ -528,12 +600,25 @@ class JointPrefix:
         ops, _ = place_entries(entries, keys, dataset.n_rows, self.device)
         return [ops[plan_ops[f][i]] for f, i in self._inputs]
 
-    def apply_prefix(self, dataset: Dataset, keep: Optional[frozenset] = None
-                     ) -> List[Dataset]:
+    def _tile(self, entries: List[np.ndarray], tile: int) -> TileBuffers:
+        """The first plan's tile buffers, built at its first chunk of
+        ``tile`` rows (a plan's entries keep their dtypes and widths)."""
+        owner = self.plans[0]
+        if owner._tile_buffers is None or owner._tile_buffers.tile != tile:
+            owner._tile_buffers = TileBuffers(
+                entries, tile, self.table.width if self.table is not None else 0,
+                self.device)
+        return owner._tile_buffers
+
+    def apply_prefix(self, dataset: Dataset, keep: Optional[frozenset] = None,
+                     tile: Optional[int] = None) -> List[Dataset]:
         """Every plan's prefix over the whole table: one dataset per plan,
         ``dataset`` plus that plan's prefix outputs (only the columns named
-        in ``keep``, when given)."""
+        in ``keep``, when given).  With ``tile`` the table (at most ``tile``
+        rows) runs through the first plan's :class:`TileBuffers`: every
+        launch covers the tile's rows, the outputs' first ``n`` come back."""
         n = dataset.n_rows
+        rows = n if tile is None else int(tile)
         on_card = self.device.type == "cuda"
 
         def sync():
@@ -544,13 +629,20 @@ class JointPrefix:
         infos = [p._out_info(dataset) for p in self.plans]
         entries, keys, plan_ops = self._entries(dataset)
         t1 = time.perf_counter()
-        ops, h2d = place_entries(entries, keys, n, self.device)
+        if tile is None:
+            ops, h2d = place_entries(entries, keys, n, self.device)
+            buf = None
+        else:
+            tb = self._tile(entries, rows)
+            ops, h2d = tb.load(entries, n)
+            buf = tb.encode
         sync()
         t2 = time.perf_counter()
         envs: List[Dict[str, torch.Tensor]] = [{} for _ in self.plans]
         launches0 = KE.thread_encode_launches()
         if self.table is not None:
-            buf = encode_buffer(n, self.table.width, self.device)
+            if buf is None:
+                buf = encode_buffer(rows, self.table.width, self.device)
             if on_card:
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
@@ -567,7 +659,15 @@ class JointPrefix:
             p._run_wiring([ops[g] for g in plan_ops[f]], envs[f])
         sync()
         t3 = time.perf_counter()
-        outs = [{u: envs[f][u].cpu().numpy() for u in p._out_uids
+        # on the CPU ``.cpu()`` aliases: a tile's buffers are refilled by the
+        # next chunk, so its outputs are copied out
+        own = tile is not None and not on_card
+
+        def host(t: torch.Tensor) -> np.ndarray:
+            arr = t[:n].cpu().numpy()
+            return arr.copy() if own else arr
+
+        outs = [{u: host(envs[f][u]) for u in p._out_uids
                  if keep is None or p._out_names[u] in keep}
                 for f, p in enumerate(self.plans)]
         t4 = time.perf_counter()
@@ -606,16 +706,51 @@ class FoldTransformPlan(JointPrefix):
                           for r in fold_runners])
 
 
+def check_plan_hbm_budget(plan: ColumnarTransformPlan, dataset, hbm_budget: float,
+                          rows: Optional[int] = None):
+    """TM601 admission gate on a training plan: its static peak
+    device-memory estimate over ``dataset`` at ``rows`` rows
+    (``checkers/plancheck.py::analyze_transform_plan``, a meta-tensor trace:
+    nothing is allocated) against ``hbm_budget``; an over-budget plan raises
+    :class:`~..checkers.diagnostics.OpCheckError` before anything launches.
+    Returns the :class:`~..checkers.plancheck.PlanCostReport` of an admitted
+    plan.  An analyzer failure fails closed as TM606: the armed budget
+    cannot be evaluated, and running the unchecked plan would admit
+    anything."""
+    from ..checkers.diagnostics import DiagnosticReport, OpCheckError, make_diagnostic
+    from ..checkers.plancheck import analyze_transform_plan, cost_diagnostics
+
+    try:
+        report = analyze_transform_plan(plan, dataset, rows)
+        diags = [d for d in cost_diagnostics(report, hbm_budget=hbm_budget)
+                 if d.code == "TM601"]
+    except Exception as e:  # noqa: BLE001 — fail closed, not raw
+        raise OpCheckError(DiagnosticReport(diagnostics=[make_diagnostic(
+            "TM606",
+            f"hbm_budget contract requested but the plan cost could not be "
+            f"computed ({type(e).__name__}: {e})")])) from e
+    if diags:
+        raise OpCheckError(DiagnosticReport(diagnostics=diags, plan_cost=report))
+    return report
+
+
 def fused_fold_transforms(dataset: Dataset, during: Sequence[Any],
                           fold_runner_maps: Sequence[Dict[str, Any]], device=None,
                           keep: Optional[frozenset] = None,
-                          profile: Optional[list] = None) -> List[Dataset]:
+                          profile: Optional[list] = None,
+                          hbm_budget: Optional[float] = None) -> List[Dataset]:
     """Apply every fold's fitted ``during`` stages to ALL rows of
     ``dataset``: the device prefixes through one :class:`FoldTransformPlan`
     (all folds' encode slots in one ``encode_slots`` call), then each fold's
     host remainder.  ``fold_runner_maps[f]`` maps a stage uid to fold f's
     runner (a plain transformer maps to itself).  With ``profile`` (a
-    list), appends one ``{"kind": "fold_transform", ...}`` record."""
+    list), appends one ``{"kind": "fold_transform", ...}`` record.
+
+    ``hbm_budget`` (bytes): each fold's plan passes the TM601 gate
+    (:func:`check_plan_hbm_budget`) or the call raises before any launch.
+    The joint launch holds every fold's buffers at once, so when the folds'
+    estimates sum past the budget the folds run one plan at a time (the
+    reference's per-fold plans when its vmapped program would not fit)."""
     t0 = time.perf_counter()
     resolved = [[m.get(s.uid, s) for s in during] for m in fold_runner_maps]
     dev = resolve_device(device)
@@ -625,8 +760,13 @@ def fused_fold_transforms(dataset: Dataset, during: Sequence[Any],
     if keep is not None:
         keep = frozenset(keep) | {f.name for rem in plan.remainders
                                   for r in rem for f in r.inputs}
+    execs = [plan]
+    if hbm_budget is not None:
+        costs = [check_plan_hbm_budget(p, dataset, hbm_budget) for p in plan.plans]
+        if sum(c.peak_hbm_bytes for c in costs) > hbm_budget:
+            execs = [JointPrefix([p]) for p in plan.plans]
     with phase("transform.fused_fold_plan"):
-        out = plan.apply_prefix(dataset, keep)
+        out = [ds for ex in execs for ds in ex.apply_prefix(dataset, keep)]
     t1 = time.perf_counter()
     out = [run_host_stages(ds, rem, device=dev)
            for ds, rem in zip(out, plan.remainders)]
@@ -634,7 +774,9 @@ def fused_fold_transforms(dataset: Dataset, during: Sequence[Any],
         profile.append({"kind": "fold_transform", "seconds": time.perf_counter() - t0,
                         "host_stages_s": time.perf_counter() - t1,
                         "host_stages": sum(len(r) for r in plan.remainders),
-                        **plan.last_timings})
+                        **execs[-1].last_timings,
+                        "encode_launches": sum(e.last_timings["encode_launches"]
+                                               for e in execs)})
     return out
 
 
@@ -663,8 +805,28 @@ def operation_name(stage) -> str:
     return getattr(stage, "operation_name", None) or type(stage).__name__
 
 
+def notify_listeners(dataset: Dataset, runners: Sequence[Any], timed: list,
+                     prefix_ms: float, started: float) -> None:
+    """Hand the active stage-metrics listeners one ``transform`` record per
+    runner, in order, with the rows of ``dataset`` and the columns each
+    stage saw and made, as the reference's per-stage path reports them:
+    a host-remainder stage (in ``timed``: ``(runner, start, seconds)``) its
+    own time, a prefix stage ``prefix_ms`` from ``started``."""
+    from ..utils.listener import notify_stage
+
+    own = {id(r): (w, dt * 1e3) for r, w, dt in timed}
+    names = list(dataset.names)
+    for r in runners:
+        n_in = len(names)
+        if r.output_name not in names:
+            names.append(r.output_name)
+        w, ms = own.get(id(r), (started, prefix_ms))
+        notify_stage(r, "transform", ms, dataset.n_rows, n_in, len(names), w)
+
+
 def fused_transform(dataset: Dataset, runners: Sequence[Any], device=None,
-                    profile: Optional[list] = None) -> Dataset:
+                    profile: Optional[list] = None,
+                    hbm_budget: Optional[float] = None) -> Dataset:
     """Transform ``dataset`` by ``runners`` on ``device`` (the CUDA card
     unless it names another): the device prefix through one
     :class:`ColumnarTransformPlan` over the whole table, then the host
@@ -678,14 +840,20 @@ def fused_transform(dataset: Dataset, runners: Sequence[Any], device=None,
     device — and hands the listeners one ``transform`` record per stage it
     ran, in ``runners`` order, with the rows and columns the stage saw and
     made: a host-remainder stage's own seconds, a prefix stage the wall
-    time of the whole prefix."""
-    from ..utils.listener import active_listeners, notify_stage
+    time of the whole prefix (:func:`notify_listeners`).
+
+    ``hbm_budget`` (bytes) arms the TM601 gate on the plan
+    (:func:`check_plan_hbm_budget`): over budget it raises before anything
+    launches."""
+    from ..utils.listener import active_listeners
 
     listening = bool(active_listeners())
     t0 = time.perf_counter()
     w0 = time.time()
     plan = ColumnarTransformPlan(runners, frozenset(dataset.names),
                                  resolve_device(device))
+    if hbm_budget is not None:
+        check_plan_hbm_budget(plan, dataset, hbm_budget)
     out = plan.apply_prefix(dataset)
     t1 = time.perf_counter()
     timed: Optional[list] = [] if listening or profile is not None else None
@@ -694,15 +862,7 @@ def fused_transform(dataset: Dataset, runners: Sequence[Any], device=None,
     out = run_host_stages(out, plan.remainder, device=device, per_runner=timed,
                           phase_name=None if plan._prefix else operation_name)
     if listening:
-        own = {id(r): (w, dt) for r, w, dt in timed}
-        names = list(dataset.names)
-        for r in runners:
-            n_in = len(names)
-            if r.output_name not in names:
-                names.append(r.output_name)
-            w, dt = own.get(id(r), (w0, t1 - t0))
-            notify_stage(r, "transform", dt * 1e3, dataset.n_rows, n_in,
-                         len(names), w)
+        notify_listeners(dataset, runners, timed, (t1 - t0) * 1e3, w0)
     if profile is not None:
         host: Dict[str, float] = {}
         for r, _w, dt in timed:

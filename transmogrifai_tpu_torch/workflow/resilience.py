@@ -27,8 +27,10 @@ Three parts, as in the reference:
 The port has no mesh (``parallel/`` is not ported), so the reference's
 mesh rung behaves as the reference's does without one: the data-parallel
 size is 1, nothing shrinks (TM821 never fires), and every journal key
-carries the reference's unmeshed token (``None``).  Chunked-epoch offsets
-(``chunk_offsets.json``) wait for the chunked store.
+carries the reference's unmeshed token (``None``).  The context also
+carries the chunked epochs' offset checkpoint (``chunk_offsets.json`` under
+``Workflow.train(resume=dir)``; :func:`active_chunk_checkpoint`), and
+``retry_call(..., "ingest_chunk")`` re-runs one chunk of an epoch.
 
 Activation is ambient: ``Workflow.train(resume=dir)`` enters
 :func:`resilient_training`, and the sweep loop (``models/tuning.py::
@@ -61,6 +63,7 @@ __all__ = [
     "SweepJournal",
     "TrainResilience",
     "active",
+    "active_chunk_checkpoint",
     "active_journal",
     "capped_views",
     "data_digest",
@@ -248,13 +251,15 @@ class SweepJournal:
 
 class TrainResilience:
     """One training run's fault-tolerance state: the journal, the retry
-    policy and the degradation record."""
+    policy, the chunked-epoch checkpoint and the degradation record."""
 
     def __init__(self, journal: Optional[SweepJournal] = None,
-                 policy: Optional[RetryPolicy] = None, seed: int = 0,
+                 policy: Optional[RetryPolicy] = None,
+                 chunk_checkpoint=None, seed: int = 0,
                  bucket_ladder: bool = True):
         self.journal = journal
         self.policy = policy or RetryPolicy()
+        self.chunk_checkpoint = chunk_checkpoint
         self.rng = random.Random(seed)
         self.bucket_ladder = bucket_ladder
         self.retries = 0
@@ -328,7 +333,8 @@ _LAST: Optional[TrainResilience] = None
 
 @contextmanager
 def resilient_training(journal: Optional[SweepJournal] = None,
-                       policy: Optional[RetryPolicy] = None, seed: int = 0,
+                       policy: Optional[RetryPolicy] = None,
+                       chunk_checkpoint=None, seed: int = 0,
                        bucket_ladder: bool = True):
     """Activate a :class:`TrainResilience` for the dynamic extent of a fit.
 
@@ -336,7 +342,8 @@ def resilient_training(journal: Optional[SweepJournal] = None,
     frame); the innermost frame wins, and frames pop in LIFO order even
     when the fit raises."""
     global _STACK
-    res = TrainResilience(journal=journal, policy=policy, seed=seed,
+    res = TrainResilience(journal=journal, policy=policy,
+                          chunk_checkpoint=chunk_checkpoint, seed=seed,
                           bucket_ladder=bucket_ladder)
     with _STACK_LOCK:
         _STACK = _STACK + (res,)
@@ -366,13 +373,20 @@ def active_journal() -> Optional[SweepJournal]:
     return res.journal if res is not None else None
 
 
+def active_chunk_checkpoint():
+    """The chunked-epoch OffsetCheckpoint of the active context (None when
+    inactive): ``workflow/ooc.py``'s default when the caller passes none."""
+    res = active()
+    return res.chunk_checkpoint if res is not None else None
+
+
 # ---------------------------------------------------------------------------
 # Retry engines
 # ---------------------------------------------------------------------------
 
 def retry_call(fn: Callable[[], Any], point: str, **ctx) -> Any:
     """Bounded in-place retry (no ladder) around ``fn`` — the wrapper for
-    stage fits and the device sync.  A plain passthrough with no active
+    stage fits, the device sync, chunk reads and one chunk of an epoch.  A plain passthrough with no active
     context; non-retryable errors always propagate immediately."""
     res = active()
     if res is None:

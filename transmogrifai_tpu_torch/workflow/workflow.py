@@ -169,10 +169,18 @@ class Workflow:
         bounded backoff, an out-of-memory sweep retries on fewer rows, and
         a killed run re-invoked with the same directory replays every
         committed block without launching it, ending in the model of an
-        uninterrupted run.  Chunked-epoch offsets (``chunk_offsets.json``)
-        wait for the chunked store, which the port does not have: the only
-        way a table becomes chunked in the reference, ``host_budget``, is
-        refused here.
+        uninterrupted run.  Chunked epochs commit their chunk offsets to
+        ``resume/chunk_offsets.json``, so a re-run over the same chunked
+        table skips every committed chunk.
+
+        ``hbm_budget`` (bytes) arms the TM601 gate on every plan the fit
+        runs (a flush, the fold transform, a chunked epoch's tile): an
+        over-budget plan raises :class:`~..checkers.diagnostics.OpCheckError`
+        before anything launches.  ``host_budget`` (bytes; default the
+        ``TMOG_HOST_BUDGET`` env var) bounds host DRAM: an in-memory table
+        over it spills to a chunked store (``data/chunked.py``) and fits
+        out of core (``workflow/ooc.py``), and a working set the chunked fit
+        cannot avoid (an estimator's input columns) over it raises TM607.
 
         ``telemetry`` (an output directory path, or a prebuilt
         :class:`~..obs.Telemetry`; default: the ``TMOG_TELEMETRY`` env var)
@@ -183,18 +191,16 @@ class Workflow:
         directory when the fit finishes.  A bundle the caller already
         started keeps its session: the fit neither stops nor dumps it.
 
-        The reference's strict validation, device-memory budget and host
-        budget are not ported: each raises ``NotImplementedError`` by name
-        when asked for."""
+        The reference's strict validation is not ported: ``strict=True``
+        raises ``NotImplementedError`` by name."""
         from contextlib import ExitStack
 
         from ..obs import resolve_telemetry
 
-        _refuse_unported("Workflow.train", {
-            "strict": bool(strict), "hbm_budget": hbm_budget is not None,
-            "host_budget": host_budget is not None})
+        _refuse_unported("Workflow.train", {"strict": bool(strict)})
         with ExitStack() as stack:
             if resume is not None:
+                from ..readers.streaming import OffsetCheckpoint
                 from .checkpoint import StageCheckpointer
                 from .resilience import SweepJournal, resilient_training
 
@@ -203,10 +209,13 @@ class Workflow:
                     checkpointer = StageCheckpointer(os.path.join(resume, "stages"))
                 stack.enter_context(resilient_training(
                     journal=SweepJournal(os.path.join(resume, "sweep_journal.json")),
+                    chunk_checkpoint=OffsetCheckpoint(
+                        os.path.join(resume, "chunk_offsets.json")),
                     seed=seed))
             tel = resolve_telemetry(telemetry)
             if tel is None:
-                return self._train(test_fraction, seed, checkpointer, device)
+                return self._train(test_fraction, seed, checkpointer, device,
+                                   hbm_budget, host_budget)
             from ..perf import PhaseRecorder, compile_snapshot, record_phases
 
             # ownership-aware activation: a caller that already started this
@@ -216,7 +225,8 @@ class Workflow:
             rec = PhaseRecorder()
             try:
                 with record_phases(rec):
-                    return self._train(test_fraction, seed, checkpointer, device)
+                    return self._train(test_fraction, seed, checkpointer, device,
+                                       hbm_budget, host_budget)
             finally:
                 if owned:
                     # dump in the finally so a FAILED fit still leaves its
@@ -229,7 +239,10 @@ class Workflow:
                     })
 
     def _train(self, test_fraction: float, seed: int, checkpointer,
-               device) -> "WorkflowModel":
+               device, hbm_budget: Optional[float] = None,
+               host_budget: Optional[float] = None) -> "WorkflowModel":
+        from ..data.chunked import ChunkedDataset, maybe_chunk
+        from ..data.chunked import host_budget as env_host_budget
         from ..perf.kernels.dispatch import resolve_device
         from .fit import fit_dag
 
@@ -241,15 +254,34 @@ class Workflow:
         blacklist: List[str] = []
         rff_summary = None
         if self._raw_feature_filter is not None:
+            if isinstance(raw, ChunkedDataset):
+                # the filter's distributions are whole-column passes
+                log.warning("RawFeatureFilter on a chunked dataset materializes "
+                            "the raw table in host DRAM")
+                raw = raw.materialize()
             t0 = time.perf_counter()
             raw, blacklist, rff_summary = self._raw_feature_filter.filter_raw(
                 raw, self.raw_features(), self.result_features, device=dev)
             profile.append({"kind": "filter", "stage": "RawFeatureFilter",
                             "seconds": time.perf_counter() - t0,
                             "blacklist": list(blacklist)})
+        # host-DRAM residency: a table over the budget spills to the chunked
+        # store and the whole fit goes out of core
+        if host_budget is None:
+            host_budget = env_host_budget()
+        if host_budget is not None:
+            raw = maybe_chunk(raw, budget=host_budget)
         test_ds = None
         if test_fraction > 0.0:
+            if isinstance(raw, ChunkedDataset):
+                log.warning("test_fraction on a chunked dataset materializes both "
+                            "splits in host DRAM transiently; use test_fraction=0 "
+                            "for fits whose train split must stay out of core")
             raw, test_ds = raw.split(test_fraction, seed=seed)
+            if host_budget is not None:
+                # the split made in-memory datasets: the budget re-arms on the
+                # train split, so the fit (and its TM607 gate) stays out of core
+                raw = maybe_chunk(raw, budget=host_budget)
         warm = dict(self._warm_models)
         on_fit = None
         if checkpointer is not None:
@@ -265,13 +297,17 @@ class Workflow:
             before, during, selector = cut
             if selector.uid not in warm:
                 ds_before = fit_stage_list(raw, before, warm, device=dev,
-                                           profile=profile, on_fit=on_fit)
+                                           profile=profile, on_fit=on_fit,
+                                           hbm_budget=hbm_budget,
+                                           host_budget=host_budget)
                 selector._preselected = workflow_cv_validate(
-                    ds_before, during, selector, dev, profile=profile)
+                    ds_before, during, selector, dev, profile=profile,
+                    hbm_budget=hbm_budget, host_budget=host_budget)
                 preseeded = selector
         try:
             _, fitted = fit_dag(raw, self.result_features, fitted=warm,
-                                device=dev, profile=profile, on_fit=on_fit)
+                                device=dev, profile=profile, on_fit=on_fit,
+                                hbm_budget=hbm_budget, host_budget=host_budget)
         finally:
             if preseeded is not None:
                 del preseeded._preselected
@@ -420,7 +456,9 @@ class WorkflowModel:
         """Score a dataset of raw columns (with none, the reader's: see
         :meth:`set_reader`) through one whole-table transform plan
         (``workflow/fit.py::transform_dag``): its raw columns plus the
-        result features, or every stage's output with ``keep_intermediate``."""
+        result features, or every stage's output with ``keep_intermediate``.
+        A :class:`~..data.chunked.ChunkedDataset` is scored chunk by chunk
+        (one encode launch per chunk) and comes back chunked."""
         from ..perf.kernels.dispatch import resolve_device
         from .fit import transform_dag
 
@@ -444,6 +482,14 @@ class WorkflowModel:
                 f"got {type(evaluator).__name__}: call evaluate(evaluator, dataset)")
         return evaluator, dataset
 
+    @staticmethod
+    def _eval_view(scored, names):
+        """Evaluators read whole columns: a chunked score materializes
+        exactly those (the rest of the table stays spilled)."""
+        from ..data.chunked import as_dataset
+
+        return as_dataset(scored, [n for n in names if n in scored])
+
     def evaluate(self, evaluator: Evaluator, dataset: Optional[Dataset] = None,
                  *, device=None) -> Dict[str, float]:
         """Score ``dataset`` and evaluate the prediction against its label."""
@@ -455,7 +501,8 @@ class WorkflowModel:
         evaluator, dataset = self._check_eval_args(evaluator, dataset)
         label, pred = self._label_and_pred()
         scored = self.score(self._read(dataset), keep_intermediate=True, device=device)
-        metrics = evaluator.evaluate(scored, label.name, pred.name)
+        metrics = evaluator.evaluate(self._eval_view(scored, [label.name, pred.name]),
+                                     label.name, pred.name)
         keep = [f.name for f in self.result_features if f.name in scored]
         return scored.select(keep), metrics
 
