@@ -3,6 +3,7 @@
 check them.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase deploy     # phase 25 alone, its line only
 
 Phases, one JSON line each:
 
@@ -438,7 +439,27 @@ Phases, one JSON line each:
                beside the in-memory plan's.  (e) The chunk tile's launch (40
                slots over 8192 x 728) bitwise its plain version, timed beside
                its bound, plain version and library composite.
-25. summary  — nvidia-smi's line, then one {"kernels": [...]} line, then the
+25. deploy   — the deploy artifact store (deploy/, perf/programs.py): the
+               serving_wide model packed on the card (buckets 8..1024, the
+               encode library; bytes by object kind), then booted from the
+               artifact in a fresh process (this script with --deploy-child)
+               whose kernel build directory is empty and which has no CUDA
+               toolkit (CUDA_HOME an empty dir, no nvcc on PATH): a
+               FleetServer of two tenants (artifact=root and
+               artifact=ArtifactStore(root)) serves DEPLOY_RECORDS records,
+               flushed on size into sub-batches of 128 per tenant.  Gates: no
+               nvcc_build, one library_load (a cache hit), no compile event
+               after register, one artifact_hydrated event with no live
+               bucket, encode launches (zeroed after register) == sub-batches,
+               records == this process's live plan's on the same sub-batches
+               (through JSON).  Beside it, in a process of its own, a cold
+               boot without the artifact (nvcc present, an empty build dir):
+               its nvcc seconds.  Both boots' seconds from spawn to the first
+               scored record, the hydrate's seconds by part.  A truncated bucket object and a truncated
+               library object each refused (TM510, one artifact_refused),
+               the live build then bitwise; the hydrated plan's prefix
+               output bitwise its plain version and the eager plan's.
+26. summary  — nvidia-smi's line, then one {"kernels": [...]} line, then the
                last line {"ok": true, "device": {...}}.
 
 Phase 3 also holds K5 past shared memory (a 5000-split slot, its own launch
@@ -6050,6 +6071,303 @@ def phase_ooc(torch, KE, dev) -> dict:
     return out
 
 
+# -- 25. the deploy artifact store: a replica that boots without nvcc ----------
+
+#: records the replica serves, and the fleet's flush: DEPLOY_BATCH requests
+#: alternating between the two tenants, one sub-batch of each (one encode
+#: launch each), flushed on size
+DEPLOY_RECORDS = 2048
+DEPLOY_BATCH = 256
+
+
+def _deploy_child(argv) -> int:
+    """Phase 25's replica, a process of its own: ``mode`` "artifact" boots a
+    FleetServer of two tenants from the artifact dir (one by path, one by
+    ArtifactStore), "cold" the same two without it.  It then serves the
+    records, flushed on size, and prints one JSON line: wall-clock marks
+    (imports done, model loaded, registered, first and last record scored),
+    the compile events of the boot and of serving, hydrate's phases, the
+    artifact_* flight events, the encode launches counted from the end of
+    register, each tenant's plan metrics and nvcc's seconds; the records go
+    to ``out``."""
+    import torch
+
+    mode, art, recs_path, out = argv
+    from transmogrifai_tpu_torch.deploy import ArtifactStore, DeployBundle
+    from transmogrifai_tpu_torch.obs import flight
+    from transmogrifai_tpu_torch.perf import PhaseRecorder, measure_compiles, record_phases
+    from transmogrifai_tpu_torch.perf.kernels import dispatch
+    from transmogrifai_tpu_torch.perf.kernels import encode as KE
+    from transmogrifai_tpu_torch.serve import FleetServer
+
+    marks = {"imported": time.time()}
+    with open(recs_path) as fh:
+        records = json.load(fh)
+    rec = flight.install_recorder(flight.FlightRecorder())
+    model = DeployBundle.load(art).load_model()
+    marks["model_loaded"] = time.time()
+    torch.zeros(1, device="cuda")  # the CUDA context, timed apart from register
+    torch.cuda.synchronize()
+    marks["cuda_ready"] = time.time()
+    phases = PhaseRecorder()
+    modules = set(sys.modules)
+    with measure_compiles() as probe:
+        with FleetServer(max_batch=DEPLOY_BATCH, max_wait_ms=60_000, min_bucket=8,
+                         max_bucket=1024) as fleet:
+            with record_phases(phases):
+                fleet.register("a", model, **({"artifact": art} if mode == "artifact" else {}))
+                torch.cuda.synchronize()
+                marks["registered_a"] = time.time()
+                fleet.register("b", model, **({"artifact": ArtifactStore(art)}
+                                              if mode == "artifact" else {}))
+            torch.cuda.synchronize()
+            marks["registered"] = time.time()
+            # the modules registration imported, by package (torch's lazy ones)
+            imported: dict = {}
+            for m in set(sys.modules) - modules:
+                top = ".".join(m.split(".")[:2]) if m.startswith("torch.") else m.split(".")[0]
+                imported[top] = imported.get(top, 0) + 1
+            boot = probe.to_dict()
+            KE.reset_launch_counts()
+            with measure_compiles() as serving:
+                futs = [fleet.submit("ab"[i % 2], r) for i, r in enumerate(records)]
+                futs[0].result(timeout=300)
+                marks["first_scored"] = time.time()
+                rows = [f.result(timeout=300) for f in futs]
+                marks["last_scored"] = time.time()
+            launches = KE.launch_counts()
+            plans = {t: fleet.models.get(t).swapper.active.plan.metrics() for t in "ab"}
+    with open(out, "w") as fh:
+        json.dump(rows, fh)
+    print(json.dumps({
+        "mode": mode, "marks": marks, "boot": boot, "serve_events": serving.events,
+        "register_imported": dict(sorted(imported.items(), key=lambda kv: -kv[1])[:12]),
+        "phases_s": phases.report(6), "launches": launches,
+        "scored_batches": {t: m["scored_batches"] for t, m in plans.items()},
+        "bucket_batches": {t: m["bucket_batches"] for t, m in plans.items()},
+        "staging_builds": {t: m["staging_builds"] for t, m in plans.items()},
+        "hydrated": [e["data"] for e in rec.events("artifact_hydrated")],
+        "refused": [e["data"] for e in rec.events("artifact_refused")],
+        "missed": [e["data"] for e in rec.events("artifact_miss")],
+        "nvcc_s": {n: i["seconds"] for n, i in dispatch.BUILD_INFO.items()},
+        "build_dir": dispatch.build_dir()}), flush=True)
+    return 0
+
+
+def _spawn_deploy_child(mode: str, root: str, recs_path: str, tmp: str,
+                        no_toolkit: bool):
+    """Start :func:`_deploy_child` in a fresh process with an empty kernel
+    build directory (and, with ``no_toolkit``, no CUDA toolkit: CUDA_HOME an
+    empty dir, no nvcc on PATH, so any build raises KernelError); returns
+    (the process, its records' file, the host clock at spawn)."""
+    import shutil
+
+    env = dict(os.environ)
+    env["TMOG_TORCH_BUILD_DIR"] = os.path.join(tmp, f"kernels_{mode}")
+    os.makedirs(env["TMOG_TORCH_BUILD_DIR"])
+    if no_toolkit:
+        env["CUDA_HOME"] = os.path.join(tmp, "no_cuda")
+        os.makedirs(env["CUDA_HOME"], exist_ok=True)
+        env.pop("CUDA_PATH", None)
+        env["PATH"] = os.pathsep.join(
+            d for d in env.get("PATH", "").split(os.pathsep)
+            if d and not os.path.exists(os.path.join(d, "nvcc")))
+        check(shutil.which("nvcc", path=env["PATH"]) is None,
+              "the replica's PATH holds no nvcc")
+    out = os.path.join(tmp, f"rows_{mode}.json")
+    t_spawn = time.time()
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--deploy-child",
+                             mode, root, recs_path, out], env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, out, t_spawn
+
+
+def _finish_deploy_child(mode: str, proc, out: str):
+    """Wait for a replica; (its JSON line, its records)."""
+    try:
+        stdout, stderr = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    check(proc.returncode == 0,
+          f"the {mode} replica exited {proc.returncode}: {stderr[-3000:]}")
+    with open(out) as fh:
+        rows = json.load(fh)
+    return json.loads(stdout.strip().splitlines()[-1]), rows
+
+
+def _boot_seconds(child: dict, t_spawn: float) -> dict:
+    return {k: v - t_spawn for k, v in child["marks"].items()}
+
+
+def phase_deploy(torch, KE, dev) -> dict:
+    """Phase 25: the serving_wide model packed on the card, then booted in a
+    fresh process with no nvcc and an empty build directory, against a
+    cold boot that builds the encode kernel; refusals; the encode kernel
+    under the hydrated plan."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from transmogrifai_tpu_torch import WorkflowModel
+    from transmogrifai_tpu_torch.deploy import ArtifactStore, DeployBundle, pack_model
+    from transmogrifai_tpu_torch.obs import flight as obs_flight
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(FIXTURE, "schema.json")) as fh:
+        schema = json.load(fh)
+    model = WorkflowModel.load(FIXTURE)
+    tmp = tempfile.mkdtemp(prefix="tmog_deploy_")
+    try:
+        # 1. pack on the card
+        root = os.path.join(tmp, "artifact")
+        t0 = time.perf_counter()
+        bundle = pack_model(model, root, min_bucket=8, max_bucket=1024)
+        pack_s = time.perf_counter() - t0
+        mplan = bundle.plan
+        check(mplan["buckets"] == [8 << i for i in range(8)]
+              and sorted(mplan["libraries"]) == ["encode"],
+              f"the artifact holds the ladder 8..1024 and the encode library: "
+              f"{mplan['buckets']}, {sorted(mplan['libraries'])}")
+        model_bytes = sum(os.path.getsize(os.path.join(d, f))
+                          for d, _, fs in os.walk(os.path.join(root, "model")) for f in fs)
+        nbytes = {"buckets": sum(m["size"] for m in mplan["objects"].values()),
+                  "libraries": {n: m["size"] for n, m in mplan["libraries"].items()},
+                  "model": model_bytes,
+                  "manifest": os.path.getsize(os.path.join(root, "manifest.json"))}
+
+        # the live plan's records for the sub-batches the fleet serves
+        records = make_records(schema, DEPLOY_RECORDS, np.random.default_rng(25))
+        live = model.serving_plan(8, 1024).warm()
+        subs = [list(range(k + t, k + DEPLOY_BATCH, 2))
+                for k in range(0, DEPLOY_RECORDS, DEPLOY_BATCH) for t in (0, 1)]
+        expected = [None] * DEPLOY_RECORDS
+        for idx in subs:
+            for i, row in zip(idx, live.score([records[i] for i in idx])):
+                expected[i] = row
+        want = json.loads(json.dumps(expected))
+        recs_path = os.path.join(tmp, "records.json")
+        with open(recs_path, "w") as fh:
+            json.dump(records, fh)
+
+        # the modules a first registration imports (torch's lazy ones, through
+        # the fleet's static estimate) are read from a warm page cache by both
+        # replicas, as after the script's earlier phases
+        from transmogrifai_tpu_torch.checkers.plancheck import analyze_scoring_plan
+
+        estimate = int(analyze_scoring_plan(live).peak_hbm_bytes)
+
+        # 2-3. the replica (no nvcc, an empty build directory) and a cold boot
+        # without the artifact (nvcc present, an empty build directory), side
+        # by side on the host's cores
+        spawned = {}
+        try:
+            for mode in ("artifact", "cold"):
+                spawned[mode] = _spawn_deploy_child(mode, root, recs_path, tmp,
+                                                    mode == "artifact")
+            (child, rows), (cold, cold_rows) = (
+                _finish_deploy_child(mode, *spawned[mode][:2]) for mode in ("artifact", "cold"))
+        finally:
+            for proc, _out, _t in spawned.values():  # a failed check leaves none running
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        t_spawn, t_cold = spawned["artifact"][2], spawned["cold"][2]
+        boot_events = child["boot"]["events"]
+        check("nvcc_build" not in boot_events and "nvcc_build" not in child["serve_events"],
+              f"no nvcc build in the replica: {boot_events}")
+        check(boot_events.get("library_load") == 1
+              and child["boot"]["persistent_cache_hits"] == 1
+              and child["boot"]["persistent_cache_misses"] == 0,
+              f"one library load, a cache hit: {child['boot']}")
+        check(child["serve_events"] == {},
+              f"no compile event after register: {child['serve_events']}")
+        check(len(child["hydrated"]) == 1 and child["hydrated"][0]["live_compile_buckets"] == []
+              and child["hydrated"][0]["buckets"] == mplan["buckets"]
+              and not child["refused"] and not child["missed"],
+              f"one artifact_hydrated event, no live bucket: {child['hydrated']}")
+        sub_batches = sum(child["scored_batches"].values())
+        check(sub_batches == len(subs)
+              and all(b == {str(DEPLOY_BATCH // 2): len(subs) // 2}
+                      for b in child["bucket_batches"].values()),
+              f"the replica served {len(subs)} sub-batches of {DEPLOY_BATCH // 2}: "
+              f"{child['bucket_batches']}")
+        check(child["launches"]["encode_slots"] == sub_batches,
+              f"encode launches {child['launches']['encode_slots']} == sub-batches "
+              f"{sub_batches}")
+        check(child["staging_builds"]["b"] == 0,
+              "the second tenant shares the first's staging")
+        check(rows == want, "the replica's records == the live plan's (through JSON)")
+
+        check(cold["boot"]["events"].get("nvcc_build") == 1 and cold["serve_events"] == {}
+              and cold["launches"]["encode_slots"] == sum(cold["scored_batches"].values()),
+              f"the cold boot built encode once and served without a compile event: "
+              f"{cold['boot']['events']}, {cold['serve_events']}")
+        check(cold_rows == want, "the cold replica's records == the live plan's")
+
+        # 5. refusals in this process: a truncated bucket object and a
+        # truncated library object
+        refusals = {}
+        first = [records[i] for i in subs[0]]
+        for what in ("bucket", "library"):
+            bad = os.path.join(tmp, f"bad_{what}")
+            shutil.copytree(root, bad)
+            meta = (DeployBundle.load(bad).plan["objects"]["128"] if what == "bucket"
+                    else DeployBundle.load(bad).plan["libraries"]["encode"])
+            with open(os.path.join(bad, meta["file"]), "r+b") as fh:
+                fh.truncate(meta["size"] // 2)
+            plan = model.serving_plan(8, 1024)
+            rec = obs_flight.install_recorder(obs_flight.FlightRecorder())
+            try:
+                res = ArtifactStore(bad).hydrate(plan, tenant=what)
+            finally:
+                obs_flight.uninstall_recorder()
+            evs = rec.events("artifact_refused")
+            check(res["refused"] and res["hydrated"] == [] and len(evs) == 1
+                  and evs[0]["data"]["code"] == "TM510",
+                  f"a truncated {what} object refused with TM510: {res['reasons']}")
+            plan.warm()
+            check(json.loads(json.dumps(plan.score(first))) == [want[i] for i in subs[0]],
+                  f"after the {what} refusal the live build scores bitwise")
+            plan.release_executables()
+            refusals[what] = res["reasons"][0]
+
+        # 6. the encode kernel under a hydrated plan: the prefix's output
+        # bitwise its plain version (the CPU plan) and the eager plan's
+        hplan = model.serving_plan(8, 1024)
+        res = ArtifactStore(root).hydrate(hplan)
+        check(res["hydrated"] == mplan["buckets"], f"the parent hydrates: {res}")
+        cpu_plan = model.serving_plan(8, 1024, device="cpu")
+        hv, cv, lv = (p.prefix_outputs(first) for p in (hplan, cpu_plan, live))
+        check(all(a.tobytes() == b.tobytes() == c.tobytes() and a.dtype == b.dtype
+                  for a, b, c in zip(hv, cv, lv)),
+              "the hydrated plan's prefix bitwise its plain version and the eager plan's")
+        hplan.release_executables()
+        live.release_executables()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    out = {
+        "records": DEPLOY_RECORDS, "sub_batches": sub_batches, "pack_s": pack_s,
+        "artifact_bytes": nbytes, "plan_estimate_bytes": estimate,
+        "boots": "the replica and the cold boot side by side, each its own process",
+        "boot": {"seconds_from_spawn": _boot_seconds(child, t_spawn),
+                 "hydrate_phases_s": child["phases_s"], "events": boot_events,
+                 "register_imported_modules": child["register_imported"],
+                 "launches": child["launches"], "build_dir_empty_at_start": True},
+        "cold": {"seconds_from_spawn": _boot_seconds(cold, t_cold),
+                 "register_imported_modules": cold["register_imported"],
+                 "nvcc_s": cold["nvcc_s"], "events": cold["boot"]["events"],
+                 "launches": cold["launches"]},
+        "refusals": refusals,
+        "kernel_check": {"max_abs_err": 0.0, "parity": "bitwise"},
+        "phase_s": time.perf_counter() - t_phase}
+    emit({"phase": "deploy", **out})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6060,6 +6378,19 @@ def main() -> int:
     sys.path.insert(0, here)
     sys.path.insert(1, os.path.join(here, "tests"))  # torch_encode_cases, data
     os.chdir(here)
+    if sys.argv[1:2] == ["--deploy-child"]:
+        return _deploy_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--phase"]:
+        # one self-contained phase alone (its line, no summary): deploy
+        alone = {"deploy": phase_deploy}
+        if sys.argv[2:] not in [[k] for k in alone]:
+            print(f"chip_smoke: --phase takes one of {sorted(alone)}", file=sys.stderr)
+            return 2
+        from transmogrifai_tpu_torch.perf.kernels import encode as KE
+
+        print(gpu_line(), flush=True)
+        alone[sys.argv[2]](torch, KE, torch.device("cuda", 0))
+        return 0
     import numpy as np
 
     from transmogrifai_tpu_torch import WorkflowModel
@@ -6238,7 +6569,10 @@ def main() -> int:
     # 24. out of core: the chunked store, chunked epochs, resume, score_dataset
     ooc = phase_ooc(torch, KE, dev)
 
-    # 25. summary
+    # 25. the deploy artifact store: a replica booted with no nvcc
+    deploy = phase_deploy(torch, KE, dev)
+
+    # 26. summary
     kernels = []
     tree_src = "transmogrifai_tpu_torch/perf/kernels/csrc/trees.cu"
     for kname, replaces in (("hist_level", "transmogrifai_tpu/perf/kernels/histogram.py:80"),
@@ -6339,6 +6673,7 @@ def main() -> int:
             "launches_streaming_refit": stream["continual"]["refit"]["encode_launches"],
             "launches_obs": obs["launches"]["encode_slots"],
             "launches_ooc": ooc["launches"]["encode_slots"],
+            "launches_deploy": deploy["boot"]["launches"]["encode_slots"],
             "ooc_chunk_tile": ooc["chunk_tile"],
             **{f"fused_{k}": fused[k] for k in ("ms", "device_ms", "plain_ms",
                                                  "bound_ms", "slots", "columns")}})

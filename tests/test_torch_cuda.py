@@ -1496,3 +1496,144 @@ def test_chunked_epoch_kernel_error_is_not_demoted(monkeypatch):
     with pytest.raises(KernelError):
         chunked_transform_epoch(cds, runners, device="cuda")
     assert len(calls) == 2
+
+
+# -- the deploy artifact store on the card (deploy/) ------------------------------
+
+def _deploy_setup(tmp_path):
+    """The fixture model packed on the card (buckets 8..64) and 64 of its
+    requests; the packing plan's device state released."""
+    import gc
+    import json
+
+    from transmogrifai_tpu_torch import WorkflowModel
+    from transmogrifai_tpu_torch.deploy import pack_model
+    from transmogrifai_tpu_torch.serve import plan as plan_mod
+
+    with open(os.path.join(FIXTURE, "schema.json")) as fh:
+        schema = json.load(fh)
+    model = WorkflowModel.load(FIXTURE)
+    root = str(tmp_path / "artifact")
+    bundle = pack_model(model, root, min_bucket=8, max_bucket=64)
+    gc.collect()
+    with plan_mod._SHARED_LOCK:
+        plan_mod._SHARED.clear()
+    return model, root, bundle, _records(schema, 64, np.random.default_rng(17))
+
+
+def _fresh_kernels(monkeypatch, build):
+    """This process as a fresh replica's: no kernel library loaded, an
+    empty build directory, no nvcc."""
+    from transmogrifai_tpu_torch.perf.kernels import dispatch
+
+    def no_nvcc():
+        raise dispatch.KernelError("nvcc not found (the replica has no CUDA toolkit)")
+
+    monkeypatch.setattr(dispatch, "_LIBS", {})
+    monkeypatch.setattr(dispatch, "_BOUND", set())
+    monkeypatch.setattr(dispatch, "BUILD_INFO", {})
+    monkeypatch.setattr(dispatch, "_INSTALLED", {})
+    monkeypatch.setattr(dispatch, "nvcc_path", no_nvcc)
+    monkeypatch.setenv("TMOG_TORCH_BUILD_DIR", str(build))
+
+
+def test_pack_hydrate_round_trip_launches_the_encode_kernel(tmp_path, monkeypatch):
+    """Packed on the card, the artifact carries the encode library; a plan
+    hydrated from it allocates its buckets without running the prefix, and
+    a served batch is one launch of the encode kernel with records equal to
+    the CPU plan's."""
+    from transmogrifai_tpu_torch.deploy import ArtifactStore
+    from transmogrifai_tpu_torch.perf import measure_compiles
+
+    from transmogrifai_tpu_torch.perf.kernels import dispatch
+
+    model, root, bundle, recs = _deploy_setup(tmp_path)
+    monkeypatch.setattr(dispatch, "_INSTALLED", {})  # the install stays this test's
+    assert sorted(bundle.plan["libraries"]) == ["encode"]
+    assert bundle.environment["platform"] == "gpu"
+    assert bundle.environment["computeCapability"] == "9.0"
+    plan = model.serving_plan(8, 64)
+    with measure_compiles() as c:
+        res = ArtifactStore(root).hydrate(plan)
+    assert res["hydrated"] == [8, 16, 32, 64] and not res["refused"], res
+    assert c.events == {"staging": 4, "landing": 4}
+    TKE.reset_launch_counts()
+    with measure_compiles() as c:
+        got = plan.score(recs)
+    assert c.backend_compiles == 0
+    assert TKE.launch_counts()["encode_slots"] == 1
+    assert got == model.serving_plan(8, 64, device="cpu").score(recs)
+    plan.release_executables()
+
+
+def test_library_object_loads_into_an_empty_build_dir_without_nvcc(tmp_path, monkeypatch):
+    """A replica with no nvcc and an empty build directory installs the
+    packed encode library, loads it as a cache hit (no nvcc_build) and
+    serves through it."""
+    from transmogrifai_tpu_torch.deploy import ArtifactStore
+    from transmogrifai_tpu_torch.perf import measure_compiles
+    from transmogrifai_tpu_torch.perf.kernels import dispatch
+
+    model, root, _bundle, recs = _deploy_setup(tmp_path)
+    _fresh_kernels(monkeypatch, tmp_path / "replica_kernels")
+    plan = model.serving_plan(8, 64)
+    with measure_compiles() as c:
+        res = ArtifactStore(root).hydrate(plan)
+    assert res["hydrated"] == [8, 16, 32, 64], res
+    assert c.events == {"library_load": 1, "staging": 4, "landing": 4}
+    assert c.persistent_cache_hits == 1 and c.persistent_cache_misses == 0
+    # installed for this process, beside (never as) the build directory's own build
+    installed = dispatch.library_file("encode")
+    assert installed.startswith(str(tmp_path / "replica_kernels" / "artifacts") + os.sep)
+    assert not os.path.exists(dispatch.library_path("encode"))
+    assert dispatch.library_record("encode")["cudaToolkit"] == \
+        _bundle.plan["libraries"]["encode"]["cudaToolkit"]
+    TKE.reset_launch_counts()
+    with measure_compiles() as c:
+        got = plan.score(recs)
+    assert c.backend_compiles == 0 and TKE.launch_counts()["encode_slots"] == 1
+    assert got == model.serving_plan(8, 64, device="cpu").score(recs)
+    plan.release_executables()
+
+
+@pytest.mark.parametrize("damage", ["truncated", "not_a_library"])
+def test_bad_library_object_refused_on_the_card(tmp_path, monkeypatch, damage):
+    """A truncated library object fails its hash; a library object whose
+    hash verifies but that does not load refuses with the loader's error
+    and is removed again.  Either way nothing is adopted and, with no
+    nvcc, the live build raises KernelError (never a move to the CPU)."""
+    import json
+
+    from transmogrifai_tpu_torch.deploy import ArtifactStore, DeployBundle
+    from transmogrifai_tpu_torch.perf.kernels import dispatch
+
+    model, root, _bundle, recs = _deploy_setup(tmp_path)
+    lib = DeployBundle.load(root).plan["libraries"]["encode"]
+    path = os.path.join(root, lib["file"])
+    if damage == "truncated":
+        with open(path, "r+b") as fh:
+            fh.truncate(lib["size"] // 2)
+        reason = "library object encode fails integrity"
+    else:
+        import hashlib
+
+        blob = b"not a shared object"
+        with open(path, "wb") as fh:
+            fh.write(blob)
+        with open(os.path.join(root, "manifest.json")) as fh:
+            m = json.load(fh)
+        m["plan"]["libraries"]["encode"].update(
+            sha256=hashlib.sha256(blob).hexdigest(), size=len(blob))
+        with open(os.path.join(root, "manifest.json"), "w") as fh:
+            json.dump(m, fh)
+        reason = "failed to install or load"
+    _fresh_kernels(monkeypatch, tmp_path / "replica_kernels")
+    plan = model.serving_plan(8, 64)
+    res = ArtifactStore(root).hydrate(plan)
+    assert res["refused"] and res["hydrated"] == [] and plan.warm_buckets() == []
+    assert any(reason in r for r in res["reasons"]), res["reasons"]
+    assert not os.path.exists(dispatch.library_path("encode"))
+    assert dispatch.library_file("encode") == dispatch.library_path("encode")
+    assert [f for _d, _s, fs in os.walk(tmp_path / "replica_kernels") for f in fs] == []
+    with pytest.raises(dispatch.KernelError, match="nvcc"):
+        plan.score(recs[:8])

@@ -5,6 +5,8 @@ import, and ``WorkflowModel.score_function``.
 Runs on the CPU; the serving_wide fixture is the JAX package's saved model.
 """
 
+import json
+
 import numpy as np
 import pytest
 
@@ -37,6 +39,21 @@ class TestAllLists:
                      and issubclass(getattr(T, n), T.types.FeatureType)}
         assert got_types == ref_types and len(got_types) > 40
 
+    @pytest.mark.parametrize("sub", ["deploy", "perf"])
+    def test_subpackage_all_equals_the_reference_names(self, sub):
+        """The reference's ``deploy`` and ``perf`` define no ``__all__``;
+        the port's lists exactly the public names they export."""
+        import importlib
+        import inspect
+
+        ref = importlib.import_module(f"transmogrifai_tpu.{sub}")
+        got = importlib.import_module(f"transmogrifai_tpu_torch.{sub}")
+        public = sorted(n for n in dir(ref) if not n.startswith("_")
+                        and not inspect.ismodule(getattr(ref, n)))
+        assert sorted(got.__all__) == public
+        for name in got.__all__:
+            assert hasattr(got, name), name
+
     def test_fleet_stays_in_serve(self):
         assert not hasattr(J, "FleetServer") and not hasattr(T, "FleetServer")
         from transmogrifai_tpu_torch.serve import FleetServer, Precision  # noqa: F401
@@ -44,8 +61,6 @@ class TestAllLists:
 
 class TestScoreFunction:
     def test_method_equals_the_local_function(self):
-        import json
-
         model = T.WorkflowModel.load(FIXTURE)
         with open(f"{FIXTURE}/schema.json") as fh:
             schema = json.load(fh)
@@ -65,7 +80,9 @@ class TestScoreFunction:
     def test_unported_arguments_still_raise_by_name(self):
         """``strict`` still raises by name; ``hbm_budget`` and
         ``host_budget`` are ported and reach the data as in the JAX package
-        (here: no input data, the reference's ValueError)."""
+        (here: no input data, the reference's ValueError); ``artifact`` is
+        ported: an unreadable artifact is refused with TM510 and the tenant
+        warms and serves live."""
         model = T.WorkflowModel.load(FIXTURE)
         wf = T.Workflow().set_result_features(*model.result_features)
         with pytest.raises(NotImplementedError, match="strict"):
@@ -73,10 +90,21 @@ class TestScoreFunction:
         for args in ((0.0, 42, None, False, 1e9), (0.0, 42, None, False, None, 1e9)):
             with pytest.raises(ValueError, match="No input data"):
                 wf.train(*args, device="cpu")
+        from transmogrifai_tpu_torch.obs import flight as obs_flight
         from transmogrifai_tpu_torch.serve import ModelRegistry
 
         reg = ModelRegistry(device="cpu")
-        with pytest.raises(NotImplementedError, match="artifact"):
+        rec = obs_flight.install_recorder(obs_flight.FlightRecorder())
+        try:
             reg.register("t", model, artifact="/nowhere")
-        assert len(reg) == 0
-        np.testing.assert_equal(reg.tenants(), [])
+        finally:
+            obs_flight.uninstall_recorder()
+        (ev,) = rec.events("artifact_refused")
+        assert ev["data"]["code"] == "TM510" and ev["data"]["tenant"] == "t"
+        assert any("manifest unreadable" in r for r in ev["data"]["reasons"])
+        np.testing.assert_equal(reg.tenants(), ["t"])
+        plan = reg.get("t").swapper.active.plan
+        assert plan.warm_buckets() == plan.bucket_ladder()
+        with open(f"{FIXTURE}/schema.json") as fh:
+            recs = _records(json.load(fh)["features"], 16, 3)
+        assert plan.score(recs) == model.serving_plan(device="cpu").score(recs)

@@ -1,6 +1,7 @@
 """Per-request causal tracing, per-tenant device cost and the fleet's status
 line in the port (``obs/reqtrace.py``, ``serve/batcher.py``,
-``serve/registry.py``), held to the JAX package's.
+``serve/registry.py``) and the deploy store's flight events
+(``deploy/store.py``), held to the JAX package's.
 
 The reference's ``tests/test_obs_requests.py`` test by test, under the same
 names, on the CPU, less the ``cli top`` half of
@@ -591,6 +592,91 @@ class TestOutOfCoreFlightEvents:
         assert sorted(out["t"]) == sorted(out["j"])
         assert {k: v for k, v in out["t"].items() if k != "epoch"} == \
             {k: v for k, v in out["j"].items() if k != "epoch"}
+
+
+class TestDeployFlightEvents:
+    """The four ``artifact_*`` flight kinds of the deploy store carry the JAX
+    package's payload keys: a pack, a hydrate, a clean miss (kernel
+    dispatch drift in each package's terms) and a TM510 refusal."""
+
+    @pytest.fixture(scope="class")
+    def artifacts(self, two_models, two_jax_models, tmp_path_factory):
+        from transmogrifai_tpu.deploy import pack_model as j_pack
+        from transmogrifai_tpu_torch.deploy import pack_model
+
+        out = {}
+        for key, flight, pack, model in (
+                ("t", obs_flight, pack_model, two_models[0][0]),
+                ("j", JO.flight, j_pack, two_jax_models[0][0])):
+            root = str(tmp_path_factory.mktemp(f"artifact_{key}"))
+            with use_device("cpu"):
+                evs, _ = _recorded(flight, "artifact_packed", lambda: pack(
+                    model, root, min_bucket=8, max_bucket=32))
+            out[key] = (root, model, evs)
+        return out
+
+    @staticmethod
+    def _keys(evs):
+        assert len(evs) == 1, evs
+        return sorted(evs[0]["data"])
+
+    def test_packed_keys(self, artifacts):
+        (_, _, t), (_, _, j) = artifacts["t"], artifacts["j"]
+        assert self._keys(t) == self._keys(j)
+        assert t[0]["data"]["buckets"] == j[0]["data"]["buckets"] == [8, 16, 32]
+
+    def test_hydrated_keys(self, artifacts):
+        from transmogrifai_tpu.deploy import ArtifactStore as JStore
+        from transmogrifai_tpu_torch.deploy import ArtifactStore
+
+        got = {}
+        for key, flight, store in (("t", obs_flight, ArtifactStore),
+                                   ("j", JO.flight, JStore)):
+            root, model, _ = artifacts[key]
+            plan = model.serving_plan(min_bucket=8, max_bucket=32)
+            evs, res = _recorded(flight, "artifact_hydrated",
+                                 lambda: store(root).hydrate(plan, tenant="a"))
+            assert res["hydrated"] == [8, 16, 32], res
+            plan.release_executables()
+            got[key] = evs
+        assert self._keys(got["t"]) == self._keys(got["j"])
+        assert got["t"][0]["data"]["live_compile_buckets"] == \
+            got["j"][0]["data"]["live_compile_buckets"] == []
+
+    def test_miss_keys(self, artifacts):
+        from transmogrifai_tpu.deploy import ArtifactStore as JStore
+        from transmogrifai_tpu.perf.kernels.dispatch import force_kernel_mode
+        from transmogrifai_tpu_torch.deploy import ArtifactStore
+        from transmogrifai_tpu_torch.perf.kernels.dispatch import force_serve_donation
+
+        got = {}
+        for key, flight, store, drift in (
+                ("t", obs_flight, ArtifactStore, lambda: force_serve_donation(True)),
+                ("j", JO.flight, JStore, lambda: force_kernel_mode("interpret"))):
+            root, model, _ = artifacts[key]
+            with drift():
+                plan = model.serving_plan(min_bucket=8, max_bucket=32)
+                evs, res = _recorded(flight, "artifact_miss",
+                                     lambda: store(root).hydrate(plan, tenant="a"))
+            assert res["hydrated"] == [] and not res["refused"], res
+            got[key] = evs
+        assert self._keys(got["t"]) == self._keys(got["j"])
+
+    def test_refused_keys(self, artifacts, tmp_path):
+        from transmogrifai_tpu.deploy import ArtifactStore as JStore
+        from transmogrifai_tpu_torch.deploy import ArtifactStore
+
+        got = {}
+        for key, flight, store in (("t", obs_flight, ArtifactStore),
+                                   ("j", JO.flight, JStore)):
+            _, model, _ = artifacts[key]
+            plan = model.serving_plan(min_bucket=8, max_bucket=32)
+            evs, res = _recorded(flight, "artifact_refused", lambda: store(
+                str(tmp_path / "absent")).hydrate(plan, tenant="a"))
+            assert res["refused"], res
+            got[key] = evs
+        assert self._keys(got["t"]) == self._keys(got["j"])
+        assert got["t"][0]["data"]["code"] == got["j"][0]["data"]["code"] == "TM510"
 
 
 # ---------------------------------------------------------------------------

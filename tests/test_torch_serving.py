@@ -384,11 +384,16 @@ from transmogrifai_tpu_torch.workflow import checkpoint, continual, resilience a
 from transmogrifai_tpu_torch.serve import registry
 from transmogrifai_tpu_torch.obs import slo
 from transmogrifai_tpu_torch.checkers import plancheck
+from transmogrifai_tpu_torch.perf import programs
+from transmogrifai_tpu_torch.deploy import bundle as deploy_bundle, store as deploy_store
+from transmogrifai_tpu_torch.cli import deploy as cli_deploy
 serde._register_stages()
 import chip_smoke
 sys.path.insert(0, {repo!r} + "/tests")
 import torch_examples_data, torch_wide_data, torch_encode_cases, torch_maps_data, torch_text_data
 import torch_stream_data
+sys.path.insert(0, {repo!r} + "/tools")
+import torch_deploy_gate
 bad = sorted(m for m in set(sys.modules) - before
              if m.split(".")[0] in ("jax", "jaxlib", "transmogrifai_tpu"))
 print("BAD=" + ",".join(bad))
@@ -412,7 +417,8 @@ class TestNoJax:
                                       os.path.join("tests", "torch_maps_data.py"),
                                       os.path.join("tests", "torch_text_data.py"),
                                       os.path.join("tests", "torch_stream_data.py"),
-                                      os.path.join("tests", "torch_ooc_data.py")])
+                                      os.path.join("tests", "torch_ooc_data.py"),
+                                      os.path.join("tools", "torch_deploy_gate.py")])
     def test_ast_scan_finds_no_jax_import(self, root):
         path = os.path.join(REPO, root)
         files = [path] if path.endswith(".py") else [
@@ -464,7 +470,10 @@ class TestNoJax:
                             "__init__", "trace", "flight", "reqtrace", "profile")),
                         ("perf", "__init__.py"), ("perf", "timers.py"),
                         ("utils", "listener.py"), ("data", "chunked.py"),
-                        ("readers", "prefetch.py"), ("workflow", "ooc.py")):
+                        ("readers", "prefetch.py"), ("workflow", "ooc.py"),
+                        ("perf", "programs.py"),
+                        *(("deploy", f"{m}.py") for m in ("__init__", "bundle", "store")),
+                        *(("cli", f"{m}.py") for m in ("__init__", "__main__", "deploy"))):
                 assert os.path.join(path, *mod) in files
         bad = []
         for fn in files:

@@ -12,6 +12,7 @@ is the reference's whole table; the port emits these families so far:
   planner split (TM504), the fault-tolerance configuration (TM505/TM506),
   swap admission (TM507/TM508), fleet device-memory admission (TM509) and
   reduced-precision calibration parity (TM511), ``serve/validator.py``;
+  refused deploy artifacts (TM510), ``deploy/bundle.py``;
 - ``TM601`` — a plan whose static peak device-memory estimate exceeds its
   budget (``checkers/plancheck.py``);
 - ``TM8xx`` — continual training (``workflow/continual.py``) and training
@@ -19,7 +20,7 @@ is the reference's whole table; the port emits these families so far:
 - ``TM902`` / ``TM903`` — SLO error-budget burn and exhaustion
   (``obs/slo.py``).
 
-The entries for TM508, TM809 and TM821 carry the port's fix hints: it
+The entries for TM508, TM510, TM809 and TM821 carry the port's fix hints: it
 compiles no XLA program and has no mesh.
 """
 
@@ -176,15 +177,16 @@ DIAGNOSTIC_CODES: Dict[str, Tuple[Severity, str, str]] = {
               "last-scored); raise hbm_budget, shrink the bucket ladder "
               "(max_bucket), or unregister tenants"),
     "TM510": (Severity.ERROR, "deploy artifact refused",
-              "the packed AOT artifact is stale or tampered — truncated/"
-              "hash-mismatched object bytes, a manifest whose plan content "
-              "fingerprint no longer matches the live model, an IR-corpus "
-              "fingerprint that drifted since pack time, or provenance from "
-              "a different jax version (the payload format is version-"
-              "coupled) — and is REFUSED, never loaded (fail-closed, like "
-              "TM606); serving falls back to live compilation, so re-pack "
-              "the bundle (`cli deploy pack`) from the current model and "
-              "environment"),
+              "the packed serving artifact is stale, tampered or foreign — "
+              "truncated/hash-mismatched object bytes (a kernel library "
+              "included), a manifest whose plan content fingerprint no "
+              "longer matches the live model, an IR-corpus fingerprint that "
+              "drifted since pack time, an artifact another package packed, "
+              "or a kernel library built by a CUDA toolkit newer than the "
+              "driver — and is "
+              "REFUSED, never loaded (fail-closed, like TM606); serving "
+              "falls back to a live build, so re-pack the bundle (`cli "
+              "deploy pack`) from the current model and environment"),
     "TM511": (Severity.ERROR, "reduced-precision plan fails calibration parity",
               "the bf16/int8 scoring-prefix plan's max prediction delta vs "
               "the same model's f32 plan over the calibration batch exceeds "

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..data.dataset import Column
+from ..perf.programs import run_cached
 from ..stages.base import Param
 from .base import (
     PredictionEstimatorBase,
@@ -83,8 +84,12 @@ class LinearRegression(PredictionEstimatorBase):
             xd = _with_ones(xd, icpt)
             regs = torch.tensor([self._l2(g) for g in grids], dtype=torch.float32,
                                 device=device)
-            betas = _ridge_sweep(xd, yd, tw, regs, icpt)
-            return eval_linear_sweep(xd, yd, betas, vw, metric_fn, link="identity")
+            betas = run_cached(_ridge_sweep, xd, yd, tw, regs,
+                               statics=dict(has_intercept=icpt),
+                               label="LinearRegression/ridge_sweep")
+            return run_cached(eval_linear_sweep, xd, yd, betas, vw,
+                              statics=dict(metric_fn=metric_fn, link="identity"),
+                              label="LinearRegression/eval_sweep")
 
 
 class LinearRegressionModel(PredictionModelBase):

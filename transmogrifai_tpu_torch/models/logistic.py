@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..data.dataset import Column
+from ..perf.programs import run_cached
 from ..stages.base import Param
 from .base import (
     PredictionEstimatorBase,
@@ -281,15 +282,20 @@ class LogisticRegression(PredictionEstimatorBase):
             betas = torch.zeros((len(grids), tw.shape[0], xd.shape[1]),
                                 dtype=torch.float32, device=device)
             if l2_idx:
-                betas[l2_idx] = _irls_sweep(
-                    xd, yd, tw, vec([l1l2[i][1] for i in l2_idx]),
-                    int(self.max_iter), icpt)
+                betas[l2_idx] = run_cached(
+                    _irls_sweep, xd, yd, tw, vec([l1l2[i][1] for i in l2_idx]),
+                    statics=dict(max_iter=int(self.max_iter), has_intercept=icpt),
+                    label="LogisticRegression/irls_sweep")
             if en_idx:
-                betas[en_idx] = _fista_sweep(
-                    xd, yd, tw, vec([l1l2[i][0] for i in en_idx]),
+                betas[en_idx] = run_cached(
+                    _fista_sweep, xd, yd, tw, vec([l1l2[i][0] for i in en_idx]),
                     vec([l1l2[i][1] for i in en_idx]),
-                    max(10 * int(self.max_iter), 300), icpt)
-            return eval_linear_sweep(xd, yd, betas, vw, metric_fn, link="sigmoid")
+                    statics=dict(max_iter=max(10 * int(self.max_iter), 300),
+                                 has_intercept=icpt),
+                    label="LogisticRegression/fista_sweep")
+            return run_cached(eval_linear_sweep, xd, yd, betas, vw,
+                              statics=dict(metric_fn=metric_fn, link="sigmoid"),
+                              label="LogisticRegression/eval_sweep")
 
 
 class LogisticRegressionModel(PredictionModelBase):

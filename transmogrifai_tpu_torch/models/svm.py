@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..data.dataset import Column
+from ..perf.programs import run_cached
 from ..stages.base import Param
 from .base import (
     PredictionEstimatorBase,
@@ -122,11 +123,14 @@ class LinearSVC(PredictionEstimatorBase):
             yd = torch.from_numpy(y32).to(device)
             regs = torch.tensor([float(g.get("reg_param", self.reg_param))
                                  for g in grids], dtype=torch.float32, device=device)
-            return _svc_cv_program(
-                xd, yd, torch.where(yd > 0.5, 1.0, -1.0),
+            return run_cached(
+                _svc_cv_program, xd, yd, torch.where(yd > 0.5, 1.0, -1.0),
                 torch.from_numpy(np.asarray(train_w, np.float32)).to(device),
                 torch.from_numpy(np.asarray(val_w, np.float32)).to(device),
-                regs, int(self.max_iter), bool(self.fit_intercept), metric_fn)
+                regs, statics=dict(max_iter=int(self.max_iter),
+                                   has_intercept=bool(self.fit_intercept),
+                                   metric_fn=metric_fn),
+                label="LinearSVC/cv_program")
 
 
 class LinearSVCModel(PredictionModelBase):

@@ -35,6 +35,7 @@ from ..data.dataset import Column
 from ..perf.kernels import histogram as _khist
 from ..perf.kernels import routing as _krout
 from ..perf.kernels import splitscan as _ksplit
+from ..perf.programs import run_cached
 from ..stages.base import Param
 from ..utils.reduce import window_sum
 from .base import PredictionEstimatorBase, PredictionModelBase, place_rows
@@ -679,6 +680,11 @@ class _TreeEstimatorBase(PredictionEstimatorBase):
         raise NotImplementedError
 
 
+#: the GBT hyperparameters the sweep program takes as dynamic operands
+_GBT_DYNAMICS = ("eta", "reg_lambda", "alpha", "gamma", "min_child_weight",
+                 "scale_pos_weight", "max_delta_step")
+
+
 class _GBTBase(_TreeEstimatorBase):
     """Shared GBT/XGBoost fitting (objective set by subclass)."""
 
@@ -726,9 +732,15 @@ class _GBTBase(_TreeEstimatorBase):
                      weights01=False):
         objective, num_class, _ = self._resolved(y, np.ones_like(y))
         yd = torch.from_numpy(np.asarray(y, np.float32)).to(binned.device)
-        return _gbt_cv(binned, yd, train_w, val_w, int(self.seed), metric_fn,
-                       objective=objective, num_class=num_class,
-                       **self._fit_config())
+        cfg = self._fit_config()
+        # the reference's split: the float hyperparameters are the program's
+        # dynamic operands, the rest its configuration
+        dynamics = {k: cfg.pop(k) for k in _GBT_DYNAMICS}
+        return run_cached(_gbt_cv, binned, yd, train_w, val_w, int(self.seed),
+                          kwargs=dynamics,
+                          statics=dict(metric_fn=metric_fn, objective=objective,
+                                       num_class=num_class, **cfg),
+                          label=f"{type(self).__name__}/cv_program")
 
 
 def _class_count(y: np.ndarray, declared) -> int:
@@ -826,13 +838,20 @@ class _ForestBase(_TreeEstimatorBase):
                      weights01=False):
         dev = binned.device
         boot = self._boot(int(x.shape[0]), dev).to(torch.float32)
-        return _forest_cv(
+        return run_cached(
+            _forest_cv,
             binned, torch.from_numpy(np.asarray(y, np.float32)).to(dev),
             torch.from_numpy(self._y_cols(y)).to(dev), train_w, val_w,
             torch.from_numpy(self._masks(x.shape[1])).to(dev), boot,
-            int(self.max_depth), int(self.n_bins), self.reg_lambda,
-            self.min_child_weight, self.classification, metric_fn,
-            int_exact=weights01 and self.classification)
+            kwargs=dict(reg_lambda=self.reg_lambda,
+                        min_child_weight=self.min_child_weight),
+            statics=dict(max_depth=int(self.max_depth), n_bins=int(self.n_bins),
+                         classification=self.classification, metric_fn=metric_fn,
+                         # grad/hess = fold_w x poisson counts x one-hot
+                         # targets: exact int8 when fold weights are 0/1 and
+                         # targets are class indicators
+                         int_exact=weights01 and self.classification),
+            label=f"{type(self).__name__}/cv_program")
 
 
 class RandomForestClassifier(_ForestBase):

@@ -26,6 +26,14 @@ events of:
   released buckets, and whether the shared state went too — so an incident
   dump shows *why* a tenant went cold next to the allocation it later paid
   (serve/plan.py).
+- ``artifact_packed`` / ``artifact_hydrated`` / ``artifact_miss`` /
+  ``artifact_refused`` — the deploy artifact store (deploy/store.py): a
+  pack (``root``, ``fingerprint``, ``buckets``), a hydrate (``root``,
+  ``tenant``, ``fingerprint``, the adopted ``buckets`` and the
+  ``live_compile_buckets`` left to a live build), a clean miss on
+  environment drift (``root``, ``tenant``, ``reasons``) and a TM510 refusal
+  (``code``, ``root``, ``tenant``, ``reasons``), each beside the
+  allocations and library loads it saved or caused.
 - ``fleet_register`` / ``fleet_unregister`` / ``fleet_evict`` /
   ``fleet_admission_refused`` (serve/registry.py) and ``slo_burn`` /
   ``slo_escalation`` (obs/slo.py).

@@ -43,6 +43,13 @@ a second plan of a model already warm there allocates nothing on the card.
 :meth:`CompiledScoringPlan.release_executables` releases a plan's warm
 buckets (the fleet's eviction).
 
+A bucket's executable (:class:`BucketExecutable`) is what the bucket needs
+on the card: its staging buffers' and landing ring's specs and the kernel
+libraries its prefix loads.  :meth:`CompiledScoringPlan.executable` takes it
+from a warm bucket (the deploy artifact's pack side), and
+:meth:`~CompiledScoringPlan.adopt_executable` allocates a bucket from it
+without running the prefix (the hydrate side, ``deploy/store.py``).
+
 Buffers shared between batches in flight:
 
 - every batch's device work goes on one stream, the shared state's (the
@@ -93,7 +100,7 @@ from ..data.dataset import Column, Dataset
 from ..features.feature import Feature, _NamedExtract
 from ..features.generator import FeatureGeneratorStage
 from ..ops._consts import const_store
-from ..perf.kernels.dispatch import resolve_device
+from ..perf.kernels.dispatch import libraries_used, resolve_device, serve_donation
 from ..perf.timers import note_compile
 from ..types import ColumnKind, NonNullableEmptyException
 from ..workflow.dag import compute_dag
@@ -337,6 +344,57 @@ def _plain(v: Any):
     return v
 
 
+class BucketExecutable:
+    """One row bucket's executable on its plan's device: what the bucket
+    needs allocated and loaded to serve, and nothing that runs.
+
+    - ``bucket`` and ``fingerprint`` (the plan's, environment-qualified);
+    - ``entry_specs`` — (trailing shape, dtype name) of each prefix entry
+      (:attr:`CompiledScoringPlan.entry_specs`);
+    - ``staging_dtypes`` — the staging buffers' dtypes, one per entry;
+    - ``slot_specs`` — (trailing shape, torch dtype name) of each landing
+      buffer a batch's outputs are copied back into;
+    - ``libraries`` — the kernel libraries the prefix loads on the card
+      (none on the CPU).
+
+    ``to_json`` / ``from_json`` are its serialized form
+    (``perf/programs.py::serialize_compiled``)."""
+
+    __slots__ = ("bucket", "fingerprint", "entry_specs", "staging_dtypes",
+                 "slot_specs", "libraries")
+
+    def __init__(self, bucket: int, fingerprint: str, entry_specs, staging_dtypes,
+                 slot_specs, libraries):
+        self.bucket = int(bucket)
+        self.fingerprint = str(fingerprint)
+        self.entry_specs = [(tuple(int(d) for d in t), str(dt)) for t, dt in entry_specs]
+        self.staging_dtypes = [str(dt) for dt in staging_dtypes]
+        self.slot_specs = [(tuple(int(d) for d in t), str(dt)) for t, dt in slot_specs]
+        self.libraries = sorted(str(n) for n in libraries)
+
+    def to_json(self) -> Dict[str, Any]:
+        return {"bucket": self.bucket, "fingerprint": self.fingerprint,
+                "entrySpecs": [[list(t), dt] for t, dt in self.entry_specs],
+                "stagingDtypes": list(self.staging_dtypes),
+                "slotSpecs": [[list(t), dt] for t, dt in self.slot_specs],
+                "libraries": list(self.libraries)}
+
+    @classmethod
+    def from_json(cls, d: Mapping[str, Any]) -> "BucketExecutable":
+        try:
+            return cls(d["bucket"], d["fingerprint"], d["entrySpecs"],
+                       d["stagingDtypes"], d["slotSpecs"], d["libraries"])
+        except (KeyError, TypeError, ValueError) as e:
+            raise ValueError(f"malformed bucket executable: {e!r}") from e
+
+
+def _torch_dtype(name: str) -> torch.dtype:
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown torch dtype {name!r}")
+    return dt
+
+
 class _OutSlot:
     """Landing buffers of one batch in flight: a host tensor per prefix
     output the host needs, ``bucket`` rows each (pinned on the card)."""
@@ -398,6 +456,7 @@ class CompiledScoringPlan(DevicePrefix):
         if max_bucket < min_bucket or min_bucket < 1:
             raise ValueError(f"bad bucket range [{min_bucket}, {max_bucket}]")
         self._precision = Precision.normalize(precision)
+        self._donate = serve_donation()
         self.min_bucket = 1 << (int(min_bucket) - 1).bit_length()
         self.max_bucket = 1 << (int(max_bucket) - 1).bit_length()
         self.result_features: List[Feature] = list(model.result_features)
@@ -481,6 +540,18 @@ class CompiledScoringPlan(DevicePrefix):
         (default), ``bf16`` or ``int8``; part of the fingerprint when it is
         not f32."""
         return self._precision
+
+    @property
+    def donated(self) -> bool:
+        """Whether the plan was built with serve donation on
+        (``TMOG_SERVE_DONATE``, resolved at construction).  The reference
+        compiles a donated prefix that consumes its padded input buffers;
+        the port's entries already live in per-bucket staging buffers that
+        every batch overwrites, so donation changes no device program here.
+        It joins the fingerprint through the kernel token
+        (``perf/kernels/dispatch.py::cache_token``), so a donated artifact
+        never hydrates a non-donated plan."""
+        return self._donate
 
     @property
     def entry_specs(self) -> List[Tuple[tuple, str]]:
@@ -624,26 +695,37 @@ class CompiledScoringPlan(DevicePrefix):
             if e.ndim != 1 or e.shape[0] != n:
                 raise ValueError(f"a prefix operand must be 1-D with {n} rows, "
                                  f"got shape {e.shape}")
-        dtypes = tuple(e.dtype for e in entries)
-        st = self._staging.get(bucket)
-        if st is None or st.dtypes != dtypes:
-            st = entry.staging.get(bucket)
-            built = st is None or st.dtypes != dtypes
-            if built:
-                with obs_flight.compile_context("serve.plan", fingerprint=self._fingerprint,
-                                                warm=self._warmed):
-                    st = Staging(dtypes, bucket, self.device)
-                    note_compile("staging", bucket=bucket)
-                entry.staging[bucket] = st
-            entry.holders.setdefault(bucket, weakref.WeakSet()).add(self)
-            with self._lock:
-                self._staging[bucket] = st
-                self.compile_count += 1
-                if built:
-                    self._counters["staging_builds"] += 1
+        st = self._hold_staging(entry, bucket, tuple(e.dtype for e in entries))
         copies = st.load(entries, n)
         with self._lock:
             self._counters["h2d_copies"] += copies
+        return st
+
+    def _hold_staging(self, entry: _SharedPrefix, bucket: int,
+                      dtypes: Tuple[np.dtype, ...], shared: bool = True) -> Staging:
+        """The bucket's staging buffers for ``dtypes``, held by this plan:
+        its own, the fingerprint's shared ones, or new ones (one ``staging``
+        compile event; ``shared`` puts them in the shared state for the
+        fingerprint's other plans).  Caller holds the shared lock."""
+        st = self._staging.get(bucket)
+        if st is not None and st.dtypes == dtypes:
+            return st
+        st = entry.staging.get(bucket)
+        built = st is None or st.dtypes != dtypes
+        if built:
+            with obs_flight.compile_context("serve.plan", fingerprint=self._fingerprint,
+                                            warm=self._warmed):
+                st = Staging(dtypes, bucket, self.device)
+                note_compile("staging", bucket=bucket)
+            if shared:
+                entry.staging[bucket] = st
+        if shared:
+            entry.holders.setdefault(bucket, weakref.WeakSet()).add(self)
+        with self._lock:
+            self._staging[bucket] = st
+            self.compile_count += 1
+            if built:
+                self._counters["staging_builds"] += 1
         return st
 
     def _lowered(self, operands: List[torch.Tensor], blocks: List[tuple]
@@ -850,18 +932,96 @@ class CompiledScoringPlan(DevicePrefix):
             return self
         full_ladder = buckets is None
         for b in (self.bucket_ladder() if buckets is None else buckets):
-            b = _bucket_for(b, self.min_bucket, self.max_bucket)
-            handle = self._dispatch(self._warm_entries(b), b)
-            try:
-                handle.wait()
-            finally:
-                self._release(handle)
+            self._warm_bucket(_bucket_for(b, self.min_bucket, self.max_bucket))
         if full_ladder:
             # only a FULL bucket-ladder warm arms the TM901 expectation: a
             # partial warm legitimately allocates its missing buckets later
             with self._lock:
                 self._warmed = True
         return self
+
+    def _warm_bucket(self, bucket: int) -> None:
+        """One padded batch of zeros through ``bucket``."""
+        handle = self._dispatch(self._warm_entries(bucket), bucket)
+        try:
+            handle.wait()
+        finally:
+            self._release(handle)
+
+    def executable(self, bucket: int) -> BucketExecutable:
+        """The executable of ``bucket`` (warming it: one padded batch of
+        zeros through the prefix, which also records the kernel libraries
+        its launches load) — the deploy pack side's accessor."""
+        if not self._prefix:
+            raise ValueError("a plan without a device prefix has no executables")
+        bucket = _bucket_for(bucket, self.min_bucket, self.max_bucket)
+        with libraries_used() as libs:
+            self._warm_bucket(bucket)
+        with self._lock:
+            st = self._staging[bucket]
+        return BucketExecutable(bucket, self._fingerprint, self._entry_specs,
+                                [np.dtype(dt).name for dt in st.dtypes],
+                                self._slot_spec_names(), libs)
+
+    def _slot_spec_names(self) -> Optional[List[Tuple[tuple, str]]]:
+        """The landing specs with torch dtype names, once known."""
+        with self._lock:
+            specs = self._slot_specs
+        if specs is None:
+            return None
+        return [(tuple(shape), str(dt).replace("torch.", "")) for shape, dt in specs]
+
+    def check_executable(self, exe: BucketExecutable,
+                         bucket: Optional[int] = None) -> None:
+        """Raise ``ValueError`` unless ``exe`` is an executable of this plan
+        (its fingerprint, entries, staging dtypes and landing specs) for a
+        bucket of its ladder (``bucket`` when given)."""
+        if not isinstance(exe, BucketExecutable):
+            raise ValueError(f"not a bucket executable: {type(exe).__name__}")
+        if bucket is not None and exe.bucket != bucket:
+            raise ValueError(f"executable of bucket {exe.bucket} filed under {bucket}")
+        if exe.bucket not in self.bucket_ladder():
+            raise ValueError(f"bucket {exe.bucket} is not on the plan's ladder "
+                             f"{self.bucket_ladder()}")
+        if exe.fingerprint != self._fingerprint:
+            raise ValueError(f"executable of fingerprint {exe.fingerprint[:16]}..., "
+                             f"the plan's is {self._fingerprint[:16]}...")
+        if exe.entry_specs != [(tuple(t), d) for t, d in self._entry_specs]:
+            raise ValueError("executable entry specs differ from the plan's")
+        if exe.staging_dtypes != [e.dtype.name for e in self._warm_entries(0)]:
+            raise ValueError(f"executable staging dtypes {exe.staging_dtypes} differ "
+                             "from the plan's encodings")
+        specs = self._slot_spec_names()
+        if specs is not None and specs != exe.slot_specs:
+            raise ValueError("executable landing specs differ from the plan's")
+        for _t, dt in exe.slot_specs:
+            _torch_dtype(dt)
+
+    def adopt_executable(self, bucket: int, exe: BucketExecutable,
+                         shared: bool = True) -> None:
+        """Allocate ``bucket`` from a pre-built executable — the deploy
+        artifact's hydration hook: its staging buffers (through the shared
+        state of the fingerprint with ``shared``, so the fingerprint's later
+        plans find them there and allocate none) and its landing ring (this
+        plan's reserved sets), each counted as a compile event as the first
+        batch's allocations are.  Nothing runs on the device.  Once every
+        bucket of the ladder is held the plan counts as warmed (a later
+        allocation is a TM901 unexpected recompile), as after a full
+        :meth:`warm`."""
+        bucket = _bucket_for(bucket, self.min_bucket, self.max_bucket)
+        self.check_executable(exe, bucket)
+        dtypes = tuple(np.dtype(dt) for dt in exe.staging_dtypes)
+        entry = self._shared()
+        with entry.lock:
+            self._hold_staging(entry, bucket, dtypes, shared=shared)
+        with self._lock:
+            if self._slot_specs is None:
+                self._slot_specs = [(tuple(t), _torch_dtype(dt)) for t, dt in exe.slot_specs]
+            if bucket not in self._sets:
+                self._free[bucket] = self._new_slots(bucket, self._ring_size)
+            if not self._warmed and all(b in self._staging and b in self._sets
+                                        for b in self.bucket_ladder()):
+                self._warmed = True
 
     # -- the host halves -------------------------------------------------------
     def _encode_records(self, records) -> Tuple[Dict[str, Column], List[np.ndarray]]:

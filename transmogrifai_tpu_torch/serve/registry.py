@@ -36,9 +36,9 @@ Per-tenant labels flow through the shared metrics registry
 (``obs/metrics.py``): resilience, breaker and swap series carry
 ``{tenant="...", entry="<tenant>/<version>"}``, the batcher adds labeled
 shed counters and latency histograms, and :meth:`ModelRegistry.unregister`
-prunes every series of a removed tenant.  Not ported: the reference's
-deploy artifacts (``register(artifact=)`` raises by name), and its request
-traces and flight-recorder events.
+prunes every series of a removed tenant.  ``register(artifact=...)``
+hydrates the first tenant of a fingerprint from a deploy artifact
+(``deploy/store.py``) before its warm pass.
 """
 
 from __future__ import annotations
@@ -55,7 +55,6 @@ from ..obs import flight as obs_flight
 from ..obs import reqtrace
 from ..obs.metrics import MetricsRegistry, canonical_help
 from ..perf.kernels.dispatch import resolve_device
-from ..workflow.workflow import _refuse_unported
 from .batcher import DEFAULT_SLO_CLASSES, MicroBatcher, SloClass
 from .faults import fault_point
 from .pipeline import pipeline_depth as _env_pipeline_depth
@@ -193,11 +192,16 @@ class ModelRegistry:
         classes carry the class in their fingerprint, so they never share
         prefix state with f32 tenants.
 
-        ``artifact`` (the reference's deploy artifact store) is not ported
-        and raises ``NotImplementedError`` by name.
+        ``artifact`` (a packed artifact dir path or
+        :class:`~..deploy.ArtifactStore`) hydrates the plan's buckets from
+        the deploy artifact store BEFORE the warm pass: a verified artifact
+        boots the tenant with no kernel build (its libraries installed from
+        the artifact and loaded) and its buckets allocated from their
+        executables; a stale or tampered artifact is refused (TM510,
+        flight-recorded) and the warm pass builds live as if no artifact
+        existed.  Only the first tenant of a fingerprint reads the artifact:
+        later ones share its device state.
         """
-        _refuse_unported("ModelRegistry.register",
-                         {"artifact (deploy/)": artifact is not None})
         if slo not in self.slo_classes:
             raise ValueError(f"unknown SLO class {slo!r}; configured: "
                              f"{sorted(self.slo_classes)}")
@@ -216,6 +220,15 @@ class ModelRegistry:
                                   calibration=calibration)
             shared = self._is_resident(entry.plan.fingerprint)
             self._admit(tenant, entry.plan)
+            if artifact is not None and not shared:
+                # a shared-fingerprint tenant finds the buckets in the
+                # fingerprint's shared state anyway — only the first tenant
+                # of a fingerprint reads the artifact off disk
+                from ..deploy.store import ArtifactStore
+
+                store = artifact if isinstance(artifact, ArtifactStore) \
+                    else ArtifactStore(artifact)
+                store.hydrate(entry.plan, tenant=tenant)
             if warm:
                 entry.plan.warm()
             swapper = SwappableScorer(entry, registry=self.registry,

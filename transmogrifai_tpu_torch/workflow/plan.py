@@ -386,7 +386,10 @@ class DevicePrefix:
         ``workflow/serde.py`` saves it, so a reloaded copy of a model hashes
         equal), the prefix's wiring (entries, outputs) and ``extra`` (the
         serving plan's precision class when it is not f32); ``environment``
-        adds the device type.  Equal fingerprints run the same prefix."""
+        adds the device type and the kernel token
+        (``perf/kernels/dispatch.py::cache_token``: the kernels' sources and
+        the serve-donation choice).  Equal fingerprints run the same prefix."""
+        from ..perf.kernels.dispatch import cache_token
         from .serde import _Encoder, encode_stage
 
         enc = _Encoder()
@@ -395,6 +398,7 @@ class DevicePrefix:
                              "outs": self._out_uids, **(extra or {})}}
         if environment:
             payload["device"] = self.device.type
+            payload["kernels"] = cache_token()
         h = hashlib.sha256(json.dumps(payload, sort_keys=True, default=repr).encode())
         for key in sorted(enc.arrays):
             arr = np.ascontiguousarray(enc.arrays[key])
