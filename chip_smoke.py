@@ -459,7 +459,26 @@ Phases, one JSON line each:
                library object each refused (TM510, one artifact_refused),
                the live build then bitwise; the hydrated plan's prefix
                output bitwise its plain version and the eager plan's.
-26. summary  — nvidia-smi's line, then one {"kernels": [...]} line, then the
+26. cli      — the operator CLI and the kernel autotuner (cli/, perf/
+               autotune.py).  (a) `cli tune run --format json` of every
+               family into a temporary store, then sweeps at the main path's
+               shapes (CLI_SWEEPS), every candidate held to its kernel's
+               plain version on the card.  (b) A child `cli tune show` reads
+               that store with 0 sweeps and the same tune= token.  (c) Phase
+               10's table at CLI_TRAIN_ROWS under LR + RF + GBT, untuned,
+               recording the shape class of every K1-K3 and encode launch;
+               each class is swept, and the train runs again with each
+               class's fastest verified non-default plan adopted: every
+               family's launches take it, RF and LR CV bitwise the untuned
+               train's, GBT within 1e-3, the winner equal, a plan's
+               fingerprint moving with the tune= token.  (d) In child
+               processes: `cli train --resume` SIGKILLed after its first
+               journal commit and resumed (bitwise an uninterrupted run's),
+               `cli serve --model` (rows == the CPU plan's), `serve --models`
+               of two tenants then `top --once`, `serve --follow --refit`
+               (0 kernel builds in the refit), `cli gen` whose generated test
+               passes.  At most 60 s.
+27. summary  — nvidia-smi's line, then one {"kernels": [...]} line, then the
                last line {"ok": true, "device": {...}}.
 
 Phase 3 also holds K5 past shared memory (a 5000-split slot, its own launch
@@ -6368,6 +6387,593 @@ def phase_deploy(torch, KE, dev) -> dict:
     return out
 
 
+# -- 26. the operator CLI and the kernel autotuner ------------------------------
+
+#: phase 26's sweeps at the main path's shapes: K1's int8 level of phase 9's
+#: RF CV (150 lanes x 16 nodes) and its float GBT level (3 x 2), K2 at the RF
+#: CV's deepest level, K3 at 150 and 3 lanes, the encode kernel's 40 slots
+#: over a served batch and over the training flush, and over (c)'s flush (so
+#: a winner can apply in (c)'s train); beside each, PERF.md section 6's
+#: bound of that shape (ms)
+#: rows of (c)'s trains of phase 10's table (LR + RF + GBT, 2-fold CV)
+CLI_TRAIN_ROWS = 1 << 16
+CLI_SWEEPS = (
+    ("hist", {"lanes": FOLDS * 50, "nodes": 16, "rows": FULL_ROWS, "features": D,
+              "bins": N_BINS, "classes": 1, "int_exact": 1}, 0.466),
+    ("hist", {"lanes": FOLDS, "nodes": 2, "rows": FULL_ROWS, "features": D,
+              "bins": N_BINS, "classes": 1, "int_exact": 0}, 0.172),
+    ("split", {"lanes": FOLDS * 50, "nodes": 32, "classes": 1, "features": D,
+               "bins": N_BINS}, 0.0485),
+    ("route", {"lanes": FOLDS * 50, "rows": FULL_ROWS, "features": D}, 0.536),
+    ("route", {"lanes": FOLDS, "rows": FULL_ROWS, "features": D}, 0.0113),
+    ("encode", {"rows": BATCH, "slots": 40, "width": 730}, 9.41e-04),
+    ("encode", {"rows": RAW_ROWS, "slots": 40, "width": 728}, 0.2404),
+    ("encode", {"rows": CLI_TRAIN_ROWS, "slots": 40, "width": 728}, None),
+)
+#: timed reps a candidate (min of them; its first launch excluded)
+CLI_REPS = 5
+#: timed reps a candidate in the sweeps of (c)'s own launch classes (they
+#: pick each class's fastest non-default plan; one rep keeps them off the
+#: host the children need)
+CLI_TRAIN_REPS = 1
+CLI_RF_GRID = {"num_trees": 50, "max_depth": 6}
+CLI_GBT_GRID = {"num_rounds": 10, "max_depth": 3}
+#: (d): rows of the table's CSV that `cli train` and `cli gen` read, records
+#: `cli serve` replays (in full batches of CLI_SERVE_BATCH: the CPU plan
+#: scores the same batches), labelled records a drift segment of the tail
+CLI_CSV_ROWS = 1 << 14
+CLI_SERVE_RECORDS = 2048
+CLI_SERVE_BATCH = 256
+CLI_FOLLOW_RECORDS = 256
+#: `cli train` SIGKILLed at its sweep's second gather, after the first
+#: family's journal commit (its arguments after ``-c``)
+CLI_KILLED_TRAIN = (
+    "import os, signal, sys\n"
+    "from transmogrifai_tpu_torch.serve.faults import FaultHarness\n"
+    "from transmogrifai_tpu_torch.cli import main\n"
+    "kill = lambda ctx: os.kill(os.getpid(), signal.SIGKILL)\n"
+    "with FaultHarness(seed=0).script('device_sync', [None, kill]):\n"
+    "    main(sys.argv[1:])\n"
+    "raise SystemExit('unreachable: SIGKILL should have landed')\n")
+#: runs a generated project's App on the CPU (a rehearsal of phase 26 off the
+#: card), its arguments after ``-c``
+CLI_APP_ON_CPU = (
+    "import runpy, sys\n"
+    "from transmogrifai_tpu_torch.perf.kernels.dispatch import use_device\n"
+    "sys.argv = ['main.py'] + sys.argv[1:]\n"
+    "with use_device('cpu'):\n"
+    "    runpy.run_path('main.py', run_name='__main__')\n")
+#: the autotuner's family of each kernel of the kernels line
+_FAMILY_OF = {"hist_level": "hist", "split_scan": "split", "row_select_lanes": "route"}
+
+
+def _autotune_line(cli: dict, family: str) -> list:
+    """Phase 26's sweeps of one family for the kernels line: shape class,
+    candidates, eligible, default and best ms, the winner, the bound."""
+    return [{k: s[k] for k in ("class", "candidates", "eligible", "default_ms",
+                               "best_ms", "best", "winner", "bound_ms",
+                               "perf_md_bound_ms")}
+            for s in cli["sweeps"] if s["family"] == family]
+
+
+def _cli_sweep(torch, autotune, family: str, dims: dict, perf_bound, store: str,
+               dev, reps: Optional[int] = None, several: bool = True) -> dict:
+    """One sweep at ``dims`` on ``dev``; every candidate must be eligible
+    (its output held to the plain version there by the sweep) and, where
+    ``several``, the card must have more than the default to try.  ``best``
+    is the fastest candidate, ``winner`` the one adopted (the default unless
+    the fastest beats it by more than its reps' spread); ``runner_up`` the
+    fastest non-default candidate."""
+    t = time.perf_counter()
+    dec = autotune.sweep(family, dims, store=store, device=dev, reps=reps or CLI_REPS)
+    entry = autotune._read_entry(autotune._entry_path(dec.device_kind, family,
+                                                      dec.shape_class, store))
+    what = f"autotune {family} at {dims}"
+    check(entry is not None and dec.verified, f"{what}: verified and stored")
+    check(dec.eligible == dec.candidates
+          and (dec.candidates > 1 or dev.type != "cuda" or not several),
+          f"{what}: every candidate matches the plain version on the card "
+          f"({dec.eligible} of {dec.candidates}): {entry and entry['trials']}")
+    check(dec.default_seconds is not None, f"{what}: the default was timed")
+    default = autotune.family_defaults(family, dec.shape_class)
+    timed = sorted(entry["trials"], key=lambda tr: tr["seconds"])
+    best = timed[0]
+    runner = next((tr for tr in timed if tr["params"] != default), None)
+    b = bound(entry["work"]["bytes"], entry["work"]["ops"])
+    return {"family": family, "dims": dims, "class": dec.shape_class,
+            "candidates": dec.candidates, "eligible": dec.eligible,
+            "default": default, "winner": dec.params,
+            "default_ms": dec.default_seconds * 1e3,
+            "default_reps_ms": [r * 1e3 for r in next(
+                tr["reps"] for tr in timed if tr["params"] == default)],
+            "best": best["params"], "best_ms": best["seconds"] * 1e3,
+            "best_reps_ms": [r * 1e3 for r in best["reps"]],
+            "default_over_best": dec.default_seconds / best["seconds"],
+            "runner_up": runner and runner["params"],
+            "runner_up_ms": runner and runner["seconds"] * 1e3,
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "perf_md_bound_ms": perf_bound,
+            "trials": [{"params": tr["params"],
+                        "ms": None if tr["seconds"] is None else tr["seconds"] * 1e3}
+                       for tr in entry["trials"]],
+            "sweep_s": time.perf_counter() - t}
+
+
+def _cli_force(autotune, s: dict, store: str, dev) -> bool:
+    """Write sweep ``s``'s fastest non-default candidate (verified on the
+    card by that sweep) as the winner of its class in ``store``; False where
+    the class had no other candidate."""
+    if s["runner_up"] is None:
+        return False
+    kind = autotune.device_kind(dev)
+    entry = {"schema": autotune.SCHEMA_VERSION, "device_kind": kind,
+             "family": s["family"], "shape_class": s["class"],
+             "params": s["runner_up"], "verified": True,
+             "candidates": s["candidates"], "eligible": s["eligible"],
+             "best_seconds": s["runner_up_ms"] / 1e3,
+             "default_seconds": s["default_ms"] / 1e3, "dims": s["dims"]}
+    autotune._write_atomic(autotune._entry_path(kind, s["family"], s["class"], store),
+                           entry)
+    return True
+
+
+def _cli_table(tmp: str) -> str:
+    """(d)'s table: phase 10's table as a CSV of CLI_CSV_ROWS rows."""
+    import csv
+
+    from torch_wide_data import FIXTURE_SHAPE, make_data
+
+    cols, schema = make_data(CLI_CSV_ROWS, seed=63, **FIXTURE_SHAPE)
+    names = [s["name"] for s in schema]
+    table = os.path.join(tmp, "table.csv")
+    with open(table, "w", newline="") as fh:
+        w = csv.writer(fh)
+        w.writerow(names)
+        for i in range(CLI_CSV_ROWS):
+            w.writerow(["" if cols[c][i] is None else cols[c][i] for c in names])
+    return table
+
+
+def _cli_tables(torch, dev, tmp: str) -> dict:
+    """(d)'s other files: phase 10's records as JSONL (one file plain, one
+    with a tenant column), and the continual base (trained on ``dev``) with
+    its labelled tail and baseline."""
+    import types
+
+    import transmogrifai_tpu_torch as T
+    import torch_stream_data as SD
+    from torch_wide_data import FIXTURE_SHAPE, make_data
+    from transmogrifai_tpu_torch.models.logistic import LogisticRegression
+    from transmogrifai_tpu_torch.readers.base import rows_to_dataset
+    from transmogrifai_tpu_torch.workflow import continual as TC
+    from transmogrifai_tpu_torch.workflow.workflow import dedup_raw_features
+
+    cols, schema = make_data(CLI_SERVE_RECORDS, seed=64, **FIXTURE_SHAPE)
+    names = [s["name"] for s in schema]
+    records = [{c: cols[c][i] for c in names if c != "label"}
+               for i in range(CLI_SERVE_RECORDS)]
+    recs = os.path.join(tmp, "records.jsonl")
+    _write_jsonl(recs, records)
+    tenants = os.path.join(tmp, "tenant_records.jsonl")
+    _write_jsonl(tenants, [{"tenant": ("acme" if i % 2 else "globex"), **r}
+                           for i, r in enumerate(records)])
+    pkg = types.SimpleNamespace(
+        FeatureBuilder=T.FeatureBuilder, transmogrify=T.transmogrify,
+        BinaryClassificationModelSelector=T.BinaryClassificationModelSelector,
+        LogisticRegression=LogisticRegression, Workflow=T.Workflow,
+        rows_to_dataset=rows_to_dataset, dedup_raw_features=dedup_raw_features,
+        continual=TC)
+    base, _, _, snap = SD.continual_base(pkg, {"device": dev})
+    base_dir = os.path.join(tmp, "continual_model")
+    base.save(base_dir)
+    baseline = os.path.join(tmp, "baseline.json")
+    snap.save(baseline)
+    stream = os.path.join(tmp, "stream.jsonl")
+    _write_jsonl(stream, SD.make_records(CLI_FOLLOW_RECORDS, 51, shift=3.0)
+                 + SD.make_records(CLI_FOLLOW_RECORDS, 53, shift=-3.0))
+    return {"records": recs, "records_list": records,
+            "tenant_records": tenants, "continual_model": base_dir,
+            "baseline": baseline, "stream": stream}
+
+
+def _cli_trainer(torch, KE, dev, autotune):
+    """(c)'s train of phase 10's table at CLI_TRAIN_ROWS under LR + RF + GBT
+    with the winner store ``store_dir`` (an empty one: untuned): seconds,
+    launches, launches that took a winner, winner and CV."""
+    import transmogrifai_tpu_torch as T
+    from torch_wide_data import FIXTURE_SHAPE, make_data, wide_pipeline
+    from transmogrifai_tpu_torch.models.trees import (
+        GradientBoostedTreesClassifier,
+        RandomForestClassifier,
+    )
+    from transmogrifai_tpu_torch.perf.kernels import dispatch
+    from transmogrifai_tpu_torch.types import feature_type_by_name
+
+    cols, schema = make_data(CLI_TRAIN_ROWS, seed=61, **FIXTURE_SHAPE)
+    ftypes = {s["name"]: feature_type_by_name(s["type"]) for s in schema}
+    ds = T.Dataset.from_features(cols, ftypes)
+    del cols
+    models = [(T.LogisticRegression(), [{"reg_param": 0.01}]),
+              (RandomForestClassifier(), [dict(CLI_RF_GRID)]),
+              (GradientBoostedTreesClassifier(), [dict(CLI_GBT_GRID)])]
+
+    def train(store_dir, record=None):
+        """``record`` (a dict) gains the dims of every launch class the
+        train's launchers look up, by shape class."""
+        os.environ["TMOG_AUTOTUNE_DIR"] = store_dir
+        autotune.reset()
+        token = autotune.tuning_token()
+        label, sel, chk, pred = wide_pipeline(T, ftypes, schema, models=models)
+        wf = T.Workflow().set_input_dataset(ds).set_result_features(label, pred)
+        _reset_all(KE)
+        autotune.applied_counts(reset=True)
+        lookup = autotune.launch_params
+        if record is not None:
+            def recording(family, device, **dims):
+                seen = record.setdefault(autotune.shape_class(family, device, **dims),
+                                         [family, dims, 0])
+                seen[2] += 1
+                return lookup(family, device, **dims)
+            autotune.launch_params = recording
+        _sync(torch, dev)
+        t = time.perf_counter()
+        try:
+            model = wf.train(device=dev)
+            _sync(torch, dev)
+        finally:
+            autotune.launch_params = lookup
+        seconds = time.perf_counter() - t
+        summary = model.fitted[sel.uid].summary
+        return {"model": model, "seconds": seconds, "launches": _all_counts(KE),
+                "applied": autotune.applied_counts(reset=True), "token": token,
+                "kernels_token": dispatch.cache_token(),
+                "winner": summary.best_model_name,
+                "cv": {(e.model_name, json.dumps(e.grid, sort_keys=True)):
+                       [float(v) for v in e.metric_values]
+                       for e in summary.validation_results},
+                "width": len(model.fitted[chk.uid].kept_indices)}
+
+    return train
+
+
+def _cli_fingerprints(model, dev) -> tuple:
+    plan = model.serving_plan(device=dev)
+    fp = (plan.fingerprint, plan.content_fingerprint)
+    plan.release_executables()
+    return fp
+
+
+def _cli_start(pool, steps: list, env: dict, here: str):
+    """Run ``steps`` (argv, cwd or None, extra env or None) one after
+    another in child processes on a worker of ``pool``; the future gives
+    each step's rc, stdout, stderr's end and seconds."""
+    def run():
+        done = []
+        for argv, cwd, extra in steps:
+            t = time.perf_counter()
+            p = subprocess.run(argv, cwd=cwd or here, env=dict(env, **(extra or {})),
+                               capture_output=True, text=True, timeout=600)
+            done.append({"rc": p.returncode, "out": p.stdout, "err": p.stderr[-4000:],
+                         "seconds": time.perf_counter() - t})
+        return done
+    return pool.submit(run)
+
+
+def _json_lines(text: str) -> list:
+    return [json.loads(ln) for ln in text.splitlines() if ln.strip().startswith("{")]
+
+
+def phase_cli(torch, KE, dev) -> dict:
+    """The operator CLI and the kernel autotuner on the card.  (a) `cli tune
+    run` of every family into a temporary store, then sweeps at the main
+    path's shapes, every candidate held to its plain version; (b) a child
+    reads the store with 0 sweeps and the same token; (c) phase 10's table
+    trained untuned, recording its launch classes, each class swept, then
+    trained again with each class's fastest non-default plan adopted, so
+    that every family's launches run a plan other than the rules'; (d) `cli
+    train --resume`
+    killed and resumed beside an uninterrupted one, `cli serve` of one model
+    and of two tenants with `cli top`, `--follow --refit`, and `cli gen`
+    whose generated test runs, all in child processes.  The children whose
+    inputs exist start first and import while (a) runs: the sweeps have the
+    card to themselves (their launches are timed on the device, the host's
+    enqueue held off the clock); (c) and the rest run beside the children."""
+    import contextlib
+    import io
+    import shutil
+    import signal
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from transmogrifai_tpu_torch import WorkflowModel
+    from transmogrifai_tpu_torch.cli.gen import main as cli_main
+    from transmogrifai_tpu_torch.perf import autotune
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="tmog_cli_")
+    store = os.path.join(tmp, "store")
+    empty = os.path.join(tmp, "no_store")
+    # (c)'s sweeps of its own launch classes, and a store holding each
+    # class's fastest non-default candidate
+    own = os.path.join(tmp, "train_store")
+    forced = os.path.join(tmp, "forced_store")
+    env_before = os.environ.get("TMOG_AUTOTUNE_DIR")
+    on = [] if dev.type == "cuda" else ["--device", str(dev)]
+    cli = [sys.executable, "-m", "transmogrifai_tpu_torch.cli"]
+    # the children run untuned (an empty store), the cold read on the store
+    env = dict(os.environ, TMOG_AUTOTUNE_DIR=empty,
+               PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    out = {}
+    pool = ThreadPoolExecutor(8)
+    futs = {}
+    try:
+        # the children that read only the table start first: gen and the
+        # resumed train are the phase's longest chains
+        table, proj = _cli_table(tmp), os.path.join(tmp, "project")
+        train_args = ["train", "--input", table, "--response", "label",
+                      "--format", "json", *on]
+        app_test = ([sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+                     "test_project.py"] if dev.type == "cuda" else
+                    [sys.executable, "-c", CLI_APP_ON_CPU, "--run-type", "train",
+                     "--model-location", os.path.join(tmp, "app_model")])
+        t_kids = time.perf_counter()
+        first = {
+            "train": [(cli + train_args + [
+                "--model-location", os.path.join(tmp, "m_whole"),
+                "--resume", os.path.join(tmp, "ck_whole")], None, None)],
+            "resume": [([sys.executable, "-c", CLI_KILLED_TRAIN] + train_args + [
+                "--model-location", os.path.join(tmp, "m_resumed"),
+                "--resume", os.path.join(tmp, "ck_resumed")], None, None),
+                       (cli + train_args + [
+                "--model-location", os.path.join(tmp, "m_resumed"),
+                "--resume", os.path.join(tmp, "ck_resumed")], None, None)],
+            "gen": [(cli + ["gen", "--input", table, "--response", "label",
+                            "--output", proj, "--name", "cli-smoke"], None, None),
+                    (app_test, proj, None)],
+        }
+        futs.update({k: _cli_start(pool, v, env, here) for k, v in first.items()})
+        files = _cli_tables(torch, dev, tmp)
+        follow = {
+            "follow": [(cli + [
+                "serve", "--model", files["continual_model"], "--records", files["stream"],
+                "--output", os.path.join(tmp, "follow_scores.jsonl"),
+                "--metrics-out", os.path.join(tmp, "follow_metrics.json"),
+                "--follow", "--refit", "--offsets", os.path.join(tmp, "offsets.json"),
+                "--baseline", files["baseline"], "--batch-interval", "0",
+                "--max-empty-polls", "1", "--max-batch-records", "128",
+                "--drift-min-records", "128", "--window-records", str(CLI_FOLLOW_RECORDS),
+                "--shadow-records", "64", "--probation-batches", "2",
+                "--checkpoint-dir", os.path.join(tmp, "follow_ckpts"),
+                "--max-wait-ms", "1", *on], None, None)],
+        }
+        futs.update({k: _cli_start(pool, v, env, here) for k, v in follow.items()})
+
+        # (a) every family at its default dims through the CLI, then the
+        # main path's shapes
+        t = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(["tune", "run", "--format", "json", "--store", store,
+                           "--reps", str(CLI_REPS), *on])
+        runs = [ln["sweep"] for ln in _json_lines(buf.getvalue())]
+        check(rc == 0 and [r["family"] for r in runs] == list(autotune.FAMILIES)
+              and all(r["verified"] and r["eligible"] == r["candidates"] for r in runs),
+              f"cli tune run: rc {rc}, every family verified: {runs}")
+        out["tune_run"] = {"seconds": time.perf_counter() - t,
+                           "sweeps": [{k: r[k] for k in (
+                               "family", "shapeClass", "params", "isDefault",
+                               "candidates", "eligible", "bestSeconds",
+                               "defaultSeconds")} for r in runs]}
+        sweeps = []
+        for family, dims, perf_bound in CLI_SWEEPS:
+            s = _cli_sweep(torch, autotune, family, dims, perf_bound, store, dev)
+            sweeps.append(s)
+            emit({"phase": "cli.sweep", **s})
+        out["sweeps"] = sweeps
+        out["sweeps_s"] = time.perf_counter() - t
+        # (b) the cold read of the complete store
+        futs["show"] = _cli_start(pool, [(cli + ["tune", "show", "--format", "json",
+                                                 "--store", store],
+                                          None, {"TMOG_AUTOTUNE_DIR": store})], env, here)
+
+        # (c) untuned (recording its launch classes), then the served
+        # children, then each class swept, then tuned
+        train = _cli_trainer(torch, KE, dev, autotune)
+        classes = {}
+        un = train(empty, record=classes)
+        model_dir = os.path.join(tmp, "model")
+        un["model"].save(model_dir)
+        models_dir = os.path.join(tmp, "models")
+        for tenant in ("acme", "globex"):
+            un["model"].save(os.path.join(models_dir, tenant))
+        served = {
+            "serve": [(cli + ["serve", "--model", model_dir, "--records", files["records"],
+                              "--output", os.path.join(tmp, "scores.jsonl"),
+                              "--metrics-out", os.path.join(tmp, "serve_metrics.json"),
+                              "--max-batch", str(CLI_SERVE_BATCH),
+                              "--max-wait-ms", "60000", *on], None, None)],
+            "fleet": [(cli + ["serve", "--models", models_dir,
+                              "--records", files["tenant_records"],
+                              "--output", os.path.join(tmp, "fleet_scores.jsonl"),
+                              "--metrics-out", os.path.join(tmp, "fleet_metrics.json"),
+                              "--max-batch", str(CLI_SERVE_BATCH), "--max-wait-ms", "2",
+                              "--statusz-out", os.path.join(tmp, "statusz.jsonl"), *on],
+                       None, None),
+                      (cli + ["top", "--statusz", os.path.join(tmp, "statusz.jsonl"),
+                              "--once", "--no-clear"], None, None)],
+        }
+        futs.update({k: _cli_start(pool, v, env, here) for k, v in served.items()})
+        t = time.perf_counter()
+        train_sweeps = [_cli_sweep(torch, autotune, family, dims, None, own, dev,
+                                   reps=CLI_TRAIN_REPS, several=False)
+                        for family, dims, _ in (classes[c] for c in sorted(classes))]
+        forced_classes = {s["class"] for s in train_sweeps
+                          if _cli_force(autotune, s, forced, dev)}
+        train_sweeps_s = time.perf_counter() - t
+        tu = train(forced)
+        fp_adopted = _cli_fingerprints(tu["model"], dev)
+        os.environ["TMOG_AUTOTUNE_DIR"] = empty
+        autotune.reset()
+        fp_untuned = _cli_fingerprints(tu["model"], dev)
+        steps = {k: f.result() for k, f in futs.items()}
+        children_s = time.perf_counter() - t_kids
+        for name, done in steps.items():
+            for i, st in enumerate(done):
+                check(st["rc"] == 0 or (name == "resume" and i == 0),
+                      f"cli child {name}[{i}] exited {st['rc']}: {st['err']}")
+
+        # (c)'s checks
+        check(un["winner"] == tu["winner"],
+              f"tuned winner {tu['winner']} == untuned {un['winner']}")
+        check(un["cv"].keys() == tu["cv"].keys(), "the same CV entries tuned and not")
+        gbt_dev = 0.0
+        for key, want in un["cv"].items():
+            got = tu["cv"][key]
+            if key[0] == "GradientBoostedTreesClassifier":
+                gbt_dev = max([gbt_dev] + [abs(g - w) for g, w in zip(got, want)])
+            else:
+                check(got == want, f"{key[0]} CV metrics bitwise tuned and untuned: "
+                      f"{got} vs {want}")
+        check(gbt_dev <= 1e-3, f"GBT CV metrics within 1e-3 tuned and untuned: {gbt_dev}")
+        for run in (un, tu):
+            check(dev.type != "cuda" or all(run["launches"][k] > 0 for k in (
+                "hist_level", "split_scan", "row_select_lanes", "encode_slots")),
+                f"K1-K3 and the encode kernel launched: {run['launches']}")
+        check(un["token"] == "" and not any(un["applied"].values())
+              and "tune=" not in un["kernels_token"],
+              f"the untuned train adopted nothing: {un['token']!r} {un['applied']}")
+        tuned_any = bool(tu["token"])
+        check(tuned_any == ("tune=" in tu["kernels_token"]),
+              "the kernel token carries tune= exactly when a non-default winner "
+              "is adopted")
+        check(fp_adopted[1] == fp_untuned[1] and (fp_adopted[0] != fp_untuned[0]) == tuned_any,
+              "a plan's fingerprint moves exactly when a non-default winner is "
+              f"adopted (its content fingerprint never): token {tu['token']!r}")
+        check(any(tu["applied"].values()) <= tuned_any,
+              f"no winner applied without a tune= token: {tu['applied']}")
+        # every family's launches took a non-default plan in the tuned train
+        families = (autotune.FAMILIES if dev.type == "cuda" else ("hist", "route"))
+        at_forced = {f: sum(n for c, (fam, _, n) in classes.items()
+                            if fam == f and c in forced_classes) for f in families}
+        check(tuned_any and all(tu["applied"].get(f, 0) > 0 for f in families),
+              f"every family ran a non-default plan in the tuned train: applied "
+              f"{tu['applied']}, lookups at the forced classes (untuned) {at_forced}")
+        out["train"] = {
+            "rows": CLI_TRAIN_ROWS, "untuned_s": un["seconds"], "tuned_s": tu["seconds"],
+            "winner": tu["winner"], "gbt_cv_max_abs_dev": gbt_dev,
+            "token": tu["token"], "applied": tu["applied"],
+            "lookups_at_forced_classes": at_forced,
+            "classes": len(classes), "forced_classes": len(forced_classes),
+            "class_sweeps_s": train_sweeps_s,
+            "class_sweeps": [{k: s[k] for k in (
+                "class", "candidates", "default_ms", "best_ms", "winner",
+                "runner_up", "runner_up_ms")} for s in train_sweeps],
+            "launches_untuned": un["launches"], "launches": tu["launches"],
+            "vector_width": un["width"]}
+        del un, tu
+
+        # (b) the same winners, 0 sweeps, the same token
+        shown = _json_lines(steps["show"][0]["out"])
+        child = {(w["winner"]["family"], w["winner"]["shape_class"]):
+                 w["winner"]["params"] for w in shown if "winner" in w}
+        mine = {(w["family"], w["shape_class"]): w["params"]
+                for w in autotune.winners(store)}
+        os.environ["TMOG_AUTOTUNE_DIR"] = store
+        autotune.reset()
+        token = autotune.tuning_token()
+        check(child == mine and len(child) >= len(autotune.FAMILIES) + len(CLI_SWEEPS) - 1,
+              f"the child read the store's {len(mine)} winners: {len(child)}")
+        check(shown[-1]["sweeps"] == 0 and shown[-1]["token"] == token,
+              f"the child swept nothing and adopted the same token: {shown[-1]} vs {token!r}")
+        out["cold_read"] = {"winners": len(child), "sweeps": shown[-1]["sweeps"],
+                            "token": token, "seconds": steps["show"][0]["seconds"]}
+        os.environ["TMOG_AUTOTUNE_DIR"] = empty
+        autotune.reset()
+
+        # (d) train --resume killed and resumed == uninterrupted
+        killed, resumed = steps["resume"]
+        check(killed["rc"] == -signal.SIGKILL, f"cli train SIGKILLed: rc {killed['rc']}")
+        whole = _json_lines(steps["train"][0]["out"])[-1]
+        back = _json_lines(resumed["out"])[-1]
+        check(back["journal"]["hits"] > 0, f"the resumed train hit the journal: {back}")
+        check(back["bestModel"] == whole["bestModel"], "resumed winner == uninterrupted")
+        sw = WorkflowModel.load(os.path.join(tmp, "m_whole")).summary().to_dict()
+        sr = WorkflowModel.load(os.path.join(tmp, "m_resumed")).summary().to_dict()
+        check(sw == sr, "the resumed model's CV metrics and winner bitwise the "
+              "uninterrupted run's")
+        out["train_cli"] = {"rows": CLI_CSV_ROWS, "kind": whole["kind"],
+                            "winner": whole["bestModel"], "journal_whole": whole["journal"],
+                            "journal_resumed": back["journal"],
+                            "seconds": {"whole": steps["train"][0]["seconds"],
+                                        "killed": killed["seconds"],
+                                        "resumed": resumed["seconds"]}}
+
+        # (d) serve --model: rows == the CPU plan's, batch by batch
+        with open(os.path.join(tmp, "scores.jsonl")) as fh:
+            rows = [json.loads(ln) for ln in fh]
+        cpu_plan = WorkflowModel.load(model_dir).serving_plan(device="cpu")
+        recs = files["records_list"]
+        check(len(rows) == len(recs), f"cli serve scored {len(rows)} of {len(recs)}")
+        for lo in range(0, len(recs), CLI_SERVE_BATCH):
+            want = json.loads(json.dumps(cpu_plan.score(recs[lo:lo + CLI_SERVE_BATCH]),
+                                         default=str))
+            check(rows[lo:lo + CLI_SERVE_BATCH] == want,
+                  f"cli serve rows {lo}.. == the CPU plan's")
+        with open(os.path.join(tmp, "serve_metrics.json")) as fh:
+            sm = json.load(fh)
+        # (d) serve --models + top
+        with open(os.path.join(tmp, "fleet_scores.jsonl")) as fh:
+            fleet_rows = [json.loads(ln) for ln in fh]
+        check(len(fleet_rows) == len(recs) and not any("error" in r for r in fleet_rows),
+              "cli serve --models scored every record")
+        with open(os.path.join(tmp, "statusz.jsonl")) as fh:
+            status = [json.loads(ln) for ln in fh if ln.strip()]
+        check(status and set(status[-1]["tenants"]) == {"acme", "globex"},
+              "the statusz stream names both tenants")
+        frame = steps["fleet"][1]["out"]
+        check("acme" in frame and "globex" in frame and "TENANT" in frame,
+              f"cli top names both tenants: {frame}")
+        out["serve"] = {"records": len(rows), "rows_equal_cpu": True,
+                        "seconds": steps["serve"][0]["seconds"],
+                        "fleet_top_seconds": [st["seconds"] for st in steps["fleet"]],
+                        "batcher_completed": sm.get("batcher", {}).get("completed"),
+                        "statusz_lines": len(status)}
+        # (d) follow --refit
+        with open(os.path.join(tmp, "follow_metrics.json")) as fh:
+            fm = json.load(fh)
+        with open(os.path.join(tmp, "follow_scores.jsonl")) as fh:
+            n_follow = sum(1 for _ in fh)
+        check(n_follow == 2 * CLI_FOLLOW_RECORDS, f"follow scored {n_follow}")
+        check(fm["refits"] >= 1 and fm["last_refit"]["backend_compiles"] == 0,
+              f"follow --refit refit with 0 kernel builds, loads or allocations: "
+              f"{fm.get('refits')} {fm.get('last_refit')}")
+        out["follow"] = {"records": n_follow, "refits": fm["refits"],
+                         "promotions": fm["promotions"],
+                         "refit_backend_compiles": fm["last_refit"]["backend_compiles"],
+                         "seconds": steps["follow"][0]["seconds"]}
+        # (d) gen + the generated test
+        app_out = steps["gen"][1]["out"]
+        check("passed" in app_out or dev.type != "cuda",
+              f"the generated project's test passed: {app_out[-2000:]}")
+        out["gen"] = {"seconds": [st["seconds"] for st in steps["gen"]],
+                      "test": (app_out.strip().splitlines() or [""])[-1]}
+        out["children_s"] = children_s
+    finally:
+        for f in futs.values():
+            f.cancel()
+        pool.shutdown(wait=True)
+        if env_before is None:
+            os.environ.pop("TMOG_AUTOTUNE_DIR", None)
+        else:
+            os.environ["TMOG_AUTOTUNE_DIR"] = env_before
+        autotune.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "cli", **out})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6381,8 +6987,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--deploy-child"]:
         return _deploy_child(sys.argv[2:])
     if sys.argv[1:2] == ["--phase"]:
-        # one self-contained phase alone (its line, no summary): deploy
-        alone = {"deploy": phase_deploy}
+        # one self-contained phase alone (its line, no summary): deploy, cli
+        alone = {"deploy": phase_deploy, "cli": phase_cli}
         if sys.argv[2:] not in [[k] for k in alone]:
             print(f"chip_smoke: --phase takes one of {sorted(alone)}", file=sys.stderr)
             return 2
@@ -6572,7 +7178,10 @@ def main() -> int:
     # 25. the deploy artifact store: a replica booted with no nvcc
     deploy = phase_deploy(torch, KE, dev)
 
-    # 26. summary
+    # 26. the operator CLI and the kernel autotuner
+    cli = phase_cli(torch, KE, dev)
+
+    # 27. summary
     kernels = []
     tree_src = "transmogrifai_tpu_torch/perf/kernels/csrc/trees.cu"
     for kname, replaces in (("hist_level", "transmogrifai_tpu/perf/kernels/histogram.py:80"),
@@ -6622,6 +7231,8 @@ def main() -> int:
         entry["launches_resumed_sweep"] = stream["resume"]["launches"][kname]
         entry["launches_obs"] = obs["launches"][kname]
         entry["launches_ooc"] = ooc["launches"][kname]
+        entry["launches_cli_tuned_train"] = cli["train"]["launches"][kname]
+        entry["autotune"] = _autotune_line(cli, _FAMILY_OF[kname])
         kernels.append(entry)
     for kname, replaces in (("onehot_codes", "transmogrifai_tpu/perf/kernels/encode.py:76"),
                             ("bucketize_right_encode",
@@ -6674,6 +7285,8 @@ def main() -> int:
             "launches_obs": obs["launches"]["encode_slots"],
             "launches_ooc": ooc["launches"]["encode_slots"],
             "launches_deploy": deploy["boot"]["launches"]["encode_slots"],
+            "launches_cli_tuned_train": cli["train"]["launches"]["encode_slots"],
+            "autotune": _autotune_line(cli, "encode"),
             "ooc_chunk_tile": ooc["chunk_tile"],
             **{f"fused_{k}": fused[k] for k in ("ms", "device_ms", "plain_ms",
                                                  "bound_ms", "slots", "columns")}})
@@ -6696,7 +7309,8 @@ def main() -> int:
         "timing": "ms/device_ms/plain_ms/bound_ms/library_ms: one left-closed slot "
                   "at the serving batch; slots8: 8 slots at the dsl phase's rows; "
                   "splits5000: one slot past shared memory",
-        "slots8": t["slots8"], "splits5000": t["splits5000"]})
+        "slots8": t["slots8"], "splits5000": t["splits5000"],
+        "autotune": _autotune_line(cli, "encode")})
     for k in kernels[:3]:
         k["launches_examples"] = {e: ex[e]["launches"][k["name"]]
                                   for e in ("titanic", "iris", "boston")}

@@ -106,6 +106,28 @@ class TestRoundTrip:
             manifest = json.load(fh)
         assert manifest["formatVersion"] == 1
 
+    def test_version_info_stamped_and_the_jax_package_loads_it(self, saved):
+        """``utils/version.py``: the port stamps its version, torch's and the
+        checkout's commit into the manifest; the JAX package loads it."""
+        import subprocess
+
+        import torch
+
+        from transmogrifai_tpu_torch import __version__
+        from transmogrifai_tpu_torch.utils.version import version_info
+
+        _, _, path, pred, _, x, _ = saved
+        with gzip.open(os.path.join(path, "model.json.gz"), "rt") as fh:
+            stamped = json.load(fh)["versionInfo"]
+        assert stamped == version_info()
+        assert stamped["version"] == __version__ and stamped["torch"] == torch.__version__
+        assert "jax" not in stamped
+        head = subprocess.run(["git", "-C", REPO, "rev-parse", "--short", "HEAD"],
+                              capture_output=True, text=True)
+        if head.returncode == 0:
+            assert stamped["gitCommit"] == head.stdout.strip()
+        assert JModel.load(path).score(_jds(x[:50]))[pred].pred.shape == (50,)
+
     @pytest.mark.parametrize("n", [300, 700])
     def test_both_packages_load_and_score_equal(self, saved, n):
         fam, model, path, pred, uid, x, _ = saved

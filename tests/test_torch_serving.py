@@ -387,6 +387,10 @@ from transmogrifai_tpu_torch.checkers import plancheck
 from transmogrifai_tpu_torch.perf import programs
 from transmogrifai_tpu_torch.deploy import bundle as deploy_bundle, store as deploy_store
 from transmogrifai_tpu_torch.cli import deploy as cli_deploy
+from transmogrifai_tpu_torch.cli import gen as cli_gen, serve as cli_serve, top as cli_top
+from transmogrifai_tpu_torch.cli import train as cli_train, tune as cli_tune
+from transmogrifai_tpu_torch.perf import autotune
+from transmogrifai_tpu_torch.utils import version
 serde._register_stages()
 import chip_smoke
 sys.path.insert(0, {repo!r} + "/tests")
@@ -418,7 +422,8 @@ class TestNoJax:
                                       os.path.join("tests", "torch_text_data.py"),
                                       os.path.join("tests", "torch_stream_data.py"),
                                       os.path.join("tests", "torch_ooc_data.py"),
-                                      os.path.join("tools", "torch_deploy_gate.py")])
+                                      os.path.join("tools", "torch_deploy_gate.py"),
+                                      os.path.join("tools", "torch_phase_ab.py")])
     def test_ast_scan_finds_no_jax_import(self, root):
         path = os.path.join(REPO, root)
         files = [path] if path.endswith(".py") else [
@@ -473,7 +478,10 @@ class TestNoJax:
                         ("readers", "prefetch.py"), ("workflow", "ooc.py"),
                         ("perf", "programs.py"),
                         *(("deploy", f"{m}.py") for m in ("__init__", "bundle", "store")),
-                        *(("cli", f"{m}.py") for m in ("__init__", "__main__", "deploy"))):
+                        *(("cli", f"{m}.py") for m in (
+                            "__init__", "__main__", "deploy", "gen", "serve", "top",
+                            "train", "tune")),
+                        ("perf", "autotune.py"), ("utils", "version.py")):
                 assert os.path.join(path, *mod) in files
         bad = []
         for fn in files:

@@ -1,5 +1,5 @@
 import sys
 
-from . import main
+from .gen import main
 
 sys.exit(main())

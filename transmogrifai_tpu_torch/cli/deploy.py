@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import json
 import sys
-from typing import Any, Dict, List
+from typing import Any, Dict
 
 __all__ = ["add_deploy_parser", "run_deploy"]
 
@@ -69,16 +69,6 @@ def add_deploy_parser(sub) -> None:
     bt.add_argument("--max-wait-ms", type=float, default=2.0)
     bt.add_argument("--device", default=None,
                     help="device the fleet serves on (default: the card)")
-
-
-def _read_records(path: str) -> List[Dict[str, Any]]:
-    """JSON objects, one a line ('-': stdin); blank lines skipped."""
-    fh = sys.stdin if path == "-" else open(path)
-    try:
-        return [json.loads(line) for line in fh if line.strip()]
-    finally:
-        if fh is not sys.stdin:
-            fh.close()
 
 
 def _pack(ns) -> int:
@@ -141,7 +131,11 @@ def _boot(ns) -> int:
     min_bucket = bundle.plan.get("minBucket", 8)
     max_bucket = bundle.plan.get("maxBucket", 1024)
     tenants = [f"tenant{i}" for i in range(max(1, ns.tenants))]
-    records = _read_records(ns.records) if ns.records is not None else []
+    records = []
+    if ns.records is not None:
+        from .serve import _read_records
+
+        records, _skipped = _read_records(ns.records)
 
     summary: Dict[str, Any] = {"artifact": ns.artifact, "tenants": tenants}
     with measure_compiles() as probe:

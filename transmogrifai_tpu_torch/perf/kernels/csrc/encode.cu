@@ -82,8 +82,6 @@ constexpr int kMaxSlots = 64;      // encode.py::MAX_SLOTS
 // splits a launch stages in shared memory (16 KB); more take the global path
 constexpr int kMaxSplits = 4096;   // encode.py::MAX_SPLITS
 constexpr int kFields = 5;         // int64 fields of a table row
-// a few CTAs per SM over the 132 SMs; larger row counts loop over tiles
-constexpr long long kMaxBlocks = 132LL * 8;
 
 enum : int { kBucketize = 1, kTrackInvalid = 2, kTrackNulls = 4, kLeftClosed = 8 };
 
@@ -244,9 +242,10 @@ encode_slots_kernel(const __grid_constant__ SlotTable t,
 extern "C" int tmog_encode_slots(const long long* ins, const long long* rows,
                                  int n_slots, long long n_rows, void* out,
                                  long long stride, const void* splits, int n_splits,
-                                 void* stream) {
+                                 long long max_blocks, void* stream) {
   if (n_rows <= 0 || n_slots <= 0) return 0;
-  if (n_slots > kMaxSlots || n_splits < 0) return (int)cudaErrorInvalidValue;
+  if (n_slots > kMaxSlots || n_splits < 0 || max_blocks < 1 || max_blocks > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   SlotTable t = {};
   t.out = (float*)out;
   t.stride = stride;
@@ -268,7 +267,9 @@ extern "C" int tmog_encode_slots(const long long* ins, const long long* rows,
   if (t.col_end <= t.col0) return (int)cudaErrorInvalidValue;
   const long long n_win = (t.col_end - t.col0 + kWin - 1) / kWin;
   const long long items = (n_rows + kTileRows - 1) / kTileRows * n_win;
-  const unsigned grid = (unsigned)(items < kMaxBlocks ? items : kMaxBlocks);
+  // the grid cap (encode.py::DEFAULT_GRID_CAP, or the autotuner's winner):
+  // a few CTAs per SM; larger row counts loop over tiles
+  const unsigned grid = (unsigned)(items < max_blocks ? items : max_blocks);
   if (n_splits > kMaxSplits) {
     encode_slots_kernel<true><<<grid, kThreads, kTileBytes, (cudaStream_t)stream>>>(
         t, (const float*)splits);

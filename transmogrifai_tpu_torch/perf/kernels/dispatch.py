@@ -228,7 +228,8 @@ def force_serve_donation(flag: bool):
         _FORCED_DONATION = prev
 
 
-#: (build dir, flags, donation) -> token: the sources are read once a process
+#: (build dir, flags, donation, tuning token) -> token: the sources are read
+#: once a process
 _TOKENS: Dict[tuple, str] = {}
 
 
@@ -236,17 +237,24 @@ def cache_token() -> str:
     """The kernel component of every plan fingerprint, program cache key and
     deploy artifact: ``kernels:cuda:`` and the first 12 hex digits of each
     kernel source's :func:`source_digest`, plus ``:serve-donate`` when
-    donation is on.  Editing a kernel or the flags gives a new token; a
-    process reads the sources once (per build directory, flags and
-    donation choice), so a source edited under a running process changes
-    the token of the next process only."""
-    key = (build_dir(), NVCC_FLAGS, serve_donation())
+    donation is on, plus ``:tune=<digest>`` when the autotuner adopted a
+    non-default launch plan (``perf/autotune.py::tuning_token``, which
+    loads the winner store here, before any launch the key covers).
+    Editing a kernel or the flags gives a new token; a process reads the
+    sources once (per build directory, flags, donation choice and tuning
+    token), so a source edited under a running process changes the token
+    of the next process only."""
+    from .. import autotune
+
+    key = (build_dir(), NVCC_FLAGS, serve_donation(), autotune.tuning_token())
     token = _TOKENS.get(key)
     if token is None:
         token = "kernels:cuda:" + ",".join(f"{n}={source_digest(n)[:12]}"
                                            for n in kernel_sources())
         if key[2]:
             token += ":serve-donate"
+        if key[3]:
+            token += f":{key[3]}"
         _TOKENS[key] = token
     return token
 

@@ -44,6 +44,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import autotune
 from . import dispatch
 
 onehot_launches = 0
@@ -76,7 +77,13 @@ _KIND_BUCKETIZE, _TRACK_INVALID, _TRACK_NULLS, _LEFT_CLOSED = 1, 2, 4, 8
 _FIELDS = 5
 
 _VP, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {"tmog_encode_slots": (_VP, _VP, _INT, _I64, _VP, _I64, _VP, _INT, _VP)}
+_SIGNATURES = {"tmog_encode_slots": (_VP, _VP, _INT, _I64, _VP, _I64, _VP, _INT, _I64, _VP)}
+
+#: the most CTAs a launch takes (a few a CTA per SM over the H100's 132;
+#: larger row counts loop over tiles), unless the autotuner adopted another
+DEFAULT_GRID_CAP = 132 * 8
+#: the largest grid cap a launch accepts (a grid's x extent)
+_MAX_GRID_CAP = 2 ** 31 - 1
 
 
 def reset_launch_counts() -> None:
@@ -371,14 +378,48 @@ def _output(table: SlotTable, n: int, dev: torch.device,
     return out
 
 
+def grid_cap_of(params: Optional[dict]) -> int:
+    """The grid cap of an autotuner candidate (``{"grid_cap": g}``; None:
+    :data:`DEFAULT_GRID_CAP`).  Raises ValueError where it does not fit a
+    launch (the launcher's fit check)."""
+    if params is None:
+        return DEFAULT_GRID_CAP
+    knobs = dict(params)
+    cap = knobs.pop("grid_cap", None)
+    if knobs or not isinstance(cap, int) or isinstance(cap, bool) \
+            or not 1 <= cap <= _MAX_GRID_CAP:
+        raise ValueError(f"encode plan {params} does not fit")
+    return cap
+
+
+def tuned_grid_cap(device: torch.device, n: int, table: SlotTable) -> int:
+    """The grid cap a launch of ``table`` over ``n`` rows on ``device``
+    takes: the autotuner's adopted winner for its shape class where it fits
+    (a misfit is logged), else :data:`DEFAULT_GRID_CAP`."""
+    won = autotune.launch_params("encode", device, rows=n, slots=len(table),
+                                 width=table.width)
+    if won is not None:
+        try:
+            cap = grid_cap_of(won)
+            autotune.applied("encode")
+            return cap
+        except ValueError as exc:
+            autotune.misfit("encode", won, (n, len(table), table.width), exc)
+    return DEFAULT_GRID_CAP
+
+
 def _launch(inputs: Sequence[torch.Tensor], table: SlotTable, out: torch.Tensor,
-            splits: Optional[torch.Tensor], what: str) -> int:
+            splits: Optional[torch.Tensor], what: str,
+            grid_cap: Optional[int] = None) -> int:
     """Launch the kernel once per chunk of the table (``splits``: the packed
-    splits on the inputs' device, None for a table without any); returns
-    the launches."""
+    splits on the inputs' device, None for a table without any) with at
+    most ``grid_cap`` CTAs each (None: :func:`tuned_grid_cap`); returns the
+    launches."""
     n = int(inputs[0].shape[0])
     if n == 0:
         return 0
+    if grid_cap is None:
+        grid_cap = tuned_grid_cap(inputs[0].device, n, table)
     ins = (_I64 * len(inputs))(*[x.data_ptr() for x in inputs])
     ins_at = ctypes.addressof(ins)
     fn = _lib().tmog_encode_slots
@@ -387,9 +428,20 @@ def _launch(inputs: Sequence[torch.Tensor], table: SlotTable, out: torch.Tensor,
     splits_ptr = splits.data_ptr() if splits is not None else 0
     for lo, count, rows_at, split0, n_splits in table._launches:
         err = fn(ins_at + 8 * lo, rows_at, count, n, out_ptr, stride,
-                 splits_ptr + 4 * split0 if n_splits else None, n_splits, stream)
+                 splits_ptr + 4 * split0 if n_splits else None, n_splits,
+                 grid_cap, stream)
         dispatch.check_launch(err, what)
     return len(table.chunks)
+
+
+def launch_table(inputs: Sequence[torch.Tensor], table: SlotTable,
+                 out: torch.Tensor, grid_cap: int) -> torch.Tensor:
+    """One run of ``table`` on checked CUDA tensors with grid cap
+    ``grid_cap``, counted in no counter (the autotuner's sweep times
+    candidates through it)."""
+    _launch(inputs, table, out, table.splits_on(inputs[0].device),
+            "encode_slots", grid_cap)
+    return out
 
 
 def encode_slots(inputs: Sequence[torch.Tensor], table: SlotTable,
@@ -399,7 +451,8 @@ def encode_slots(inputs: Sequence[torch.Tensor], table: SlotTable,
     version on CPU tensors.  ``inputs[k]`` is slot k's 1-D operand (int32
     codes or float32 values), all with one row count; ``out`` (allocated
     when None) is an (n, ``table.width``) float32 tensor whose columns are
-    contiguous -- a view into a wider buffer is fine."""
+    contiguous -- a view into a wider buffer is fine.  A launch takes at
+    most :func:`tuned_grid_cap` CTAs."""
     global encode_slots_launches, slots_encoded
     global left_closed_launches, left_closed_slots
     if inputs and inputs[0].device.type == "cpu":

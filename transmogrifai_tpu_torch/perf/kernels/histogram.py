@@ -36,6 +36,7 @@ from typing import Optional
 
 import torch
 
+from .. import autotune
 from . import dispatch
 
 launches = 0
@@ -73,7 +74,7 @@ _ABS_SUM_CHUNK = 1 << 26
 #: block, fewest rows per slice, and the most bytes the slice partials may take
 F32_MAX_THREADS = 512
 _F32_SMEM = 112 * 1024
-_F32_STAGE_ROWS = (32, 16)
+F32_STAGE_ROWS = (32, 16)
 _F32_MIN_SLICE_ROWS = 2048
 _MAX_PARTIAL_BYTES = 512 * 1024 * 1024
 
@@ -97,10 +98,11 @@ def out_width(n_bins: int, d: int) -> int:
 
 def hist_level_torch(local: torch.Tensor, ghT: torch.Tensor,
                      binned: torch.Tensor, nn: int, n_bins: int, *,
-                     int_exact: bool = False) -> torch.Tensor:
+                     int_exact: bool = False,
+                     chunk: int = PLAIN_CHUNK) -> torch.Tensor:
     """(L*nn*2K, (n_bins+1)*d) histograms by the reference's one-hot GEMM:
     node one-hot x gh channels contracted with the joint (bin, feature)
-    one-hot, accumulated chunk by chunk in row order."""
+    one-hot, accumulated ``chunk`` rows at a time in row order."""
     L, n = local.shape
     two_k = ghT.shape[1]
     d = binned.shape[1]
@@ -111,8 +113,9 @@ def hist_level_torch(local: torch.Tensor, ghT: torch.Tensor,
     node_ids = torch.arange(nn, dtype=torch.int32, device=dev)
     bin_ids = torch.arange(B, dtype=torch.int32, device=dev)
     hist = torch.zeros((M, B * d), dtype=mm_t, device=dev)
-    for lo in range(0, n, PLAIN_CHUNK):
-        hi = min(n, lo + PLAIN_CHUNK)
+    chunk = max(1, int(chunk))
+    for lo in range(0, n, chunk):
+        hi = min(n, lo + chunk)
         lb = local[:, lo:hi]
         gb = ghT[:, :, lo:hi].to(mm_t)
         node_oh = (lb[:, None, :] == node_ids[None, :, None]).to(mm_t)
@@ -159,14 +162,14 @@ def _too_big(two_k: int, B: int) -> ValueError:
         f"CTA's shared memory ({B * 32 * 4} bytes per 32 features)")
 
 
-def _int8_tiles(L: int, d: int, nn: int, two_k: int, B: int) -> dict:
+def _int8_tiles(L: int, d: int, nn: int, two_k: int, B: int,
+                warps: int = _INT_WARPS) -> dict:
     """int8 path: the widest feature tile of which one (lane, node) with
     all its channels fits, then as many nodes as fit, then lanes (a row's
     codes are fetched once for all lanes of a CTA in which it is live).
     Where no feature tile holds all channels, the widest feature tile that
     holds one channel holds as many as fit (``CT``, even tiles), one (lane,
-    node) a CTA."""
-    warps = _INT_WARPS
+    node) a CTA.  ``warps`` share a CTA's accumulators."""
     stage = lambda G, CT: warps * G * 32 * (1 + CT)  # noqa: E731
     for FT in _feature_tiles(d):
         CT = two_k
@@ -199,22 +202,24 @@ def _f32_smem(G: int, NT: int, FT: int, R: int, CT: int, B: int) -> int:
     return 4 * (G * NT * CT * B * FT + 2 * (R * FT + G * R + G * CT * R))
 
 
-def _f32_tiles(L: int, d: int, nn: int, two_k: int, B: int) -> dict:
+def _f32_tiles(L: int, d: int, nn: int, two_k: int, B: int,
+               stage_rows: tuple = F32_STAGE_ROWS) -> dict:
     """float path: every lane and node of the level in one CTA where they
     fit (each row's codes then read once per feature tile), with the most
     staged rows (a block's syncs and ballots then serve more rows), then the
     widest feature tile; else tiles of 32 features, as many nodes as fit,
     then lanes.  A thread owns one (lane, node, feature) column.  A CTA small
-    enough that two share an SM is tried first."""
+    enough that two share an SM is tried first.  ``stage_rows``: the staged
+    rows to choose from, most first."""
     for budget in (_F32_SMEM, _CTA_SMEM_MAX):
-        for R in _F32_STAGE_ROWS:
+        for R in stage_rows:
             for FT in _feature_tiles(d):
                 if L * nn * FT > F32_MAX_THREADS:
                     continue
                 if _f32_smem(L, nn, FT, R, two_k, B) <= budget:
                     return {"G": L, "CT": two_k, "NT": nn, "FT": FT,
                             "threads": L * nn * FT, "R": R}
-        R = _F32_STAGE_ROWS[-1]
+        R = F32_STAGE_ROWS[-1]
         fits = lambda G, NT: (G * NT * 32 <= F32_MAX_THREADS  # noqa: E731
                               and _f32_smem(G, NT, 32, R, two_k, B) <= budget)
         if not fits(1, 1):
@@ -227,8 +232,11 @@ def _f32_tiles(L: int, d: int, nn: int, two_k: int, B: int) -> dict:
         while not fits(G, NT):
             G -= 1
         G = _balanced(L, G)
-        R = next(r for r in _F32_STAGE_ROWS
-                 if _f32_smem(G, NT, 32, r, two_k, B) <= budget)
+        R = next((r for r in stage_rows
+                  if _f32_smem(G, NT, 32, r, two_k, B) <= budget), None)
+        if R is None:
+            raise ValueError(f"no staged rows of {stage_rows} fit the tiles "
+                             f"G={G} NT={NT}")
         return {"G": G, "CT": two_k, "NT": NT, "FT": 32, "threads": G * NT * 32,
                 "R": R}
     return _f32_chan_tiles(L, nn, two_k, B)
@@ -240,7 +248,7 @@ def _f32_chan_tiles(L: int, nn: int, two_k: int, B: int) -> dict:
     ``F32_MAX_THREADS`` threads, and as many channels as then fit a CTA's
     shared memory (even tiles); fewer lanes, then nodes, where not one
     channel fits."""
-    FT, R = 32, _F32_STAGE_ROWS[-1]
+    FT, R = 32, F32_STAGE_ROWS[-1]
     NT = _balanced(nn, min(nn, F32_MAX_THREADS // FT))
     G = _balanced(L, min(L, F32_MAX_THREADS // (FT * NT)))
 
@@ -261,7 +269,7 @@ def _f32_chan_tiles(L: int, nn: int, two_k: int, B: int) -> dict:
 
 
 def plan(L: int, n: int, d: int, nn: int, two_k: int, n_bins: int,
-         int_exact: bool) -> dict:
+         int_exact: bool, params: Optional[dict] = None) -> dict:
     """Launch shape of the kernel.  A CTA holds the accumulators of ``G``
     lanes x ``CT`` grad/hess channels x ``NT`` nodes x ``FT`` features with
     ``threads`` threads and walks one of ``slices`` row slices of
@@ -273,27 +281,61 @@ def plan(L: int, n: int, d: int, nn: int, two_k: int, n_bins: int,
     kernel).  ``merge``: ``direct`` where one slice covers every row (each
     CTA stores its own cells), else ``atomic`` (int8: global atomicAdd after
     a memset) or ``partials`` (float: per-slice partials summed in slice
-    order)."""
+    order).
+
+    ``params`` (an autotuner candidate; None: the rules above) sets the
+    int8 path's ``warps`` a CTA and ``min_slice_rows``, or the float path's
+    staged rows ``R`` and ``waves`` of slices.  Raises ValueError where
+    they do not fit (the launcher's fit check)."""
     B = n_bins + 1
-    tiles = (_int8_tiles if int_exact else _f32_tiles)(L, d, nn, two_k, B)
-    return finish_plan(tiles, L, n, d, nn, two_k, n_bins, int_exact)
+    knobs = dict(params or {})
+    if int_exact:
+        warps = int(knobs.pop("warps", _INT_WARPS))
+        min_rows = int(knobs.pop("min_slice_rows", _INT_MIN_SLICE_ROWS))
+        if not 1 <= warps <= _MAX_THREADS // 32:
+            raise ValueError(f"int8 histogram: {warps} warps a CTA")
+        tiles = _int8_tiles(L, d, nn, two_k, B, warps)
+        waves = 2
+    else:
+        R = knobs.pop("R", None)
+        waves = int(knobs.pop("waves", 1))
+        min_rows = _F32_MIN_SLICE_ROWS
+        if R is not None and R not in F32_STAGE_ROWS:
+            raise ValueError(f"float histogram: {R} staged rows")
+        tiles = _f32_tiles(L, d, nn, two_k, B,
+                           F32_STAGE_ROWS if R is None else (int(R),))
+        if R is not None and tiles["R"] != R:
+            raise ValueError(f"float histogram: {R} staged rows do not fit")
+    if knobs:
+        raise ValueError(f"unknown histogram plan knobs {sorted(knobs)}")
+    if waves < 1 or min_rows < 1:
+        raise ValueError(f"histogram plan: waves {waves}, min_slice_rows {min_rows}")
+    p = finish_plan(tiles, L, n, d, nn, two_k, n_bins, int_exact, waves, min_rows)
+    most = _MAX_THREADS if int_exact else F32_MAX_THREADS
+    if p["smem"] > _CTA_SMEM_MAX or p["threads"] > most:
+        raise ValueError(f"histogram plan needs {p['smem']} bytes and "
+                         f"{p['threads']} threads")
+    return p
 
 
 def finish_plan(tiles: dict, L: int, n: int, d: int, nn: int, two_k: int,
-                n_bins: int, int_exact: bool) -> dict:
+                n_bins: int, int_exact: bool, waves: Optional[int] = None,
+                min_slice_rows: Optional[int] = None) -> dict:
     """:func:`plan`'s dict from a CTA's tiles (``G``, ``NT``, ``FT``,
     ``threads``, ``R`` and ``CT``, 2K where absent): its shared memory, tile
-    counts and row slices."""
+    counts and row slices (enough to fill ``waves`` waves of the card,
+    default 2 on the int8 path and 1 on the float one, of at least
+    ``min_slice_rows`` rows each)."""
     B = n_bins + 1
     p = dict(tiles)
     p.setdefault("CT", two_k)
     if int_exact:
         p["smem"] = (p["G"] * p["NT"] * p["CT"] * B * p["FT"] * 4
                      + p["threads"] // 32 * p["G"] * 32 * (1 + p["CT"]))
-        waves, min_rows = 2, _INT_MIN_SLICE_ROWS
+        waves, min_rows = waves or 2, min_slice_rows or _INT_MIN_SLICE_ROWS
     else:
         p["smem"] = _f32_smem(p["G"], p["NT"], p["FT"], p["R"], p["CT"], B)
-        waves, min_rows = 1, _F32_MIN_SLICE_ROWS
+        waves, min_rows = waves or 1, min_slice_rows or _F32_MIN_SLICE_ROWS
     lane_groups = -(-L // p["G"])
     chan_tiles = -(-two_k // p["CT"])
     node_tiles = -(-nn // p["NT"])
@@ -308,7 +350,8 @@ def finish_plan(tiles: dict, L: int, n: int, d: int, nn: int, two_k: int,
     rows = -(-n // slices) if n else 1
     slices = -(-n // rows) if n else 1
     merge = "direct" if slices == 1 else ("atomic" if int_exact else "partials")
-    return {**p, "slices": slices, "rows_per_slice": rows,
+    return {**p, "waves": waves, "min_slice_rows": min_rows,
+            "slices": slices, "rows_per_slice": rows,
             "lane_groups": lane_groups, "chan_tiles": chan_tiles,
             "node_tiles": node_tiles, "feat_tiles": feat_tiles, "merge": merge}
 
@@ -339,7 +382,11 @@ def hist_level(local: torch.Tensor, ghT: torch.Tensor, binned: torch.Tensor,
     caller's bound on any (lane, channel)'s sum of |ghT|, e.g.
     :func:`int_abs_sum_bound` computed once for a grower's levels) or, when
     it is None, by :func:`int_abs_sum_bound` of ``ghT``; a bound past
-    ``INT32_MAX`` raises."""
+    ``INT32_MAX`` raises.
+
+    The launch plan is the autotuner's adopted winner for the launch's
+    shape class where it fits (:func:`tuned_plan`), else :func:`plan`'s
+    rules; on the CPU the winner sets the plain version's row chunk."""
     _check(local, "local", torch.int32, 2)
     _check(ghT, "ghT", torch.int8 if int_exact else torch.float32, 3)
     _check(binned, "binned", torch.int32, 2)
@@ -361,10 +408,41 @@ def hist_level(local: torch.Tensor, ghT: torch.Tensor, binned: torch.Tensor,
     if not (local.device == ghT.device == binned.device):
         raise ValueError("local, ghT and binned must lie on one device")
     if local.device.type == "cpu":
+        won = _winner(local.device, L, n, d, nn, two_k, n_bins, int_exact)
+        chunk = won.get("chunk") if won else None
+        if chunk is not None and (not isinstance(chunk, int) or chunk < 1):
+            autotune.misfit("hist", won, (L, n, d, nn, two_k, n_bins),
+                              ValueError(f"row chunk {chunk!r}"))
+            chunk = None
+        elif chunk is not None:
+            autotune.applied("hist")
         return hist_level_torch(local, ghT, binned, nn, n_bins,
-                                int_exact=int_exact)
+                                int_exact=int_exact, chunk=chunk or PLAIN_CHUNK)
     return launch(local, ghT, binned, nn, n_bins, int_exact,
-                  plan(L, n, d, nn, two_k, n_bins, int_exact))
+                  tuned_plan(local.device, L, n, d, nn, two_k, n_bins, int_exact))
+
+
+def _winner(device: torch.device, L: int, n: int, d: int, nn: int, two_k: int,
+            n_bins: int, int_exact: bool) -> Optional[dict]:
+    return autotune.launch_params(
+        "hist", device, rows=n, features=d, bins=n_bins, lanes=L, nodes=nn,
+        classes=two_k // 2, int_exact=int(bool(int_exact)))
+
+
+def tuned_plan(device: torch.device, L: int, n: int, d: int, nn: int,
+               two_k: int, n_bins: int, int_exact: bool) -> dict:
+    """The plan a launch on ``device`` runs: the autotuner's adopted winner
+    for its shape class where it fits the shape (a misfit is logged), else
+    :func:`plan`'s rules."""
+    won = _winner(device, L, n, d, nn, two_k, n_bins, int_exact)
+    if won is not None:
+        try:
+            p = plan(L, n, d, nn, two_k, n_bins, int_exact, params=won)
+            autotune.applied("hist")
+            return p
+        except (ValueError, TypeError) as exc:
+            autotune.misfit("hist", won, (L, n, d, nn, two_k, n_bins), exc)
+    return plan(L, n, d, nn, two_k, n_bins, int_exact)
 
 
 def launch(local: torch.Tensor, ghT: torch.Tensor, binned: torch.Tensor,

@@ -25,10 +25,11 @@ this kernel launches once per grown level and nowhere else.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
+from .. import autotune
 from . import dispatch
 
 launches = 0
@@ -77,14 +78,17 @@ def _lib():
     return dispatch.load("trees", _SIGNATURES)
 
 
-def row_select_lanes_torch(binned: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def row_select_lanes_torch(binned: torch.Tensor, idx: torch.Tensor,
+                           chunk: int = PLAIN_CHUNK) -> torch.Tensor:
     """``binned[i, idx[l, i]]`` as a compare against a feature iota fused
-    into a multiply-reduce (exact for codes below 2**24)."""
+    into a multiply-reduce (exact for codes below 2**24), ``chunk`` rows at
+    a time."""
     n, d = binned.shape
     ids = torch.arange(d, dtype=torch.int32, device=binned.device)
     parts = []
-    for lo in range(0, n, PLAIN_CHUNK):
-        hi = min(n, lo + PLAIN_CHUNK)
+    chunk = max(1, int(chunk))
+    for lo in range(0, n, chunk):
+        hi = min(n, lo + chunk)
         oh = ids[None, None, :] == idx[:, lo:hi, None]
         parts.append((binned[lo:hi].to(torch.float32)[None] * oh)
                      .sum(dim=-1).to(torch.int32))
@@ -93,11 +97,17 @@ def row_select_lanes_torch(binned: torch.Tensor, idx: torch.Tensor) -> torch.Ten
     return torch.cat(parts, dim=1)
 
 
-def plan(L: int, n: int, d: int) -> RoutePlan:
+def plan(L: int, n: int, d: int, params: Optional[dict] = None) -> RoutePlan:
     """The path that moves fewer bytes (:func:`design_bytes`): the tile path
     where it fits — R >= 32 staged rows at an odd stride within
     ``TILE_SMEM`` — and many lanes share each row (roughly L > d / 8), else
-    the direct path."""
+    the direct path.
+
+    ``params`` (an autotuner candidate; None: the rules above) names the
+    ``path``, its ``rows`` a CTA and ``threads`` a CTA.  Raises ValueError
+    where they do not fit (the launcher's fit check)."""
+    if params is not None:
+        return _forced(params, n, d)
     direct = RoutePlan("direct", THREADS, 0, THREADS, -(-n // THREADS), 0)
     stride = d | 1                      # odd: one feature of 32 rows, 32 banks
     rows = next((r for r in TILE_ROWS if r * stride * 4 <= TILE_SMEM), None)
@@ -107,6 +117,42 @@ def plan(L: int, n: int, d: int) -> RoutePlan:
     if design_bytes(tile, L, n, d) < design_bytes(direct, L, n, d):
         return tile
     return direct
+
+
+def _forced(params: dict, n: int, d: int) -> RoutePlan:
+    knobs = dict(params)
+    path, rows, threads = knobs.pop("path"), int(knobs.pop("rows")), int(knobs.pop("threads"))
+    if knobs:
+        raise ValueError(f"unknown routing plan knobs {sorted(knobs)}")
+    if threads % 32 or not 32 <= threads <= THREADS:
+        raise ValueError(f"routing plan: {threads} threads a CTA")
+    if path == "direct":
+        if rows != threads:
+            raise ValueError(f"direct routing: {rows} rows for {threads} threads")
+        return RoutePlan("direct", threads, 0, threads, -(-n // threads), 0)
+    stride = d | 1
+    if path != "tile" or rows < 1 or threads % rows or rows * stride * 4 > TILE_SMEM:
+        raise ValueError(f"routing plan {params} does not fit d={d}")
+    return RoutePlan("tile", rows, stride, threads, -(-n // rows), rows * stride * 4)
+
+
+def tuned_plan(device: torch.device, L: int, n: int, d: int) -> RoutePlan:
+    """The plan a launch on ``device`` runs: the autotuner's adopted winner
+    for its shape class where it fits the shape (a misfit is logged), else
+    :func:`plan`'s rules."""
+    won = _winner(device, L, n, d)
+    if won is not None:
+        try:
+            p = plan(L, n, d, params=won)
+            autotune.applied("route")
+            return p
+        except (ValueError, TypeError, KeyError) as exc:
+            autotune.misfit("route", won, (L, n, d), exc)
+    return plan(L, n, d)
+
+
+def _winner(device: torch.device, L: int, n: int, d: int) -> Optional[dict]:
+    return autotune.launch_params("route", device, rows=n, features=d, lanes=L)
 
 
 def design_bytes(p: RoutePlan, L: int, n: int, d: int) -> int:
@@ -120,7 +166,9 @@ def design_bytes(p: RoutePlan, L: int, n: int, d: int) -> int:
 
 def row_select_lanes(binned: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Routing select: the CUDA kernel on CUDA tensors, the plain version on
-    CPU tensors.  binned (n, d) int32, idx (L, n) int32 -> (L, n) int32."""
+    CPU tensors.  binned (n, d) int32, idx (L, n) int32 -> (L, n) int32.
+    The launch plan is :func:`tuned_plan`'s; on the CPU the autotuner's
+    winner sets the plain version's row chunk."""
     for t, name, nd in ((binned, "binned", 2), (idx, "idx", 2)):
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
@@ -135,10 +183,17 @@ def row_select_lanes(binned: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if binned.device != idx.device:
         raise ValueError(f"binned on {binned.device}, idx on {idx.device}")
     if binned.device.type == "cpu":
-        return row_select_lanes_torch(binned, idx)
+        won = _winner(binned.device, L, n, d)
+        chunk = won.get("chunk") if won else None
+        if chunk is not None and (not isinstance(chunk, int) or chunk < 1):
+            autotune.misfit("route", won, (L, n, d), ValueError(f"row chunk {chunk!r}"))
+            chunk = None
+        elif chunk is not None:
+            autotune.applied("route")
+        return row_select_lanes_torch(binned, idx, chunk=chunk or PLAIN_CHUNK)
     if binned.device.type != "cuda":
         raise ValueError(f"unsupported device {binned.device}")
-    return launch(binned, idx, plan(L, n, d))
+    return launch(binned, idx, tuned_plan(binned.device, L, n, d))
 
 
 def launch(binned: torch.Tensor, idx: torch.Tensor, p: RoutePlan) -> torch.Tensor:

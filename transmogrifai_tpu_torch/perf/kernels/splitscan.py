@@ -28,10 +28,11 @@ bit for bit.  On float histograms (GBT) their prefix sums round differently;
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import autotune
 from . import dispatch
 
 launches = 0
@@ -217,7 +218,8 @@ def _scan_smem(staged: bool, P: int, FT: int, K: int, stride: int,
     return 4 * ((P * 2 * K * (FT * stride + 4) if staged else 0) + run)
 
 
-def plan(L: int, nn: int, K: int, d: int, n_bins: int) -> ScanPlan:
+def plan(L: int, nn: int, K: int, d: int, n_bins: int,
+         params: Optional[dict] = None) -> ScanPlan:
     """A block's threads take all of d (rounded up to 32), at most
     ``SCAN_MAX_FEATS``, else tiles of it in turn; the widest tile whose
     staged histograms fit ``SCAN_SMEM`` (else ``SCAN_SMEM_MAX``), else the
@@ -226,25 +228,35 @@ def plan(L: int, nn: int, K: int, d: int, n_bins: int) -> ScanPlan:
     the grid has fewer CTAs than the card has SMs (GBT's levels), each
     thread's serial walk over its candidates sets the launch's time, so up
     to four threads share a feature's candidates (each scoring at least
-    ``_MIN_CANDIDATES``, at most ``SCAN_MAX_THREADS`` a CTA)."""
+    ``_MIN_CANDIDATES``, at most ``SCAN_MAX_THREADS`` a CTA).
+
+    ``params`` (an autotuner candidate; None: the rules above) sets
+    ``staged``, the feature tile ``FT`` and the sharers ``S``; the blocks a
+    CTA then follow the rules.  Raises ValueError where they do not fit
+    (the launcher's fit check)."""
     B = n_bins + 1
     stride = B | 1                       # odd: one bin of 32 features, 32 banks
     first = min(SCAN_MAX_FEATS, -(-max(d, 1) // 32) * 32)
     tiles = [first] + [ft for ft in (128, 64, 32) if ft < first]
     blocks = L * nn
 
-    def make(staged: bool, FT: int, budget: int) -> ScanPlan:
+    def make(staged: bool, FT: int, budget: int, S: Optional[int] = None) -> ScanPlan:
         P = max(1, min(SCAN_MIN_THREADS // FT, blocks))
         while P > 1 and _scan_smem(staged, P, FT, K, stride) > budget:
             P -= 1
-        ctas = -(-blocks // P)
-        S = 1 if ctas >= _SMS else max(1, min(
-            4, SCAN_MAX_THREADS // (P * FT), (n_bins - 1) // _MIN_CANDIDATES))
-        while S > 1 and _scan_smem(staged, P, FT, K, stride, S) > budget:
-            S -= 1
+        if S is None:
+            S = 1 if -(-blocks // P) >= _SMS else max(1, min(
+                4, SCAN_MAX_THREADS // (P * FT), (n_bins - 1) // _MIN_CANDIDATES))
+            while S > 1 and _scan_smem(staged, P, FT, K, stride, S) > budget:
+                S -= 1
+        while P > 1 and P * FT * S > SCAN_MAX_THREADS:
+            P -= 1
         return ScanPlan(staged, FT, S, P, P * FT * S, stride if staged else 0,
-                        _scan_smem(staged, P, FT, K, stride, S), ctas,
+                        _scan_smem(staged, P, FT, K, stride, S), -(-blocks // P),
                         -(-d // FT))
+
+    if params is not None:
+        return _forced(make, params, K, stride, B)
 
     for budget in (SCAN_SMEM, SCAN_SMEM_MAX):
         for FT in tiles:
@@ -257,13 +269,51 @@ def plan(L: int, nn: int, K: int, d: int, n_bins: int) -> ScanPlan:
     return p
 
 
+def _forced(make, params: dict, K: int, stride: int, B: int) -> ScanPlan:
+    """The plan of an autotuner candidate ``params`` (``staged``, ``FT``,
+    ``S``): staged at the first budget its tile fits, as the rules do."""
+    knobs = dict(params)
+    staged = bool(knobs.pop("staged"))
+    FT, S = int(knobs.pop("FT")), int(knobs.pop("S"))
+    if knobs:
+        raise ValueError(f"unknown scan plan knobs {sorted(knobs)}")
+    if FT % 32 or not 32 <= FT <= SCAN_MAX_FEATS or S < 1:
+        raise ValueError(f"scan plan: FT {FT}, S {S}")
+    budgets = [b for b in (SCAN_SMEM, SCAN_SMEM_MAX)
+               if not staged or _scan_smem(True, 1, FT, K, stride) <= b]
+    if not budgets:
+        raise ValueError(f"a staged tile of {FT} features does not fit")
+    p = make(staged, FT, budgets[0] if staged else SCAN_SMEM_MAX, S)
+    if p.threads > SCAN_MAX_THREADS or p.smem > SCAN_SMEM_MAX \
+            or (p.staged and p.stride < B):
+        raise ValueError(f"scan plan {p} does not fit")
+    return p
+
+
+def tuned_plan(device: torch.device, L: int, nn: int, K: int, d: int,
+               n_bins: int) -> ScanPlan:
+    """The plan a launch on ``device`` runs: the autotuner's adopted winner
+    for its shape class where it fits the shape (a misfit is logged), else
+    :func:`plan`'s rules."""
+    won = autotune.launch_params("split", device, lanes=L, nodes=nn,
+                                 classes=K, features=d, bins=n_bins)
+    if won is not None:
+        try:
+            p = plan(L, nn, K, d, n_bins, params=won)
+            autotune.applied("split")
+            return p
+        except (ValueError, TypeError, KeyError) as exc:
+            autotune.misfit("split", won, (L, nn, K, d, n_bins), exc)
+    return plan(L, nn, K, d, n_bins)
+
+
 def split_scan(hist_g, hist_h, G, H, level_mask, n_bins: int,
                reg_lambda, alpha, gamma, min_child_weight
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The split scan: the CUDA kernel on CUDA tensors, the plain version on
     CPU tensors.  hist_g/hist_h (L, nn, K, d, n_bins+1), G/H (L, nn, K),
     level_mask (L, d), all float32; the four scalars are the XGBoost
-    regularisers."""
+    regularisers.  The launch plan is :func:`tuned_plan`'s."""
     global launches
     if hist_g.dim() != 5:
         raise ValueError(f"hist_g must be 5-D, got shape {tuple(hist_g.shape)}")
@@ -286,7 +336,7 @@ def split_scan(hist_g, hist_h, G, H, level_mask, n_bins: int,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     return launch(hist_g, hist_h, G, H, level_mask, n_bins, reg_lambda, alpha,
-                  gamma, min_child_weight, plan(L, nn, K, d, n_bins))
+                  gamma, min_child_weight, tuned_plan(dev, L, nn, K, d, n_bins))
 
 
 def launch(hist_g, hist_h, G, H, level_mask, n_bins: int, reg_lambda, alpha,

@@ -329,9 +329,7 @@ def save_model(model, path: str) -> None:
     directory ``path`` in FORMAT_VERSION 1.  Estimator nodes are saved as
     stubs (uid + wiring): scoring resolves them to the fitted model saved
     under the same uid."""
-    import torch
-
-    from .. import __version__
+    from ..utils.version import version_info
 
     os.makedirs(path, exist_ok=True)
     enc = _Encoder()
@@ -346,7 +344,7 @@ def save_model(model, path: str) -> None:
                              "refusing to save a model that cannot round-trip")
     manifest = {
         "formatVersion": FORMAT_VERSION,
-        "versionInfo": {"version": __version__, "torch": torch.__version__},
+        "versionInfo": version_info(),  # build provenance (VersionInfo.scala role)
         "resultFeatureUids": [f.uid for f in model.result_features],
         "blacklist": list(model.blacklist),
         "workflowCv": bool(getattr(model, "workflow_cv", False)),
