@@ -4,6 +4,7 @@ check them.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase deploy     # phase 25 alone, its line only
+    python3 chip_smoke.py --phase registry   # phase 27 alone, its lines only
 
 Phases, one JSON line each:
 
@@ -478,7 +479,19 @@ Phases, one JSON line each:
                of two tenants then `top --once`, `serve --follow --refit`
                (0 kernel builds in the refit), `cli gen` whose generated test
                passes.  At most 60 s.
-27. summary  — nvidia-smi's line, then one {"kernels": [...]} line, then the
+27. registry — every case of the registry sweep (tests/torch_registry_cases.py,
+               the reference's tests/test_stage_registry_specs.py table) with
+               a device half: fitted where it is an estimator and transformed
+               through one fused plan, on the card and on the CPU in this
+               process (the random draws made on the CPU for both, TF32
+               off).  The card's output equals the CPU's, bitwise or to
+               REGISTRY_TOL (the float fits' family rules); an encode slot
+               launched the encode kernel, a tree fit K1-K3, every other
+               device half allocated on the card, with the counters zeroed
+               before each case.  One line per case (its half, seconds on the
+               card, launches, max |diff|), then the phase's totals.  At
+               most 30 s.
+28. summary  — nvidia-smi's line, then one {"kernels": [...]} line, then the
                last line {"ok": true, "device": {...}}.
 
 Phase 3 also holds K5 past shared memory (a 5000-split slot, its own launch
@@ -6974,6 +6987,166 @@ def phase_cli(torch, KE, dev) -> dict:
     return out
 
 
+#: phase 27's cases held to a tolerance on the card against the CPU (every
+#: other case is bitwise): the float fits' family rules (ROADMAP.md), with
+#: the same random draws on both devices.  The linear fits' rule holds
+#: coefficients to 1e-6; their outputs (margins over 6 features up to ~4,
+#: and the probabilities) to 1e-5.  Multinomial LR's 200 Adam steps, like
+#: the MLP's, hold to 1e-4 (its CV rule)
+REGISTRY_TOL = {
+    **{n: 1e-3 for n in ("GradientBoostedTreesClassifier",
+                         "GradientBoostedTreesRegressor", "XGBoostClassifier",
+                         "XGBoostRegressor")},
+    **{n: 1e-5 for n in ("LogisticRegression", "LinearSVC", "LinearRegression",
+                         "GeneralizedLinearRegression", "NaiveBayes")},
+    "MultinomialLogisticRegression": 1e-4,
+    "MultilayerPerceptronClassifier": WCV_MLP_TOL, "LDA": 5e-5, "Word2Vec": 1e-5,
+}
+#: the estimators whose fit runs on the device it is given
+REGISTRY_DEVICE_FITS = ("LDA", "Word2Vec", "SanityChecker")
+#: the tree families, whose fits launch K1-K3
+REGISTRY_TREE_FITS = ("RandomForestClassifier", "RandomForestRegressor",
+                      "DecisionTreeClassifier", "DecisionTreeRegressor",
+                      "GradientBoostedTreesClassifier", "GradientBoostedTreesRegressor",
+                      "XGBoostClassifier", "XGBoostRegressor")
+REGISTRY_KERNELS = ("encode_slots", "left_closed", "hist_level", "split_scan",
+                    "row_select_lanes")
+
+
+def _registry_counts(KE) -> dict:
+    counts = _all_counts(KE)
+    return {**{k: counts[k] for k in REGISTRY_KERNELS if k in counts},
+            "left_closed": KE.left_closed_launches}
+
+
+def _registry_run(RC, pkg, name, dev):
+    """Case ``name`` built, fitted on ``dev`` where it is an estimator and
+    transformed there through one fused plan: (output column, fitted
+    stage, the flush's profile record)."""
+    from transmogrifai_tpu_torch.workflow.plan import fused_transform
+
+    stage, ds, _flags = RC.build(pkg, name)
+    model = stage.fit(ds, device=dev) if isinstance(stage, pkg.Estimator) else stage
+    prof: list = []
+    out = fused_transform(ds, [model], device=dev, profile=prof)[model.output_name]
+    return out, model, prof[0]
+
+
+def phase_registry(torch, KE, dev) -> dict:
+    """Phase 27: every case of the registry sweep (tests/torch_registry_cases.py)
+    with a device half, on the card and on the CPU in this process.  A case
+    has a device half where its fit runs on the device it is given (the
+    prediction families, the checker, LDA, Word2Vec) or its fitted stage
+    runs in a plan's device prefix or scores on the device.  The output on
+    the card must equal the CPU's, bitwise or to REGISTRY_TOL; a case whose
+    device half is an encode slot must launch the encode kernel, a tree fit
+    K1-K3, and every other device half must allocate on the card (its
+    device work is torch ops: the reference's is XLA with no pallas_call).
+    The random draws (bootstrap, Word2Vec, LDA) are made on the CPU and
+    moved, so both devices start from the same ones; TF32 is off."""
+    import importlib
+    import pkgutil
+
+    import torch_registry_cases as RC
+
+    import transmogrifai_tpu_torch
+    from transmogrifai_tpu_torch import types as TT
+    from transmogrifai_tpu_torch.data import dataset as TD
+    from transmogrifai_tpu_torch.features import builder as TFB
+    from transmogrifai_tpu_torch.models import trees as TTR
+    from transmogrifai_tpu_torch.models.base import PredictionEstimatorBase
+    from transmogrifai_tpu_torch.ops import embeddings as TE
+    from transmogrifai_tpu_torch.stages import base as TB
+    from transmogrifai_tpu_torch.utils import vector_metadata as TVM
+
+    t_phase = time.perf_counter()
+    for m in pkgutil.walk_packages(transmogrifai_tpu_torch.__path__,
+                                   prefix="transmogrifai_tpu_torch."):
+        if "__main__" not in m.name:
+            importlib.import_module(m.name)
+    pkg = RC.namespace(TD, TB, TT, TVM, TFB)
+    cpu = torch.device("cpu")
+    seams = {(TTR, "draw_bootstrap"): TTR.draw_bootstrap,
+             (TE, "draw_word2vec_init"): TE.draw_word2vec_init,
+             (TE, "draw_lda_init"): TE.draw_lda_init}
+
+    def on_cpu(real):
+        def draw(*args):
+            got = real(*args[:-1], cpu)
+            if isinstance(got, tuple):
+                return tuple(t.to(args[-1], copy=True) for t in got)
+            return got.to(args[-1], copy=True)
+        return draw
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for (mod, attr), real in seams.items():
+        setattr(mod, attr, on_cpu(real))
+    cases, totals, by_family = [], dict.fromkeys(REGISTRY_KERNELS, 0), {}
+    cpu_s = 0.0
+    try:
+        for name in sorted(RC.CASES):
+            t0 = time.perf_counter()
+            want, cmodel, cprof = _registry_run(RC, pkg, name, cpu)
+            cpu_s += time.perf_counter() - t0
+            fit_half = name in REGISTRY_DEVICE_FITS or issubclass(
+                pkg.STAGE_REGISTRY[name], PredictionEstimatorBase)
+            prefix = cprof["host_stages"] == 0
+            scores = bool(getattr(cmodel, "scores_on_device", False))
+            if not (fit_half or prefix or scores):
+                continue
+            slots = prefix and cmodel.device_slot_specs() is not None
+            _reset_all(KE)
+            allocs0 = torch.cuda.memory_stats(dev).get("allocation.all.allocated", 0)
+            t0 = time.perf_counter()
+            got, _model, prof = _registry_run(RC, pkg, name, dev)
+            _sync(torch, dev)
+            dev_s = time.perf_counter() - t0
+            allocs = torch.cuda.memory_stats(dev).get("allocation.all.allocated",
+                                                      0) - allocs0
+            launches = _registry_counts(KE)
+            diff = RC.column_diff(got, want)
+            tol = REGISTRY_TOL.get(name, 0.0)
+            half = "+".join(h for h, on in (("fit", fit_half), ("prefix", prefix),
+                                            ("scores", scores)) if on)
+            check(diff <= tol, f"registry {name}: card vs CPU max |diff| {diff} "
+                               f"over {tol}")
+            check(prof["host_stages"] == cprof["host_stages"],
+                  f"registry {name}: the card's plan split as the CPU's")
+            kernels = sum(launches.values())
+            if slots:
+                check(launches["encode_slots"] >= 1,
+                      f"registry {name}: an encode slot launched the encode "
+                      f"kernel: {launches}")
+            if name in REGISTRY_TREE_FITS:
+                check(min(launches[k] for k in ("hist_level", "split_scan",
+                                                "row_select_lanes")) >= 1,
+                      f"registry {name}: the tree fit launched K1-K3: {launches}")
+            check(allocs > 0 or kernels > 0,
+                  f"registry {name}: its device half ran on the card")
+            route = "kernel" if kernels else "torch"
+            for k, v in launches.items():
+                totals[k] += v
+            fam = "bitwise" if tol == 0.0 else name
+            by_family[fam] = max(by_family.get(fam, 0.0), diff)
+            line = {"phase": "registry_case", "name": name, "half": half,
+                    "route": route, "device_s": dev_s, "launches": launches,
+                    "device_allocations": allocs, "max_abs_diff": diff, "tol": tol}
+            emit(line)
+            cases.append(line)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        for (mod, attr), real in seams.items():
+            setattr(mod, attr, real)
+    out = {"phase": "registry", "cases": len(RC.CASES), "device_cases": len(cases),
+           "kernel_cases": sum(c["route"] == "kernel" for c in cases),
+           "launches": totals, "max_abs_diff": by_family,
+           "device_s": sum(c["device_s"] for c in cases), "cpu_s": cpu_s,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6987,8 +7160,10 @@ def main() -> int:
     if sys.argv[1:2] == ["--deploy-child"]:
         return _deploy_child(sys.argv[2:])
     if sys.argv[1:2] == ["--phase"]:
-        # one self-contained phase alone (its line, no summary): deploy, cli
-        alone = {"deploy": phase_deploy, "cli": phase_cli}
+        # one self-contained phase alone (its line, no summary): deploy, cli,
+        # registry
+        alone = {"deploy": phase_deploy, "cli": phase_cli,
+                 "registry": phase_registry}
         if sys.argv[2:] not in [[k] for k in alone]:
             print(f"chip_smoke: --phase takes one of {sorted(alone)}", file=sys.stderr)
             return 2
@@ -7181,7 +7356,10 @@ def main() -> int:
     # 26. the operator CLI and the kernel autotuner
     cli = phase_cli(torch, KE, dev)
 
-    # 27. summary
+    # 27. the registry sweep's cases with a device half, card against CPU
+    reg = phase_registry(torch, KE, dev)
+
+    # 28. summary
     kernels = []
     tree_src = "transmogrifai_tpu_torch/perf/kernels/csrc/trees.cu"
     for kname, replaces in (("hist_level", "transmogrifai_tpu/perf/kernels/histogram.py:80"),
@@ -7232,6 +7410,7 @@ def main() -> int:
         entry["launches_obs"] = obs["launches"][kname]
         entry["launches_ooc"] = ooc["launches"][kname]
         entry["launches_cli_tuned_train"] = cli["train"]["launches"][kname]
+        entry["launches_registry"] = reg["launches"][kname]
         entry["autotune"] = _autotune_line(cli, _FAMILY_OF[kname])
         kernels.append(entry)
     for kname, replaces in (("onehot_codes", "transmogrifai_tpu/perf/kernels/encode.py:76"),
@@ -7286,6 +7465,7 @@ def main() -> int:
             "launches_ooc": ooc["launches"]["encode_slots"],
             "launches_deploy": deploy["boot"]["launches"]["encode_slots"],
             "launches_cli_tuned_train": cli["train"]["launches"]["encode_slots"],
+            "launches_registry": reg["launches"]["encode_slots"],
             "autotune": _autotune_line(cli, "encode"),
             "ooc_chunk_tile": ooc["chunk_tile"],
             **{f"fused_{k}": fused[k] for k in ("ms", "device_ms", "plain_ms",
@@ -7301,6 +7481,7 @@ def main() -> int:
         "slots_per_launch": DSL_LEFT_SLOTS,
         "launches_training_dsl": dsl["left_closed"]["launches"],
         "launches_obs": obs["launches"]["left_closed"],
+        "launches_registry": reg["launches"]["left_closed"],
         "max_abs_err": t["max_abs_err"], "parity": "bitwise",
         "parity_cases": t["parity_cases"],
         "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],

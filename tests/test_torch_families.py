@@ -135,6 +135,23 @@ class TestHashing:
                 not t.isascii() or max(len(w) for w in t.split()) > 4096))
             assert counts["tokenize_hash_count.unicode_rows"] == redo > 0
 
+    def test_fallback_matches_native(self):
+        """The reference's ``test_native.py`` case: where ``available()``
+        (the library builds and loads), the Python path fills the same
+        block as the native one."""
+        if not TN.available():
+            pytest.skip("no native toolchain")
+        docs = [["a", "b", "a"], [], None, ["c", "a"], ["b"] * 5]
+        got_native = TN.hash_count_block(docs, 16)
+        saved = TN._LIB
+        try:
+            TN._LIB = None
+            got_py = TN.hash_count_block(docs, 16)
+        finally:
+            TN._LIB = saved
+        np.testing.assert_array_equal(got_native, got_py)
+        assert TN.available() == JN.available()
+
     def test_native_library_builds_under_build(self):
         _need_native()
         path = TN.library_path()

@@ -129,9 +129,10 @@ def _clean_telemetry():
 
 def _replay(fleet_cls, tel_cls, models, tel_dir, statusz_path):
     """The reference's fleet replay: 24 records of each tenant interleaved,
-    a 60 ms flush window so flushed batches mix both tenants, the SLO
-    monitor armed, telemetry at the requests detail dumped under
-    ``tel_dir``, one statusz line after."""
+    flushed as one batch that mixes both tenants (``max_batch`` is the 48
+    records and the window is longer than any submit loop, so the only flush
+    is on size, however busy the host), the SLO monitor armed, telemetry at
+    the requests detail dumped under ``tel_dir``, one statusz line after."""
     (model_a, recs_a), (model_b, recs_b) = models
     records = []
     for ra, rb in zip(recs_a[:24], recs_b[:24]):
@@ -139,7 +140,7 @@ def _replay(fleet_cls, tel_cls, models, tel_dir, statusz_path):
         records.append(("t_b", rb))
     tel = tel_cls(out_dir=str(tel_dir), detail="requests")
     with tel:
-        with fleet_cls(max_batch=256, max_wait_ms=60) as fleet:
+        with fleet_cls(max_batch=len(records), max_wait_ms=30_000) as fleet:
             fleet.register("t_a", model_a)
             fleet.register("t_b", model_b)
             fleet.arm_slo_monitor()

@@ -25,12 +25,14 @@ from transmogrifai_tpu.data.dataset import Column as JCol
 from transmogrifai_tpu.data.dataset import Dataset as JDs
 from transmogrifai_tpu.features.builder import FeatureBuilder as JFB
 from transmogrifai_tpu.types import RealNN as JRealNN
+from transmogrifai_tpu.utils import stats as JStats
 from transmogrifai_tpu.utils.vector_metadata import VectorMetadata as JMeta
 import transmogrifai_tpu_torch as T
 from transmogrifai_tpu_torch.checkers import sanity as TS
 from transmogrifai_tpu_torch.data.dataset import Column as TCol
 from transmogrifai_tpu_torch.types import RealNN as TRealNN
 from transmogrifai_tpu_torch.types import feature_type_by_name as tft
+from transmogrifai_tpu_torch.utils import stats as TStats
 from transmogrifai_tpu_torch.utils.vector_metadata import VectorColumnMetadata, VectorMetadata
 from transmogrifai_tpu_torch.workflow.fit import transform_dag
 
@@ -180,3 +182,19 @@ def test_every_slot_dropped_raises(block):
     tds = T.Dataset({"label": tds["label"], "v": TCol.vector(x)})
     with pytest.raises(ValueError, match="requires vector metadata"):
         tc.fit(tds, device="cpu")
+
+
+def test_spearman_monotonic():
+    """The reference's ``test_sanity_checker.py`` case on the port."""
+    y = np.arange(100, dtype=float)
+    x = np.exp(y / 10)[:, None]  # monotonic but nonlinear
+    assert TStats.spearman_with_label(x, y)[0] == pytest.approx(1.0)
+
+
+def test_spearman_equals_the_reference():
+    rng = np.random.default_rng(9)
+    x = rng.integers(0, 5, size=(200, 4)).astype(np.float64)
+    x[:, 3] = rng.normal(size=200)
+    y = rng.normal(size=200)
+    got, want = TStats.spearman_with_label(x, y), JStats.spearman_with_label(x, y)
+    assert got.tobytes() == want.tobytes()

@@ -390,12 +390,13 @@ from transmogrifai_tpu_torch.cli import deploy as cli_deploy
 from transmogrifai_tpu_torch.cli import gen as cli_gen, serve as cli_serve, top as cli_top
 from transmogrifai_tpu_torch.cli import train as cli_train, tune as cli_tune
 from transmogrifai_tpu_torch.perf import autotune
-from transmogrifai_tpu_torch.utils import version
+from transmogrifai_tpu_torch.utils import version, streaming_histogram
+from transmogrifai_tpu_torch.testkit import builder as tk_builder, random_data, specs
 serde._register_stages()
 import chip_smoke
 sys.path.insert(0, {repo!r} + "/tests")
 import torch_examples_data, torch_wide_data, torch_encode_cases, torch_maps_data, torch_text_data
-import torch_stream_data
+import torch_stream_data, torch_registry_cases
 sys.path.insert(0, {repo!r} + "/tools")
 import torch_deploy_gate
 bad = sorted(m for m in set(sys.modules) - before
@@ -422,6 +423,7 @@ class TestNoJax:
                                       os.path.join("tests", "torch_text_data.py"),
                                       os.path.join("tests", "torch_stream_data.py"),
                                       os.path.join("tests", "torch_ooc_data.py"),
+                                      os.path.join("tests", "torch_registry_cases.py"),
                                       os.path.join("tools", "torch_deploy_gate.py"),
                                       os.path.join("tools", "torch_phase_ab.py")])
     def test_ast_scan_finds_no_jax_import(self, root):
@@ -481,7 +483,10 @@ class TestNoJax:
                         *(("cli", f"{m}.py") for m in (
                             "__init__", "__main__", "deploy", "gen", "serve", "top",
                             "train", "tune")),
-                        ("perf", "autotune.py"), ("utils", "version.py")):
+                        ("perf", "autotune.py"), ("utils", "version.py"),
+                        ("utils", "streaming_histogram.py"),
+                        *(("testkit", f"{m}.py") for m in (
+                            "__init__", "builder", "random_data", "specs"))):
                 assert os.path.join(path, *mod) in files
         bad = []
         for fn in files:

@@ -219,9 +219,10 @@ class Column:
         n = len(self)
         return float(self.present().sum() / n) if n else 0.0
 
-    def to_values(self) -> List[Any]:
+    def to_values(self, ftype: Optional[Type[FeatureType]] = None) -> List[Any]:
         """Raw python values (None where missing; [] for a missing
-        geolocation, and lists and sets as stored)."""
+        geolocation, and lists and sets as stored).  ``ftype`` is the
+        reference's signature; the values are the same for any type."""
         if self.is_numeric:
             py = self.data.tolist()
             if self.mask is None:
@@ -237,18 +238,19 @@ class Column:
     def to_feature_values(self) -> List[FeatureType]:
         return [self.ftype(v) for v in self.to_values()]
 
-    def concat(self, other: "Column") -> "Column":
-        """This column's rows followed by ``other``'s (same type; the
-        metadata is this column's)."""
-        if self.ftype is not other.ftype:
+    def concat(self, *others: "Column") -> "Column":
+        """This column's rows followed by each of ``others``', in one pass
+        (same type; the metadata is this column's)."""
+        if any(o.ftype is not self.ftype for o in others):
             raise TypeError("cannot concat columns of different types")
-        data = np.concatenate([self.data, other.data])
-        if self.mask is None and other.mask is None:
+        parts = (self,) + others
+        data = np.concatenate([p.data for p in parts])
+        if all(p.mask is None for p in parts):
             mask = None
         else:
-            left = self.mask if self.mask is not None else np.ones(len(self), dtype=np.bool_)
-            right = other.mask if other.mask is not None else np.ones(len(other), dtype=np.bool_)
-            mask = np.concatenate([left, right])
+            mask = np.concatenate([p.mask if p.mask is not None
+                                   else np.ones(len(p), dtype=np.bool_)
+                                   for p in parts])
         return Column(self.ftype, data, mask, self.meta)
 
     def __repr__(self) -> str:

@@ -10,6 +10,7 @@ score suites are the reference's float64 numpy.
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 import numpy as np
@@ -197,6 +198,17 @@ class ForecastEvaluator(RegressionEvaluator):
             out["mase"] = float(pred_mae / max(naive_mae, 1e-12))
             out["seasonalError"] = float(naive_mae)
         return out
+
+
+@dataclass
+class BinScoreMetrics:
+    """The bin score suite's fields, by the reference's names."""
+
+    bin_centers: list = field(default_factory=list)
+    bin_counts: list = field(default_factory=list)
+    bin_avg_scores: list = field(default_factory=list)
+    bin_avg_labels: list = field(default_factory=list)
+    brier_score: float = 0.0
 
 
 class BinScoreEvaluator(Evaluator):

@@ -29,11 +29,13 @@ def feature_uid() -> str:
 class Feature:
     """A typed node in the feature lineage DAG."""
 
-    __slots__ = ("name", "ftype", "is_response", "origin_stage", "parents", "uid")
+    __slots__ = ("name", "ftype", "is_response", "origin_stage", "parents", "uid",
+                 "distributions")
 
     def __init__(self, name: str, ftype: Type[FeatureType], is_response: bool,
                  origin_stage: Optional["PipelineStage"],
-                 parents: Tuple["Feature", ...] = (), uid: str = ""):
+                 parents: Tuple["Feature", ...] = (), uid: str = "",
+                 distributions: Tuple = ()):
         if not issubclass(ftype, FeatureType):
             raise TypeError(f"ftype must be a FeatureType subclass, got {ftype!r}")
         if not uid:
@@ -44,6 +46,7 @@ class Feature:
         self.origin_stage = origin_stage
         self.parents = tuple(parents)
         self.uid = uid
+        self.distributions = tuple(distributions)
 
     def __hash__(self) -> int:
         return hash(self.uid)

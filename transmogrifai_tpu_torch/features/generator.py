@@ -51,5 +51,8 @@ class FeatureGeneratorStage(PipelineStage):
             raise ValueError(f"generator {self.raw_name!r} has no output feature")
         return self._output_feature
 
+    def make_output_name(self) -> str:
+        return self.raw_name
+
     def __repr__(self) -> str:
         return f"FeatureGeneratorStage({self.raw_name!r}: {self.ftype.__name__})"

@@ -1,5 +1,5 @@
 """RawFeatureFilter: drops unhealthy raw features before the DAG is fitted
-(counterpart of ``transmogrifai_tpu/filters/raw_feature_filter.py``).
+(the reference's counterpart: ``transmogrifai_tpu/filters/raw_feature_filter.py``).
 
 Checks per raw predictor feature (per key for maps):
 

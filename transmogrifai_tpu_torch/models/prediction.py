@@ -57,7 +57,7 @@ class PredictionColumn(Column):
     def present(self) -> np.ndarray:
         return np.ones(len(self), dtype=np.bool_)
 
-    def to_values(self) -> List[dict]:
+    def to_values(self, ftype=None) -> List[dict]:
         keys = [Prediction.PredictionName]
         if self.raw is not None:
             keys += [f"{Prediction.RawPredictionName}_{j}"
@@ -66,3 +66,22 @@ class PredictionColumn(Column):
             keys += [f"{Prediction.ProbabilityName}_{j}"
                      for j in range(self.prob.shape[1])]
         return [dict(zip(keys, row)) for row in self.data.tolist()]
+
+    def take(self, indices: np.ndarray) -> "PredictionColumn":
+        """The rows at ``indices``, a prediction column still."""
+        indices = np.asarray(indices)
+        return PredictionColumn(
+            self.pred[indices],
+            self.raw[indices] if self.raw is not None else None,
+            self.prob[indices] if self.prob is not None else None)
+
+    def concat(self, *others: Column) -> "PredictionColumn":
+        """This column's rows followed by each of ``others``', in one pass;
+        every part must be a prediction column."""
+        if not all(isinstance(o, PredictionColumn) for o in others):
+            raise TypeError("can only concat PredictionColumns")
+        parts = (self,) + others
+        return PredictionColumn(
+            np.concatenate([p.pred for p in parts]),
+            np.concatenate([p.raw for p in parts]) if self.raw is not None else None,
+            np.concatenate([p.prob for p in parts]) if self.prob is not None else None)

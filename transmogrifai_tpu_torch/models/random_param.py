@@ -1,4 +1,4 @@
-"""Random hyperparameter-search builder (counterpart of
+"""Random hyperparameter-search builder (the reference's counterpart:
 ``transmogrifai_tpu/models/random_param.py``, copied: the same
 ``np.random.default_rng`` stream gives the same grids).
 

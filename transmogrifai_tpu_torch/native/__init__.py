@@ -122,6 +122,10 @@ def warmup() -> bool:
     return _lib(force=True) is not None
 
 
+#: the reference's name for :func:`warmup`
+available = warmup
+
+
 def _pack(tokens: Sequence[str]) -> Tuple[bytes, np.ndarray]:
     """Strings -> one UTF-8 buffer + int64 offsets (n + 1)."""
     encoded = [t.encode("utf-8") for t in tokens]

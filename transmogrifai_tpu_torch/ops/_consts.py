@@ -1,4 +1,10 @@
-"""Fitted constants of a stage, moved once to each device that uses them."""
+"""Fitted constants of a stage, moved once to each device that uses them.
+
+The reference has no module of its own for this: its ``device_transform``
+bodies (``transmogrifai_tpu/ops/scalers.py``, ``ops/numeric.py``) close over
+the constants, and ``jax.jit`` bakes them into the compiled program.  Eager
+torch would copy them to the card on every call, so the port keeps one copy
+per device."""
 
 from __future__ import annotations
 

@@ -194,6 +194,10 @@ class PipelineStage:
     def inputs(self) -> Tuple[Feature, ...]:
         return self._input_features
 
+    @property
+    def input_names(self) -> List[str]:
+        return [f.name for f in self._input_features]
+
     def _output_ftype(self) -> Type[FeatureType]:
         """The output feature's type (a stage whose type follows its input
         overrides this)."""
@@ -226,6 +230,9 @@ class Transformer(PipelineStage):
     """A stage with no fit step: a pure column function, optionally with a
     device half (see the module docstring)."""
 
+    #: True on a model an :class:`Estimator` fitted (set by ``_bind_model``)
+    is_model: bool = False
+
     device_input_slots: Optional[Tuple[int, ...]] = None
 
     def device_lifts_input(self, slot: int) -> bool:
@@ -252,6 +259,17 @@ class Transformer(PipelineStage):
         out = self.transform_columns(cols, dataset)
         return dataset.with_column(self.output_name, out)
 
+    def transform_values(self, values: Sequence[Any]) -> Any:
+        """One row: the inputs' raw values -> the output value, through a
+        one-row dataset (a stage with a cheap scalar path overrides this)."""
+        from ..data.dataset import Dataset
+
+        ds = Dataset.from_features(
+            {f.name: [v] for f, v in zip(self.inputs, values)},
+            {f.name: f.ftype for f in self.inputs})
+        col = self.transform_columns([ds[f.name] for f in self.inputs], ds)
+        return col.to_values(self._output_ftype())[0]
+
 
 class Estimator(PipelineStage):
     """A stage that must observe data before it can transform.  A saved
@@ -276,6 +294,7 @@ class Estimator(PipelineStage):
         model.operation_name = self.operation_name
         model._input_features = self._input_features
         model._output_feature = self.get_output()
+        model.is_model = True
         return model
 
 

@@ -1,8 +1,9 @@
 """Contingency-matrix statistics the SanityChecker reads (host copy of
 ``transmogrifai_tpu/utils/stats.py``): chi-squared -> Cramér's V, pointwise
-mutual information, max rule confidence and support, and the Pearson
-correlation with a label the RawFeatureFilter reads.  Float64 numpy, as in
-the reference, so the checker's group statistics come out bitwise equal."""
+mutual information, max rule confidence and support, and the Pearson and
+Spearman correlations with a label (the RawFeatureFilter reads Pearson's).
+Float64 numpy, as in the reference, so the checker's group statistics come
+out bitwise equal."""
 
 from __future__ import annotations
 
@@ -81,3 +82,18 @@ def pearson_with_label(x: np.ndarray, y: np.ndarray) -> np.ndarray:
     with np.errstate(divide="ignore", invalid="ignore"):
         out = cov / (sx * sy)
     return out
+
+
+def spearman_with_label(x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """Spearman rank correlation of each column of x with y."""
+    def ranks(v: np.ndarray) -> np.ndarray:
+        order = np.argsort(v, axis=0, kind="stable")
+        r = np.empty_like(order, dtype=np.float64)
+        if v.ndim == 1:
+            r[order] = np.arange(v.shape[0])
+        else:
+            for j in range(v.shape[1]):
+                r[order[:, j], j] = np.arange(v.shape[0])
+        return r
+
+    return pearson_with_label(ranks(x), ranks(y))

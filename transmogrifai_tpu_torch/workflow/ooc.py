@@ -310,7 +310,9 @@ def chunked_transform_epoch(cds: ChunkedDataset, runners: Sequence[Any],
     out_cds = cds.with_spilled_columns(new_spilled) if new_spilled else cds
     for name in resident_out:
         parts = resident_parts[name]
-        col = _concat_parts(parts) if parts else templates[name]
+        # one pass over the chunks' parts (pairwise concats would re-copy
+        # the accumulated block every chunk)
+        col = parts[0].concat(*parts[1:]) if parts else templates[name]
         out_cds = out_cds.with_resident_column(name, col)
     if profile is not None:
         profile.append({"kind": "epoch", "seconds": time.perf_counter() - t_epoch,
@@ -323,27 +325,6 @@ def chunked_transform_epoch(cds: ChunkedDataset, runners: Sequence[Any],
                         "bytes_spilled": stats.bytes_spilled,
                         "parts_s": dict(stats.seconds), "prefetch": stats.prefetch})
     return out_cds
-
-
-def _concat_parts(parts: List[Column]) -> Column:
-    """Single-pass concatenation of per-chunk resident columns (pairwise
-    ``Column.concat`` would re-copy the accumulated block every chunk)."""
-    if len(parts) == 1:
-        return parts[0]
-    from ..models.prediction import PredictionColumn
-
-    if all(type(p) is PredictionColumn for p in parts):
-        first = parts[0]
-        return PredictionColumn(
-            np.concatenate([p.pred for p in parts]),
-            np.concatenate([p.raw for p in parts])
-            if first.raw is not None else None,
-            np.concatenate([p.prob for p in parts])
-            if first.prob is not None else None)
-    out = parts[0]  # unknown exotic subclass: its own pairwise concat
-    for p in parts[1:]:
-        out = out.concat(p)
-    return out
 
 
 def _gate_fit_residency(cds: ChunkedDataset, stage, names,

@@ -229,6 +229,7 @@ def load_model(path: str):
         else:
             t._input_features = tuple(
                 features[u] for u in s["inputUids"] if u in features)
+        t.is_model = True
         fitted[uid] = t
 
     return WorkflowModel(result_features=result_features, fitted=fitted,
@@ -242,7 +243,7 @@ def load_model(path: str):
 #: runtime-only caches
 _SKIP_ATTRS = {"_param_values", "_input_features", "_output_feature",
                "operation_name", "uid", "_code_memos", "_device_consts",
-               "_config_set"}
+               "_config_set", "is_model"}
 
 
 class _Encoder:
