@@ -5,6 +5,7 @@ check them.
     python3 chip_smoke.py
     python3 chip_smoke.py --phase deploy     # phase 25 alone, its line only
     python3 chip_smoke.py --phase registry   # phase 27 alone, its lines only
+    python3 chip_smoke.py --phase static     # phase 28 alone, its lines only
 
 Phases, one JSON line each:
 
@@ -491,7 +492,33 @@ Phases, one JSON line each:
                before each case.  One line per case (its half, seconds on the
                card, launches, max |diff|), then the phase's totals.  At
                most 30 s.
-28. summary  — nvidia-smi's line, then one {"kernels": [...]} line, then the
+28. static   — static analysis (checkers/, cli/lint.py) on the card.  (a)
+               With the launch counters zeroed, measure_compiles open and the
+               peak memory statistics reset: Workflow.validate(cost=True,
+               host_budget=, rows=) over the unfitted wide pipeline,
+               WorkflowModel.validate(serving=True, cost=True, hbm_budget=
+               the card's memory) over serving_wide and irsnap.build_corpus():
+               0 launches, 0 compile events, max_memory_allocated unchanged.
+               (b) At each bucket of serving_wide's ladder (a fresh plan, one
+               batch) and at the training flush of phase 26's table at
+               CLI_TRAIN_ROWS: the static bytes, FLOPs and bound time
+               (bytes / 3.35 TB/s or FLOPs / 67 TFLOP/s, the larger) beside
+               the measured device ms (CUDA events) and their ratio, and the
+               static peak estimate beside the measured peak rise, which it
+               must not undercut.  (c) train(strict=True) and
+               train(strict=False) of that table under LR + RF + GBT, one
+               seed: CV metrics and the winner bitwise equal (GBT within
+               1e-3), K1-K3 and encode launches equal and above 0; a planted
+               label leak raises TM401 with 0 launches and no allocation.
+               (d) Child processes: `cli lint` over the port's code (every
+               function, TM306, TM31x) exits 0; `cli lint --model
+               serving_wide --serving --cost --hbm-budget` exits 0 at the
+               card's memory and 1 with TM601 at half the static estimate;
+               the op-graph corpus captured with CUDA operands against the
+               committed tests/goldens/torch_ir: 0 TM700, 0 TM704, the
+               TM701/TM702 counts and the ops that drift.  At most 30 s.
+29. summary  — nvidia-smi's line, then one {"kernels": [...]} line (each
+               entry with launches_static, the strict train's), then the
                last line {"ok": true, "device": {...}}.
 
 Phase 3 also holds K5 past shared memory (a 5000-split slot, its own launch
@@ -987,16 +1014,13 @@ def k_left_closed(torch, KE, dev) -> dict:
     w1 = tab1.width
     buf1 = torch.empty((BATCH, -(-w1 // 4) * 4), device=dev)[:, :w1]
 
-    def nbytes(ins, tab, n):
-        return sum(x.numel() * 4 for x in ins) + tab.splits.nbytes + n * tab.width * 4
-
     one = lambda: KE.encode_slots(ins1, tab1, buf1)  # noqa: E731
     eight = lambda: KE.encode_slots(ins8, tab8, buf8)  # noqa: E731
     big_specs, big_ins = left_slot_case(BATCH, 5, dev, 1, n_splits=BIG_SPLITS)
     big_tab = KE.plan_slots(big_specs)
     big = lambda: KE.encode_slots(big_ins, big_tab)  # noqa: E731
-    b1, b8, bb = nbytes(ins1, tab1, BATCH), nbytes(ins8, tab8, DSL_ROWS), \
-        nbytes(big_ins, big_tab, BATCH)
+    b1, b8, bb = KE.bound_bytes(BATCH, tab1), KE.bound_bytes(DSL_ROWS, tab8), \
+        KE.bound_bytes(BATCH, big_tab)
     return {
         "parity_cases": cases, "max_abs_err": 0.0, "bound_by": "bytes",
         "shape": [BATCH, w1], "ms": time_ms(one), "device_ms": time_device_ms(one),
@@ -1103,8 +1127,7 @@ def phase_fused(torch, KE, table, dev) -> dict:
     ins = fixture_inputs(table, BATCH, 5, dev)
     buf = torch.empty((BATCH, -(-width // 4) * 4), device=dev)[:, :width]
     run = lambda: KE.encode_slots(ins, table, buf)  # noqa: E731
-    nbytes = (sum(x.numel() * x.element_size() for x in ins)
-              + table.splits.nbytes + BATCH * width * 4)
+    nbytes = KE.bound_bytes(BATCH, table)
     out = {"slots": len(table), "columns": width, "rows": BATCH,
            "device_ms": time_device_ms(run), "ms": time_ms(run),
            "plain_ms": time_ms(lambda: KE.encode_slots_torch(ins, table, buf),
@@ -2415,8 +2438,7 @@ def phase_training_raw(torch, KE, dev) -> dict:
     torch.cuda.synchronize()
     check(torch.equal(buf, KE.encode_slots_torch(ins, table)),
           f"the flush's encode launch bitwise at {RAW_ROWS} rows")
-    nbytes = (sum(x.numel() * x.element_size() for x in ins) + table.splits.nbytes
-              + RAW_ROWS * width * 4)
+    nbytes = KE.bound_bytes(RAW_ROWS, table)
     enc = {"rows": RAW_ROWS, "slots": len(table), "columns": width,
            "chunks": len(table.chunks),
            "ms": time_big_ms(lambda: KE.encode_slots(ins, table, buf), runs=21, warmup=3),
@@ -2604,8 +2626,7 @@ def phase_families(torch, KE, dev) -> dict:
     torch.cuda.synchronize()
     check(torch.equal(buf, KE.encode_slots_torch(ins, table)),
           f"the families flush's encode launch bitwise at {FAMILY_ROWS} rows")
-    nbytes = (sum(x.numel() * x.element_size() for x in ins) + table.splits.nbytes
-              + FAMILY_ROWS * enc_w * 4)
+    nbytes = KE.bound_bytes(FAMILY_ROWS, table)
     enc = {"rows": FAMILY_ROWS, "slots": len(table), "columns": enc_w,
            "ms": time_big_ms(lambda: KE.encode_slots(ins, table, buf), runs=21, warmup=3),
            "plain_ms": time_big_ms(lambda: KE.encode_slots_torch(ins, table, buf), runs=5),
@@ -3228,8 +3249,7 @@ def phase_dsl(torch, KE, dev, raw: dict) -> dict:
     torch.cuda.synchronize()
     check(torch.equal(buf, KE.encode_slots_torch(ins, table)),
           f"the dsl flush's encode launch bitwise at {DSL_ROWS} rows")
-    nbytes = (sum(x.numel() * x.element_size() for x in ins) + table.splits.nbytes
-              + DSL_ROWS * width * 4)
+    nbytes = KE.bound_bytes(DSL_ROWS, table)
     encode = {"rows": DSL_ROWS, "slots": len(table), "left_closed_slots": table.n_left,
               "columns": width,
               "ms": time_big_ms(lambda: KE.encode_slots(ins, table, buf), runs=21, warmup=3),
@@ -3440,8 +3460,7 @@ def phase_maps(torch, KE, dev) -> dict:
     torch.cuda.synchronize()
     check(torch.equal(buf, KE.encode_slots_torch(ins, table)),
           f"the maps flush's encode launch bitwise at {MAPS_ROWS} rows")
-    nbytes = (sum(x.numel() * x.element_size() for x in ins) + table.splits.nbytes
-              + MAPS_ROWS * enc_w * 4)
+    nbytes = KE.bound_bytes(MAPS_ROWS, table)
     enc = {"rows": MAPS_ROWS, "slots": len(table), "columns": enc_w,
            "ms": time_big_ms(lambda: KE.encode_slots(ins, table, buf), runs=21, warmup=3),
            "plain_ms": time_big_ms(lambda: KE.encode_slots_torch(ins, table, buf), runs=5),
@@ -6083,8 +6102,7 @@ def phase_ooc(torch, KE, dev) -> dict:
     torch.cuda.synchronize()
     check(torch.equal(buf, KE.encode_slots_torch(ins, table)),
           "the chunk tile's encode launch bitwise its plain version")
-    nbytes = (sum(x.numel() * x.element_size() for x in ins) + table.splits.nbytes
-              + OOC_CHUNK * table.width * 4)
+    nbytes = KE.bound_bytes(OOC_CHUNK, table)
     e = {"rows": OOC_CHUNK, "slots": len(table), "columns": table.width,
          "ms": time_device_ms(lambda: KE.encode_slots(ins, table, buf)),
          "host_inclusive_ms": time_ms(lambda: KE.encode_slots(ins, table, buf)),
@@ -6589,23 +6607,38 @@ def _cli_tables(torch, dev, tmp: str) -> dict:
             "baseline": baseline, "stream": stream}
 
 
+#: phase 10's table at CLI_TRAIN_ROWS, made once for phases 26 and 28
+_CLI_TABLE: dict = {}
+
+
+def _cli_train_table():
+    """(dataset, feature types, schema) of phase 10's table at
+    CLI_TRAIN_ROWS rows (seed 61), made once a process."""
+    if not _CLI_TABLE:
+        import transmogrifai_tpu_torch as T
+        from torch_wide_data import FIXTURE_SHAPE, make_data
+        from transmogrifai_tpu_torch.types import feature_type_by_name
+
+        cols, schema = make_data(CLI_TRAIN_ROWS, seed=61, **FIXTURE_SHAPE)
+        ftypes = {s["name"]: feature_type_by_name(s["type"]) for s in schema}
+        _CLI_TABLE.update(ds=T.Dataset.from_features(cols, ftypes), ftypes=ftypes,
+                          schema=schema)
+    return _CLI_TABLE["ds"], _CLI_TABLE["ftypes"], _CLI_TABLE["schema"]
+
+
 def _cli_trainer(torch, KE, dev, autotune):
     """(c)'s train of phase 10's table at CLI_TRAIN_ROWS under LR + RF + GBT
     with the winner store ``store_dir`` (an empty one: untuned): seconds,
     launches, launches that took a winner, winner and CV."""
     import transmogrifai_tpu_torch as T
-    from torch_wide_data import FIXTURE_SHAPE, make_data, wide_pipeline
+    from torch_wide_data import wide_pipeline
     from transmogrifai_tpu_torch.models.trees import (
         GradientBoostedTreesClassifier,
         RandomForestClassifier,
     )
     from transmogrifai_tpu_torch.perf.kernels import dispatch
-    from transmogrifai_tpu_torch.types import feature_type_by_name
 
-    cols, schema = make_data(CLI_TRAIN_ROWS, seed=61, **FIXTURE_SHAPE)
-    ftypes = {s["name"]: feature_type_by_name(s["type"]) for s in schema}
-    ds = T.Dataset.from_features(cols, ftypes)
-    del cols
+    ds, ftypes, schema = _cli_train_table()
     models = [(T.LogisticRegression(), [{"reg_param": 0.01}]),
               (RandomForestClassifier(), [dict(CLI_RF_GRID)]),
               (GradientBoostedTreesClassifier(), [dict(CLI_GBT_GRID)])]
@@ -7147,6 +7180,290 @@ def phase_registry(torch, KE, dev) -> dict:
     return out
 
 
+# -- 28. static analysis --------------------------------------------------------
+
+#: (d)'s lint children: the port's code with every rule, and the serving
+#: model's cost at a budget (its arguments after the module)
+STATIC_CODE_SKIP = ("fixtures", "__pycache__")
+
+
+def _static_code_paths(here: str) -> list:
+    """``--path`` arguments for the port's code: every entry of the package
+    holding Python source but ``fixtures/`` (the JAX package's committed
+    outputs, among them a generated numpy scorer kept byte-equal to the
+    reference's)."""
+    pkg = os.path.join(here, "transmogrifai_tpu_torch")
+    out = []
+    for name in sorted(os.listdir(pkg)):
+        p = os.path.join(pkg, name)
+        if name in STATIC_CODE_SKIP:
+            continue
+        if name.endswith(".py") or (os.path.isdir(p) and any(
+                f.endswith(".py") for _r, _d, fs in os.walk(p) for f in fs)):
+            out += ["--path", p]
+    return out
+
+
+def _static_child(argv: list, here: str):
+    return subprocess.Popen([sys.executable, "-m", "transmogrifai_tpu_torch.cli",
+                             "lint", *argv], cwd=here, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            env={**os.environ, "PYTHONPATH": here})
+
+
+def _static_peak(torch, dev, fn):
+    """(measured peak rise in bytes, CUDA-event ms, fn's result) of ``fn``
+    on the card."""
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize(dev)
+    return torch.cuda.max_memory_allocated(dev) - base, start.elapsed_time(end), out
+
+
+def _static_bound_ms(flops: int, nbytes: int) -> float:
+    return max(nbytes / HBM_BYTES_PER_S, flops / F32_OPS_PER_S) * 1e3
+
+
+def phase_static(torch, KE, dev) -> dict:
+    """Phase 28: validate, lint and the op-graph corpus on the card: (a)
+    zero cost, (b) the static cost beside the card's, (c) the strict gate,
+    (d) the CLI and the corpus captured with CUDA operands."""
+    import gc
+
+    import transmogrifai_tpu_torch as T
+    from torch_wide_data import wide_pipeline
+    from transmogrifai_tpu_torch.checkers import irsnap
+    from transmogrifai_tpu_torch.checkers.diagnostics import OpCheckError
+    from transmogrifai_tpu_torch.checkers.plancheck import analyze_transform_plan
+    from transmogrifai_tpu_torch.data.dataset import Column
+    from transmogrifai_tpu_torch.models.trees import (
+        GradientBoostedTreesClassifier,
+        RandomForestClassifier,
+    )
+    from transmogrifai_tpu_torch.perf.timers import measure_compiles
+    from transmogrifai_tpu_torch.stages.base import UnaryTransformer
+    from transmogrifai_tpu_torch.types import Real, RealNN
+    from transmogrifai_tpu_torch.workflow.plan import plan_for_features
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    total_mem = torch.cuda.get_device_properties(dev).total_memory
+    model = T.WorkflowModel.load(FIXTURE)
+    with open(os.path.join(FIXTURE, "schema.json")) as fh:
+        schema_wide = json.load(fh)
+    ds, ftypes, schema = _cli_train_table()   # phase 26's table
+    models = [(T.LogisticRegression(), [{"reg_param": 0.01}]),
+              (RandomForestClassifier(), [dict(CLI_RF_GRID)]),
+              (GradientBoostedTreesClassifier(), [dict(CLI_GBT_GRID)])]
+
+    # (a) zero cost: validate of the unfitted pipeline and of the served
+    # model, and the corpus build, make no launch, no compile event and no
+    # allocation on the card
+    label, sel, chk, pred = wide_pipeline(T, ftypes, schema, models=models)
+    wf = T.Workflow().set_input_dataset(ds).set_result_features(label, pred)
+    _sync(torch, dev)
+    _reset_all(KE)
+    torch.cuda.reset_peak_memory_stats(dev)
+    peak0 = torch.cuda.max_memory_allocated(dev)
+    t0 = time.perf_counter()
+    with measure_compiles() as probe:
+        rep_wf = wf.validate(cost=True, host_budget=float(64 << 30), rows=CLI_TRAIN_ROWS)
+        t1 = time.perf_counter()
+        rep_model = model.validate(serving=True, cost=True, hbm_budget=float(total_mem))
+        t2 = time.perf_counter()
+        corpus, skipped = irsnap.build_corpus()
+        t3 = time.perf_counter()
+    launches = _all_counts(KE)
+    check(all(v == 0 for v in launches.values()), f"static analysis launched: {launches}")
+    check(probe.events == {}, f"static analysis compile events: {probe.events}")
+    check(torch.cuda.max_memory_allocated(dev) == peak0,
+          "static analysis allocated on the card")
+    check(not rep_model.errors(), f"serving_wide at the card's memory: {rep_model.pretty()}")
+    check(sorted(d.code for d in rep_wf.errors()) == ["TM606"],
+          f"the unfitted pipeline's armed host budget fails closed: {rep_wf.pretty()}")
+    check(skipped == [] and len(corpus) == 19, f"corpus families {sorted(corpus)}")
+    cost = rep_model.plan_cost
+    zero = {"launches": sum(launches.values()), "compile_events": probe.events,
+            "peak_allocated_change": torch.cuda.max_memory_allocated(dev) - peak0,
+            "workflow_validate_s": t1 - t0, "model_validate_s": t2 - t1,
+            "corpus_s": t3 - t2, "families": len(corpus),
+            "workflow_codes": sorted(d.code for d in rep_wf),
+            "model_codes": sorted(d.code for d in rep_model)}
+    emit({"phase": "static_zero_cost", **zero})
+
+    # (d), started now: the lint children run beside (b) and (c)
+    half = cost.peak_hbm_bytes / 2
+    kids = {
+        "code": _static_child([*_static_code_paths(here), "--all-functions",
+                               "--concurrency", "--threads"], here),
+        "model_card": _static_child(["--model", FIXTURE, "--serving", "--cost",
+                                     "--hbm-budget", str(float(total_mem)),
+                                     "--format", "json"], here),
+        "model_half": _static_child(["--model", FIXTURE, "--serving", "--cost",
+                                     "--hbm-budget", str(half), "--format", "json"],
+                                    here),
+    }
+
+    # (c) the strict gate: a planted leak refused before anything runs, then
+    # strict and unstrict trains of one seed
+    class LabelGrab(UnaryTransformer):
+        """Consumes the response as a plain input: the label leaks."""
+
+        input_types = (RealNN,)
+        output_type = Real
+        allow_label_as_input = True
+
+        def transform_columns(self, cols, dataset):
+            return Column.from_values(Real, list(cols[0].data))
+
+    l_label, _s, _c, _p = wide_pipeline(T, ftypes, schema, models=models)
+    leak = l_label.transform_with(LabelGrab())
+    leak_pred = l_label.transform_with(
+        T.BinaryClassificationModelSelector.with_cross_validation(
+            num_folds=2, models=[models[0]]), T.transmogrify([leak]))
+    _reset_all(KE)
+    torch.cuda.reset_peak_memory_stats(dev)
+    peak0 = torch.cuda.max_memory_allocated(dev)
+    with measure_compiles() as probe:
+        try:
+            T.Workflow().set_input_dataset(ds).set_result_features(
+                l_label, leak_pred).train(device=dev, strict=True)
+            refused = []
+        except OpCheckError as e:
+            refused = sorted({d.code for d in e.report.errors()})
+    check(refused == ["TM401"], f"the planted leak's refusal: {refused}")
+    check(sum(_all_counts(KE).values()) == 0 and probe.events == {}
+          and torch.cuda.max_memory_allocated(dev) == peak0,
+          "the planted leak refused before any launch or allocation")
+
+    def train(strict: bool):
+        label_, sel_, chk_, pred_ = wide_pipeline(T, ftypes, schema, models=models)
+        wf_ = T.Workflow().set_input_dataset(ds).set_result_features(label_, pred_)
+        _sync(torch, dev)
+        _reset_all(KE)
+        t = time.perf_counter()
+        m = wf_.train(device=dev, strict=strict)
+        _sync(torch, dev)
+        summ = m.fitted[sel_.uid].summary
+        return {"model": m, "seconds": time.perf_counter() - t,
+                "launches": _all_counts(KE), "left_closed": KE.left_closed_launches,
+                "winner": summ.best_model_name,
+                "cv": {(e.model_name, json.dumps(e.grid, sort_keys=True)):
+                       [float(v) for v in e.metric_values]
+                       for e in summ.validation_results}}
+
+    loose = train(False)
+    strict = train(True)
+    gbt_dev = 0.0
+    for key, vals in loose["cv"].items():
+        got = strict["cv"][key]
+        if key[0].startswith("GradientBoosted"):
+            gbt_dev = max([gbt_dev] + [abs(a - b) for a, b in zip(vals, got)])
+        else:
+            check(vals == got, f"strict train CV {key} bitwise: {vals} vs {got}")
+    check(gbt_dev <= 1e-3, f"strict train GBT CV within 1e-3: {gbt_dev}")
+    check(strict["winner"] == loose["winner"], "strict train winner")
+    for k in ("hist_level", "split_scan", "row_select_lanes", "encode_slots"):
+        check(strict["launches"][k] == loose["launches"][k] > 0,
+              f"{k} launches strict {strict['launches'][k]} == unstrict "
+              f"{loose['launches'][k]} > 0")
+    emit({"phase": "static_strict", "refused": refused,
+          "strict_s": strict["seconds"], "unstrict_s": loose["seconds"],
+          "winner": strict["winner"], "gbt_cv_max_dev": gbt_dev,
+          "launches": strict["launches"], "launches_unstrict": loose["launches"]})
+
+    # (b) the static cost beside the card: each bucket of serving_wide's
+    # ladder through a fresh plan, then the training flush of the table
+    records = make_records(schema_wide, max(b.bucket for b in cost.buckets),
+                           __import__("numpy").random.default_rng(28))
+    buckets = []
+    for bc in cost.buckets:
+        plan = model.serving_plan(device=dev)
+        rise, ev_ms, _ = _static_peak(torch, dev, lambda: plan.score(records[:bc.bucket]))
+        dev_ms = plan.last_timings["device_ms"]
+        plan.release_executables()
+        del plan
+        gc.collect()
+        bound = _static_bound_ms(bc.flops, bc.bytes_read + bc.bytes_written)
+        check(bc.peak_hbm_bytes >= rise,
+              f"static peak {bc.peak_hbm_bytes} >= measured rise {rise} at {bc.bucket}")
+        buckets.append({"bucket": bc.bucket, "static_flops": bc.flops,
+                        "static_bytes": bc.bytes_read + bc.bytes_written,
+                        "static_bound_ms": bound, "device_ms": dev_ms,
+                        "batch_event_ms": ev_ms,
+                        "time_ratio": bound / dev_ms if dev_ms else None,
+                        "static_peak_bytes": bc.peak_hbm_bytes, "peak_rise_bytes": rise,
+                        "peak_ratio": rise / bc.peak_hbm_bytes})
+    fitted = strict["model"]
+    tplan = plan_for_features(ds, fitted.result_features, fitted.fitted, device=dev)
+    tcost = analyze_transform_plan(tplan, ds)
+    tb = tcost.buckets[0]
+    rise, ev_ms, _ = _static_peak(torch, dev, lambda: tplan.apply_prefix(ds))
+    flush_dev_ms = tplan.last_timings["device_s"] * 1e3
+    check(tb.peak_hbm_bytes >= rise,
+          f"flush static peak {tb.peak_hbm_bytes} >= measured rise {rise}")
+    fbound = _static_bound_ms(tb.flops, tb.bytes_read + tb.bytes_written)
+    flush = {"rows": tb.bucket, "static_flops": tb.flops,
+             "static_bytes": tb.bytes_read + tb.bytes_written,
+             "static_bound_ms": fbound, "device_ms": flush_dev_ms,
+             "encode_ms": tplan.last_timings["encode_ms"], "apply_event_ms": ev_ms,
+             "time_ratio": fbound / flush_dev_ms if flush_dev_ms else None,
+             "static_peak_bytes": tb.peak_hbm_bytes, "peak_rise_bytes": rise,
+             "peak_ratio": rise / tb.peak_hbm_bytes}
+    del tplan
+    emit({"phase": "static_cost", "card": gpu_line(),
+          "timing": "device_ms: the plan's CUDA-event device part of one batch; "
+                    "flush device_ms: the synchronized device part of "
+                    "apply_prefix; time_ratio: static bound / measured "
+                    "(not gated: a batch sits in L2)",
+          "buckets": buckets, "flush": flush,
+          "ridge_flops_per_byte": F32_OPS_PER_S / HBM_BYTES_PER_S})
+
+    # (d) the corpus captured with CUDA operands, against the goldens
+    t_c = time.perf_counter()
+    diff, _current = irsnap.check_ir_corpus(device=str(dev))
+    counts = diff.to_dict()["counts"]
+    check(counts.get("TM700", 0) == 0 and counts.get("TM704", 0) == 0,
+          f"the card's corpus against the goldens: {counts}")
+    drift = [d.message for d in diff.diagnostics if d.code in ("TM701", "TM702")]
+    outs = {}
+    for name, proc in kids.items():
+        try:
+            o, e = proc.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            o, e = proc.communicate()
+        outs[name] = (proc.returncode, o, e)
+    check(outs["code"][0] == 0, f"lint of the port's code: rc {outs['code'][0]}\n"
+          f"{outs['code'][1][-3000:]}{outs['code'][2][-2000:]}")
+    check(outs["model_card"][0] == 0, f"lint at the card's memory: {outs['model_card']}")
+    half_codes = [json.loads(ln).get("code") for ln in outs["model_half"][1].splitlines()
+                  if ln.startswith("{")]
+    check(outs["model_half"][0] == 1 and "TM601" in half_codes,
+          f"lint at half the estimate: rc {outs['model_half'][0]} {half_codes}")
+    thread_line = next((ln for ln in outs["code"][1].splitlines()
+                        if ln.startswith("Thread model:")), "")
+    out = {"zero_cost": zero, "strict": {k: strict[k] for k in ("seconds", "launches")},
+           "launches_static": {**strict["launches"], "left_closed": strict["left_closed"]},
+           "corpus": {"compared": diff.compared, "changed": diff.changed,
+                      "counts": counts, "drift": drift,
+                      "torch": [diff.golden_torch_version, diff.current_torch_version],
+                      "seconds": time.perf_counter() - t_c},
+           "lint": {"code_rc": outs["code"][0], "thread_model": thread_line,
+                    "model_card_rc": outs["model_card"][0],
+                    "model_half_rc": outs["model_half"][0],
+                    "half_budget_bytes": half, "static_peak_bytes": cost.peak_hbm_bytes},
+           "phase_s": time.perf_counter() - t_phase}
+    emit({"phase": "static_cli", **{k: out[k] for k in ("corpus", "lint")},
+          "phase_s": out["phase_s"]})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -7160,10 +7477,10 @@ def main() -> int:
     if sys.argv[1:2] == ["--deploy-child"]:
         return _deploy_child(sys.argv[2:])
     if sys.argv[1:2] == ["--phase"]:
-        # one self-contained phase alone (its line, no summary): deploy, cli,
-        # registry
+        # one self-contained phase alone (its lines, no summary): deploy,
+        # cli, registry, static
         alone = {"deploy": phase_deploy, "cli": phase_cli,
-                 "registry": phase_registry}
+                 "registry": phase_registry, "static": phase_static}
         if sys.argv[2:] not in [[k] for k in alone]:
             print(f"chip_smoke: --phase takes one of {sorted(alone)}", file=sys.stderr)
             return 2
@@ -7359,7 +7676,11 @@ def main() -> int:
     # 27. the registry sweep's cases with a device half, card against CPU
     reg = phase_registry(torch, KE, dev)
 
-    # 28. summary
+    # 28. static analysis: zero cost on the card, the static cost beside the
+    # card's, the strict gate, the CLI and the corpus captured on the card
+    static = phase_static(torch, KE, dev)
+
+    # 29. summary
     kernels = []
     tree_src = "transmogrifai_tpu_torch/perf/kernels/csrc/trees.cu"
     for kname, replaces in (("hist_level", "transmogrifai_tpu/perf/kernels/histogram.py:80"),
@@ -7411,6 +7732,7 @@ def main() -> int:
         entry["launches_ooc"] = ooc["launches"][kname]
         entry["launches_cli_tuned_train"] = cli["train"]["launches"][kname]
         entry["launches_registry"] = reg["launches"][kname]
+        entry["launches_static"] = static["launches_static"][kname]
         entry["autotune"] = _autotune_line(cli, _FAMILY_OF[kname])
         kernels.append(entry)
     for kname, replaces in (("onehot_codes", "transmogrifai_tpu/perf/kernels/encode.py:76"),
@@ -7466,6 +7788,7 @@ def main() -> int:
             "launches_deploy": deploy["boot"]["launches"]["encode_slots"],
             "launches_cli_tuned_train": cli["train"]["launches"]["encode_slots"],
             "launches_registry": reg["launches"]["encode_slots"],
+            "launches_static": static["launches_static"]["encode_slots"],
             "autotune": _autotune_line(cli, "encode"),
             "ooc_chunk_tile": ooc["chunk_tile"],
             **{f"fused_{k}": fused[k] for k in ("ms", "device_ms", "plain_ms",
@@ -7482,6 +7805,7 @@ def main() -> int:
         "launches_training_dsl": dsl["left_closed"]["launches"],
         "launches_obs": obs["launches"]["left_closed"],
         "launches_registry": reg["launches"]["left_closed"],
+        "launches_static": static["launches_static"]["left_closed"],
         "max_abs_err": t["max_abs_err"], "parity": "bitwise",
         "parity_cases": t["parity_cases"],
         "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],

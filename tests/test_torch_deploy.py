@@ -205,7 +205,16 @@ class TestPackAndManifest:
         assert set(env) == {"torchVersion", "cudaVersion", "platform", "deviceKind",
                             "deviceCount", "computeCapability", "kernelToken"}
         assert set(env["cudaVersion"]) == {"toolkit", "torch", "driver"}
-        assert m["irCorpus"] is None
+        # the port's op-graph corpus (tests/goldens/torch_ir) is packed
+        from transmogrifai_tpu_torch.checkers.irsnap import default_goldens_dir
+        from transmogrifai_tpu_torch.deploy.bundle import ir_corpus_fingerprints
+
+        assert m["irCorpus"] == ir_corpus_fingerprints()
+        with open(os.path.join(default_goldens_dir(), "index.json")) as fh:
+            index = json.load(fh)
+        assert m["irCorpus"]["entries"] == {
+            k: v["irFingerprint"] for k, v in index["entries"].items()}
+        assert m["irCorpus"]["torchVersion"] == index["torchVersion"]
         # the manifest's keys are the reference's (plus the port's libraries
         # and donation flag)
         jm = JD.DeployBundle.load(packed["jroot"]).manifest
@@ -494,6 +503,35 @@ class TestRefusal:
         assert "b/golden" in report.errors()[0].message
         report, _drift = check_bundle(bundle, live_corpus={"entries": {"a/golden": "fp1"}})
         assert report.errors() == []
+
+    def test_packed_corpus_drift_against_a_changed_golden_corpus(self, packed, tmp_path):
+        """The packed ``irCorpus`` is the committed op-graph corpus; a live
+        corpus whose family graph changed since pack (a kernel or stage
+        edit re-goldened) refuses the artifact with TM510, as the reference
+        does; the unchanged corpus admits it."""
+        import shutil
+
+        from transmogrifai_tpu_torch.checkers.irsnap import (
+            default_goldens_dir,
+            load_corpus,
+            save_corpus,
+            IRSnapshot,
+        )
+        from transmogrifai_tpu_torch.deploy.bundle import ir_corpus_fingerprints
+
+        bundle = DeployBundle.load(packed["root"])
+        report, _drift = check_bundle(bundle, live_corpus=ir_corpus_fingerprints())
+        assert report.errors() == []
+        dst = tmp_path / "torch_ir"
+        shutil.copytree(default_goldens_dir(), dst)
+        snaps, _index = load_corpus(str(dst))
+        key = "perf.kernels.encode"
+        snaps[key] = IRSnapshot.from_text(key, snaps[key].text.replace("f32[", "f64["))
+        save_corpus(snaps, str(dst))
+        report, _drift = check_bundle(bundle,
+                                      live_corpus=ir_corpus_fingerprints(str(dst)))
+        assert [d.code for d in report.errors()] == ["TM510"]
+        assert key in report.errors()[0].message
 
 
 class TestCleanMiss:
@@ -867,10 +905,16 @@ class TestCli:
 
     @pytest.mark.parametrize("command", ["lint"])
     def test_unported_commands_refuse_by_name(self, command, capsys):
+        """Every command of the reference is ported now (``UNPORTED`` is
+        empty): ``lint`` parses its own arguments, so one it does not take
+        is an argparse error, not a refusal by name."""
+        from transmogrifai_tpu_torch.cli import UNPORTED
         from transmogrifai_tpu_torch.cli import main as cli_main
 
-        assert cli_main([command, "--input", "x.csv"]) == 2
-        assert f"`{command}` is not ported" in capsys.readouterr().err
+        assert command not in UNPORTED
+        with pytest.raises(SystemExit):
+            cli_main([command, "--input", "x.csv"])
+        assert "is not ported" not in capsys.readouterr().err
 
 
 class TestPackRefusesEmptyWork:

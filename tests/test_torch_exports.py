@@ -78,14 +78,15 @@ class TestScoreFunction:
             model.score_function("cpu")
 
     def test_unported_arguments_still_raise_by_name(self):
-        """``strict`` still raises by name; ``hbm_budget`` and
+        """``strict`` is ported: it validates first (this clean model's DAG
+        passes and the fit reaches its data); ``hbm_budget`` and
         ``host_budget`` are ported and reach the data as in the JAX package
         (here: no input data, the reference's ValueError); ``artifact`` is
         ported: an unreadable artifact is refused with TM510 and the tenant
         warms and serves live."""
         model = T.WorkflowModel.load(FIXTURE)
         wf = T.Workflow().set_result_features(*model.result_features)
-        with pytest.raises(NotImplementedError, match="strict"):
+        with pytest.raises(ValueError, match="No input data"):
             wf.train(0.0, 42, None, True, device="cpu")
         for args in ((0.0, 42, None, False, 1e9), (0.0, 42, None, False, None, 1e9)):
             with pytest.raises(ValueError, match="No input data"):

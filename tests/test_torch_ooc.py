@@ -21,9 +21,11 @@ Where the port departs from the reference by its own rules:
 - a listener keeps the fused epoch and gets the reference's per-stage
   records a chunk.
 
-Left out with the modules they need (``ROADMAP.md``): the static TM607 of
-``Workflow.validate`` / ``check_host_residency``, ``cli lint
---host-budget`` and the IR corpus pin (``TestProgramSurfaceUnforked``).
+The static TM607 of ``Workflow.validate`` / ``check_host_residency``,
+``cli lint --host-budget`` and the IR corpus pin
+(``TestProgramSurfaceUnforked``: the chunk tile's op-graph fingerprint
+equals the in-memory transform prefix's in ``tests/goldens/torch_ir``) came
+with the port's static analysis.
 """
 
 import glob
@@ -782,6 +784,73 @@ class TestHostResidencyGate:
         with pytest.raises(OpCheckError) as ei:
             wf.train(host_budget=4_096)
         assert any(d.code == "TM607" for d in ei.value.report)
+
+    def test_static_tm607_over_and_under_budget(self):
+        ds = _fixture(1200)
+        label, pred = _features(with_selector=True)
+        m = (T.Workflow().set_input_dataset(ds)
+             .set_result_features(label, pred)).train()
+        # generous budget: clean, report attached
+        rep = m.validate(host_budget=1 << 30, rows=1_000)
+        assert not [d for d in rep if d.code in ("TM606", "TM607")]
+        assert rep.host_residency is not None
+        assert rep.host_residency.peak_chunked_bytes > 0
+        assert rep.host_residency.fit_sets  # estimator working sets listed
+        # tiny budget at huge rows: TM607 fires (fail closed)
+        rep2 = m.validate(host_budget=1_000_000, rows=50_000_000)
+        assert [d for d in rep2 if d.code == "TM607"], rep2.pretty()
+        # armed without a row count: TM606 (cannot evaluate -> fail closed)
+        rep3 = m.validate(host_budget=1_000_000)
+        assert [d for d in rep3 if d.code == "TM606"]
+        # the JAX package's model of the same table decides the same way
+        jm, _jout, _jds = _jax_train(1200, 12, with_selector=True)
+        for budget, rows in ((1 << 30, 1_000), (1_000_000, 50_000_000),
+                             (1_000_000, None)):
+            codes = sorted(d.code for d in m.validate(host_budget=budget, rows=rows)
+                           if d.code in ("TM606", "TM607"))
+            assert codes == sorted(
+                d.code for d in jm.validate(host_budget=budget, rows=rows)
+                if d.code in ("TM606", "TM607"))
+
+    def test_unfitted_workflow_fails_closed(self):
+        label, pred = _features(with_selector=True)
+        wf = T.Workflow().set_result_features(label, pred)
+        rep = wf.validate(host_budget=1_000_000, rows=10_000)
+        assert [d for d in rep if d.code == "TM606"]
+
+    def test_cli_lint_host_budget(self):
+        from transmogrifai_tpu_torch.cli.gen import main
+
+        with pytest.raises(SystemExit):
+            # --host-budget without --rows refuses (fail closed)
+            main(["lint", "--workflow", "test_torch_ooc:_wf",
+                  "--host-budget", "1000000"])
+
+
+def _wf():
+    """cli lint --workflow target used by TestHostResidencyGate."""
+    label, pred = _features(with_selector=True)
+    return T.Workflow().set_result_features(label, pred)
+
+
+class TestProgramSurfaceUnforked:
+    def test_ir_corpus_chunk_family_dedups_bit_identical(self):
+        """The chunked-epoch prefix family of the port's op-graph corpus
+        carries the same fingerprint as the in-memory transform_prefix
+        family: chunking does not fork the program surface."""
+        from transmogrifai_tpu_torch.checkers.irsnap import (build_corpus,
+                                                             default_goldens_dir)
+
+        with open(os.path.join(default_goldens_dir(), "index.json")) as fh:
+            entries = json.load(fh)["entries"]
+        base = entries["workflow.plan.transform_prefix"]
+        chunk = entries["workflow.plan.transform_prefix@chunk"]
+        assert chunk["irFingerprint"] == base["irFingerprint"]
+        # and a fresh build agrees (not just the recorded goldens)
+        snaps, _skipped = build_corpus(families=["transform_prefix"])
+        fresh = {k: s.ir_fingerprint for k, s in snaps.items()}
+        assert fresh["workflow.plan.transform_prefix@chunk"] == \
+            fresh["workflow.plan.transform_prefix"]
 
 
 def _nested_x(r):

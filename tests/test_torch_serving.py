@@ -392,13 +392,16 @@ from transmogrifai_tpu_torch.cli import train as cli_train, tune as cli_tune
 from transmogrifai_tpu_torch.perf import autotune
 from transmogrifai_tpu_torch.utils import version, streaming_histogram
 from transmogrifai_tpu_torch.testkit import builder as tk_builder, random_data, specs
+from transmogrifai_tpu_torch.checkers import irsnap, opcheck, threadcheck
+from transmogrifai_tpu_torch.cli import lint as cli_lint
+from transmogrifai_tpu_torch.perf.kernels import trace as kernel_trace
 serde._register_stages()
 import chip_smoke
 sys.path.insert(0, {repo!r} + "/tests")
 import torch_examples_data, torch_wide_data, torch_encode_cases, torch_maps_data, torch_text_data
 import torch_stream_data, torch_registry_cases
 sys.path.insert(0, {repo!r} + "/tools")
-import torch_deploy_gate
+import torch_deploy_gate, torch_lint_gate, torch_ir_gate, torch_static_gate
 bad = sorted(m for m in set(sys.modules) - before
              if m.split(".")[0] in ("jax", "jaxlib", "transmogrifai_tpu"))
 print("BAD=" + ",".join(bad))
@@ -425,7 +428,10 @@ class TestNoJax:
                                       os.path.join("tests", "torch_ooc_data.py"),
                                       os.path.join("tests", "torch_registry_cases.py"),
                                       os.path.join("tools", "torch_deploy_gate.py"),
-                                      os.path.join("tools", "torch_phase_ab.py")])
+                                      os.path.join("tools", "torch_phase_ab.py"),
+                                      os.path.join("tools", "torch_lint_gate.py"),
+                                      os.path.join("tools", "torch_ir_gate.py"),
+                                      os.path.join("tools", "torch_static_gate.py")])
     def test_ast_scan_finds_no_jax_import(self, root):
         path = os.path.join(REPO, root)
         files = [path] if path.endswith(".py") else [
@@ -465,6 +471,9 @@ class TestNoJax:
                             "batcher", "faults", "pipeline", "plan", "resilience",
                             "server", "swap", "validator", "registry")),
                         ("obs", "slo.py"), ("checkers", "plancheck.py"),
+                        *(("checkers", f"{m}.py") for m in (
+                            "__init__", "opcheck", "threadcheck", "irsnap")),
+                        ("cli", "lint.py"), ("perf", "kernels", "trace.py"),
                         ("ops", "_consts.py"), ("features", "feature.py"),
                         *(("types", f"{m}.py") for m in (
                             "__init__", "base", "numerics", "text", "collections")),

@@ -220,8 +220,8 @@ class TestEntryPoints:
         wf.train(0.2, 7, ckpt, device="cpu")
         assert sorted(ckpt.load_all()) == sorted(
             s.uid for s in all_stages([pred]) if isinstance(s, Estimator))
-        with pytest.raises(NotImplementedError, match="strict"):
-            wf.train(0.0, 42, None, True, device="cpu")
+        # the fourth positional is strict: validate, then fit
+        assert wf.train(0.0, 7, None, True, device="cpu").summary() is not None
         # the fifth positional is hbm_budget: a generous one admits the fit
         assert wf.train(0.0, 7, None, False, 1e12, device="cpu").summary() is not None
         with pytest.raises(TypeError):
@@ -249,7 +249,9 @@ class TestEntryPoints:
             est.fit(ds)
 
     def test_unported_train_options_raise(self, tmp_path):
-        """``strict`` still raises by name.  ``host_budget`` and
+        """``strict`` is ported: the clean DAG validates and trains, and a
+        DAG with two model selectors raises TM105 before any data is read.
+        ``host_budget`` and
         ``hbm_budget`` are ported and decide as the JAX package does: a
         1-byte host budget spills the table and refuses the selector's fit
         set (TM607); a selector over a raw vector runs no device prefix, so
@@ -260,8 +262,13 @@ class TestEntryPoints:
         x, y = _data(n=50)
         label, _, _, pred = _port_wiring()
         wf = TWorkflow().set_input_dataset(_port_ds(x, y)).set_result_features(label, pred)
-        with pytest.raises(NotImplementedError, match="strict"):
-            wf.train(device="cpu", strict=True)
+        assert wf.train(device="cpu", strict=True).summary() is not None
+        twice = TWorkflow().set_result_features(
+            label, pred, label.transform_with(TSel.with_cross_validation(
+                num_folds=2, models=[(TT.RandomForestClassifier(num_trees=2),
+                                      RF_GRIDS)]), pred.parents[1]))
+        with pytest.raises(OpCheckError, match="TM105"):
+            twice.train(device="cpu", strict=True)
         jlabel = JFB.RealNN("label").extract_field().as_response()
         jvec = JFB.OPVector("d").extract_field().as_predictor()
         jsel = JSel.with_cross_validation(num_folds=2, seed=3, models=[

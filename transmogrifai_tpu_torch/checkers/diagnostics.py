@@ -5,23 +5,32 @@ Validators report findings as :class:`Diagnostic` objects with stable
 codes, so tooling matches on codes instead of message text.  The code table
 is the reference's whole table; the port emits these families so far:
 
-- ``TM101`` — a cyclic feature graph (:class:`DagCycleError`, raised by
-  ``workflow/dag.py::compute_dag``);
+- ``TM1xx``-``TM4xx`` — the static DAG validator
+  (``checkers/opcheck.py``): structure, types, the device halves run on
+  meta operands (TM204), the device-hazard lint (TM301-TM306; the
+  concurrency analyzer's TM311-TM315, ``checkers/threadcheck.py``) and
+  label leakage; a cyclic feature graph (TM101, :class:`DagCycleError`)
+  is raised by ``workflow/dag.py::compute_dag``;
 - ``TM5xx`` — servability and the serving fleet: unfitted estimators
   (TM501), host round-trips and data-dependent widths (TM502/TM503), the
   planner split (TM504), the fault-tolerance configuration (TM505/TM506),
   swap admission (TM507/TM508), fleet device-memory admission (TM509) and
   reduced-precision calibration parity (TM511), ``serve/validator.py``;
   refused deploy artifacts (TM510), ``deploy/bundle.py``;
-- ``TM601`` — a plan whose static peak device-memory estimate exceeds its
-  budget (``checkers/plancheck.py``);
+- ``TM6xx`` — the static plan cost (``checkers/plancheck.py``): a peak
+  device-memory estimate over its budget (TM601), recompile hazards
+  (TM602), memory-bound segments (TM604), order-dependent ops (TM605), an
+  armed gate that cannot be evaluated (TM606) and host residency (TM607);
+  TM603/608/609 need a mesh;
+- ``TM7xx`` — the op-graph golden corpus (``checkers/irsnap.py``);
 - ``TM8xx`` — continual training (``workflow/continual.py``) and training
   resilience (``workflow/resilience.py``);
 - ``TM902`` / ``TM903`` — SLO error-budget burn and exhaustion
   (``obs/slo.py``).
 
-The entries for TM508, TM510, TM809 and TM821 carry the port's fix hints: it
-compiles no XLA program and has no mesh.
+The entries for TM204, TM30x, TM508, TM510, TM604, TM70x, TM809 and TM821
+carry the port's fix hints: it compiles no XLA program, lints torch code
+and has no mesh.
 """
 
 from __future__ import annotations
@@ -76,24 +85,26 @@ DIAGNOSTIC_CODES: Dict[str, Tuple[Severity, str, str]] = {
               "will produce; re-derive the output via stage.get_output() after "
               "changing stage params"),
     "TM204": (Severity.ERROR, "device shape/dtype error",
-              "the stage's device transform fails shape/dtype checking under "
-              "jax.eval_shape; fix operand shapes/dtypes before launching a "
-              "device job"),
-    # -- JAX hazards (AST lint) ---------------------------------------------
+              "the stage's device transform fails on meta operands, or "
+              "returns a dtype/shape its declared output type cannot take; "
+              "fix operand shapes/dtypes before launching a device job"),
+    # -- device hazards (AST lint) ------------------------------------------
     "TM301": (Severity.WARNING, "host sync on device value",
-              "item()/float()/np.asarray on a jax value forces a device->host "
-              "transfer and blocks dispatch; keep the computation in jnp and "
-              "fetch once at the end"),
+              ".item()/.cpu()/.tolist()/.numpy()/float()/np.asarray on a "
+              "device tensor, or a synchronize(), waits for the card and "
+              "blocks the launch queue; keep the computation in torch on the "
+              "device and fetch once at the end"),
     "TM302": (Severity.WARNING, "Python loop over rows",
               "a per-row Python loop defeats columnar vectorization; rewrite "
-              "with vectorized numpy/jnp operations over the whole column"),
+              "with vectorized numpy/torch operations over the whole column"),
     "TM303": (Severity.WARNING, "jax.jit inside hot path",
-              "jit-compiling inside transform/fit re-traces on every call; "
-              "move the jitted function to module level"),
+              "torch.compile / torch.jit.script / torch.jit.trace called "
+              "inside transform/fit compiles on every call; compile once at "
+              "module level"),
     "TM304": (Severity.WARNING, "jit recompilation hazard",
-              "a jit-decorated closure defined inside the function creates a "
-              "fresh cache entry per call; hoist it to module level so the "
-              "compiled program is reused"),
+              "a compiled closure defined inside the function is compiled "
+              "afresh per call; hoist it to module level so the compiled "
+              "program is reused"),
     "TM305": (Severity.ERROR, "unparseable source file",
               "fix the syntax error (or exclude the file from the lint path); "
               "an unparseable file cannot be checked and must not silently "
@@ -194,7 +205,7 @@ DIAGNOSTIC_CODES: Dict[str, Tuple[Severity, str, str]] = {
               "TM511_BOUNDS); the registry refuses the plan fail-closed — "
               "serve the model at f32, pick the wider class, or fix the "
               "numerically unstable stage the delta points at"),
-    # -- plan cost (jaxpr-level static analysis, checkers/plancheck.py) -----
+    # -- plan cost (meta-tensor static analysis, checkers/plancheck.py) -----
     "TM601": (Severity.ERROR, "plan exceeds the HBM budget",
               "the fused program's peak live-buffer estimate at its largest "
               "row bucket exceeds the configured device budget; shrink the "
@@ -214,8 +225,8 @@ DIAGNOSTIC_CODES: Dict[str, Tuple[Severity, str, str]] = {
     "TM604": (Severity.INFO, "memory-bound fused segment",
               "the segment's arithmetic intensity (FLOPs per HBM byte) is "
               "below the threshold, so it is bandwidth-bound on any "
-              "accelerator — a candidate for the Pallas fused-kernel "
-              "worklist (see ROADMAP: tree hot loops)"),
+              "accelerator — a candidate for a hand-written fused kernel "
+              "(the report prints the card's ridge point beside it)"),
     "TM606": (Severity.ERROR, "budget gate armed but plan cost unavailable",
               "an hbm_budget/single_host contract was requested but the "
               "fused-prefix cost cannot be computed (unfitted estimators in "
@@ -252,15 +263,15 @@ DIAGNOSTIC_CODES: Dict[str, Tuple[Severity, str, str]] = {
               "backends/meshes is not guaranteed — pin the layout (e.g. "
               "C-contiguous blocks, replicated metric inputs) where parity "
               "matters"),
-    # -- IR corpus (StableHLO golden differ, checkers/irsnap.py) ------------
+    # -- IR corpus (op-graph golden differ, checkers/irsnap.py) -------------
     "TM700": (Severity.INFO, "IR corpus membership drift",
               "a program family appeared without a golden snapshot (or a "
               "golden family is no longer emitted); review the change and "
               "refresh the corpus with `cli lint --ir --update-goldens`"),
     "TM701": (Severity.INFO, "benign IR text drift",
-              "the canonical StableHLO text changed but every semantic "
+              "the canonical op-graph text changed but every semantic "
               "feature (op histogram, dtypes, collectives, sort signatures) "
-              "is identical — typically an MLIR printer or metadata change; "
+              "is identical — typically a scalar or a launch-plan attribute; "
               "refresh the corpus at leisure"),
     "TM702": (Severity.WARNING, "IR fusion/layout change",
               "the op histogram of a lowered program shifted (ops "
@@ -276,7 +287,7 @@ DIAGNOSTIC_CODES: Dict[str, Tuple[Severity, str, str]] = {
               "the element-type inventory of a lowered program changed "
               "(a dtype appeared/vanished, or tensor counts migrated "
               "between float widths); numeric precision semantics shifted "
-              "silently — audit the kernel (or the jax upgrade notes) "
+              "silently — audit the kernel (or the torch upgrade notes) "
               "before re-goldening"),
     "TM705": (Severity.ERROR, "sharded-sort-dim miscompile hazard",
               "a sort op's sort dimension is sharded while its batch "

@@ -217,7 +217,7 @@ class SanityChecker(BinaryEstimator):
         x_dev = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
         y_dev = torch.from_numpy(y.astype(np.float32)).to(dev)
         if on_card:
-            torch.cuda.synchronize(dev)
+            torch.cuda.synchronize(dev)  # opcheck: allow(TM301) the fit's one wait for the card before its stats come back
         t1 = time.perf_counter()
 
         corr_idx = list(range(d))
@@ -250,7 +250,7 @@ class SanityChecker(BinaryEstimator):
                 xc_dev = xc_dev[:, torch.as_tensor(corr_idx, device=dev)]
             if spearman:
                 y_rank = _rank_columns(y_dev[:, None])[:, 0]
-                corr_sub = _device_label_corr(xc_dev, y_rank).cpu().numpy()
+                corr_sub = _device_label_corr(xc_dev, y_rank).cpu().numpy()  # opcheck: allow(TM301) end-of-fit fetch of the label correlations, once a fit
             else:
                 corr_sub = pearson_corr[corr_idx]
             if excluded:
@@ -261,7 +261,7 @@ class SanityChecker(BinaryEstimator):
 
             full = None
             if not self.feature_label_corr_only and corr_idx:
-                full = _device_full_corr(xc_dev).cpu().numpy()
+                full = _device_full_corr(xc_dev).cpu().numpy()  # opcheck: allow(TM301) end-of-fit fetch of the correlation matrix, once a fit
             del xc_dev
 
             # every categorical group's contingency with the label in one
@@ -274,7 +274,7 @@ class SanityChecker(BinaryEstimator):
                     (y[:, None] == label_levels[None, :]).astype(np.float32)).to(dev)
                 all_idx = [j for idxs in groups.values() for j in idxs]
                 g_all = x_dev[:, torch.as_tensor(all_idx, device=dev)]
-                cont_all = _device_contingency(g_all, y_onehot).cpu().numpy()
+                cont_all = _device_contingency(g_all, y_onehot).cpu().numpy()  # opcheck: allow(TM301) end-of-fit fetch of the contingency tables, once a fit
                 del g_all
                 off = 0
                 for gkey, indices in groups.items():

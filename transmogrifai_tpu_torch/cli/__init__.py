@@ -1,10 +1,8 @@
 """cli — ``python -m transmogrifai_tpu_torch.cli <command>`` (counterpart
 of ``transmogrifai_tpu/cli``): the ``gen`` project generator
 (``cli/gen.py``, whose :func:`main` parses every command), ``train``,
-``serve``, ``top``, ``tune`` and ``deploy pack|verify|boot``.
-
-The reference's ``lint`` (its static analysis, not ported) is registered
-under its name and refuses to run, by name.
+``serve``, ``top``, ``tune``, ``deploy pack|verify|boot`` and ``lint`` (the
+static analysis, ``cli/lint.py``).
 
 Usage: ``python -m transmogrifai_tpu_torch.cli gen --input data.csv
 --response label --id id --output ./myproject --name MyApp``
@@ -12,8 +10,8 @@ Usage: ``python -m transmogrifai_tpu_torch.cli gen --input data.csv
 
 from .gen import ProblemKind, detect_problem_kind, generate_project, infer_schema, main
 
-#: the reference's commands this package has not ported yet
-UNPORTED = ("lint",)
+#: the reference's commands this package has not ported yet (every one is)
+UNPORTED = ()
 
 __all__ = ["generate_project", "infer_schema", "detect_problem_kind", "ProblemKind",
            "main", "UNPORTED"]

@@ -284,12 +284,12 @@ def generate_project(
 
 def main(argv=None) -> int:
     """``python -m transmogrifai_tpu_torch.cli <command>``: gen, deploy,
-    serve, top, train and tune; ``lint`` (the reference's static analysis,
-    not ported) refuses by name."""
+    lint, serve, top, train and tune."""
     import argparse
 
     from . import UNPORTED
     from .deploy import add_deploy_parser, run_deploy
+    from .lint import add_lint_parser, run_lint
     from .serve import add_serve_parser, run_serve
     from .top import add_top_parser, run_top
     from .train import add_train_parser, run_train
@@ -306,6 +306,7 @@ def main(argv=None) -> int:
     g.add_argument("--schema", dest="schema_path", default=None,
                    help=".avsc Avro schema (typed alternative to inference)")
     add_deploy_parser(sub)
+    add_lint_parser(sub)
     add_serve_parser(sub)
     add_top_parser(sub)
     add_train_parser(sub)
@@ -317,13 +318,15 @@ def main(argv=None) -> int:
     ns, extra = ap.parse_known_args(argv)
     if ns.command in UNPORTED:
         print(f"transmogrifai_tpu_torch.cli: `{ns.command}` is not ported to "
-              "transmogrifai_tpu_torch yet (ported: deploy, gen, serve, top, "
-              "train, tune)", file=sys.stderr)
+              "transmogrifai_tpu_torch yet (ported: deploy, gen, lint, serve, "
+              "top, train, tune)", file=sys.stderr)
         return 2
     if extra:
         ap.error(f"unrecognized arguments: {' '.join(extra)}")
     if ns.command == "deploy":
         return run_deploy(ns)
+    if ns.command == "lint":
+        return run_lint(ns)
     if ns.command == "serve":
         return run_serve(ns)
     if ns.command == "top":

@@ -123,12 +123,26 @@ def environment_provenance(device=None) -> Dict[str, Any]:
 
 def ir_corpus_fingerprints(goldens_dir: Optional[str] = None
                            ) -> Optional[Dict[str, Any]]:
-    """The live IR golden corpus' content fingerprints, or None when no
-    corpus index is readable — always None until ``checkers/irsnap.py`` is
-    ported (the port has no IR corpus yet); :func:`check_bundle` compares a
-    corpus whenever one is given."""
-    del goldens_dir
-    return None
+    """The live IR golden corpus' fingerprints (``checkers/irsnap.py``,
+    ``tests/goldens/torch_ir``), or None when no corpus index is readable.
+    Packed into the manifest as ``irCorpus`` so the deploy gate can prove
+    the artifact predates no program-surface change.  An entry is a
+    family's graph fingerprint (``irFingerprint``): a kernel or stage edit
+    that changes the graph changes it, where the family's content
+    fingerprint (its program's name and operand specs) would not."""
+    from ..checkers.irsnap import default_goldens_dir
+
+    index_path = os.path.join(goldens_dir or default_goldens_dir(), "index.json")
+    try:
+        with open(index_path) as fh:
+            index = json.load(fh)
+    except (OSError, ValueError):
+        return None
+    entries = {key: meta.get("irFingerprint")
+               for key, meta in index.get("entries", {}).items()}
+    return {"torchVersion": index.get("torchVersion"),
+            "platform": index.get("platform"),
+            "entries": entries}
 
 
 @dataclass

@@ -62,7 +62,7 @@ def group_sums(key: torch.Tensor, diffs: torch.Tensor, size: int) -> torch.Tenso
     first = torch.ones_like(key, dtype=torch.bool)
     first[1:] = key[1:] != key[:-1]
     pos = at - torch.cummax(torch.where(first, at, 0), dim=0).values
-    for p in range(int(pos.max()) + 1):
+    for p in range(int(pos.max()) + 1):  # opcheck: allow(TM301) the loop's bound (the most duplicate keys), read once a call
         m = pos == p
         sums[key[m]] += diffs[m]
     return sums

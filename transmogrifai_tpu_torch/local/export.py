@@ -209,7 +209,7 @@ def _compile_stage(i: int, stage, runner, store) -> dict:
                 "track_nulls": bool(runner.track_nulls)}
     if isinstance(runner, SmartTextVectorizerModel):
         plans = []
-        for fi in range(len(inputs)):
+        for fi in range(len(inputs)):  # opcheck: allow(TM302) a loop over a stage's inputs, at export (host, once)
             plans.append({"cat": bool(runner.is_categorical[fi]),
                           "vocab": [str(v) for v in runner.vocabs[fi]],
                           "lang": runner._lang(fi)})

@@ -13,6 +13,7 @@ generic sweep, one fit per (grid, fold), as in the reference.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Any, Dict, List
 
 import numpy as np
@@ -26,6 +27,8 @@ from .prediction import PredictionColumn
 #: (stamp of a host block, device) -> (block, device tensor): the selector's
 #: families and its refit share one copy of the feature block per device
 _PLACED: Dict[tuple, tuple] = {}
+#: guards _PLACED: trainers on several threads (a refit beside a fit) share it
+_PLACED_LOCK = threading.Lock()
 _PLACED_MAX = 2
 
 
@@ -37,13 +40,15 @@ def _stamp(x: np.ndarray) -> tuple:
 def place_rows(x32: np.ndarray, device) -> torch.Tensor:
     """``x32`` on ``device``, copied once per (block, device) and reused."""
     key = (_stamp(x32), str(torch.device(device)))
-    hit = _PLACED.get(key)
+    with _PLACED_LOCK:
+        hit = _PLACED.get(key)
     if hit is not None and hit[0] is x32:
         return hit[1]
     t = torch.from_numpy(np.ascontiguousarray(x32)).to(device)
-    _PLACED[key] = (x32, t)
-    while len(_PLACED) > _PLACED_MAX:
-        _PLACED.pop(next(iter(_PLACED)))
+    with _PLACED_LOCK:
+        _PLACED[key] = (x32, t)
+        while len(_PLACED) > _PLACED_MAX:
+            _PLACED.pop(next(iter(_PLACED)))
     return t
 
 

@@ -109,7 +109,7 @@ class GeneralizedLinearRegression(PredictionEstimatorBase):
             xd = _with_ones(xd, icpt)
             regs = torch.tensor([float(self.reg_param)], dtype=torch.float32,
                                 device=device)
-            beta = _glm_irls(xd, _support(family, yd), wd[None], [0], regs, family,
+            beta = _glm_irls(xd, _support(family, yd), wd[None], [0], regs, family,  # opcheck: allow(TM301) the fit's one fetch of its coefficients
                              _iters(family, self.max_iter), icpt)[0].cpu().numpy()
         if icpt:
             coef, intercept = beta[:-1], float(beta[-1])

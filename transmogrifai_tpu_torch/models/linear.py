@@ -69,7 +69,7 @@ class LinearRegression(PredictionEstimatorBase):
         with full_f32():
             xd, yd, wd = _fit_tensors(x, y, w, device)
             regs = torch.tensor([self._l2({})], dtype=torch.float32, device=device)
-            beta = _ridge_sweep(_with_ones(xd, icpt), yd, wd[None], regs,
+            beta = _ridge_sweep(_with_ones(xd, icpt), yd, wd[None], regs,  # opcheck: allow(TM301) the fit's one fetch of its coefficients
                                 icpt)[0, 0].cpu().numpy()
         if icpt:
             return LinearRegressionModel(coef=beta[:-1].astype(np.float64),

@@ -90,7 +90,7 @@ class NaiveBayes(PredictionEstimatorBase):
                 len(classes), device=device, dtype=torch.float32)[None, :]).to(
                     torch.float32)
             per_fold = []
-            for f in range(tw.shape[0]):
+            for f in range(tw.shape[0]):  # opcheck: allow(TM302) a loop over the CV folds, each a whole-table op
                 xs = xd - _train_shift(xd, tw[f])
                 class_w, feat = _class_sums(xs, y_onehot, tw[f])
                 row = []

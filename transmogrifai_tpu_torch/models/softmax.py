@@ -96,7 +96,7 @@ class MultinomialLogisticRegression(PredictionEstimatorBase):
             xd, yd, wd = _fit_tensors(x, y, w, device)
             y_onehot = torch.nn.functional.one_hot(yd.long(), c).to(torch.float32)
             regs = torch.tensor([self._l2({})], dtype=torch.float32, device=device)
-            b = _softmax_fits(_with_ones(xd, icpt), y_onehot,
+            b = _softmax_fits(_with_ones(xd, icpt), y_onehot,  # opcheck: allow(TM301) the fit's one fetch of its coefficients
                               wd[None], regs, int(self.max_iter), icpt)[0].cpu().numpy()
         if icpt:
             coef, intercept = b[:-1], b[-1]

@@ -26,6 +26,7 @@ reference, and equal there.
 
 from __future__ import annotations
 
+import threading
 from typing import Any, Dict, List, NamedTuple, Tuple
 
 import numpy as np
@@ -102,7 +103,7 @@ def digitize(x: torch.Tensor, edges: torch.Tensor, n_bins: int) -> torch.Tensor:
     """Bin codes on x's device: the count of edges <= x (searchsorted
     side='right' on monotone edges), non-finite -> ``n_bins``."""
     binned = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
-    for e in range(edges.shape[1]):
+    for e in range(edges.shape[1]):  # opcheck: allow(TM302) a loop over the bin edges, each a whole-table op
         binned += (edges[None, :, e] <= x).to(torch.int32)
     return torch.where(torch.isfinite(x), binned,
                        torch.full_like(binned, int(n_bins)))
@@ -112,20 +113,24 @@ def digitize(x: torch.Tensor, edges: torch.Tensor, n_bins: int) -> torch.Tensor:
 #: selector fit, and the refit, bin the same block once
 _BIN_CACHE: Dict[tuple, tuple] = {}
 _BIN_CACHE_MAX = 4
+#: guards _BIN_CACHE: trainers on several threads share it
+_BIN_CACHE_LOCK = threading.Lock()
 
 
 def shared_binned(x32: np.ndarray, xd: torch.Tensor, n_bins: int
                   ) -> Tuple[torch.Tensor, np.ndarray]:
     """(codes on xd's device, host edges) of ``x32`` at ``n_bins``."""
     key = (id(xd), int(n_bins))
-    hit = _BIN_CACHE.get(key)
+    with _BIN_CACHE_LOCK:
+        hit = _BIN_CACHE.get(key)
     if hit is not None and hit[0] is xd:
         return hit[2], hit[1]
     edges = quantile_edges(x32, int(n_bins))
     binned = digitize(xd, torch.from_numpy(edges).to(xd.device), int(n_bins))
-    _BIN_CACHE[key] = (xd, edges, binned)
-    while len(_BIN_CACHE) > _BIN_CACHE_MAX:
-        _BIN_CACHE.pop(next(iter(_BIN_CACHE)))
+    with _BIN_CACHE_LOCK:
+        _BIN_CACHE[key] = (xd, edges, binned)
+        while len(_BIN_CACHE) > _BIN_CACHE_MAX:
+            _BIN_CACHE.pop(next(iter(_BIN_CACHE)))
     return binned, edges
 
 

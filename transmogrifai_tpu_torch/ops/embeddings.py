@@ -171,7 +171,7 @@ def launch_counts() -> Dict[str, int]:
 
 def reset_launch_counts() -> None:
     for k in _COUNTS:
-        _COUNTS[k] = 0
+        _COUNTS[k] = 0  # opcheck: allow(TM306) loop counters, reset between runs by their one reader
 
 
 def skipgram_step(w_in: torch.Tensor, w_out: torch.Tensor, c: torch.Tensor,
@@ -242,8 +242,8 @@ def train_skipgram(v_size: int, dim: int, centers: np.ndarray,
             for s in range(steps):
                 skipgram_step(w_in, w_out, ep[s, :, 0], ep[s, :, 1:], scale[s],
                               sign, lr)
-            _COUNTS["skipgram_steps"] += steps
-            _COUNTS["skipgram_epochs"] += 1
+            _COUNTS["skipgram_steps"] += steps  # opcheck: allow(TM306) loop counters of the one fitting thread
+            _COUNTS["skipgram_epochs"] += 1  # opcheck: allow(TM306) loop counters of the one fitting thread
     return w_in.cpu().numpy()
 
 
@@ -339,7 +339,7 @@ def e_step(x: torch.Tensor, lam: torch.Tensor, alpha: float, n_iter: int):
         gamma = alpha + exp_elog_theta * (ratio @ exp_elog_beta.T)
     exp_elog_theta = torch.exp(_elog_dirichlet(gamma))
     phinorm = (exp_elog_theta @ exp_elog_beta).add_(1e-30)
-    _COUNTS["lda_e_steps"] += 1
+    _COUNTS["lda_e_steps"] += 1  # opcheck: allow(TM306) loop counters of the one fitting thread
     return gamma, exp_elog_theta, torch.div(x, phinorm, out=phinorm), exp_elog_beta
 
 

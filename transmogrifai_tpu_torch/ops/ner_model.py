@@ -198,7 +198,7 @@ class PerceptronNameEntityTagger:
     def tag(self, tokens: Sequence[str]) -> List[str]:
         prev_tag = "O"
         out = []
-        for i in range(len(tokens)):
+        for i in range(len(tokens)):  # opcheck: allow(TM302) a tagger walks a document's tokens in order (host stage)
             idx = hash_features(token_features(tokens, i, prev_tag,
                                                self.language))
             scores = self.weights[idx].sum(axis=0)

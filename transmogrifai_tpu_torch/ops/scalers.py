@@ -120,8 +120,8 @@ class StandardScalerModel(UnaryTransformer):
         becomes a float32 multiply by the reciprocal of the bf16 ``std``,
         rounded to bf16.  torch would round a 0-dim float32 factor to bf16
         first, so the float32 steps are written out."""
-        mean16 = torch.tensor(self.mean, dtype=torch.float64).to(torch.bfloat16).item()
-        std16 = torch.tensor(self.std, dtype=torch.float64).to(torch.bfloat16).item()
+        mean16 = torch.tensor(self.mean, dtype=torch.float64).to(torch.bfloat16).item()  # opcheck: allow(TM301) a host scalar: a CPU tensor of a Python float, rounded to bf16
+        std16 = torch.tensor(self.std, dtype=torch.float64).to(torch.bfloat16).item()  # opcheck: allow(TM301) a host scalar: a CPU tensor of a Python float, rounded to bf16
         inv = float(np.float32(1.0) / np.float32(std16))
         d = (x.to(torch.float32) - mean16).to(torch.bfloat16)
         return (d.to(torch.float32) * inv).to(torch.bfloat16)

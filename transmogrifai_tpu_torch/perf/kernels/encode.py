@@ -46,6 +46,7 @@ import torch
 
 from .. import autotune
 from . import dispatch
+from . import trace as _trace
 
 onehot_launches = 0
 bucketize_launches = 0
@@ -444,6 +445,33 @@ def launch_table(inputs: Sequence[torch.Tensor], table: SlotTable,
     return out
 
 
+def bound_bytes(n: int, table: SlotTable) -> int:
+    """Bytes a run of ``table`` over ``n`` rows must move: each slot's 1-D
+    operand read once (int32 codes or float32 values, 4 bytes a row), the
+    packed splits read once, the (n, width) float32 output written once."""
+    return n * 4 * len(table) + int(table.splits.nbytes) + n * table.width * 4
+
+
+def bound_ops(n: int, table: SlotTable) -> int:
+    """Operations of a run: a row's one-hot slot compares its code with
+    each of the slot's columns, a bucketize slot searches its splits
+    (ceil(log2(splits + 1)) compares) and writes its columns."""
+    searches = sum(max(1, int(np.ceil(np.log2(len(s.splits) + 1))))
+                   for s in table.specs if s.kind != ONEHOT)
+    per_row = table.width + searches
+    return n * per_row
+
+
+def _record_meta(name: str, inputs: Sequence[torch.Tensor], table: SlotTable,
+                 out: torch.Tensor) -> None:
+    """The node of a run (``perf/kernels/trace.py``)."""
+    n = int(out.shape[0])
+    _trace.record(name, inputs, [out],
+                 {"chunks": len(table.chunks), "grid_cap": DEFAULT_GRID_CAP,
+                  "slots": len(table), "width": table.width},
+                 bound_ops(n, table), bound_bytes(n, table))
+
+
 def encode_slots(inputs: Sequence[torch.Tensor], table: SlotTable,
                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Encode every slot of ``table`` into its columns of ``out``: the CUDA
@@ -459,10 +487,13 @@ def encode_slots(inputs: Sequence[torch.Tensor], table: SlotTable,
         return encode_slots_torch(inputs, table, out)
     n = _check_inputs(inputs, table)
     out = _output(table, n, inputs[0].device, out)
-    if out.device.type == "meta":   # shapes only: the static memory estimate
+    if out.device.type == "meta":   # shapes only: a node of the static trace
+        _record_meta("encode_slots", inputs, table, out)
         return out
     launched = _launch(inputs, table, out, table.splits_on(inputs[0].device),
                        "encode_slots")
+    if _trace.active:
+        _record_meta("encode_slots", inputs, table, out)
     encode_slots_launches += launched
     _thread.encode_slots = thread_encode_launches() + launched
     if launched:
@@ -494,8 +525,8 @@ def onehot_codes(codes: torch.Tensor, width: int) -> torch.Tensor:
         return onehot_codes_torch(codes, width)
     out = torch.empty((int(codes.shape[0]), width), dtype=torch.float32,
                       device=codes.device)
-    onehot_launches += _launch([codes], _one_slot(ONEHOT, width, 0, False, False),
-                               out, None, "onehot_codes")
+    table = _one_slot(ONEHOT, width, 0, False, False)
+    onehot_launches += _launch([codes], table, out, None, "onehot_codes")
     return out
 
 

@@ -38,6 +38,7 @@ import torch
 
 from .. import autotune
 from . import dispatch
+from . import trace as _trace
 
 launches = 0
 #: of them, launches whose plan tiles the channels (more than one channel tile)
@@ -140,7 +141,7 @@ def _check(t: torch.Tensor, name: str, dtype, ndim: int) -> None:
         raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.device.type not in ("cpu", "cuda"):
+    if t.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{name} lies on unsupported device {t.device}")
 
 
@@ -366,7 +367,7 @@ def int_abs_sum_bound(ghT: torch.Tensor) -> int:
     acc = torch.zeros((L, two_k), dtype=torch.int64, device=ghT.device)
     for lo in range(0, n, step):
         acc += ghT[:, :, lo:lo + step].to(torch.int32).abs().sum(dim=2, dtype=torch.int64)
-    return int(acc.max()) if acc.numel() else 0
+    return int(acc.max()) if acc.numel() else 0  # opcheck: allow(TM301) the int8 path's sum bound, read once for a grower's levels
 
 
 def hist_level(local: torch.Tensor, ghT: torch.Tensor, binned: torch.Tensor,
@@ -399,6 +400,8 @@ def hist_level(local: torch.Tensor, ghT: torch.Tensor, binned: torch.Tensor,
                          f"{tuple(ghT.shape)}, binned {tuple(binned.shape)}")
     if nn < 1 or n_bins < 2:
         raise ValueError(f"need nn >= 1 and n_bins >= 2, got {nn}, {n_bins}")
+    if local.device.type == "meta":
+        return _meta_node(local, ghT, binned, nn, n_bins, int_exact, abs_sum_bound)
     if int_exact and n > INT_SAFE_ROWS:
         bound = int_abs_sum_bound(ghT) if abs_sum_bound is None else int(abs_sum_bound)
         if bound > INT32_MAX:
@@ -418,8 +421,47 @@ def hist_level(local: torch.Tensor, ghT: torch.Tensor, binned: torch.Tensor,
             autotune.applied("hist")
         return hist_level_torch(local, ghT, binned, nn, n_bins,
                                 int_exact=int_exact, chunk=chunk or PLAIN_CHUNK)
-    return launch(local, ghT, binned, nn, n_bins, int_exact,
-                  tuned_plan(local.device, L, n, d, nn, two_k, n_bins, int_exact))
+    out = launch(local, ghT, binned, nn, n_bins, int_exact,
+                 tuned_plan(local.device, L, n, d, nn, two_k, n_bins, int_exact))
+    if _trace.active:
+        _record(local, ghT, binned, out, nn, n_bins, int_exact, abs_sum_bound)
+    return out
+
+
+def _meta_node(local, ghT, binned, nn: int, n_bins: int, int_exact: bool,
+               abs_sum_bound: Optional[int]) -> torch.Tensor:
+    """A run on meta operands: the output's shape and a node of the static
+    trace (``trace.py``).  The int8 path's overflow check reads the data, so
+    past ``INT_SAFE_ROWS`` rows a meta run takes its bound as the argument
+    ``abs_sum_bound`` (the node records it) and refuses to guess it."""
+    if not (local.device == ghT.device == binned.device):
+        raise ValueError("local, ghT and binned must lie on one device")
+    L, n = local.shape
+    two_k, d = ghT.shape[1], binned.shape[1]
+    if int_exact and n > INT_SAFE_ROWS:
+        if abs_sum_bound is None:
+            raise ValueError("a meta run of the int8 path past INT_SAFE_ROWS rows "
+                             "takes its sum bound as abs_sum_bound")
+        if int(abs_sum_bound) > INT32_MAX:
+            raise ValueError(f"the int8 path sums in int32: bound {abs_sum_bound} "
+                             f"past {INT32_MAX}")
+    out = torch.empty((L * nn * two_k, out_width(n_bins, d)),
+                      dtype=torch.int32 if int_exact else torch.float32, device="meta")
+    _record(local, ghT, binned, out, nn, n_bins, int_exact, abs_sum_bound)
+    return out
+
+
+def _record(local, ghT, binned, out, nn: int, n_bins: int, int_exact: bool,
+            abs_sum_bound: Optional[int]) -> None:
+    """The run's node: the default plan, the bounds, the path taken."""
+    L, n = local.shape
+    two_k, d = ghT.shape[1], binned.shape[1]
+    _trace.record("hist_level", [local, ghT, binned], [out],
+                  plan(L, n, d, nn, two_k, n_bins, int_exact),
+                  bound_ops(L, n, d, two_k),
+                  bound_bytes(L, n, d, nn, two_k, n_bins, int_exact),
+                  int_exact=bool(int_exact),
+                  abs_sum_bound=None if abs_sum_bound is None else int(abs_sum_bound))
 
 
 def _winner(device: torch.device, L: int, n: int, d: int, nn: int, two_k: int,
@@ -471,6 +513,14 @@ def launch(local: torch.Tensor, ghT: torch.Tensor, binned: torch.Tensor,
     launches += 1
     chan_tiled_launches += p["chan_tiles"] > 1
     return out
+
+
+def bound_ops(L: int, n: int, d: int, two_k: int) -> int:
+    """Adds of the level at most: 2K channels x d features of every (lane,
+    row).  A run on data counts only the rows whose node is in range and
+    whose grad/hess is not 0 (``chip_smoke.py``); a static trace, which has
+    no data, counts them all."""
+    return L * n * two_k * d
 
 
 def bound_bytes(L: int, n: int, d: int, nn: int, two_k: int, n_bins: int,

@@ -31,6 +31,7 @@ import torch
 
 from .. import autotune
 from . import dispatch
+from . import trace as _trace
 
 launches = 0
 path_launches = {"tile": 0, "direct": 0}
@@ -66,7 +67,7 @@ class RoutePlan(NamedTuple):
 def reset_launch_counts() -> None:
     global launches
     launches = 0
-    path_launches.update(tile=0, direct=0)
+    path_launches.update(tile=0, direct=0)  # opcheck: allow(TM306) a launch counter like the module's int counters: reset between runs
 
 
 def launch_counts() -> dict:
@@ -191,9 +192,24 @@ def row_select_lanes(binned: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         elif chunk is not None:
             autotune.applied("route")
         return row_select_lanes_torch(binned, idx, chunk=chunk or PLAIN_CHUNK)
+    if binned.device.type == "meta":   # shapes only: a node of the static trace
+        out = torch.empty((L, n), dtype=torch.int32, device="meta")
+        _record(binned, idx, out)
+        return out
     if binned.device.type != "cuda":
         raise ValueError(f"unsupported device {binned.device}")
-    return launch(binned, idx, tuned_plan(binned.device, L, n, d))
+    out = launch(binned, idx, tuned_plan(binned.device, L, n, d))
+    if _trace.active:
+        _record(binned, idx, out)
+    return out
+
+
+def _record(binned: torch.Tensor, idx: torch.Tensor, out: torch.Tensor) -> None:
+    """The run's node (``trace.py``): the default plan and the bounds."""
+    n, d = binned.shape
+    L = idx.shape[0]
+    _trace.record("row_select_lanes", [binned, idx], [out], plan(L, n, d)._asdict(),
+                  bound_ops(L, n), bound_bytes(L, n, d))
 
 
 def launch(binned: torch.Tensor, idx: torch.Tensor, p: RoutePlan) -> torch.Tensor:
@@ -211,8 +227,13 @@ def launch(binned: torch.Tensor, idx: torch.Tensor, p: RoutePlan) -> torch.Tenso
         dispatch.stream_handle(binned.device))
     dispatch.check_launch(err, "row_select_lanes")
     launches += 1
-    path_launches[p.path] += 1
+    path_launches[p.path] += 1  # opcheck: allow(TM306) a launch counter like the module's int counters: one launching thread
     return out
+
+
+def bound_ops(L: int, n: int) -> int:
+    """Operations of the select: one bounds check and one load a (lane, row)."""
+    return 2 * L * n
 
 
 def bound_bytes(L: int, n: int, d: int) -> int:

@@ -423,7 +423,7 @@ class _Inflight:
         """Block until the copies back have landed (on the card: the batch's
         one event); the prefix outputs as host arrays over the slot."""
         if self.done is not None:
-            self.done.synchronize()
+            self.done.synchronize()  # opcheck: allow(TM301) a batch's finalize waits on its own CUDA event by design
         return [h[:self.n].numpy() for h in self.slot.host]
 
     def device_ms(self) -> float:
@@ -706,8 +706,11 @@ class CompiledScoringPlan(DevicePrefix):
         """The bucket's staging buffers for ``dtypes``, held by this plan:
         its own, the fingerprint's shared ones, or new ones (one ``staging``
         compile event; ``shared`` puts them in the shared state for the
-        fingerprint's other plans).  Caller holds the shared lock."""
-        st = self._staging.get(bucket)
+        fingerprint's other plans).  Caller holds the shared lock; the plan's
+        own table is read under the plan's lock, which guards its every write
+        (``release_executables`` clears it under that lock alone)."""
+        with self._lock:
+            st = self._staging.get(bucket)
         if st is not None and st.dtypes == dtypes:
             return st
         st = entry.staging.get(bucket)

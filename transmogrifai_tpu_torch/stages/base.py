@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import copy as _copy
 import itertools
+import weakref
 from typing import (
     TYPE_CHECKING,
     Any,
@@ -84,6 +85,9 @@ class Param:
 
 #: reference class name -> port class, filled by ``__init_subclass__``
 STAGE_REGISTRY: Dict[str, type] = {}
+#: every live stage by uid (weakly held): the constructor's TM102 check
+_LIVE_STAGES: "weakref.WeakValueDictionary[str, PipelineStage]" = \
+    weakref.WeakValueDictionary()
 
 _uid_counter = itertools.count()
 
@@ -97,7 +101,7 @@ class PipelineStage:
 
     def __init_subclass__(cls, **kwargs):
         super().__init_subclass__(**kwargs)
-        STAGE_REGISTRY[cls.__name__] = cls
+        STAGE_REGISTRY[cls.__name__] = cls  # opcheck: allow(TM306) class registration, at class definition (import time)
 
     #: expected input feature types, one per input (fixed-arity stages)
     input_types: Tuple[Type[FeatureType], ...] = ()
@@ -108,6 +112,10 @@ class PipelineStage:
     output_type: Type[FeatureType] = OPVector
     #: whether a response feature may feed this stage as a non-label input
     allow_label_as_input: bool = False
+    #: whether the constructor holds the uid to the TM102 check (a loaded
+    #: model's estimator node is not a live stage of its own, as a stage the
+    #: reference's loader rebuilds is not)
+    _live_uid: bool = True
     #: whether the output is flagged as a response feature (a stage that
     #: indexes a response makes the label, StringIndexer's case)
     output_is_response: bool = False
@@ -117,7 +125,23 @@ class PipelineStage:
         self._param_values: Dict[str, Any] = {}
         self.operation_name = operation_name or (
             type(self).__name__[0].lower() + type(self).__name__[1:])
+        if uid and self._live_uid:
+            # counter-generated uids are unique by construction; only an
+            # explicit uid can collide.  A same-class collision is legal
+            # (re-loading a saved model builds equivalent stages) and is
+            # caught at the DAG level if both land in one workflow; a
+            # different-class collision can only be corruption — scoring
+            # substitutes fitted models BY UID, so it would silently run the
+            # wrong model
+            other = _LIVE_STAGES.get(uid)
+            if other is not None and type(other) is not type(self):
+                raise ValueError(
+                    f"[TM102] duplicate stage uid {uid!r}: already held by a "
+                    f"live {type(other).__name__}; uid-keyed scoring "
+                    "substitution would silently shadow one of the stages")
         self.uid = uid or stage_uid(type(self).__name__)
+        if self._live_uid:
+            _LIVE_STAGES[self.uid] = self
         self._input_features: Tuple[Feature, ...] = ()
         self._output_feature: Optional[Feature] = None
         cls_params = self._class_params()
@@ -363,12 +387,41 @@ class UnaryLambdaTransformer(UnaryTransformer):
 
 
 class EstimatorStub(Estimator):
-    """DAG placeholder for a saved estimator node: uid and wiring only."""
+    """DAG placeholder for a saved estimator node: uid and wiring only.  Its
+    declared wiring (input and output types, the label slot) is its
+    estimator class's where the port has that class, so the static
+    validator (``checkers/opcheck.py``) checks a loaded DAG as the
+    reference, which loads the estimator class itself, does."""
+
+    _DECLARED = ("input_types", "sequence_input_type", "min_sequence_inputs",
+                 "output_type", "allow_label_as_input")
+    _live_uid = False
 
     def __init__(self, estimator_class: str, uid: str,
                  operation_name: Optional[str] = None):
         super().__init__(operation_name=operation_name, uid=uid)
         self.estimator_class = estimator_class
+        cls = self._estimator_cls()
+        if cls is not None:
+            for k in self._DECLARED:
+                setattr(self, k, getattr(cls, k))
+
+    def _estimator_cls(self):
+        cls = STAGE_REGISTRY.get(self.estimator_class)
+        return None if cls is None or cls is EstimatorStub else cls
+
+    def _is_label_slot(self, feature: Feature, features: Sequence[Feature]) -> bool:
+        cls = self._estimator_cls()
+        if cls is not None:
+            try:
+                return cls._is_label_slot(self, feature, features)
+            except AttributeError:  # the class's rule reads fitted state
+                pass
+        return super()._is_label_slot(feature, features)
+
+    def _output_ftype(self):
+        cls = self._estimator_cls()
+        return cls._output_ftype(self) if cls is not None else super()._output_ftype()
 
     def __repr__(self) -> str:
         return f"EstimatorStub({self.estimator_class}, uid={self.uid})"

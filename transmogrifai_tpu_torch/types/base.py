@@ -165,7 +165,7 @@ _REGISTRY: Dict[str, Type[FeatureType]] = {}
 
 
 def register(cls: Type[FeatureType]) -> Type[FeatureType]:
-    _REGISTRY[cls.__name__] = cls
+    _REGISTRY[cls.__name__] = cls  # opcheck: allow(TM306) class registration, at import time
     return cls
 
 

@@ -54,7 +54,7 @@ def murmur3_32(key: str, seed: int = 42) -> int:
     h1 = (h1 * 0xC2B2AE35) & _MASK
     h1 ^= h1 >> 16
     if len(_MEMO) < 1_000_000:
-        _MEMO[memo_key] = h1
+        _MEMO[memo_key] = h1  # opcheck: allow(TM306) memo of a pure function: racing writers store one value
     return h1
 
 

@@ -411,7 +411,7 @@ _PROFILES: Dict[str, Dict[str, int]] = {}
 def _profiles() -> Dict[str, Dict[str, int]]:
     if not _PROFILES:
         for lang, seed in SEED_TEXTS.items():
-            _PROFILES[lang] = _rank_profile(_text_ngrams(seed))
+            _PROFILES[lang] = _rank_profile(_text_ngrams(seed))  # opcheck: allow(TM306) lazy table of constants: racing writers store one value
     return _PROFILES
 
 

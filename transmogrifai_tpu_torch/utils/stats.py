@@ -92,7 +92,7 @@ def spearman_with_label(x: np.ndarray, y: np.ndarray) -> np.ndarray:
         if v.ndim == 1:
             r[order] = np.arange(v.shape[0])
         else:
-            for j in range(v.shape[1]):
+            for j in range(v.shape[1]):  # opcheck: allow(TM302) a loop over the columns of a host numpy rank matrix
                 r[order[:, j], j] = np.arange(v.shape[0])
         return r
 

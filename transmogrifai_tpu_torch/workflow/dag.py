@@ -101,6 +101,17 @@ def all_stages(result_features: Sequence[Feature]) -> List["PipelineStage"]:
     return [s for layer in compute_dag(result_features) for s in layer]
 
 
+def is_a(stage, cls) -> bool:
+    """``isinstance(stage, cls)``, where a loaded model's estimator node
+    (``stages/base.py::EstimatorStub``) counts as its estimator class."""
+    from ..stages.base import EstimatorStub
+
+    if isinstance(stage, EstimatorStub):
+        own = stage._estimator_cls()
+        return own is not None and issubclass(own, cls)
+    return isinstance(stage, cls)
+
+
 def cut_dag(result_features: Sequence[Feature]):
     """Split the DAG around its one ModelSelector for workflow-level CV:
     ``(before, during, selector)``, or None when the DAG has no selector
@@ -116,7 +127,7 @@ def cut_dag(result_features: Sequence[Feature]):
     from ..stages.base import Estimator
 
     stages_topo = all_stages(result_features)
-    selectors = [s for s in stages_topo if isinstance(s, ModelSelector)]
+    selectors = [s for s in stages_topo if is_a(s, ModelSelector)]
     if not selectors:
         return None
     if len(selectors) > 1:

@@ -292,6 +292,32 @@ class _Encoder:
         raise ValueError(f"cannot save a value of type {type(v).__name__}: {v!r}")
 
 
+def _encode_extract(enc: _Encoder, fn) -> Any:
+    """A raw feature's extract function as the reference saves it: a
+    lambda or local function, which cannot round-trip, is written as the
+    reference's ``__unserializable__`` marker, and the loader falls back to
+    plain by-name field extraction (``checkers/opcheck.py`` reports it as a
+    TM106 info)."""
+    try:
+        return enc.encode(fn)
+    except ValueError:
+        if not callable(fn):
+            raise
+        return {"__unserializable__": repr(fn)}
+
+
+def _has_unserializable(v) -> bool:
+    """Whether an encoded value holds the ``__unserializable__`` marker."""
+    if isinstance(v, dict):
+        if "__unserializable__" in v:
+            return True
+        return any(_has_unserializable(x) for x in v.values()) or any(
+            _has_unserializable(x) for x in v.get("__list__", []))
+    if isinstance(v, list):
+        return any(_has_unserializable(x) for x in v)
+    return False
+
+
 def encode_stage(stage: PipelineStage, enc: _Encoder, full: bool) -> dict:
     """A stage's state under its reference class name: params and wiring,
     and with ``full`` every attribute."""
@@ -303,7 +329,7 @@ def encode_stage(stage: PipelineStage, enc: _Encoder, full: bool) -> dict:
         out["generator"] = {"rawName": stage.raw_name,
                             "ftype": stage.ftype.__name__,
                             "isResponse": stage.is_response,
-                            "extract": enc.encode(stage.extract_fn),
+                            "extract": _encode_extract(enc, stage.extract_fn),
                             "windowMs": stage.aggregate_window_ms}
         return out
     if full:

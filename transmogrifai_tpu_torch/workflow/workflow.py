@@ -119,6 +119,33 @@ class Workflow:
             params.apply_to_stages(all_stages(self.result_features))
         return self
 
+    def validate(self, serving: bool = False, cost: bool = False,
+                 hbm_budget: Optional[float] = None,
+                 single_host: bool = False,
+                 host_budget: Optional[float] = None,
+                 rows: Optional[int] = None):
+        """Static validation, without touching data (the reference's
+        parameters and defaults): every analyzer family of
+        ``checkers/opcheck.py`` over the DAG reached from the result
+        features (structure, types, each device half run on meta operands,
+        the device-hazard lint of the stages' sources, label leakage).
+        Returns the :class:`~..checkers.diagnostics.DiagnosticReport`.
+
+        ``serving=True`` adds the TM5xx servability analyzers; ``cost=True``
+        (or a ``hbm_budget``, or ``single_host``) the TM6xx plan-cost pass
+        (``checkers/plancheck.py``; on an untrained workflow only the
+        recompile-hazard map, and an armed budget fails closed with TM606);
+        ``host_budget`` with ``rows`` the TM607 host-residency estimate.
+        Nothing is allocated on the card, built or launched."""
+        from ..checkers.opcheck import validate_result_features
+
+        return validate_result_features(self.result_features,
+                                        workflow_cv=self._workflow_cv,
+                                        serving=serving, cost=cost,
+                                        hbm_budget=hbm_budget,
+                                        single_host=single_host,
+                                        host_budget=host_budget, rows=rows)
+
     def with_raw_feature_filter(self, rff) -> "Workflow":
         """Run ``rff`` (a :class:`~..filters.RawFeatureFilter`) over the raw
         table at the start of ``train()``: the blacklisted features leave
@@ -191,13 +218,23 @@ class Workflow:
         directory when the fit finishes.  A bundle the caller already
         started keeps its session: the fit neither stops nor dumps it.
 
-        The reference's strict validation is not ported: ``strict=True``
-        raises ``NotImplementedError`` by name."""
+        ``strict=True`` runs :meth:`validate` first and raises
+        :class:`~..checkers.diagnostics.OpCheckError` on any error finding,
+        before any read, allocation or launch: a bad DAG, a label leak or a
+        device half that fails on meta operands fails in milliseconds, not
+        minutes into a job on the card."""
         from contextlib import ExitStack
 
         from ..obs import resolve_telemetry
 
-        _refuse_unported("Workflow.train", {"strict": bool(strict)})
+        if strict:
+            if not self.result_features:
+                raise ValueError("set_result_features before train()")
+            report = self.validate()
+            if report.errors():
+                from ..checkers.diagnostics import OpCheckError
+
+                raise OpCheckError(report)
         with ExitStack() as stack:
             if resume is not None:
                 from ..readers.streaming import OffsetCheckpoint
@@ -379,16 +416,6 @@ class Workflow:
         return on_fit
 
 
-def _refuse_unported(entry: str, asked: Dict[str, bool]) -> None:
-    """Raise ``NotImplementedError`` naming every parameter of ``entry``
-    given a value the port does not implement."""
-    unported = [k for k, v in asked.items() if v]
-    if unported:
-        raise NotImplementedError(
-            f"{entry}: {', '.join(unported)} not ported to "
-            "transmogrifai_tpu_torch yet")
-
-
 class WorkflowModel:
     """A fitted workflow.  ``blacklist`` names the raw features the raw
     feature filter dropped (saved with the model); ``rff_summary`` is the
@@ -428,6 +455,30 @@ class WorkflowModel:
         from ..local.scoring import score_function
 
         return score_function(self, device=device)
+
+    def validate(self, serving: bool = True, cost: bool = False,
+                 hbm_budget: Optional[float] = None,
+                 single_host: bool = False,
+                 host_budget: Optional[float] = None,
+                 rows: Optional[int] = None):
+        """Static validation of the fitted model, scoring-path aware (the
+        reference's parameters and defaults): the analyzers of
+        :meth:`Workflow.validate` with estimators resolved through the
+        fitted models, so a missing fit is a TM501 error and the TM502/TM503
+        servability analyzers see the stages that run at request time.
+        ``cost=True`` (or a ``hbm_budget``) traces the scoring plan's device
+        prefix on meta operands at every bucket of its ladder and attaches
+        the :class:`~..checkers.plancheck.PlanCostReport` as
+        ``report.plan_cost``.  Nothing is allocated on the card, built or
+        launched."""
+        from ..checkers.opcheck import validate_result_features
+
+        return validate_result_features(self.result_features,
+                                        workflow_cv=self.workflow_cv,
+                                        serving=serving, fitted=self.fitted,
+                                        cost=cost, hbm_budget=hbm_budget,
+                                        single_host=single_host,
+                                        host_budget=host_budget, rows=rows)
 
     def serving_plan(self, min_bucket: int = 8, max_bucket: int = 1024,
                      strict: bool = True, hbm_budget: Optional[float] = None,
