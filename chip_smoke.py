@@ -6,6 +6,7 @@ check them.
     python3 chip_smoke.py --phase deploy     # phase 25 alone, its line only
     python3 chip_smoke.py --phase registry   # phase 27 alone, its lines only
     python3 chip_smoke.py --phase static     # phase 28 alone, its lines only
+    python3 chip_smoke.py --phase mesh       # phase 29 alone, its lines only
 
 Phases, one JSON line each:
 
@@ -517,9 +518,25 @@ Phases, one JSON line each:
                the op-graph corpus captured with CUDA operands against the
                committed tests/goldens/torch_ir: 0 TM700, 0 TM704, the
                TM701/TM702 counts and the ops that drift.  At most 30 s.
-29. summary  — nvidia-smi's line, then one {"kernels": [...]} line (each
-               entry with launches_static, the strict train's), then the
-               last line {"ok": true, "device": {...}}.
+29. mesh     — data-parallel training over torch.distributed (parallel/).
+               Child processes of this script (`--mesh-child`), each with
+               a group timeout, run distributed.initialize -> global_mesh ->
+               use_mesh -> Workflow.train on phase 26's table (LR + RF + GBT)
+               while this process trains it without a mesh: (a) one rank on
+               NCCL, (b) two ranks sharing the card over gloo (NCCL refuses
+               two ranks on one device).  Gates: RF CV bitwise, GBT within
+               1e-3, LR within 1e-4 and the unmeshed winner in both; (a)
+               counts NCCL collectives and no other backend; in (b) every
+               rank launches K1, K2, K3 and the encode kernel, the ranks'
+               models are bitwise equal, and the checker's ring correlation
+               (past 512 columns) is within 1e-5 of the one-card product.
+               (c) Ungated: the deepest RF level's histogram bytes, its
+               all-reduce time and its K1 time per rank.  A rank that fails
+               or runs past MESH_WALL_S fails the phase.  At most 45 s.
+30. summary  — nvidia-smi's line, then one {"kernels": [...]} line (each
+               entry with launches_static, the strict train's, and
+               launches_mesh, each mesh rank's), then the last line
+               {"ok": true, "device": {...}}.
 
 Phase 3 also holds K5 past shared memory (a 5000-split slot, its own launch
 reading the splits from global memory) bitwise against its plain version
@@ -535,6 +552,7 @@ It imports torch and the port only, never JAX.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import statistics
@@ -6736,6 +6754,9 @@ def phase_cli(torch, KE, dev) -> dict:
     from transmogrifai_tpu_torch.perf import autotune
 
     t_phase = time.perf_counter()
+    # the children share the card with this process: hand back the blocks
+    # earlier phases left cached (the multiclass train's peak is ~36 GB)
+    torch.cuda.empty_cache()
     here = os.path.dirname(os.path.abspath(__file__))
     tmp = tempfile.mkdtemp(prefix="tmog_cli_")
     store = os.path.join(tmp, "store")
@@ -7464,6 +7485,321 @@ def phase_static(torch, KE, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 29. mesh: data-parallel training over torch.distributed ranks
+# ---------------------------------------------------------------------------
+
+#: each rank's process-group timeout and the phase's wall limit on its ranks
+MESH_GROUP_TIMEOUT_S = 60
+MESH_WALL_S = 240
+
+
+def _mesh_models():
+    """Phase 26's families over its table: LR, RF CLI_RF_GRID, GBT
+    CLI_GBT_GRID (by 2-fold CV)."""
+    import transmogrifai_tpu_torch as T
+    from transmogrifai_tpu_torch.models.trees import (
+        GradientBoostedTreesClassifier,
+        RandomForestClassifier,
+    )
+
+    return [(T.LogisticRegression(), [{"reg_param": 0.01}]),
+            (RandomForestClassifier(), [dict(CLI_RF_GRID)]),
+            (GradientBoostedTreesClassifier(), [dict(CLI_GBT_GRID)])]
+
+
+def _mesh_train(torch, KE, dev, probe: bool = False) -> dict:
+    """One train of phase 26's table (LR + RF + GBT) on ``dev`` under the
+    ambient mesh (or none): seconds, launches, CV, winner, the winner's and
+    the checker's fitted numbers.  ``probe`` times each level's histogram
+    (K1, synchronised) and its reduction over the data group, with the
+    histogram's bytes (a timed run: each is waited for)."""
+    import numpy as np
+
+    import transmogrifai_tpu_torch as T
+    from torch_wide_data import wide_pipeline
+    from transmogrifai_tpu_torch.models import trees as TT
+    from transmogrifai_tpu_torch.parallel import mesh as PM
+
+    ds, ftypes, schema = _cli_train_table()
+    label, sel, chk, pred = wide_pipeline(T, ftypes, schema, models=_mesh_models())
+    wf = T.Workflow().set_input_dataset(ds).set_result_features(label, pred)
+    levels: list = []
+    hist0, reduce0 = TT._khist.hist_level, PM.reduce_rows
+    if probe:
+        def hist_timed(*a, **kw):
+            _sync(torch, dev)
+            t = time.perf_counter()
+            out = hist0(*a, **kw)
+            _sync(torch, dev)
+            levels.append({"k1_ms": (time.perf_counter() - t) * 1e3,
+                           "bytes": out.numel() * out.element_size(),
+                           "dtype": str(out.dtype).replace("torch.", "")})
+            return out
+
+        def reduce_timed(t_, mesh=None):
+            if not (levels and "reduce_ms" not in levels[-1]
+                    and t_.numel() * t_.element_size() == levels[-1]["bytes"]):
+                return reduce0(t_, mesh)
+            _sync(torch, dev)
+            t = time.perf_counter()
+            out = reduce0(t_, mesh)
+            _sync(torch, dev)
+            levels[-1]["reduce_ms"] = (time.perf_counter() - t) * 1e3
+            return out
+
+        TT._khist.hist_level, PM.reduce_rows = hist_timed, reduce_timed
+    _reset_all(KE)
+    _sync(torch, dev)
+    t = time.perf_counter()
+    try:
+        model = wf.train(device=dev)
+        _sync(torch, dev)
+    finally:
+        TT._khist.hist_level, PM.reduce_rows = hist0, reduce0
+    seconds = time.perf_counter() - t
+    summary = model.fitted[sel.uid].summary
+    win = _winner_arrays(model, sel)
+    checker = model.fitted[chk.uid]
+    corr = checker.summary.correlations_feature
+    return {"seconds": seconds,
+            "launches": {**_all_counts(KE), "left_closed": KE.left_closed_launches},
+            "winner": summary.best_model_name,
+            "failed": list(summary.failed_models),
+            "cv": {(e.model_name, json.dumps(e.grid, sort_keys=True)):
+                   [float(v) for v in e.metric_values]
+                   for e in summary.validation_results},
+            "digest": hashlib.sha256(b"".join(
+                k.encode() + (v if isinstance(v, bytes) else v.encode())
+                for k, v in sorted(win.items()))).hexdigest(),
+            "kept": list(checker.kept_indices),
+            "corr": None if corr is None else np.asarray(corr, np.float32),
+            "levels": levels}
+
+
+def _mesh_child(argv) -> int:
+    """One rank of phase 29: join the group (``mode`` "nccl" or "gloo"),
+    build the global mesh, train phase 26's table under it and pickle what
+    it saw to ``out`` (launches, collectives, CV, the winner's digest, the
+    checker's matrix, the probed levels)."""
+    import pickle
+
+    import torch
+
+    mode, rank, world, init, out = argv[0], int(argv[1]), int(argv[2]), argv[3], argv[4]
+    from transmogrifai_tpu_torch.parallel import collectives as C
+    from transmogrifai_tpu_torch.parallel import distributed
+    from transmogrifai_tpu_torch.parallel import mesh as PM
+    from transmogrifai_tpu_torch.perf.kernels import encode as KE
+
+    t0 = time.perf_counter()
+    distributed.initialize(f"file://{init}", world, rank, backend=mode)
+    mesh = distributed.global_mesh()
+    dev = mesh.device
+    check(dev.type == "cuda", f"rank {rank} resolves the card, not {dev}")
+    _cli_train_table()
+    ready = time.perf_counter() - t0
+    C.reset_collective_counts()
+    with PM.use_mesh(mesh):
+        res = _mesh_train(torch, KE, dev, probe=True)
+        res["token"] = PM.mesh_token()
+    res.update(rank=rank, mode=mode, world=world, ready_s=ready,
+               collectives=C.collective_counts(), device=str(dev),
+               backend=mesh.backend,
+               device_mesh=type(mesh.device_mesh).__name__)
+    import torch.distributed as dist
+
+    dist.barrier()
+    with open(out, "wb") as fh:
+        pickle.dump(res, fh)
+    dist.destroy_process_group()
+    return 0
+
+
+def _spawn_mesh(mode: str, world: int, tmp: str) -> list:
+    """Start ``world`` ranks of :func:`_mesh_child` sharing card 0; returns
+    [(process, its result file, its stderr file)]."""
+    init = os.path.join(tmp, f"rendezvous_{mode}")
+    env = dict(os.environ, LOCAL_RANK="0", OMP_NUM_THREADS="2",
+               TMOG_GROUP_TIMEOUT_S=str(MESH_GROUP_TIMEOUT_S))
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        env.pop(k, None)
+    ranks = []
+    for r in range(world):
+        out = os.path.join(tmp, f"{mode}{r}.pkl")
+        err = open(os.path.join(tmp, f"{mode}{r}.err"), "w+")
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--mesh-child", mode, str(r), str(world), init, out],
+                                env=env, stdout=subprocess.DEVNULL, stderr=err)
+        ranks.append((proc, out, err))
+    return ranks
+
+
+def _finish_mesh(groups: dict, deadline: float) -> dict:
+    """Wait for every rank of every group; a rank that fails, or a group
+    past ``deadline``, kills every rank and fails the phase."""
+    import pickle
+
+    procs = [(m, p) for m, ranks in groups.items() for p, _, _ in ranks]
+    failed = None
+    try:
+        while any(p.poll() is None for _, p in procs):
+            bad = [(m, p) for m, p in procs if p.poll() not in (None, 0)]
+            if bad:
+                failed = f"a {bad[0][0]} rank exited {bad[0][1].returncode}"
+                break
+            if time.monotonic() > deadline:
+                failed = f"the mesh ranks ran past {MESH_WALL_S} s"
+                break
+            time.sleep(0.1)
+        bad = [(m, p) for m, p in procs if p.poll() not in (None, 0)]
+        if failed is None and bad:
+            failed = f"a {bad[0][0]} rank exited {bad[0][1].returncode}"
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+        for _, p in procs:
+            p.wait()
+    if failed is not None:
+        tails = []
+        for m, ranks in groups.items():
+            for r, (_, _, err) in enumerate(ranks):
+                err.seek(0)
+                tails.append(f"--- {m} rank {r} ---\n{err.read()[-2500:]}")
+        raise RuntimeError(f"check failed: {failed}\n" + "\n".join(tails))
+    out = {}
+    for m, ranks in groups.items():
+        out[m] = []
+        for _, path, _ in ranks:
+            with open(path, "rb") as fh:
+                out[m].append(pickle.load(fh))
+    return out
+
+
+def _mesh_cv_rules(got: dict, want: dict, what: str) -> dict:
+    """(a)'s rules: RF CV bitwise, GBT within 1e-3, LR within 1e-4;
+    returns the largest difference by family."""
+    import numpy as np
+
+    check(set(got) == set(want), f"{what}: the same candidates")
+    diffs: dict = {}
+    for key, ref in want.items():
+        fam = key[0]
+        d = float(np.max(np.abs(np.asarray(got[key]) - np.asarray(ref))))
+        diffs[fam] = max(diffs.get(fam, 0.0), d)
+        if fam == "RandomForestClassifier":
+            check(got[key] == ref, f"{what}: RF CV bitwise ({got[key]} vs {ref})")
+        elif fam == "GradientBoostedTreesClassifier":
+            check(d <= 1e-3, f"{what}: GBT CV within 1e-3 ({d})")
+        else:
+            check(d <= 1e-4, f"{what}: {fam} CV within 1e-4 ({d})")
+    return diffs
+
+
+def phase_mesh(torch, KE, dev) -> dict:
+    """Phase 29: data-parallel training over a torch.distributed mesh.
+
+    (a) one rank on NCCL and (b) two ranks sharing the card over gloo (NCCL
+    refuses two ranks on one device) each run ``distributed.initialize`` ->
+    ``global_mesh`` -> ``use_mesh`` -> ``Workflow.train`` on phase 26's
+    table (CLI_TRAIN_ROWS rows, LR + RF CLI_RF_GRID + GBT CLI_GBT_GRID) in
+    child processes of their own, while this process trains the table
+    without a mesh.  Gates: RF CV bitwise, GBT within 1e-3, LR within 1e-4
+    and the same winner as the unmeshed train; NCCL collectives counted
+    (and no other backend) in (a); every rank of (b) launches K1, K2, K3
+    and the encode kernel, holds a bitwise-equal model, and its checker's
+    ring correlation is within 1e-5 of the one-card product.  (c) prints,
+    ungated, the deepest RF level's histogram bytes, its reduction time and
+    its K1 time per rank."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from transmogrifai_tpu_torch.perf.kernels import dispatch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()   # the ranks share the card with this process
+    dispatch.build(["encode", "trees"])   # the ranks load what this built
+    _cli_train_table()
+    tmp = tempfile.mkdtemp(prefix="tmog_mesh_")
+    try:
+        groups = {"nccl": _spawn_mesh("nccl", 1, tmp),
+                  "gloo": _spawn_mesh("gloo", 2, tmp)}
+        deadline = time.monotonic() + MESH_WALL_S
+        try:
+            plain = _mesh_train(torch, KE, dev)
+        except BaseException:
+            for ranks in groups.values():
+                for p, _, _ in ranks:
+                    p.kill()
+            raise
+        ranks = _finish_mesh(groups, deadline)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    (a,) = ranks["nccl"]
+    b = ranks["gloo"]
+
+    def deepest(r):
+        rf = [lv for lv in r["levels"] if lv["dtype"] == "int32" and "reduce_ms" in lv]
+        lv = max(rf, key=lambda e: e["bytes"]) if rf else {}
+        return {"hist_bytes": lv.get("bytes"), "allreduce_ms": lv.get("reduce_ms"),
+                "k1_ms": lv.get("k1_ms"),
+                "allreduce_ms_total": sum(e.get("reduce_ms", 0.0) for e in r["levels"]),
+                "k1_ms_total": sum(e["k1_ms"] for e in r["levels"]),
+                "hist_bytes_total": sum(e["bytes"] for e in r["levels"]),
+                "levels": len(r["levels"])}
+
+    def cv_diff(got):
+        return {fam: max(float(np.max(np.abs(np.asarray(got[k]) - np.asarray(v))))
+                         for k, v in plain["cv"].items() if k[0] == fam and k in got)
+                for fam in {k[0] for k in plain["cv"]}}
+
+    ring_err = float(np.max(np.abs(b[0]["corr"] - plain["corr"]))) \
+        if b[0]["corr"] is not None and plain["corr"] is not None else None
+    out = {"plain": {k: plain[k] for k in ("seconds", "launches", "winner")},
+           "nccl": {"seconds": a["seconds"], "ready_s": a["ready_s"],
+                    "launches": a["launches"], "collectives": a["collectives"],
+                    "cv_diff": cv_diff(a["cv"]), "winner": a["winner"],
+                    "deepest_rf_level": deepest(a), "device_mesh": a["device_mesh"],
+                    "token": a["token"]},
+           "gloo": [{"rank": r["rank"], "seconds": r["seconds"], "ready_s": r["ready_s"],
+                     "launches": r["launches"], "collectives": r["collectives"],
+                     "cv_diff": cv_diff(r["cv"]), "winner": r["winner"],
+                     "deepest_rf_level": deepest(r), "device": r["device"],
+                     "token": r["token"]} for r in b],
+           "ring_corr_max_err": ring_err,
+           "corr_width": None if plain["corr"] is None else int(plain["corr"].shape[0]),
+           "rows": CLI_TRAIN_ROWS, "winner": plain["winner"],
+           "seconds": time.perf_counter() - t0}
+    emit({"phase": "mesh", **out})
+
+    check(plain["failed"] == [] and a["failed"] == [] and all(r["failed"] == [] for r in b),
+          "no family failed")
+    _mesh_cv_rules(a["cv"], plain["cv"], "(a) one NCCL rank")
+    check(a["winner"] == plain["winner"], "(a) the unmeshed winner")
+    nccl = a["collectives"]
+    check(set(be for by in nccl.values() for be in by) == {"nccl"},
+          f"(a) every collective is NCCL's: {nccl}")
+    check(sum(c["calls"] for by in nccl.values() for c in by.values()) > 0,
+          "(a) NCCL collectives counted")
+    check(a["token"] == (("data", "model"), (1, 1), 1, 1, "nccl"), f"(a) token {a['token']}")
+    for r in b:
+        for k in ("hist_level", "split_scan", "row_select_lanes", "encode_slots"):
+            check(r["launches"][k] >= 1, f"(b) rank {r['rank']} launched {k}")
+        check(r["digest"] == b[0]["digest"] and r["cv"] == b[0]["cv"]
+              and r["kept"] == b[0]["kept"], "(b) the ranks' models bitwise equal")
+        check(r["backend"] == "gloo" and r["token"][1] == (2, 1), f"(b) mesh {r['token']}")
+    _mesh_cv_rules(b[0]["cv"], plain["cv"], "(b) two gloo ranks")
+    check(b[0]["winner"] == plain["winner"], "(b) the unmeshed winner")
+    check(b[0]["kept"] == plain["kept"], "(b) the checker keeps the unmeshed slots")
+    check(ring_err is not None and plain["corr"].shape[0] > 512 and ring_err <= 1e-5,
+          f"(b) ring correlation within 1e-5 of the one-card product ({ring_err})")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -7476,11 +7812,14 @@ def main() -> int:
     os.chdir(here)
     if sys.argv[1:2] == ["--deploy-child"]:
         return _deploy_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--mesh-child"]:
+        return _mesh_child(sys.argv[2:])
     if sys.argv[1:2] == ["--phase"]:
         # one self-contained phase alone (its lines, no summary): deploy,
-        # cli, registry, static
+        # cli, registry, static, mesh
         alone = {"deploy": phase_deploy, "cli": phase_cli,
-                 "registry": phase_registry, "static": phase_static}
+                 "registry": phase_registry, "static": phase_static,
+                 "mesh": phase_mesh}
         if sys.argv[2:] not in [[k] for k in alone]:
             print(f"chip_smoke: --phase takes one of {sorted(alone)}", file=sys.stderr)
             return 2
@@ -7680,7 +8019,15 @@ def main() -> int:
     # card's, the strict gate, the CLI and the corpus captured on the card
     static = phase_static(torch, KE, dev)
 
-    # 29. summary
+    # 29. data-parallel training over a torch.distributed mesh: one NCCL
+    # rank and two gloo ranks sharing the card
+    mesh = phase_mesh(torch, KE, dev)
+
+    def mesh_launches(key):
+        return {"nccl": mesh["nccl"]["launches"][key],
+                "gloo": [r["launches"][key] for r in mesh["gloo"]]}
+
+    # 30. summary
     kernels = []
     tree_src = "transmogrifai_tpu_torch/perf/kernels/csrc/trees.cu"
     for kname, replaces in (("hist_level", "transmogrifai_tpu/perf/kernels/histogram.py:80"),
@@ -7733,6 +8080,7 @@ def main() -> int:
         entry["launches_cli_tuned_train"] = cli["train"]["launches"][kname]
         entry["launches_registry"] = reg["launches"][kname]
         entry["launches_static"] = static["launches_static"][kname]
+        entry["launches_mesh"] = mesh_launches(kname)
         entry["autotune"] = _autotune_line(cli, _FAMILY_OF[kname])
         kernels.append(entry)
     for kname, replaces in (("onehot_codes", "transmogrifai_tpu/perf/kernels/encode.py:76"),
@@ -7789,6 +8137,7 @@ def main() -> int:
             "launches_cli_tuned_train": cli["train"]["launches"]["encode_slots"],
             "launches_registry": reg["launches"]["encode_slots"],
             "launches_static": static["launches_static"]["encode_slots"],
+            "launches_mesh": mesh_launches("encode_slots"),
             "autotune": _autotune_line(cli, "encode"),
             "ooc_chunk_tile": ooc["chunk_tile"],
             **{f"fused_{k}": fused[k] for k in ("ms", "device_ms", "plain_ms",
@@ -7806,6 +8155,7 @@ def main() -> int:
         "launches_obs": obs["launches"]["left_closed"],
         "launches_registry": reg["launches"]["left_closed"],
         "launches_static": static["launches_static"]["left_closed"],
+        "launches_mesh": mesh_launches("left_closed"),
         "max_abs_err": t["max_abs_err"], "parity": "bitwise",
         "parity_cases": t["parity_cases"],
         "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],

@@ -86,7 +86,7 @@ class TestCatalogues:
         assert sorted(got) == sorted(ref) and len(got) == 13
         for code, (sev, title, hint) in ref.items():
             assert (got[code][0].name, got[code][1]) == (sev.name, title), code
-            if code not in ("TM809", "TM821"):   # no XLA compile, no mesh
+            if code not in ("TM809", "TM821"):   # no XLA compile, no mesh rung
                 assert got[code][2] == hint, code
 
     def test_continual_metrics_are_the_reference_entries(self):

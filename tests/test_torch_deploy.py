@@ -203,7 +203,9 @@ class TestPackAndManifest:
         assert env["kernelToken"].startswith("kernels:")
         assert env["platform"] == "cpu" and env["deviceKind"] == "cpu"
         assert set(env) == {"torchVersion", "cudaVersion", "platform", "deviceKind",
-                            "deviceCount", "computeCapability", "kernelToken"}
+                            "deviceCount", "computeCapability", "kernelToken",
+                            "meshToken"}
+        assert env["meshToken"] == "null"      # packed without a mesh
         assert set(env["cudaVersion"]) == {"toolkit", "torch", "driver"}
         # the port's op-graph corpus (tests/goldens/torch_ir) is packed
         from transmogrifai_tpu_torch.checkers.irsnap import default_goldens_dir

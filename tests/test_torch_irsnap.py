@@ -19,8 +19,9 @@ executable-cache key).
 Not translated: the TM705 cases that lower a sweep under a 4x2 mesh
 (``test_fires_on_pre_pr4_pattern``, ``test_quiet_on_fixed_per_mesh_closure``)
 and the StableHLO printer-form case
-(``test_sharding_resolves_through_generic_printer_form``): the port has no
-mesh until its multi-GPU slice and no StableHLO printer.  The differ's own
+(``test_sharding_resolves_through_generic_printer_form``): the port's corpus
+captures programs without a mesh until its sharded families are ported, and
+it has no StableHLO printer.  The differ's own
 TM705 logic is held on synthetic sort signatures here.
 """
 

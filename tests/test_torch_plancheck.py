@@ -16,8 +16,9 @@ with its module's ``bound_ops``/``bound_bytes``.
 
 Not translated: ``test_tm603_collective_under_single_host`` and
 ``test_collective_inventory_without_single_host_is_not_an_error``.  They
-seed a ``with_sharding_constraint`` under a mesh; the port runs on one card
-and has no mesh until its multi-GPU slice, where TM603/608/609 arm.
+seed a ``with_sharding_constraint`` under a mesh, a layout hint with no
+torch meaning; the port's TM603/608/609 cases trace its sharded programs
+under a ``virtual_mesh`` (``tests/test_torch_mesh.py::TestStaticScalabilityGate``).
 
 Cross-package: TM601 decides as the JAX package's does at budgets well
 above and well below both packages' estimates (the bytes are each

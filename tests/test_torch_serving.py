@@ -427,6 +427,7 @@ class TestNoJax:
                                       os.path.join("tests", "torch_stream_data.py"),
                                       os.path.join("tests", "torch_ooc_data.py"),
                                       os.path.join("tests", "torch_registry_cases.py"),
+                                      os.path.join("tests", "torch_mesh_worker.py"),
                                       os.path.join("tools", "torch_deploy_gate.py"),
                                       os.path.join("tools", "torch_phase_ab.py"),
                                       os.path.join("tools", "torch_lint_gate.py"),
@@ -495,7 +496,10 @@ class TestNoJax:
                         ("perf", "autotune.py"), ("utils", "version.py"),
                         ("utils", "streaming_histogram.py"),
                         *(("testkit", f"{m}.py") for m in (
-                            "__init__", "builder", "random_data", "specs"))):
+                            "__init__", "builder", "random_data", "specs")),
+                        *(("parallel", f"{m}.py") for m in (
+                            "__init__", "mesh", "collectives", "distributed",
+                            "wide"))):
                 assert os.path.join(path, *mod) in files
         bad = []
         for fn in files:

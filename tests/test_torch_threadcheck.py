@@ -690,18 +690,23 @@ def test_reference_surface_equals_the_reference_analyzer():
 
 
 def test_placement_and_bin_caches_mutate_under_their_locks():
-    """TM306 fix in the port: ``models/base.py::place_rows``'s ``_PLACED``
-    and ``models/trees.py::shared_binned``'s ``_BIN_CACHE`` were read,
-    written and evicted (``pop(next(iter(...)))``) with no lock, so two
-    trainers on two threads (a refit beside a fit) could evict the same key
-    twice (KeyError) or iterate a dict another thread resized.  Every
-    access now holds the cache's lock (checked here by dicts that assert
-    it on each access)."""
+    """TM306 fix in the port: the feature block's placement cache
+    (``parallel/mesh.py``'s ``_PLACED_ROWS_CACHE``, which
+    ``models/base.py::place_rows`` goes through) and
+    ``models/trees.py::shared_binned``'s ``_BIN_CACHE`` are read, written and
+    evicted (``pop(next(iter(...)))``) by trainers on several threads (a
+    refit beside a fit): every access holds the cache's lock (checked here
+    by dicts that assert it on each access)."""
     import numpy as np
     import torch
 
     from transmogrifai_tpu_torch.models import base as MB
     from transmogrifai_tpu_torch.models import trees as MT
+    from transmogrifai_tpu_torch.parallel import mesh as PM
+
+    def holds(lock):
+        # an RLock knows its owner; a Lock only that it is held
+        return lock._is_owned() if hasattr(lock, "_is_owned") else lock.locked()
 
     class _Checked(dict):
         def __init__(self, lock):
@@ -709,7 +714,7 @@ def test_placement_and_bin_caches_mutate_under_their_locks():
             self._lock = lock
 
         def _held(self):
-            assert self._lock.locked(), "a shared cache touched without its lock"
+            assert holds(self._lock), "a shared cache touched without its lock"
 
         def get(self, *a):
             self._held()
@@ -723,16 +728,18 @@ def test_placement_and_bin_caches_mutate_under_their_locks():
             self._held()
             return super().pop(*a)
 
-    saved = MB._PLACED, MT._BIN_CACHE
-    MB._PLACED, MT._BIN_CACHE = _Checked(MB._PLACED_LOCK), _Checked(MT._BIN_CACHE_LOCK)
+    saved = PM._PLACED_ROWS_CACHE, MT._BIN_CACHE
+    PM._PLACED_ROWS_CACHE = _Checked(PM._PLACEMENT_LOCK)
+    MT._BIN_CACHE = _Checked(MT._BIN_CACHE_LOCK)
     try:
         blocks = [np.random.default_rng(i).normal(size=(16, 3)).astype(np.float32)
                   for i in range(4)]
-        placed = [MB.place_rows(b, "cpu") for b in blocks]   # past _PLACED_MAX: evicts
+        # past _PLACED_ROWS_CACHE_MAX: evicts
+        placed = [MB.place_rows(b, "cpu") for b in blocks]
         assert MB.place_rows(blocks[-1], "cpu") is placed[-1]
         for x in placed:                                     # past _BIN_CACHE_MAX
             MT.shared_binned(x.numpy(), x, 8)
         codes, _edges = MT.shared_binned(placed[-1].numpy(), placed[-1], 8)
         assert codes.dtype == torch.int32
     finally:
-        MB._PLACED, MT._BIN_CACHE = saved
+        PM._PLACED_ROWS_CACHE, MT._BIN_CACHE = saved

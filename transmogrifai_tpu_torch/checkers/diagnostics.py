@@ -21,7 +21,7 @@ is the reference's whole table; the port emits these families so far:
   device-memory estimate over its budget (TM601), recompile hazards
   (TM602), memory-bound segments (TM604), order-dependent ops (TM605), an
   armed gate that cannot be evaluated (TM606) and host residency (TM607);
-  TM603/608/609 need a mesh;
+  TM603/608/609 read a program traced under a mesh (``parallel/mesh.py``);
 - ``TM7xx`` — the op-graph golden corpus (``checkers/irsnap.py``);
 - ``TM8xx`` — continual training (``workflow/continual.py``) and training
   resilience (``workflow/resilience.py``);
@@ -29,8 +29,9 @@ is the reference's whole table; the port emits these families so far:
   (``obs/slo.py``).
 
 The entries for TM204, TM30x, TM508, TM510, TM604, TM70x, TM809 and TM821
-carry the port's fix hints: it compiles no XLA program, lints torch code
-and has no mesh.
+carry the port's fix hints: it compiles no XLA program, lints torch code,
+and its meshes are process groups of one process per card, whose
+resilience rung (TM821) is not ported yet.
 """
 
 from __future__ import annotations
@@ -245,10 +246,10 @@ DIAGNOSTIC_CODES: Dict[str, Tuple[Severity, str, str]] = {
               "proportionally with the row bucket (a replicated pin or "
               "all-gather of a row-shaped operand), so adding hosts adds "
               "DCN traffic instead of removing work — the program won't "
-              "scale past one host; keep row operands pinned to the data "
-              "axis (parallel/mesh.py:constrain_rows) so collectives carry "
-              "only per-feature statistics, and replicate only (d,)-sized "
-              "blocks"),
+              "scale past one host; keep row operands as each rank's span "
+              "(parallel/mesh.py:place_rows) and sum per-feature statistics "
+              "over the data group (reduce_rows) instead of gathering rows, "
+              "and replicate only (d,)-sized blocks"),
     "TM609": (Severity.WARNING, "replicated operands exceed per-host HBM share",
               "operands replicated on every host (baked constants / "
               "fully-replicated pins) exceed the per-host share of the armed "
@@ -358,8 +359,10 @@ DIAGNOSTIC_CODES: Dict[str, Tuple[Severity, str, str]] = {
               "a device fault persisted through every in-place retry under "
               "a mesh, so the sweep re-dispatched with the data axis halved; "
               "the run completes at reduced parallelism — investigate the "
-              "failing devices before the next full-mesh run (the port has "
-              "no mesh yet, so it never emits this code)"),
+              "failing devices before the next full-mesh run (the port's "
+              "meshes are one process per card and do not shrink yet: a "
+              "fault under a mesh fails every rank through the group "
+              "timeout, so the port never emits this code)"),
     "TM822": (Severity.WARNING, "sweep degraded to a smaller row bucket",
               "repeated resource exhaustion (OOM) made the dispatched row "
               "bucket infeasible, so the sweep retried on the next-smaller "

@@ -31,8 +31,9 @@ the graph.
 - **TM703** warning — collectives added or removed (none without a mesh);
 - **TM704** error — the dtype inventory changed (widening/narrowing);
 - **TM705** error — the reference's sharded-sort miscompile class.  It
-  cannot occur without a mesh: kept, and reports nothing until the port runs
-  on several cards.
+  needs the reference's sharded corpus families (a sort whose operand is
+  sharded), which are not ported yet: the corpus captures programs without
+  a mesh, so TM703 and TM705 report nothing until those families land.
 
 **Families.**  The scoring prefix (f32, bf16, int8), the training transform
 prefix, the chunk tile (its fingerprint equals the transform prefix's:
@@ -296,8 +297,9 @@ def _collectives(op_counts: Dict[str, int]) -> Dict[str, int]:
 
 @dataclass
 class SortSignature:
-    """One sort op in the graph, with its sharding context (none without a
-    mesh: ``sharded_sort_dim`` stays False until the multi-GPU slice)."""
+    """One sort op in the graph, with its sharding context (the corpus
+    captures programs without a mesh: ``sharded_sort_dim`` stays False until
+    the sharded corpus families are ported)."""
 
     dimension: int
     rank: int

@@ -18,9 +18,14 @@ below the dispatcher.  From that one trace it reports:
   stage of a plan), TM604 below :data:`MEMORY_BOUND_INTENSITY`;
 - **peak device memory** per bucket (TM601), sized as below;
 - the **recompile-hazard map** (TM602), **float sorts** (TM605), and the
-  mesh fields (TM603/608/609, ``collective_bytes``), which read 0 and "no
-  mesh" until the port runs on several cards: the reference without a mesh
-  reports none of them either;
+  mesh fields: a program traced under a mesh (``parallel/mesh.py``; a
+  ``virtual_mesh`` needs no processes) hands the trace each collective it
+  calls (``parallel/collectives.py`` runs nothing on meta operands), whose
+  operand bytes are ``collective_bytes``; host constants copied in are its
+  replicated bytes.  TM603 fires on collectives in a plan validated as
+  single-host, TM608 on collective volume that grows with the rows, TM609
+  on replicated operands over the per-host share; without a mesh all three
+  are quiet, as the reference's are;
 - the **host-DRAM residency** of a fitted DAG at a row count (TM607,
   :func:`estimate_host_residency`), the reference's zero-row replay.
 
@@ -211,6 +216,9 @@ class _Tally:
     order_accums: int = 0
     order_sorts: int = 0
     kernels: List[Any] = field(default_factory=list)
+    collectives: Dict[str, int] = field(default_factory=dict)
+    collective_bytes: int = 0
+    replicated_bytes: int = 0
 
 
 class _CostMode(TorchDispatchMode):
@@ -252,6 +260,9 @@ class _CostMode(TorchDispatchMode):
         out = func(*args, **(kwargs or {}))
         ins = _tensors((args, kwargs))
         if any(a.device.type == "cpu" for a in ins):
+            # a host constant copied in: every rank of a mesh holds it whole
+            self.tally.replicated_bytes += sum(
+                _nbytes(t) for t in _tensors(out) if t.device.type == "meta")
             return out
         outs = _tensors(out)
         self._hold(outs)
@@ -279,6 +290,11 @@ class _CostMode(TorchDispatchMode):
         tally.op_counts[key] = tally.op_counts.get(key, 0) + 1
         tally.kernels.append(node)
 
+    def collective(self, op: str, nbytes: int) -> None:
+        tally = self.tally
+        tally.collectives[op] = tally.collectives.get(op, 0) + 1
+        tally.collective_bytes += nbytes
+
     def transient_bytes(self) -> int:
         return sum(allocation_bound(n) for n in self.storages.values())
 
@@ -290,7 +306,9 @@ class _CostMode(TorchDispatchMode):
             peak_live_bytes=extra_peak + self.transient_bytes(),
             op_counts=dict(t.op_counts), order_accums=t.order_accums,
             order_sorts=t.order_sorts,
-            kernels=[k.to_dict() for k in t.kernels])
+            kernels=[k.to_dict() for k in t.kernels],
+            collectives=dict(t.collectives), collective_bytes=t.collective_bytes,
+            replicated_bytes=t.replicated_bytes)
 
 
 # ---------------------------------------------------------------------------
@@ -308,7 +326,7 @@ class SegmentCost:
     peak_live_bytes: int = 0
     op_counts: Dict[str, int] = field(default_factory=dict)
     collectives: Dict[str, int] = field(default_factory=dict)
-    #: cross-device traffic of collectives (0: the port runs on one card)
+    #: operand bytes of the segment's collectives (0 without a mesh)
     collective_bytes: int = 0
     #: per-host replicated entry bytes (0 without a mesh)
     replicated_bytes: int = 0
@@ -547,16 +565,29 @@ def trace_cost(fn, *specs, name: str = "program") -> SegmentCost:
 def analyze_program(fn, specs_per_bucket, label: str = "program") -> PlanCostReport:
     """Static cost report of a program across a row-bucket ladder:
     ``specs_per_bucket`` is ``[(bucket, [specs...]), ...]`` (statics bound
-    by ``functools.partial`` or a lambda before the call)."""
+    by ``functools.partial`` or a lambda before the call).  Under a mesh
+    the report carries its token and, per bucket, the collectives' bytes;
+    the replicated bytes are the largest bucket's host constants."""
+    from ..parallel.mesh import current_mesh, mesh_token
+
     report = PlanCostReport(plan=label)
+    meshed = current_mesh() is not None
+    if meshed:
+        report.mesh = repr(mesh_token())
     for bucket, specs in specs_per_bucket:
         seg = trace_cost(fn, *specs, name=f"bucket{bucket}")
         report.buckets.append(BucketCost(
             bucket=int(bucket), resident_bytes=0,
             transient_bytes=seg.peak_live_bytes, flops=seg.flops,
-            bytes_read=seg.bytes_read, bytes_written=seg.bytes_written))
+            bytes_read=seg.bytes_read, bytes_written=seg.bytes_written,
+            collective_bytes=seg.collective_bytes))
         report.order_accums = max(report.order_accums, seg.order_accums)
         report.order_sorts = max(report.order_sorts, seg.order_sorts)
+        for op, c in seg.collectives.items():
+            report.collectives[op] = max(report.collectives.get(op, 0), c)
+        if meshed:
+            report.replicated_bytes = max(report.replicated_bytes,
+                                          seg.replicated_bytes)
     return report
 
 
@@ -808,8 +839,7 @@ def analyze_transform(dataset, result_features, fitted) -> Optional[PlanCostRepo
 def scalability_diagnostics(report: PlanCostReport,
                             hbm_budget: Optional[float] = None) -> List[Diagnostic]:
     """TM608/TM609, the reference's static scalability pass.  Mesh-scoped:
-    quiet without a mesh, which is every plan of the port until it runs on
-    several cards."""
+    quiet for a plan traced without a mesh."""
     diags: List[Diagnostic] = []
     if report.mesh is None:
         return diags

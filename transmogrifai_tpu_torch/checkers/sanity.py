@@ -16,6 +16,14 @@ statistics against their thresholds, so the port must not widen them.
   (:func:`_device_contingency`), split per group on the host, where Cramér's
   V and the rule confidences are float64 numpy (``utils/stats.py``).
 
+Under a mesh (``parallel/mesh.py``) a Pearson fit places this rank's rows
+only: the moments, the label correlations, the gram product and the
+contingencies are row sums over the ``data`` group (min and max its
+elementwise extremes), so every rank decides alike.  Past
+``max_features_for_full_corr`` columns the full matrix is instead built by
+the reference's ring of column shards (``parallel/wide.py``).  Spearman's
+ranks need every row and stay on one rank's whole block.
+
 The drop decisions, the summary and the metadata bookkeeping stay on the
 host, as in the reference.  The fitted ``SanityCheckerModel`` keeps the
 slots the checker did not drop.
@@ -32,6 +40,8 @@ import torch
 
 from ..data.dataset import Column
 from ..ops._consts import device_const
+from ..parallel import collectives as C
+from ..parallel import mesh as PM
 from ..stages.base import BinaryEstimator, Param, Transformer
 from ..types import OPVector, RealNN
 from ..utils import stats as npstats
@@ -79,19 +89,31 @@ class SanityCheckerSummary:
         }
 
 
-def _device_stats(x: torch.Tensor, y: torch.Tensor):
+def _row_sum(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t``, a sum over this rank's rows, summed over ``mesh``'s ``data``
+    group; ``t`` itself when ``mesh`` is None (the block holds every row)."""
+    return t if mesh is None else PM.reduce_rows(t, mesh)
+
+
+def _device_stats(x: torch.Tensor, y: torch.Tensor, n=None, mesh=None):
     """Per column: mean, variance, min, max and the Pearson correlation
-    with ``y``, over the rows of ``x`` (n, d) float32 (population moments)."""
-    tot = torch.tensor(float(x.shape[0]), dtype=x.dtype, device=x.device)
-    mean = x.sum(dim=0) / tot
+    with ``y``, over the rows of ``x`` (n, d) float32 (population moments).
+    With a ``mesh`` ``x`` and ``y`` hold this rank's share of ``n`` rows and
+    every row sum crosses its ``data`` group; without one they hold every
+    row, whatever mesh is ambient."""
+    tot = torch.tensor(float(x.shape[0] if n is None else n), dtype=x.dtype,
+                       device=x.device)
+    mean = _row_sum(x.sum(dim=0), mesh) / tot
     xc = x - mean
-    var = (xc * xc).sum(dim=0) / tot
-    xmin = x.amin(dim=0)
-    xmax = x.amax(dim=0)
-    yc = y - y.sum() / tot
-    cov = xc.T @ yc / tot
+    var = _row_sum((xc * xc).sum(dim=0), mesh) / tot
+    xmin, xmax = x.amin(dim=0), x.amax(dim=0)
+    if mesh is not None and PM.sharded(mesh):
+        group = mesh.group(PM.DATA_AXIS)
+        xmin, xmax = C.all_reduce(xmin, group, "min"), C.all_reduce(xmax, group, "max")
+    yc = y - _row_sum(y.sum(), mesh) / tot
+    cov = _row_sum(xc.T @ yc, mesh) / tot
     sx = torch.sqrt(var)
-    sy = torch.sqrt((yc * yc).sum() / tot)
+    sy = torch.sqrt(_row_sum((yc * yc).sum(), mesh) / tot)
     corr = cov / (sx * sy)
     return mean, var, xmin, xmax, corr
 
@@ -108,15 +130,32 @@ def _device_label_corr(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return cov / (sx * sy)
 
 
-def _device_full_corr(x: torch.Tensor) -> torch.Tensor:
+#: rows of the centred block widened to float64 at a time (the gram's sum)
+_GRAM_CHUNK_ROWS = 1 << 16
+
+
+def _device_full_corr(x: torch.Tensor, n=None, mesh=None) -> torch.Tensor:
     """(d, d) Pearson correlation of the columns of ``x``: one gram product
     of the centred block, normalised by the outer product of its diagonal's
     square roots, floored at 1e-12.  The reference computes this in one
     product up to ``max_features_for_full_corr`` columns and by a ring of
-    column shards across devices past it; both normalise the same way."""
-    tot = torch.tensor(float(x.shape[0]), dtype=x.dtype, device=x.device)
-    xc = x - x.sum(dim=0) / tot
-    c = xc.T @ xc / tot
+    column shards across devices past it; both normalise the same way.
+    With a ``mesh`` ``x`` holds this rank's share of ``n`` rows and the
+    column sums and the gram cross its ``data`` group.  The gram of the float32
+    centred block accumulates in float64 and rounds to float32 once: a
+    float32 sum over the rows carries its order's rounding (~1e-4 of a
+    correlation at 65 536 rows), so this product and the ring's
+    (``parallel/wide.py``), whose blocks sum in other orders, agree to that
+    one rounding.  The float64 copies are of ``_GRAM_CHUNK_ROWS`` rows at a
+    time, so the block's device memory does not triple."""
+    rows = float(x.shape[0] if n is None else n)
+    tot = torch.tensor(rows, dtype=x.dtype, device=x.device)
+    xc = x - _row_sum(x.sum(dim=0), mesh) / tot
+    g = torch.zeros((x.shape[1], x.shape[1]), dtype=torch.float64, device=x.device)
+    for lo in range(0, xc.shape[0], _GRAM_CHUNK_ROWS):
+        blk = xc[lo:lo + _GRAM_CHUNK_ROWS].to(torch.float64)
+        g += blk.T @ blk
+    c = (_row_sum(g, mesh) / rows).to(x.dtype)
     sd = torch.sqrt(torch.diagonal(c))
     return c / torch.clamp(sd[:, None] * sd[None, :], min=1e-12)
 
@@ -184,9 +223,9 @@ class SanityChecker(BinaryEstimator):
     categorical_label = Param(default=None, doc="None = auto-detect")
     max_features_for_full_corr = Param(
         default=512,
-        doc="the reference's width past which the full matrix is built by a "
-            "ring of column shards across devices; on one card every width "
-            "is one gram product, so this is kept for the saved params only")
+        doc="the width past which, under a mesh, the full matrix is built by "
+            "a ring of column shards across the ranks (parallel/wide.py); "
+            "without one every width is one gram product")
 
     def _is_label_slot(self, feature, features) -> bool:
         return feature is features[0]
@@ -211,11 +250,17 @@ class SanityChecker(BinaryEstimator):
         names = meta.column_names()
         dev = torch.device(device)
         on_card = dev.type == "cuda"
+        spearman = self.correlation_type == "spearman"
+        # under a mesh a Pearson fit reads this rank's rows and its sums
+        # cross the ranks (``mesh``); Spearman's ranks need every row, so
+        # each rank holds the whole block and nothing crosses (``mesh`` None)
+        mesh = PM.current_mesh() if PM.sharded() and not spearman else None
+        rows = PM.row_span(n, mesh) if mesh is not None else slice(0, n)
         t0 = time.perf_counter()
         # the feature block crosses to the device once; every statistic
         # below reads this one copy
-        x_dev = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-        y_dev = torch.from_numpy(y.astype(np.float32)).to(dev)
+        x_dev = torch.from_numpy(np.ascontiguousarray(x[rows])).to(dev)
+        y_dev = torch.from_numpy(y[rows].astype(np.float32)).to(dev)
         if on_card:
             torch.cuda.synchronize(dev)  # opcheck: allow(TM301) the fit's one wait for the card before its stats come back
         t1 = time.perf_counter()
@@ -230,7 +275,6 @@ class SanityChecker(BinaryEstimator):
             }
             corr_idx = [j for j in range(d) if j not in hashed]
         excluded = len(corr_idx) < d
-        spearman = self.correlation_type == "spearman"
 
         label_levels = np.unique(y)
         if self.categorical_label is None:
@@ -241,7 +285,7 @@ class SanityChecker(BinaryEstimator):
 
         with full_f32():
             mean_, var_, min_, max_, pearson_corr = (
-                t.cpu().numpy() for t in _device_stats(x_dev, y_dev))
+                t.cpu().numpy() for t in _device_stats(x_dev, y_dev, n, mesh))
 
             # the correlation block: rank-transformed and/or column-subset x,
             # derived on the device from the one placed block
@@ -261,7 +305,18 @@ class SanityChecker(BinaryEstimator):
 
             full = None
             if not self.feature_label_corr_only and corr_idx:
-                full = _device_full_corr(xc_dev).cpu().numpy()  # opcheck: allow(TM301) end-of-fit fetch of the correlation matrix, once a fit
+                if mesh is not None and \
+                        len(corr_idx) > int(self.max_features_for_full_corr):
+                    # the reference's wide path: a ring of column shards
+                    # over every row
+                    from ..parallel.wide import shard_cols, wide_full_corr
+
+                    xs, d_c = shard_cols(x[:, corr_idx] if excluded else x,
+                                         mesh, device=dev)
+                    full = wide_full_corr(xs, mesh, d_c).cpu().numpy()
+                    del xs
+                else:
+                    full = _device_full_corr(xc_dev, n, mesh).cpu().numpy()  # opcheck: allow(TM301) end-of-fit fetch of the correlation matrix, once a fit
             del xc_dev
 
             # every categorical group's contingency with the label in one
@@ -271,10 +326,11 @@ class SanityChecker(BinaryEstimator):
             group_support: Dict[str, np.ndarray] = {}
             if label_is_cat and groups:
                 y_onehot = torch.from_numpy(
-                    (y[:, None] == label_levels[None, :]).astype(np.float32)).to(dev)
+                    (y[rows, None] == label_levels[None, :]).astype(np.float32)).to(dev)
                 all_idx = [j for idxs in groups.values() for j in idxs]
                 g_all = x_dev[:, torch.as_tensor(all_idx, device=dev)]
-                cont_all = _device_contingency(g_all, y_onehot).cpu().numpy()  # opcheck: allow(TM301) end-of-fit fetch of the contingency tables, once a fit
+                cont = _row_sum(_device_contingency(g_all, y_onehot), mesh)
+                cont_all = cont.cpu().numpy()  # opcheck: allow(TM301) end-of-fit fetch of the contingency tables, once a fit
                 del g_all
                 off = 0
                 for gkey, indices in groups.items():

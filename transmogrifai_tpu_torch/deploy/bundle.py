@@ -99,10 +99,12 @@ def environment_provenance(device=None) -> Dict[str, Any]:
     that builds this process's kernels, None without one; ``torch``: the
     CUDA torch was built with; ``driver``: the CUDA the driver runs), the
     platform (``gpu`` / ``cpu``), the device's kind, the device count, the
-    compute capability and the kernel token
-    (``perf/kernels/dispatch.py::cache_token``)."""
+    compute capability, the kernel token
+    (``perf/kernels/dispatch.py::cache_token``) and the ambient mesh's token
+    (``parallel/mesh.py::mesh_token``, JSON; ``null`` without a mesh)."""
     import torch
 
+    from ..parallel.mesh import mesh_token
     from ..perf.kernels.dispatch import cache_token, toolkit_version
 
     dev = _environment_device(device)
@@ -118,6 +120,7 @@ def environment_provenance(device=None) -> Dict[str, Any]:
         "deviceCount": torch.cuda.device_count() if on_card else 1,
         "computeCapability": f"{cap[0]}.{cap[1]}" if cap else None,
         "kernelToken": cache_token(),
+        "meshToken": json.dumps(mesh_token()),
     }
 
 

@@ -76,18 +76,23 @@ def _bump(key: str, n: int = 1) -> None:
 
 
 def artifact_key(fingerprint: str, bucket: int, *,
+                 mesh_token_str: Optional[str] = None,
                  kernel_token: Optional[str] = None) -> str:
     """Content address of one bucket executable: plan fingerprint x bucket x
-    kernel token (the fingerprint already folds the token in, but the key
-    spells it out so the on-disk address never relies on the fingerprint's
-    internals)."""
+    mesh token x kernel token (the fingerprint already folds both tokens
+    in, but the key spells them out so the on-disk address never relies on
+    the fingerprint's internals)."""
     if kernel_token is None:
         from ..perf.kernels.dispatch import cache_token
 
         kernel_token = cache_token()
+    if mesh_token_str is None:
+        from ..parallel.mesh import mesh_token
+
+        mesh_token_str = json.dumps(mesh_token())
     h = hashlib.blake2b(digest_size=20)
     h.update(json.dumps(["tmog-torch-bucket", BUNDLE_VERSION, fingerprint,
-                         int(bucket), kernel_token]).encode())
+                         int(bucket), mesh_token_str, kernel_token]).encode())
     return h.hexdigest()
 
 
@@ -153,7 +158,9 @@ class ArtifactStore:
             for b in ladder:
                 exe = plan.executable(b)
                 needed.update(exe.libraries)
-                digest = artifact_key(plan.fingerprint, b, kernel_token=env["kernelToken"])
+                digest = artifact_key(plan.fingerprint, b,
+                                      mesh_token_str=env["meshToken"],
+                                      kernel_token=env["kernelToken"])
                 rel = os.path.join(OBJECTS_DIR, digest[:2], f"{digest}.bucket.json")
                 objects[str(int(b))] = {"keyDigest": digest,
                                         **_object(self.root, rel, serialize_compiled(exe))}

@@ -13,62 +13,119 @@ generic sweep, one fit per (grid, fold), as in the reference.
 from __future__ import annotations
 
 import contextlib
-import threading
-from typing import Any, Dict, List
+from typing import Any, Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from ..data.dataset import Column, Dataset
+from ..parallel import mesh as PM
 from ..stages.base import Estimator, Transformer
 from ..types import OPVector, Prediction, RealNN
 from .prediction import PredictionColumn
 
-#: (stamp of a host block, device) -> (block, device tensor): the selector's
-#: families and its refit share one copy of the feature block per device
-_PLACED: Dict[tuple, tuple] = {}
-#: guards _PLACED: trainers on several threads (a refit beside a fit) share it
-_PLACED_LOCK = threading.Lock()
-_PLACED_MAX = 2
+class SweepArrays(NamedTuple):
+    """A sweep's operands on this rank's device (:func:`sweep_placements`).
+    Under a mesh ``x``, ``y_rows`` and ``train_w`` hold this rank's rows;
+    the metrics read every row, so ``val_w`` and ``y`` hold all ``n``."""
+
+    x: torch.Tensor
+    y_rows: torch.Tensor
+    train_w: torch.Tensor
+    val_w: torch.Tensor
+    y: torch.Tensor
+    n: int
 
 
-def _stamp(x: np.ndarray) -> tuple:
-    step = max(1, x.shape[0] // 64)
-    return (id(x), x.shape, str(x.dtype), hash(x[::step].tobytes()))
+def place_rows(x32: np.ndarray, device, shard: bool = False,
+               insert: bool = True) -> torch.Tensor:
+    """The feature block ``x32`` on ``device`` through the identity-keyed
+    placement cache (``parallel/mesh.py::place_block_cached``): this rank's
+    rows when ``shard`` (a sharded family under a mesh), the whole block
+    otherwise.  ``insert=False`` (a scoring call) reuses a fit's placement
+    but does not cache its own."""
+    return PM.place_block_cached(np.asarray(x32, np.float32), insert=insert,
+                                 device=device, replicate=not shard)
 
 
-def place_rows(x32: np.ndarray, device) -> torch.Tensor:
-    """``x32`` on ``device``, copied once per (block, device) and reused."""
-    key = (_stamp(x32), str(torch.device(device)))
-    with _PLACED_LOCK:
-        hit = _PLACED.get(key)
-    if hit is not None and hit[0] is x32:
-        return hit[1]
-    t = torch.from_numpy(np.ascontiguousarray(x32)).to(device)
-    with _PLACED_LOCK:
-        _PLACED[key] = (x32, t)
-        while len(_PLACED) > _PLACED_MAX:
-            _PLACED.pop(next(iter(_PLACED)))
-    return t
+def _rows(arr: np.ndarray, axis: int, shard: bool, device) -> torch.Tensor:
+    """A small operand through the content-keyed cache: this rank's span
+    along ``axis`` when ``shard``, the whole array otherwise."""
+    if shard:
+        return PM.place_rows_cached(arr, axis, device=device)
+    return PM.place_cached(arr, (), device=device)
 
 
-def sweep_tensors(x, y, train_w, val_w, device):
-    """(x, y, train_w, val_w) of a CV sweep as float32 tensors on ``device``,
-    the feature block through the shared placement."""
-    def t(a):
-        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+def sweep_placements(x32: np.ndarray, y, train_w, val_w, device,
+                     shard: bool = True) -> SweepArrays:
+    """A sweep's operands: the feature block and the label as this rank's
+    rows, the (k, n) fold train weights sharded on rows, the validation
+    weights and the label whole for the metrics; every block through the
+    placement cache, so the families of a selector fit share one copy.
+    Without a mesh, or with ``shard=False`` (a family the mesh does not
+    shard: NaiveBayes, GLM, multinomial LR), every operand is whole."""
+    shard = shard and PM.sharded()
+    x32 = np.asarray(x32, np.float32)
+    y32 = np.asarray(y, np.float32)
+    return SweepArrays(place_rows(x32, device, shard=shard),
+                       _rows(y32, 0, shard, device),
+                       _rows(np.asarray(train_w, np.float32), 1, shard, device),
+                       _rows(np.asarray(val_w, np.float32), 0, False, device),
+                       _rows(y32, 0, False, device), int(x32.shape[0]))
 
-    return place_rows(np.asarray(x, np.float32), device), t(y), t(train_w), t(val_w)
+
+def place_fit_arrays(x, y, w, device, shard: bool = True):
+    """(x, y, w) of a final fit on ``device``: this rank's rows, or every
+    row with ``shard=False`` or without a mesh.  The feature block goes
+    through the shared placement (a refit reuses the block its sweep
+    placed)."""
+    shard = shard and PM.sharded()
+    return (place_rows(np.asarray(x, np.float32), device, shard=shard),
+            _rows(np.asarray(y, np.float32), 0, shard, device),
+            _rows(np.asarray(w, np.float32), 0, shard, device))
+
+
+def place_spec(arr, axes, device):
+    """This rank's block of ``arr`` under the partition ``axes`` over the
+    ambient mesh (``parallel/mesh.py::place``), the whole array without one."""
+    return PM.place(arr, tuple(axes), device=device)
+
+
+def place_grid(arr, device):
+    """Grid points over the ``model`` axis (whole when it does not divide)."""
+    arr = np.asarray(arr)
+    return place_spec(arr, (PM.MODEL_AXIS,) + (None,) * (arr.ndim - 1), device)
+
+
+class ModelParts(NamedTuple):
+    """A family's (g, k) score table of which this rank computed the block
+    ``local`` at grid points ``grids`` and folds ``folds`` (its
+    ``parallel/mesh.py::model_share``): :func:`gather_scores` gathers every
+    ``model`` rank's block."""
+
+    local: Any
+    grids: List[int]
+    folds: List[int]
+    shape: Tuple[int, int]
 
 
 def gather_scores(pending) -> np.ndarray:
     """Host copy of a pending sweep result: a list of per-grid (k,) device
-    tensors (this is where the host waits for the sweep).  The
-    ``device_sync`` fault point fires before the copy: a fault of the
-    in-flight sweep surfaces here, and the resilient sweep
+    tensors, or the :class:`ModelParts` of a sweep split over a mesh's
+    ``model`` axis, whose blocks are gathered from every model rank first
+    (this is where the host waits for the sweep).  The ``device_sync``
+    fault point fires before the copy: a fault of the in-flight sweep
+    surfaces here, and the resilient sweep
     (``models/tuning.py::sweep_families``) re-launches through its ladder."""
     from ..serve.faults import fault_point
 
+    if isinstance(pending, ModelParts):
+        local = pending.local if isinstance(pending.local, torch.Tensor) \
+            else torch.stack([torch.as_tensor(p) for p in pending.local])
+        g, k = pending.shape
+        table = PM.gather_model(local, pending.folds, k, dim=1)
+        table = PM.gather_model(table, pending.grids, g, dim=0)
+        pending = list(table)
     fault_point("device_sync", programs=len(pending))
     return np.stack([p.detach().cpu().numpy().astype(np.float64)
                      for p in pending])
@@ -106,7 +163,10 @@ def eval_linear_sweep(xd: torch.Tensor, yd: torch.Tensor, betas: torch.Tensor,
     fold's validation weights.  betas (g, k, d); vw (k, n).  Returns a list
     of per-grid (k,) tensors."""
     g, k, d1 = betas.shape
-    scores = _link(xd @ betas.reshape(g * k, d1).T, link)
+    # under a mesh ``xd`` holds this rank's rows and the metrics read every
+    # row of ``yd``: the scores are gathered first
+    scores = PM.gather_rows(_link(xd @ betas.reshape(g * k, d1).T, link),
+                            yd.shape[0])
     return [torch.stack([metric_fn(scores[:, gi * k + f].contiguous(), yd, vw[f])
                          for f in range(k)]) for gi in range(g)]
 

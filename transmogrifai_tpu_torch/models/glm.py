@@ -30,10 +30,11 @@ from .base import (
     PredictionModelBase,
     full_f32,
     linear_margin64,
-    sweep_tensors,
+    place_fit_arrays,
+    sweep_placements,
 )
 from .linear import weighted_grams
-from .logistic import _fit_tensors, _pen_mask, _with_ones
+from .logistic import _pen_mask, _with_ones
 from .prediction import PredictionColumn
 
 FAMILIES = ("gaussian", "binomial", "poisson", "gamma")
@@ -105,7 +106,7 @@ class GeneralizedLinearRegression(PredictionEstimatorBase):
         icpt = bool(self.fit_intercept)
         family = str(self.family)
         with full_f32():
-            xd, yd, wd = _fit_tensors(x, y, w, device)
+            xd, yd, wd = place_fit_arrays(x, y, w, device, shard=False)
             xd = _with_ones(xd, icpt)
             regs = torch.tensor([float(self.reg_param)], dtype=torch.float32,
                                 device=device)
@@ -132,7 +133,8 @@ class GeneralizedLinearRegression(PredictionEstimatorBase):
             by_family.setdefault(str(g.get("family", self.family)), []).append(i)
         out: List[torch.Tensor] = [None] * len(grids)
         with full_f32():
-            xd, yd, tw, vw = sweep_tensors(x, y, train_w, val_w, device)
+            sp = sweep_placements(x, y, train_w, val_w, device, shard=False)
+            xd, yd, tw, vw = sp.x, sp.y, sp.train_w, sp.val_w
             xd = _with_ones(xd, icpt)
             for family, idxs in by_family.items():
                 y_fam = _support(family, yd)

@@ -28,9 +28,12 @@ from .base import (
     eval_linear_sweep,
     full_f32,
     linear_margin64,
-    sweep_tensors,
+    ModelParts,
+    place_fit_arrays,
+    sweep_placements,
 )
-from .logistic import _fit_tensors, _pen_mask, _with_ones
+from ..parallel.mesh import model_share, reduce_rows
+from .logistic import _pen_mask, _with_ones
 from .prediction import PredictionColumn
 
 
@@ -42,11 +45,12 @@ def weighted_grams(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _ridge_sweep(x: torch.Tensor, y: torch.Tensor, train_w: torch.Tensor,
                  regs: torch.Tensor, has_intercept: bool) -> torch.Tensor:
     """Ridge betas of every (grid, fold): train_w (k, n), regs (g,) ->
-    (g, k, d1)."""
+    (g, k, d1).  Under a mesh the rows are this rank's and the normal
+    equations' sums cross the ``data`` group."""
     g, (k, d1) = regs.shape[0], (train_w.shape[0], x.shape[1])
-    sw = torch.clamp_min(train_w.sum(dim=1), 1e-12)
-    grams = weighted_grams(x, train_w) / sw[:, None, None]
-    rhs = (x.T @ (train_w * y[None, :]).T).T / sw[:, None]
+    sw = torch.clamp_min(reduce_rows(train_w.sum(dim=1)), 1e-12)
+    grams = reduce_rows(weighted_grams(x, train_w)) / sw[:, None, None]
+    rhs = reduce_rows((x.T @ (train_w * y[None, :]).T).T) / sw[:, None]
     diag = regs[:, None] * _pen_mask(d1, has_intercept, x.device)[None, :] + 1e-9
     h = grams[None] + torch.diag_embed(diag)[:, None]
     return torch.linalg.solve_ex(h, rhs[None].expand(g, k, d1)[..., None])[0][..., 0]
@@ -67,7 +71,7 @@ class LinearRegression(PredictionEstimatorBase):
     def _fit_arrays(self, x, y, w, device):
         icpt = bool(self.fit_intercept)
         with full_f32():
-            xd, yd, wd = _fit_tensors(x, y, w, device)
+            xd, yd, wd = place_fit_arrays(x, y, w, device)
             regs = torch.tensor([self._l2({})], dtype=torch.float32, device=device)
             beta = _ridge_sweep(_with_ones(xd, icpt), yd, wd[None], regs,  # opcheck: allow(TM301) the fit's one fetch of its coefficients
                                 icpt)[0, 0].cpu().numpy()
@@ -79,17 +83,22 @@ class LinearRegression(PredictionEstimatorBase):
     def _cv_sweep_device(self, x, y, train_w, val_w,
                          grids: List[Dict[str, Any]], metric_fn, device):
         icpt = bool(self.fit_intercept)
+        mine = model_share(len(grids))  # grid points over the model axis
         with full_f32():
-            xd, yd, tw, vw = sweep_tensors(x, y, train_w, val_w, device)
-            xd = _with_ones(xd, icpt)
-            regs = torch.tensor([self._l2(g) for g in grids], dtype=torch.float32,
-                                device=device)
-            betas = run_cached(_ridge_sweep, xd, yd, tw, regs,
+            sp = sweep_placements(x, y, train_w, val_w, device)
+            xd = _with_ones(sp.x, icpt)
+            regs = torch.tensor([self._l2(grids[i]) for i in mine],
+                                dtype=torch.float32, device=device)
+            betas = run_cached(_ridge_sweep, xd, sp.y_rows, sp.train_w, regs,
                                statics=dict(has_intercept=icpt),
                                label="LinearRegression/ridge_sweep")
-            return run_cached(eval_linear_sweep, xd, yd, betas, vw,
-                              statics=dict(metric_fn=metric_fn, link="identity"),
-                              label="LinearRegression/eval_sweep")
+            scores = run_cached(eval_linear_sweep, xd, sp.y, betas, sp.val_w,
+                                statics=dict(metric_fn=metric_fn, link="identity"),
+                                label="LinearRegression/eval_sweep")
+        if len(mine) == len(grids):
+            return scores
+        k = int(np.asarray(train_w).shape[0])
+        return ModelParts(scores, mine, list(range(k)), (len(grids), k))
 
 
 class LinearRegressionModel(PredictionModelBase):

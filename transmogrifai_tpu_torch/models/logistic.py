@@ -39,8 +39,12 @@ from .base import (
     full_f32,
     linear_eval_payload,
     linear_margin64,
+    ModelParts,
+    place_fit_arrays,
     place_rows,
+    sweep_placements,
 )
+from ..parallel.mesh import model_share, reduce_rows
 from .prediction import PredictionColumn
 
 MAX_ITER_DEFAULT = 30
@@ -68,11 +72,14 @@ def _irls_core(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
 
         H = [[X^T S X, X^T S 1], [1^T S X, sum S]] / sw + diag(reg*mask + 1e-8)
 
-    with S = max(w p (1-p), 1e-10).  Returns betas (B, d1)."""
+    with S = max(w p (1-p), 1e-10).  Under a mesh ``x``, ``y`` and ``w``
+    hold this rank's rows, and every row sum crosses the ``data`` group
+    before the solve, so each rank takes the same step.  Returns betas
+    (B, d1)."""
     n, d1 = x.shape
     B = w.shape[0]
     dev = x.device
-    sw = torch.clamp_min(w.sum(dim=1), 1e-12)
+    sw = torch.clamp_min(reduce_rows(w.sum(dim=1)), 1e-12)
     mask = _pen_mask(d1, has_intercept, dev)
     xf = x[:, :-1] if has_intercept else x
     d = xf.shape[1]
@@ -81,7 +88,7 @@ def _irls_core(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     beta = torch.zeros((B, d1), dtype=torch.float32, device=dev)
     for _ in range(max_iter):
         p = torch.sigmoid(x @ beta.T)                          # (n, B)
-        g = (x.T @ (wT * (p - y[:, None]))).T / sw[:, None] \
+        g = reduce_rows((x.T @ (wT * (p - y[:, None]))).T) / sw[:, None] \
             + reg[:, None] * mask * beta
         s = torch.clamp_min(wT * p * (1.0 - p), 1e-10)
         h = torch.empty((B, d1, d1), dtype=torch.float32, device=dev)
@@ -92,7 +99,7 @@ def _irls_core(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
             h[:, :d, d] = hxb
             h[:, d, :d] = hxb
             h[:, d, d] = s.sum(dim=0)
-        h = h / sw[:, None, None] + ridge
+        h = reduce_rows(h) / sw[:, None, None] + ridge
         beta = beta - torch.linalg.solve_ex(h, g)[0]
     return beta
 
@@ -120,12 +127,12 @@ def _fista_elastic(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     n, d1 = x.shape
     B = w.shape[0]
     dev = x.device
-    sw = torch.clamp_min(w.sum(dim=1), 1e-12)
+    sw = torch.clamp_min(reduce_rows(w.sum(dim=1)), 1e-12)
     pen = _pen_mask(d1, has_intercept, dev)
     wT = w.T
 
     def quad(v):                                               # (B, d1)
-        return (x.T @ (wT * (x @ v.T))).T / sw[:, None]
+        return reduce_rows((x.T @ (wT * (x @ v.T))).T) / sw[:, None]
 
     v = torch.ones((B, d1), dtype=torch.float32, device=dev) \
         / torch.sqrt(torch.tensor(float(d1), dtype=torch.float32))
@@ -140,7 +147,7 @@ def _fista_elastic(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     z = b
     for mom in _fista_momentum(max_iter):
         p = torch.sigmoid(x @ z.T)
-        g = (x.T @ (wT * (p - y[:, None]))).T / sw[:, None] + l2p * z
+        g = reduce_rows((x.T @ (wT * (p - y[:, None]))).T) / sw[:, None] + l2p * z
         u = z - step * g
         b_new = torch.sign(u) * torch.clamp_min(u.abs() - thr, 0.0)
         z = b_new + mom * (b_new - b)
@@ -179,9 +186,9 @@ def _device_prepare_fit(x: torch.Tensor, w: torch.Tensor, has_intercept: bool,
     as 1), then the ones column.  Returns (xs, mean, std)."""
     d = x.shape[1]
     if standardize:
-        sw = torch.clamp_min(w.sum(), 1e-12)
-        mean = (w @ x) / sw
-        var = (w @ (x - mean) ** 2) / sw
+        sw = torch.clamp_min(reduce_rows(w.sum()), 1e-12)
+        mean = reduce_rows(w @ x) / sw
+        var = reduce_rows(w @ (x - mean) ** 2) / sw
         std = torch.sqrt(var)
         std = torch.where(std < 1e-12, torch.ones_like(std), std)
     else:
@@ -191,26 +198,18 @@ def _device_prepare_fit(x: torch.Tensor, w: torch.Tensor, has_intercept: bool,
 
 
 def _device_prepare(x: torch.Tensor, has_intercept: bool,
-                    standardize: bool) -> torch.Tensor:
+                    standardize: bool, n_rows=None) -> torch.Tensor:
     """Unit-weight standardization over every row for a CV sweep (a std
-    under 1e-12 counts as 1), then the ones column."""
+    under 1e-12 counts as 1), then the ones column.  ``n_rows``: the
+    table's rows when ``x`` holds this rank's share of them."""
     if standardize:
-        n = x.shape[0]
-        mean = x.sum(dim=0) / n
-        var = ((x - mean) ** 2).sum(dim=0) / n
+        n = x.shape[0] if n_rows is None else int(n_rows)
+        mean = reduce_rows(x.sum(dim=0)) / n
+        var = reduce_rows(((x - mean) ** 2).sum(dim=0)) / n
         std = torch.sqrt(var)
         std = torch.where(std < 1e-12, torch.ones_like(std), std)
         x = (x - mean) / std
     return _with_ones(x, has_intercept)
-
-
-def _fit_tensors(x, y, w, device):
-    """(x, y, w) of a final fit on ``device``: the feature block through the
-    shared placement (a refit reuses the block its sweep placed)."""
-    xd = place_rows(np.asarray(x, np.float32), device)
-    yd = torch.from_numpy(np.asarray(y, np.float32)).to(device)
-    wd = torch.from_numpy(np.asarray(w, np.float32)).to(device)
-    return xd, yd, wd
 
 
 def _finalize_beta(beta: torch.Tensor, mean: torch.Tensor, std: torch.Tensor,
@@ -239,7 +238,7 @@ class LogisticRegression(PredictionEstimatorBase):
     def _fit_arrays(self, x, y, w, device):
         icpt = bool(self.fit_intercept)
         with full_f32():
-            xd, yd, wd = _fit_tensors(x, y, w, device)
+            xd, yd, wd = place_fit_arrays(x, y, w, device)
             xs, mean, std = _device_prepare_fit(xd, wd, icpt, bool(self.standardize))
             l1 = float(self.reg_param) * float(self.elastic_net)
             one = lambda v: torch.tensor([v], dtype=torch.float32, device=xd.device)  # noqa: E731
@@ -266,36 +265,42 @@ class LogisticRegression(PredictionEstimatorBase):
             l1l2.append((rp * en, rp * (1.0 - en)))
         # every grid point goes to a solver: a non-positive l1 (a typo'd
         # negative included) takes the smooth IRLS path
-        l2_idx = [i for i, (l1, _) in enumerate(l1l2) if l1 <= 0.0]
-        en_idx = [i for i, (l1, _) in enumerate(l1l2) if l1 > 0.0]
+        # the grid points split over a mesh's model axis
+        mine = model_share(len(grids))
+        l2_idx = [j for j, i in enumerate(mine) if l1l2[i][0] <= 0.0]
+        en_idx = [j for j, i in enumerate(mine) if l1l2[i][0] > 0.0]
         icpt = bool(self.fit_intercept)
 
         def vec(vals):
             return torch.tensor(vals, dtype=torch.float32, device=device)
 
         with full_f32():
-            xd = _device_prepare(place_rows(np.asarray(x, np.float32), device),
-                                 icpt, bool(self.standardize))
-            yd = torch.from_numpy(np.asarray(y, np.float32)).to(device)
-            tw = torch.from_numpy(np.asarray(train_w, np.float32)).to(device)
-            vw = torch.from_numpy(np.asarray(val_w, np.float32)).to(device)
-            betas = torch.zeros((len(grids), tw.shape[0], xd.shape[1]),
+            sp = sweep_placements(x, y, train_w, val_w, device)
+            xd = _device_prepare(sp.x, icpt, bool(self.standardize), sp.n)
+            yd, tw = sp.y_rows, sp.train_w
+            betas = torch.zeros((len(mine), tw.shape[0], xd.shape[1]),
                                 dtype=torch.float32, device=device)
             if l2_idx:
                 betas[l2_idx] = run_cached(
-                    _irls_sweep, xd, yd, tw, vec([l1l2[i][1] for i in l2_idx]),
+                    _irls_sweep, xd, yd, tw,
+                    vec([l1l2[mine[j]][1] for j in l2_idx]),
                     statics=dict(max_iter=int(self.max_iter), has_intercept=icpt),
                     label="LogisticRegression/irls_sweep")
             if en_idx:
                 betas[en_idx] = run_cached(
-                    _fista_sweep, xd, yd, tw, vec([l1l2[i][0] for i in en_idx]),
-                    vec([l1l2[i][1] for i in en_idx]),
+                    _fista_sweep, xd, yd, tw,
+                    vec([l1l2[mine[j]][0] for j in en_idx]),
+                    vec([l1l2[mine[j]][1] for j in en_idx]),
                     statics=dict(max_iter=max(10 * int(self.max_iter), 300),
                                  has_intercept=icpt),
                     label="LogisticRegression/fista_sweep")
-            return run_cached(eval_linear_sweep, xd, yd, betas, vw,
-                              statics=dict(metric_fn=metric_fn, link="sigmoid"),
-                              label="LogisticRegression/eval_sweep")
+            scores = run_cached(eval_linear_sweep, xd, sp.y, betas, sp.val_w,
+                                statics=dict(metric_fn=metric_fn, link="sigmoid"),
+                                label="LogisticRegression/eval_sweep")
+        if len(mine) == len(grids):
+            return scores
+        k = int(np.asarray(train_w).shape[0])
+        return ModelParts(scores, mine, list(range(k)), (len(grids), k))
 
 
 class LogisticRegressionModel(PredictionModelBase):

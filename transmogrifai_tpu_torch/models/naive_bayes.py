@@ -25,7 +25,7 @@ from .base import (
     PredictionModelBase,
     full_f32,
     softmax_probs,
-    sweep_tensors,
+    sweep_placements,
 )
 from .prediction import PredictionColumn
 
@@ -85,7 +85,8 @@ class NaiveBayes(PredictionEstimatorBase):
                       for g in grids]
         multiclass = len(classes) > 2
         with full_f32():
-            xd, yd, tw, vw = sweep_tensors(x, y, train_w, val_w, device)
+            sp = sweep_placements(x, y, train_w, val_w, device, shard=False)
+            xd, yd, tw, vw = sp.x, sp.y, sp.train_w, sp.val_w
             y_onehot = (yd[:, None] == torch.arange(
                 len(classes), device=device, dtype=torch.float32)[None, :]).to(
                     torch.float32)

@@ -179,8 +179,11 @@ class ModelSelector(PredictionEstimatorBase):
         payload = best_model.eval_payload_device(x, device)
         yd = wd = None
         if payload is not None:
-            yd = torch.from_numpy(y).to(device)
-            wd = torch.ones_like(yd)
+            from ..parallel.mesh import place_cached
+
+            # every row on every rank: the train metrics read them all
+            yd = place_cached(y, (), device=device)
+            wd = place_cached(np.ones_like(y), (), device=device)
         pred_cache: List[PredictionColumn] = []
 
         def evaluate(ev, w: Optional[np.ndarray]) -> Dict[str, float]:

@@ -25,10 +25,11 @@ from .base import (
     eval_softmax_sweep,
     full_f32,
     linear_margin64,
+    place_fit_arrays,
     softmax_probs,
-    sweep_tensors,
+    sweep_placements,
 )
-from .logistic import _fit_tensors, _with_ones
+from .logistic import _with_ones
 from .prediction import PredictionColumn
 
 MAX_ITER_DEFAULT = 200
@@ -93,7 +94,7 @@ class MultinomialLogisticRegression(PredictionEstimatorBase):
         icpt = bool(self.fit_intercept)
         c = self._n_classes(y)
         with full_f32():
-            xd, yd, wd = _fit_tensors(x, y, w, device)
+            xd, yd, wd = place_fit_arrays(x, y, w, device, shard=False)
             y_onehot = torch.nn.functional.one_hot(yd.long(), c).to(torch.float32)
             regs = torch.tensor([self._l2({})], dtype=torch.float32, device=device)
             b = _softmax_fits(_with_ones(xd, icpt), y_onehot,  # opcheck: allow(TM301) the fit's one fetch of its coefficients
@@ -110,7 +111,8 @@ class MultinomialLogisticRegression(PredictionEstimatorBase):
         c = self._n_classes(y)
         g, k = len(grids), train_w.shape[0]
         with full_f32():
-            xd, yd, tw, vw = sweep_tensors(x, y, train_w, val_w, device)
+            sp = sweep_placements(x, y, train_w, val_w, device, shard=False)
+            xd, yd, tw, vw = sp.x, sp.y, sp.train_w, sp.val_w
             xd = _with_ones(xd, icpt)
             y_onehot = torch.nn.functional.one_hot(yd.long(), c).to(torch.float32)
             regs = torch.tensor([self._l2(gr) for gr in grids for _ in range(k)],

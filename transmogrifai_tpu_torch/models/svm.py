@@ -27,12 +27,15 @@ from .base import (
     full_f32,
     linear_eval_payload,
     linear_margin64,
+    ModelParts,
+    place_fit_arrays,
     place_rows,
+    sweep_placements,
 )
+from ..parallel.mesh import gather_rows, model_share, reduce_rows
 from .logistic import (
     _device_prepare_fit,
     _finalize_beta,
-    _fit_tensors,
     _pen_mask,
     _with_ones,
 )
@@ -49,9 +52,9 @@ def _svc_body(x: torch.Tensor, y_pm: torch.Tensor, w: torch.Tensor,
     n, d1 = x.shape
     B = w.shape[0]
     dev = x.device
-    sw = torch.clamp_min(w.sum(dim=1), 1e-12)
+    sw = torch.clamp_min(reduce_rows(w.sum(dim=1)), 1e-12)
     mask = _pen_mask(d1, has_intercept, dev)
-    lip = 2.0 * (w @ (x * x).sum(dim=1)) / sw + reg
+    lip = 2.0 * reduce_rows(w @ (x * x).sum(dim=1)) / sw + reg
     lr = (1.0 / torch.clamp_min(lip, 1e-6))[:, None]
     wT = w.T
     yc = y_pm[:, None]
@@ -60,7 +63,8 @@ def _svc_body(x: torch.Tensor, y_pm: torch.Tensor, w: torch.Tensor,
     vel = beta
     for _ in range(max_iter):
         active = torch.clamp_min(1.0 - yc * (x @ beta.T), 0.0)     # (n, B)
-        g = (x.T @ (wT * (-2.0 * yc * active))).T / sw[:, None] + regm * beta
+        g = reduce_rows((x.T @ (wT * (-2.0 * yc * active))).T) / sw[:, None] \
+            + regm * beta
         vel = 0.9 * vel - lr * g
         beta = beta + vel
     return beta
@@ -72,18 +76,20 @@ def _svc_cv_program(x: torch.Tensor, y: torch.Tensor, y_pm: torch.Tensor,
                     metric_fn) -> List[torch.Tensor]:
     """The (grid x fold) sweep: per fold, weighted standardization with the
     fold's train weights, the grid's fits in one batch, and the metric of
-    each fit's margins.  Returns per-grid (k,) metric tensors."""
+    each fit's margins.  Under a mesh ``x``, ``y_pm`` and ``train_w`` hold
+    this rank's rows and ``y`` / ``val_w`` every row: the margins are
+    gathered before the metric.  Returns per-grid (k,) metric tensors."""
     k, g = train_w.shape[0], regs.shape[0]
     per_fold = []
     for f in range(k):
         w = train_w[f]
-        sw = torch.clamp_min(w.sum(), 1e-12)
-        mean = (w @ x) / sw
-        var = (w @ (x - mean) ** 2) / sw
+        sw = torch.clamp_min(reduce_rows(w.sum()), 1e-12)
+        mean = reduce_rows(w @ x) / sw
+        var = reduce_rows(w @ (x - mean) ** 2) / sw
         std = torch.where(var > 0, torch.sqrt(var), torch.ones_like(var))
         xs = _with_ones((x - mean) / std, has_intercept)
         betas = _svc_body(xs, y_pm, w.expand(g, -1), regs, max_iter, has_intercept)
-        margins = xs @ betas.T
+        margins = gather_rows(xs @ betas.T, y.shape[0])
         per_fold.append(torch.stack([metric_fn(margins[:, gi].contiguous(), y,
                                                val_w[f]) for gi in range(g)]))
         del xs
@@ -101,7 +107,7 @@ class LinearSVC(PredictionEstimatorBase):
     def _fit_arrays(self, x, y, w, device):
         icpt = bool(self.fit_intercept)
         with full_f32():
-            xd, yd, wd = _fit_tensors(x, y, w, device)
+            xd, yd, wd = place_fit_arrays(x, y, w, device)
             xs, mean, std = _device_prepare_fit(xd, wd, icpt, bool(self.standardize))
             y_pm = torch.where(yd > 0.5, 1.0, -1.0)
             reg = torch.tensor([float(self.reg_param)], dtype=torch.float32,
@@ -117,20 +123,22 @@ class LinearSVC(PredictionEstimatorBase):
         ``reg_param``."""
         if not self.standardize or any(set(g) - {"reg_param"} for g in grids):
             return None
-        y32 = np.asarray(y, np.float32)
+        mine = model_share(len(grids))  # grid points over the model axis
         with full_f32():
-            xd = place_rows(np.asarray(x, np.float32), device)
-            yd = torch.from_numpy(y32).to(device)
-            regs = torch.tensor([float(g.get("reg_param", self.reg_param))
-                                 for g in grids], dtype=torch.float32, device=device)
-            return run_cached(
-                _svc_cv_program, xd, yd, torch.where(yd > 0.5, 1.0, -1.0),
-                torch.from_numpy(np.asarray(train_w, np.float32)).to(device),
-                torch.from_numpy(np.asarray(val_w, np.float32)).to(device),
-                regs, statics=dict(max_iter=int(self.max_iter),
-                                   has_intercept=bool(self.fit_intercept),
-                                   metric_fn=metric_fn),
+            sp = sweep_placements(x, y, train_w, val_w, device)
+            regs = torch.tensor([float(grids[i].get("reg_param", self.reg_param))
+                                 for i in mine], dtype=torch.float32, device=device)
+            scores = run_cached(
+                _svc_cv_program, sp.x, sp.y,
+                torch.where(sp.y_rows > 0.5, 1.0, -1.0), sp.train_w,
+                sp.val_w, regs, statics=dict(max_iter=int(self.max_iter),
+                                             has_intercept=bool(self.fit_intercept),
+                                             metric_fn=metric_fn),
                 label="LinearSVC/cv_program")
+        if len(mine) == len(grids):
+            return scores
+        k = int(np.asarray(train_w).shape[0])
+        return ModelParts(scores, mine, list(range(k)), (len(grids), k))
 
 
 class LinearSVCModel(PredictionModelBase):

@@ -38,8 +38,10 @@ from ..perf.kernels import routing as _krout
 from ..perf.kernels import splitscan as _ksplit
 from ..perf.programs import run_cached
 from ..stages.base import Param
+from ..parallel import mesh as PM
 from ..utils.reduce import window_sum
-from .base import PredictionEstimatorBase, PredictionModelBase, place_rows
+from .base import (ModelParts, PredictionEstimatorBase, PredictionModelBase,
+                   place_rows, sweep_placements)
 from .prediction import PredictionColumn
 
 #: default histogram resolution (the reference's Spark tree default maxBins)
@@ -119,8 +121,10 @@ _BIN_CACHE_LOCK = threading.Lock()
 
 def shared_binned(x32: np.ndarray, xd: torch.Tensor, n_bins: int
                   ) -> Tuple[torch.Tensor, np.ndarray]:
-    """(codes on xd's device, host edges) of ``x32`` at ``n_bins``."""
-    key = (id(xd), int(n_bins))
+    """(codes on xd's device, host edges) of ``x32`` at ``n_bins``.  Under
+    a mesh ``xd`` holds this rank's rows, digitized against edges taken
+    from the whole host table ``x32``, so every rank bins alike."""
+    key = (id(xd), int(n_bins), PM.mesh_token())
     with _BIN_CACHE_LOCK:
         hit = _BIN_CACHE.get(key)
     if hit is not None and hit[0] is xd:
@@ -189,7 +193,7 @@ def _grow_trees(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                 feat_mask: torch.Tensor, seed: Tuple[int, ...], max_depth: int,
                 n_bins: int, reg_lambda, alpha, gamma, min_child_weight, eta,
                 max_delta_step, colsample_bylevel: float = 1.0,
-                int_exact: bool = False):
+                int_exact: bool = False, n_global=None):
     """Level-wise histogram growth of L trees jointly.
 
     binned (n, d) int32 codes in [0, n_bins] shared by the lanes; grad/hess
@@ -198,6 +202,13 @@ def _grow_trees(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     [-127, 127], the forest-CV case with 0/1 fold weights (callers check),
     and the sums stay within int32 (bounded from the data past
     ``histogram.INT_SAFE_ROWS`` rows).
+
+    Under a mesh the rows are this rank's share of ``n_global``: each
+    level's histogram (K1 over the rank's rows) is summed over the ``data``
+    group before the split scan (K2), so every rank picks the same splits,
+    and K3 routes the rank's rows.  The int32 sums are exact, so the int8
+    path's trees equal the unmeshed ones bit for bit; the int8 guard uses
+    the summed bound and the global row count.
     Returns (Tree with a leading L axis, node (L, n)): each row's final leaf.
     """
     L, n, K = grad.shape
@@ -222,15 +233,22 @@ def _grow_trees(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     feat_mask = feat_mask.to(torch.float32).contiguous()
 
     # past INT_SAFE_ROWS rows the int8 sums are bounded from the data, once
-    # for every level (one reduction)
-    abs_bound = _khist.int_abs_sum_bound(ghT) \
-        if int_exact and n > _khist.INT_SAFE_ROWS else None
+    # for every level (one reduction, summed over a mesh's ranks)
+    n_all = n if n_global is None else int(n_global)
+    abs_bound = None
+    if int_exact and n_all > _khist.INT_SAFE_ROWS:
+        sums = PM.reduce_rows(_khist.int_abs_sums(ghT))
+        abs_bound = int(sums.max()) if sums.numel() else 0  # opcheck: allow(TM301) the int8 path's sum bound, read once for a grower's levels
+        if abs_bound > _khist.INT32_MAX:
+            raise ValueError(f"the int8 path sums in int32: a (lane, channel) "
+                             f"sums |grad/hess| up to {abs_bound} over {n_all} "
+                             f"rows, past {_khist.INT32_MAX}")
 
     def level_hist(local: torch.Tensor, nn: int) -> torch.Tensor:
         """(L, nn, 2K, d, B) histograms; rows with negative local add 0."""
-        hist = _khist.hist_level(local.contiguous(), ghT, binned, nn, n_bins,
-                                 int_exact=int_exact,
-                                 abs_sum_bound=abs_bound).to(torch.float32)
+        hist = PM.reduce_rows(_khist.hist_level(
+            local.contiguous(), ghT, binned, nn, n_bins, int_exact=int_exact,
+            abs_sum_bound=abs_bound)).to(torch.float32)
         return hist.reshape(L, nn, 2 * K, B, d).transpose(-1, -2)
 
     def leaf_all(G, H):
@@ -347,18 +365,20 @@ def _predict_trees_sum(trees: Tree, binned: torch.Tensor, max_depth: int,
 
 def _base_score_device(y, w, objective: str, num_class: int, scale_pos_weight):
     """(K,) prior margin from the training weights (the host ``_resolved``
-    formula, on the device)."""
+    formula, on the device; row sums over a mesh's ``data`` group)."""
+    R = PM.reduce_rows
     if objective == "binary:logistic":
         we = w * torch.where(y == 1.0, _f32(scale_pos_weight), 1.0)
-        p = torch.clamp(window_sum(we * (y == 1.0))
-                        / torch.clamp_min(window_sum(we), 1e-12), 1e-6, 1 - 1e-6)
+        sums = R(torch.stack([window_sum(we * (y == 1.0)), window_sum(we)]))
+        p = torch.clamp(sums[0] / torch.clamp_min(sums[1], 1e-12), 1e-6, 1 - 1e-6)
         return torch.log(p / (1 - p))[None]
     if objective == "multi:softmax":
         oh = torch.nn.functional.one_hot(y.long(), num_class).to(torch.float32)
-        counts = window_sum(w[:, None] * oh, dim=0)
+        counts = R(window_sum(w[:, None] * oh, dim=0))
         p = torch.clamp(counts / torch.clamp_min(window_sum(counts), 1e-12), 1e-6, 1.0)
         return torch.log(p)
-    return (window_sum(w * y) / torch.clamp_min(window_sum(w), 1e-12))[None]
+    sums = R(torch.stack([window_sum(w * y), window_sum(w)]))
+    return (sums[0] / torch.clamp_min(sums[1], 1e-12))[None]
 
 
 def _fit_gbt_lanes(binned, y, w_lanes, seed: int, n_rounds: int, max_depth: int,
@@ -366,10 +386,14 @@ def _fit_gbt_lanes(binned, y, w_lanes, seed: int, n_rounds: int, max_depth: int,
                    subsample: float, colsample_bytree: float,
                    colsample_bylevel: float, eta, reg_lambda, alpha, gamma,
                    min_child_weight, scale_pos_weight, max_delta_step,
-                   base_score) -> Tuple[torch.Tensor, List[Tree]]:
+                   base_score, n_global=None) -> Tuple[torch.Tensor, List[Tree]]:
     """Boosting of L lanes jointly, one round at a time; returns (final
-    margins (L, n, K), one Tree of L lanes per round)."""
+    margins (L, n, K), one Tree of L lanes per round).  Under a mesh the
+    rows are this rank's span of ``n_global``: the subsample draws cover
+    every row and the rank keeps its span."""
     L, n = w_lanes.shape
+    n_all = n if n_global is None else int(n_global)
+    span = PM.row_span(n_all) if n_global is not None else slice(0, n)
     d = binned.shape[1]
     K = num_class
     dev = binned.device
@@ -382,7 +406,8 @@ def _fit_gbt_lanes(binned, y, w_lanes, seed: int, n_rounds: int, max_depth: int,
         wt = w_lanes
         if subsample < 1.0:
             g = torch.Generator().manual_seed(_mix((seed, r, 1)))
-            keep = (torch.rand(n, generator=g) < subsample).to(torch.float32)
+            keep = (torch.rand(n_all, generator=g)[span] < subsample
+                    ).to(torch.float32)
             wt = wt * keep.to(dev)[None, :]
         feat_mask = torch.ones(d, dtype=torch.float32)
         if colsample_bytree < 1.0:
@@ -403,7 +428,7 @@ def _fit_gbt_lanes(binned, y, w_lanes, seed: int, n_rounds: int, max_depth: int,
         tree, node = _grow_trees(binned, grad, hess, fm_l, (seed, r), max_depth,
                                  n_bins, reg_lambda, alpha, gamma,
                                  min_child_weight, eta, max_delta_step,
-                                 colsample_bylevel)
+                                 colsample_bylevel, n_global=n_all)
         margin = margin + _lookup_l(tree.value, node)
         trees.append(tree)
     return margin, trees
@@ -416,31 +441,36 @@ def _stack_rounds(trees: List[Tree], lane: int) -> Tree:
 
 
 def _forest_lanes(binned, y_cols, wt, feat_masks, max_depth, n_bins,
-                  reg_lambda, min_child_weight, int_exact):
+                  reg_lambda, min_child_weight, int_exact, n_global=None):
     grad = -wt[:, :, None] * y_cols[None]
     hess = wt[:, :, None] * torch.ones((1, 1, y_cols.shape[1]),
                                        dtype=torch.float32, device=wt.device)
     return _grow_trees(binned, grad, hess, feat_masks, (0,), max_depth, n_bins,
                        reg_lambda, 0.0, 0.0, min_child_weight, 1.0, 0.0,
-                       int_exact=int_exact)
+                       int_exact=int_exact, n_global=n_global)
 
 
-def _gbt_cv(binned, y, train_w, val_w, seed, metric_fn, **cfg) -> torch.Tensor:
+def _gbt_cv(binned, y, y_all, train_w, val_w, seed, metric_fn,
+            **cfg) -> torch.Tensor:
     """All folds of one GBT grid point as lanes of one boosting run; the
     margins over the full row block carry the validation predictions.
-    Returns the (k,) metric per fold."""
+    Under a mesh ``binned``, ``y`` and ``train_w`` hold this rank's rows and
+    the margins are gathered to every row (``y_all``, ``val_w``) before the
+    metric.  Returns the (k,) metric per fold."""
     base = torch.stack([_base_score_device(y, w_, cfg["objective"],
                                            cfg["num_class"],
                                            cfg["scale_pos_weight"])
                         for w_ in train_w])
-    margin, _ = _fit_gbt_lanes(binned, y, train_w, seed, base_score=base, **cfg)
+    margin, _ = _fit_gbt_lanes(binned, y, train_w, seed, base_score=base,
+                               n_global=y_all.shape[0], **cfg)
     if cfg["objective"] == "binary:logistic":
         payload = torch.sigmoid(margin[..., 0])
     elif cfg["objective"] == "multi:softmax":
         payload = torch.softmax(margin, dim=-1)
     else:
         payload = margin[..., 0]
-    return torch.stack([metric_fn(payload[f], y, val_w[f])
+    payload = PM.gather_rows(payload, y_all.shape[0], dim=1)
+    return torch.stack([metric_fn(payload[f], y_all, val_w[f])
                         for f in range(train_w.shape[0])])
 
 
@@ -448,14 +478,18 @@ def _forest_cv(binned, y, y_cols, train_w, val_w, feat_masks, boot_w,
                max_depth, n_bins, reg_lambda, min_child_weight,
                classification, metric_fn, int_exact=False) -> torch.Tensor:
     """All folds of one forest grid point: the (fold x tree) grid as k*T
-    lanes of one grower call; in-sample votes read each lane's final leaf."""
+    lanes of one grower call; in-sample votes read each lane's final leaf.
+    Under a mesh ``binned``, ``y_cols``, ``train_w`` and ``boot_w`` hold
+    this rank's rows and the votes are gathered to every row (``y``,
+    ``val_w``) before the metric."""
     k, n = train_w.shape
     T = feat_masks.shape[0]
     K = y_cols.shape[1]
     wt = (train_w[:, None, :] * boot_w[None, :, :]).reshape(k * T, n)
     masks = feat_masks.repeat(k, 1)
     trees, nodes = _forest_lanes(binned, y_cols, wt, masks, max_depth, n_bins,
-                                 reg_lambda, min_child_weight, int_exact)
+                                 reg_lambda, min_child_weight, int_exact,
+                                 n_global=y.shape[0])
     vals = _lookup_l(trees.value, nodes).reshape(k, T, n, K)
     # the reference divides by the tree count inside a compiled program,
     # where XLA turns x / T into x * (1 / T)
@@ -465,6 +499,7 @@ def _forest_cv(binned, y, y_cols, train_w, val_w, feat_masks, boot_w,
         payload = cl / torch.clamp_min(window_sum(cl)[..., None], 1e-12)
     else:
         payload = mean[..., 0]
+    payload = PM.gather_rows(payload, y.shape[0], dim=1)
     return torch.stack([metric_fn(payload[f], y, val_w[f]) for f in range(k)])
 
 
@@ -503,7 +538,8 @@ class _TreeEnsembleModelBase(PredictionModelBase):
         return m.cpu().numpy().astype(np.float64) + base[None, :]
 
     def _margin_sum(self, x32: np.ndarray, device) -> torch.Tensor:
-        return self._margin_sum_rows(place_rows(np.asarray(x32, np.float32), device))
+        return self._margin_sum_rows(place_rows(np.asarray(x32, np.float32), device,
+                                                insert=False))
 
     def _margin_sum_rows(self, xd: torch.Tensor) -> torch.Tensor:
         """(n, K) float32 summed leaf values of float32 rows on a device."""
@@ -656,32 +692,46 @@ class _TreeEstimatorBase(PredictionEstimatorBase):
 
     def _binned(self, x: np.ndarray, device):
         """(codes on the device, edges): binned once per placed block and
-        shared by every family of a selector fit and its refit."""
+        shared by every family of a selector fit and its refit; under a
+        mesh the codes of this rank's rows."""
         x32 = np.asarray(x, np.float32)
-        xd = place_rows(x32, device)
+        xd = place_rows(x32, device, shard=True)
         binned, edges = shared_binned(x32, xd, int(self.n_bins))
         return binned, edges
 
     def _cv_sweep_device(self, x, y, train_w, val_w,
                          grids: List[Dict[str, Any]], metric_fn, device):
+        """Every grid point's folds as lanes of one grower run.  Under a
+        mesh the rows are this rank's (``sweep_placements``) and the folds
+        split over the ``model`` axis (``parallel/mesh.py::model_share``):
+        the pending result is then this rank's :class:`ModelParts`."""
         x32 = np.asarray(x, np.float32)
         # 0/1 fold weights let forests take the exact int8 histogram path
         int01 = bool(np.all((train_w == 0.0) | (train_w == 1.0)))
-        xd = place_rows(x32, device)
-        binned, _ = shared_binned(x32, xd, int(self.n_bins))
-        tw = torch.from_numpy(np.asarray(train_w, np.float32)).to(device)
-        vw = torch.from_numpy(np.asarray(val_w, np.float32)).to(device)
+        sp = sweep_placements(x32, y, train_w, val_w, device)
+        binned, _ = shared_binned(x32, sp.x, int(self.n_bins))
+        k = int(np.asarray(train_w).shape[0])
+        folds = PM.model_share(k)
+        tw, vw = sp.train_w, sp.val_w
+        if len(folds) < k:
+            idx = torch.as_tensor(folds, device=tw.device)
+            tw, vw = tw[idx], vw[idx]
         pending = []
         for grid in grids:
             est = self.copy().set_params(**grid)
             b = binned if int(est.n_bins) == int(self.n_bins) else \
-                shared_binned(x32, xd, int(est.n_bins))[0]
-            pending.append(est._sweep_folds(b, x, y, tw, vw, metric_fn,
+                shared_binned(x32, sp.x, int(est.n_bins))[0]
+            pending.append(est._sweep_folds(b, y, sp.y, tw, vw, metric_fn,
                                             weights01=int01))
-        return pending
+        if len(folds) == k:
+            return pending
+        return ModelParts(pending, list(range(len(grids))), folds,
+                          (len(grids), k))
 
-    def _sweep_folds(self, binned, x, y, train_w, val_w, metric_fn,
+    def _sweep_folds(self, binned, y, y_all, train_w, val_w, metric_fn,
                      weights01=False):
+        """One grid point's folds: ``y`` the host label, ``y_all`` it on
+        the device (every row), ``binned`` / ``train_w`` this rank's rows."""
         raise NotImplementedError
 
 
@@ -721,27 +771,29 @@ class _GBTBase(_TreeEstimatorBase):
     def _fit_arrays(self, x, y, w, device):
         binned, edges = self._binned(x, device)
         objective, num_class, base = self._resolved(y, w)
-        yd = torch.from_numpy(np.asarray(y, np.float32)).to(device)
-        wd = torch.from_numpy(np.asarray(w, np.float32)).to(device)
+        yd = PM.place_rows_cached(np.asarray(y, np.float32), 0, device=device)
+        wd = PM.place_rows_cached(np.asarray(w, np.float32), 0, device=device)
         _, trees = _fit_gbt_lanes(
             binned, yd, wd[None, :], int(self.seed), objective=objective,
             num_class=num_class,
             base_score=torch.from_numpy(np.asarray(base, np.float32)).to(device)[None],
-            **self._fit_config())
+            n_global=len(y), **self._fit_config())
         cls = GBTRegressorModel if objective == "reg:squarederror" \
             else GBTClassifierModel
         return cls(trees=_stack_rounds(trees, 0), edges=edges,
                    max_depth=self.max_depth, n_bins=self.n_bins, base_score=base)
 
-    def _sweep_folds(self, binned, x, y, train_w, val_w, metric_fn,
+    def _sweep_folds(self, binned, y, y_all, train_w, val_w, metric_fn,
                      weights01=False):
         objective, num_class, _ = self._resolved(y, np.ones_like(y))
-        yd = torch.from_numpy(np.asarray(y, np.float32)).to(binned.device)
+        yd = PM.place_rows_cached(np.asarray(y, np.float32), 0,
+                                  device=binned.device)
         cfg = self._fit_config()
         # the reference's split: the float hyperparameters are the program's
         # dynamic operands, the rest its configuration
         dynamics = {k: cfg.pop(k) for k in _GBT_DYNAMICS}
-        return run_cached(_gbt_cv, binned, yd, train_w, val_w, int(self.seed),
+        return run_cached(_gbt_cv, binned, yd, y_all, train_w, val_w,
+                          int(self.seed),
                           kwargs=dynamics,
                           statics=dict(metric_fn=metric_fn, objective=objective,
                                        num_class=num_class, **cfg),
@@ -813,9 +865,11 @@ class _ForestBase(_TreeEstimatorBase):
 
     def _boot(self, n: int, device) -> torch.Tensor:
         """Poisson bootstrap counts, keyed on the estimator seed so the sweep
-        and the refit draw the same trees."""
+        and the refit draw the same trees.  The draws cover all ``n`` rows;
+        under a mesh the rank keeps its span, so a meshed forest grows the
+        unmeshed one's trees."""
         return draw_bootstrap(int(self.seed) + 1, float(self.subsample),
-                              int(self.num_trees), n, device)
+                              int(self.num_trees), n, device)[:, PM.row_span(n)]
 
     def _y_cols(self, y: np.ndarray) -> np.ndarray:
         if not self.classification:
@@ -827,27 +881,27 @@ class _ForestBase(_TreeEstimatorBase):
 
     def _fit_forest_trees(self, x, y, w, device):
         binned, edges = self._binned(x, device)
-        wd = torch.from_numpy(np.asarray(w, np.float32)).to(device)
+        wd = PM.place_rows_cached(np.asarray(w, np.float32), 0, device=device)
         boot = self._boot(x.shape[0], device).to(torch.float32)
         int_exact = bool(self.classification and np.all(
             (np.asarray(w) == 0.0) | (np.asarray(w) == 1.0)))
         trees, _ = _forest_lanes(
-            binned, torch.from_numpy(self._y_cols(y)).to(device),
+            binned, PM.place_rows_cached(self._y_cols(y), 0, device=device),
             wd[None, :] * boot,
             torch.from_numpy(self._masks(x.shape[1])).to(device),
             int(self.max_depth), int(self.n_bins), self.reg_lambda,
-            self.min_child_weight, int_exact)
+            self.min_child_weight, int_exact, n_global=x.shape[0])
         return trees, edges
 
-    def _sweep_folds(self, binned, x, y, train_w, val_w, metric_fn,
+    def _sweep_folds(self, binned, y, y_all, train_w, val_w, metric_fn,
                      weights01=False):
         dev = binned.device
-        boot = self._boot(int(x.shape[0]), dev).to(torch.float32)
+        boot = self._boot(len(y), dev).to(torch.float32)
         return run_cached(
             _forest_cv,
-            binned, torch.from_numpy(np.asarray(y, np.float32)).to(dev),
-            torch.from_numpy(self._y_cols(y)).to(dev), train_w, val_w,
-            torch.from_numpy(self._masks(x.shape[1])).to(dev), boot,
+            binned, y_all,
+            PM.place_rows_cached(self._y_cols(y), 0, device=dev), train_w, val_w,
+            torch.from_numpy(self._masks(binned.shape[1])).to(dev), boot,
             kwargs=dict(reg_lambda=self.reg_lambda,
                         min_child_weight=self.min_child_weight),
             statics=dict(max_depth=int(self.max_depth), n_bins=int(self.n_bins),
@@ -894,7 +948,9 @@ class DecisionTreeClassifier(RandomForestClassifier):
         super().__init__(**kw)
 
     def _boot(self, n: int, device) -> torch.Tensor:
-        return torch.ones((self.num_trees, n), dtype=torch.float32, device=device)
+        span = PM.row_span(n)
+        return torch.ones((self.num_trees, span.stop - span.start),
+                          dtype=torch.float32, device=device)
 
 
 class DecisionTreeRegressor(RandomForestRegressor):
@@ -908,7 +964,9 @@ class DecisionTreeRegressor(RandomForestRegressor):
         super().__init__(**kw)
 
     def _boot(self, n: int, device) -> torch.Tensor:
-        return torch.ones((self.num_trees, n), dtype=torch.float32, device=device)
+        span = PM.row_span(n)
+        return torch.ones((self.num_trees, span.stop - span.start),
+                          dtype=torch.float32, device=device)
 
 
 class XGBoostClassifier(GradientBoostedTreesClassifier):

@@ -11,7 +11,10 @@ order (phase 2); it times both phases per family on the host clock
 selection; a kernel's or the device's failure (``dispatch.is_kernel_fault``)
 is not the family's and raises.  Under ``Workflow.train(resume=...)`` each
 family's block is journaled and retried instead
-(``workflow/resilience.py``); the reference's mesh is not ported.
+(``workflow/resilience.py``).  Under a mesh (``parallel/mesh.py``) every
+rank runs the same validation: a sharded family's sweep reads its rows and
+grid points (or folds) and gathers every rank's part, so every rank selects
+the same winner; its journal keys carry the mesh token.
 """
 
 from __future__ import annotations
@@ -181,6 +184,7 @@ def sweep_families(models: Sequence[Tuple[PredictionEstimatorBase,
     records a ``sweep_block_resume`` flight event."""
     from ..obs import flight as obs_flight
     from ..obs.profile import maybe_profile
+    from ..parallel.mesh import current_mesh, mesh_token
     from ..perf.timers import phase
     from ..serve.faults import fault_point
     from ..workflow import resilience
@@ -196,7 +200,8 @@ def sweep_families(models: Sequence[Tuple[PredictionEstimatorBase,
         launched.append(fam)
         if journal is not None:
             fam.key = resilience.sweep_block_key(fam.name, fam.grids, fold_spec,
-                                                 metric_name, digest, None, block)
+                                                 metric_name, digest,
+                                                 mesh_token(), block)
             fam.cached = journal.load(fam.key)
             if fam.cached is not None:
                 where = {} if block == "all" else {"fold": int(block[4:])}
@@ -206,8 +211,8 @@ def sweep_families(models: Sequence[Tuple[PredictionEstimatorBase,
         t0 = time.perf_counter()
         try:
             with phase(f"cv.dispatch.{fam.name}"), maybe_profile("sweep"):
-                fault_point("sweep_dispatch", family=fam.name, rows=len(y), dp=1,
-                            attempt=0)
+                fault_point("sweep_dispatch", family=fam.name, rows=len(y),
+                            dp=resilience.dp_size(current_mesh()), attempt=0)
                 fam.gather = est.cv_sweep_async(x, y, train_w, val_w, fam.grids,
                                                 metric_fn, device)
         except Exception as e:
@@ -291,12 +296,14 @@ def _resilient_sweep(est, grids, name, x, y, train_w, val_w, metric_fn,
     (repeated out-of-memory).  Each attempt is a full re-launch and
     gather: the failed pending sweep is not recoverable."""
     from ..serve.faults import fault_point
+    from ..parallel.mesh import current_mesh
     from ..workflow import resilience
 
     def attempt(row_cap, attempt_i):
         xa, ya, twa, vwa = resilience.capped_views(row_cap, x, y, train_w,
                                                    val_w)
-        fault_point("sweep_dispatch", family=name, rows=len(ya), dp=1,
+        fault_point("sweep_dispatch", family=name, rows=len(ya),
+                    dp=resilience.dp_size(current_mesh()),
                     attempt=attempt_i)
         return np.asarray(est.cv_sweep(xa, ya, twa, vwa, grids, metric_fn,
                                        device), dtype=np.float64)

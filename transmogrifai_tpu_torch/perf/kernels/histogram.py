@@ -357,17 +357,25 @@ def finish_plan(tiles: dict, L: int, n: int, d: int, nn: int, two_k: int,
             "node_tiles": node_tiles, "feat_tiles": feat_tiles, "merge": merge}
 
 
-def int_abs_sum_bound(ghT: torch.Tensor) -> int:
-    """The largest sum of |ghT| over the rows of one (lane, channel), by one
-    int64 reduction (row chunks).  Every cell of the int8 path's histogram
-    sums a subset of one such sum's terms, so its int32 accumulators do not
-    overflow when this is at most ``INT32_MAX``.  Waits for the device."""
+def int_abs_sums(ghT: torch.Tensor) -> torch.Tensor:
+    """(L, 2K) int64: the sum of |ghT| over the rows of each (lane,
+    channel), by one int64 reduction (row chunks).  Summed over a mesh's
+    ranks, these bound the reduced histogram's cells."""
     L, two_k, n = ghT.shape
     step = max(1, _ABS_SUM_CHUNK // max(1, L * two_k))
     acc = torch.zeros((L, two_k), dtype=torch.int64, device=ghT.device)
     for lo in range(0, n, step):
         acc += ghT[:, :, lo:lo + step].to(torch.int32).abs().sum(dim=2, dtype=torch.int64)
-    return int(acc.max()) if acc.numel() else 0  # opcheck: allow(TM301) the int8 path's sum bound, read once for a grower's levels
+    return acc
+
+
+def int_abs_sum_bound(ghT: torch.Tensor) -> int:
+    """The largest sum of |ghT| over the rows of one (lane, channel).
+    Every cell of the int8 path's histogram sums a subset of one such sum's
+    terms, so its int32 accumulators do not overflow when this is at most
+    ``INT32_MAX``.  Waits for the device."""
+    acc = int_abs_sums(ghT)
+    return int(acc.max()) if acc.numel() else 0
 
 
 def hist_level(local: torch.Tensor, ghT: torch.Tensor, binned: torch.Tensor,

@@ -88,6 +88,16 @@ def _sig(ts: Sequence[torch.Tensor]):
                  for t in ts)
 
 
+def record_collective(op: str, nbytes: int) -> None:
+    """Hand a collective of a meta trace (``parallel/collectives.py``: an
+    operation on meta operands runs nothing) to every active sink of this
+    thread that counts collectives."""
+    for s in list(_sinks()):
+        hook = getattr(s, "collective", None)
+        if hook is not None:
+            hook(op, int(nbytes))
+
+
 def record(name: str, inputs: Sequence[torch.Tensor], outputs: Sequence[torch.Tensor],
            plan: Dict[str, Any], flops: int, nbytes: int, **decisions) -> None:
     """Hand a kernel node to every active sink of this thread."""

@@ -122,6 +122,7 @@ def _static_item_sig(v) -> Any:
 def _make_key(fn, args, kwargs: Dict[str, Any], statics: Dict[str, Any],
               key_extras: Dict[str, Any]) -> Tuple[tuple, str, str]:
     """(in-memory key, stable fingerprint, shapes summary)."""
+    from ..parallel.mesh import mesh_token
     from .kernels.dispatch import cache_token
 
     src_fp = _source_fingerprint(fn)
@@ -133,9 +134,11 @@ def _make_key(fn, args, kwargs: Dict[str, Any], statics: Dict[str, Any],
         (k, _static_item_sig(v)) for k, v in key_extras.items()))
     name = f"{getattr(fn, '__module__', '?')}.{getattr(fn, '__qualname__', repr(fn))}"
     # the kernels this process runs key every program: editing a kernel
-    # source never counts a call of the old build as a hit
+    # source never counts a call of the old build as a hit; the ambient
+    # mesh's topology keys it too (a meshed program never aliases another)
     stable = (name, src_fp, arg_sigs, kwarg_sigs, static_sig, extra_sig,
-              cache_token())
+              cache_token()) + ((() if mesh_token() is None
+                                 else (("mesh", mesh_token()),)))
     fp = hashlib.blake2b(repr(stable).encode(), digest_size=16).hexdigest()
     # the in-memory key also carries the function OBJECT: two closures from
     # one factory share source but bake in different constants

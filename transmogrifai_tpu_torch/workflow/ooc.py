@@ -182,7 +182,8 @@ def chunked_transform_epoch(cds: ChunkedDataset, runners: Sequence[Any],
     from ..utils.listener import active_listeners
     from . import resilience
     from .plan import (ColumnarTransformPlan, check_plan_hbm_budget,
-                       notify_listeners, operation_name, run_host_stages)
+                       mesh_aligned_tile, notify_listeners, operation_name,
+                       run_host_stages)
 
     runners = list(runners)
     if not runners:
@@ -201,7 +202,9 @@ def chunked_transform_epoch(cds: ChunkedDataset, runners: Sequence[Any],
     resident_out = [n for n in out_names if n not in spillable]
 
     n_chunks = cds.n_chunks
-    tile = chunk_rows = cds.chunk_rows
+    chunk_rows = cds.chunk_rows
+    # once an epoch: every chunk pads to the mesh-aligned tile
+    tile = mesh_aligned_tile(chunk_rows)
     stats.chunks_total = n_chunks
     if hbm_budget is not None and plan._prefix and n_chunks:
         # the gate sizes the tile every chunk runs through

@@ -54,6 +54,7 @@ import torch
 from ..data.dataset import Column, Dataset
 from ..features.generator import FeatureGeneratorStage
 from ..perf.kernels import encode as KE
+from ..parallel import mesh as PM
 from ..perf.kernels.dispatch import resolve_device
 from ..types import ColumnKind
 
@@ -67,6 +68,20 @@ DEVICE_LIFT_KINDS = frozenset(
 #: the dataset path also lifts materialized OPVector columns (their float32
 #: block): each run sees the concrete table
 DATASET_LIFT_KINDS = DEVICE_LIFT_KINDS | {ColumnKind.VECTOR}
+
+
+def mesh_aligned_tile(n: int) -> int:
+    """The row tile for ``n`` rows: ``n`` rounded up to the ambient mesh's
+    data-axis multiple, so a tile splits evenly across the ranks.  The one
+    place encoding the tile x mesh rule: a chunked epoch
+    (``workflow/ooc.py``) takes it once, and every chunk pads to it.  (The
+    reference also rounds up to a power-of-two bucket, one XLA program per
+    row count; torch's programs take any count.)"""
+    mesh = PM.current_mesh()
+    n = int(n)
+    if mesh is not None:
+        n += (-n) % int(mesh.shape[PM.DATA_AXIS])
+    return n
 
 
 def encode_buffer(rows: int, width: int, device: torch.device) -> torch.Tensor:
@@ -386,9 +401,12 @@ class DevicePrefix:
         ``workflow/serde.py`` saves it, so a reloaded copy of a model hashes
         equal), the prefix's wiring (entries, outputs) and ``extra`` (the
         serving plan's precision class when it is not f32); ``environment``
-        adds the device type and the kernel token
+        adds the device type, the kernel token
         (``perf/kernels/dispatch.py::cache_token``: the kernels' sources and
-        the serve-donation choice).  Equal fingerprints run the same prefix."""
+        the serve-donation choice) and, under a mesh, its token
+        (``parallel/mesh.py::mesh_token``), so a meshed plan never aliases an
+        unmeshed one.  Equal fingerprints run the same prefix."""
+        from ..parallel.mesh import mesh_token
         from ..perf.kernels.dispatch import cache_token
         from .serde import _Encoder, encode_stage
 
@@ -399,6 +417,8 @@ class DevicePrefix:
         if environment:
             payload["device"] = self.device.type
             payload["kernels"] = cache_token()
+            if mesh_token() is not None:
+                payload["mesh"] = mesh_token()
         h = hashlib.sha256(json.dumps(payload, sort_keys=True, default=repr).encode())
         for key in sorted(enc.arrays):
             arr = np.ascontiguousarray(enc.arrays[key])
@@ -620,9 +640,17 @@ class JointPrefix:
         ``dataset`` plus that plan's prefix outputs (only the columns named
         in ``keep``, when given).  With ``tile`` the table (at most ``tile``
         rows) runs through the first plan's :class:`TileBuffers`: every
-        launch covers the tile's rows, the outputs' first ``n`` come back."""
+        launch covers the tile's rows, the outputs' first ``n`` come back.
+
+        Under a mesh whose data axis splits the rows (``parallel/mesh.py``),
+        each rank places and encodes its span of the table only (one encode
+        launch) and the output columns are gathered back in row order, so
+        every rank's dataset holds the whole table, equal to an unmeshed
+        flush (the prefix is row by row)."""
         n = dataset.n_rows
-        rows = n if tile is None else int(tile)
+        span = PM.row_span(n) if tile is None and PM.sharded() else None
+        n_mine = n if span is None else span.stop - span.start
+        rows = n_mine if tile is None else int(tile)
         on_card = self.device.type == "cuda"
 
         def sync():
@@ -632,9 +660,10 @@ class JointPrefix:
         t0 = time.perf_counter()
         infos = [p._out_info(dataset) for p in self.plans]
         entries, keys, plan_ops = self._entries(dataset)
+        placed = entries if span is None else [e[span] for e in entries]
         t1 = time.perf_counter()
         if tile is None:
-            ops, h2d = place_entries(entries, keys, n, self.device)
+            ops, h2d = place_entries(placed, keys, n_mine, self.device)
             buf = None
         else:
             tb = self._tile(entries, rows)
@@ -668,6 +697,8 @@ class JointPrefix:
         own = tile is not None and not on_card
 
         def host(t: torch.Tensor) -> np.ndarray:
+            if span is not None:
+                t = PM.gather_rows(t[:n_mine].contiguous(), n)
             arr = t[:n].cpu().numpy()
             return arr.copy() if own else arr
 
@@ -691,7 +722,9 @@ class JointPrefix:
             if on_card and self.table is not None else None,
             "encode_launches": KE.thread_encode_launches() - launches0,
             "h2d_copies": h2d, "d2h_copies": len(arrays) if on_card else 0,
-            "h2d_bytes": sum(e.nbytes for e in entries),
+            # the bytes this rank copied: its span up (``placed``), and back
+            # the whole columns the gather left on its device
+            "h2d_bytes": sum(e.nbytes for e in placed),
             "d2h_bytes": sum(a.nbytes for a in arrays)}
         return out
 

@@ -24,10 +24,13 @@ Three parts, as in the reference:
    next-smaller power-of-two row cap, lands a TM822 diagnostic, and the
    degraded block is not journaled under the full-fidelity key.
 
-The port has no mesh (``parallel/`` is not ported), so the reference's
-mesh rung behaves as the reference's does without one: the data-parallel
-size is 1, nothing shrinks (TM821 never fires), and every journal key
-carries the reference's unmeshed token (``None``).  The context also
+Every journal key carries ``parallel/mesh.py::mesh_token()`` (``None``
+without a mesh), so a meshed sweep never replays an unmeshed one's scores.
+The reference's mesh rung (shrink the data axis and re-dispatch, TM821) is
+not ported: with one process per card a fault on one rank leaves the others
+blocked in their next collective, and shrinking needs the ranks to agree on
+the failure first.  Until then a fault under a mesh fails the train on every
+rank (through the group timeout) and never retries on the CPU.  The context also
 carries the chunked epochs' offset checkpoint (``chunk_offsets.json`` under
 ``Workflow.train(resume=dir)``; :func:`active_chunk_checkpoint`), and
 ``retry_call(..., "ingest_chunk")`` re-runs one chunk of an epoch.
@@ -72,6 +75,7 @@ __all__ = [
     "last",
     "resilient_training",
     "retry_call",
+    "dp_size",
     "run_sweep_block",
     "sweep_block_key",
 ]
@@ -147,12 +151,21 @@ def data_digest(*arrays) -> str:
     return h.hexdigest()
 
 
+def dp_size(mesh) -> int:
+    """The data-axis extent of ``mesh`` (1 when no mesh is ambient)."""
+    from ..parallel.mesh import DATA_AXIS
+
+    if mesh is None:
+        return 1
+    return int(mesh.shape[DATA_AXIS])
+
+
 def sweep_block_key(family: str, grids, fold_spec, metric: str,
                     digest: str, mesh_token, block: str = "all") -> str:
     """Stable identity of one (family, fold-block) sweep unit: the family
     class name, the grid list content, the fold spec (k, seed, stratify),
-    the metric name, the input-data digest, the mesh token (``None`` in the
-    port, the reference's unmeshed token) and ``block`` ("all" = every fold
+    the metric name, the input-data digest, the mesh token
+    (``parallel/mesh.py::mesh_token``, ``None`` without a mesh) and ``block`` ("all" = every fold
     in one launch, the selector path; ``fold3`` = one fold of the
     workflow-CV path).  The same inputs give the reference's key."""
     payload = json.dumps({
@@ -427,7 +440,7 @@ def run_sweep_block(attempt_fn: Callable[[Optional[int], int], Any],
     Ladder order per failure: OOM-flavored retryable errors shrink the row
     bucket immediately (retrying the same shape cannot help); other
     retryable errors retry in place ``max_retries`` times and then raise
-    (there is no mesh to shrink); non-retryable errors fail fast.
+    (the mesh rung is not ported); non-retryable errors fail fast.
     ``pending_error`` seeds the loop with a failure the caller already
     observed (the gather-phase wrapper enters here mid-flight)."""
     res = res if res is not None else active()
